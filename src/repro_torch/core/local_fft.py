@@ -1,0 +1,155 @@
+"""Local 1D DFT backends — the red "local computation" block of the paper.
+
+Line DFTs are dense matmuls with *rectangular* DFT matrices that fuse the
+plane-wave zero-pad / truncation directly into the GEMM shape:
+
+    ifft_n(pad_{m→n}(x))   ==  iDFT_n[:, :m] @ x
+    fft_n(x)[:k]           ==  DFT_n[:k, :]  @ x
+
+Backends:
+  "fft"     torch.fft with an explicit pad and slice (the oracle route)
+  "matmul"  split re/im real ``torch.matmul`` GEMMs
+  "cuda"    the hand-written complex-GEMM kernel in repro_torch.kernels
+            (its plain PyTorch version for a tensor on the CPU)
+
+Normalization follows numpy.fft: forward unnormalized, inverse scaled by
+1/n.  For rectangular inverse transforms the scale is 1/n_out (the padded
+length), identical to ``ifft(pad(x, n))``.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from .grid import resolve_device
+
+_BACKENDS = ("fft", "matmul", "cuda")
+# crossover above which a single dense-DFT matmul stops being the right tool
+# (lines longer than this realize as "fft")
+MATMUL_MAX_N = 2048
+
+
+@functools.lru_cache(maxsize=128)
+def _dft_matrix_np(n: int, inverse: bool) -> np.ndarray:
+    k = np.arange(n)
+    sign = 2j if inverse else -2j
+    w = np.exp(sign * np.pi * np.outer(k, k) / n)
+    if inverse:
+        w = w / n
+    return w.astype(np.complex64)
+
+
+def dft_matrix(n_out: int, n_in: int, inverse: bool) -> np.ndarray:
+    """Rectangular DFT operator (n_out × n_in) fusing pad or truncation.
+
+    n_in <  n_out : inverse/forward of zero-padded input (cols sliced)
+    n_in >  n_out : spectrum truncation (rows sliced of the n_in transform)
+    """
+    if n_in <= n_out:
+        return _dft_matrix_np(n_out, inverse)[:, :n_in]
+    return _dft_matrix_np(n_in, inverse)[:n_out, :]
+
+
+@functools.lru_cache(maxsize=128)
+def _dft_matrix_device(n_out: int, n_in: int, inverse: bool,
+                       device: torch.device):
+    w = dft_matrix(n_out, n_in, inverse)
+    return (torch.as_tensor(np.ascontiguousarray(w.real), device=device),
+            torch.as_tensor(np.ascontiguousarray(w.imag), device=device),
+            torch.as_tensor(np.ascontiguousarray(w), device=device))
+
+
+def dft_matrix_device(n_out: int, n_in: int, inverse: bool, device=None):
+    """Device-resident ``(real f32, imag f32, complex64)`` forms of
+    ``dft_matrix``, cached per ``(n_out, n_in, inverse, device)``.
+
+    Uploading W per stage execution would re-send the matrix host→device
+    on every line-DFT stage of the SCF loop; the cache makes repeated
+    stage execution transfer-free.  The real planes feed the "matmul"
+    backend, the interleaved complex matrix the kernels.
+    """
+    return _dft_matrix_device(int(n_out), int(n_in), bool(inverse),
+                              resolve_device(device if device is not None
+                                             else "cpu"))
+
+
+def _fft_backend(x, axis, n_in, n_out, inverse):
+    fn = torch.fft.ifft if inverse else torch.fft.fft
+    if n_in <= n_out:
+        pad = [0, 0] * x.ndim               # last dim first, as F.pad wants
+        pad[2 * (x.ndim - 1 - axis) + 1] = n_out - n_in
+        xp = torch.nn.functional.pad(x, pad)
+        # torch.fft.ifft normalizes by the padded length — matches matmul
+        return fn(xp, dim=axis)
+    y = fn(x, dim=axis)
+    return y.narrow(axis, 0, n_out)
+
+
+def _matmul_backend(x, axis, n_in, n_out, inverse):
+    if x.is_cuda:
+        # full fp32 products: TF32 would lose the ~1e-6 agreement
+        torch.backends.cuda.matmul.allow_tf32 = False
+    wr, wi, _ = dft_matrix_device(n_out, n_in, inverse, x.device)
+    xm = torch.movedim(x, axis, -1)
+    xr, xi = xm.real, xm.imag
+    # y = x @ W^T with complex split into real GEMMs
+    yr = xr @ wr.T - xi @ wi.T
+    yi = xr @ wi.T + xi @ wr.T
+    return torch.movedim(torch.complex(yr, yi), -1, axis)
+
+
+def _cuda_backend(x, axis, n_in, n_out, inverse):
+    from ..kernels import ops as kops
+    xm = torch.movedim(x, axis, -1)
+    shp = xm.shape
+    xf = xm.reshape(-1, n_in)
+    yf = kops.dft_apply(xf, n_out=n_out, inverse=inverse)
+    return torch.movedim(yf.reshape(*shp[:-1], n_out), -1, axis)
+
+
+def realized_backend(n_in: int, n_out: int, backend: str) -> str:
+    """The backend ``local_dft`` will actually run for this line shape.
+
+    A dense-matrix backend ("matmul", and "cuda", whose kernel is the same
+    single GEMM) requested above the ``MATMUL_MAX_N`` crossover *realizes*
+    as "fft".  Everything that accounts or reports per-stage work —
+    ``dft_flops``, ``describe()`` — goes through this so the books match
+    what executed rather than what was requested.
+    """
+    if backend not in _BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}")
+    if backend in ("matmul", "cuda") and max(n_in, n_out) > MATMUL_MAX_N:
+        return "fft"
+    return backend
+
+
+def local_dft(x, axis: int, n_out: int | None = None, *,
+              inverse: bool = False, backend: str = "matmul"):
+    """Apply a (possibly rectangular) DFT along ``axis`` of complex ``x``."""
+    n_in = x.shape[axis]
+    n_out = n_in if n_out is None else n_out
+    backend = realized_backend(n_in, n_out, backend)
+    x = x.to(torch.complex64)
+    if backend == "fft":
+        return _fft_backend(x, axis, n_in, n_out, inverse)
+    if backend == "matmul":
+        return _matmul_backend(x, axis, n_in, n_out, inverse)
+    return _cuda_backend(x, axis, n_in, n_out, inverse)
+
+
+def dft_flops(n_out: int, n_in: int, batch: int, backend: str) -> int:
+    """FLOP estimate for one batched line-DFT stage.
+
+    Priced at the *realized* backend: a dense stage above the
+    ``MATMUL_MAX_N`` crossover runs "fft", and reporting dense GEMM FLOPs
+    for it would overstate the stage ~n/log n-fold.
+    """
+    backend = realized_backend(n_in, n_out, backend)
+    if backend in ("matmul", "cuda"):
+        # 8 real flops per complex MAC: y(n_out) = W(n_out×n_in) x
+        return 8 * n_out * n_in * batch
+    # split-radix style estimate
+    n = max(n_out, n_in)
+    return int(5 * n * np.log2(max(n, 2))) * batch

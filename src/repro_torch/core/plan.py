@@ -1,0 +1,437 @@
+"""FftPlan — stitches local-compute and data-movement stages (paper Fig. 4).
+
+Given input/output DistTensors and the set of transformed dims, the planner
+emits an alternating sequence of
+
+  * ``FFTStage``   — local (possibly rectangular) line DFTs on a dim that the
+                     current layout keeps fully local, and
+  * ``MoveStage``  — one all-to-all over a single grid axis, moving that
+                     axis between two dims (a distributed transpose),
+
+reproducing slab-pencil (1 move on a 1D grid), pencil-pencil-pencil (2 moves
+on a 2D grid) and volumetric (3D grid) schedules from the declared
+distributions alone.  The schedule search and the mirrors are the
+reference's, line for line.  Execution is the eager stage walk on one
+device: a move over an axis of size 1 is the identity, and moves over
+larger axes belong to the distributed slice of the port.
+
+``Plan`` is the common base of ``FftPlan`` and ``PlaneWaveFFT``: execution
+policy resolution and the flop/comm accounting shared by both.  Every plan
+can *derive* its mirror transforms — ``plan.inverse()`` and
+``plan.adjoint()`` reverse the stage list (each stage knows its own mirror)
+instead of running a second schedule search.
+"""
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import math
+
+from . import layout as L
+from .dtensor import DistTensor
+from .local_fft import dft_flops, local_dft, realized_backend
+from .policy import ExecPolicy
+
+
+@dataclasses.dataclass(frozen=True)
+class FFTStage:
+    dim: str
+    index: int                   # position in the logical dim order
+    n_in: int
+    n_out: int
+    inverse: bool
+    backend: str
+
+    def apply(self, x):
+        return local_dft(x, self.index, self.n_out, inverse=self.inverse,
+                         backend=self.backend)
+
+    def mirrored(self) -> "FFTStage":
+        """The stage of the derived inverse/adjoint plan.
+
+        A square stage mirrors to its exact inverse (DFT_n ↔ iDFT_n).  A
+        rectangular pad-fused stage (d→n) mirrors to the truncating stage
+        (n→d) — the identity holds on the retained subspace, which is
+        exactly the plane-wave sphere contract.
+        """
+        return FFTStage(self.dim, self.index, self.n_out, self.n_in,
+                        not self.inverse, self.backend)
+
+    @property
+    def transform_size(self) -> int:
+        """The full DFT length N the (possibly sliced) matrix comes from."""
+        return max(self.n_in, self.n_out)
+
+    @property
+    def realized_backend(self) -> str:
+        """The backend this stage actually runs (``local_dft`` downgrades
+        dense backends above the MATMUL_MAX_N crossover) — what flop
+        accounting must report."""
+        return realized_backend(self.n_in, self.n_out, self.backend)
+
+
+@dataclasses.dataclass(frozen=True)
+class MoveStage:
+    axis_name: str               # grid axis
+    axis_size: int
+    src: str
+    dst: str
+    src_index: int
+    dst_index: int
+
+    def apply(self, x):
+        if self.axis_size == 1:
+            return x                 # a transpose over one process: identity
+        raise NotImplementedError(
+            f"all-to-all over grid axis {self.axis_name!r} of size "
+            f"{self.axis_size}: multi-rank moves are the distributed slice "
+            "of the port (ROADMAP §1 item 3)")
+
+    def mirrored(self) -> "MoveStage":
+        """The opposite distributed transpose (all_to_all is a permutation,
+        so the mirror is both its inverse and its adjoint)."""
+        return MoveStage(self.axis_name, self.axis_size, self.dst, self.src,
+                         self.dst_index, self.src_index)
+
+
+class Plan:
+    """Common protocol + shared accounting of FFTB plans.
+
+    Concrete plans provide ``tin``/``tout``/``grid``/``dims``/``stages`` and
+    ``_execute``; the base supplies policy resolution and the stage-walking
+    flop/comm accounting.
+    """
+
+    tin: DistTensor
+    tout: DistTensor
+    policy: ExecPolicy
+
+    # ----------------------------------------------------------- execution
+    def __call__(self, x, *, policy: ExecPolicy | None = None):
+        pol = self.resolve_policy(policy=policy)
+        if pol.check_shapes and tuple(x.shape) != self.tin.shape:
+            raise ValueError(f"input shape {tuple(x.shape)} != "
+                             f"{self.tin.shape}")
+        return self._execute(x, pol)
+
+    def resolve_policy(self, *,
+                       policy: ExecPolicy | None = None) -> ExecPolicy:
+        """The call-time policy: an explicit ``policy=`` wins, otherwise
+        the plan's default."""
+        return policy if policy is not None else self.policy
+
+    def _execute(self, x, pol: ExecPolicy):
+        raise NotImplementedError
+
+    # ------------------------------------------------------------- mirrors
+    def inverse(self) -> "Plan":
+        """The mirror transform tout→tin, derived by reversing stages (no
+        second schedule search).  Exact inverse for square transforms; for
+        rectangular (pad/truncate) stages it is the mirror on the retained
+        subspace.
+
+        Memoized, with the mirror back-linked: repeated calls return the
+        same object and ``plan.inverse().inverse() is plan``.
+        """
+        memo = getattr(self, "_inverse_memo", None)
+        if memo is None:
+            memo = self._derive_inverse()
+            memo._inverse_memo = self
+            self._inverse_memo = memo
+        return memo
+
+    def adjoint(self) -> "Plan":
+        """The conjugate-transpose operator tout→tin, same derived stage
+        list as ``inverse()`` with the DFT normalization factors flipped
+        (adjoint of unnormalized DFT_N is N·iDFT_N).  Memoized and
+        back-linked like ``inverse()``."""
+        memo = getattr(self, "_adjoint_memo", None)
+        if memo is None:
+            memo = self._derive_adjoint()
+            memo._adjoint_memo = self
+            self._adjoint_memo = memo
+        return memo
+
+    def _derive_inverse(self) -> "Plan":
+        raise NotImplementedError
+
+    def _derive_adjoint(self) -> "Plan":
+        raise NotImplementedError
+
+    # ---------------------------------------------------------- accounting
+    def private_bytes(self) -> int:
+        """Bytes owned by this plan alone — descriptors and (in
+        subclasses) the sphere pack/mask or ragged-batch tables.  Never
+        shared with other plans, so the cache bills them per entry."""
+        return 4096
+
+    def shared_table_bytes(self) -> dict[tuple, int]:
+        """Device bytes of the ``dft_matrix_device`` operand tables the
+        plan's FFT stages reference, keyed by ``(n_out, n_in, inverse)``.
+
+        The tables are memoized process-wide (real and imaginary f32 planes
+        plus the interleaved complex64 matrix: 16 bytes per entry), so two
+        plans with the same key share one device allocation; the PlanCache
+        refcounts these keys and charges each table once.
+        """
+        out: dict[tuple, int] = {}
+        for st in self.stages:
+            if isinstance(st, FFTStage):
+                out.setdefault((st.n_out, st.n_in, st.inverse),
+                               16 * st.n_in * st.n_out)
+        return out
+
+    def estimated_bytes(self) -> int:
+        """Resident bytes this plan pins while cached, considered alone:
+        private bytes plus each *distinct* DFT-matrix table it
+        references."""
+        return self.private_bytes() + sum(self.shared_table_bytes().values())
+
+    def flop_count(self) -> int:
+        total = 0
+        sizes = {d: n for d, n in zip(self.tin.dims, self.tin.shape)}
+        for st in self.stages:
+            if isinstance(st, FFTStage):
+                batch = math.prod(sizes[d] for d in self.dims if d != st.dim)
+                total += dft_flops(st.n_out, st.n_in, batch, st.backend)
+                sizes[st.dim] = st.n_out
+        return total
+
+    def comm_stats(self, itemsize: int = 8) -> list[dict]:
+        """Per-MoveStage communication volume (bytes sent per device)."""
+        return self._comm_stats_for(self.stages, itemsize)
+
+    def _comm_stats_for(self, stages, itemsize: int = 8) -> list[dict]:
+        out = []
+        sizes = {d: n for d, n in zip(self.tin.dims, self.tin.shape)}
+        lay = L.normalize(self.tin.layout)
+        grid_shape = self.grid.shape
+        for st in stages:
+            if isinstance(st, FFTStage):
+                sizes[st.dim] = st.n_out
+                continue
+            local_elems = math.prod(
+                L.local_size(d, sizes[d], lay, grid_shape)
+                for d in self.dims)
+            p = st.axis_size
+            out.append({
+                "axis": st.axis_name, "procs": p,
+                "bytes_per_device": local_elems * itemsize * (p - 1) // p,
+                "move": f"{st.src}->{st.dst}",
+            })
+            # replay the move on the tracking layout
+            ax = [a for a in range(len(grid_shape))
+                  if self.grid.axis_name(a) == st.axis_name][0]
+            lay = L.apply_move(lay, L.Move(ax, st.src, st.dst))
+        return out
+
+    def describe(self) -> str:
+        lines = [f"{type(self).__name__} over {self.grid}: "
+                 f"{self.tin.dims} {self.tin.layout} -> "
+                 f"{self.tout.dims} {self.tout.layout}"]
+        for st in self.stages:
+            if isinstance(st, FFTStage):
+                kind = "iDFT" if st.inverse else "DFT"
+                rb = st.realized_backend
+                be = st.backend if rb == st.backend else \
+                    f"{st.backend}->{rb}"
+                lines.append(f"  {kind}[{st.dim}] {st.n_in}->{st.n_out} "
+                             f"({be})")
+            else:
+                lines.append(f"  a2a[{st.axis_name}] {st.src}->{st.dst}")
+        scale = getattr(self, "scale", 1.0)
+        if scale != 1.0:
+            lines.append(f"  scale ×{scale:g}")
+        return "\n".join(lines)
+
+
+class FftPlan(Plan):
+    """A distributed multi-dimensional (batched) FFT."""
+
+    #: process-wide count of schedule searches — lets tests (and the plan
+    #: cache) assert that derived/cached plans never re-plan.
+    searches = 0
+
+    #: process-wide count of transform dispatches (one per executor
+    #: invocation) — instrumentation for "exactly two transforms per
+    #: stacked sweep" assertions.
+    executions = 0
+
+    def __init__(self, tin: DistTensor, tout: DistTensor,
+                 fft_dims: list[tuple[str, str]], *, inverse: bool = False,
+                 backend: str = "matmul", policy: ExecPolicy | None = None,
+                 _stages: list | None = None, _scale: float = 1.0):
+        if tin.grid != tout.grid:
+            raise ValueError("input and output tensors live on different "
+                             "grids")
+        self.tin, self.tout, self.grid = tin, tout, tin.grid
+        self.is_inverse, self.backend = inverse, backend
+        self.policy = policy if policy is not None else ExecPolicy()
+        self.scale = _scale
+        self.dims = tin.dims
+        self.fft_pairs = list(fft_dims)
+
+        # map output dim names onto input dim names (batch dims by position)
+        o2i = {o: i for i, o in fft_dims}
+        in_batch = [d for d in tin.dims if d not in {i for i, _ in fft_dims}]
+        out_batch = [d for d in tout.dims if d not in o2i]
+        if len(in_batch) != len(out_batch):
+            raise ValueError("batch dims of input/output do not match")
+        o2i.update(dict(zip(out_batch, in_batch)))
+        if [o2i[d] for d in tout.dims] != list(tin.dims):
+            raise ValueError(
+                "output dims must correspond to input dims in order "
+                f"(got {tout.dims} vs {tin.dims})")
+
+        self._final_layout = L.normalize(
+            {o2i[d]: ax for d, ax in tout.layout.items()})
+        if _stages is not None:
+            self.stages = list(_stages)     # derived plan: no search
+        else:
+            self._search()
+
+    # ------------------------------------------------------------ planning
+    def _search(self) -> None:
+        """Pick the transform order minimizing communicated bytes.
+
+        Rectangular (padding) transforms grow dims, so *when* a dim is
+        transposed matters: the paper's staged-padding win is precisely
+        scheduling the all-to-all before the moved dims are padded.  The
+        planner enumerates transform orders (≤ 3! for 3D), prices each
+        schedule with the comm model, and keeps the cheapest — the
+        "framework decides on the most suited implementation" behaviour
+        of the paper's intermediate block.
+        """
+        FftPlan.searches += 1
+        fft_in = [i for i, _ in self.fft_pairs]
+        dim_pos = {d: k for k, d in enumerate(self.dims)}
+        innermost = max(fft_in, key=lambda d: dim_pos[d])
+        best = None
+        for perm in itertools.permutations(fft_in):
+            try:
+                stages = self._build(list(perm))
+            except RuntimeError:
+                continue
+            cost = sum(s["bytes_per_device"]
+                       for s in self._comm_stats_for(stages))
+            moves = sum(isinstance(s, MoveStage) for s in stages)
+            # comm-equal tie-break: transform the innermost (contiguous)
+            # dim first — the paper's canonical z-first order, and the
+            # stage the fused sphere-pack kernels can absorb.  Matters on
+            # single-device grids where every schedule prices to zero.
+            key = (cost, moves, perm.index(innermost))
+            if best is None or key < best[0]:
+                best = (key, stages)
+        if best is None:
+            raise RuntimeError("no feasible FFT schedule found")
+        self.stages = best[1]
+
+    def _build(self, order: list[str]) -> list:
+        grid_shape = self.grid.shape
+        sizes = {d: n for d, n in zip(self.tin.dims, self.tin.shape)}
+        # n_out per input fft dim
+        pair_out = {i: self.tout.dim_size(o) for i, o in self.fft_pairs}
+        lay = L.normalize(self.tin.layout)
+        stages: list[FFTStage | MoveStage] = []
+        done: set[str] = set()
+        fft_in_dims = [i for i, _ in self.fft_pairs]
+        batch_dims = [d for d in self.dims if d not in fft_in_dims]
+        idx = {d: k for k, d in enumerate(self.dims)}
+
+        def emit_move(axis: int, src: str, dst: str):
+            stages.append(MoveStage(
+                self.grid.axis_name(axis), grid_shape[axis], src, dst,
+                idx[src], idx[dst]))
+
+        def local(d):
+            return L.local_size(d, sizes[d], lay, grid_shape)
+
+        def pick_park(d: str, axis: int) -> str:
+            """Destination for an axis that must leave fft dim ``d``."""
+            cands = [t for t in self.dims if t != d
+                     and local(t) % grid_shape[axis] == 0]
+            if not cands:
+                raise RuntimeError(
+                    f"cannot free dim {d}: no dim can absorb grid axis "
+                    f"{axis} (layout {lay}, sizes {sizes})")
+
+            def score(t):
+                tgt = self._final_layout.get(t, ())
+                cur = lay.get(t, ())
+                wants = (len(cur) < len(tgt) and tgt[: len(cur)] == cur
+                         and tgt[len(cur)] == axis)
+                return (
+                    0 if wants else 1,                       # final home first
+                    0 if (t in done or t in batch_dims) else 1,  # no re-free
+                    -local(t),                               # roomiest
+                )
+            return min(cands, key=score)
+
+        for d in order:
+            while lay.get(d, ()):
+                axis = lay[d][-1]
+                dst = pick_park(d, axis)
+                emit_move(axis, d, dst)
+                lay = L.apply_move(lay, L.Move(axis, d, dst))
+            stages.append(FFTStage(d, idx[d], sizes[d], pair_out[d],
+                                   self.is_inverse, self.backend))
+            sizes[d] = pair_out[d]
+            done.add(d)
+
+        for mv in L.plan_redistribution(lay, self._final_layout, sizes,
+                                        grid_shape):
+            emit_move(mv.axis, mv.src, mv.dst)
+            lay = L.apply_move(lay, mv)
+        return stages
+
+    # ------------------------------------------------------------- mirrors
+    def _mirror(self, scale: float) -> "FftPlan":
+        # stage dim names live in the input-side namespace; the mirrored
+        # plan's input is our output, so rename positionally (x → X) or
+        # the mirror's accounting would key sizes/layouts by unknown dims
+        ren = dict(zip(self.tin.dims, self.tout.dims))
+        stages = []
+        for st in reversed(self.stages):
+            m = st.mirrored()
+            if isinstance(m, FFTStage):
+                m = dataclasses.replace(m, dim=ren[m.dim])
+            else:
+                m = dataclasses.replace(m, src=ren[m.src], dst=ren[m.dst])
+            stages.append(m)
+        pairs = [(o, i) for i, o in self.fft_pairs]
+        return FftPlan(self.tout, self.tin, pairs,
+                       inverse=not self.is_inverse, backend=self.backend,
+                       policy=self.policy, _stages=stages, _scale=scale)
+
+    def _derive_inverse(self) -> "FftPlan":
+        return self._mirror(1.0 / self.scale if self.scale != 1.0 else 1.0)
+
+    def _derive_adjoint(self) -> "FftPlan":
+        # adjoint of sliced DFT_N is N · sliced iDFT_N (and vice versa):
+        # the mirrored stage list times the product of flipped norms.
+        scale = self.scale
+        for st in self.stages:
+            if isinstance(st, FFTStage):
+                scale *= (1.0 / st.transform_size if st.inverse
+                          else float(st.transform_size))
+        return self._mirror(scale)
+
+    # ----------------------------------------------------------- execution
+    def _raw_apply(self, x):
+        for st in self.stages:
+            x = st.apply(x)
+        if self.scale != 1.0:
+            x = x * self.scale
+        return x
+
+    def _execute(self, x, pol: ExecPolicy):
+        if pol.mode != "eager":
+            raise NotImplementedError(
+                f"execution mode {pol.mode!r}: only the eager executor is "
+                "ported; the lazy split-plane executor is queued in "
+                "ROADMAP §1 item 3")
+        if self.grid.is_abstract:
+            raise RuntimeError("an abstract (device-less) grid cannot "
+                               "execute a plan; build it on ProcGrid.create")
+        FftPlan.executions += 1
+        return self._raw_apply(x)

@@ -1,0 +1,742 @@
+"""Plane-wave (sphere-batched) FFT — the paper's §2.2/§3.3.
+
+Wavefunction coefficients live inside a cut-off sphere of diameter d inside
+an FFT grid of width n (conventionally n = 2d, Fig. 2).  Instead of padding
+every sphere to the n³ cube up front (≈16× redundant data), the transform
+pads **in stages**, fusing each pad with that dimension's line DFTs
+(rectangular DFT matmuls) and scheduling the distributed transpose while
+the moved dims are still small.
+
+Stage schedule (inverse, sphere → real space; forward is the exact mirror
+with truncating DFTs):
+
+    in   (b, x{F}, y, z)  bounding cube d³, x sharded over fft axes F
+    iDFT z : d→n   (local rectangular matmul — pad fused)
+    a2a  over F    : gather x, split z       [moves b·d·d·n/F, the minimum]
+    iDFT y : d→n
+    iDFT x : d→n
+    out  (b, X, Y, Z{F})  real-space cube, z sharded — paper Fig. 5 layout
+
+All of this reuses FftPlan's machinery: the comm-cost schedule search finds
+this order automatically; this module adds the sphere bookkeeping (CSR
+offset arrays → static pack/unpack index tables) and, on the "cuda"
+backend, the fused sphere-pack kernels at both ends of the stage list.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from .domain import Domain, SphereDomain
+from .dtensor import DistTensor
+from .local_fft import dft_matrix_device, realized_backend
+from .plan import FFTStage, FftPlan, Plan
+from .policy import ExecPolicy
+
+
+# ---------------------------------------------------------- fused kernels
+def _fused_unpack_parts(wrapper, spheres, nbands: int, npacked: int):
+    """Build the fused unpack+first-stage dispatcher for ``wrapper``.
+
+    Fusion applies when the wrapper runs the "cuda" backend and its plan
+    opens with a local line-DFT stage on the trailing (z) dim — the staged
+    schedule's d→n pad-fused stage.  That stage is replaced by the
+    ``sphere_pack.unpack_dft`` kernel reading packed CSR lanes directly
+    (the zero-padded bounding cube is never materialized); the remaining
+    stages become a derived *remainder* plan (no second schedule search)
+    whose execution keeps the dispatch-count accounting of the composed
+    route.  Returns None when the plan shape doesn't allow it — callers
+    fall back to ``unpack`` + the full plan.
+    """
+    from ..kernels import sphere_pack
+
+    p = wrapper.plan
+    tin, tout, grid = p.tin, p.tout, wrapper.grid
+    if len(tin.dims) != 4 or not p.stages or p.scale != 1.0:
+        return None
+    st = p.stages[0]
+    ex, ey, ez = tin.shape[1:]
+    if not (isinstance(st, FFTStage) and st.index == 3 and st.n_in == ez):
+        return None
+    if realized_backend(st.n_in, st.n_out, wrapper.backend) != "cuda":
+        return None
+    bdim, xdim, ydim, zdim = tin.dims
+    lay = tin.layout
+    if lay.get(ydim, ()) or lay.get(zdim, ()):
+        return None
+    B = tin.shape[0]
+    if B != len(spheres) * nbands:
+        return None
+
+    dev = grid.device
+    start, zlo, cnt, flag = (torch.as_tensor(t, device=dev) for t in
+                             sphere_pack.line_tables(spheres, nbands))
+    _, _, w = dft_matrix_device(st.n_out, st.n_in, st.inverse, dev)
+    mid = DistTensor(tin.domains[:-1]
+                     + (Domain((0, 0, 0), (ex - 1, ey - 1, st.n_out - 1)),),
+                     tin.dims, tin.layout, grid)
+    rem = FftPlan(mid, tout,
+                  [pr for pr in p.fft_pairs if pr[0] != st.dim],
+                  inverse=p.is_inverse, backend=wrapper.backend,
+                  policy=wrapper.policy, _stages=p.stages[1:],
+                  _scale=p.scale)
+
+    def fn(packed):
+        # one device: the line tables need no split with the x planes
+        return sphere_pack.unpack_dft(
+            packed.to(torch.complex64).contiguous(), start, zlo, cnt, flag,
+            w)
+
+    return {"fn": fn, "rem": rem, "in_shape": (B, npacked),
+            "private": (start, zlo, cnt, flag)}
+
+
+def _fused_pack_parts(wrapper, spheres, nbands: int, npacked: int):
+    """Build the fused last-stage+pack dispatcher for ``wrapper``.
+
+    The mirror of :func:`_fused_unpack_parts`: when the plan *closes* with
+    a local truncating line-DFT on the trailing dim, a derived *lead* plan
+    runs every stage but the last, and ``sphere_pack.dft_pack`` fuses that
+    final n→d stage with the CSR gather to ``(B, npacked)``; padded lanes
+    come out exactly +0.0.  Each lane is produced on exactly one device
+    here, so the cross-shard merge of the multi-rank reference has nothing
+    to merge.
+    """
+    from ..kernels import sphere_pack
+
+    p = wrapper.plan
+    tin, tout, grid = p.tin, p.tout, wrapper.grid
+    if len(tout.dims) != 4 or not p.stages or p.scale != 1.0:
+        return None
+    st = p.stages[-1]
+    ex, ey, ez = tout.shape[1:]
+    if not (isinstance(st, FFTStage) and st.index == 3 and st.n_out == ez):
+        return None
+    if realized_backend(st.n_in, st.n_out, wrapper.backend) != "cuda":
+        return None
+    bdim, xdim, ydim, zdim = tout.dims
+    lay = tout.layout
+    if lay.get(ydim, ()) or lay.get(zdim, ()):
+        return None
+    B = tout.shape[0]
+    if B != len(spheres) * nbands:
+        return None
+    if any(grid.shape[a] != 1 for a in lay.get(xdim, ())):
+        # lanes would need localizing to each shard's x planes and merging
+        # across shards: the distributed slice (ROADMAP §1 item 3)
+        return None
+
+    dev = grid.device
+    start, zlo, cnt, _ = sphere_pack.line_tables(spheres, nbands)
+    nvalid = np.repeat(np.asarray([s.npacked for s in spheres], np.int32),
+                       nbands)
+    start, zlo, cnt, nvalid = (torch.as_tensor(t, device=dev)
+                               for t in (start, zlo, cnt, nvalid))
+    _, _, w = dft_matrix_device(st.n_out, st.n_in, st.inverse, dev)
+    mid = DistTensor(tout.domains[:-1]
+                     + (Domain((0, 0, 0), (ex - 1, ey - 1, st.n_in - 1)),),
+                     tout.dims, tout.layout, grid)
+    lead = FftPlan(tin, mid,
+                   [pr for pr in p.fft_pairs if pr[0] != st.dim],
+                   inverse=p.is_inverse, backend=wrapper.backend,
+                   policy=wrapper.policy, _stages=p.stages[:-1],
+                   _scale=1.0)
+
+    def fn(slab):
+        return sphere_pack.dft_pack(
+            slab.to(torch.complex64).contiguous(), start, zlo, cnt, nvalid,
+            w, npacked)
+
+    return {"fn": fn, "lead": lead, "out_shape": (B, npacked),
+            "private": (start, zlo, cnt, nvalid)}
+
+
+class _FusedTransformMixin:
+    """Fused pack/unpack entry points shared by the plane-wave wrappers.
+
+    ``unpack_transform``/``transform_pack`` are the hot-path API: on the
+    "cuda" backend they route the trailing-dim line-DFT stage through the
+    fused sphere-pack kernels; on every other backend (or when the plan
+    shape rules fusion out) they compose the existing ``unpack``/``pack``
+    with the full plan — the same result to rounding.
+    """
+
+    def _fused_in_parts(self):
+        memo = self.__dict__.get("_fused_in_memo", "unset")
+        if memo == "unset":
+            memo = _fused_unpack_parts(self, self._fusion_spheres,
+                                       self._fusion_nbands,
+                                       self._fusion_npacked)
+            self.__dict__["_fused_in_memo"] = memo
+        return memo
+
+    def _fused_out_parts(self):
+        memo = self.__dict__.get("_fused_out_memo", "unset")
+        if memo == "unset":
+            memo = _fused_pack_parts(self, self._fusion_spheres,
+                                     self._fusion_nbands,
+                                     self._fusion_npacked)
+            self.__dict__["_fused_out_memo"] = memo
+        return memo
+
+    def unpack_transform(self, packed, *, policy: ExecPolicy | None = None):
+        """``unpack`` + transform in one go — fused on the "cuda" backend.
+
+        The fused route needs the eager executor and the exact ``(B,
+        npacked)`` hot-path shape; anything else takes the composed route.
+        """
+        pol = self.resolve_policy(policy=policy)
+        parts = self._fused_in_parts()
+        if (parts is None or pol.mode != "eager"
+                or tuple(packed.shape) != parts["in_shape"]):
+            return self(self.unpack(packed), policy=pol)
+        return parts["rem"](parts["fn"](packed), policy=pol)
+
+    def transform_pack(self, cube, *, policy: ExecPolicy | None = None):
+        """Transform + ``pack`` in one go — fused on the "cuda" backend."""
+        pol = self.resolve_policy(policy=policy)
+        parts = self._fused_out_parts()
+        if parts is None or pol.mode != "eager":
+            return self.pack(self(cube, policy=pol))
+        return parts["fn"](parts["lead"](cube, policy=pol))
+
+    def _fused_table_bytes(self) -> int:
+        tot = 0
+        for key in ("_fused_in_memo", "_fused_out_memo"):
+            parts = self.__dict__.get(key)
+            if isinstance(parts, dict):
+                tot += sum(int(t.nbytes) for t in parts["private"])
+        return tot
+
+
+class PlaneWaveFFT(_FusedTransformMixin, Plan):
+    """Batched sphere ↔ real-space transform."""
+
+    def __init__(self, sphere: SphereDomain, n: tuple[int, ...],
+                 tin: DistTensor, tout: DistTensor, *, inverse: bool,
+                 backend: str = "matmul",
+                 pairs: list[tuple[str, str]] | None = None,
+                 policy: ExecPolicy | None = None,
+                 plan: FftPlan | None = None):
+        self.sphere = sphere
+        self.n = tuple(n)
+        self.is_inverse = inverse
+        self.backend = backend
+        self.tin, self.tout = tin, tout
+        self.grid = tin.grid
+        self.policy = policy if policy is not None else ExecPolicy()
+        if pairs is None:
+            # transformed dims default to the trailing three (batch leads)
+            pairs = list(zip(tin.dims[-3:], tout.dims[-3:]))
+        if plan is None:
+            plan = FftPlan(tin, tout, pairs, inverse=inverse,
+                           backend=backend, policy=self.policy)
+        self.plan = plan
+        dev = self.grid.device
+        self._pack_idx = torch.as_tensor(sphere.pack_indices(), device=dev)
+        self._mask = torch.as_tensor(sphere.mask(), device=dev)
+
+    # ------------------------------------------------------------- execute
+    def _execute(self, x, pol: ExecPolicy):
+        return self.plan._execute(x, pol)
+
+    @property
+    def stages(self):
+        return self.plan.stages
+
+    @property
+    def dims(self):
+        return self.plan.dims
+
+    @property
+    def fft_pairs(self):
+        return self.plan.fft_pairs
+
+    # ------------------------------------------------------------- mirrors
+    def _mirror(self, plan: FftPlan) -> "PlaneWaveFFT":
+        return PlaneWaveFFT(self.sphere, self.n, self.tout, self.tin,
+                            inverse=not self.is_inverse,
+                            backend=self.backend, pairs=plan.fft_pairs,
+                            policy=self.policy, plan=plan)
+
+    def _derive_inverse(self) -> "PlaneWaveFFT":
+        """Derived mirror transform (no second schedule search): the
+        inverse of a staged-pad plan is the staged-truncate plan."""
+        return self._mirror(self.plan.inverse())
+
+    def _derive_adjoint(self) -> "PlaneWaveFFT":
+        return self._mirror(self.plan.adjoint())
+
+    # ------------------------------------------------- sphere pack/unpack
+    def unpack(self, packed):
+        """(…, npacked) CSR coefficients → (…, d, d, d) bounding cube."""
+        d = self.sphere.extents
+        flat = torch.zeros(packed.shape[:-1] + (math.prod(d),),
+                           dtype=packed.dtype, device=packed.device)
+        flat[..., self._pack_idx] = packed
+        return flat.reshape(packed.shape[:-1] + d)
+
+    def pack(self, cube):
+        """(…, d, d, d) bounding cube → (…, npacked) CSR coefficients."""
+        d = self.sphere.extents
+        flat = cube.reshape(cube.shape[:-3] + (math.prod(d),))
+        return flat[..., self._pack_idx]
+
+    def mask_cube(self, cube):
+        """Zero out everything outside the cut-off sphere (cube form)."""
+        return cube * self._mask.to(cube.dtype)
+
+    # ------------------------------------------------------- fused kernels
+    @property
+    def _fusion_spheres(self):
+        return [self.sphere]
+
+    @property
+    def _fusion_nbands(self) -> int:
+        # the whole batch dim rides one sphere
+        return int(self.tin.shape[0])
+
+    @property
+    def _fusion_npacked(self) -> int:
+        return self.sphere.npacked
+
+    # ---------------------------------------------------------- accounting
+    def private_bytes(self) -> int:
+        """The per-sphere pack index and mask tables — what makes distinct
+        spheres expensive cache entries (DFT-matrix operands are shared
+        across plans and accounted via ``shared_table_bytes``)."""
+        return (int(self._pack_idx.nbytes) + int(self._mask.nbytes)
+                + self._fused_table_bytes() + super().private_bytes())
+
+    def describe(self) -> str:
+        return ("PlaneWaveFFT sphere d=%d -> grid n=%d\n" %
+                (self.sphere.extents[0], self.n[0])) + self.plan.describe()
+
+
+def kpoint_sphere(diameter: int, kpt=(0.0, 0.0, 0.0)) -> SphereDomain:
+    """Cut-off sphere of a k-point: diameter ``d``, center shifted by ``k``.
+
+    The Bloch factor moves the cut-off sphere's *center* to c0 + k (c0 the
+    bounding-cube center, k in reduced coordinates), the bounding box stays
+    the d³ cube — so every k-shift of one cutoff is batch-compatible (same
+    extents, different pack tables).
+    """
+    d = int(diameter)
+    kpt = tuple(float(k) for k in kpt)
+    if len(kpt) != 3:
+        raise ValueError(f"kpt must have 3 components, got {kpt}")
+    c0 = (d - 1) / 2.0
+    return SphereDomain(radius=d / 2.0,
+                        center=tuple(c0 + k for k in kpt),
+                        lower=(0, 0, 0), upper=(d - 1,) * 3)
+
+
+def planewave_spec(batch_axes: tuple[int, ...] = (),
+                   fft_axes: tuple[int, ...] = (0,)) -> str:
+    """Arrow spec for the batched sphere↔cube transform on a given grid.
+
+    The batch dim rides ``batch_axes`` (bands — and k-points, when the
+    caller stacks them), the transform dims ride ``fft_axes``: x carries
+    every fft axis on the sphere side, Z on the cube side, so the staged
+    schedule's all-to-alls all run over the fft axes and the batch axes
+    never communicate.  ``planewave_spec()`` with no batch axes is the 1D
+    layout ``"b x{0} y z -> b X Y Z{0}"``.
+    """
+    from .dtensor import dims_string
+    bspec = {"b": tuple(batch_axes)} if batch_axes else {}
+    in_s = dims_string(("b", "x", "y", "z"),
+                       {**bspec, "x": tuple(fft_axes)})
+    out_s = dims_string(("b", "X", "Y", "Z"),
+                        {**bspec, "Z": tuple(fft_axes)})
+    return f"{in_s} -> {out_s}"
+
+
+def cube_spec(fft_axes: tuple[int, ...] = (0,)) -> str:
+    """Arrow spec for the unbatched full-cube transform (density fields).
+
+    Only the fft axes appear — on a (batch, fft) 2D grid the cube transform
+    is replicated over the batch axes.
+    """
+    from .dtensor import dims_string
+    in_s = dims_string(("x", "y", "z"), {"z": tuple(fft_axes)})
+    out_s = dims_string(("X", "Y", "Z"), {"Z": tuple(fft_axes)})
+    return f"{in_s} -> {out_s}"
+
+
+def make_planewave_pair(grid, n: int, sphere: SphereDomain, nb: int, *,
+                        backend: str = "matmul",
+                        batch_axes: tuple[int, ...] = (),
+                        fft_axes: tuple[int, ...] | None = None,
+                        policy: ExecPolicy | None = None
+                        ) -> tuple[PlaneWaveFFT, PlaneWaveFFT]:
+    """(inverse, forward) plane-wave transforms sharing one data layout.
+
+    inverse: sphere bounding-cube (b, x{F}, y, z) → real cube (b, X, Y, Z{F})
+    forward: the derived mirror (``inv.inverse()``) — exact adjoint layouts,
+    so `forward(inverse(c))` round-trips without extra movement, and the
+    pair costs a single schedule search.
+    """
+    if fft_axes is None:
+        fft_axes = tuple(a for a in range(grid.ndim) if a not in batch_axes)
+    bdom = Domain((0,), (nb - 1,))
+    cube = Domain((0, 0, 0), (n - 1, n - 1, n - 1))
+    in_s, out_s = planewave_spec(
+        tuple(batch_axes), tuple(fft_axes)).split(" -> ")
+    in_i = DistTensor.create((bdom, sphere), in_s, grid)
+    out_i = DistTensor.create((bdom, cube), out_s, grid)
+    inv = PlaneWaveFFT(sphere, (n, n, n), in_i, out_i, inverse=True,
+                       backend=backend, policy=policy)
+    return inv, inv.inverse()
+
+
+# --------------------------------------------------------- ragged k batches
+def padded_pack_tables(spheres) -> tuple[np.ndarray, np.ndarray]:
+    """Index tables for a ragged batch of spheres sharing one bounding box.
+
+    Every sphere's CSR pack order is padded to ``npacked_max = max_k
+    npacked_k``.  The per-k validity mask is baked into the table itself:
+    padded lanes carry the *dump-slot* index ``prod(extents)`` — one flat
+    cell past the bounding cube — so an unpack scatter routes whatever sits
+    in a padded lane into a slot that is dropped, and a pack gather reads
+    padded lanes from a slot that is always zero.
+
+    Returns ``(idx, valid)``: ``idx`` is ``(nk, npacked_max)`` int32 flat
+    bounding-cube indices (dump slot for padded lanes), ``valid`` the
+    matching boolean lane mask.
+    """
+    spheres = list(spheres)
+    if not spheres:
+        raise ValueError("padded_pack_tables needs at least one sphere")
+    ext = spheres[0].extents
+    for s in spheres[1:]:
+        if s.extents != ext:
+            raise ValueError(
+                f"ragged sphere batch must share one bounding box; got "
+                f"extents {s.extents} vs {ext}")
+    npmax = max(s.npacked for s in spheres)
+    dump = math.prod(ext)
+    idx = np.full((len(spheres), npmax), dump, np.int32)
+    valid = np.zeros((len(spheres), npmax), bool)
+    for k, s in enumerate(spheres):
+        idx[k, :s.npacked] = s.pack_indices()
+        valid[k, :s.npacked] = True
+    return idx, valid
+
+
+def segment_spheres(spheres, max_padding: float = 0.25,
+                    size_divisor: int | None = None
+                    ) -> tuple[tuple[int, ...], ...]:
+    """Partition a ragged sphere batch into similar-``npacked`` segments.
+
+    Spheres are ordered by descending ``npacked`` and greedily grouped so
+    every segment's realized padding fraction ``1 − Σ npacked / (len · max
+    npacked)`` stays ≤ ``max_padding`` (each segment pads only to its *own*
+    maximum).  ``size_divisor`` (> 1) constrains segment sizes to divisors
+    of it; a closed run is then emitted as divisor-sized chunks, each
+    re-checked against the budget (singletons pad nothing, so the bound
+    stays hard).
+
+    Returns a tuple of index tuples: a partition of ``range(len)``,
+    descending ``npacked`` within and across segments.
+    """
+    spheres = list(spheres)
+    if not spheres:
+        raise ValueError("segment_spheres needs at least one sphere")
+    if not 0.0 <= max_padding < 1.0:
+        raise ValueError(f"max_padding must be in [0, 1), got {max_padding}")
+    sizes = [s.npacked for s in spheres]
+    order = sorted(range(len(spheres)), key=lambda i: (-sizes[i], i))
+    tol = max_padding + 1e-12
+
+    def pad_of(run: list[int], upto: int) -> float:
+        """Padding of run[:upto] padded to its own head's npacked."""
+        return 1.0 - (sum(sizes[j] for j in run[:upto])
+                      / (upto * sizes[run[0]]))
+
+    segs: list[tuple[int, ...]] = []
+
+    def flush(run: list[int]) -> None:
+        while run:
+            keep = len(run)
+            if size_divisor and size_divisor > 1:
+                keep = max(k for k in range(1, len(run) + 1)
+                           if size_divisor % k == 0
+                           and pad_of(run, k) <= tol)
+            segs.append(tuple(run[:keep]))
+            run = run[keep:]
+
+    cur: list[int] = []
+    for i in order:
+        if cur and pad_of(cur + [i], len(cur) + 1) > tol:
+            flush(cur)
+            cur = []
+        cur.append(i)
+    if cur:
+        flush(cur)
+    return tuple(segs)
+
+
+def segment_padding_fraction(spheres, segment) -> float:
+    """Realized padding of one segment: 1 − Σ npacked / (len · max)."""
+    sizes = [spheres[i].npacked for i in segment]
+    return 1.0 - sum(sizes) / float(len(sizes) * max(sizes))
+
+
+def sphere_gvectors(sphere) -> np.ndarray:
+    """(npacked, 3) G+k offsets from the sphere center, in units 2π/L.
+
+    CSR (pack) order — aligned with the packed coefficient vector.
+    """
+    ex, ey, ez = sphere.extents
+    flat = sphere.pack_indices()
+    idx = np.stack([flat // (ey * ez), (flat // ez) % ey,
+                    flat % ez], axis=1).astype(np.float64)
+    return idx - np.asarray(sphere.center)
+
+
+def sphere_kinetic_row(sphere, box_length: float) -> np.ndarray:
+    """½|G+k|² over the packed coefficients (float32, CSR pack order).
+
+    The one f64→f32 pipeline behind every kinetic ladder — per-k and
+    padded-dense alike — so the two agree bitwise on valid lanes.
+    """
+    g = sphere_gvectors(sphere)
+    g2 = (g ** 2).sum(1) * (2 * np.pi / float(box_length)) ** 2
+    return 0.5 * g2.astype(np.float32)
+
+
+def padded_kinetic_table(spheres, box_length: float
+                         ) -> tuple[np.ndarray, np.ndarray]:
+    """Dense per-k kinetic diagonal over the padded lanes, plus the mask.
+
+    Returns ``(kinetic, valid)``: ``kinetic`` is ``(nk, npacked_max)``
+    float32 holding ½|G+k|² per packed coefficient, exactly **zero** on
+    padded lanes; ``valid`` is the matching boolean lane mask.  Padded
+    lanes therefore contribute exact zeros to every batched reduction.
+    """
+    spheres = list(spheres)
+    _, valid = padded_pack_tables(spheres)      # also checks bounding boxes
+    kin = np.zeros(valid.shape, np.float32)
+    for k, s in enumerate(spheres):
+        kin[k, :s.npacked] = sphere_kinetic_row(s, box_length)
+    return kin, valid
+
+
+class StackedPlaneWaveFFT(_FusedTransformMixin, Plan):
+    """One sphere↔cube transform over a ragged batch of k-point spheres.
+
+    All ``nk`` spheres share the d³ bounding box, so their transforms
+    differ only in the static pack tables — the staged-padding FFT itself
+    can run once with batch ``nk·nbands`` instead of ``nk`` times with
+    batch ``nbands``.  Packed coefficients are padded per k to
+    ``(nk·nbands, npacked_max)`` with the validity masks baked into the
+    pack/unpack tables (see :func:`padded_pack_tables`): padded lanes are
+    zeros on the transform side and never read back.
+
+    The inner ``FftPlan`` is the same d³→n³ stacked plan the density build
+    uses (pass it via ``plan=`` to share the cached object).
+    """
+
+    def __init__(self, spheres, n: tuple[int, ...], nbands: int,
+                 tin: DistTensor, tout: DistTensor, *, inverse: bool,
+                 backend: str = "matmul",
+                 pairs: list[tuple[str, str]] | None = None,
+                 policy: ExecPolicy | None = None,
+                 plan: FftPlan | None = None):
+        self.spheres = list(spheres)
+        self.n = tuple(n)
+        self.nbands = int(nbands)
+        self.is_inverse = inverse
+        self.backend = backend
+        self.tin, self.tout = tin, tout
+        self.grid = tin.grid
+        self.policy = policy if policy is not None else ExecPolicy()
+        if pairs is None:
+            pairs = list(zip(tin.dims[-3:], tout.dims[-3:]))
+        if plan is None:
+            plan = FftPlan(tin, tout, pairs, inverse=inverse,
+                           backend=backend, policy=self.policy)
+        self.plan = plan
+        dev = self.grid.device
+        idx, valid = padded_pack_tables(self.spheres)
+        self._pad_idx = torch.as_tensor(idx.astype(np.int64), device=dev)
+        # validity is fully baked into the dump slots of _pad_idx; the
+        # host mask is kept for introspection/tests
+        self._valid = valid
+        self.npacked_max = int(idx.shape[1])
+        # pack-side gather table: the dump slot is clipped back into the
+        # cube and masked with the lane validity instead
+        cells = math.prod(self.extents)
+        self._pack_gather_idx = torch.as_tensor(
+            np.minimum(idx, cells - 1).astype(np.int64), device=dev)
+        self._valid_dev = torch.as_tensor(valid, device=dev)
+
+    # ------------------------------------------------------------- queries
+    @property
+    def nk(self) -> int:
+        return len(self.spheres)
+
+    @property
+    def extents(self) -> tuple[int, ...]:
+        return self.spheres[0].extents
+
+    @property
+    def padding_fraction(self) -> float:
+        """Fraction of the (nk, npacked_max) lanes that are padding."""
+        used = sum(s.npacked for s in self.spheres)
+        return 1.0 - used / float(self.nk * self.npacked_max)
+
+    def valid_lanes(self) -> np.ndarray:
+        """(nk, npacked_max) boolean lane-validity mask (host-side copy)."""
+        return self._valid.copy()
+
+    # ------------------------------------------------------------- execute
+    def _execute(self, x, pol: ExecPolicy):
+        return self.plan._execute(x, pol)
+
+    @property
+    def stages(self):
+        return self.plan.stages
+
+    @property
+    def dims(self):
+        return self.plan.dims
+
+    @property
+    def fft_pairs(self):
+        return self.plan.fft_pairs
+
+    # ------------------------------------------------------------- mirrors
+    def _mirror(self, plan: FftPlan) -> "StackedPlaneWaveFFT":
+        return StackedPlaneWaveFFT(self.spheres, self.n, self.nbands,
+                                   self.tout, self.tin,
+                                   inverse=not self.is_inverse,
+                                   backend=self.backend,
+                                   pairs=plan.fft_pairs,
+                                   policy=self.policy, plan=plan)
+
+    def _derive_inverse(self) -> "StackedPlaneWaveFFT":
+        return self._mirror(self.plan.inverse())
+
+    def _derive_adjoint(self) -> "StackedPlaneWaveFFT":
+        return self._mirror(self.plan.adjoint())
+
+    # ----------------------------------------------- ragged stack helpers
+    def stack(self, blocks):
+        """Per-k ``(nbands, npacked_k)`` blocks → ``(nk·nbands, npacked_max)``.
+
+        Ragged tails are zero-padded — matching the pack/unpack contract
+        that padded lanes hold zeros.
+        """
+        if len(blocks) != self.nk:
+            raise ValueError(f"{len(blocks)} blocks for {self.nk} spheres")
+        pads = [torch.nn.functional.pad(c, (0, self.npacked_max
+                                            - c.shape[-1]))
+                for c in blocks]
+        return torch.cat(pads, dim=0)
+
+    def split(self, padded):
+        """``(nk·nbands, npacked_max)`` → per-k ``(nbands, npacked_k)``."""
+        c = padded.reshape(self.nk, self.nbands, self.npacked_max)
+        return [c[ik, :, :s.npacked] for ik, s in enumerate(self.spheres)]
+
+    # ------------------------------------------------- sphere pack/unpack
+    def unpack(self, padded):
+        """``(nk·nbands, npacked_max)`` coefficients → ``(nk·nbands, d³)``.
+
+        Each k-block scatters through its own pack table; padded lanes land
+        in the dump slot and are dropped, so garbage there never reaches
+        the bounding cube.
+        """
+        d = self.extents
+        cells = math.prod(d)
+        c = padded.reshape(self.nk, self.nbands, self.npacked_max)
+        flat = torch.zeros((self.nk, self.nbands, cells + 1),
+                           dtype=padded.dtype, device=padded.device)
+        idx = self._pad_idx[:, None, :].expand(self.nk, self.nbands,
+                                               self.npacked_max)
+        flat.scatter_(2, idx, c)
+        return flat[..., :cells].reshape((self.nk * self.nbands,) + d)
+
+    def pack(self, cube):
+        """``(nk·nbands, d, d, d)`` cubes → ``(nk·nbands, npacked_max)``.
+
+        Padded lanes come out exactly +0.0, whatever the cube holds: the
+        gather table clips their dump slot back into the cube and the
+        precomputed validity mask zeroes the result.
+        """
+        d = self.extents
+        cells = math.prod(d)
+        flat = cube.reshape(self.nk, self.nbands, cells)
+        idx = self._pack_gather_idx[:, None, :].expand(
+            self.nk, self.nbands, self.npacked_max)
+        out = torch.gather(flat, 2, idx)
+        out = torch.where(self._valid_dev[:, None, :], out,
+                          torch.zeros((), dtype=out.dtype,
+                                      device=out.device))
+        return out.reshape(self.nk * self.nbands, self.npacked_max)
+
+    # ------------------------------------------------------- fused kernels
+    @property
+    def _fusion_spheres(self):
+        return self.spheres
+
+    @property
+    def _fusion_nbands(self) -> int:
+        return self.nbands
+
+    @property
+    def _fusion_npacked(self) -> int:
+        return self.npacked_max
+
+    # ---------------------------------------------------------- accounting
+    def private_bytes(self) -> int:
+        """The ragged pack tables are per-sphere-set — never shared."""
+        return (int(self._pad_idx.nbytes) + int(self._valid.nbytes)
+                + int(self._pack_gather_idx.nbytes)
+                + int(self._valid_dev.nbytes)
+                + self._fused_table_bytes() + super().private_bytes())
+
+    def describe(self) -> str:
+        return ("StackedPlaneWaveFFT %d spheres d=%d -> grid n=%d "
+                "(npacked_max=%d, padding %.1f%%)\n" %
+                (self.nk, self.extents[0], self.n[0], self.npacked_max,
+                 100 * self.padding_fraction)) + self.plan.describe()
+
+
+def make_stacked_planewave_pair(grid, n: int, spheres, nbands: int, *,
+                                backend: str = "matmul",
+                                batch_axes: tuple[int, ...] = (),
+                                fft_axes: tuple[int, ...] | None = None,
+                                policy: ExecPolicy | None = None,
+                                plan: FftPlan | None = None
+                                ) -> tuple["StackedPlaneWaveFFT",
+                                           "StackedPlaneWaveFFT"]:
+    """(inverse, forward) ragged-batch stacked pair over nk·nbands orbitals.
+
+    Layouts match :func:`make_planewave_pair` with the batch dim widened to
+    ``nk·nbands`` and the sphere side opened to the shared d³ bounding box
+    (the raggedness lives in the pack tables, not the plan).  Pass ``plan=``
+    to wrap an already-built (cached) d³→n³ inverse ``FftPlan``.
+    """
+    spheres = list(spheres)
+    if fft_axes is None:
+        fft_axes = tuple(a for a in range(grid.ndim) if a not in batch_axes)
+    nk = len(spheres)
+    ext = spheres[0].extents
+    if plan is not None:
+        tin, tout = plan.tin, plan.tout
+    else:
+        bdom = Domain((0,), (nk * nbands - 1,))
+        bbox = Domain((0, 0, 0), tuple(e - 1 for e in ext))
+        cube = Domain((0, 0, 0), (n - 1, n - 1, n - 1))
+        in_s, out_s = planewave_spec(
+            tuple(batch_axes), tuple(fft_axes)).split(" -> ")
+        tin = DistTensor.create((bdom, bbox), in_s, grid)
+        tout = DistTensor.create((bdom, cube), out_s, grid)
+    inv = StackedPlaneWaveFFT(spheres, (n, n, n), nbands, tin, tout,
+                              inverse=True, backend=backend, policy=policy,
+                              plan=plan)
+    return inv, inv.inverse()

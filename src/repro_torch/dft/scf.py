@@ -1,0 +1,376 @@
+"""Mixing-driven SCF loop over the plane-wave basis.
+
+Each outer iteration: build v_eff = v_ext + v_H[ρ] + v_xc[ρ], update all
+bands at every k-point (batched H applies through cached plans), rebuild
+the density from the new orbitals, evaluate the total energy
+
+    E = Σ_k w_k Σ_b f ⟨c|T|c⟩ + ∫ρ v_ext + E_H[ρ] + E_xc[ρ]
+
+and mix ρ_in/ρ_out — plain linear mixing for the warm-up iterations, then
+Anderson/Pulay acceleration on the stored residual history.  Convergence is
+declared when |ΔE| stays below ``e_tol`` (and the density residual below
+``r_tol``) after the warm-up.
+
+The orchestration is eager Python: every transform goes through a plan
+fetched from the process-global ``PlanCache``, so the cache's hit counter
+is the subsystem's plan-reuse ledger and ``SCFResult.transforms`` counts
+real batched 3D transforms.  The fused single-dispatch step of the
+reference (``jit_step=True``) is not ported yet (ROADMAP §1 item 6).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from ..core import ProcGrid, global_plan_cache
+from ..core.policy import ExecPolicy
+from .basis import PlaneWaveBasis
+from .density import density_from_orbitals, electron_count
+from .hamiltonian import orthonormalize, update_bands, update_bands_all_k
+from .hartree import HartreeSolver
+from .potentials import gaussian_wells, lda_exchange
+
+
+# -------------------------------------------------------------------- mixing
+class LinearMixer:
+    """ρ ← ρ_in + α (ρ_out − ρ_in)."""
+
+    def __init__(self, alpha: float = 0.5):
+        self.alpha = float(alpha)
+
+    def mix(self, rho_in, rho_out):
+        return rho_in + self.alpha * (rho_out - rho_in)
+
+
+class AndersonMixer:
+    """Anderson/Pulay (DIIS) density mixing on the residual history.
+
+    Minimizes |Σ_i β_i r_i|² over Σ β_i = 1 (r_i = ρ_out,i − ρ_in,i), then
+    takes ρ ← Σ β_i (ρ_in,i + α r_i).  Falls back to linear mixing for the
+    first ``warmup`` iterations and whenever the DIIS system is singular.
+    The history is kept on the host in float64.
+    """
+
+    def __init__(self, alpha: float = 0.5, history: int = 4,
+                 warmup: int = 2):
+        self.alpha = float(alpha)
+        self.history = int(history)
+        self.warmup = int(warmup)
+        self._rho_in: list[np.ndarray] = []
+        self._res: list[np.ndarray] = []
+        self._seen = 0
+
+    def mix(self, rho_in, rho_out):
+        rin = rho_in.detach().cpu().numpy().astype(np.float64).ravel()
+        res = rho_out.detach().cpu().numpy().astype(np.float64).ravel() - rin
+        self._rho_in.append(rin)
+        self._res.append(res)
+        if len(self._res) > self.history:
+            self._rho_in.pop(0)
+            self._res.pop(0)
+        self._seen += 1
+        m = len(self._res)
+        if self._seen <= self.warmup or m < 2:
+            mixed = rin + self.alpha * res
+        else:
+            r = np.stack(self._res)                       # (m, N)
+            a = np.empty((m + 1, m + 1))
+            a[:m, :m] = r @ r.T
+            a[m, :m] = a[:m, m] = 1.0
+            a[m, m] = 0.0
+            rhs = np.zeros(m + 1)
+            rhs[m] = 1.0
+            try:
+                beta = np.linalg.solve(a, rhs)[:m]
+            except np.linalg.LinAlgError:
+                beta = None
+            if beta is None or not np.all(np.isfinite(beta)):
+                mixed = rin + self.alpha * res
+            else:
+                mixed = beta @ (np.stack(self._rho_in)
+                                + self.alpha * r)
+        return torch.as_tensor(
+            mixed.astype(np.float32).reshape(tuple(rho_in.shape)),
+            device=rho_in.device)
+
+
+# -------------------------------------------------------------------- config
+@dataclasses.dataclass
+class SCFConfig:
+    n: int = 16                       # FFT cube width
+    diameter: int | None = None       # sphere diameter (default n // 2)
+    nbands: int = 4
+    nocc: int | None = None           # occupied bands (default: all)
+    kpts: tuple = ((0.0, 0.0, 0.0),)  # reduced coords, units 2π/L
+    weights: tuple | None = None
+    L: float | None = None            # cell side (default n, spacing 1)
+    depth: float = 4.0                # Gaussian-well depth
+    xc: bool = True                   # include the LDA exchange term
+    max_iter: int = 50
+    e_tol: float = 1e-5               # |ΔE| convergence threshold
+    r_tol: float = 1e-4               # density-residual threshold (per elec)
+    inner_steps: int = 4              # band-update steps per k per outer it
+    mix_alpha: float = 0.7
+    mix_history: int = 5
+    mix_warmup: int = 2               # linear iterations before Anderson
+    seed: int = 0
+    pipeline: bool = True             # double-buffer the per-k transforms
+    stack_k: bool | None = None       # ragged-stack the H apply across k
+                                      # (None: auto via basis.stacks_k;
+                                      # True requires pipeline=True)
+    jit_step: bool = False            # the fused single-dispatch step: not
+                                      # ported yet, True raises
+    batch_axes: tuple | None = None   # grid axes carrying the band batch
+    fft_axes: tuple | None = None     # grid axes carrying the transforms
+    segment_padding: float | None = None
+                                      # per-segment padding budget for the
+                                      # ragged k-stacking (None: one
+                                      # global npacked_max segment)
+    policy: ExecPolicy | None = None
+    backend: str | None = None        # line-DFT backend preference; None
+                                      # resolves explicit > policy.backend
+                                      # > "matmul" (see PlaneWaveBasis)
+
+
+@dataclasses.dataclass
+class SCFResult:
+    converged: bool
+    iterations: int
+    energy: float
+    energies: list[float]             # total energy per outer iteration
+    residuals: list[float]            # |ρ_out − ρ_in| per electron
+    eigenvalues: np.ndarray           # (nk, nbands), ascending per k
+    rho: torch.Tensor
+    transforms: int                   # per-band 3D transforms executed
+                                      # (plan calls batch nbands of them)
+    seconds: float
+    cache_stats: dict                 # global PlanCache counters (delta)
+    grid_shape: tuple = ()            # processing-grid shape the run used
+    stacked: bool = False             # H sweeps rode the k-stacked batch
+    padding_fraction: float = 0.0     # padded lanes / total stacked lanes
+    band_update: str = "per-k"        # band-update route: "stacked" (the
+                                      # batched engine) or "per-k"
+    backend: str = "matmul"           # resolved line-DFT backend the basis
+                                      # ran (what plans were built with)
+    segments: int = 1                 # ragged-stacking segment count
+    segment_padding_fractions: tuple = ()
+    device: str = "cpu"               # the device the run computed on
+    #: per-iteration telemetry: one dict per outer iteration with
+    #: {iteration, energy, residual, seconds, transforms}
+    iteration_records: list = dataclasses.field(default_factory=list)
+
+    @property
+    def transforms_per_s(self) -> float:
+        return self.transforms / max(self.seconds, 1e-9)
+
+    @property
+    def seconds_per_iteration(self) -> float:
+        """Mean wall time of one outer SCF iteration."""
+        return self.seconds / max(self.iterations, 1)
+
+
+# -------------------------------------------------------------------- energy
+def total_energy(basis, coeffs, rho, v_ext, hartree: HartreeSolver, occ,
+                 *, xc: bool = True) -> tuple[float, dict]:
+    """E[{ψ}, ρ] and its components; ρ should be the orbitals' density."""
+    occ = np.asarray(occ, np.float64)
+    e_kin = 0.0
+    for ik, c in enumerate(coeffs):
+        kin = basis.kinetic(ik)
+        per_band = torch.sum(kin[None, :] * c.abs() ** 2, dim=1)
+        e_kin += float(basis.weights[ik]
+                       * (occ[ik] @ per_band.cpu().numpy()
+                          .astype(np.float64)))
+    dv = basis.dv
+    e_ext = float(torch.sum(rho * v_ext) * dv)
+    vh = hartree(rho)
+    e_h = hartree.energy(rho, vh)
+    if xc:
+        e_x, _ = lda_exchange(rho)
+        e_xc = float(torch.sum(e_x) * dv)
+    else:
+        e_xc = 0.0
+    total = e_kin + e_ext + e_h + e_xc
+    return total, {"kinetic": e_kin, "external": e_ext, "hartree": e_h,
+                   "xc": e_xc, "total": total}
+
+
+# -------------------------------------------------------------------- driver
+def coefficients_from_numpy(blocks, device=None):
+    """Per-k ``(nbands, npacked_k)`` coefficient blocks as numpy (e.g. the
+    reference package's start) → the port's complex64 tensors on
+    ``device`` (CUDA when omitted; raises without CUDA)."""
+    from ..core.grid import resolve_device
+    dev = resolve_device(device)
+    return [torch.as_tensor(np.array(b, np.complex64), device=dev)
+            for b in blocks]
+
+
+def _init_coefficients(basis, seed: int):
+    rng = np.random.default_rng(seed)
+    coeffs = []
+    for ik in range(basis.nk):
+        npk = basis.npacked(ik)
+        c = (rng.standard_normal((basis.nbands, npk))
+             + 1j * rng.standard_normal((basis.nbands, npk))
+             ).astype(np.complex64)
+        coeffs.append(orthonormalize(torch.as_tensor(c,
+                                                     device=basis.device)))
+    return coeffs
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run_scf(cfg: SCFConfig, *, device=None, grid: ProcGrid | None = None,
+            v_ext=None, coeffs=None, callback=None) -> SCFResult:
+    """Run the SCF loop; see module docstring for the iteration structure.
+
+    ``device`` is where the run computes (CUDA when omitted; raises
+    without CUDA); a ``grid`` brings its own device.  ``coeffs`` optionally
+    gives the starting per-k coefficient blocks (see
+    :func:`coefficients_from_numpy`); by default they are random
+    orthonormal blocks from ``cfg.seed``.  ``callback(it, energy,
+    residual)`` is invoked after every outer iteration.
+    """
+    if cfg.jit_step:
+        raise NotImplementedError(
+            "jit_step=True: the fused single-dispatch SCF step is not "
+            "ported yet (ROADMAP §1 item 6); run the eager loop")
+    basis = PlaneWaveBasis(
+        cfg.n, diameter=cfg.diameter, kpts=cfg.kpts, weights=cfg.weights,
+        nbands=cfg.nbands, L=cfg.L, grid=grid,
+        batch_axes=cfg.batch_axes, fft_axes=cfg.fft_axes,
+        segment_padding=cfg.segment_padding,
+        policy=cfg.policy, backend=cfg.backend, device=device)
+    dev = basis.device
+    cache0 = dict(global_plan_cache().stats)
+    if v_ext is None:
+        v_ext = gaussian_wells(cfg.n, depth=cfg.depth)
+    v_ext = torch.as_tensor(v_ext, dtype=torch.float32, device=dev)
+    hartree = HartreeSolver(basis)
+
+    if cfg.inner_steps < 1:
+        raise ValueError(f"inner_steps must be >= 1, got {cfg.inner_steps}")
+    nocc = cfg.nbands if cfg.nocc is None else int(cfg.nocc)
+    if not 0 < nocc <= cfg.nbands:
+        raise ValueError(f"nocc {nocc} not in (0, nbands={cfg.nbands}]")
+    occ = np.zeros((basis.nk, basis.nbands))
+    occ[:, :nocc] = 1.0
+    nelec = float(basis.weights.sum() * nocc)
+
+    # route the H sweeps through the ragged k-stacked batch when the grid
+    # supports it (or the caller forces it); pipelined per-k is the fallback
+    stack_k = basis.stacks_k if cfg.stack_k is None else bool(cfg.stack_k)
+    if cfg.stack_k and not cfg.pipeline:
+        raise ValueError("stack_k=True requires pipeline=True (the "
+                         "stacked route sweeps all k-points per step; "
+                         "pipeline=False runs the serial per-k loop)")
+    stacked = bool(stack_k and cfg.pipeline)
+
+    if coeffs is None:
+        coeffs = _init_coefficients(basis, cfg.seed)
+    else:
+        coeffs = [torch.as_tensor(c, dtype=torch.complex64, device=dev)
+                  for c in coeffs]
+        for ik, c in enumerate(coeffs):
+            if tuple(c.shape) != (basis.nbands, basis.npacked(ik)):
+                raise ValueError(
+                    f"coeffs[{ik}] shape {tuple(c.shape)} != (nbands, "
+                    f"npacked) = ({basis.nbands}, {basis.npacked(ik)})")
+
+    rho = density_from_orbitals(basis, coeffs, occ)
+    mixer = AndersonMixer(cfg.mix_alpha, cfg.mix_history, cfg.mix_warmup) \
+        if cfg.mix_history > 1 else LinearMixer(cfg.mix_alpha)
+
+    energies: list[float] = []
+    residuals: list[float] = []
+    iteration_records: list[dict] = []
+    eigs = np.zeros((basis.nk, basis.nbands))
+    # counter and timer both cover the SCF loop only: the warm-up density
+    # build above (plan construction, first kernel builds) is excluded
+    transforms = 0
+    converged = False
+    _sync(dev)
+    t0 = time.perf_counter()
+
+    for it in range(cfg.max_iter):
+        it_t0 = time.perf_counter()
+        it_transforms0 = transforms
+        vh = hartree(rho)
+        transforms += 2                    # cube fwd + derived inv
+        v_eff = v_ext + vh
+        if cfg.xc:
+            _, v_x = lda_exchange(rho)
+            v_eff = v_eff + v_x
+        if cfg.pipeline:
+            # all-k loop: the batched stacked engine when stacking, the
+            # pipelined per-k dispatch otherwise
+            coeffs, eps_list, nsweep = update_bands_all_k(
+                basis, coeffs, v_eff, steps=cfg.inner_steps,
+                stacked=stack_k)
+            for ik in range(basis.nk):
+                eigs[ik] = eps_list[ik].cpu().numpy()
+            transforms += nsweep * basis.nk * 2 * basis.nbands
+        else:
+            for ik in range(basis.nk):
+                coeffs[ik], eps, napply = update_bands(
+                    basis, ik, coeffs[ik], v_eff, steps=cfg.inner_steps)
+                eigs[ik] = eps.cpu().numpy()
+                transforms += napply * 2 * basis.nbands
+        rho_out = density_from_orbitals(basis, coeffs, occ)
+        transforms += basis.nk * basis.nbands
+        energy, _ = total_energy(basis, coeffs, rho_out, v_ext, hartree,
+                                 occ, xc=cfg.xc)
+        transforms += 2                    # energy's Hartree solve
+        # float() waits for rho_out, so the iteration's time is real work
+        resid = float(torch.linalg.norm(rho_out - rho)
+                      * basis.dv ** 0.5) / max(nelec, 1e-9)
+        energies.append(energy)
+        residuals.append(resid)
+        iteration_records.append({
+            "iteration": it, "energy": energy, "residual": resid,
+            "seconds": time.perf_counter() - it_t0,
+            "transforms": transforms - it_transforms0})
+        if callback is not None:
+            callback(it, energy, resid)
+        if (it > cfg.mix_warmup
+                and abs(energies[-1] - energies[-2]) < cfg.e_tol
+                and resid < cfg.r_tol):
+            converged = True
+            break
+        rho = mixer.mix(rho, rho_out)
+
+    _sync(dev)                             # drain the last mix
+    seconds = time.perf_counter() - t0
+    # return the density the orbitals actually produced (not the mixed
+    # guess) — coeffs are unchanged since the loop's last rho_out
+    rho = rho_out if energies else density_from_orbitals(basis, coeffs, occ)
+
+    cache1 = global_plan_cache().stats
+    delta = {k: cache1[k] - cache0.get(k, 0)
+             for k in ("hits", "misses", "evictions")}
+    delta["size"] = cache1["size"]
+    ne = electron_count(basis, rho)
+    if abs(ne - nelec) >= 1e-3 * max(nelec, 1.0):
+        raise RuntimeError(f"density integrates to {ne} electrons, "
+                           f"expected {nelec}")
+    padding = basis.padding_fraction if stacked else 0.0
+    return SCFResult(
+        converged=converged, iterations=len(energies),
+        energy=energies[-1] if energies else float("nan"),
+        energies=energies, residuals=residuals, eigenvalues=eigs, rho=rho,
+        transforms=transforms, seconds=seconds, cache_stats=delta,
+        grid_shape=tuple(basis.grid.shape), stacked=stacked,
+        padding_fraction=padding,
+        band_update="stacked" if stacked else "per-k",
+        backend=basis.backend,
+        segments=basis.nsegments,
+        segment_padding_fractions=basis.segment_padding_fractions,
+        device=str(dev),
+        iteration_records=iteration_records)

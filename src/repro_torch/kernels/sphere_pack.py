@@ -1,0 +1,242 @@
+"""Fused sphere-pack kernels for the plane-wave hot path.
+
+The Hamiltonian hot chain ``pack(F(v_eff · F⁻¹(unpack(c))))`` pays two full
+``(B, d, d, d)`` bounding-cube materializations per sweep when composed:
+``unpack`` scatters packed CSR coefficients into a zeroed cube that the
+first line-DFT stage immediately re-reads, and ``pack`` gathers npacked
+lanes back out of a cube the last stage just wrote.  Two hand-written CUDA
+kernels (``csrc/sphere_pack.cu``) fuse those steps:
+
+``unpack_dft``
+    reads packed CSR lanes directly and applies the first rectangular
+    (d→n, pad-fused) line DFT per bounding-box line, writing the
+    first-stage slab ``(B, ex, ey, n)`` without materializing the cube.
+    Lines of planes with ``flag[x] = 0``, and lines with no lanes, are
+    not computed and come out exact +0.0.
+
+``dft_pack``
+    fuses the final truncating (n→d) line DFT with the CSR gather back to
+    ``(B, npacked)``: each line's d outputs go straight to its packed
+    lanes.  Lanes past a row's valid count (the padding of a ragged
+    stacked batch) come out exact +0.0.
+
+They replace the TPU kernels ``_unpack_dft_kernel`` and
+``_dft_pack_kernel`` of the reference's ``kernels/sphere_pack.py``.  Each
+wrapper launches its kernel for CUDA tensors and runs its plain PyTorch
+version (same module) for CPU tensors; a CUDA tensor never takes the plain
+version.
+
+Index tables are static numpy built at plan time (`line_tables` /
+`pack_gather_tables`), CSR-by-xy per ``SphereDomain.pack_indices``: packed
+lanes of one (x, y) line are contiguous with z ascending, so a line is
+``(start, z_lo, cnt)`` and its lanes are ``start + (z − z_lo)``.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from . import build
+from .dft_matmul import _check, dft_matmul_plain
+
+
+# --------------------------------------------------------------- tables
+def line_tables(spheres, nbands: int):
+    """Static per-row line tables for the fused unpack/pack kernels.
+
+    For every sphere k and bounding-box line l = x·ey + y:
+    ``start[k, l]`` — CSR lane of the line's first packed coefficient,
+    ``zlo[k, l]`` — its z offset inside the box, ``cnt[k, l]`` — the line's
+    packed length (0 outside the sphere's xy projection).  Tables are
+    row-expanded to the stacked batch (row b belongs to sphere b // nbands)
+    so the kernel needs no second indirection.  ``flag[x]`` is 1 iff *any*
+    sphere has support in x-plane x — the zero-skip predicate must be
+    conservative across the whole stacked batch.
+
+    Returns ``(start, zlo, cnt, flag)``: three ``(len(spheres)·nbands, ex·ey)``
+    int32 tables and an ``(ex, 1)`` int32 flag column.
+    """
+    spheres = list(spheres)
+    if not spheres:
+        raise ValueError("line_tables needs at least one sphere")
+    ex, ey, ez = spheres[0].extents
+    nlines = ex * ey
+    nk = len(spheres)
+    start = np.zeros((nk, nlines), np.int32)
+    zlo = np.zeros((nk, nlines), np.int32)
+    cnt = np.zeros((nk, nlines), np.int32)
+    flag = np.zeros((ex, 1), np.int32)
+    for k, s in enumerate(spheres):
+        if s.extents != (ex, ey, ez):
+            raise ValueError(f"sphere batch must share one bounding box; "
+                             f"got {s.extents} vs {(ex, ey, ez)}")
+        flat = s.pack_indices()
+        lines = flat // ez
+        # CSR order is line-major (columns ascend in (x, y)) with z
+        # contiguous ascending inside each line
+        uniq, first, counts = np.unique(lines, return_index=True,
+                                        return_counts=True)
+        start[k, uniq] = first
+        zlo[k, uniq] = flat[first] % ez
+        cnt[k, uniq] = counts
+        flag[uniq // ey] = 1
+    rep = functools.partial(np.repeat, repeats=nbands, axis=0)
+    return rep(start), rep(zlo), rep(cnt), flag
+
+
+def pack_gather_tables(spheres, nbands: int, npacked_max: int | None = None):
+    """Static per-lane gather tables: the lane-centric view of the packing.
+
+    Per padded lane p of sphere k: the bounding-box line ``line[k, p]`` and
+    z offset ``z[k, p]`` the lane reads from, plus ``valid[k, p]`` (0 on
+    padding).  Row-expanded to the stacked batch like :func:`line_tables`.
+    The kernels run on the line-centric :func:`line_tables`; this is the
+    inverse map they must agree with (``valid.sum(1)`` is the per-row valid
+    lane count ``dft_pack`` takes).
+    """
+    spheres = list(spheres)
+    if not spheres:
+        raise ValueError("pack_gather_tables needs at least one sphere")
+    ez = spheres[0].extents[2]
+    if npacked_max is None:
+        npacked_max = max(s.npacked for s in spheres)
+    nk = len(spheres)
+    line = np.zeros((nk, npacked_max), np.int32)
+    zz = np.zeros((nk, npacked_max), np.int32)
+    valid = np.zeros((nk, npacked_max), np.int32)
+    for k, s in enumerate(spheres):
+        flat = s.pack_indices()
+        line[k, :s.npacked] = flat // ez
+        zz[k, :s.npacked] = flat % ez
+        valid[k, :s.npacked] = 1
+    rep = functools.partial(np.repeat, repeats=nbands, axis=0)
+    return rep(line), rep(zz), rep(valid)
+
+
+# ------------------------------------------------------ plain versions
+def _line_masks(start, zlo, cnt, d):
+    """(lane of each (row, line, z), z inside the line's packed run)."""
+    z = torch.arange(d, device=start.device)
+    zl = zlo.long()[..., None]
+    inside = (z >= zl) & (z < zl + cnt.long()[..., None])
+    return start.long()[..., None] + z - zl, inside
+
+
+def unpack_dft_plain(packed, start, zlo, cnt, flag, w):
+    """Plain PyTorch version of :func:`unpack_dft` (same inputs/output)."""
+    B, npk = packed.shape
+    n, d = w.shape
+    ex = flag.numel()
+    nl = start.shape[1]
+    ey = nl // ex
+    plane = torch.arange(nl, device=start.device) // ey
+    active = (flag.reshape(-1)[plane] != 0)[None, :] & (cnt > 0)  # (B, nl)
+    lane, inside = _line_masks(start, zlo, cnt, d)
+    sel = inside & active[..., None]
+    lane = lane.clamp(0, max(npk - 1, 0)).reshape(B, nl * d)
+    zero = torch.zeros((), dtype=torch.complex64, device=packed.device)
+    lines = torch.where(sel, torch.gather(packed, 1, lane).reshape(B, nl, d),
+                        zero)
+    y = dft_matmul_plain(lines.reshape(B * nl, d), w).reshape(B, nl, n)
+    y = torch.where(active[..., None], y, zero)     # literal +0.0 lines
+    return y.reshape(B, ex, ey, n)
+
+
+def dft_pack_plain(slab, start, zlo, cnt, nvalid, w, npacked: int):
+    """Plain PyTorch version of :func:`dft_pack` (same inputs/output)."""
+    B, ex, ey, n = slab.shape
+    d = w.shape[0]
+    nl = ex * ey
+    y = dft_matmul_plain(slab.reshape(B * nl, n), w).reshape(B, nl, d)
+    lane, inside = _line_masks(start, zlo, cnt, d)
+    rows = torch.arange(B, device=slab.device)[:, None, None].expand(
+        B, nl, d)
+    out = torch.zeros((B, npacked), dtype=torch.complex64,
+                      device=slab.device)
+    out[rows[inside], lane[inside]] = y[inside]
+    keep = (torch.arange(npacked, device=slab.device)[None, :]
+            < nvalid.long()[:, None])
+    return torch.where(keep, out, torch.zeros_like(out[:1, :1]))
+
+
+# ------------------------------------------------------------- wrappers
+def _check_tables(dev, B, nl, **tables):
+    for name, t in tables.items():
+        _check(name, t, torch.int32, (B, nl), dev)
+
+
+def unpack_dft(packed, start, zlo, cnt, flag, w):
+    """Fused CSR-unpack + first-stage line DFT.
+
+    ``packed``: (B, npacked) complex64 lanes (lanes past a row's sphere are
+    never read); ``start``/``zlo``/``cnt``: (B, ex·ey) int32 line tables;
+    ``flag``: (ex, 1) int32 plane-support column; ``w``: (n, d) complex64
+    rectangular DFT factor.  Returns the first-stage slab (B, ex, ey, n)
+    complex64.  CUDA tensors launch the kernel (counted in
+    ``unpack_dft.launches``); CPU tensors run :func:`unpack_dft_plain`.
+    """
+    B, npk = packed.shape
+    n, d = w.shape
+    ex = flag.shape[0]
+    nl = start.shape[1]
+    if nl % ex:
+        raise ValueError(f"{nl} lines do not split into {ex} x-planes")
+    ey = nl // ex
+    dev = packed.device
+    _check("packed", packed, torch.complex64, (B, npk), dev)
+    _check("w", w, torch.complex64, (n, d), dev)
+    _check_tables(dev, B, nl, start=start, zlo=zlo, cnt=cnt)
+    flag = flag.reshape(ex)
+    _check("flag", flag, torch.int32, (ex,), dev)
+    if dev.type != "cuda":
+        return unpack_dft_plain(packed, start, zlo, cnt, flag, w)
+    y = torch.empty((B, ex, ey, n), dtype=torch.complex64, device=dev)
+    lib = build.library("sphere_pack")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        status = lib.unpack_dft_launch(
+            packed.data_ptr(), start.data_ptr(), zlo.data_ptr(),
+            cnt.data_ptr(), flag.data_ptr(), w.data_ptr(), y.data_ptr(),
+            B, npk, ex, ey, n, d, stream)
+    build.check(status, "unpack_dft")
+    unpack_dft.launches += 1
+    return y
+
+
+def dft_pack(slab, start, zlo, cnt, nvalid, w, npacked: int):
+    """Fused final truncating line DFT + CSR pack.
+
+    ``slab``: (B, ex, ey, n) complex64 last-stage slab; ``start``/``zlo``/
+    ``cnt``: (B, ex·ey) int32 line tables; ``nvalid``: (B,) int32 valid
+    lanes per row; ``w``: (d, n) complex64 truncating DFT factor.  Returns
+    (B, npacked) complex64 packed lanes, exact +0.0 past ``nvalid``.  CUDA
+    tensors launch the kernel (counted in ``dft_pack.launches``); CPU
+    tensors run :func:`dft_pack_plain`.
+    """
+    B, ex, ey, n = slab.shape
+    d = w.shape[0]
+    nl = ex * ey
+    dev = slab.device
+    _check("slab", slab, torch.complex64, (B, ex, ey, n), dev)
+    _check("w", w, torch.complex64, (d, n), dev)
+    _check_tables(dev, B, nl, start=start, zlo=zlo, cnt=cnt)
+    _check("nvalid", nvalid, torch.int32, (B,), dev)
+    if dev.type != "cuda":
+        return dft_pack_plain(slab, start, zlo, cnt, nvalid, w, npacked)
+    out = torch.empty((B, npacked), dtype=torch.complex64, device=dev)
+    lib = build.library("sphere_pack")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        status = lib.dft_pack_launch(
+            slab.data_ptr(), start.data_ptr(), zlo.data_ptr(),
+            cnt.data_ptr(), nvalid.data_ptr(), w.data_ptr(), out.data_ptr(),
+            B, npacked, ex, ey, n, d, stream)
+    build.check(status, "dft_pack")
+    dft_pack.launches += 1
+    return out
+
+
+unpack_dft.launches = 0
+dft_pack.launches = 0

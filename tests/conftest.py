@@ -28,3 +28,8 @@ def run_distributed(script: str, n_devices: int = 8, timeout: int = 300):
 @pytest.fixture(scope="session")
 def dist():
     return run_distributed
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (skipped without one)")

@@ -1,0 +1,229 @@
+"""repro_torch.kernels: plain versions vs the JAX reference kernels.
+
+On the CPU every wrapper runs its plain PyTorch version (a CPU tensor is
+the only thing that selects it); the reference Pallas kernels run in
+interpret mode, as ``tests/test_kernels.py`` runs them.  The hand-written
+CUDA kernels themselves are held against the plain versions by
+``tests/test_torch_cuda.py`` (skipped without a card) and by
+``chip_smoke.py``.
+
+Tolerances: the port and the reference sum the same fp32 products in
+another order (torch's CPU GEMM vs XLA's dot), so values agree to ~1e-6
+relative to the largest output; exact-zero contracts stay bitwise.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.core import kpoint_sphere as ref_kpoint_sphere
+from repro.core.local_fft import dft_matrix_device as ref_dft_matrix_device
+from repro.kernels import ops as ref_ops
+from repro.kernels import sphere_pack as ref_sp
+from repro.kernels.dft_matmul import dft_matmul as ref_dft_matmul
+from repro_torch.core import kpoint_sphere
+from repro_torch.core.local_fft import dft_matrix_device
+from repro_torch.kernels import build, ops
+from repro_torch.kernels import sphere_pack as sp
+from repro_torch.kernels.dft_matmul import dft_matmul, dft_matmul_plain
+
+RTOL = 2e-6          # relative to the largest output magnitude
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs test files in parallel worker processes; torch's
+    CPU thread pool would oversubscribe the cores the other workers'
+    timing-sensitive tests share.  These tests are small: one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _cx(rng, shape):
+    return (rng.standard_normal(shape)
+            + 1j * rng.standard_normal(shape)).astype(np.complex64)
+
+
+def _close(got, want, rtol=RTOL):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape
+    scale = max(float(np.abs(want).max()), 1e-30)
+    err = float(np.abs(got - want).max())
+    assert err <= rtol * scale, (err, scale)
+
+
+def _plus_zero(a) -> bool:
+    a = np.asarray(a)
+    parts = (a.real, a.imag) if np.iscomplexobj(a) else (a,)
+    return all(bool(np.all((p == 0) & ~np.signbit(p))) for p in parts)
+
+
+# ------------------------------------------------------------ dft_matmul
+@pytest.mark.parametrize("B,n_in,n_out,inverse", [
+    (1, 8, 8, False), (33, 16, 16, True), (256, 8, 32, True),
+    (16, 32, 8, False), (40, 24, 48, True), (16, 128, 64, False)])
+def test_dft_apply_matches_reference_pallas(B, n_in, n_out, inverse):
+    rng = np.random.default_rng(B * 1000 + n_in * 10 + n_out)
+    x = _cx(rng, (B, n_in))
+    y = ops.dft_apply(torch.as_tensor(x), n_out, inverse=inverse)
+    r = ref_ops.dft_apply(jnp.asarray(x), n_out, inverse=inverse,
+                          interpret=True)
+    assert y.dtype == torch.complex64
+    _close(y.numpy(), r)
+
+
+def test_dft_matmul_plain_matches_raw_reference_kernel():
+    rng = np.random.default_rng(7)
+    B, K, N = 64, 32, 48
+    x = _cx(rng, (B, K))
+    w = _cx(rng, (N, K))
+    yr, yi = ref_dft_matmul(jnp.asarray(x.real), jnp.asarray(x.imag),
+                            jnp.asarray(w.real), jnp.asarray(w.imag),
+                            bm=32, bn=16, interpret=True)
+    y = dft_matmul(torch.as_tensor(x), torch.as_tensor(w))
+    _close(y.numpy(), np.asarray(yr) + 1j * np.asarray(yi))
+    # the wrapper on a CPU tensor is exactly its plain version
+    assert torch.equal(y, dft_matmul_plain(torch.as_tensor(x),
+                                           torch.as_tensor(w)))
+
+
+def test_dft_matrix_bit_identical_to_reference():
+    for n_out, n_in, inv in [(16, 8, True), (8, 16, False), (32, 32, True)]:
+        wr, wi, w = dft_matrix_device(n_out, n_in, inv, "cpu")
+        rr, ri, _ = ref_dft_matrix_device(n_out, n_in, inv)
+        assert np.array_equal(wr.numpy(), np.asarray(rr))
+        assert np.array_equal(wi.numpy(), np.asarray(ri))
+        assert np.array_equal(w.numpy().real, np.asarray(rr))
+
+
+# ---------------------------------------------------------------- tables
+BATCHES = [
+    (8, 3, ((0, 0, 0), (0.5, 0.5, 0.5))),
+    (6, 2, ((0, 0, 0),)),
+    (4, 1, ((0.25, 0, 0.5), (0, 0, 0), (0.5, 0.5, 0))),
+]
+
+
+@pytest.mark.parametrize("d,nbands,kpts", BATCHES)
+def test_table_builders_equal_reference(d, nbands, kpts):
+    spheres = [kpoint_sphere(d, k) for k in kpts]
+    ref = [ref_kpoint_sphere(d, k) for k in kpts]
+    for a, b in zip(sp.line_tables(spheres, nbands),
+                    ref_sp.line_tables(ref, nbands)):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    npm = max(s.npacked for s in spheres) + 3
+    for a, b in zip(sp.pack_gather_tables(spheres, nbands, npm),
+                    ref_sp.pack_gather_tables(ref, nbands, npm)):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def _tables(spheres, nbands):
+    return tuple(torch.as_tensor(t) for t in sp.line_tables(spheres,
+                                                            nbands))
+
+
+# ------------------------------------------------------------ unpack_dft
+@pytest.mark.parametrize("d,n,nbands,kpts", [
+    (8, 16, 3, ((0, 0, 0), (0.5, 0.5, 0.5))),
+    (6, 12, 2, ((0, 0, 0),)),
+    (4, 8, 1, ((0.25, 0, 0.5), (0, 0, 0), (0.5, 0.5, 0))),
+])
+def test_unpack_dft_matches_reference_pallas(d, n, nbands, kpts):
+    spheres = [kpoint_sphere(d, k) for k in kpts]
+    B = len(spheres) * nbands
+    npm = max(s.npacked for s in spheres)
+    rng = np.random.default_rng(d * 100 + n)
+    # garbage beyond each row's npacked lanes: never read by either side
+    packed = _cx(rng, (B, npm))
+    start, zlo, cnt, flag = sp.line_tables(spheres, nbands)
+    wr, wi, _ = ref_dft_matrix_device(n, d, True)
+    rr, ri = ref_sp.unpack_dft(
+        jnp.asarray(packed.real), jnp.asarray(packed.imag),
+        jnp.asarray(start), jnp.asarray(zlo), jnp.asarray(cnt),
+        jnp.asarray(flag), wr, wi, interpret=True)
+    _, _, w = dft_matrix_device(n, d, True, "cpu")
+    y = sp.unpack_dft(torch.as_tensor(packed), *_tables(spheres, nbands),
+                      w)
+    assert tuple(y.shape) == (B, d, d, n)
+    _close(y.numpy(), np.asarray(rr) + 1j * np.asarray(ri))
+    # lines with no lanes are exact +0.0
+    empty = (cnt == 0).reshape(B, d, d)
+    assert _plus_zero(y.numpy()[empty])
+
+
+def test_unpack_dft_zero_skip_planes_are_plus_zero():
+    spheres = [kpoint_sphere(6, (0, 0, 0))]
+    start, zlo, cnt, flag = _tables(spheres, 2)
+    rng = np.random.default_rng(3)
+    packed = torch.as_tensor(_cx(rng, (2, spheres[0].npacked)))
+    _, _, w = dft_matrix_device(12, 6, True, "cpu")
+    flag0 = flag.clone()
+    flag0[2] = 0                      # force the skip path on plane x=2
+    y = sp.unpack_dft(packed, start, zlo, cnt, flag0, w).numpy()
+    assert _plus_zero(y[:, 2])
+    assert np.any(y[:, 1] != 0.0)
+
+
+def test_unpack_dft_never_reads_padded_lanes():
+    spheres = [kpoint_sphere(8, k) for k in ((0, 0, 0), (0.5, 0.5, 0.5))]
+    nb = 2
+    npm = max(s.npacked for s in spheres)
+    rng = np.random.default_rng(4)
+    packed = _cx(rng, (len(spheres) * nb, npm))
+    poisoned = packed.copy()
+    for k, s in enumerate(spheres):
+        poisoned[k * nb:(k + 1) * nb, s.npacked:] = np.nan
+    _, _, w = dft_matrix_device(16, 8, True, "cpu")
+    tabs = _tables(spheres, nb)
+    a = sp.unpack_dft(torch.as_tensor(packed), *tabs, w)
+    b = sp.unpack_dft(torch.as_tensor(poisoned), *tabs, w)
+    assert torch.equal(a, b)
+
+
+# -------------------------------------------------------------- dft_pack
+@pytest.mark.parametrize("d,n,nbands,kpts", [
+    (8, 16, 3, ((0, 0, 0), (0.5, 0.5, 0.5))),
+    (6, 12, 2, ((0, 0, 0),)),
+    (4, 8, 2, ((0.25, 0, 0.5), (0, 0, 0), (0.5, 0.5, 0))),
+])
+def test_dft_pack_matches_reference_pallas(d, n, nbands, kpts):
+    spheres = [kpoint_sphere(d, k) for k in kpts]
+    B = len(spheres) * nbands
+    npm = max(s.npacked for s in spheres)
+    rng = np.random.default_rng(d * 7 + n)
+    slab = _cx(rng, (B, d, d, n))
+    line, zz, valid = sp.pack_gather_tables(spheres, nbands, npm)
+    wr, wi, _ = ref_dft_matrix_device(d, n, False)
+    pr, pi = ref_sp.dft_pack(
+        jnp.asarray(slab.real), jnp.asarray(slab.imag),
+        jnp.asarray(line * d + zz), jnp.asarray(valid), wr, wi,
+        interpret=True)
+    start, zlo, cnt, _ = _tables(spheres, nbands)
+    nvalid = torch.as_tensor(valid.sum(1).astype(np.int32))
+    _, _, w = dft_matrix_device(d, n, False, "cpu")
+    out = sp.dft_pack(torch.as_tensor(slab), start, zlo, cnt, nvalid, w,
+                      npm).numpy()
+    _close(out, np.asarray(pr) + 1j * np.asarray(pi))
+    pad = valid == 0
+    assert pad.any() == (len(spheres) > 1)
+    assert _plus_zero(out[pad])
+
+
+# ------------------------------------------------------- wrapper checks
+def test_wrappers_validate_inputs_and_build_nothing_on_cpu():
+    spheres = [kpoint_sphere(4, (0, 0, 0))]
+    start, zlo, cnt, flag = _tables(spheres, 1)
+    _, _, w = dft_matrix_device(8, 4, True, "cpu")
+    packed = torch.zeros((1, spheres[0].npacked), dtype=torch.complex64)
+    with pytest.raises(TypeError, match="dtype"):
+        sp.unpack_dft(packed.real.contiguous(), start, zlo, cnt, flag, w)
+    with pytest.raises(ValueError, match="shape"):
+        sp.unpack_dft(packed, start, zlo[:, :-1], cnt, flag, w)
+    with pytest.raises(ValueError, match="contiguous"):
+        dft_matmul(torch.zeros((4, 4), dtype=torch.complex64),
+                   torch.zeros((4, 8), dtype=torch.complex64).T)
+    # CPU tensors take the plain versions: no library is built or loaded
+    assert build.build_logs() == {} and build._LIBS == {}
