@@ -10,12 +10,36 @@ d = 128: ``repro/configs/fftb_paper.py``), then runs that SCF through the
 public entry point ``repro_torch.dft.run_scf`` on the kernel route
 (``backend="cuda"``) and on the plain ``torch.matmul`` route, and compares
 the two.  Every kernel of the path must have launched during the kernel
-route's run.  Exits non-zero, printing no result line, on any failed check
-or when no CUDA device is present.
+route's run.
+
+Two more paths follow, each with the launch counts set to 0 just before
+it and read just after:
+
+* the four-step DFT (``repro_torch.kernels.ops.four_step_dft``) on 4096
+  lines of n = 4096, forward and inverse, against ``torch.fft``, after the
+  twiddle kernel is held against its plain version (a ragged case and the
+  four-step's stage-1 shape);
+* the multi-tenant ``TransformService`` at n = 256 (d = 128 and d = 64
+  spheres, four tenants, nine requests, one with an expired deadline),
+  started with ``start()`` and warming asynchronously, the trace sent
+  once cold, once to the warm service and once more with the tracer's
+  sync on (the by-piece breakdown of each dispatch, read from the
+  service's own spans); every result is held against ``eager_apply``,
+  against the same trace through a ``backend="matmul"`` service, and the
+  round trips against their input.  Inside it the port's tracer records
+  one ``eager_apply``: its per-stage spans must match the plan's stages
+  and cover each stage's CUDA-event time.
+
+Exits non-zero, printing no result line, on any failed check or when no
+CUDA device is present.
 
 Printed, in order: the card's name and power limit, the kernel build time,
-per-kernel errors/exact-zero checks/times, the SCF comparison, one JSON
-line ``{"kernels": [...]}``, and last the device JSON line.
+per-kernel errors/exact-zero checks/times, the SCF comparison and its
+breakdown, the four-step phase (kernel #2's and the composition's times
+beside ``torch.fft``'s), the service phase (each pass's metrics summary
+beside the card's name and power limit, its batches, the warm pass's
+dispatch spans and the synced pass's dispatches by piece),
+one JSON line ``{"kernels": [...]}``, and last the device JSON line.
 """
 from __future__ import annotations
 
@@ -32,6 +56,23 @@ N, DIAMETER = 256, 128
 KPTS = ((0.0, 0.0, 0.0), (0.5, 0.5, 0.5))
 NBANDS, MAX_ITER, SEED = 16, 3, 0
 REDUCED = {"nbands": "256 -> 16 per k-point", "scf_iterations": "~40 -> 3"}
+
+# the four-step phase: B lines of a composite n = n1·n2 (n1 = n2 = 64)
+FOUR_STEP_LINES, FOUR_STEP_N = 4096, 4096
+# the service phase: the paper's cube and cutoff plus a smaller cutoff
+# (another compatibility class); tenants, requests, bands, sphere, potential
+SERVICE_N, SERVICE_D, SERVICE_D_SMALL, SERVICE_MAX_ROWS = 256, 128, 64, 16
+SERVICE_TRACE = (
+    # tenant, requests, bands, k-point, diameter, potential, deadline
+    ("alpha", 2, 4, (0.0, 0.0, 0.0), "d", True, None),
+    ("beta", 2, 4, (0.5, 0.5, 0.5), "d", True, None),
+    ("gamma", 2, 2, (0.0, 0.0, 0.0), "d", False, None),
+    ("delta", 2, 4, (0.0, 0.0, 0.0), "d_small", True, None),
+    ("alpha", 1, 1, (0.0, 0.0, 0.0), "d", True, 0.0),
+)
+# a traced stage's host-clock span against its CUDA-event time: the span
+# is synchronized at exit, so it covers the device work (and more)
+SPAN_COVERAGE = 0.9
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM and fp32 without
 # tensor cores, the unit these kernels use
@@ -82,6 +123,34 @@ def time_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def wall_ms(torch, fn, reps: int = 2) -> float:
+    """Host-clock ms of ``fn()`` between device synchronizations, mean
+    of ``reps`` calls after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def event_ms(torch, fn):
+    """(result, device ms) of one call of ``fn()``, by CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     t_mem = nbytes / HBM_BYTES_PER_S
     t_ops = flops / FP32_FLOP_PER_S
@@ -90,8 +159,10 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
 
 
 def rel_err(torch, got, want) -> tuple[float, float]:
-    err = float((got - want).abs().max())
-    return err, err / max(float(want.abs().max()), 1e-30)
+    """(max abs error, that over max |want|) for tensors or numpy arrays
+    (pass ``numpy`` as the first argument for the latter)."""
+    err = float(abs(got - want).max())
+    return err, err / max(float(abs(want).max()), 1e-30)
 
 
 def is_plus_zero(torch, t) -> bool:
@@ -235,6 +306,407 @@ def check_dft_pack(torch, dev, gen, spheres):
             "shape": f"({B},{DIAMETER},{DIAMETER},{N})->({B},{npk})"}
 
 
+def check_four_step(torch, dev, gen):
+    """Kernel #2 against its plain version, then the four-step path.
+
+    Returns the kernel's record and the path's own numbers; the launch
+    counts are those of the four-step path's run alone.
+    """
+    import numpy as np
+
+    from repro_torch.core.local_fft import dft_matrix_device
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.dft_matmul import (dft_matmul,
+                                                dft_matmul_twiddle,
+                                                dft_matmul_twiddle_plain)
+    from repro_torch.kernels.ref import twiddle_matrix
+    print("dft_matmul_twiddle (kernel #2): line-DFT GEMM + twiddle "
+          "epilogue", flush=True)
+    # (a) ragged edges, a general (M, N) twiddle table
+    x = crandn(torch, gen, (1000, 24), dev)
+    _, _, w = dft_matrix_device(40, 24, False, dev)
+    t = crandn(torch, gen, (1000, 40), dev)
+    _, rel = rel_err(torch, dft_matmul_twiddle(x, w, t),
+                     dft_matmul_twiddle_plain(x, w, t))
+    check(rel <= KERNEL_RTOL, f"ragged 1000x24->40, (1000, 40) table: rel "
+          f"err {rel:.3e} <= {KERNEL_RTOL:g}")
+    # (b) stage 1 of four_step_dft: B·n1 lines of n2, the (n1, n2) table
+    n1, n2 = ops._factor(FOUR_STEP_N)
+    M, K, Nn = FOUR_STEP_LINES * n1, n2, n2
+    x = crandn(torch, gen, (M, K), dev)
+    _, _, w = dft_matrix_device(Nn, K, False, dev)
+    t = torch.as_tensor(np.ascontiguousarray(
+        twiddle_matrix(n1, n2, False).T), device=dev)
+    y = dft_matmul_twiddle(x, w, t)
+    yp = dft_matmul_twiddle_plain(x, w, t)
+    err, rel = rel_err(torch, y, yp)
+    check(rel <= KERNEL_RTOL, f"stage 1 {M}x{K}->{Nn}, ({n1}, {n2}) "
+          f"table: max abs err {err:.3e}, rel {rel:.3e} <= "
+          f"{KERNEL_RTOL:g}")
+    # the library yardstick: one einsum computes (x·Wᵀ) ⊙ t[row mod n1]
+    xb = x.view(M // n1, n1, K)
+
+    def library():
+        return torch.einsum("btk,nk,tn->btn", xb, w, t).reshape(M, Nn)
+
+    _, lrel = rel_err(torch, library(), yp)
+    check(lrel <= KERNEL_RTOL, f"library einsum computes the same "
+          f"function: rel err {lrel:.3e} <= {KERNEL_RTOL:g}")
+    del y, yp
+    ms = time_ms(torch, lambda: dft_matmul_twiddle(x, w, t))
+    plain = time_ms(torch, lambda: dft_matmul_twiddle_plain(x, w, t),
+                    reps=5)
+    lib = time_ms(torch, library)
+    gemm = time_ms(torch, lambda: torch.matmul(x, w.T))
+    # each input read once (x, W, the table), y written once; the
+    # epilogue's complex product is 6 FLOP per output
+    b, by = bound_ms(8.0 * (M * K + Nn * K + n1 * Nn + M * Nn),
+                     8.0 * M * Nn * K + 6.0 * M * Nn)
+    print(f"  time {ms:.3f} ms, plain {plain:.3f} ms, library einsum "
+          f"{lib:.3f} ms, bound {b:.3f} ms ({by}); complex64 torch.matmul "
+          f"of the GEMM alone {gemm:.3f} ms", flush=True)
+    del x, xb
+    record = {"name": "dft_matmul_twiddle", "max_abs_err": err,
+              "rel_err": rel, "tolerance": KERNEL_RTOL, "ms": ms,
+              "plain_ms": plain, "bound_ms": b, "bound_by": by,
+              "library_ms": lib, "gemm_alone_ms": gemm,
+              "shape": f"{M}x{K}->{Nn} t({n1},{n2})"}
+
+    # (c) the path: four_step_dft on B lines of n, both directions
+    print(f"four_step_dft: ({FOUR_STEP_LINES}, {FOUR_STEP_N}) complex64 "
+          f"lines, n1={n1} n2={n2}", flush=True)
+    lines = crandn(torch, gen, (FOUR_STEP_LINES, FOUR_STEP_N), dev)
+    wrappers = (dft_matmul_twiddle, dft_matmul)
+    for fn in wrappers:
+        fn.launches = 0
+    fwd = ops.four_step_dft(lines)
+    inv = ops.four_step_dft(lines, inverse=True)
+    sync(torch, dev)
+    launches = {fn.__name__: fn.launches for fn in wrappers}
+    out = {}
+    for name, got, want in (
+            ("forward", fwd, torch.fft.fft(lines, dim=-1)),
+            ("inverse", inv, torch.fft.ifft(lines, dim=-1))):
+        e, r = rel_err(torch, got, want)
+        check(r <= KERNEL_RTOL, f"{name} vs torch.fft: max abs err {e:.3e}"
+              f", rel {r:.3e} <= {KERNEL_RTOL:g}")
+        out[f"{name}_rel_err"] = r
+    del fwd, inv
+    # (d) the twiddle kernel carried stage 1 of both calls
+    print(f"  kernel launches on the four-step path: {launches}",
+          flush=True)
+    check(launches["dft_matmul_twiddle"] == 2,
+          "dft_matmul_twiddle launched once per four_step_dft call")
+    check(launches["dft_matmul"] == 2,
+          "dft_matmul launched once per four_step_dft call (stage 2)")
+    out["ms"] = time_ms(torch, lambda: ops.four_step_dft(lines))
+    out["torch_fft_ms"] = time_ms(torch, lambda: torch.fft.fft(lines,
+                                                               dim=-1))
+    print(f"  four_step_dft {out['ms']:.3f} ms, torch.fft.fft "
+          f"{out['torch_fft_ms']:.3f} ms (forward, mean of 10)",
+          flush=True)
+    out["launches"] = launches
+    return record, out
+
+
+# ------------------------------------------------------------------ service
+def service_requests(rng):
+    """The service phase's requests, from the numpy generator ``rng``."""
+    import numpy as np
+
+    from repro_torch.core import kpoint_sphere
+    diam = {"d": SERVICE_D, "d_small": SERVICE_D_SMALL}
+    potentials = {}
+    reqs = []
+    for tenant, count, nbands, kpt, dkey, pot, deadline in SERVICE_TRACE:
+        sphere = kpoint_sphere(diam[dkey], kpt)
+        if pot and tenant not in potentials:
+            potentials[tenant] = rng.standard_normal(
+                (SERVICE_N,) * 3).astype(np.float32)
+        for _ in range(count):
+            c = (rng.standard_normal((nbands, sphere.npacked))
+                 + 1j * rng.standard_normal((nbands, sphere.npacked))
+                 ).astype(np.complex64)
+            reqs.append({"tenant": tenant, "coeffs": c, "sphere": sphere,
+                         "v_eff": potentials.get(tenant) if pot else None,
+                         "deadline": deadline})
+    return reqs
+
+
+def serve_trace(dev, backend, reqs):
+    """Start a service, send the trace three times, stop it.
+
+    The first (cold) pass pays the asynchronous plan builds and warm-up;
+    the metrics window is then reset and the same trace sent again to the
+    warm service, with the tracer recording its ``serve.dispatch`` spans
+    (no extra synchronization: a dispatch ends in the result's host copy).
+    A third pass records with the tracer's sync on, so each piece span
+    inside a dispatch covers its own device work (the by-piece
+    breakdown).  Returns the service and, per pass, its handles, each
+    request's result (the output array, or the ``ServeError`` it failed
+    with), the metrics summary, the dispatch spans' ms and, for the
+    third pass, the pieces of each dispatch.
+    """
+    from repro_torch.core import ProcGrid
+    from repro_torch.obs import get_tracer
+    from repro_torch.serve import ServeError, TransformService
+    svc = TransformService(
+        ProcGrid.create([1], ["dft_f"], device=dev), n=SERVICE_N,
+        padding_budget=0.5, max_rows=SERVICE_MAX_ROWS, backend=backend)
+    tr = get_tracer()
+    passes = []
+    svc.start()
+    try:
+        for name in ("cold", "warm", "synced"):
+            if name != "cold":
+                svc.metrics.reset()
+                tr.enable(sync=name == "synced", per_stage=False)
+            handles = [svc.submit(r["tenant"], r["coeffs"], r["sphere"],
+                                  v_eff=r["v_eff"], deadline=r["deadline"])
+                       for r in reqs]
+            results = []
+            for h in handles:
+                try:
+                    results.append(h.result(timeout=300))
+                except ServeError as err:
+                    results.append(err)
+            tr.disable()
+            evs = tr.events()
+            passes.append({"name": name, "handles": handles,
+                           "results": results,
+                           "summary": svc.metrics.summary(),
+                           "dispatch_ms": [
+                               round((e["t1"] - e["t0"]) * 1e3, 3)
+                               for e in evs if e["name"] == "serve.dispatch"]
+                           if name != "cold" else None,
+                           "pieces": dispatch_pieces(evs)
+                           if name == "synced" else None,
+                           "batches": batch_compositions(handles, reqs)})
+            tr.clear()
+    finally:
+        tr.disable()
+        svc.stop(timeout=300)
+    return svc, passes
+
+
+def dispatch_pieces(events) -> list[dict]:
+    """Per ``serve.dispatch`` span: its rows, bucket and ms, and the ms of
+    each child span the service's ``_dispatch`` records (uploads, unpack,
+    the two plans, ×v, pack, download), in dispatch order."""
+    out = []
+    for d in sorted((e for e in events if e["name"] == "serve.dispatch"),
+                    key=lambda e: e["t0"]):
+        row = {"rows": d["attrs"]["rows"], "bucket": d["attrs"]["bucket"],
+               "dispatch_ms": (d["t1"] - d["t0"]) * 1e3}
+        pieces = {}
+        for e in events:
+            if (e["parent"] == "serve.dispatch" and e["tid"] == d["tid"]
+                    and d["t0"] <= e["t0"] and e["t1"] <= d["t1"]):
+                name = e["name"].removeprefix("serve.")
+                if name == "stacked_planewave":
+                    name = ("inverse" if e["attrs"]["inverse"]
+                            else "forward") + "_plan"
+                pieces[f"{name}_ms"] = (e["t1"] - e["t0"]) * 1e3
+        row.update(pieces)
+        row["pieces_sum_ms"] = sum(pieces.values())
+        out.append(row)
+    return out
+
+
+def print_pieces(what: str, rows) -> None:
+    print(f"  {what}, each dispatch by piece (the service's own spans, "
+          "ms, host clock, synchronized at each span's exit):", flush=True)
+    for row in rows:
+        print("    " + ", ".join(f"{k} {v:.1f}" if isinstance(v, float)
+                                 else f"{k} {v}" for k, v in row.items()),
+              flush=True)
+
+
+def batch_compositions(handles, reqs) -> list[str]:
+    """Each dispatched batch as ``tenant x bands + ...``, in dispatch
+    order (a batch is the requests that share a ``dispatched_at``)."""
+    batches: dict = {}
+    for h, r in zip(handles, reqs):
+        if h.dispatched_at is not None:
+            batches.setdefault(h.dispatched_at, []).append(
+                f"{r['tenant']}x{r['coeffs'].shape[0]}")
+    return [" + ".join(b) for _, b in sorted(batches.items())]
+
+
+def check_service(torch, dev, gpu):
+    import numpy as np
+
+    from repro_torch.kernels.dft_matmul import dft_matmul
+    from repro_torch.kernels import sphere_pack
+    from repro_torch.serve import DeadlineExceeded
+    print(f"TransformService: n={SERVICE_N}, d={SERVICE_D} and "
+          f"{SERVICE_D_SMALL}, max_rows={SERVICE_MAX_ROWS}, "
+          "padding_budget=0.5, start() + async warming", flush=True)
+    reqs = service_requests(np.random.default_rng(SEED + 2))
+    print("  trace: " + ", ".join(
+        f"{t}: {c}x{nb} bands d={SERVICE_D if k == 'd' else SERVICE_D_SMALL}"
+        f" k={kp}{' +v_eff' if p else ''}"
+        f"{f' deadline={dl}' if dl is not None else ''}"
+        for t, c, nb, kp, k, p, dl in SERVICE_TRACE), flush=True)
+    wrappers = (dft_matmul, sphere_pack.unpack_dft, sphere_pack.dft_pack)
+    for fn in wrappers:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    svc, passes = serve_trace(dev, "cuda", reqs)
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in wrappers}
+    cold, warm, synced = passes
+    for p in passes:
+        print(f"  service metrics, {p['name']} pass ({gpu}): "
+              + json.dumps(p["summary"]), flush=True)
+    for p in passes:
+        print(f"  {p['name']} pass batches: {p['batches']}", flush=True)
+    print(f"  warm pass: serve.dispatch spans {warm['dispatch_ms']} ms",
+          flush=True)
+    print_pieces("synced pass", synced["pieces"])
+    print(f"  wall {wall:.3f} s for three passes of {len(reqs)} requests "
+          f"(plan builds and warming included); launches {launches}",
+          flush=True)
+    check(launches["dft_matmul"] > 0,
+          f"dft_matmul launched {launches['dft_matmul']} times in the "
+          "cuda service")
+    check(launches["unpack_dft"] == launches["dft_pack"] == 0,
+          "the service composes unpack/plan/pack: no fused sphere kernel")
+
+    ok = [i for i, r in enumerate(reqs) if r["deadline"] is None]
+    late = [i for i, r in enumerate(reqs) if r["deadline"] is not None]
+    summary = cold["summary"]
+    check(summary["dispatches"] < len(reqs)
+          and summary["coalesced_dispatches"] >= 1,
+          f"requests coalesced: {summary['dispatches']} dispatches for "
+          f"{len(reqs)} requests")
+    pieces = synced["pieces"]
+    check(len(pieces) == synced["summary"]["dispatches"] and all(
+        {"upload_coeffs_ms", "unpack_ms", "inverse_plan_ms",
+         "forward_plan_ms", "pack_ms", "download_ms"} <= row.keys()
+        and row["pieces_sum_ms"] <= row["dispatch_ms"] for row in pieces),
+          f"synced pass: {len(pieces)} dispatches, each with its piece "
+          "spans, nested inside it")
+    errs = {"eager": 0.0, "matmul": 0.0, "round_trip": 0.0}
+    for p in passes:
+        name, results = p["name"], p["results"]
+        check(all(isinstance(results[i], DeadlineExceeded) for i in late),
+              f"{name}: {len(late)} deadline=0.0 request(s) failed with "
+              "DeadlineExceeded")
+        check(all(isinstance(results[i], np.ndarray) for i in ok),
+              f"{name}: {len(ok)} requests resolved with results")
+        pad = p["summary"]["padding_fraction_max"]
+        check(pad <= 0.5, f"{name}: padding_fraction_max {pad} <= 0.5")
+        batches: dict = {}
+        for i in ok:
+            batches.setdefault(p["handles"][i].dispatched_at, set()).add(
+                reqs[i]["sphere"].extents)
+        check(all(len(ext) == 1 for ext in batches.values()),
+              f"{name}: {len(batches)} batches, none mixes d={SERVICE_D} "
+              f"and d={SERVICE_D_SMALL} rows")
+        for i in ok:
+            r = reqs[i]
+            _, rel = rel_err(np, results[i], svc.eager_apply(
+                r["coeffs"], r["sphere"], r["v_eff"]))
+            errs["eager"] = max(errs["eager"], rel)
+            if r["v_eff"] is None:
+                _, rel = rel_err(np, results[i], r["coeffs"])
+                errs["round_trip"] = max(errs["round_trip"], rel)
+    check(errs["eager"] <= KERNEL_RTOL, f"every result vs eager_apply: "
+          f"max rel err {errs['eager']:.3e} <= {KERNEL_RTOL:g}")
+    check(errs["round_trip"] <= KERNEL_RTOL, "gamma round trips return "
+          f"their input: max rel err {errs['round_trip']:.3e}")
+
+    tracer = trace_eager_apply(torch, dev, svc, reqs[ok[0]])
+
+    before = dft_matmul.launches
+    m_svc, m_passes = serve_trace(dev, "matmul", reqs)
+    check(dft_matmul.launches == before,
+          "dft_matmul never launched in the matmul service")
+    for p, mp in zip(passes, m_passes):
+        for i in ok:
+            _, rel = rel_err(np, p["results"][i], mp["results"][i])
+            errs["matmul"] = max(errs["matmul"], rel)
+    check(errs["matmul"] <= KERNEL_RTOL, f"every result vs the matmul "
+          f"service: max rel err {errs['matmul']:.3e} <= {KERNEL_RTOL:g}")
+    for mp in m_passes:
+        print(f"  matmul service metrics, {mp['name']} pass: "
+              + json.dumps(mp["summary"]), flush=True)
+    print(f"  matmul warm pass: serve.dispatch spans "
+          f"{m_passes[1]['dispatch_ms']} ms", flush=True)
+    print_pieces("matmul synced pass", m_passes[2]["pieces"])
+    return {"cold": summary, "warm": warm["summary"],
+            "warm_dispatch_ms": warm["dispatch_ms"],
+            "matmul_cold": m_passes[0]["summary"],
+            "matmul_warm": m_passes[1]["summary"],
+            "matmul_warm_dispatch_ms": m_passes[1]["dispatch_ms"],
+            "wall_s": wall, "launches": launches, "max_rel_err": errs,
+            "tracer": tracer, "synced_dispatch_pieces": pieces,
+            "matmul_synced_dispatch_pieces": m_passes[2]["pieces"]}
+
+
+def trace_eager_apply(torch, dev, svc, req):
+    """The port's tracer around one ``eager_apply``: its stage spans must
+    be the plans' stages, in order, each covering its stage's device time
+    (a span is synchronized with the card at exit)."""
+    import tempfile
+
+    from repro_torch.core import Domain, fftb
+    from repro_torch.core.plan import FFTStage
+    from repro_torch.obs import get_tracer
+    bdom = Domain((0,), (req["coeffs"].shape[0] - 1,))
+    inv = fftb.plan_for(svc._pw_spec, domains=(bdom, req["sphere"]),
+                        grid=svc.grid, sizes=(svc.n,) * 3, inverse=True,
+                        backend=svc.backend, cache=svc.cache)
+    fwd = inv.inverse()
+    stages = list(inv.stages) + list(fwd.stages)
+    want = [("idft" if st.inverse else "dft") + f"[{st.dim}] "
+            f"{st.n_in}->{st.n_out}" if isinstance(st, FFTStage)
+            else f"a2a[{st.axis_name}] {st.src}->{st.dst}" for st in stages]
+    tr = get_tracer().enable(sync=True, per_stage=True)
+    try:
+        svc.eager_apply(req["coeffs"], req["sphere"], req["v_eff"])
+    finally:
+        tr.disable()
+    evs = sorted((e for e in tr.events()
+                  if (e["parent"] or "").startswith("plan:")),
+                 key=lambda e: e["t0"])
+    names = [e["name"] for e in evs]
+    check(names == want, f"{len(names)} stage spans match the plans' "
+          f"stages: {names}")
+    # each stage again, alone, between CUDA events, on the same inputs
+    c = torch.as_tensor(req["coeffs"], device=dev)
+    x = inv.unpack(c)
+    dev_ms = []
+    for st in inv.stages:
+        x, ms = event_ms(torch, lambda st=st, x=x: st.apply(x))
+        dev_ms.append(ms)
+    if req["v_eff"] is not None:
+        x = x * torch.as_tensor(req["v_eff"], device=dev)
+    for st in fwd.stages:
+        x, ms = event_ms(torch, lambda st=st, x=x: st.apply(x))
+        dev_ms.append(ms)
+    span_ms = [(e["t1"] - e["t0"]) * 1e3 for e in evs]
+    # line-DFT stages only: a move over a one-process axis does no work
+    cover = [s / d for s, d, st in zip(span_ms, dev_ms, stages)
+             if isinstance(st, FFTStage)]
+    print("  stage spans (ms, host clock) vs CUDA events (ms): " + ", ".join(
+        f"{n} {s:.3f}/{d:.3f}" for n, s, d in zip(names, span_ms, dev_ms)),
+        flush=True)
+    check(min(cover) >= SPAN_COVERAGE, f"every line-DFT stage span "
+          f"covers >= {SPAN_COVERAGE:g} of its stage's device time (min "
+          f"{min(cover):.3f}): span exit synchronized the card")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = tr.export_chrome(os.path.join(tmp, "eager_apply.json"))
+        with open(path) as f:
+            nev = sum(1 for e in json.load(f)["traceEvents"]
+                      if e["ph"] == "X")
+    check(nev == len(tr.events()), f"Chrome trace exported: {nev} events")
+    tr.clear()
+    return {"stages": names, "span_ms": span_ms, "event_ms": dev_ms,
+            "min_coverage": min(cover)}
+
+
 # ---------------------------------------------------------------------- SCF
 def run_slice(torch, dev):
     import numpy as np
@@ -330,15 +802,6 @@ def breakdown(torch, dev):
 
     steps = SCFConfig().inner_steps
 
-    def wall_ms(fn, reps=2):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) / reps * 1e3
-
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     v = torch.randn((N, N, N), generator=gen, device=dev)
     rho = torch.rand((N, N, N), generator=gen, device=dev)
@@ -353,14 +816,18 @@ def breakdown(torch, dev):
         hart = HartreeSolver(b)
         occ = np.ones((b.nk, NBANDS))
         mixer = AndersonMixer(history=5, warmup=MAX_ITER)
-        t = {"hartree_ms": wall_ms(lambda: hart(rho)),
+        t = {"hartree_ms": wall_ms(torch, lambda: hart(rho)),
              "h_apply_ms": wall_ms(
+                 torch,
                  lambda: apply_hamiltonian_padded(b, c, v, tab.kinetic)),
-             "linalg_step_ms": wall_ms(lambda: _rayleigh_ritz_stacked(
-                 c, _descent_direction_stacked(c, c, tab.precond), c, c)),
+             "linalg_step_ms": wall_ms(
+                 torch, lambda: _rayleigh_ritz_stacked(
+                     c, _descent_direction_stacked(c, c, tab.precond), c,
+                     c)),
              "density_ms": wall_ms(
+                 torch,
                  lambda: density_from_orbitals(b, blocks, occ)),
-             "mix_ms": wall_ms(lambda: mixer.mix(rho, rho))}
+             "mix_ms": wall_ms(torch, lambda: mixer.mix(rho, rho))}
         t["model_iteration_ms"] = (2 * t["hartree_ms"]
                                    + 2 * steps * t["h_apply_ms"]
                                    + steps * t["linalg_step_ms"]
@@ -389,7 +856,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", torch.cuda.current_device())
-    print(f"gpu: {gpu_line()}", flush=True)
+    gpu = gpu_line()
+    print(f"gpu: {gpu}", flush=True)
     t0 = time.perf_counter()
     build.build_all()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -409,9 +877,27 @@ def main() -> int:
     print("scf: " + json.dumps(scf), flush=True)
     print("iteration breakdown (host clock, synchronized):", flush=True)
     scf["breakdown"] = breakdown(torch, dev)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    twiddle, four_step = check_four_step(torch, dev, gen)
+    results.append(twiddle)
+    launches["dft_matmul_twiddle"] = four_step["launches"][
+        "dft_matmul_twiddle"]
+    print("four_step: " + json.dumps(four_step), flush=True)
+    print(f"four-step phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    service = check_service(torch, dev, gpu)
+    print("service: " + json.dumps(service), flush=True)
+    print(f"service phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
     sources = {"dft_matmul": ("src/repro_torch/kernels/csrc/dft_matmul.cu",
                               "src/repro/kernels/dft_matmul.py:32"),
+               "dft_matmul_twiddle": (
+                   "src/repro_torch/kernels/csrc/dft_matmul.cu",
+                   "src/repro/kernels/dft_matmul.py:51"),
                "unpack_dft": ("src/repro_torch/kernels/csrc/sphere_pack.cu",
                               "src/repro/kernels/sphere_pack.py:134"),
                "dft_pack": ("src/repro_torch/kernels/csrc/sphere_pack.cu",

@@ -24,10 +24,12 @@ replaced under them).
 """
 from __future__ import annotations
 
-import threading
 import time
 from collections import OrderedDict
 
+from ..check.locks import TrackedLock, check_dispatch_hazard
+from ..obs.metrics import global_metrics
+from ..obs.trace import get_tracer
 from .domain import Domain, SphereDomain
 from .grid import ProcGrid
 
@@ -68,9 +70,7 @@ class PlanCache:
         # (n_out, n_in, inverse) -> [refcount, nbytes] over cached plans
         self._table_refs: dict = {}
         self._bytes = 0
-        # a plain lock until the port's check/ slice brings lock-order
-        # tracking (ROADMAP §1 item 11)
-        self._lock = threading.RLock()  # noqa: FFTB205
+        self._lock = TrackedLock("plan_cache", reentrant=True)
         self.hits = 0
         self.misses = 0
         self.evictions = 0
@@ -112,14 +112,24 @@ class PlanCache:
         discarded (other callers may already hold the winner) and its
         caller is served the cached plan as a hit, not a miss.
         """
+        tr = get_tracer()
         with self._lock:
             if key in self._data:
                 self._data.move_to_end(key)
                 self.hits += 1
+                tr.instant("plan_cache.hit")
                 return self._data[key][0]
+        tr.instant("plan_cache.miss")
+        # builders can take seconds (schedule search, table uploads) —
+        # holding any lock across one is the hazard the checker hunts
+        check_dispatch_hazard("plan_cache.build")
         t0 = time.perf_counter()
-        plan = builder()
+        with tr.span("plan_build"):
+            plan = builder()
         build_s = time.perf_counter() - t0
+        global_metrics().histogram("plan_cache.build_ms").record(
+            build_s * 1e3)
+        evicted = 0
         with self._lock:
             self.builds += 1
             self.build_seconds += build_s
@@ -140,6 +150,9 @@ class PlanCache:
                 _, (_, priv, tabs) = self._data.popitem(last=False)
                 self._drop_entry_bytes(priv, tabs)
                 self.evictions += 1
+                evicted += 1
+        for _ in range(evicted):
+            tr.instant("plan_cache.evict")
         return plan
 
     def peek(self, key):
@@ -182,6 +195,10 @@ class PlanCache:
 
 
 _GLOBAL = PlanCache()
+
+# the cache keeps its own counters; the registry reads them through a
+# probe so snapshots see cache behaviour without the cache changing shape
+global_metrics().register_probe("plan_cache", lambda: _GLOBAL.stats)
 
 
 def global_plan_cache() -> PlanCache:

@@ -174,14 +174,28 @@ def plan_for(spec: str, *, domains, grid, out_domains=None, sizes=None,
              inverse: bool = False, backend: str = "matmul",
              policy: ExecPolicy | None = None,
              cache: PlanCache | None = None) -> Plan:
-    """Cached plan lookup — builds (schedule search and all) only on miss."""
+    """Cached plan lookup — builds (schedule search and all) only on miss.
+
+    A miss first runs the transform preflight: a bad spec, domain or grid
+    raises :class:`~repro_torch.check.DiagnosticError` with its
+    ``FFTB1xx`` code before any plan work.
+    """
     cache = cache if cache is not None else global_plan_cache()
     key = _plan_cache_key(spec, domains, grid, out_domains=out_domains,
                           sizes=sizes, inverse=inverse, backend=backend,
                           policy=policy)
-    return cache.get_or_build(key, lambda: Transform.parse(spec).build(
-        domains, grid, out_domains=out_domains, sizes=sizes,
-        inverse=inverse, backend=backend, policy=policy))
+
+    def _build():
+        # coded preflight diagnostics before any plan work — runs on
+        # cache misses only, so the hot (hit) path pays nothing
+        from ..check.preflight import check_transform
+        check_transform(spec, domains=domains, grid=grid, sizes=sizes,
+                        out_domains=out_domains)
+        return Transform.parse(spec).build(
+            domains, grid, out_domains=out_domains, sizes=sizes,
+            inverse=inverse, backend=backend, policy=policy)
+
+    return cache.get_or_build(key, _build)
 
 
 def apply(spec: str, x, *, domains, grid, out_domains=None, sizes=None,
@@ -217,6 +231,19 @@ def fftb(spec, *args, **kwargs):
     return Transform.parse(spec).build(*args, **kwargs)
 
 
+def _preflight(target, **kwargs):
+    """``fftb.preflight(...)`` — static feasibility diagnostics.
+
+    A spec string routes to the transform checks, a service config dict
+    to the service checks; returns the
+    :class:`~repro_torch.check.diagnostics.Diagnostic` list, never raises
+    on a bad configuration.
+    """
+    from ..check.preflight import preflight
+    return preflight(target, **kwargs)
+
+
 fftb.apply = apply
 fftb.plan_for = plan_for
 fftb.cache = global_plan_cache
+fftb.preflight = _preflight

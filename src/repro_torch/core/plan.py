@@ -16,7 +16,10 @@ device: a move over an axis of size 1 is the identity, and moves over
 larger axes belong to the distributed slice of the port.
 
 ``Plan`` is the common base of ``FftPlan`` and ``PlaneWaveFFT``: execution
-policy resolution and the flop/comm accounting shared by both.  Every plan
+policy resolution, tracing and the flop/comm accounting shared by both.
+With the tracer on (``repro_torch.obs.get_tracer().enable()``) a plan
+records a ``plan:`` span and one span per stage, each synchronized with
+the card at exit.  Every plan
 can *derive* its mirror transforms — ``plan.inverse()`` and
 ``plan.adjoint()`` reverse the stage list (each stage knows its own mirror)
 instead of running a second schedule search.
@@ -26,8 +29,11 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import math
+from functools import cached_property
 
 from . import layout as L
+from ..obs.metrics import global_metrics
+from ..obs.trace import get_tracer
 from .dtensor import DistTensor
 from .local_fft import dft_flops, local_dft, realized_backend
 from .policy import ExecPolicy
@@ -112,7 +118,16 @@ class Plan:
         if pol.check_shapes and tuple(x.shape) != self.tin.shape:
             raise ValueError(f"input shape {tuple(x.shape)} != "
                              f"{self.tin.shape}")
+        tr = get_tracer()
+        if tr.enabled:
+            return self._execute_traced(x, pol, tr)
         return self._execute(x, pol)
+
+    def _execute_traced(self, x, pol: ExecPolicy, tr):
+        """Execution with a span around it (device-synchronized)."""
+        with tr.span(f"transform:{type(self).__name__}",
+                     shape=list(self.tin.shape), mode=pol.mode) as sp:
+            return sp.sync(self._execute(x, pol))
 
     def resolve_policy(self, *,
                        policy: ExecPolicy | None = None) -> ExecPolicy:
@@ -417,14 +432,23 @@ class FftPlan(Plan):
         return self._mirror(scale)
 
     # ----------------------------------------------------------- execution
-    def _raw_apply(self, x):
-        for st in self.stages:
-            x = st.apply(x)
+    def _raw_apply(self, x, tr=None):
+        """The stages in order, then the scale.  With a tracer ``tr``,
+        each stage runs in its own span, synchronized at exit, so a span
+        covers its own stage's device work."""
+        for i, st in enumerate(self.stages):
+            if tr is None:
+                x = st.apply(x)
+                continue
+            meta = self._stage_meta[i]
+            attrs = {k: v for k, v in meta.items() if k != "name"}
+            with tr.span(meta["name"], **attrs) as ssp:
+                x = ssp.sync(st.apply(x))
         if self.scale != 1.0:
             x = x * self.scale
         return x
 
-    def _execute(self, x, pol: ExecPolicy):
+    def _check_executable(self, pol: ExecPolicy) -> None:
         if pol.mode != "eager":
             raise NotImplementedError(
                 f"execution mode {pol.mode!r}: only the eager executor is "
@@ -433,5 +457,49 @@ class FftPlan(Plan):
         if self.grid.is_abstract:
             raise RuntimeError("an abstract (device-less) grid cannot "
                                "execute a plan; build it on ProcGrid.create")
+
+    def _execute(self, x, pol: ExecPolicy, tr=None):
+        self._check_executable(pol)
         FftPlan.executions += 1
-        return self._raw_apply(x)
+        if tr is None:
+            return self._raw_apply(x)
+        name = ("ifft" if self.is_inverse else "fft") \
+            + f"{len(self.fft_pairs)}d"
+        with tr.span(f"plan:{name}", shape=list(self.tin.shape),
+                     mode=pol.mode, stages=len(self.stages)) as sp:
+            return sp.sync(self._raw_apply(x, tr if tr.per_stage else None))
+
+    # -------------------------------------------------- traced execution
+    @cached_property
+    def _stage_meta(self) -> list[dict]:
+        """Span name and attributes of every stage, in order.
+
+        Line-DFT stages are ``idft[z] 8->16`` (kind, realized backend);
+        moves are ``a2a[axis] x->z`` with the comm model's
+        ``bytes_per_device``/``procs``, so traces hold measured and
+        modeled comm side by side.
+        """
+        comm = iter(self.comm_stats())
+        out = []
+        for st in self.stages:
+            if isinstance(st, FFTStage):
+                kind = "idft" if st.inverse else "dft"
+                out.append({"name": f"{kind}[{st.dim}] {st.n_in}->"
+                                    f"{st.n_out}",
+                            "kind": "fft", "backend": st.realized_backend})
+            else:
+                stats = next(comm)
+                out.append({"name": f"a2a[{st.axis_name}] {st.src}->"
+                                    f"{st.dst}",
+                            "kind": "a2a", "procs": stats["procs"],
+                            "model_bytes_per_device":
+                                stats["bytes_per_device"]})
+        return out
+
+    def _execute_traced(self, x, pol: ExecPolicy, tr):
+        return self._execute(x, pol, tr)
+
+
+global_metrics().register_probe(
+    "fftb", lambda: {"executions": FftPlan.executions,
+                     "searches": FftPlan.searches})

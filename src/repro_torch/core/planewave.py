@@ -29,6 +29,7 @@ import math
 import numpy as np
 import torch
 
+from ..obs.trace import get_tracer
 from .domain import Domain, SphereDomain
 from .dtensor import DistTensor
 from .local_fft import dft_matrix_device, realized_backend
@@ -192,7 +193,12 @@ class _FusedTransformMixin:
         if (parts is None or pol.mode != "eager"
                 or tuple(packed.shape) != parts["in_shape"]):
             return self(self.unpack(packed), policy=pol)
-        return parts["rem"](parts["fn"](packed), policy=pol)
+        from ..kernels import sphere_pack
+        sphere_pack.DISPATCHES["unpack_dft"] += 1
+        with get_tracer().span("fused:unpack_dft", backend="cuda",
+                               npacked=parts["in_shape"][1]) as sp:
+            mid = sp.sync(parts["fn"](packed))
+        return parts["rem"](mid, policy=pol)
 
     def transform_pack(self, cube, *, policy: ExecPolicy | None = None):
         """Transform + ``pack`` in one go — fused on the "cuda" backend."""
@@ -200,7 +206,12 @@ class _FusedTransformMixin:
         parts = self._fused_out_parts()
         if parts is None or pol.mode != "eager":
             return self.pack(self(cube, policy=pol))
-        return parts["fn"](parts["lead"](cube, policy=pol))
+        from ..kernels import sphere_pack
+        sphere_pack.DISPATCHES["dft_pack"] += 1
+        mid = parts["lead"](cube, policy=pol)
+        with get_tracer().span("fused:dft_pack", backend="cuda",
+                               npacked=parts["out_shape"][1]) as sp:
+            return sp.sync(parts["fn"](mid))
 
     def _fused_table_bytes(self) -> int:
         tot = 0
@@ -241,6 +252,13 @@ class PlaneWaveFFT(_FusedTransformMixin, Plan):
     # ------------------------------------------------------------- execute
     def _execute(self, x, pol: ExecPolicy):
         return self.plan._execute(x, pol)
+
+    def _execute_traced(self, x, pol: ExecPolicy, tr):
+        # wrap the inner plan's (possibly per-stage) spans in one
+        # transform-level span tagged with the sphere shape
+        with tr.span("planewave", inverse=self.is_inverse,
+                     d=self.sphere.extents[0], n=self.n[0]) as sp:
+            return sp.sync(self.plan._execute_traced(x, pol, tr))
 
     @property
     def stages(self):
@@ -595,6 +613,12 @@ class StackedPlaneWaveFFT(_FusedTransformMixin, Plan):
     # ------------------------------------------------------------- execute
     def _execute(self, x, pol: ExecPolicy):
         return self.plan._execute(x, pol)
+
+    def _execute_traced(self, x, pol: ExecPolicy, tr):
+        with tr.span("stacked_planewave", inverse=self.is_inverse,
+                     nk=self.nk, npacked_max=self.npacked_max,
+                     padding=round(self.padding_fraction, 4)) as sp:
+            return sp.sync(self.plan._execute_traced(x, pol, tr))
 
     @property
     def stages(self):

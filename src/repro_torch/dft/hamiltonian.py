@@ -34,10 +34,16 @@ from __future__ import annotations
 
 import torch
 
+from ..obs.metrics import global_metrics
+from ..obs.trace import get_tracer
+
 #: process-wide count of per-k eager linalg calls (descent-direction
 #: builds and Rayleigh-Ritz solves dispatched for a single k-point) —
 #: lets tests assert the stacked engine performs zero of them.
 PERK_LINALG_CALLS = 0
+
+global_metrics().register_probe(
+    "dft", lambda: {"per_k_linalg_calls": PERK_LINALG_CALLS})
 
 
 def _replicated(basis, x):
@@ -305,17 +311,19 @@ def update_bands_all_k(basis, coeffs, v_eff, *, steps: int = 3,
         cs = [None] * nk
         eps_out = [None] * nk
         nsweep = 0
-        for s, seg in enumerate(basis.segments):
-            inv, _ = basis.stacked_hamiltonian_plans(s)
-            c_pad = inv.stack([coeffs[ik] for ik in seg]).reshape(
-                len(seg), inv.nbands, inv.npacked_max)
-            c_pad, eps, nsweep = update_bands_stacked(
-                basis, c_pad, v_eff, steps=steps, seg=s)
-            outs = inv.split(c_pad.reshape(len(seg) * inv.nbands,
-                                           inv.npacked_max))
-            for j, ik in enumerate(seg):
-                cs[ik] = outs[j]
-                eps_out[ik] = eps[j]
+        with get_tracer().span("band_update", route="stacked", nk=nk,
+                               steps=steps, segments=len(basis.segments)):
+            for s, seg in enumerate(basis.segments):
+                inv, _ = basis.stacked_hamiltonian_plans(s)
+                c_pad = inv.stack([coeffs[ik] for ik in seg]).reshape(
+                    len(seg), inv.nbands, inv.npacked_max)
+                c_pad, eps, nsweep = update_bands_stacked(
+                    basis, c_pad, v_eff, steps=steps, seg=s)
+                outs = inv.split(c_pad.reshape(len(seg) * inv.nbands,
+                                               inv.npacked_max))
+                for j, ik in enumerate(seg):
+                    cs[ik] = outs[j]
+                    eps_out[ik] = eps[j]
         return cs, eps_out, nsweep
     cs = [_replicated(basis, c) for c in coeffs]
     npms = [basis.pad_width(ik) for ik in range(nk)]

@@ -27,6 +27,7 @@ import torch
 
 from ..core import ProcGrid, global_plan_cache
 from ..core.policy import ExecPolicy
+from ..obs.trace import get_tracer
 from .basis import PlaneWaveBasis
 from .density import density_from_orbitals, electron_count
 from .hamiltonian import orthonormalize, update_bands, update_bands_all_k
@@ -299,38 +300,43 @@ def run_scf(cfg: SCFConfig, *, device=None, grid: ProcGrid | None = None,
     _sync(dev)
     t0 = time.perf_counter()
 
+    tr = get_tracer()
     for it in range(cfg.max_iter):
         it_t0 = time.perf_counter()
         it_transforms0 = transforms
-        vh = hartree(rho)
-        transforms += 2                    # cube fwd + derived inv
-        v_eff = v_ext + vh
-        if cfg.xc:
-            _, v_x = lda_exchange(rho)
-            v_eff = v_eff + v_x
-        if cfg.pipeline:
-            # all-k loop: the batched stacked engine when stacking, the
-            # pipelined per-k dispatch otherwise
-            coeffs, eps_list, nsweep = update_bands_all_k(
-                basis, coeffs, v_eff, steps=cfg.inner_steps,
-                stacked=stack_k)
-            for ik in range(basis.nk):
-                eigs[ik] = eps_list[ik].cpu().numpy()
-            transforms += nsweep * basis.nk * 2 * basis.nbands
-        else:
-            for ik in range(basis.nk):
-                coeffs[ik], eps, napply = update_bands(
-                    basis, ik, coeffs[ik], v_eff, steps=cfg.inner_steps)
-                eigs[ik] = eps.cpu().numpy()
-                transforms += napply * 2 * basis.nbands
-        rho_out = density_from_orbitals(basis, coeffs, occ)
-        transforms += basis.nk * basis.nbands
-        energy, _ = total_energy(basis, coeffs, rho_out, v_ext, hartree,
-                                 occ, xc=cfg.xc)
-        transforms += 2                    # energy's Hartree solve
-        # float() waits for rho_out, so the iteration's time is real work
-        resid = float(torch.linalg.norm(rho_out - rho)
-                      * basis.dv ** 0.5) / max(nelec, 1e-9)
+        with tr.span("scf_iteration", iteration=it,
+                     route="stacked" if stacked else "per-k"):
+            vh = hartree(rho)
+            transforms += 2                    # cube fwd + derived inv
+            v_eff = v_ext + vh
+            if cfg.xc:
+                _, v_x = lda_exchange(rho)
+                v_eff = v_eff + v_x
+            if cfg.pipeline:
+                # all-k loop: the batched stacked engine when stacking,
+                # the pipelined per-k dispatch otherwise
+                coeffs, eps_list, nsweep = update_bands_all_k(
+                    basis, coeffs, v_eff, steps=cfg.inner_steps,
+                    stacked=stack_k)
+                for ik in range(basis.nk):
+                    eigs[ik] = eps_list[ik].cpu().numpy()
+                transforms += nsweep * basis.nk * 2 * basis.nbands
+            else:
+                for ik in range(basis.nk):
+                    coeffs[ik], eps, napply = update_bands(
+                        basis, ik, coeffs[ik], v_eff,
+                        steps=cfg.inner_steps)
+                    eigs[ik] = eps.cpu().numpy()
+                    transforms += napply * 2 * basis.nbands
+            rho_out = density_from_orbitals(basis, coeffs, occ)
+            transforms += basis.nk * basis.nbands
+            energy, _ = total_energy(basis, coeffs, rho_out, v_ext,
+                                     hartree, occ, xc=cfg.xc)
+            transforms += 2                    # energy's Hartree solve
+            # float() waits for rho_out, so the iteration's time (and the
+            # span) is real work
+            resid = float(torch.linalg.norm(rho_out - rho)
+                          * basis.dv ** 0.5) / max(nelec, 1e-9)
         energies.append(energy)
         residuals.append(resid)
         iteration_records.append({

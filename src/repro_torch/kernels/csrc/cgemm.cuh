@@ -14,7 +14,11 @@
 //     fused pack);
 //   * a row with active == 0 is never computed: its stored values are a
 //     literal +0.0f.  A block whose rows are all inactive skips the
-//     K loop entirely (the zero-skip of the sphere kernels).
+//     K loop entirely (the zero-skip of the sphere kernels);
+//   * every computed value passes through the policy's epilogue,
+//     op.epilogue(row, c, y), just before its store: the identity for the
+//     plain line DFT and the sphere kernels, a complex twiddle product
+//     for the four-step DFT's first stage.
 //
 // Design: a 64x64 output tile per 256-thread block, K staged through
 // shared memory in chunks of 16, a 4x4 register micro-tile of complex
@@ -126,12 +130,14 @@ cgemm_kernel(Op op, const float2* __restrict__ a,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const Row& r = rows[ty + 16 * i];
+    const int64_t row = m0 + ty + 16 * i;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int c = n0 + tx + 16 * j;
       if (c < r.out_lo || c >= r.out_hi) continue;
-      y[r.out + c] = r.active ? make_float2(cr[i][j], ci[i][j])
-                              : make_float2(0.0f, 0.0f);
+      y[r.out + c] = r.active
+          ? op.epilogue(row, c, make_float2(cr[i][j], ci[i][j]))
+          : make_float2(0.0f, 0.0f);
     }
   }
 }

@@ -63,6 +63,7 @@ struct UnpackRows {
     out.in_hi = lo + c;
     return out;
   }
+  __device__ float2 epilogue(int64_t, int, float2 v) const { return v; }
 };
 
 struct PackRows {
@@ -90,6 +91,7 @@ struct PackRows {
     out.active = c > 0 ? 1 : 0;
     return out;
   }
+  __device__ float2 epilogue(int64_t, int, float2 v) const { return v; }
 };
 
 __global__ void zero_tail_kernel(float2* __restrict__ out,

@@ -1,0 +1,36 @@
+"""Oracles for the kernels: numpy and ``torch.fft``, independent of the
+DFT-matrix construction the kernels use.  ``twiddle_matrix`` is the one
+table both the four-step composition and its tests read."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def complex_matmul_ref(xr, xi, wr, wi):
+    """Oracle for the raw GEMM: y = x @ w.T in split re/im form."""
+    yr = xr @ wr.T - xi @ wi.T
+    yi = xr @ wi.T + xi @ wr.T
+    return yr, yi
+
+
+def four_step_ref(x, *, inverse: bool = False):
+    """Oracle for ``kernels.ops.four_step_dft`` — plain ``torch.fft``."""
+    fn = torch.fft.ifft if inverse else torch.fft.fft
+    return fn(x, dim=-1)
+
+
+def twiddle_matrix(n1: int, n2: int, inverse: bool) -> np.ndarray:
+    """W_N^{j1·k2} twiddles for the four-step split N = n1·n2.
+
+    Convention (kernels/ops.py): input line reshaped to (n2, n1) with j1
+    fast; inner DFT_n2 over axis 0 → T[k2, j1]; T *= W[k2, j1]; outer DFT_n1
+    over axis 1 → Z[k2, k1]; output = Z.T.ravel().  Returns the
+    ``(n2, n1)`` complex64 table, bit for bit the reference's.
+    """
+    n = n1 * n2
+    j1 = np.arange(n1)
+    k2 = np.arange(n2)
+    sign = 2j if inverse else -2j
+    w = np.exp(sign * np.pi * np.outer(k2, j1) / n)
+    return w.astype(np.complex64)

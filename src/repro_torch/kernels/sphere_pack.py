@@ -38,8 +38,17 @@ import functools
 import numpy as np
 import torch
 
+from ..obs.metrics import global_metrics
 from . import build
 from .dft_matmul import _check, dft_matmul_plain
+
+#: process-wide counts of fused-kernel calls through the plane-wave
+#: wrappers' ``unpack_transform``/``transform_pack`` (the reference's
+#: ``DISPATCHES``); a CUDA launch is also counted on the wrapper itself
+#: (``unpack_dft.launches``, ``dft_pack.launches``)
+DISPATCHES = {"unpack_dft": 0, "dft_pack": 0}
+
+global_metrics().register_probe("sphere_pack", lambda: dict(DISPATCHES))
 
 
 # --------------------------------------------------------------- tables

@@ -1,5 +1,6 @@
 """repro_torch on the card: each hand-written CUDA kernel against its plain
-PyTorch version, and the SCF slice on the kernel route.
+PyTorch version, the four-step DFT against ``torch.fft``, the SCF slice
+on the kernel route, and a small transform-service run.
 
 These tests need a CUDA device and skip without one (the kernels have no
 CPU mode).  They import neither JAX nor the reference package, so they run
@@ -18,8 +19,12 @@ import torch
 from repro_torch.core import kpoint_sphere
 from repro_torch.core.local_fft import dft_matrix_device
 from repro_torch.dft import SCFConfig, run_scf
+from repro_torch.kernels import ops
 from repro_torch.kernels import sphere_pack as sp
-from repro_torch.kernels.dft_matmul import dft_matmul, dft_matmul_plain
+from repro_torch.kernels.dft_matmul import (dft_matmul, dft_matmul_plain,
+                                            dft_matmul_twiddle,
+                                            dft_matmul_twiddle_plain)
+from repro_torch.kernels.ref import twiddle_matrix
 
 KPTS2 = ((0.0, 0.0, 0.0), (0.5, 0.5, 0.5))
 RTOL = 1e-5
@@ -101,3 +106,73 @@ def test_scf_on_cuda_launches_every_kernel_and_matches_cpu(cuda_device):
     cpu = run_scf(cfg, device="cpu")
     np.testing.assert_allclose(gpu.energies, cpu.energies, rtol=0,
                                atol=3e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["general", "four_step"])
+def test_cuda_twiddle_kernel_matches_plain(case, cuda_device):
+    dev = cuda_device
+    rng = np.random.default_rng(12)
+    if case == "general":                      # ragged, a (M, N) table
+        x = _cx(rng, (1000, 24), dev)
+        _, _, w = dft_matrix_device(40, 24, False, dev)
+        t = _cx(rng, (1000, 40), dev)
+    else:                                      # stage 1 of n = 64·32
+        n1, n2 = ops._factor(2048)
+        x = _cx(rng, (50 * n1, n2), dev)
+        _, _, w = dft_matrix_device(n2, n2, True, dev)
+        t = torch.as_tensor(np.ascontiguousarray(
+            twiddle_matrix(n1, n2, True).T), device=dev)
+    before = dft_matmul_twiddle.launches
+    _close(dft_matmul_twiddle(x, w, t), dft_matmul_twiddle_plain(x, w, t))
+    assert dft_matmul_twiddle.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n", [64, 360, 4096])
+def test_cuda_four_step_matches_torch_fft(n, inverse, cuda_device):
+    rng = np.random.default_rng(n)
+    x = _cx(rng, (33, n), cuda_device)
+    before = (dft_matmul_twiddle.launches, dft_matmul.launches)
+    y = ops.four_step_dft(x, inverse=inverse)
+    fn = torch.fft.ifft if inverse else torch.fft.fft
+    _close(y, fn(x, dim=-1))
+    assert (dft_matmul_twiddle.launches, dft_matmul.launches) == \
+        (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_cuda_transform_service_coalesces_and_matches_eager(cuda_device):
+    from repro_torch.core import PlanCache, ProcGrid
+    from repro_torch.serve import DeadlineExceeded, TransformService
+    g = ProcGrid.create([1], device=cuda_device)
+    svc = TransformService(g, 16, max_rows=8, backend="cuda",
+                           cache=PlanCache())
+    rng = np.random.default_rng(13)
+    veff = rng.standard_normal((16,) * 3).astype(np.float32)
+    spheres = [kpoint_sphere(8, k) for k in KPTS2] + [kpoint_sphere(4)]
+    work = [(f"t{i}", (rng.standard_normal((2, s.npacked))
+                       + 1j * rng.standard_normal((2, s.npacked))
+                       ).astype(np.complex64), s, veff if i % 2 else None)
+            for i, s in enumerate(spheres + spheres)]
+    before = dft_matmul.launches
+    svc.start()
+    try:
+        hs = [svc.submit(t, c, s, v_eff=v) for t, c, s, v in work]
+        late = svc.submit("late", work[0][1], spheres[0], deadline=0.0)
+        outs = [h.result(120) for h in hs]
+        with pytest.raises(DeadlineExceeded):
+            late.result(120)
+    finally:
+        svc.stop(timeout=120)
+    assert dft_matmul.launches > before
+    m = svc.metrics.summary()
+    assert m["dispatches"] < len(work) and m["coalesced_dispatches"] >= 1
+    for out, (_, c, s, v) in zip(outs, work):
+        want = svc.eager_apply(c, s, v)
+        err = float(np.abs(out - want).max())
+        assert err <= RTOL * float(np.abs(want).max()), err
+        if v is None:
+            assert float(np.abs(out - c).max()) <= RTOL * float(
+                np.abs(c).max())

@@ -9,7 +9,8 @@ CUDA kernels themselves are held against the plain versions by
 
 Tolerances: the port and the reference sum the same fp32 products in
 another order (torch's CPU GEMM vs XLA's dot), so values agree to ~1e-6
-relative to the largest output; exact-zero contracts stay bitwise.
+relative to the largest output (the two-stage four-step DFT to 1e-5);
+exact-zero contracts stay bitwise.
 """
 import numpy as np
 import pytest
@@ -22,11 +23,17 @@ from repro.core.local_fft import dft_matrix_device as ref_dft_matrix_device
 from repro.kernels import ops as ref_ops
 from repro.kernels import sphere_pack as ref_sp
 from repro.kernels.dft_matmul import dft_matmul as ref_dft_matmul
+from repro.kernels.ref import complex_matmul_ref as ref_complex_matmul_ref
+from repro.kernels.ref import twiddle_matrix as ref_twiddle_matrix
 from repro_torch.core import kpoint_sphere
 from repro_torch.core.local_fft import dft_matrix_device
 from repro_torch.kernels import build, ops
 from repro_torch.kernels import sphere_pack as sp
-from repro_torch.kernels.dft_matmul import dft_matmul, dft_matmul_plain
+from repro_torch.kernels.dft_matmul import (dft_matmul, dft_matmul_plain,
+                                            dft_matmul_twiddle,
+                                            dft_matmul_twiddle_plain)
+from repro_torch.kernels.ref import (complex_matmul_ref, four_step_ref,
+                                     twiddle_matrix)
 
 RTOL = 2e-6          # relative to the largest output magnitude
 
@@ -90,6 +97,22 @@ def test_dft_matmul_plain_matches_raw_reference_kernel():
                                            torch.as_tensor(w)))
 
 
+@pytest.mark.parametrize("B,K,N", [(16, 8, 8), (40, 24, 48)])
+def test_complex_matmul_ref_matches_reference_and_plain_gemm(B, K, N):
+    """The split re/im GEMM oracle against the reference's, and the
+    complex plain version of ``dft_matmul`` against the oracle."""
+    rng = np.random.default_rng(B + K + N)
+    x = _cx(rng, (B, K))
+    w = _cx(rng, (N, K))
+    parts = [x.real, x.imag, w.real, w.imag]
+    yr, yi = complex_matmul_ref(*(torch.as_tensor(p) for p in parts))
+    rr, ri = ref_complex_matmul_ref(*(jnp.asarray(p) for p in parts))
+    y = (yr + 1j * yi).numpy()
+    _close(y, np.asarray(rr) + 1j * np.asarray(ri))
+    _close(dft_matmul_plain(torch.as_tensor(x), torch.as_tensor(w)).numpy(),
+           y)
+
+
 def test_dft_matrix_bit_identical_to_reference():
     for n_out, n_in, inv in [(16, 8, True), (8, 16, False), (32, 32, True)]:
         wr, wi, w = dft_matrix_device(n_out, n_in, inv, "cpu")
@@ -97,6 +120,82 @@ def test_dft_matrix_bit_identical_to_reference():
         assert np.array_equal(wr.numpy(), np.asarray(rr))
         assert np.array_equal(wi.numpy(), np.asarray(ri))
         assert np.array_equal(w.numpy().real, np.asarray(rr))
+
+
+# -------------------------------------------------- twiddle + four-step
+@pytest.mark.parametrize("n1,n2,inverse", [(4, 8, False), (8, 8, True),
+                                           (15, 24, True), (32, 32, False)])
+def test_twiddle_matrix_bit_identical_to_reference(n1, n2, inverse):
+    a = twiddle_matrix(n1, n2, inverse)
+    b = ref_twiddle_matrix(n1, n2, inverse)
+    assert a.dtype == b.dtype == np.complex64
+    assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("case", ["general", "four_step"])
+def test_dft_matmul_twiddle_plain_matches_reference_kernel(case):
+    """The twiddle entry against the reference's ``_kernel_twiddle`` (run
+    through ``dft_matmul(..., tr, ti, interpret=True)``): a general (M, N)
+    twiddle, and the four-step (n1, n2) table whose rows repeat over the
+    batch — which the reference receives tiled to (M, N)."""
+    rng = np.random.default_rng(21)
+    if case == "general":
+        M, K, N = 64, 24, 32
+        t = _cx(rng, (M, N))
+        t_full = t
+    else:
+        n1, n2, B = 8, 16, 4
+        M, K, N = B * n1, n2, n2
+        t = np.ascontiguousarray(twiddle_matrix(n1, n2, False).T)
+        t_full = np.tile(t, (B, 1))
+    x = _cx(rng, (M, K))
+    w = _cx(rng, (N, K))
+    yr, yi = ref_dft_matmul(jnp.asarray(x.real), jnp.asarray(x.imag),
+                            jnp.asarray(w.real), jnp.asarray(w.imag),
+                            jnp.asarray(t_full.real),
+                            jnp.asarray(t_full.imag), bm=16, bn=16,
+                            interpret=True)
+    y = dft_matmul_twiddle(torch.as_tensor(x), torch.as_tensor(w),
+                           torch.as_tensor(t))
+    _close(y.numpy(), np.asarray(yr) + 1j * np.asarray(yi))
+    assert torch.equal(y, dft_matmul_twiddle_plain(
+        torch.as_tensor(x), torch.as_tensor(w), torch.as_tensor(t)))
+
+
+def test_dft_matmul_twiddle_rejects_a_table_that_does_not_tile():
+    x = torch.zeros((10, 4), dtype=torch.complex64)
+    w = torch.zeros((4, 4), dtype=torch.complex64)
+    with pytest.raises(ValueError, match="must divide"):
+        dft_matmul_twiddle(x, w, torch.zeros((3, 4), dtype=torch.complex64))
+    with pytest.raises(ValueError, match="shape"):
+        dft_matmul_twiddle(x, w, torch.zeros((5, 3), dtype=torch.complex64))
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n", [64, 360, 1024])
+def test_four_step_dft_matches_reference(n, inverse):
+    """Port vs the reference's Pallas four-step (interpret mode) at 1e-5
+    of max|y|; the reference itself sits at ~1e-7 of max against a
+    float64 FFT.  Also held against ``torch.fft`` (``four_step_ref``)."""
+    rng = np.random.default_rng(n + int(inverse))
+    x = _cx(rng, (3, n))
+    y = ops.four_step_dft(torch.as_tensor(x), inverse=inverse)
+    r = ref_ops.four_step_dft(jnp.asarray(x), inverse=inverse,
+                              interpret=True)
+    assert y.dtype == torch.complex64 and tuple(y.shape) == (3, n)
+    _close(y.numpy(), r, rtol=1e-5)
+    _close(y.numpy(), four_step_ref(torch.as_tensor(x), inverse=inverse),
+           rtol=1e-5)
+
+
+@pytest.mark.parametrize("n", [97, 127])
+def test_four_step_dft_rejects_prime_n(n):
+    x = torch.zeros((2, n), dtype=torch.complex64)
+    with pytest.raises(ValueError, match="prime"):
+        ops.four_step_dft(x)
+    with pytest.raises(ValueError, match="prime"):
+        ref_ops.four_step_dft(jnp.zeros((2, n), jnp.complex64),
+                              interpret=True)
 
 
 # ---------------------------------------------------------------- tables
@@ -225,5 +324,6 @@ def test_wrappers_validate_inputs_and_build_nothing_on_cpu():
     with pytest.raises(ValueError, match="contiguous"):
         dft_matmul(torch.zeros((4, 4), dtype=torch.complex64),
                    torch.zeros((4, 8), dtype=torch.complex64).T)
+    ops.four_step_dft(torch.zeros((2, 64), dtype=torch.complex64))
     # CPU tensors take the plain versions: no library is built or loaded
     assert build.build_logs() == {} and build._LIBS == {}
