@@ -17,8 +17,8 @@ it and read just after:
 
 * the four-step DFT (``repro_torch.kernels.ops.four_step_dft``) on 4096
   lines of n = 4096, forward and inverse, against ``torch.fft``, after the
-  twiddle kernel is held against its plain version (a ragged case and the
-  four-step's stage-1 shape);
+  twiddle kernel is held against its plain version (ragged, odd-K and
+  NaN-poisoned cases and the four-step's stage-1 shape);
 * the multi-tenant ``TransformService`` at n = 256 (d = 128 and d = 64
   spheres, four tenants, nine requests, one with an expired deadline),
   started with ``start()`` and warming asynchronously, the trace sent
@@ -30,16 +30,25 @@ it and read just after:
   one ``eager_apply``: its per-stage spans must match the plan's stages
   and cover each stage's CUDA-event time.
 
+Last, kernel #1 is timed at every distinct line shape that the three
+paths launched (recorded while each path ran), beside its two bounds,
+complex64 ``torch.matmul`` on the same lines and the ``movedim``/
+``reshape`` copy that the "cuda" backend makes of a stage's input whose
+axis is not the last.
+
 Exits non-zero, printing no result line, on any failed check or when no
 CUDA device is present.
 
-Printed, in order: the card's name and power limit, the kernel build time,
-per-kernel errors/exact-zero checks/times, the SCF comparison and its
-breakdown, the four-step phase (kernel #2's and the composition's times
-beside ``torch.fft``'s), the service phase (each pass's metrics summary
-beside the card's name and power limit, its batches, the warm pass's
-dispatch spans and the synced pass's dispatches by piece),
-one JSON line ``{"kernels": [...]}``, and last the device JSON line.
+Printed, in order: the card's name and power limit, the kernel build time
+and each kernel's ``-Xptxas -v`` summary (registers, spills), per-kernel
+errors/exact-zero checks/times with two bounds each (fp32 FMA, and
+3xTF32 on the tensor cores), the SCF comparison and its breakdown, the
+four-step phase (kernel #2's and the composition's times beside
+``torch.fft``'s), the service phase (each pass's metrics summary beside
+the card's name and power limit, its batches, the warm pass's dispatch
+spans and the synced pass's dispatches by piece), the per-shape table of
+kernel #1, one JSON line ``{"kernels": [...]}``, and last the device JSON
+line.
 """
 from __future__ import annotations
 
@@ -74,10 +83,12 @@ SERVICE_TRACE = (
 # is synchronized at exit, so it covers the device work (and more)
 SPAN_COVERAGE = 0.9
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM and fp32 without
-# tensor cores, the unit these kernels use
+# H100 SXM published peaks (NVIDIA data sheet): HBM, fp32 without tensor
+# cores (the SIMT sphere kernels), dense TF32 on the tensor cores (the
+# line-DFT kernels, three TF32 products per fp32-accurate product)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
 
 # kernel vs plain version: both fp32, sums in another order; relative to
 # the largest output magnitude
@@ -106,6 +117,26 @@ def gpu_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(log: str) -> list[tuple[str, str]]:
+    """(kernel, "stack, spills; registers, barriers") per entry function
+    of a ``-Xptxas -v`` log, with the tensor-core GEMM's template
+    arguments spelled out."""
+    import re
+    out: dict[str, list[str]] = {}
+    name = None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            m = re.search(r"cgemm_tc_kernelILb(\d)EN4dftk\d+(\w+?)E", name)
+            if m:
+                name = (f"cgemm_tc_kernel<{'TMA' if m[1] == '1' else 'masked'}"
+                        f" A, {m[2]}>")
+            out[name] = []
+        elif name and ("registers" in line or "spill" in line):
+            out[name].append(line.split("info    :")[-1].strip())
+    return [(k, "; ".join(v)) for k, v in out.items()]
 
 
 def time_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
@@ -151,11 +182,28 @@ def event_ms(torch, fn):
     return out, start.elapsed_time(stop)
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float) -> dict:
+    """The least time of work that moves ``nbytes`` and does ``flops``
+    fp32-accurate FLOP, two ways: on fp32 FMA (67 TFLOP/s) and on the
+    tensor cores as three TF32 products (3·FLOP at 495 TFLOP/s), each the
+    larger of its operations' and the bytes' time (3.35 TB/s).
+    ``bound_ms`` is the lesser of the two, the least the card could take."""
     t_mem = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / FP32_FLOP_PER_S
-    return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops
-                                     else "operations")
+    out = {}
+    for name, t_ops in (("fp32_fma", flops / FP32_FLOP_PER_S),
+                        ("tf32x3", 3.0 * flops / TF32_FLOP_PER_S)):
+        out[f"{name}_bound_ms"] = max(t_mem, t_ops) * 1e3
+        out[f"{name}_bound_by"] = "bytes" if t_mem >= t_ops else "operations"
+    least = min(("fp32_fma", "tf32x3"), key=lambda n: out[f"{n}_bound_ms"])
+    out["bound_ms"] = out[f"{least}_bound_ms"]
+    out["bound_by"] = out[f"{least}_bound_by"]
+    return out
+
+
+def bound_text(b: dict) -> str:
+    return (f"bound {b['tf32x3_bound_ms']:.3f} ms on 3xTF32 tensor cores "
+            f"({b['tf32x3_bound_by']}), {b['fp32_fma_bound_ms']:.3f} ms on "
+            f"fp32 FMA ({b['fp32_fma_bound_by']})")
 
 
 def rel_err(torch, got, want) -> tuple[float, float]:
@@ -178,43 +226,73 @@ def crandn(torch, gen, shape, device):
 
 
 # ------------------------------------------------------------------ kernels
+# kernel #1's edge cases beside the SCF's shapes: (M, K, N, rows past M
+# NaN-poisoned).  Odd K takes the masked A path (a row pitch TMA cannot
+# address); no M is a whole number of 128-row tiles
+EDGE_CASES = ((1000, 24, 40, False), (300, 5, 5, False), (300, 9, 18, False),
+              (77, 1, 3, False), (77, 8, 1, False), (1, 8, 8, False),
+              (389, 128, 256, False), (1000, 24, 40, True),
+              (500, 9, 18, True))
+
+
+def edge_rows(torch, gen, M, K, dev, poisoned):
+    """(M, K) lines; poisoned: the first M rows of a larger buffer whose
+    later rows are NaN, which a read would spread to the outputs."""
+    if not poisoned:
+        return crandn(torch, gen, (M, K), dev)
+    buf = crandn(torch, gen, (M + 77, K), dev)
+    buf[M:] = float("nan")
+    return buf[:M]
+
+
 def check_dft_matmul(torch, dev, gen):
     from repro_torch.core.local_fft import dft_matrix_device
     from repro_torch.kernels.dft_matmul import dft_matmul, dft_matmul_plain
-    print("dft_matmul (kernel #1): complex line-DFT GEMM", flush=True)
-    # ragged edges (M, N not whole tiles, K not a whole chunk)
-    x = crandn(torch, gen, (1000, 24), dev)
-    _, _, w = dft_matrix_device(40, 24, True, dev)
-    _, rel = rel_err(torch, dft_matmul(x, w), dft_matmul_plain(x, w))
-    check(rel <= KERNEL_RTOL, f"ragged 1000x24->40: rel err {rel:.3e} "
-          f"<= {KERNEL_RTOL:g}")
+    from repro_torch.kernels.ops import dft_operand_device
+    print("dft_matmul (kernel #1): complex line-DFT GEMM, split TF32 on the "
+          "tensor cores", flush=True)
+    worst = 0.0
+    for M, K, Nn, poisoned in EDGE_CASES:
+        x = edge_rows(torch, gen, M, K, dev, poisoned)
+        _, _, w = dft_matrix_device(Nn, K, True, dev)
+        y = dft_matmul(x, w)
+        finite = bool(torch.isfinite(torch.view_as_real(y)).all())
+        _, rel = rel_err(torch, y, dft_matmul_plain(x, w))
+        worst = max(worst, rel)
+        check(finite and rel <= KERNEL_RTOL,
+              f"{M}x{K}->{Nn}{' poisoned rows past M' if poisoned else ''}"
+              f": finite, rel err {rel:.3e} <= {KERNEL_RTOL:g}")
     # forward truncating y-stage shape of the stacked H apply
-    x = crandn(torch, gen, (32 * 128 * 256, 256), dev)
-    _, _, w = dft_matrix_device(128, 256, False, dev)
+    B = len(KPTS) * NBANDS
+    x = crandn(torch, gen, (B * DIAMETER * N, N), dev)
+    _, _, w = dft_matrix_device(DIAMETER, N, False, dev)
     _, rel = rel_err(torch, dft_matmul(x, w), dft_matmul_plain(x, w))
-    check(rel <= KERNEL_RTOL, f"forward 1048576x256->128: rel err "
-          f"{rel:.3e} <= {KERNEL_RTOL:g}")
+    check(rel <= KERNEL_RTOL, f"forward {x.shape[0]}x{N}->{DIAMETER}: rel "
+          f"err {rel:.3e} <= {KERNEL_RTOL:g}")
     del x
     # the inverse x stage: the largest line-DFT stage of the H apply
-    M, K, Nn = 32 * 256 * 256, 128, 256
+    M, K, Nn = B * N * N, DIAMETER, N
     x = crandn(torch, gen, (M, K), dev)
     _, _, w = dft_matrix_device(Nn, K, True, dev)
-    y = dft_matmul(x, w)
+    ws = dft_operand_device(Nn, K, True, w.device)
+    y = dft_matmul(x, w, wsplit=ws)
     yp = dft_matmul_plain(x, w)
     err, rel = rel_err(torch, y, yp)
     check(rel <= KERNEL_RTOL, f"inverse {M}x{K}->{Nn}: max abs err "
           f"{err:.3e}, rel {rel:.3e} <= {KERNEL_RTOL:g}")
     del y, yp
-    ms = time_ms(torch, lambda: dft_matmul(x, w))
+    ms = time_ms(torch, lambda: dft_matmul(x, w, wsplit=ws))
     plain = time_ms(torch, lambda: dft_matmul_plain(x, w), reps=5)
     lib = time_ms(torch, lambda: torch.matmul(x, w.T))
-    b, by = bound_ms(8.0 * (M * K + Nn * K + M * Nn), 8.0 * M * Nn * K)
+    b = bound_ms(8.0 * (M * K + Nn * K + M * Nn), 8.0 * M * Nn * K)
     print(f"  time {ms:.3f} ms, plain {plain:.3f} ms, complex64 "
-          f"torch.matmul {lib:.3f} ms, bound {b:.3f} ms ({by})", flush=True)
+          f"torch.matmul {lib:.3f} ms, {bound_text(b)}", flush=True)
+    check(ms < lib, f"kernel {ms:.3f} ms faster than complex64 torch.matmul "
+          f"{lib:.3f} ms")
     del x
     return {"name": "dft_matmul", "max_abs_err": err, "rel_err": rel,
-            "tolerance": KERNEL_RTOL, "ms": ms, "plain_ms": plain,
-            "bound_ms": b, "bound_by": by, "library_ms": lib,
+            "edge_max_rel_err": worst, "tolerance": KERNEL_RTOL, "ms": ms,
+            "plain_ms": plain, **b, "library_ms": lib,
             "shape": f"{M}x{K}->{Nn}"}
 
 
@@ -257,12 +335,12 @@ def check_unpack_dft(torch, dev, gen, spheres):
         packed, start, zlo, cnt, flag, w), reps=5)
     lanes = float(cnt.sum())                       # this run's packed lanes
     nbytes = 8.0 * (lanes + N * DIAMETER + B * nl * N) + 4.0 * 3 * B * nl
-    b, by = bound_ms(nbytes, 8.0 * N * lanes)
-    print(f"  time {ms:.3f} ms, plain {plain:.3f} ms, bound {b:.3f} ms "
-          f"({by}); no single torch call computes it", flush=True)
+    b = bound_ms(nbytes, 8.0 * N * lanes)
+    print(f"  time {ms:.3f} ms, plain {plain:.3f} ms, {bound_text(b)}; no "
+          "single torch call computes it", flush=True)
     return {"name": "unpack_dft", "max_abs_err": err, "rel_err": rel,
             "tolerance": KERNEL_RTOL, "ms": ms, "plain_ms": plain,
-            "bound_ms": b, "bound_by": by, "library_ms": None,
+            **b, "library_ms": None,
             "shape": f"({B},{npk})->({B},{DIAMETER},{DIAMETER},{N})"}
 
 
@@ -297,16 +375,16 @@ def check_dft_pack(torch, dev, gen, spheres):
     lanes = float(nvalid.sum())                    # this run's valid lanes
     nbytes = (8.0 * (slab.numel() + DIAMETER * N + B * npk)
               + 4.0 * (3 * B * nl + B))
-    b, by = bound_ms(nbytes, 8.0 * N * lanes)
-    print(f"  time {ms:.3f} ms, plain {plain:.3f} ms, bound {b:.3f} ms "
-          f"({by}); no single torch call computes it", flush=True)
+    b = bound_ms(nbytes, 8.0 * N * lanes)
+    print(f"  time {ms:.3f} ms, plain {plain:.3f} ms, {bound_text(b)}; no "
+          "single torch call computes it", flush=True)
     return {"name": "dft_pack", "max_abs_err": err, "rel_err": rel,
             "tolerance": KERNEL_RTOL, "ms": ms, "plain_ms": plain,
-            "bound_ms": b, "bound_by": by, "library_ms": None,
+            **b, "library_ms": None,
             "shape": f"({B},{DIAMETER},{DIAMETER},{N})->({B},{npk})"}
 
 
-def check_four_step(torch, dev, gen):
+def check_four_step(torch, dev, gen, stages):
     """Kernel #2 against its plain version, then the four-step path.
 
     Returns the kernel's record and the path's own numbers; the launch
@@ -322,14 +400,24 @@ def check_four_step(torch, dev, gen):
     from repro_torch.kernels.ref import twiddle_matrix
     print("dft_matmul_twiddle (kernel #2): line-DFT GEMM + twiddle "
           "epilogue", flush=True)
-    # (a) ragged edges, a general (M, N) twiddle table
-    x = crandn(torch, gen, (1000, 24), dev)
-    _, _, w = dft_matrix_device(40, 24, False, dev)
-    t = crandn(torch, gen, (1000, 40), dev)
-    _, rel = rel_err(torch, dft_matmul_twiddle(x, w, t),
-                     dft_matmul_twiddle_plain(x, w, t))
-    check(rel <= KERNEL_RTOL, f"ragged 1000x24->40, (1000, 40) table: rel "
-          f"err {rel:.3e} <= {KERNEL_RTOL:g}")
+    # (a) edge cases with a general (M, N) table (T = M), and the
+    # four-step table of n = 15 = 3·5 (K = 5: the masked A path)
+    cases = [(M, K, Nn, p, None) for M, K, Nn, p in EDGE_CASES
+             if Nn > 1 and K > 1]
+    cases.append((50 * 3, 5, 5, False, (3, 5)))
+    for M, K, Nn, poisoned, table in cases:
+        x = edge_rows(torch, gen, M, K, dev, poisoned)
+        _, _, w = dft_matrix_device(Nn, K, False, dev)
+        t = (crandn(torch, gen, (M, Nn), dev) if table is None else
+             torch.as_tensor(np.ascontiguousarray(
+                 twiddle_matrix(*table, False).T), device=dev))
+        y = dft_matmul_twiddle(x, w, t)
+        finite = bool(torch.isfinite(torch.view_as_real(y)).all())
+        _, rel = rel_err(torch, y, dft_matmul_twiddle_plain(x, w, t))
+        check(finite and rel <= KERNEL_RTOL,
+              f"{M}x{K}->{Nn}, {tuple(t.shape)} table"
+              f"{' poisoned rows past M' if poisoned else ''}: finite, rel "
+              f"err {rel:.3e} <= {KERNEL_RTOL:g}")
     # (b) stage 1 of four_step_dft: B·n1 lines of n2, the (n1, n2) table
     n1, n2 = ops._factor(FOUR_STEP_N)
     M, K, Nn = FOUR_STEP_LINES * n1, n2, n2
@@ -337,7 +425,8 @@ def check_four_step(torch, dev, gen):
     _, _, w = dft_matrix_device(Nn, K, False, dev)
     t = torch.as_tensor(np.ascontiguousarray(
         twiddle_matrix(n1, n2, False).T), device=dev)
-    y = dft_matmul_twiddle(x, w, t)
+    ws = ops.dft_operand_device(Nn, K, False, w.device)
+    y = dft_matmul_twiddle(x, w, t, wsplit=ws)
     yp = dft_matmul_twiddle_plain(x, w, t)
     err, rel = rel_err(torch, y, yp)
     check(rel <= KERNEL_RTOL, f"stage 1 {M}x{K}->{Nn}, ({n1}, {n2}) "
@@ -353,22 +442,24 @@ def check_four_step(torch, dev, gen):
     check(lrel <= KERNEL_RTOL, f"library einsum computes the same "
           f"function: rel err {lrel:.3e} <= {KERNEL_RTOL:g}")
     del y, yp
-    ms = time_ms(torch, lambda: dft_matmul_twiddle(x, w, t))
+    ms = time_ms(torch, lambda: dft_matmul_twiddle(x, w, t, wsplit=ws))
     plain = time_ms(torch, lambda: dft_matmul_twiddle_plain(x, w, t),
                     reps=5)
     lib = time_ms(torch, library)
     gemm = time_ms(torch, lambda: torch.matmul(x, w.T))
     # each input read once (x, W, the table), y written once; the
     # epilogue's complex product is 6 FLOP per output
-    b, by = bound_ms(8.0 * (M * K + Nn * K + n1 * Nn + M * Nn),
-                     8.0 * M * Nn * K + 6.0 * M * Nn)
+    b = bound_ms(8.0 * (M * K + Nn * K + n1 * Nn + M * Nn),
+                 8.0 * M * Nn * K + 6.0 * M * Nn)
     print(f"  time {ms:.3f} ms, plain {plain:.3f} ms, library einsum "
-          f"{lib:.3f} ms, bound {b:.3f} ms ({by}); complex64 torch.matmul "
-          f"of the GEMM alone {gemm:.3f} ms", flush=True)
+          f"{lib:.3f} ms, {bound_text(b)}; complex64 torch.matmul of the "
+          f"GEMM alone {gemm:.3f} ms", flush=True)
+    check(ms < lib, f"kernel {ms:.3f} ms faster than the library einsum "
+          f"{lib:.3f} ms")
     del x, xb
     record = {"name": "dft_matmul_twiddle", "max_abs_err": err,
               "rel_err": rel, "tolerance": KERNEL_RTOL, "ms": ms,
-              "plain_ms": plain, "bound_ms": b, "bound_by": by,
+              "plain_ms": plain, **b,
               "library_ms": lib, "gemm_alone_ms": gemm,
               "shape": f"{M}x{K}->{Nn} t({n1},{n2})"}
 
@@ -379,10 +470,14 @@ def check_four_step(torch, dev, gen):
     wrappers = (dft_matmul_twiddle, dft_matmul)
     for fn in wrappers:
         fn.launches = 0
-    fwd = ops.four_step_dft(lines)
-    inv = ops.four_step_dft(lines, inverse=True)
+    with stages.record("four_step") as shapes:
+        fwd = ops.four_step_dft(lines)
+        inv = ops.four_step_dft(lines, inverse=True)
     sync(torch, dev)
     launches = {fn.__name__: fn.launches for fn in wrappers}
+    check(sum(shapes.values()) == launches["dft_matmul"],
+          "the recorded line shapes cover every dft_matmul launch of the "
+          "four-step path")
     out = {}
     for name, got, want in (
             ("forward", fwd, torch.fft.fft(lines, dim=-1)),
@@ -407,6 +502,101 @@ def check_four_step(torch, dev, gen):
           flush=True)
     out["launches"] = launches
     return record, out
+
+
+# ----------------------------------------------------- line-DFT shapes
+class LineStages:
+    """Kernel #1's launches by line shape on each path.
+
+    While ``record(path)`` is active, every ``kernels.ops.dft_apply`` call
+    (each launches ``dft_matmul`` once on a CUDA tensor) is counted by
+    ``(lines, n_in, n_out, inverse)``, and for calls that come through the
+    "cuda" backend of ``local_dft`` the stage's input shape and axis are
+    kept: its ``movedim``/``reshape`` copy is timed beside the kernel.
+    """
+
+    def __init__(self):
+        from collections import Counter
+        self.counts: dict[str, Counter] = {}
+        self.layout: dict[tuple, tuple] = {}
+        self._new = Counter
+
+    def record(self, path):
+        import contextlib
+
+        from repro_torch.core import local_fft
+        from repro_torch.kernels import ops
+        counts = self.counts.setdefault(path, self._new())
+        apply, backend = ops.dft_apply, local_fft._cuda_backend
+
+        def dft_apply(x, n_out=None, *, inverse=False):
+            n_in = x.shape[1]
+            counts[(x.shape[0], n_in, n_out or n_in, bool(inverse))] += 1
+            return apply(x, n_out, inverse=inverse)
+
+        def cuda_backend(x, axis, n_in, n_out, inverse):
+            key = (x.numel() // n_in, n_in, n_out, bool(inverse))
+            self.layout[key] = (tuple(x.shape), axis % x.ndim)
+            return backend(x, axis, n_in, n_out, inverse)
+
+        @contextlib.contextmanager
+        def patched():
+            ops.dft_apply, local_fft._cuda_backend = dft_apply, cuda_backend
+            try:
+                yield counts
+            finally:
+                ops.dft_apply, local_fft._cuda_backend = apply, backend
+        return patched()
+
+
+def time_line_shapes(torch, dev, gen, stages: LineStages, gpu: str):
+    """Kernel #1 at every distinct line shape the paths launched: its
+    time, both bounds, complex64 ``torch.matmul`` on the same lines, and
+    the copy that ``local_fft._cuda_backend`` makes of a stage's input
+    whose axis is not the last (``movedim`` + ``reshape``)."""
+    from repro_torch.core.local_fft import dft_matrix_device
+    from repro_torch.kernels.dft_matmul import dft_matmul
+    from repro_torch.kernels.ops import dft_operand_device
+    keys = sorted({k for c in stages.counts.values() for k in c},
+                  key=lambda k: -k[0] * (k[1] + k[2]))
+    print(f"kernel #1 by line shape ({gpu}; CUDA events, mean of 10):",
+          flush=True)
+    rows = []
+    for key in keys:
+        M, n_in, n_out, inverse = key
+        x = crandn(torch, gen, (M, n_in), dev)
+        _, _, w = dft_matrix_device(n_out, n_in, inverse, dev)
+        ws = dft_operand_device(n_out, n_in, inverse, w.device)
+        ms = time_ms(torch, lambda: dft_matmul(x, w, wsplit=ws))
+        lib = time_ms(torch, lambda: torch.matmul(x, w.T))
+        del x
+        b = bound_ms(8.0 * (M * n_in + n_out * n_in + M * n_out),
+                     8.0 * M * n_out * n_in)
+        row = {"lines": M, "n_in": n_in, "n_out": n_out, "inverse": inverse,
+               "launches": {p: c[key] for p, c in stages.counts.items()
+                            if c[key]},
+               "ms": ms, "matmul_ms": lib, **b, "input": None, "axis": None,
+               "copy_ms": None}
+        if key in stages.layout:
+            shape, axis = stages.layout[key]
+            xs = crandn(torch, gen, shape, dev)
+
+            def copy():
+                return torch.movedim(xs, axis, -1).reshape(-1, n_in)
+            copied = (copy().untyped_storage().data_ptr()
+                      != xs.untyped_storage().data_ptr())
+            row.update(input=list(shape), axis=axis,
+                       copy_ms=time_ms(torch, copy) if copied else 0.0)
+            del xs
+        rows.append(row)
+        copy_txt = ("four_step_dft's own transposes" if row["input"] is None
+                    else f"copy {row['copy_ms']:.3f} ms of "
+                    f"{tuple(row['input'])} axis {row['axis']}")
+        print(f"  {M}x{n_in}->{n_out}{' inv' if inverse else ''}: launches "
+              f"{row['launches']}, {ms:.3f} ms, {bound_text(b)}, "
+              f"torch.matmul {lib:.3f} ms; {copy_txt}", flush=True)
+        torch.cuda.empty_cache()
+    return rows
 
 
 # ------------------------------------------------------------------ service
@@ -533,7 +723,7 @@ def batch_compositions(handles, reqs) -> list[str]:
     return [" + ".join(b) for _, b in sorted(batches.items())]
 
 
-def check_service(torch, dev, gpu):
+def check_service(torch, dev, gpu, stages):
     import numpy as np
 
     from repro_torch.kernels.dft_matmul import dft_matmul
@@ -552,9 +742,13 @@ def check_service(torch, dev, gpu):
     for fn in wrappers:
         fn.launches = 0
     t0 = time.perf_counter()
-    svc, passes = serve_trace(dev, "cuda", reqs)
+    with stages.record("service") as shapes:
+        svc, passes = serve_trace(dev, "cuda", reqs)
     wall = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in wrappers}
+    check(sum(shapes.values()) == launches["dft_matmul"],
+          "the recorded line shapes cover every dft_matmul launch of the "
+          "cuda service")
     cold, warm, synced = passes
     for p in passes:
         print(f"  service metrics, {p['name']} pass ({gpu}): "
@@ -708,7 +902,7 @@ def trace_eager_apply(torch, dev, svc, req):
 
 
 # ---------------------------------------------------------------------- SCF
-def run_slice(torch, dev):
+def run_slice(torch, dev, stages):
     import numpy as np
 
     from repro_torch.dft import SCFConfig, run_scf
@@ -741,8 +935,12 @@ def run_slice(torch, dev):
     wrappers = (dft_matmul, sphere_pack.unpack_dft, sphere_pack.dft_pack)
     for fn in wrappers:
         fn.launches = 0
-    res_k = run_scf(cfg("cuda"), device=dev, coeffs=coeffs)
+    with stages.record("scf") as shapes:
+        res_k = run_scf(cfg("cuda"), device=dev, coeffs=coeffs)
     launches = {fn.__name__: fn.launches for fn in wrappers}
+    check(sum(shapes.values()) == launches["dft_matmul"],
+          f"the {len(shapes)} recorded line shapes cover every dft_matmul "
+          "launch of the SCF")
     res_m = run_scf(cfg("matmul"), device=dev, coeffs=coeffs)
     after = {fn.__name__: fn.launches for fn in wrappers}
     print(f"  kernel launches on the cuda route: {launches}", flush=True)
@@ -862,9 +1060,8 @@ def main() -> int:
     build.build_all()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s", flush=True)
     for stem, log in build.build_logs().items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {stem}: {line.strip()}", flush=True)
+        for name, text in ptxas_summary(log):
+            print(f"  ptxas {stem} {name}: {text}", flush=True)
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     spheres = PlaneWaveBasis(N, diameter=DIAMETER, kpts=KPTS,
@@ -873,14 +1070,15 @@ def main() -> int:
                check_unpack_dft(torch, dev, gen, spheres),
                check_dft_pack(torch, dev, gen, spheres)]
     torch.cuda.empty_cache()
-    launches, scf = run_slice(torch, dev)
+    stages = LineStages()
+    launches, scf = run_slice(torch, dev, stages)
     print("scf: " + json.dumps(scf), flush=True)
     print("iteration breakdown (host clock, synchronized):", flush=True)
     scf["breakdown"] = breakdown(torch, dev)
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    twiddle, four_step = check_four_step(torch, dev, gen)
+    twiddle, four_step = check_four_step(torch, dev, gen, stages)
     results.append(twiddle)
     launches["dft_matmul_twiddle"] = four_step["launches"][
         "dft_matmul_twiddle"]
@@ -889,9 +1087,15 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    service = check_service(torch, dev, gpu)
+    service = check_service(torch, dev, gpu, stages)
     print("service: " + json.dumps(service), flush=True)
     print(f"service phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    shapes = time_line_shapes(torch, dev, gen, stages, gpu)
+    print("line_shapes: " + json.dumps(shapes), flush=True)
+    print(f"line-shape phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
     sources = {"dft_matmul": ("src/repro_torch/kernels/csrc/dft_matmul.cu",
                               "src/repro/kernels/dft_matmul.py:32"),
@@ -910,6 +1114,8 @@ def main() -> int:
                         "passed": True, **{k: r[k] for k in (
                             "max_abs_err", "rel_err", "tolerance", "ms",
                             "plain_ms", "bound_ms", "bound_by",
+                            "tf32x3_bound_ms", "tf32x3_bound_by",
+                            "fp32_fma_bound_ms", "fp32_fma_bound_by",
                             "library_ms", "shape")}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

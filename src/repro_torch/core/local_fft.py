@@ -68,11 +68,11 @@ def dft_matrix_device(n_out: int, n_in: int, inverse: bool, device=None):
     Uploading W per stage execution would re-send the matrix host→device
     on every line-DFT stage of the SCF loop; the cache makes repeated
     stage execution transfer-free.  The real planes feed the "matmul"
-    backend, the interleaved complex matrix the kernels.
+    backend, the interleaved complex matrix the kernels.  ``device=None``
+    means CUDA and raises without it (:func:`~.grid.resolve_device`).
     """
     return _dft_matrix_device(int(n_out), int(n_in), bool(inverse),
-                              resolve_device(device if device is not None
-                                             else "cpu"))
+                              resolve_device(device))
 
 
 def _fft_backend(x, axis, n_in, n_out, inverse):

@@ -13,14 +13,21 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.grid import resolve_device
+
 
 def coulomb_kernel(n: int, L: float, device=None) -> torch.Tensor:
-    """4π/|G|² on the n³ FFT cube in fft-index order, G=0 entry zeroed."""
+    """4π/|G|² on the n³ FFT cube in fft-index order, G=0 entry zeroed.
+
+    ``device=None`` means CUDA and raises without it, as every entry
+    point does (:func:`~repro_torch.core.grid.resolve_device`).
+    """
     f = np.fft.fftfreq(n, d=1.0 / n)            # integer frequencies
     gx, gy, gz = np.meshgrid(f, f, f, indexing="ij")
     g2 = (gx ** 2 + gy ** 2 + gz ** 2) * (2 * np.pi / L) ** 2
     kern = np.where(g2 > 0.0, 4 * np.pi / np.where(g2 > 0.0, g2, 1.0), 0.0)
-    return torch.as_tensor(kern.astype(np.float32), device=device)
+    return torch.as_tensor(kern.astype(np.float32),
+                           device=resolve_device(device))
 
 
 class HartreeSolver:

@@ -29,8 +29,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # bare int would be passed as 32 bits and cut the pointer)
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
-    "dft_matmul_launch": (_P, _P, _P, _L, _I, _I, _P),
-    "dft_matmul_twiddle_launch": (_P, _P, _P, _P, _L, _I, _I, _I, _P),
+    "dft_matmul_launch": (_P, _P, _P, _L, _I, _I, _I, _P),
+    "dft_matmul_twiddle_launch": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _P),
     "unpack_dft_launch": (_P, _P, _P, _P, _P, _P, _P,
                           _I, _L, _I, _I, _I, _I, _P),
     "dft_pack_launch": (_P, _P, _P, _P, _P, _P, _P,

@@ -1,5 +1,5 @@
 // dft_matmul — batched rectangular complex line DFT, y = x · Wᵀ, and its
-// twiddle variant y = (x · Wᵀ) ⊙ t.
+// twiddle variant y = (x · Wᵀ) ⊙ t, on Hopper's tensor cores.
 //
 // `dft_matmul_launch` replaces the TPU kernel `_kernel` of
 // src/repro/kernels/dft_matmul.py (reached through
@@ -16,54 +16,41 @@
 // table and never materializes the B-fold tiled copy (T = M gives the TPU
 // kernel's general per-row twiddle).
 //
-// What bounds it on an H100: operations.  At the stacked SCF's line
-// shapes (K, N in {128, 256}) one complex MAC per 16 bytes moved gives
-// 8·K·N / (8·(K + N)) ≈ 85 FLOP per byte, well above the ~20 FLOP/byte
-// at which fp32 FMA (67 TFLOP/s, no tensor cores) overtakes HBM.  The
-// twiddle variant at the four-step shape (K = N = 64, a 32 KB table that
-// stays in L1/L2) does 8·64·64 FLOP per 16·64 bytes of line in and out:
-// 32 FLOP per byte, still bound by operations.
+// What bounds them on an H100, for fp32-accurate products: the inverse x
+// stage of the stacked H apply (2,097,152 lines, 128 → 256) does 550 GFLOP
+// and moves 6.4 GB; as three TF32 passes at 495 TFLOP/s that is 3.33 ms,
+// against 1.92 ms for its bytes at 3.35 TB/s, so operations.  The twiddle
+// entry at the four-step's stage-1 shape (262,144 lines, 64 → 64, a 32 KB
+// table) moves 268 MB: 0.080 ms by bytes, against 0.053 ms of 3xTF32
+// operations, so bytes.
 //
-// What the design does about it: the shared tiled SIMT GEMM (cgemm.cuh)
-// with 4x4 register micro-tiles — 64 FMAs per 8 shared-memory loads —
-// reads interleaved complex64 directly, so no stage splits its data into
-// re/im planes, and masks the ragged M and N edges itself, so nothing is
-// padded to whole tiles (the TPU wrapper's pad-to-tile copies would move
-// multi-GB slabs at the SCF's sizes).
-#include "cgemm.cuh"
+// What the design does about it (csrc/cgemm_tc.cuh): complex64 is read
+// and written in place as one real GEMM against the (2N, 2K) real
+// embedding of W; the products run on the tensor cores through wgmma in
+// split TF32 (three passes, fp32 accuracy), fed by TMA through a ring of
+// shared-memory stages that one producer warp keeps full while two
+// consumer warpgroups compute; a persistent grid lets the loads of the
+// next tile overlap the stores of the last.  The SIMT cgemm.cuh stays
+// for the sphere kernels (sphere_pack.cu).
+#include "cgemm_tc.cuh"
 
 namespace dftk {
 
-struct DenseRows {
-  int K, N;
-  __device__ cgemm::Row row(int64_t r, int64_t M) const {
-    cgemm::Row out;
-    const bool ok = r < M;
-    out.in = r * K;
-    out.out = r * N;
-    out.in_lo = 0;
-    out.in_hi = K;
-    out.out_lo = 0;
-    out.out_hi = ok ? N : 0;
-    out.active = ok ? 1 : 0;
-    return out;
-  }
-  __device__ float2 epilogue(int64_t, int, float2 v) const { return v; }
+struct Identity {
+  struct Row {};
+  __device__ Row row(int64_t) const { return {}; }
+  __device__ float2 apply(Row, int, float2 v) const { return v; }
 };
 
-// Dense rows with the twiddle product in the epilogue.  The product is
-// yr·tr − yi·ti, yr·ti + yi·tr in the TPU kernel's order, rounded after
-// every operation (no FMA contraction), so it adds no rounding
-// difference of its own against the plain version.
-struct TwiddleRows {
-  DenseRows dense;
+// The twiddle product yr·tr − yi·ti, yr·ti + yi·tr in the TPU kernel's
+// order, rounded after every operation (no FMA contraction), so it adds no
+// rounding difference of its own against the plain version.
+struct Twiddle {
   const float2* t;   // (T, N) complex64
-  int T;
-  __device__ cgemm::Row row(int64_t r, int64_t M) const {
-    return dense.row(r, M);
-  }
-  __device__ float2 epilogue(int64_t r, int c, float2 v) const {
-    const float2 w = t[(r % T) * dense.N + c];
+  int T, N;
+  __device__ const float2* row(int64_t r) const { return t + (r % T) * N; }
+  __device__ float2 apply(const float2* tr, int c, float2 v) const {
+    const float2 w = tr[c];
     return make_float2(__fsub_rn(__fmul_rn(v.x, w.x), __fmul_rn(v.y, w.y)),
                        __fadd_rn(__fmul_rn(v.x, w.y), __fmul_rn(v.y, w.x)));
   }
@@ -71,29 +58,29 @@ struct TwiddleRows {
 
 }  // namespace dftk
 
-// x: (M, K) complex64, w: (N, K) complex64, y: (M, N) complex64, all
-// contiguous on the current device.  Returns cudaGetLastError().
-extern "C" int dft_matmul_launch(const void* x, const void* w, void* y,
-                                 long long M, int N, int K, void* stream) {
-  dftk::DenseRows op{K, N};
-  return cgemm::launch(op, static_cast<const float2*>(x),
-                       static_cast<const float2*>(w),
-                       static_cast<float2*>(y), static_cast<int64_t>(M), N,
-                       K, static_cast<cudaStream_t>(stream));
+// x: (M, K) complex64, wsplit: the split embedding of the (N, K) DFT
+// matrix (two TF32 planes of (2N, 2K), row pitch tc::w_pitch(K)), y:
+// (M, N) complex64, all on the current device.  tma_a != 0: K is even
+// and x is 16-byte aligned.  Returns cudaGetLastError().
+extern "C" int dft_matmul_launch(const void* x, const void* wsplit, void* y,
+                                 long long M, int N, int K, int tma_a,
+                                 void* stream) {
+  return tc::launch(dftk::Identity{}, static_cast<const float*>(x),
+                    static_cast<const float*>(wsplit),
+                    static_cast<float2*>(y), static_cast<int64_t>(M), N, K,
+                    tma_a != 0, static_cast<cudaStream_t>(stream));
 }
 
-// x: (M, K), w: (N, K), t: (T, N), y: (M, N), all complex64 and contiguous
-// on the current device; row r of y is multiplied by row (r mod T) of t.
-// Returns cudaGetLastError().
-extern "C" int dft_matmul_twiddle_launch(const void* x, const void* w,
+// As dft_matmul_launch, with t: (T, N) complex64; row r of y is multiplied
+// by row (r mod T) of t.  Returns cudaGetLastError().
+extern "C" int dft_matmul_twiddle_launch(const void* x, const void* wsplit,
                                          const void* t, void* y,
                                          long long M, int N, int K, int T,
-                                         void* stream) {
+                                         int tma_a, void* stream) {
   if (T <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  dftk::TwiddleRows op{dftk::DenseRows{K, N},
-                       static_cast<const float2*>(t), T};
-  return cgemm::launch(op, static_cast<const float2*>(x),
-                       static_cast<const float2*>(w),
-                       static_cast<float2*>(y), static_cast<int64_t>(M), N,
-                       K, static_cast<cudaStream_t>(stream));
+  return tc::launch(dftk::Twiddle{static_cast<const float2*>(t), T, N},
+                    static_cast<const float*>(x),
+                    static_cast<const float*>(wsplit),
+                    static_cast<float2*>(y), static_cast<int64_t>(M), N, K,
+                    tma_a != 0, static_cast<cudaStream_t>(stream));
 }

@@ -1,15 +1,31 @@
-"""Batched rectangular complex line DFT as one hand-written CUDA GEMM.
+"""Batched rectangular complex line DFT as one hand-written CUDA GEMM on
+Hopper's tensor cores.
 
     y = x · Wᵀ              x (M, K), W (N, K), y (M, N), complex64
     y = (x · Wᵀ) ⊙ t        the twiddle entry: row r times row r mod T
                             of a (T, N) complex64 table
 
-The kernels (``csrc/dft_matmul.cu`` on the shared tiled GEMM of
-``csrc/cgemm.cuh``) replace the TPU kernels ``_kernel`` and
-``_kernel_twiddle`` of the reference's ``kernels/dft_matmul.py``: the same
-four real products ``yr = xr·Wrᵀ − xi·Wiᵀ``, ``yi = xr·Wiᵀ + xi·Wrᵀ`` with
-fp32 accumulation, read and written as interleaved complex64; the twiddle
-entry multiplies each result by ``tr + i·ti`` in the GEMM's epilogue.
+The kernels (``csrc/dft_matmul.cu`` on ``csrc/cgemm_tc.cuh``) replace the
+TPU kernels ``_kernel`` and ``_kernel_twiddle`` of the reference's
+``kernels/dft_matmul.py``, which run four real products
+``yr = xr·Wrᵀ − xi·Wiᵀ``, ``yi = xr·Wiᵀ + xi·Wrᵀ`` with fp32 accumulation.
+Here interleaved complex64 x is read as a real fp32 (M, 2K) matrix and
+multiplied by the real (2N, 2K) embedding of W (:func:`embed_operand`):
+the fp32 (M, 2N) product is the interleaved complex64 y.  The products
+run on the tensor cores in split TF32 (:func:`tf32_split`): each operand
+is a TF32 ``big`` plus a TF32 ``small``, and
+``small·big + big·small + big·big`` keeps about fp32's accuracy; the
+tensor core sums one K chunk of 32 columns at a time, and the chunks are
+added with round-to-nearest fp32 adds (the tensor core's own adds
+truncate, a bias that grows with K).  The twiddle entry multiplies each
+result by ``tr + i·ti`` in the epilogue.
+
+What bounds them on an H100 at fp32 accuracy: the inverse x stage of the
+stacked H apply (2,097,152 lines, 128 → 256) by operations, 3.33 ms for
+three TF32 passes at 495 TFLOP/s (its 6.4 GB take 1.92 ms); the four-step
+stage 1 of the twiddle entry (262,144 lines, 64 → 64) by bytes, 0.080 ms.
+The design: TMA loads into a ring of shared-memory stages behind one
+producer warp, ``wgmma`` from two consumer warpgroups, a persistent grid.
 
 ``dft_matmul`` / ``dft_matmul_twiddle`` launch their kernel for CUDA
 tensors and run the plain PyTorch version (:func:`dft_matmul_plain`,
@@ -23,8 +39,49 @@ import torch
 from . import build
 
 
+def tf32_split(a):
+    """Split fp32 ``a`` into TF32 planes ``(big, small)``, a ≈ big + small.
+
+    ``big`` rounds ``a`` to TF32 by the rule of ``cvt.rna.tf32.f32``
+    (round to nearest, ties away from zero): on the int32 view,
+    ``(bits + 0x1000) & ~0x1FFF`` for finite values; inf and NaN pass
+    unchanged.  ``small`` is the same rounding of ``a − big``.
+    """
+    def rna(v):
+        r = ((v.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+        return torch.where(torch.isfinite(v), r, v)
+
+    big = rna(a)
+    return big, rna(a - big)
+
+
+def embed_operand(w):
+    """The kernel's B operand: the real (2N, 2K) embedding of the complex
+    (N, K) matrix W, split into TF32 planes.
+
+    Row 2n holds ``(Wr[n, k], −Wi[n, k])`` at columns ``(2k, 2k+1)``, row
+    2n+1 holds ``(Wi[n, k], Wr[n, k])``, so ``x.view(float32) @ Ŵᵀ`` is
+    ``(x @ Wᵀ).view(float32)``.  Returns a float32 tensor of shape
+    ``(2, 2N, 2K)``: ``[0]`` is Ŵ_big and ``[1]`` Ŵ_small, each a view with
+    its rows padded to a multiple of 4 floats (16 bytes, as TMA needs).
+    """
+    N, K = w.shape
+    wr, wi = w.real, w.imag
+    e = torch.stack((torch.stack((wr, -wi), -1),
+                     torch.stack((wi, wr), -1)), 1).reshape(2 * N, 2 * K)
+    buf = torch.zeros((2, 2 * N, _pitch(K)), dtype=torch.float32,
+                      device=w.device)
+    buf[0, :, :2 * K], buf[1, :, :2 * K] = tf32_split(e)
+    return buf[:, :, :2 * K]
+
+
+def _pitch(K: int) -> int:
+    """Row pitch of Ŵ's planes in floats (``tc::w_pitch`` in the CUDA)."""
+    return (2 * K + 3) // 4 * 4
+
+
 def dft_matmul_plain(x, w):
-    """The kernel's arithmetic in plain PyTorch: four real fp32 GEMMs."""
+    """The product in plain PyTorch: four real fp32 GEMMs."""
     xr, xi = x.real, x.imag
     wr, wi = w.real, w.imag
     yr = xr @ wr.T - xi @ wi.T
@@ -44,11 +101,32 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def dft_matmul(x, w):
+def _operand(w, wsplit, N, K, device):
+    """The split embedding of w for the kernel: ``wsplit`` if given (as
+    :func:`embed_operand` lays it out), else built now."""
+    if wsplit is None:
+        return embed_operand(w)
+    if (wsplit.dtype != torch.float32 or wsplit.device != device
+            or tuple(wsplit.shape) != (2, 2 * N, 2 * K)
+            or wsplit.stride() != (2 * N * _pitch(K), _pitch(K), 1)):
+        raise ValueError("wsplit must be embed_operand(w) for the (N, K) = "
+                         f"({N}, {K}) matrix on {device}")
+    return wsplit
+
+
+def _tma_rows(x) -> int:
+    """1 if TMA can address the rows of x (16-byte pitch and base): the
+    kernel's TMA path for its A operand; 0 takes the masked path."""
+    return int(x.shape[1] % 2 == 0 and x.data_ptr() % 16 == 0)
+
+
+def dft_matmul(x, w, *, wsplit=None):
     """y = x · Wᵀ for x (B, K) and W (N, K), complex64 → (B, N) complex64.
 
     CUDA tensors launch the hand-written kernel (counted in
-    ``dft_matmul.launches``); CPU tensors run :func:`dft_matmul_plain`.
+    ``dft_matmul.launches``) with ``wsplit = embed_operand(w)``, built per
+    call unless the caller passes a cached one; CPU tensors run
+    :func:`dft_matmul_plain`.
     """
     B, K = x.shape
     N = w.shape[0]
@@ -58,13 +136,15 @@ def dft_matmul(x, w):
     _check("x", x, torch.complex64, (B, K), x.device)
     _check("w", w, torch.complex64, (N, K), x.device)
     y = torch.empty((B, N), dtype=torch.complex64, device=x.device)
-    if B == 0:
+    if B == 0 or N == 0:
         return y
+    ws = _operand(w, wsplit, N, K, x.device)
     lib = build.library("dft_matmul")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        status = lib.dft_matmul_launch(x.data_ptr(), w.data_ptr(),
-                                       y.data_ptr(), B, N, K, stream)
+        status = lib.dft_matmul_launch(x.data_ptr(), ws.data_ptr(),
+                                       y.data_ptr(), B, N, K, _tma_rows(x),
+                                       stream)
     build.check(status, "dft_matmul")
     dft_matmul.launches += 1
     return y
@@ -74,7 +154,7 @@ dft_matmul.launches = 0
 
 
 def dft_matmul_twiddle_plain(x, w, t):
-    """The twiddle kernel's arithmetic in plain PyTorch: the four real
+    """The twiddle entry's arithmetic in plain PyTorch: the four real
     GEMMs, then ``yr·tr − yi·ti``, ``yr·ti + yi·tr`` with row r of y
     taking row ``r mod T`` of the ``(T, N)`` table."""
     y = dft_matmul_plain(x, w)
@@ -87,7 +167,7 @@ def dft_matmul_twiddle_plain(x, w, t):
                          yr * ti + yi * tr).reshape(M, N)
 
 
-def dft_matmul_twiddle(x, w, t):
+def dft_matmul_twiddle(x, w, t, *, wsplit=None):
     """y = (x · Wᵀ) ⊙ t for x (M, K), W (N, K) and a (T, N) twiddle table
     whose row ``r mod T`` multiplies row r of y (T must divide M);
     complex64 → (M, N) complex64.
@@ -95,8 +175,8 @@ def dft_matmul_twiddle(x, w, t):
     ``T = M`` is a general per-row twiddle; the four-step DFT passes its
     ``(n1, n2)`` table, whose rows repeat over the batch.  CUDA tensors
     launch the hand-written kernel (counted in
-    ``dft_matmul_twiddle.launches``); CPU tensors run
-    :func:`dft_matmul_twiddle_plain`.
+    ``dft_matmul_twiddle.launches``), with ``wsplit`` as in
+    :func:`dft_matmul`; CPU tensors run :func:`dft_matmul_twiddle_plain`.
     """
     M, K = x.shape
     N = w.shape[0]
@@ -112,14 +192,15 @@ def dft_matmul_twiddle(x, w, t):
     _check("w", w, torch.complex64, (N, K), x.device)
     _check("t", t, torch.complex64, (T, N), x.device)
     y = torch.empty((M, N), dtype=torch.complex64, device=x.device)
-    if M == 0:
+    if M == 0 or N == 0:
         return y
+    ws = _operand(w, wsplit, N, K, x.device)
     lib = build.library("dft_matmul")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         status = lib.dft_matmul_twiddle_launch(
-            x.data_ptr(), w.data_ptr(), t.data_ptr(), y.data_ptr(), M, N, K,
-            T, stream)
+            x.data_ptr(), ws.data_ptr(), t.data_ptr(), y.data_ptr(), M, N, K,
+            T, _tma_rows(x), stream)
     build.check(status, "dft_matmul_twiddle")
     dft_matmul_twiddle.launches += 1
     return y

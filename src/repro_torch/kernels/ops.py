@@ -1,7 +1,8 @@
 """Line-DFT entry points of the "cuda" backend.
 
 ``dft_apply`` turns a batch of lines into one launch of the complex-GEMM
-kernel with the cached rectangular DFT matrix.  Rectangular
+kernel with the cached rectangular DFT matrix and, on a CUDA device, its
+cached split-TF32 embedding (:func:`dft_operand_device`).  Rectangular
 n_in ≠ n_out fuses zero-padding (n_in < n_out) or spectrum truncation
 (n_in > n_out) into the GEMM shape.  Unlike the reference's wrapper it pads
 nothing to whole tiles: the kernel masks its ragged edges itself.
@@ -20,16 +21,35 @@ import numpy as np
 import torch
 
 from ..core.local_fft import dft_matrix_device
-from .dft_matmul import dft_matmul, dft_matmul_twiddle
+from .dft_matmul import dft_matmul, dft_matmul_twiddle, embed_operand
 from .ref import twiddle_matrix
+
+
+@functools.lru_cache(maxsize=128)
+def dft_operand_device(n_out: int, n_in: int, inverse: bool,
+                       device: torch.device) -> torch.Tensor:
+    """The kernel's split operand ``embed_operand(W)`` for
+    ``dft_matrix_device(n_out, n_in, inverse, device)``, cached per
+    ``(n_out, n_in, inverse, device)`` beside it: built once per DFT
+    matrix on the main path."""
+    _, _, w = dft_matrix_device(n_out, n_in, inverse, device)
+    return embed_operand(w)
+
+
+def _matrix(n_out: int, n_in: int, inverse: bool, device):
+    """(W, its cached split operand or None on the CPU, which needs none)."""
+    _, _, w = dft_matrix_device(n_out, n_in, inverse, device)
+    if device.type != "cuda":
+        return w, None
+    return w, dft_operand_device(n_out, n_in, inverse, w.device)
 
 
 def dft_apply(x, n_out: int | None = None, *, inverse: bool = False):
     """Batched line DFT via the kernel: (B, n_in) → (B, n_out) complex64."""
     n_in = x.shape[1]
     n_out = n_in if n_out is None else n_out
-    _, _, w = dft_matrix_device(n_out, n_in, inverse, x.device)
-    return dft_matmul(x.to(torch.complex64).contiguous(), w)
+    w, ws = _matrix(n_out, n_in, inverse, x.device)
+    return dft_matmul(x.to(torch.complex64).contiguous(), w, wsplit=ws)
 
 
 @functools.lru_cache(maxsize=64)
@@ -68,9 +88,10 @@ def four_step_dft(x, *, inverse: bool = False):
     x = x.to(torch.complex64)
     # (B, n) -> (B, n2, n1) -> rows (b, j1), columns j2
     s1 = x.reshape(B, n2, n1).transpose(1, 2).reshape(B * n1, n2)
-    _, _, w2 = dft_matrix_device(n2, n2, inverse, x.device)
+    w2, ws2 = _matrix(n2, n2, inverse, x.device)
     t = dft_matmul_twiddle(s1.contiguous(), w2,
-                           _twiddle_table(n1, n2, inverse, x.device))
+                           _twiddle_table(n1, n2, inverse, x.device),
+                           wsplit=ws2)
     # rows (b, k2), columns j1
     z = t.reshape(B, n1, n2).transpose(1, 2).reshape(B * n2, n1)
     z = dft_apply(z, inverse=inverse)                     # (B·n2, n1)

@@ -325,6 +325,20 @@ def test_entry_points_without_device_raise_when_cuda_absent(monkeypatch):
     assert PlaneWaveBasis(16, device="cpu").device == torch.device("cpu")
 
 
+def test_device_helpers_without_device_raise_when_cuda_absent(monkeypatch):
+    """``dft_matrix_device`` and ``coulomb_kernel`` resolve a missing
+    device as every entry point does: CUDA, or raise."""
+    from repro_torch.core.local_fft import dft_matrix_device
+    from repro_torch.dft.hartree import coulomb_kernel
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dft_matrix_device(16, 8, True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        coulomb_kernel(8, 10.0)
+    assert dft_matrix_device(16, 8, True, "cpu")[2].device.type == "cpu"
+    assert coulomb_kernel(8, 10.0, "cpu").device.type == "cpu"
+
+
 # ------------------------------------------------------------- isolation
 def _port_sources():
     return sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \

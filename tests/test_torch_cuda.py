@@ -8,8 +8,9 @@ on a machine that has only the port's dependencies:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerance: kernel and plain version are both fp32 and sum in different
-orders; outputs agree to 1e-5 relative to the largest magnitude.  Exact
+Tolerance: the line-DFT kernels compute fp32-accurate split-TF32
+products on the tensor cores, the plain versions fp32 GEMMs; they sum in
+different orders and agree to 1e-5 relative to the largest magnitude.  Exact
 zeros (padded lanes) are compared bitwise.
 """
 import numpy as np
@@ -51,8 +52,35 @@ def _close(got, want, rtol=RTOL):
     assert err <= rtol * max(float(want.abs().max()), 1e-30), err
 
 
+# dft_matmul cases: (M, K, N, rows past M NaN-poisoned).  Odd K has a
+# row pitch TMA cannot address and takes the kernel's masked A path; M is
+# never a whole number of 128-row tiles
+GEMM_CASES = {
+    "dft_matmul": (1000, 24, 40, False),
+    "dft_matmul-odd-k5": (300, 5, 5, False),
+    "dft_matmul-odd-k9-to-18": (300, 9, 18, False),
+    "dft_matmul-k18-to-20": (300, 18, 20, False),
+    "dft_matmul-k1": (77, 1, 3, False),
+    "dft_matmul-n1": (77, 8, 1, False),
+    "dft_matmul-m1": (1, 8, 8, False),
+    "dft_matmul-ragged-m-128-to-256": (389, 128, 256, False),
+    "dft_matmul-poisoned": (1000, 24, 40, True),
+    "dft_matmul-poisoned-odd-k": (500, 9, 18, True),
+}
+
+
+def _rows(rng, M, K, dev, poisoned):
+    """(M, K) complex64 lines; poisoned: the first M rows of a larger
+    buffer whose later rows are NaN, which a read would spread."""
+    if not poisoned:
+        return _cx(rng, (M, K), dev)
+    buf = _cx(rng, (M + 77, K), dev)
+    buf[M:] = float("nan")
+    return buf[:M]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["dft_matmul", "unpack_dft", "dft_pack"])
+@pytest.mark.parametrize("kernel", ["unpack_dft", "dft_pack", *GEMM_CASES])
 def test_cuda_kernel_matches_plain(kernel, cuda_device):
     dev = cuda_device
     rng = np.random.default_rng(11)
@@ -61,13 +89,16 @@ def test_cuda_kernel_matches_plain(kernel, cuda_device):
     npm = max(s.npacked for s in spheres)
     tabs = tuple(torch.as_tensor(t, device=dev)
                  for t in sp.line_tables(spheres, nb))
-    fn = {"dft_matmul": dft_matmul, "unpack_dft": sp.unpack_dft,
-          "dft_pack": sp.dft_pack}[kernel]
+    fn = dft_matmul if kernel in GEMM_CASES else {
+        "unpack_dft": sp.unpack_dft, "dft_pack": sp.dft_pack}[kernel]
     before = fn.launches
-    if kernel == "dft_matmul":
-        x = _cx(rng, (1000, 24), dev)
-        _, _, w = dft_matrix_device(40, 24, True, dev)
-        _close(dft_matmul(x, w), dft_matmul_plain(x, w))
+    if kernel in GEMM_CASES:
+        M, K, N, poisoned = GEMM_CASES[kernel]
+        x = _rows(rng, M, K, dev, poisoned)
+        _, _, w = dft_matrix_device(N, K, True, dev)
+        y = dft_matmul(x, w)
+        assert bool(torch.isfinite(torch.view_as_real(y)).all())
+        _close(y, dft_matmul_plain(x, w))
     elif kernel == "unpack_dft":
         packed = _cx(rng, (2 * nb, npm), dev)
         packed[:nb, spheres[0].npacked:] = float("nan")   # never read
@@ -108,23 +139,37 @@ def test_scf_on_cuda_launches_every_kernel_and_matches_cpu(cuda_device):
                                atol=3e-5)
 
 
+# general twiddle cases: (M, K, N, rows past M NaN-poisoned), T = M
+TWIDDLE_CASES = {
+    "general": (1000, 24, 40, False),
+    "general-odd-k5": (300, 5, 5, False),
+    "general-odd-k9-to-18": (300, 9, 18, False),
+    "general-m1": (1, 8, 8, False),
+    "general-poisoned": (1000, 24, 40, True),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["general", "four_step"])
+@pytest.mark.parametrize("case", [*TWIDDLE_CASES, "four_step",
+                                  "four_step-n15"])
 def test_cuda_twiddle_kernel_matches_plain(case, cuda_device):
     dev = cuda_device
     rng = np.random.default_rng(12)
-    if case == "general":                      # ragged, a (M, N) table
-        x = _cx(rng, (1000, 24), dev)
-        _, _, w = dft_matrix_device(40, 24, False, dev)
-        t = _cx(rng, (1000, 40), dev)
-    else:                                      # stage 1 of n = 64·32
-        n1, n2 = ops._factor(2048)
+    if case in TWIDDLE_CASES:                  # ragged, a (M, N) table
+        M, K, N, poisoned = TWIDDLE_CASES[case]
+        x = _rows(rng, M, K, dev, poisoned)
+        _, _, w = dft_matrix_device(N, K, False, dev)
+        t = _cx(rng, (M, N), dev)
+    else:                   # stage 1 of n = 64·32, or of n = 3·5 (K = 5)
+        n1, n2 = ops._factor(2048 if case == "four_step" else 15)
         x = _cx(rng, (50 * n1, n2), dev)
         _, _, w = dft_matrix_device(n2, n2, True, dev)
         t = torch.as_tensor(np.ascontiguousarray(
             twiddle_matrix(n1, n2, True).T), device=dev)
     before = dft_matmul_twiddle.launches
-    _close(dft_matmul_twiddle(x, w, t), dft_matmul_twiddle_plain(x, w, t))
+    y = dft_matmul_twiddle(x, w, t)
+    assert bool(torch.isfinite(torch.view_as_real(y)).all())
+    _close(y, dft_matmul_twiddle_plain(x, w, t))
     assert dft_matmul_twiddle.launches == before + 1
 
 

@@ -31,7 +31,8 @@ from repro_torch.kernels import build, ops
 from repro_torch.kernels import sphere_pack as sp
 from repro_torch.kernels.dft_matmul import (dft_matmul, dft_matmul_plain,
                                             dft_matmul_twiddle,
-                                            dft_matmul_twiddle_plain)
+                                            dft_matmul_twiddle_plain,
+                                            embed_operand, tf32_split)
 from repro_torch.kernels.ref import (complex_matmul_ref, four_step_ref,
                                      twiddle_matrix)
 
@@ -120,6 +121,149 @@ def test_dft_matrix_bit_identical_to_reference():
         assert np.array_equal(wr.numpy(), np.asarray(rr))
         assert np.array_equal(wi.numpy(), np.asarray(ri))
         assert np.array_equal(w.numpy().real, np.asarray(rr))
+
+
+# ------------------------------------- split-TF32 design of the kernel
+def _rna_reference(a: np.ndarray) -> np.ndarray:
+    """fp32 → TF32 round to nearest, ties away from zero, computed in
+    float64 from the value (not the bits): the rule of
+    ``cvt.rna.tf32.f32``, which keeps 10 of fp32's 23 mantissa bits."""
+    a64 = a.astype(np.float64)
+    out = a64.copy()
+    fin = np.isfinite(a64) & (a64 != 0)
+    _, ex = np.frexp(np.abs(a64[fin]))          # |a| = m·2^ex, m in [½, 1)
+    ulp = np.ldexp(1.0, np.maximum(ex - 1, -126) - 10)
+    q = np.floor(np.abs(a64[fin]) / ulp + 0.5)   # ties away from zero
+    out[fin] = np.sign(a64[fin]) * q * ulp
+    with np.errstate(over="ignore"):
+        return out.astype(np.float32)
+
+
+def _bits(v) -> np.ndarray:
+    return np.asarray(v, dtype=np.float32).view(np.uint32)
+
+
+TF32_EDGES = np.array([
+    0x3F801000, 0xBF801000,           # ties: 1 + 2^-11 → 1 + 2^-10, ±
+    0x3F800FFF, 0x3F801001,           # just below / above a tie
+    0x3F803000, 0xC0A01000,           # ties with an odd kept bit, ±
+    0x00000000, 0x80000000,           # ±0
+    0x00000001, 0x80000FFF,           # subnormals that round to ±0
+    0x00001000, 0x00003000,           # subnormal ties
+    0x007FFFFF, 0x807FF000,           # round up into the least normal
+    0x7F7FEFFF, 0x7F000FFF, 0xFF7FE000,  # large exponents
+    0x7F7FF000,                       # the largest tie: rounds to inf
+], dtype=np.uint32).view(np.float32)
+
+
+def test_tf32_split_rounds_as_cvt_rna():
+    """(a) ``big`` has its low 13 mantissa bits zero and equals the rna
+    rule bit for bit on edge values and random ones; ``small`` is the
+    same rule applied to ``a − big``."""
+    rng = np.random.default_rng(31)
+    rand = (rng.standard_normal(4096)
+            * np.exp2(rng.integers(-100, 100, 4096))).astype(np.float32)
+    a = np.concatenate([TF32_EDGES, rand])
+    big, small = tf32_split(torch.as_tensor(a))
+    big, small = big.numpy(), small.numpy()
+    assert np.all(_bits(big) & 0x1FFF == 0)
+    assert np.all(_bits(small) & 0x1FFF == 0)
+    assert np.array_equal(_bits(big), _bits(_rna_reference(a)))
+    fin = np.isfinite(big)
+    rest = (a[fin].astype(np.float64) - big[fin]).astype(np.float32)
+    assert np.array_equal(_bits(small[fin]), _bits(_rna_reference(rest)))
+    # inf and NaN pass unchanged
+    special = torch.tensor([float("inf"), -float("inf"), float("nan")])
+    b, _ = tf32_split(special)
+    assert torch.equal(b[:2], special[:2]) and bool(torch.isnan(b[2]))
+
+
+def test_tf32_split_keeps_fp32_accuracy():
+    """(a) |a − big − small| <= 2^-22 |a| for normal values."""
+    rng = np.random.default_rng(32)
+    a = (rng.standard_normal(1 << 14)
+         * np.exp2(rng.integers(-100, 100, 1 << 14))).astype(np.float32)
+    big, small = (p.numpy().astype(np.float64)
+                  for p in tf32_split(torch.as_tensor(a)))
+    a64 = a.astype(np.float64)
+    assert np.all(np.abs(a64 - big - small) <= 2.0 ** -22 * np.abs(a64))
+    assert np.abs(a64 - big).max() > 0      # the split does keep bits
+
+
+def _ref_kernel(x, w, t=None):
+    """The reference Pallas kernel (``_kernel``, or ``_kernel_twiddle``
+    with the table tiled to (M, N) as its wrapper passes it), in
+    interpret mode, over one whole-array block."""
+    M, N = x.shape[0], w.shape[0]
+    args = [jnp.asarray(p) for p in (x.real, x.imag, w.real, w.imag)]
+    if t is not None:
+        tf = np.tile(t, (M // t.shape[0], 1))
+        args += [jnp.asarray(tf.real), jnp.asarray(tf.imag)]
+    yr, yi = ref_dft_matmul(*args, bm=M, bn=N, interpret=True)
+    return np.asarray(yr) + 1j * np.asarray(yi)
+
+
+@pytest.mark.parametrize("M,K,N", [(64, 24, 40), (16, 5, 5),
+                                   (32, 128, 64)])
+def test_embedding_is_the_complex_product(M, K, N):
+    """(b) complex64 x read as fp32 (M, 2K) times the real embedding of W,
+    summed over both TF32 planes, is the complex product."""
+    rng = np.random.default_rng(M + K + N)
+    x = torch.as_tensor(_cx(rng, (M, K)))
+    w = torch.as_tensor(_cx(rng, (N, K)))
+    wsplit = embed_operand(w)
+    assert tuple(wsplit.shape) == (2, 2 * N, 2 * K)
+    xh = torch.view_as_real(x).reshape(M, 2 * K)
+    yh = xh @ wsplit[0].T + xh @ wsplit[1].T
+    y = torch.view_as_complex(yh.reshape(M, N, 2)).numpy()
+    _close(y, dft_matmul_plain(x, w).numpy(), rtol=1e-6)
+    _close(y, _ref_kernel(x.numpy(), w.numpy()), rtol=1e-6)
+
+
+def _three_tf32(x, w, t=None):
+    """The kernel's arithmetic emulated on the CPU: x̂ split by
+    ``tf32_split``, the three fp32 GEMMs ``small·big + big·small +
+    big·big`` against ``embed_operand(w)``, then the twiddle product in
+    the kernel's order."""
+    M, K = x.shape
+    N = w.shape[0]
+    xb, xs = tf32_split(torch.view_as_real(x).reshape(M, 2 * K))
+    wb, ws = embed_operand(w)
+    yh = xs @ wb.T + xb @ ws.T + xb @ wb.T
+    y = torch.view_as_complex(yh.reshape(M, N, 2).contiguous())
+    if t is None:
+        return y
+    T = t.shape[0]
+    yr, yi = y.real.reshape(M // T, T, N), y.imag.reshape(M // T, T, N)
+    return torch.complex(yr * t.real - yi * t.imag,
+                         yr * t.imag + yi * t.real).reshape(M, N)
+
+
+@pytest.mark.parametrize("case,M,K,N,table", [
+    ("ragged", 100, 24, 40, None),
+    ("ragged_general_twiddle", 100, 24, 40, "general"),
+    ("stage_8_to_16", 48, 8, 16, None),
+    ("stage_16_to_8", 48, 16, 8, None),
+    ("four_step_64", 128, 64, 64, "four_step"),
+    ("odd_k_5", 30, 5, 5, None),
+    ("odd_k_9_to_18", 36, 9, 18, "general"),
+])
+def test_three_tf32_product_matches_reference_kernel(case, M, K, N, table):
+    """(c) split-TF32 products on DFT matrices against the reference's
+    ``_kernel`` / ``_kernel_twiddle`` at 1e-5 of the largest output."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    x = _cx(rng, (M, K))
+    _, _, w = dft_matrix_device(N, K, M % 2 == 0, "cpu")
+    if table == "four_step":
+        n1 = 64
+        t = np.ascontiguousarray(twiddle_matrix(n1, N, False).T)
+    elif table == "general":
+        t = _cx(rng, (M, N))
+    else:
+        t = None
+    got = _three_tf32(torch.as_tensor(x), w,
+                      None if t is None else torch.as_tensor(t))
+    _close(got.numpy(), _ref_kernel(x, w.numpy(), t), rtol=1e-5)
 
 
 # -------------------------------------------------- twiddle + four-step
