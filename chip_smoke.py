@@ -2,11 +2,15 @@
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --compare-kernel1 DIR
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``,
 holds each against its plain PyTorch version at the shapes of the stacked
 plane-wave SCF at the paper's widths (grid n = 256, sphere diameter
-d = 128: ``repro/configs/fftb_paper.py``), then runs that SCF through the
+d = 128: ``repro/configs/fftb_paper.py``) and, for the sphere kernels, at
+small edge cases (ragged tiles, partial K chunks, odd n, every slab
+layout, NaN-poisoned padded lanes, ``flag = 0`` planes), then runs that
+SCF through the
 public entry point ``repro_torch.dft.run_scf`` on the kernel route
 (``backend="cuda"``) and on the plain ``torch.matmul`` route, and compares
 the two.  Every kernel of the path must have launched during the kernel
@@ -32,17 +36,26 @@ it and read just after:
 
 Last, kernel #1 is timed at every distinct line shape that the three
 paths launched (recorded while each path ran), beside its two bounds,
-complex64 ``torch.matmul`` on the same lines and the ``movedim``/
-``reshape`` copy that the "cuda" backend makes of a stage's input whose
-axis is not the last.
+complex64 ``torch.matmul`` on the same lines, its call-C time and the
+``movedim``/``reshape`` copy that the "cuda" backend makes of a stage's
+input whose axis is not the last.
 
 Exits non-zero, printing no result line, on any failed check or when no
 CUDA device is present.
 
+With ``--compare-kernel1 DIR`` it only times kernel #1 of this tree
+against kernel #1 built from the sources of the checkout at DIR (say, a
+``git archive`` of the parent commit unpacked under ``build/``), in
+alternating pairs at every line shape of PERF.md's call-C table.
+
 Printed, in order: the card's name and power limit, the kernel build time
 and each kernel's ``-Xptxas -v`` summary (registers, spills), per-kernel
 errors/exact-zero checks/times with two bounds each (fp32 FMA, and
-3xTF32 on the tensor cores), the SCF comparison and its breakdown, the
+3xTF32 on the tensor cores; the sphere kernels also beside their SIMT
+times of PERF.md's call C, with the K chunks and tiles ``unpack_dft``
+skips and the time of ``dft_pack``'s zero-tail kernel), the SCF
+comparison and its breakdown, the layout of the slab the fused pack gets
+on the SCF path (read in place, or copied), the
 four-step phase (kernel #2's and the composition's times beside
 ``torch.fft``'s), the service phase (each pass's metrics summary beside
 the card's name and power limit, its batches, the warm pass's dispatch
@@ -84,8 +97,8 @@ SERVICE_TRACE = (
 SPAN_COVERAGE = 0.9
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM, fp32 without tensor
-# cores (the SIMT sphere kernels), dense TF32 on the tensor cores (the
-# line-DFT kernels, three TF32 products per fp32-accurate product)
+# cores, dense TF32 on the tensor cores (every kernel: three TF32 products
+# per fp32-accurate product)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 TF32_FLOP_PER_S = 495e12
@@ -99,6 +112,25 @@ KERNEL_RTOL = 1e-5
 ENERGY_RTOL = 1e-4
 EIG_ATOL = 1e-4
 RHO_RTOL = 1e-3
+
+
+# earlier times, for comparison within the printout only: the sphere
+# kernels on the SIMT GEMM before this design, and kernel #1 by line shape
+# (lines, n_in, n_out, inverse), from PERF.md's call C (NVIDIA H100 80GB
+# HBM3, 700.00 W)
+SIMT_MS = {"unpack_dft": 3.683, "dft_pack": 3.780}
+CALL_C_MS = {
+    (2097152, 128, 256, True): 5.690, (2097152, 256, 128, False): 5.342,
+    (1048576, 128, 256, True): 2.733, (1048576, 256, 128, False): 2.582,
+    (524288, 128, 256, True): 1.389, (524288, 256, 128, False): 1.314,
+    (524288, 256, 64, False): 0.689, (524288, 64, 256, True): 0.778,
+    (262144, 128, 256, True): 0.699, (262144, 256, 128, False): 0.666,
+    (131072, 256, 128, False): 0.358, (131072, 128, 256, True): 0.366,
+    (131072, 64, 256, True): 0.210, (131072, 256, 64, False): 0.192,
+    (65536, 256, 256, True): 0.355, (262144, 64, 64, True): 0.117,
+    (65536, 256, 256, False): 0.378, (262144, 64, 64, False): 0.116,
+    (65536, 128, 256, True): 0.194, (65536, 256, 128, False): 0.193,
+    (32768, 256, 64, False): 0.061, (32768, 64, 256, True): 0.064}
 
 
 class CheckFailed(Exception):
@@ -119,6 +151,10 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# cgemm_tc.cuh's ways to load the x^ tile, by template argument
+A_PATHS = ("A_ROWS", "A_GATHER", "A_COLS")
+
+
 def ptxas_summary(log: str) -> list[tuple[str, str]]:
     """(kernel, "stack, spills; registers, barriers") per entry function
     of a ``-Xptxas -v`` log, with the tensor-core GEMM's template
@@ -129,10 +165,11 @@ def ptxas_summary(log: str) -> list[tuple[str, str]]:
     for line in log.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
-            m = re.search(r"cgemm_tc_kernelILb(\d)EN4dftk\d+(\w+?)E", name)
+            m = re.search(r"cgemm_tc_kernelILi(\d)EN(?:S_|4dftk)(\d+)(\w+)",
+                          name)
             if m:
-                name = (f"cgemm_tc_kernel<{'TMA' if m[1] == '1' else 'masked'}"
-                        f" A, {m[2]}>")
+                name = (f"cgemm_tc_kernel<{A_PATHS[int(m[1])]}, "
+                        f"{m[3][:int(m[2])]}>")
             out[name] = []
         elif name and ("registers" in line or "spill" in line):
             out[name].append(line.split("info    :")[-1].strip())
@@ -169,17 +206,6 @@ def wall_ms(torch, fn, reps: int = 2) -> float:
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) / reps * 1e3
-
-
-def event_ms(torch, fn):
-    """(result, device ms) of one call of ``fn()``, by CUDA events."""
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    out = fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return out, start.elapsed_time(stop)
 
 
 def bound_ms(nbytes: float, flops: float) -> dict:
@@ -227,7 +253,7 @@ def crandn(torch, gen, shape, device):
 
 # ------------------------------------------------------------------ kernels
 # kernel #1's edge cases beside the SCF's shapes: (M, K, N, rows past M
-# NaN-poisoned).  Odd K takes the masked A path (a row pitch TMA cannot
+# NaN-poisoned).  Odd K takes the gather path (a row pitch TMA cannot
 # address); no M is a whole number of 128-row tiles
 EDGE_CASES = ((1000, 24, 40, False), (300, 5, 5, False), (300, 9, 18, False),
               (77, 1, 3, False), (77, 8, 1, False), (1, 8, 8, False),
@@ -296,21 +322,118 @@ def check_dft_matmul(torch, dev, gen):
             "shape": f"{M}x{K}->{Nn}"}
 
 
+# the sphere kernels' edge cases beside the SCF's shapes: (d, n, k-points,
+# bands[, slab layout]).  d = 6: rows never whole 128-line tiles, ey = 6
+# (tiles straddle planes), 2d = 12 < one 32-column K chunk; d = 8: ey = 8;
+# d = 40: K chunks skipped in the edge tiles, and an ey that the strided
+# read does not fit (the slab is copied); odd n: dft_pack's gather path
+KPTS3 = ((0.25, 0.0, 0.5), (0.0, 0.0, 0.0), (0.5, 0.5, 0.0))
+UNPACK_EDGE_CASES = ((6, 12, KPTS, 3), (8, 16, KPTS, 3), (40, 80, KPTS3, 2))
+PACK_EDGE_CASES = ((6, 12, KPTS, 3, "rows"), (6, 9, KPTS3, 2, "rows"),
+                   (8, 16, KPTS, 3, "x-planes"), (8, 16, KPTS, 3, "y-planes"),
+                   (8, 15, KPTS3, 2, "y-planes"),
+                   (40, 80, KPTS3, 2, "y-planes"))
+
+
+def slab_as(torch, gen, B, d, n, layout, dev):
+    """A (B, d, d, n) slab stored as ``layout`` says: "rows" contiguous
+    lines, "y-planes" each y plane z-major (as an x stage leaves it: the
+    stacked SCF's forward plan), "x-planes" each x plane z-major (which
+    dft_pack copies first)."""
+    if layout == "rows":
+        return crandn(torch, gen, (B, d, d, n), dev)
+    s = crandn(torch, gen, (B, d, n, d), dev)
+    return s.transpose(2, 3) if layout == "x-planes" else s.permute(0, 3, 1,
+                                                                    2)
+
+
+def sphere_tables(torch, dev, spheres, nbands):
+    from repro_torch.kernels import sphere_pack as sp
+    return tuple(torch.as_tensor(t, device=dev)
+                 for t in sp.line_tables(spheres, nbands))
+
+
+def poisoned_lanes(torch, gen, spheres, nbands, dev):
+    """(B, npacked_max) lanes whose lanes past each row's sphere are NaN:
+    a read would poison the row's outputs."""
+    npk = max(s.npacked for s in spheres)
+    packed = crandn(torch, gen, (len(spheres) * nbands, npk), dev)
+    for k, s in enumerate(spheres):
+        packed[k * nbands:(k + 1) * nbands, s.npacked:] = float("nan")
+    return packed
+
+
+def check_unpack_case(torch, dev, gen, d, n, kpts, nbands) -> float:
+    """unpack_dft at a small sphere set: NaN lanes unread, cnt = 0 lines
+    and a flag = 0 plane with support bitwise +0.0; returns the rel err."""
+    from repro_torch.core import kpoint_sphere
+    from repro_torch.core.local_fft import dft_matrix_device
+    from repro_torch.kernels import sphere_pack as sp
+    spheres = [kpoint_sphere(d, k) for k in kpts]
+    start, zlo, cnt, flag = sphere_tables(torch, dev, spheres, nbands)
+    packed = poisoned_lanes(torch, gen, spheres, nbands, dev)
+    _, _, w = dft_matrix_device(n, d, True, dev)
+    flag0 = flag.clone()
+    flag0[d // 2] = 0
+    worst = 0.0
+    for fl in (flag, flag0):
+        y = sp.unpack_dft(packed, start, zlo, cnt, fl, w)
+        _, rel = rel_err(torch, y, sp.unpack_dft_plain(packed, start, zlo,
+                                                       cnt, fl, w))
+        worst = max(worst, rel)
+        empty = (cnt == 0).reshape(y.shape[:3])
+        check(bool(torch.isfinite(torch.view_as_real(y)).all())
+              and rel <= KERNEL_RTOL and is_plus_zero(torch, y[empty]),
+              f"d={d} n={n} {len(kpts)} k x {nbands} bands"
+              f"{' flag=0 plane' if fl is flag0 else ''}: no NaN lane read,"
+              f" rel err {rel:.3e}, {int(empty.sum())} cnt=0 lines +0.0")
+    check(int((cnt.reshape(y.shape[:3])[:, d // 2] > 0).sum()) > 0
+          and is_plus_zero(torch, y[:, d // 2]),
+          f"d={d}: the flag=0 plane {d // 2}, which has support, is +0.0")
+    return worst
+
+
+def gather_cost(torch, dev, gen, M, d, n) -> dict:
+    """Kernel #1 on M dense lines of d -> n, once with x 16-byte aligned
+    (TMA) and once 8 bytes off (the wrapper then takes the gather path
+    that unpack_dft uses): what the gather costs apart from the sphere."""
+    from repro_torch.core.local_fft import dft_matrix_device
+    from repro_torch.kernels.dft_matmul import dft_matmul
+    from repro_torch.kernels.ops import dft_operand_device
+    buf = crandn(torch, gen, (M * d + 2,), dev)
+    aligned = buf[:M * d].view(M, d)
+    shifted = buf[1:M * d + 1].view(M, d)
+    if aligned.data_ptr() % 16:
+        aligned, shifted = shifted, aligned
+    _, _, w = dft_matrix_device(n, d, True, dev)
+    ws = dft_operand_device(n, d, True, w.device)
+    out = {name: time_ms(torch, lambda x=x: dft_matmul(x, w, wsplit=ws))
+           for name, x in (("tma_ms", aligned), ("gather_ms", shifted))}
+    del buf
+    return out
+
+
 def check_unpack_dft(torch, dev, gen, spheres):
     from repro_torch.core.local_fft import dft_matrix_device
     from repro_torch.kernels import sphere_pack as sp
-    print("unpack_dft (kernel #3): CSR gather + d->n line DFT", flush=True)
-    start, zlo, cnt, flag = (torch.as_tensor(t, device=dev) for t in
-                             sp.line_tables(spheres, NBANDS))
+    from repro_torch.kernels.ops import dft_operand_device
+    print("unpack_dft (kernel #3): CSR gather + d->n line DFT, split TF32 "
+          "on the tensor cores", flush=True)
+    edge = max(check_unpack_case(torch, dev, gen, *case)
+               for case in UNPACK_EDGE_CASES)
+    start, zlo, cnt, flag = sphere_tables(torch, dev, spheres, NBANDS)
     B, nl = start.shape
     npk = max(s.npacked for s in spheres)
-    packed = crandn(torch, gen, (B, npk), dev)
-    # lanes past each row's sphere are untrusted: NaN proves they are
-    # never read (a read would poison the row's outputs)
-    for k, s in enumerate(spheres):
-        packed[k * NBANDS:(k + 1) * NBANDS, s.npacked:] = float("nan")
+    packed = poisoned_lanes(torch, gen, spheres, NBANDS, dev)
     _, _, w = dft_matrix_device(N, DIAMETER, True, dev)
-    y = sp.unpack_dft(packed, start, zlo, cnt, flag, w)
+    # the SCF path's cached arguments
+    chunks = sp.chunk_ranges(zlo, cnt, flag)
+    ws = dft_operand_device(N, DIAMETER, True, w.device)
+
+    def kernel(table=chunks):
+        return sp.unpack_dft(packed, start, zlo, cnt, flag, w, chunks=table,
+                             wsplit=ws)
+    y = kernel()
     yp = sp.unpack_dft_plain(packed, start, zlo, cnt, flag, w)
     err, rel = rel_err(torch, y, yp)
     check(bool(torch.isfinite(torch.view_as_real(y)).all()),
@@ -323,65 +446,179 @@ def check_unpack_dft(torch, dev, gen, spheres):
     flag0 = flag.clone()
     planes = [0, 1, 3 * DIAMETER // 5]
     flag0[planes] = 0
-    y0 = sp.unpack_dft(packed, start, zlo, cnt, flag0, w)
+    y0 = sp.unpack_dft(packed, start, zlo, cnt, flag0, w, wsplit=ws)
     check(is_plus_zero(torch, y0[:, planes]),
           f"flag=0 planes {planes} are bitwise +0.0")
     check(bool(torch.equal(y0[:, 2], y[:, 2])),
           "planes with flag=1 are unchanged by the zero-skip")
     del y, yp, y0
-    ms = time_ms(torch, lambda: sp.unpack_dft(packed, start, zlo, cnt, flag,
-                                              w))
+    # what the chunk table skips per launch: row tiles with no active
+    # line, and K chunks outside each tile's active lines
+    nk = -(-2 * DIAMETER // 32)
+    tiles_n = -(-2 * N // 128)
+    first, last = chunks[:, 0].long(), chunks[:, 1].long()
+    skip = {"row_tiles": int(chunks.shape[0]),
+            "row_tiles_skipped": int((last == first).sum()),
+            "chunk_loads": int(chunks.shape[0]) * nk * tiles_n,
+            "chunk_loads_skipped": int((nk - (last - first)).sum()) * tiles_n}
+    print(f"  per launch: {skip['row_tiles_skipped']} of {skip['row_tiles']}"
+          f" 128-line tiles skipped, {skip['chunk_loads_skipped']} of "
+          f"{skip['chunk_loads']} K-chunk loads skipped ({tiles_n} column "
+          f"tiles x {nk} chunks per row tile)", flush=True)
+    full = torch.stack((torch.zeros_like(first), torch.full_like(last, nk)),
+                       1).to(torch.int32).contiguous()
+    ms = time_ms(torch, kernel)
+    ms_full = time_ms(torch, lambda: kernel(full))
+    gather = gather_cost(torch, dev, gen, B * nl, DIAMETER, N)
     plain = time_ms(torch, lambda: sp.unpack_dft_plain(
         packed, start, zlo, cnt, flag, w), reps=5)
     lanes = float(cnt.sum())                       # this run's packed lanes
     nbytes = 8.0 * (lanes + N * DIAMETER + B * nl * N) + 4.0 * 3 * B * nl
     b = bound_ms(nbytes, 8.0 * N * lanes)
-    print(f"  time {ms:.3f} ms, plain {plain:.3f} ms, {bound_text(b)}; no "
-          "single torch call computes it", flush=True)
+    print(f"  time {ms:.3f} ms ({ms_full:.3f} ms reading every K chunk; "
+          f"{SIMT_MS['unpack_dft']:.3f} ms on the SIMT GEMM, call C), plain "
+          f"{plain:.3f} ms, {bound_text(b)}; no single torch call computes "
+          "it", flush=True)
+    print(f"  the gather itself: kernel #1 on the same {B * nl} dense lines "
+          f"{gather['gather_ms']:.3f} ms through the gather path against "
+          f"{gather['tma_ms']:.3f} ms by TMA", flush=True)
     return {"name": "unpack_dft", "max_abs_err": err, "rel_err": rel,
-            "tolerance": KERNEL_RTOL, "ms": ms, "plain_ms": plain,
-            **b, "library_ms": None,
+            "edge_max_rel_err": edge, "tolerance": KERNEL_RTOL, "ms": ms,
+            "every_chunk_ms": ms_full, "simt_call_c_ms": SIMT_MS["unpack_dft"],
+            "dense_lines": gather,
+            "plain_ms": plain, **b, "library_ms": None, **skip,
             "shape": f"({B},{npk})->({B},{DIAMETER},{DIAMETER},{N})"}
+
+
+def check_pack_case(torch, dev, gen, d, n, kpts, nbands, layout) -> float:
+    """dft_pack at a small sphere set: padded lanes bitwise +0.0; the
+    strided slab is read in place where its ey fits; returns the rel err."""
+    import numpy as np
+
+    from repro_torch.core import kpoint_sphere
+    from repro_torch.core.local_fft import dft_matrix_device
+    from repro_torch.kernels import sphere_pack as sp
+    spheres = [kpoint_sphere(d, k) for k in kpts]
+    start, zlo, cnt, _ = sphere_tables(torch, dev, spheres, nbands)
+    B, npk = start.shape[0], max(s.npacked for s in spheres)
+    slab = slab_as(torch, gen, B, d, n, layout, dev)
+    nvalid = torch.as_tensor(np.repeat(np.asarray(
+        [s.npacked for s in spheres], np.int32), nbands), device=dev)
+    _, _, w = dft_matrix_device(d, n, False, dev)
+    out = sp.dft_pack(slab, start, zlo, cnt, nvalid, w, npk)
+    _, rel = rel_err(torch, out, sp.dft_pack_plain(slab, start, zlo, cnt,
+                                                   nvalid, w, npk))
+    pad = torch.arange(npk, device=dev)[None, :] >= nvalid.long()[:, None]
+    how = "after a copy" if sp.slab_layout(slab) is None else "in place"
+    check(bool(torch.isfinite(torch.view_as_real(out)).all())
+          and rel <= KERNEL_RTOL and int(pad.sum()) > 0
+          and is_plus_zero(torch, out[pad]),
+          f"d={d} n={n} {len(kpts)} k x {nbands} bands, {layout} slab "
+          f"(read {how}): rel err {rel:.3e}, {int(pad.sum())} padded lanes "
+          "+0.0")
+    return rel
 
 
 def check_dft_pack(torch, dev, gen, spheres):
     import numpy as np
 
     from repro_torch.core.local_fft import dft_matrix_device
+    from repro_torch.kernels import build
     from repro_torch.kernels import sphere_pack as sp
-    print("dft_pack (kernel #4): n->d line DFT + CSR pack", flush=True)
-    start, zlo, cnt, _ = (torch.as_tensor(t, device=dev) for t in
-                          sp.line_tables(spheres, NBANDS))
+    from repro_torch.kernels.ops import dft_operand_device
+    print("dft_pack (kernel #4): n->d line DFT + CSR pack, split TF32 on the "
+          "tensor cores", flush=True)
+    edge = max(check_pack_case(torch, dev, gen, *case)
+               for case in PACK_EDGE_CASES)
+    start, zlo, cnt, _ = sphere_tables(torch, dev, spheres, NBANDS)
     B, nl = start.shape
     npk = max(s.npacked for s in spheres)
     nvalid = torch.as_tensor(np.repeat(np.asarray(
         [s.npacked for s in spheres], np.int32), NBANDS), device=dev)
-    slab = crandn(torch, gen, (B, DIAMETER, DIAMETER, N), dev)
+    # the slab as the forward plan's x stage leaves it, each y plane
+    # z-major; and the same values with contiguous lines
+    strided = slab_as(torch, gen, B, DIAMETER, N, "y-planes", dev)
+    rows = strided.contiguous()
+    check(sp.slab_layout(strided) == 1 and sp.slab_layout(rows) == 0,
+          "the y-plane slab is read in place, the contiguous one by rows")
     _, _, w = dft_matrix_device(DIAMETER, N, False, dev)
-    out = sp.dft_pack(slab, start, zlo, cnt, nvalid, w, npk)
-    outp = sp.dft_pack_plain(slab, start, zlo, cnt, nvalid, w, npk)
-    err, rel = rel_err(torch, out, outp)
-    check(rel <= KERNEL_RTOL, f"{tuple(slab.shape)} -> ({B}, {npk}): max "
-          f"abs err {err:.3e}, rel {rel:.3e} <= {KERNEL_RTOL:g}")
+    ws = dft_operand_device(DIAMETER, N, False, w.device)
+    outp = sp.dft_pack_plain(rows, start, zlo, cnt, nvalid, w, npk)
     pad = (torch.arange(npk, device=dev)[None, :]
            >= nvalid.long()[:, None])
-    check(int(pad.sum()) > 0 and is_plus_zero(torch, out[pad]),
-          f"{int(pad.sum())} padded lanes are bitwise +0.0")
-    del out, outp
-    ms = time_ms(torch, lambda: sp.dft_pack(slab, start, zlo, cnt, nvalid,
-                                            w, npk))
+    errs = {}
+    for name, slab in (("strided", strided), ("rows", rows)):
+        out = sp.dft_pack(slab, start, zlo, cnt, nvalid, w, npk, wsplit=ws)
+        errs[name] = rel_err(torch, out, outp)
+        check(errs[name][1] <= KERNEL_RTOL, f"{name} {tuple(slab.shape)} ->"
+              f" ({B}, {npk}): max abs err {errs[name][0]:.3e}, rel "
+              f"{errs[name][1]:.3e} <= {KERNEL_RTOL:g}")
+        check(int(pad.sum()) > 0 and is_plus_zero(torch, out[pad]),
+              f"{name}: {int(pad.sum())} padded lanes are bitwise +0.0")
+        del out
+    del outp
+    ms = time_ms(torch, lambda: sp.dft_pack(strided, start, zlo, cnt, nvalid,
+                                            w, npk, wsplit=ws))
+    ms_rows = time_ms(torch, lambda: sp.dft_pack(rows, start, zlo, cnt,
+                                                 nvalid, w, npk, wsplit=ws))
+    copy_ms = time_ms(torch, lambda: strided.contiguous(), reps=5)
+    out = torch.empty((B, npk), dtype=torch.complex64, device=dev)
+    lib = build.library("sphere_pack")
+
+    def tail():
+        build.check(lib.pack_zero_tail_launch(
+            out.data_ptr(), nvalid.data_ptr(), B, npk,
+            torch.cuda.current_stream(dev).cuda_stream), "zero tail")
+    tail_ms = time_ms(torch, tail)
     plain = time_ms(torch, lambda: sp.dft_pack_plain(
-        slab, start, zlo, cnt, nvalid, w, npk), reps=5)
+        strided, start, zlo, cnt, nvalid, w, npk), reps=5)
     lanes = float(nvalid.sum())                    # this run's valid lanes
-    nbytes = (8.0 * (slab.numel() + DIAMETER * N + B * npk)
+    nbytes = (8.0 * (strided.numel() + DIAMETER * N + B * npk)
               + 4.0 * (3 * B * nl + B))
     b = bound_ms(nbytes, 8.0 * N * lanes)
-    print(f"  time {ms:.3f} ms, plain {plain:.3f} ms, {bound_text(b)}; no "
+    print(f"  time {ms:.3f} ms reading the strided slab in place, "
+          f"{ms_rows:.3f} ms from contiguous lines (the copy it saves: "
+          f"{copy_ms:.3f} ms; {SIMT_MS['dft_pack']:.3f} ms on the SIMT GEMM "
+          f"after that copy, call C); of which the +0.0 tail kernel "
+          f"{tail_ms:.3f} ms; plain {plain:.3f} ms, {bound_text(b)}; no "
           "single torch call computes it", flush=True)
-    return {"name": "dft_pack", "max_abs_err": err, "rel_err": rel,
-            "tolerance": KERNEL_RTOL, "ms": ms, "plain_ms": plain,
-            **b, "library_ms": None,
-            "shape": f"({B},{DIAMETER},{DIAMETER},{N})->({B},{npk})"}
+    del out
+    return {"name": "dft_pack", "max_abs_err": errs["strided"][0],
+            "rel_err": errs["strided"][1], "rows_rel_err": errs["rows"][1],
+            "edge_max_rel_err": edge, "tolerance": KERNEL_RTOL, "ms": ms,
+            "rows_ms": ms_rows, "slab_copy_ms": copy_ms,
+            "zero_tail_ms": tail_ms, "simt_call_c_ms": SIMT_MS["dft_pack"],
+            "plain_ms": plain, **b, "library_ms": None,
+            "shape": f"({B},{DIAMETER},{DIAMETER},{N}) y planes z-major"
+                     f"->({B},{npk})"}
+
+
+def check_slab_layout(torch, dev, gen):
+    """Whether the slab that the fused pack gets on the SCF path (the
+    forward plan's lead stages' output) is read in place: its layout, and
+    the time of the ``contiguous()`` copy the kernel no longer needs."""
+    from repro_torch.dft.basis import PlaneWaveBasis
+    from repro_torch.kernels import sphere_pack as sp
+    b = PlaneWaveBasis(N, diameter=DIAMETER, kpts=KPTS, nbands=NBANDS,
+                       backend="cuda", device=dev)
+    _, fwd = b.stacked_hamiltonian_plans()
+    parts = fwd._fused_out_parts()
+    cube = crandn(torch, gen, (b.nk * NBANDS, N, N, N), dev)
+    slab = parts["lead"](cube)
+    del cube
+    layout = sp.slab_layout(slab)
+    copy_ms = time_ms(torch, lambda: slab.contiguous(), reps=5)
+    print(f"fused pack's slab on the SCF path: {tuple(slab.shape)}, strides "
+          f"{slab.stride()}, contiguous {slab.is_contiguous()}: "
+          + ({0: "contiguous lines, no copy",
+              1: "y planes z-major, read in place, no copy"}.get(
+                  layout, "copied first"))
+          + f"; a contiguous() copy of it takes {copy_ms:.3f} ms",
+          flush=True)
+    check(layout is not None, "dft_pack reads the SCF path's slab in place")
+    return {"shape": list(slab.shape), "strides": list(slab.stride()),
+            "contiguous": slab.is_contiguous(), "layout": layout,
+            "copy_ms": copy_ms}
 
 
 def check_four_step(torch, dev, gen, stages):
@@ -401,7 +638,7 @@ def check_four_step(torch, dev, gen, stages):
     print("dft_matmul_twiddle (kernel #2): line-DFT GEMM + twiddle "
           "epilogue", flush=True)
     # (a) edge cases with a general (M, N) table (T = M), and the
-    # four-step table of n = 15 = 3·5 (K = 5: the masked A path)
+    # four-step table of n = 15 = 3·5 (K = 5: the gather path)
     cases = [(M, K, Nn, p, None) for M, K, Nn, p in EDGE_CASES
              if Nn > 1 and K > 1]
     cases.append((50 * 3, 5, 5, False, (3, 5)))
@@ -588,12 +825,16 @@ def time_line_shapes(torch, dev, gen, stages: LineStages, gpu: str):
             row.update(input=list(shape), axis=axis,
                        copy_ms=time_ms(torch, copy) if copied else 0.0)
             del xs
+        row["call_c_ms"] = CALL_C_MS.get(key)
         rows.append(row)
         copy_txt = ("four_step_dft's own transposes" if row["input"] is None
                     else f"copy {row['copy_ms']:.3f} ms of "
                     f"{tuple(row['input'])} axis {row['axis']}")
+        was = ("" if row["call_c_ms"] is None else
+               f" ({ms / row['call_c_ms']:.3f}x call C's "
+               f"{row['call_c_ms']:.3f} ms)")
         print(f"  {M}x{n_in}->{n_out}{' inv' if inverse else ''}: launches "
-              f"{row['launches']}, {ms:.3f} ms, {bound_text(b)}, "
+              f"{row['launches']}, {ms:.3f} ms{was}, {bound_text(b)}, "
               f"torch.matmul {lib:.3f} ms; {copy_txt}", flush=True)
         torch.cuda.empty_cache()
     return rows
@@ -868,18 +1109,18 @@ def trace_eager_apply(torch, dev, svc, req):
     names = [e["name"] for e in evs]
     check(names == want, f"{len(names)} stage spans match the plans' "
           f"stages: {names}")
-    # each stage again, alone, between CUDA events, on the same inputs
+    # each stage again, alone, on the same inputs: its mean device time
+    # over back-to-back calls between CUDA events (one call alone also
+    # times the host's launch of the stage's first kernel, with the card
+    # idle meanwhile)
     c = torch.as_tensor(req["coeffs"], device=dev)
     x = inv.unpack(c)
     dev_ms = []
-    for st in inv.stages:
-        x, ms = event_ms(torch, lambda st=st, x=x: st.apply(x))
-        dev_ms.append(ms)
-    if req["v_eff"] is not None:
-        x = x * torch.as_tensor(req["v_eff"], device=dev)
-    for st in fwd.stages:
-        x, ms = event_ms(torch, lambda st=st, x=x: st.apply(x))
-        dev_ms.append(ms)
+    for i, st in enumerate(stages):
+        if i == len(inv.stages) and req["v_eff"] is not None:
+            x = x * torch.as_tensor(req["v_eff"], device=dev)
+        dev_ms.append(time_ms(torch, lambda st=st, x=x: st.apply(x), reps=5))
+        x = st.apply(x)
     span_ms = [(e["t1"] - e["t0"]) * 1e3 for e in evs]
     # line-DFT stages only: a move over a one-process axis does no work
     cover = [s / d for s, d, st in zip(span_ms, dev_ms, stages)
@@ -1037,6 +1278,65 @@ def breakdown(torch, dev):
     return out
 
 
+def compare_kernel1(torch, dev, other: str, pairs: int = 10) -> list:
+    """Kernel #1 of this tree against kernel #1 built from the sources of
+    another checkout ``other`` (a ``git archive`` of an earlier commit),
+    in ``pairs`` pairs per line shape of ``CALL_C_MS``, alternating which
+    side runs first; each side's time is the mean of launches enough for
+    ~5 ms.  Prints and returns each shape's medians and their ratio."""
+    import ctypes
+    import statistics
+
+    from repro_torch.core.local_fft import dft_matrix_device
+    from repro_torch.kernels import build
+    from repro_torch.kernels.ops import dft_operand_device
+    src = os.path.join(other, "src/repro_torch/kernels/csrc/dft_matmul.cu")
+    so = os.path.join(HERE, "build", "compare", "dft_matmul_other.so")
+    os.makedirs(os.path.dirname(so), exist_ok=True)
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", so, src],
+                   check=True, capture_output=True, timeout=600)
+    libs = {"other": ctypes.CDLL(so), "this": build.library("dft_matmul")}
+    p, i = ctypes.c_void_p, ctypes.c_int
+    libs["other"].dft_matmul_launch.argtypes = [p, p, p, ctypes.c_longlong,
+                                                i, i, i, p]
+    libs["other"].dft_matmul_launch.restype = i
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    print(f"kernel #1, this tree against {other} ({gpu_line()}; {pairs} "
+          "alternating pairs per shape, medians):", flush=True)
+    rows = []
+    for (M, K, Nn, inverse) in CALL_C_MS:
+        x = crandn(torch, torch.Generator(device=dev).manual_seed(SEED),
+                   (M, K), dev)
+        _, _, w = dft_matrix_device(Nn, K, inverse, dev)
+        ws = dft_operand_device(Nn, K, inverse, w.device)
+        y = torch.empty((M, Nn), dtype=torch.complex64, device=dev)
+
+        def launch(lib):
+            build.check(lib.dft_matmul_launch(
+                x.data_ptr(), ws.data_ptr(), y.data_ptr(), M, Nn, K, 1,
+                stream), "dft_matmul")
+        reps = max(5, int(5.0 / time_ms(torch, lambda: launch(libs["this"]),
+                                        reps=3)))
+        times = {"this": [], "other": []}
+        for k in range(pairs):
+            for side in (("other", "this") if k % 2 == 0 else
+                         ("this", "other")):
+                times[side].append(time_ms(
+                    torch, lambda side=side: launch(libs[side]), reps=reps,
+                    warmup=1))
+        med = {k: statistics.median(v) for k, v in times.items()}
+        wins = sum(a < b for a, b in zip(times["this"], times["other"]))
+        rows.append({"lines": M, "n_in": K, "n_out": Nn, "inverse": inverse,
+                     "this_ms": med["this"], "other_ms": med["other"],
+                     "ratio": med["this"] / med["other"], "wins": wins})
+        print(f"  {M}x{K}->{Nn}{' inv' if inverse else ''}: this "
+              f"{med['this']:.3f} ms, other {med['other']:.3f} ms, ratio "
+              f"{med['this'] / med['other']:.3f}, this faster in {wins} of "
+              f"{pairs} pairs", flush=True)
+        del x, y
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1054,6 +1354,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", torch.cuda.current_device())
+    if sys.argv[1:2] == ["--compare-kernel1"]:
+        print(json.dumps({"compare_kernel1": compare_kernel1(
+            torch, dev, sys.argv[2])}), flush=True)
+        return 0
     gpu = gpu_line()
     print(f"gpu: {gpu}", flush=True)
     t0 = time.perf_counter()
@@ -1069,12 +1373,17 @@ def main() -> int:
     results = [check_dft_matmul(torch, dev, gen),
                check_unpack_dft(torch, dev, gen, spheres),
                check_dft_pack(torch, dev, gen, spheres)]
+    for r in results[1:]:
+        print(f"{r['name']}: " + json.dumps(r), flush=True)
     torch.cuda.empty_cache()
     stages = LineStages()
     launches, scf = run_slice(torch, dev, stages)
     print("scf: " + json.dumps(scf), flush=True)
     print("iteration breakdown (host clock, synchronized):", flush=True)
     scf["breakdown"] = breakdown(torch, dev)
+    torch.cuda.empty_cache()
+    scf["pack_slab"] = check_slab_layout(torch, dev, gen)
+    print("pack_slab: " + json.dumps(scf["pack_slab"]), flush=True)
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()

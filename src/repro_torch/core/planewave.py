@@ -38,6 +38,15 @@ from .policy import ExecPolicy
 
 
 # ---------------------------------------------------------- fused kernels
+def _split_operand(st, dev):
+    """The kernels' cached split operand of stage ``st``'s DFT matrix, or
+    None on the CPU (the plain versions need none)."""
+    if dev.type != "cuda":
+        return None
+    from ..kernels.ops import dft_operand_device
+    return dft_operand_device(st.n_out, st.n_in, st.inverse, dev)
+
+
 def _fused_unpack_parts(wrapper, spheres, nbands: int, npacked: int):
     """Build the fused unpack+first-stage dispatcher for ``wrapper``.
 
@@ -74,7 +83,9 @@ def _fused_unpack_parts(wrapper, spheres, nbands: int, npacked: int):
     dev = grid.device
     start, zlo, cnt, flag = (torch.as_tensor(t, device=dev) for t in
                              sphere_pack.line_tables(spheres, nbands))
+    chunks = sphere_pack.chunk_ranges(zlo, cnt, flag)
     _, _, w = dft_matrix_device(st.n_out, st.n_in, st.inverse, dev)
+    ws = _split_operand(st, dev)
     mid = DistTensor(tin.domains[:-1]
                      + (Domain((0, 0, 0), (ex - 1, ey - 1, st.n_out - 1)),),
                      tin.dims, tin.layout, grid)
@@ -88,10 +99,10 @@ def _fused_unpack_parts(wrapper, spheres, nbands: int, npacked: int):
         # one device: the line tables need no split with the x planes
         return sphere_pack.unpack_dft(
             packed.to(torch.complex64).contiguous(), start, zlo, cnt, flag,
-            w)
+            w, chunks=chunks, wsplit=ws)
 
     return {"fn": fn, "rem": rem, "in_shape": (B, npacked),
-            "private": (start, zlo, cnt, flag)}
+            "private": (start, zlo, cnt, flag, chunks)}
 
 
 def _fused_pack_parts(wrapper, spheres, nbands: int, npacked: int):
@@ -136,6 +147,7 @@ def _fused_pack_parts(wrapper, spheres, nbands: int, npacked: int):
     start, zlo, cnt, nvalid = (torch.as_tensor(t, device=dev)
                                for t in (start, zlo, cnt, nvalid))
     _, _, w = dft_matrix_device(st.n_out, st.n_in, st.inverse, dev)
+    ws = _split_operand(st, dev)
     mid = DistTensor(tout.domains[:-1]
                      + (Domain((0, 0, 0), (ex - 1, ey - 1, st.n_in - 1)),),
                      tout.dims, tout.layout, grid)
@@ -146,9 +158,9 @@ def _fused_pack_parts(wrapper, spheres, nbands: int, npacked: int):
                    _scale=1.0)
 
     def fn(slab):
-        return sphere_pack.dft_pack(
-            slab.to(torch.complex64).contiguous(), start, zlo, cnt, nvalid,
-            w, npacked)
+        # the kernel reads the slab where the lead plan's x stage left it
+        return sphere_pack.dft_pack(slab.to(torch.complex64), start, zlo,
+                                    cnt, nvalid, w, npacked, wsplit=ws)
 
     return {"fn": fn, "lead": lead, "out_shape": (B, npacked),
             "private": (start, zlo, cnt, nvalid)}

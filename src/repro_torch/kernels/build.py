@@ -31,10 +31,11 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "dft_matmul_launch": (_P, _P, _P, _L, _I, _I, _I, _P),
     "dft_matmul_twiddle_launch": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _P),
-    "unpack_dft_launch": (_P, _P, _P, _P, _P, _P, _P,
+    "unpack_dft_launch": (_P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _L, _I, _I, _I, _I, _P),
     "dft_pack_launch": (_P, _P, _P, _P, _P, _P, _P,
-                        _I, _L, _I, _I, _I, _I, _P),
+                        _I, _L, _I, _I, _I, _I, _I, _P),
+    "pack_zero_tail_launch": (_P, _P, _I, _L, _P),
 }
 
 _LOCK = threading.Lock()

@@ -36,27 +36,55 @@
 // of BM = 128 rows by BN = 128 real columns (64 complex outputs).  One
 // producer warp keeps a ring of STAGES shared-memory stages full: each
 // stage is one K chunk of 32 fp32 (one 128-byte swizzle row) of the x^
-// tile and of both W^ planes, loaded by TMA (cp.async.bulk.tensor,
-// 128-byte swizzle, zero fill out of bounds) and signalled by an
-// mbarrier.  Two consumer warpgroups, 64 rows each, split their rows of
-// the chunk and issue three wgmma.m64n128k8.f32.tf32.tf32 per 8 columns
-// of K; while one warpgroup waits for its chunk and adds it up, the
-// other's wgmmas run, and the loads of the next chunks (and of the next
-// tile) overlap both.
+// tile and of both W^ planes, signalled by an mbarrier.  W^'s planes
+// always come by TMA (cp.async.bulk.tensor, 128-byte swizzle; their rows
+// are padded to a multiple of 4 floats).  Two consumer warpgroups, 64
+// rows each, split their rows of the chunk and issue three
+// wgmma.m64n128k8.f32.tf32.tf32 per 8 columns of K; while one warpgroup
+// waits for its chunk and adds it up, the other's wgmmas run, and the
+// loads of the next chunks (and of the next tile) overlap both.
 //
-// Operands whose rows TMA cannot address (odd K: a row pitch of 8·K
-// bytes that is not a multiple of 16, or a base that is not 16-byte
-// aligned) take the masked A path (template TMA_A = false): the producer
-// warp loads the x^ tile with plain loads, zeros out of bounds, and
-// stores it in the same swizzled layout.  W^'s planes always take TMA:
-// their rows are padded to a multiple of 4 floats.
+// The x^ tile comes one of three ways (template A):
+//   A_ROWS    TMA of K-major rows (x contiguous, K even, 16-byte base),
+//             128-byte swizzle, zero fill out of bounds.
+//   A_GATHER  loads by the consumers themselves, one complex per thread
+//             and row, 16 threads a row: each warpgroup loads its 64 rows
+//             of the next chunk into registers while the wgmmas of this
+//             one run, then splits them straight into big and small in
+//             the same swizzled layout.  Each row's source is the
+//             policy's src() line; its columns outside [lo, hi) are zeros
+//             whose addresses are never formed.  Odd K, a misaligned x,
+//             and the CSR gather of packed sphere lanes take it.
+//   A_COLS    TMA of lines that are strided in K: planes of L lines
+//             stored z-major, element (plane·L + l, k) at
+//             plane·(K·L) + k·L + l (the layout a line-DFT stage over
+//             another axis leaves).  Each warpgroup's 64 rows arrive as
+//             one box of [64/E planes][16 k][E lines] (E = min(L, 64)),
+//             unswizzled,
+//             in the small buffer; the split reads them across and writes
+//             big and small K-major, so no copy of x is made first.
+//             wgmma takes 32-bit operands K-major only, hence the
+//             transpose in shared memory.
+//
+// Policies.  The kernel asks its policy (template Epi) per tile and row:
+//   chunks(tm, nk)  the K chunks [x, y) that row tile tm can have
+//                   nonzero; the others are skipped by the producer and
+//                   the consumers alike, and an empty range issues no load
+//                   and no wgmma (its rows store zeros);
+//   src(r, K)       (A_GATHER) row r's complex column k is
+//                   x[off + k − lo] for lo <= k < hi and 0 elsewhere;
+//   dst(r, N)       row r's complex columns lo <= c < hi are stored at
+//                   y[off + c − lo]; a row that is not active stores +0.0f
+//                   there (asked only when dense_store is false);
+//   row(r), apply(row, c, v)  map each computed output (identity, or the
+//                   twiddle product) just before it is stored.
+// `Dense` answers for the plain GEMM: all of K, all of N at y + r·N.
 //
 // Epilogue.  In wgmma's accumulator fragment each thread holds column
-// pairs (2c, 2c+1): one complex output (yr, yi).  The policy's apply()
-// maps it (identity, or the twiddle product) and it is stored as one
-// float2.  Rows past M and columns past N are never stored; rows past M
-// are never read (TMA zero-fills them, the masked path skips them).
-// Output offsets are 64-bit: M reaches 2^21 rows of 2^8 complex.
+// pairs (2c, 2c+1): one complex output (yr, yi), stored as one float2.
+// Rows past M are never stored and never read (TMA zero-fills them, the
+// gather skips them).  Offsets are 64-bit: M reaches 2^21 rows of 2^8
+// complex.
 #pragma once
 
 #include <cuda.h>
@@ -77,7 +105,35 @@ constexpr int A_BYTES = BM * BK * 4;      // one x^ plane of a stage
 constexpr int B_BYTES = BN * BK * 4;      // one W^ plane of a stage
 // a stage: [x^ big | x^ small | W^ big | W^ small]
 constexpr int STAGE_BYTES = 2 * A_BYTES + 2 * B_BYTES;
-constexpr int SMEM = STAGES * STAGE_BYTES + 1024 + 2 * STAGES * 8;
+// the stages, then the barriers, then the gathered rows' sources
+constexpr int SRC_OFFSET = STAGES * STAGE_BYTES + 2 * STAGES * 8;
+constexpr int SMEM = SRC_OFFSET + BM * 16 + 1024;
+
+// where the x^ tile comes from (see the header)
+enum { A_ROWS = 0, A_GATHER = 1, A_COLS = 2 };
+
+// A line of a policy: the columns [lo, hi) it covers, column c at offset
+// off + c − lo (complex elements), and whether it is active (dst only:
+// inactive lines store +0.0f)
+struct Line {
+  int64_t off;
+  int lo, hi;
+  int active;
+};
+
+// The plain GEMM's policy: every K chunk, row r's x at x + r·K, its
+// outputs at y + r·N, stored as computed.  dense_store: the epilogue
+// stores every row whole at y + r·N without asking dst() (a policy with
+// its own dst() sets it false).
+struct Dense {
+  static constexpr bool dense_store = true;
+  struct Row {};
+  __device__ int2 chunks(int64_t, int nk) const { return make_int2(0, nk); }
+  __device__ Line src(int64_t r, int K) const { return {r * K, 0, K, 1}; }
+  __device__ Line dst(int64_t r, int N) const { return {r * N, 0, N, 1}; }
+  __device__ Row row(int64_t) const { return {}; }
+  __device__ float2 apply(Row, int, float2 v) const { return v; }
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -213,17 +269,37 @@ __device__ __forceinline__ void wgmma_m64n128k8(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-template <bool TMA_A, class Epi>
+// a gathered row's source (a Line without the flag), in shared memory
+struct Src {
+  int64_t off;
+  int lo, hi;
+};
+
+__device__ __forceinline__ float4 tf32_big(float4 v) {
+  return make_float4(tf32_rna(v.x), tf32_rna(v.y), tf32_rna(v.z),
+                     tf32_rna(v.w));
+}
+
+__device__ __forceinline__ float4 tf32_small(float4 v, float4 b) {
+  return make_float4(tf32_rna(__fsub_rn(v.x, b.x)),
+                     tf32_rna(__fsub_rn(v.y, b.y)),
+                     tf32_rna(__fsub_rn(v.z, b.z)),
+                     tf32_rna(__fsub_rn(v.w, b.w)));
+}
+
+template <int A, class Epi>
 __global__ void __launch_bounds__(THREADS, 1)
 cgemm_tc_kernel(const __grid_constant__ CUtensorMap tm_a,
                 const __grid_constant__ CUtensorMap tm_b,
                 const float* __restrict__ a, float2* __restrict__ y, Epi epi,
-                int64_t M, int N, int K, int tiles_n, int64_t tiles) {
+                int64_t M, int N, int K, int L, int tiles_n,
+                int64_t tiles) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE_BYTES);
   uint64_t* empty = full + STAGES;
+  Src* srcs = reinterpret_cast<Src*>(smem + SRC_OFFSET);
   const int K2 = 2 * K;
   const int nk = (K2 + BK - 1) / BK;
   const int warp = threadIdx.x / 32;
@@ -242,30 +318,31 @@ cgemm_tc_kernel(const __grid_constant__ CUtensorMap tm_a,
     // ---------------------------------------------------------- producer
     int64_t it = 0;
     for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      const int m0 = static_cast<int>((tile / tiles_n) * BM);
+      const int64_t tm = tile / tiles_n;
+      const int64_t m0 = tm * BM;
       const int n0 = static_cast<int>(tile % tiles_n) * BN;
-      for (int kc = 0; kc < nk; ++kc, ++it) {
+      const int2 kr = epi.chunks(tm, nk);
+      for (int kc = kr.x; kc < kr.y; ++kc, ++it) {
         const int s = static_cast<int>(it % STAGES);
         const uint32_t ph = static_cast<uint32_t>(it / STAGES) & 1u;
         mbar_wait(&empty[s], ph ^ 1u);
         unsigned char* st = smem + s * STAGE_BYTES;
         const int k0 = kc * BK;
-        if constexpr (!TMA_A) {
-          // masked x^ tile: lane = column, stored in TMA's 128-byte swizzle
-          const int k = k0 + lane;
-#pragma unroll 8
-          for (int r = 0; r < BM; ++r) {
-            const int64_t m = static_cast<int64_t>(m0) + r;
-            const float v = (m < M && k < K2) ? a[m * K2 + k] : 0.0f;
-            *reinterpret_cast<float*>(
-                st + r * 128 + (((lane >> 2) ^ (r & 7)) << 4) +
-                (lane & 3) * 4) = v;
-          }
-          __syncwarp();
-        }
         if (lane == 0) {
-          mbar_arrive_tx(&full[s], (TMA_A ? A_BYTES : 0) + 2 * B_BYTES);
-          if constexpr (TMA_A) tma_load_2d(st, &tm_a, k0, m0, &full[s]);
+          mbar_arrive_tx(&full[s],
+                         (A == A_GATHER ? 0 : A_BYTES) + 2 * B_BYTES);
+          if constexpr (A == A_ROWS)
+            tma_load_2d(st, &tm_a, k0, static_cast<int>(m0), &full[s]);
+          if constexpr (A == A_COLS) {
+            // each warpgroup's 64 rows, one box into its half of the
+            // small buffer
+            for (int g = 0; g < CONSUMERS; ++g) {
+              const int64_t r = m0 + g * (BM / CONSUMERS);
+              tma_load_3d(st + A_BYTES + g * (A_BYTES / CONSUMERS), &tm_a,
+                          2 * static_cast<int>(r % L), kc * (BK / 2),
+                          static_cast<int>(r / L), &full[s]);
+            }
+          }
           unsigned char* b = st + 2 * A_BYTES;
           tma_load_3d(b, &tm_b, k0, n0, 0, &full[s]);
           tma_load_3d(b + B_BYTES, &tm_b, k0, n0, 1, &full[s]);
@@ -279,15 +356,73 @@ cgemm_tc_kernel(const __grid_constant__ CUtensorMap tm_a,
   // ------------------------------------------------------------ consumers
   const int wg = warp / 4;                     // this warpgroup's 64 rows
   const int t = threadIdx.x % 128;
+  // A_GATHER: this thread's complex column gc of each chunk, in rows
+  // grow + 2q (q < 8) of the warpgroup's 64, whose sources are in wsrcs;
+  // v holds the next chunk's values, loaded while this one computes.
+  // (Loading two chunks ahead spilled and ran slower on the H100.)
+  const float2* a2 = reinterpret_cast<const float2*>(a);
+  const int gc = lane & 15;
+  const int grow = (warp % 4) * 16 + (lane >> 4);
+  Src* wsrcs = srcs + wg * (BM / CONSUMERS);
+  constexpr int GQ = BM / CONSUMERS / 8;
+  float2 v[GQ];
+  auto gather = [&](int kc) {
+    const int z = kc * (BK / 2) + gc;
+#pragma unroll
+    for (int q = 0; q < GQ; ++q) {
+      const Src src = wsrcs[grow + 2 * q];
+      v[q] = (z >= src.lo && z < src.hi)
+                 ? __ldg(a2 + (src.off + (z - src.lo)))
+                 : make_float2(0.0f, 0.0f);
+    }
+  };
+  // split v into this warpgroup's big rows (xa) and small rows, in TMA's
+  // 128-byte swizzle
+  auto put = [&](unsigned char* xa) {
+#pragma unroll
+    for (int q = 0; q < GQ; ++q) {
+      const int i = grow + 2 * q;
+      const int off = i * 128 + (((gc >> 1) ^ (i & 7)) << 4) + (gc & 1) * 8;
+      const float bx = tf32_rna(v[q].x);
+      const float by = tf32_rna(v[q].y);
+      *reinterpret_cast<float2*>(xa + off) = make_float2(bx, by);
+      *reinterpret_cast<float2*>(xa + A_BYTES + off) =
+          make_float2(tf32_rna(__fsub_rn(v[q].x, bx)),
+                      tf32_rna(__fsub_rn(v[q].y, by)));
+    }
+  };
+  // A_COLS: this thread's row of the box and its column pairs t/64 + 2q
+  const int lg = 31 - __clz(L < 64 ? (L > 0 ? L : 1) : 64);
+  const int ci = t & 63;
+  const int col0 = ((ci >> lg) << (lg + 5)) + 2 * (ci & ((1 << lg) - 1));
   float acc[BN / 2];                           // the tile, round to nearest
   float part[BN / 2];                          // one K chunk, tensor core
   int64_t it = 0;
   for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int64_t m0 = (tile / tiles_n) * BM;
+    const int64_t tm = tile / tiles_n;
+    const int64_t m0 = tm * BM;
     const int n0 = static_cast<int>(tile % tiles_n) * BN;
+    const int2 kr = epi.chunks(tm, nk);
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
-    for (int kc = 0; kc < nk; ++kc, ++it) {
+    if constexpr (A == A_GATHER) {
+      if (kr.x < kr.y) {
+        // this tile's row sources (every read of the last tile's came
+        // before its last chunk's barrier), then its first chunk
+        if (t < BM / CONSUMERS) {
+          Src src{0, 0, 0};
+          const int64_t m = m0 + wg * (BM / CONSUMERS) + t;
+          if (m < M) {
+            const Line l = epi.src(m, K);
+            src = {l.off, l.lo, l.hi};
+          }
+          wsrcs[t] = src;
+        }
+        asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
+        gather(kr.x);
+      }
+    }
+    for (int kc = kr.x; kc < kr.y; ++kc, ++it) {
       const int s = static_cast<int>(it % STAGES);
       const uint32_t ph = static_cast<uint32_t>(it / STAGES) & 1u;
       mbar_wait(&full[s], ph);
@@ -296,19 +431,44 @@ cgemm_tc_kernel(const __grid_constant__ CUtensorMap tm_a,
       unsigned char* xs = xa + A_BYTES;
       unsigned char* wb = st + 2 * A_BYTES;
       unsigned char* ws = wb + B_BYTES;
-      // split this warpgroup's rows: big in place, small beside it
+      if constexpr (A == A_GATHER) {
+        put(xa);
+        if (kc + 1 < kr.y) gather(kc + 1);
+      } else if constexpr (A == A_COLS) {
+        // the box in xs: row i = pl·E + y, complex column z at float
+        // pl·32E + z·2E + 2y.  Read it all, then write big and small
+        // K-major in the swizzle (over the box: hence the barrier)
+        const float* raw = reinterpret_cast<const float*>(xs) + col0;
+        const int zs = 4 << lg;                // two columns of z
+        float4 v[4];
 #pragma unroll
-      for (int j = 0; j < A_BYTES / CONSUMERS / 16 / 128; ++j) {
-        float4* pb = reinterpret_cast<float4*>(xa) + t + 128 * j;
-        float4* ps = reinterpret_cast<float4*>(xs) + t + 128 * j;
-        const float4 v = *pb;
-        float4 b, l;
-        b.x = tf32_rna(v.x); l.x = tf32_rna(__fsub_rn(v.x, b.x));
-        b.y = tf32_rna(v.y); l.y = tf32_rna(__fsub_rn(v.y, b.y));
-        b.z = tf32_rna(v.z); l.z = tf32_rna(__fsub_rn(v.z, b.z));
-        b.w = tf32_rna(v.w); l.w = tf32_rna(__fsub_rn(v.w, b.w));
-        *pb = b;
-        *ps = l;
+        for (int q = 0; q < 4; ++q) {
+          const int zp = (t >> 6) + 2 * q;
+          const float2 lo = *reinterpret_cast<const float2*>(raw + zp * zs);
+          const float2 hi =
+              *reinterpret_cast<const float2*>(raw + zp * zs + zs / 2);
+          v[q] = make_float4(lo.x, lo.y, hi.x, hi.y);
+        }
+        asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int zp = (t >> 6) + 2 * q;
+          const int off = ci * 128 + ((zp ^ (ci & 7)) << 4);
+          const float4 b = tf32_big(v[q]);
+          *reinterpret_cast<float4*>(xa + off) = b;
+          *reinterpret_cast<float4*>(xs + off) = tf32_small(v[q], b);
+        }
+      } else {
+        // split this warpgroup's rows: big in place, small beside it
+#pragma unroll
+        for (int j = 0; j < A_BYTES / CONSUMERS / 16 / 128; ++j) {
+          float4* pb = reinterpret_cast<float4*>(xa) + t + 128 * j;
+          float4* ps = reinterpret_cast<float4*>(xs) + t + 128 * j;
+          const float4 v = *pb;
+          const float4 b = tf32_big(v);
+          *pb = b;
+          *ps = tf32_small(v, b);
+        }
       }
       // the generic-proxy writes must be visible to wgmma (async proxy)
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -348,19 +508,47 @@ cgemm_tc_kernel(const __grid_constant__ CUtensorMap tm_a,
     for (int h = 0; h < 2; ++h) {
       const int64_t r = r0 + 8 * h;
       if (r >= M) continue;
-      const auto row = epi.row(r);
-      float2 out[BN / 8];
+      if constexpr (Epi::dense_store) {
+        const auto row = epi.row(r);
+        float2 out[BN / 8];
 #pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        const int c = c0 + 4 * j;
-        out[j] = c < N ? epi.apply(row, c, make_float2(acc[4 * j + 2 * h],
-                                                       acc[4 * j + 2 * h + 1]))
+        for (int j = 0; j < BN / 8; ++j) {
+          const int c = c0 + 4 * j;
+          out[j] = c < N ? epi.apply(row, c,
+                                     make_float2(acc[4 * j + 2 * h],
+                                                 acc[4 * j + 2 * h + 1]))
+                         : make_float2(0.0f, 0.0f);
+        }
+        float2* yr = y + r * N;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+          if (c0 + 4 * j < N) yr[c0 + 4 * j] = out[j];
+      } else {
+        const Line d = epi.dst(r, N);
+        float2* yr = y + d.off;                // column c at yr[c - lo]
+        const unsigned span = static_cast<unsigned>(d.hi - d.lo);
+        const int c1 = c0 - d.lo;
+        if (!d.active) {
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j)
+            if (static_cast<unsigned>(c1 + 4 * j) < span)
+              yr[c1 + 4 * j] = make_float2(0.0f, 0.0f);
+          continue;
+        }
+        const auto row = epi.row(r);
+        float2 out[BN / 8];
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+          out[j] = static_cast<unsigned>(c1 + 4 * j) < span
+                       ? epi.apply(row, c0 + 4 * j,
+                                   make_float2(acc[4 * j + 2 * h],
+                                               acc[4 * j + 2 * h + 1]))
                        : make_float2(0.0f, 0.0f);
-      }
-      float2* yr = y + r * N;
 #pragma unroll
-      for (int j = 0; j < BN / 8; ++j)
-        if (c0 + 4 * j < N) yr[c0 + 4 * j] = out[j];
+        for (int j = 0; j < BN / 8; ++j)
+          if (static_cast<unsigned>(c1 + 4 * j) < span)
+            yr[c1 + 4 * j] = out[j];
+      }
     }
   }
 }
@@ -389,13 +577,13 @@ inline EncodeTiled encode_tiled() {
 
 inline bool encode(CUtensorMap* m, int rank, const void* base,
                    const cuuint64_t* dims, const cuuint64_t* strides,
-                   const cuuint32_t* box) {
+                   const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint32_t ones[3] = {1, 1, 1};
   return fn(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank,
             const_cast<void*>(base), dims, strides, box, ones,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -403,17 +591,47 @@ inline bool encode(CUtensorMap* m, int rank, const void* base,
 // Row pitch, in floats, of each W^ plane: 2K rounded up to 16 bytes.
 inline int w_pitch(int K) { return (2 * K + 3) / 4 * 4; }
 
-template <bool TMA_A, class Epi>
-int launch_tiles(const Epi& epi, const float* x, const float* wsplit,
-                 float2* y, int64_t M, int N, int K, cudaStream_t stream) {
+// L lines a plane fit A_COLS's box: even, a divisor or a multiple of 64
+inline bool cols_fit(int L) {
+  return L >= 2 && L % 2 == 0 && (L % 64 == 0 || 64 % L == 0);
+}
+
+// y = x (M, K) . W^T through the policy epi, complex64 as fp32 views, the
+// x^ tile taken the way A says (see the header).  wsplit: the two TF32
+// planes of W^, each (2N, 2K) with row pitch w_pitch(K), the small plane
+// right after the big one.  A_ROWS needs K even and x 16-byte aligned;
+// A_COLS needs cols_fit(L), L | M and x 16-byte aligned (L is unused
+// otherwise).  Returns the launch status (cudaGetLastError) as an int.
+template <int A, class Epi>
+int launch(const Epi& epi, const float* x, const float* wsplit, float2* y,
+           int64_t M, int N, int K, int L, cudaStream_t stream) {
+  if (M <= 0 || N <= 0) return static_cast<int>(cudaSuccess);
+  if (K <= 0 || M > 0x7fffffffLL - BM || N > (1 << 20))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0;
   const int K2 = 2 * K;
   CUtensorMap tm_a{}, tm_b{};
-  if constexpr (TMA_A) {
+  if constexpr (A == A_ROWS) {
+    if (K % 2 || !aligned) return static_cast<int>(cudaErrorInvalidValue);
     const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K2),
                                 static_cast<cuuint64_t>(M)};
     const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K2) * 4};
     const cuuint32_t box[2] = {BK, BM};
-    if (!encode(&tm_a, 2, x, dims, strides, box))
+    if (!encode(&tm_a, 2, x, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if constexpr (A == A_COLS) {
+    if (!cols_fit(L) || M % L || !aligned)
+      return static_cast<int>(cudaErrorInvalidValue);
+    // (line pairs of floats, z, plane); a box is [64/E][16][2E floats]
+    const cuuint32_t E = L < 64 ? L : 64;
+    const cuuint64_t dims[3] = {static_cast<cuuint64_t>(2 * L),
+                                static_cast<cuuint64_t>(K),
+                                static_cast<cuuint64_t>(M / L)};
+    const cuuint64_t strides[2] = {static_cast<cuuint64_t>(2 * L) * 4,
+                                   static_cast<cuuint64_t>(2 * L) * K * 4};
+    const cuuint32_t box[3] = {2 * E, BK / 2, 64 / E};
+    if (!encode(&tm_a, 3, x, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE))
       return static_cast<int>(cudaErrorInvalidValue);
   }
   const int P = w_pitch(K);
@@ -422,7 +640,8 @@ int launch_tiles(const Epi& epi, const float* x, const float* wsplit,
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(P) * 4,
                                  static_cast<cuuint64_t>(2 * N) * P * 4};
   const cuuint32_t box[3] = {BK, BN, 1};
-  if (!encode(&tm_b, 3, wsplit, dims, strides, box))
+  if (!encode(&tm_b, 3, wsplit, dims, strides, box,
+              CU_TENSOR_MAP_SWIZZLE_128B))
     return static_cast<int>(cudaErrorInvalidValue);
 
   const int tiles_n = (2 * N + BN - 1) / BN;
@@ -431,28 +650,13 @@ int launch_tiles(const Epi& epi, const float* x, const float* wsplit,
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const int grid = static_cast<int>(tiles < sms ? tiles : sms);
-  auto kernel = cgemm_tc_kernel<TMA_A, Epi>;
+  auto kernel = cgemm_tc_kernel<A, Epi>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<grid, THREADS, SMEM, stream>>>(tm_a, tm_b, x, y, epi, M, N, K,
-                                          tiles_n, tiles);
+                                          L, tiles_n, tiles);
   return static_cast<int>(cudaGetLastError());
-}
-
-// y (M, N) = x (M, K) . W^T [then the epilogue], complex64 as fp32 views.
-// wsplit: the two TF32 planes of W^, each (2N, 2K) with row pitch
-// w_pitch(K), the small plane right after the big one.  tma_a: the x
-// rows are TMA-addressable (K even, x 16-byte aligned); else the masked
-// A path.  Returns the launch status (cudaGetLastError) as an int.
-template <class Epi>
-int launch(const Epi& epi, const float* x, const float* wsplit, float2* y,
-           int64_t M, int N, int K, bool tma_a, cudaStream_t stream) {
-  if (M <= 0 || N <= 0) return static_cast<int>(cudaSuccess);
-  if (K <= 0 || M > 0x7fffffffLL - BM || N > (1 << 20))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return tma_a ? launch_tiles<true>(epi, x, wsplit, y, M, N, K, stream)
-               : launch_tiles<false>(epi, x, wsplit, y, M, N, K, stream);
 }
 
 }  // namespace tc

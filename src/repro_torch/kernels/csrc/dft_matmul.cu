@@ -30,22 +30,17 @@
 // split TF32 (three passes, fp32 accuracy), fed by TMA through a ring of
 // shared-memory stages that one producer warp keeps full while two
 // consumer warpgroups compute; a persistent grid lets the loads of the
-// next tile overlap the stores of the last.  The SIMT cgemm.cuh stays
-// for the sphere kernels (sphere_pack.cu).
+// next tile overlap the stores of the last.
 #include "cgemm_tc.cuh"
 
 namespace dftk {
 
-struct Identity {
-  struct Row {};
-  __device__ Row row(int64_t) const { return {}; }
-  __device__ float2 apply(Row, int, float2 v) const { return v; }
-};
+using Identity = tc::Dense;
 
 // The twiddle product yr·tr − yi·ti, yr·ti + yi·tr in the TPU kernel's
 // order, rounded after every operation (no FMA contraction), so it adds no
 // rounding difference of its own against the plain version.
-struct Twiddle {
+struct Twiddle : tc::Dense {
   const float2* t;   // (T, N) complex64
   int T, N;
   __device__ const float2* row(int64_t r) const { return t + (r % T) * N; }
@@ -56,6 +51,18 @@ struct Twiddle {
   }
 };
 
+template <class Epi>
+int launch(const Epi& epi, const void* x, const void* wsplit, void* y,
+           long long M, int N, int K, int tma_a, void* stream) {
+  const float* xf = static_cast<const float*>(x);
+  const float* wf = static_cast<const float*>(wsplit);
+  float2* yf = static_cast<float2*>(y);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tma_a)
+    return tc::launch<tc::A_ROWS>(epi, xf, wf, yf, M, N, K, 0, s);
+  return tc::launch<tc::A_GATHER>(epi, xf, wf, yf, M, N, K, 0, s);
+}
+
 }  // namespace dftk
 
 // x: (M, K) complex64, wsplit: the split embedding of the (N, K) DFT
@@ -65,10 +72,8 @@ struct Twiddle {
 extern "C" int dft_matmul_launch(const void* x, const void* wsplit, void* y,
                                  long long M, int N, int K, int tma_a,
                                  void* stream) {
-  return tc::launch(dftk::Identity{}, static_cast<const float*>(x),
-                    static_cast<const float*>(wsplit),
-                    static_cast<float2*>(y), static_cast<int64_t>(M), N, K,
-                    tma_a != 0, static_cast<cudaStream_t>(stream));
+  return dftk::launch(dftk::Identity{}, x, wsplit, y, M, N, K, tma_a,
+                      stream);
 }
 
 // As dft_matmul_launch, with t: (T, N) complex64; row r of y is multiplied
@@ -78,9 +83,9 @@ extern "C" int dft_matmul_twiddle_launch(const void* x, const void* wsplit,
                                          long long M, int N, int K, int T,
                                          int tma_a, void* stream) {
   if (T <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  return tc::launch(dftk::Twiddle{static_cast<const float2*>(t), T, N},
-                    static_cast<const float*>(x),
-                    static_cast<const float*>(wsplit),
-                    static_cast<float2*>(y), static_cast<int64_t>(M), N, K,
-                    tma_a != 0, static_cast<cudaStream_t>(stream));
+  dftk::Twiddle tw;
+  tw.t = static_cast<const float2*>(t);
+  tw.T = T;
+  tw.N = N;
+  return dftk::launch(tw, x, wsplit, y, M, N, K, tma_a, stream);
 }

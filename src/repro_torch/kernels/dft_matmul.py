@@ -116,7 +116,7 @@ def _operand(w, wsplit, N, K, device):
 
 def _tma_rows(x) -> int:
     """1 if TMA can address the rows of x (16-byte pitch and base): the
-    kernel's TMA path for its A operand; 0 takes the masked path."""
+    kernel's TMA path for its A operand; 0 takes the gather path."""
     return int(x.shape[1] % 2 == 0 and x.data_ptr() % 16 == 0)
 
 

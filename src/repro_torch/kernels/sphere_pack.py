@@ -30,6 +30,16 @@ Index tables are static numpy built at plan time (`line_tables` /
 `pack_gather_tables`), CSR-by-xy per ``SphereDomain.pack_indices``: packed
 lanes of one (x, y) line are contiguous with z ascending, so a line is
 ``(start, z_lo, cnt)`` and its lanes are ``start + (z − z_lo)``.
+
+Both kernels run on the tensor-core GEMM of ``csrc/cgemm_tc.cuh`` in
+split TF32 (fp32 accuracy), with the DFT matrix's split operand
+(``kernels.ops.dft_operand_device``, cached per matrix).  ``unpack_dft``
+gathers its lines' lanes (each thread one complex of a line, a chunk
+ahead) and reads only the K chunks that each 128-line tile's active
+lines cover (:func:`chunk_ranges`);
+``dft_pack`` reads the slab by TMA where it lies, contiguous or as the
+plan's x stage leaves it (each y plane z-major), and stores straight to
+the packed lanes.
 """
 from __future__ import annotations
 
@@ -40,7 +50,7 @@ import torch
 
 from ..obs.metrics import global_metrics
 from . import build
-from .dft_matmul import _check, dft_matmul_plain
+from .dft_matmul import _check, _operand, dft_matmul_plain
 
 #: process-wide counts of fused-kernel calls through the plane-wave
 #: wrappers' ``unpack_transform``/``transform_pack`` (the reference's
@@ -124,6 +134,40 @@ def pack_gather_tables(spheres, nbands: int, npacked_max: int | None = None):
     return rep(line), rep(zz), rep(valid)
 
 
+#: the kernels' row tile (``tc::BM``) and K chunk in complex columns
+#: (``tc::BK / 2``) of ``csrc/cgemm_tc.cuh``
+TILE_ROWS, CHUNK = 128, 16
+
+
+def chunk_ranges(zlo, cnt, flag):
+    """The K chunks each 128-line tile of :func:`unpack_dft` reads.
+
+    Rows are the (b, x, y) lines of the ``(B, ex·ey)`` tables, flattened
+    and cut into tiles of ``TILE_ROWS``; a line is active when its plane's
+    ``flag`` is set and ``cnt > 0``.  Returns a ``(tiles, 2)`` int32 tensor
+    on the tables' device: the chunks ``[first, last)`` of ``CHUNK``
+    complex columns that cover every active line's ``[zlo, zlo + cnt)`` in
+    the tile, ``(0, 0)`` for a tile with no active line (which issues no
+    load and no wgmma).  Every column outside that range is zero for every
+    line of the tile, so skipping it leaves the result unchanged.
+    """
+    B, nl = zlo.shape
+    ex = flag.numel()
+    plane = torch.arange(nl, device=zlo.device) // (nl // ex)
+    active = ((flag.reshape(-1)[plane] != 0)[None, :] & (cnt > 0)).reshape(-1)
+    lo = torch.where(active, zlo.reshape(-1).long(),
+                     torch.iinfo(torch.int64).max)
+    hi = torch.where(active, (zlo + cnt).reshape(-1).long(), 0)
+    pad = -(B * nl) % TILE_ROWS
+    lo = torch.nn.functional.pad(lo, (0, pad), value=torch.iinfo(
+        torch.int64).max).view(-1, TILE_ROWS).amin(1)
+    hi = torch.nn.functional.pad(hi, (0, pad)).view(-1, TILE_ROWS).amax(1)
+    on = hi > 0
+    first = torch.where(on, lo // CHUNK, 0)
+    last = torch.where(on, (hi + CHUNK - 1) // CHUNK, 0)
+    return torch.stack((first, last), 1).to(torch.int32).contiguous()
+
+
 # ------------------------------------------------------ plain versions
 def _line_masks(start, zlo, cnt, d):
     """(lane of each (row, line, z), z inside the line's packed run)."""
@@ -176,7 +220,14 @@ def _check_tables(dev, B, nl, **tables):
         _check(name, t, torch.int32, (B, nl), dev)
 
 
-def unpack_dft(packed, start, zlo, cnt, flag, w):
+def _launch(fn, dev, *args):
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        return fn(*args, stream)
+
+
+def unpack_dft(packed, start, zlo, cnt, flag, w, *, chunks=None,
+               wsplit=None):
     """Fused CSR-unpack + first-stage line DFT.
 
     ``packed``: (B, npacked) complex64 lanes (lanes past a row's sphere are
@@ -184,7 +235,9 @@ def unpack_dft(packed, start, zlo, cnt, flag, w):
     ``flag``: (ex, 1) int32 plane-support column; ``w``: (n, d) complex64
     rectangular DFT factor.  Returns the first-stage slab (B, ex, ey, n)
     complex64.  CUDA tensors launch the kernel (counted in
-    ``unpack_dft.launches``); CPU tensors run :func:`unpack_dft_plain`.
+    ``unpack_dft.launches``) with ``chunks = chunk_ranges(zlo, cnt, flag)``
+    and ``wsplit = embed_operand(w)``, each built per call unless the
+    caller passes a cached one; CPU tensors run :func:`unpack_dft_plain`.
     """
     B, npk = packed.shape
     n, d = w.shape
@@ -201,47 +254,75 @@ def unpack_dft(packed, start, zlo, cnt, flag, w):
     _check("flag", flag, torch.int32, (ex,), dev)
     if dev.type != "cuda":
         return unpack_dft_plain(packed, start, zlo, cnt, flag, w)
+    if chunks is None:
+        chunks = chunk_ranges(zlo, cnt, flag)
+    _check("chunks", chunks, torch.int32, (-(-B * nl // TILE_ROWS), 2), dev)
+    ws = _operand(w, wsplit, n, d, dev)
     y = torch.empty((B, ex, ey, n), dtype=torch.complex64, device=dev)
-    lib = build.library("sphere_pack")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        status = lib.unpack_dft_launch(
-            packed.data_ptr(), start.data_ptr(), zlo.data_ptr(),
-            cnt.data_ptr(), flag.data_ptr(), w.data_ptr(), y.data_ptr(),
-            B, npk, ex, ey, n, d, stream)
+    status = _launch(build.library("sphere_pack").unpack_dft_launch, dev,
+                     packed.data_ptr(), start.data_ptr(), zlo.data_ptr(),
+                     cnt.data_ptr(), flag.data_ptr(), chunks.data_ptr(),
+                     ws.data_ptr(), y.data_ptr(), B, npk, ex, ey, n, d)
     build.check(status, "unpack_dft")
     unpack_dft.launches += 1
     return y
 
 
-def dft_pack(slab, start, zlo, cnt, nvalid, w, npacked: int):
+def _cols_fit(lines: int) -> bool:
+    """A plane of ``lines`` lines fits the strided read's tile
+    (``tc::cols_fit``): even, and a divisor or a multiple of 64."""
+    return lines >= 2 and lines % 2 == 0 and (lines % 64 == 0
+                                              or 64 % lines == 0)
+
+
+def slab_layout(slab) -> int | None:
+    """How the kernel of :func:`dft_pack` reads a (B, ex, ey, n) slab where
+    it lies: 0 when its lines are contiguous; 1 when each y plane is
+    stored z-major, x fastest ((B, ey, n, ex) in memory: what the stacked
+    SCF's forward plan leaves, its last stage before the fused one being
+    the x stage) and a plane's ex lines fit the kernel's tile; None
+    otherwise (the wrapper then copies the slab)."""
+    B, ex, ey, n = slab.shape
+    if slab.is_contiguous():
+        return 0
+    if _cols_fit(ex) and slab.permute(0, 2, 3, 1).is_contiguous():
+        return 1
+    return None
+
+
+def dft_pack(slab, start, zlo, cnt, nvalid, w, npacked: int, *,
+             wsplit=None):
     """Fused final truncating line DFT + CSR pack.
 
-    ``slab``: (B, ex, ey, n) complex64 last-stage slab; ``start``/``zlo``/
-    ``cnt``: (B, ex·ey) int32 line tables; ``nvalid``: (B,) int32 valid
-    lanes per row; ``w``: (d, n) complex64 truncating DFT factor.  Returns
-    (B, npacked) complex64 packed lanes, exact +0.0 past ``nvalid``.  CUDA
-    tensors launch the kernel (counted in ``dft_pack.launches``); CPU
-    tensors run :func:`dft_pack_plain`.
+    ``slab``: (B, ex, ey, n) complex64 last-stage slab, its lines
+    contiguous or each y plane z-major (:func:`slab_layout`; any other
+    layout is copied first); ``start``/``zlo``/``cnt``: (B, ex·ey) int32
+    line tables; ``nvalid``: (B,) int32 valid lanes per row; ``w``: (d, n)
+    complex64 truncating DFT factor.  Returns (B, npacked) complex64
+    packed lanes, exact +0.0 past ``nvalid``.  CUDA tensors launch the
+    kernel (counted in ``dft_pack.launches``), with ``wsplit`` as in
+    :func:`unpack_dft`; CPU tensors run :func:`dft_pack_plain`.
     """
     B, ex, ey, n = slab.shape
     d = w.shape[0]
     nl = ex * ey
     dev = slab.device
-    _check("slab", slab, torch.complex64, (B, ex, ey, n), dev)
+    if slab.dtype != torch.complex64:
+        raise TypeError(f"slab: dtype {slab.dtype}, expected complex64")
     _check("w", w, torch.complex64, (d, n), dev)
     _check_tables(dev, B, nl, start=start, zlo=zlo, cnt=cnt)
     _check("nvalid", nvalid, torch.int32, (B,), dev)
     if dev.type != "cuda":
         return dft_pack_plain(slab, start, zlo, cnt, nvalid, w, npacked)
+    layout = slab_layout(slab)
+    if layout is None:
+        slab, layout = slab.contiguous(), 0
+    ws = _operand(w, wsplit, d, n, dev)
     out = torch.empty((B, npacked), dtype=torch.complex64, device=dev)
-    lib = build.library("sphere_pack")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        status = lib.dft_pack_launch(
-            slab.data_ptr(), start.data_ptr(), zlo.data_ptr(),
-            cnt.data_ptr(), nvalid.data_ptr(), w.data_ptr(), out.data_ptr(),
-            B, npacked, ex, ey, n, d, stream)
+    status = _launch(build.library("sphere_pack").dft_pack_launch, dev,
+                     slab.data_ptr(), start.data_ptr(), zlo.data_ptr(),
+                     cnt.data_ptr(), nvalid.data_ptr(), ws.data_ptr(),
+                     out.data_ptr(), B, npacked, ex, ey, n, d, layout)
     build.check(status, "dft_pack")
     dft_pack.launches += 1
     return out

@@ -53,7 +53,7 @@ def _close(got, want, rtol=RTOL):
 
 
 # dft_matmul cases: (M, K, N, rows past M NaN-poisoned).  Odd K has a
-# row pitch TMA cannot address and takes the kernel's masked A path; M is
+# row pitch TMA cannot address and takes the kernel's gather path; M is
 # never a whole number of 128-row tiles
 GEMM_CASES = {
     "dft_matmul": (1000, 24, 40, False),
@@ -79,50 +79,116 @@ def _rows(rng, M, K, dev, poisoned):
     return buf[:M]
 
 
+KPTS3 = ((0.25, 0.0, 0.5), (0.0, 0.0, 0.0), (0.5, 0.5, 0.0))
+
+# sphere-kernel cases: (kernel, d, n, k-points, bands, slab layout).  d = 8
+# has ey = 8 lines a plane, so a 128-row tile straddles 16 planes; d = 6
+# has M = B·36 rows, never whole tiles, ey = 6, and 2d = 12 columns, less
+# than one K chunk of 32; d = 40 has 2.5 K chunks, edge tiles that skip
+# chunks, and ey = 40, which the strided read does not fit (the slab is
+# copied); d = 128 has ey = 128, one plane a tile, as in the SCF.  Odd n
+# gives dft_pack a row pitch TMA cannot address (the gather path).  Slab
+# layouts: "rows" contiguous lines; "y-planes" each y plane z-major, as
+# an x stage leaves it (the stacked SCF's forward plan), read in place;
+# "x-planes" each x plane z-major, which the wrapper copies first
+SPHERE_CASES = {
+    "unpack_dft": ("unpack", 8, 16, KPTS2, 3, None),
+    "dft_pack": ("pack", 8, 16, KPTS2, 3, "rows"),
+    "unpack_dft-ragged-m-d6": ("unpack", 6, 12, KPTS2, 3, None),
+    "unpack_dft-d40-chunk-skip": ("unpack", 40, 80, KPTS3, 2, None),
+    "unpack_dft-d128-plane-tiles": ("unpack", 128, 256, KPTS2, 1, None),
+    "dft_pack-ragged-m-d6": ("pack", 6, 12, KPTS2, 3, "rows"),
+    "dft_pack-odd-n": ("pack", 6, 9, KPTS3, 2, "rows"),
+    "dft_pack-x-planes-copied": ("pack", 8, 16, KPTS2, 3, "x-planes"),
+    "dft_pack-y-planes": ("pack", 8, 16, KPTS2, 3, "y-planes"),
+    "dft_pack-y-planes-odd-n": ("pack", 8, 15, KPTS3, 2, "y-planes"),
+    "dft_pack-y-planes-d128": ("pack", 128, 256, KPTS2, 1, "y-planes"),
+    "dft_pack-x-planes-d128-copied": ("pack", 128, 256, KPTS2, 1,
+                                      "x-planes"),
+    "dft_pack-y-planes-d40-copied": ("pack", 40, 80, KPTS3, 2, "y-planes"),
+}
+
+
+def _slab(rng, B, d, n, layout, dev):
+    """A (B, d, d, n) slab stored as ``layout`` says."""
+    if layout == "rows":
+        return _cx(rng, (B, d, d, n), dev)
+    if layout == "x-planes":
+        return _cx(rng, (B, d, n, d), dev).transpose(2, 3)
+    return _cx(rng, (B, d, n, d), dev).permute(0, 3, 1, 2)
+
+
+def _plus_zero(t):
+    f = torch.view_as_real(t)
+    return bool(((f == 0) & ~torch.signbit(f)).all())
+
+
+def _check_unpack(rng, dev, d, n, kpts, nb):
+    spheres = [kpoint_sphere(d, k) for k in kpts]
+    npm = max(s.npacked for s in spheres)
+    start, zlo, cnt, flag = (torch.as_tensor(t, device=dev)
+                             for t in sp.line_tables(spheres, nb))
+    packed = _cx(rng, (len(spheres) * nb, npm), dev)
+    for k, s in enumerate(spheres):              # never read
+        packed[k * nb:(k + 1) * nb, s.npacked:] = float("nan")
+    _, _, w = dft_matrix_device(n, d, True, dev)
+    # a plane with support switched off, beside the table's own flags
+    flag0 = flag.clone()
+    flag0[d // 2] = 0
+    for fl in (flag, flag0):
+        got = sp.unpack_dft(packed, start, zlo, cnt, fl, w)
+        assert bool(torch.isfinite(torch.view_as_real(got)).all())
+        _close(got, sp.unpack_dft_plain(packed, start, zlo, cnt, fl, w))
+        empty = (cnt == 0).reshape(got.shape[:3])
+        assert _plus_zero(got[empty])
+    assert int(cnt.reshape(got.shape[:3])[:, d // 2].sum()) > 0
+    assert _plus_zero(got[:, d // 2])
+    return 2
+
+
+def _check_pack(rng, dev, d, n, kpts, nb, layout):
+    spheres = [kpoint_sphere(d, k) for k in kpts]
+    npm = max(s.npacked for s in spheres)
+    start, zlo, cnt, _ = (torch.as_tensor(t, device=dev)
+                          for t in sp.line_tables(spheres, nb))
+    B = len(spheres) * nb
+    slab = _slab(rng, B, d, n, layout, dev)
+    fits = d % 2 == 0 and (d % 64 == 0 or 64 % d == 0)
+    assert sp.slab_layout(slab) == {"rows": 0, "x-planes": None,
+                                    "y-planes": 1 if fits else None}[layout]
+    nvalid = torch.as_tensor(np.repeat(np.asarray(
+        [s.npacked for s in spheres], np.int32), nb), device=dev)
+    _, _, w = dft_matrix_device(d, n, False, dev)
+    got = sp.dft_pack(slab, start, zlo, cnt, nvalid, w, npm)
+    assert bool(torch.isfinite(torch.view_as_real(got)).all())
+    _close(got, sp.dft_pack_plain(slab, start, zlo, cnt, nvalid, w, npm))
+    pad = torch.arange(npm, device=dev)[None] >= nvalid[:, None]
+    assert pad.any() and _plus_zero(got[pad])
+    return 1
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["unpack_dft", "dft_pack", *GEMM_CASES])
+@pytest.mark.parametrize("kernel", [*SPHERE_CASES, *GEMM_CASES])
 def test_cuda_kernel_matches_plain(kernel, cuda_device):
     dev = cuda_device
     rng = np.random.default_rng(11)
-    spheres = [kpoint_sphere(8, k) for k in KPTS2]
-    nb = 3
-    npm = max(s.npacked for s in spheres)
-    tabs = tuple(torch.as_tensor(t, device=dev)
-                 for t in sp.line_tables(spheres, nb))
-    fn = dft_matmul if kernel in GEMM_CASES else {
-        "unpack_dft": sp.unpack_dft, "dft_pack": sp.dft_pack}[kernel]
-    before = fn.launches
     if kernel in GEMM_CASES:
+        before = dft_matmul.launches
         M, K, N, poisoned = GEMM_CASES[kernel]
         x = _rows(rng, M, K, dev, poisoned)
         _, _, w = dft_matrix_device(N, K, True, dev)
         y = dft_matmul(x, w)
         assert bool(torch.isfinite(torch.view_as_real(y)).all())
         _close(y, dft_matmul_plain(x, w))
-    elif kernel == "unpack_dft":
-        packed = _cx(rng, (2 * nb, npm), dev)
-        packed[:nb, spheres[0].npacked:] = float("nan")   # never read
-        packed[nb:, spheres[1].npacked:] = float("nan")
-        _, _, w = dft_matrix_device(16, 8, True, dev)
-        got = sp.unpack_dft(packed, *tabs, w)
-        _close(got, sp.unpack_dft_plain(packed, *tabs, w))
-        flag0 = tabs[3].clone()
-        flag0[2] = 0
-        y0 = torch.view_as_real(sp.unpack_dft(packed, *tabs[:3], flag0,
-                                              w)[:, 2])
-        assert bool(((y0 == 0) & ~torch.signbit(y0)).all())
-    else:
-        slab = _cx(rng, (2 * nb, 8, 8, 16), dev)
-        nvalid = torch.as_tensor(np.repeat(np.asarray(
-            [s.npacked for s in spheres], np.int32), nb), device=dev)
-        _, _, w = dft_matrix_device(8, 16, False, dev)
-        got = sp.dft_pack(slab, *tabs[:3], nvalid, w, npm)
-        _close(got, sp.dft_pack_plain(slab, *tabs[:3], nvalid, w, npm))
-        pad = torch.arange(npm, device=dev)[None] >= nvalid[:, None]
-        pz = torch.view_as_real(got[pad])
-        assert pad.any() and bool(((pz == 0) & ~torch.signbit(pz)).all())
-    # one launch per wrapper call on a CUDA tensor (unpack_dft: two calls)
-    assert fn.launches == before + (2 if kernel == "unpack_dft" else 1)
+        assert dft_matmul.launches == before + 1
+        return
+    which, d, n, kpts, nb, layout = SPHERE_CASES[kernel]
+    fn = sp.unpack_dft if which == "unpack" else sp.dft_pack
+    before = fn.launches
+    calls = (_check_unpack(rng, dev, d, n, kpts, nb) if which == "unpack"
+             else _check_pack(rng, dev, d, n, kpts, nb, layout))
+    # one launch per wrapper call on a CUDA tensor
+    assert fn.launches == before + calls
 
 
 @pytest.mark.cuda

@@ -426,6 +426,90 @@ def test_unpack_dft_never_reads_padded_lanes():
     assert torch.equal(a, b)
 
 
+# ---------------------------------------------- unpack_dft's chunk table
+# d = 40: 2d = 80 columns, three K chunks of 16 complex (the last partial),
+# 128-line tiles straddling the 40-line planes; edge tiles need fewer
+CHUNK_SETS = [((0, 0, 0),), ((0, 0, 0), (0.5, 0.5, 0.5)),
+              ((0.25, 0, 0.5), (0, 0, 0), (0.5, 0.5, 0))]
+
+
+def _unpack_over_chunks(packed, start, zlo, cnt, flag, w, ranges):
+    """unpack_dft_plain with each 128-line tile's GEMM restricted to the
+    K chunks of ``ranges``."""
+    B, npk = packed.shape
+    n, d = w.shape
+    nl = start.shape[1]
+    lane, inside = sp._line_masks(start, zlo, cnt, d)
+    lines = torch.where(inside, torch.gather(
+        packed, 1, lane.clamp(0, npk - 1).reshape(B, nl * d)).reshape(
+            B, nl, d), torch.zeros((), dtype=torch.complex64))
+    lines = lines.reshape(B * nl, d)
+    y = torch.zeros((B * nl, n), dtype=torch.complex64)
+    for t, (first, last) in enumerate(ranges.tolist()):
+        rows = slice(t * sp.TILE_ROWS, (t + 1) * sp.TILE_ROWS)
+        cols = slice(first * sp.CHUNK, last * sp.CHUNK)
+        if first < last:
+            y[rows] = dft_matmul_plain(lines[rows, cols], w[:, cols])
+    plane = torch.arange(nl) // (nl // flag.numel())
+    active = ((flag.reshape(-1)[plane] != 0)[None, :] & (cnt > 0))
+    y = torch.where(active.reshape(-1, 1), y, torch.zeros(
+        (), dtype=torch.complex64))
+    return y.reshape(B, flag.numel(), nl // flag.numel(), n)
+
+
+@pytest.mark.parametrize("kpts", CHUNK_SETS, ids=["1k", "2k", "3k"])
+def test_chunk_ranges_cover_active_lines_and_keep_the_result(kpts):
+    d, n, nb = 40, 80, 2
+    spheres = [kpoint_sphere(d, k) for k in kpts]
+    start, zlo, cnt, flag = _tables(spheres, nb)
+    flag0 = flag.clone()
+    flag0[d // 2] = 0                        # a plane with support, off
+    rng = np.random.default_rng(len(kpts))
+    packed = torch.as_tensor(_cx(rng, (len(spheres) * nb, max(
+        s.npacked for s in spheres))))
+    _, _, w = dft_matrix_device(n, d, True, "cpu")
+    nk = -(-2 * d // 32)
+    skipped = 0
+    for fl in (flag, flag0):
+        ranges = sp.chunk_ranges(zlo, cnt, fl)
+        rows = zlo.numel()
+        assert ranges.dtype == torch.int32
+        assert tuple(ranges.shape) == (-(-rows // sp.TILE_ROWS), 2)
+        first, last = ranges[:, 0].long(), ranges[:, 1].long()
+        assert bool(((0 <= first) & (first <= last) & (last <= nk)).all())
+        # every active line's [zlo, zlo + cnt) lies inside its tile's range
+        plane = torch.arange(zlo.shape[1]) // d
+        active = ((fl.reshape(-1)[plane] != 0)[None, :]
+                  & (cnt > 0)).reshape(-1)
+        tile = torch.arange(rows) // sp.TILE_ROWS
+        lo, hi = zlo.reshape(-1).long(), (zlo + cnt).reshape(-1).long()
+        assert bool((first[tile] * sp.CHUNK <= lo)[active].all())
+        assert bool((hi <= last[tile] * sp.CHUNK)[active].all())
+        # a tile with no active line reads nothing
+        any_on = torch.zeros(len(ranges), dtype=torch.bool).index_put_(
+            (tile[active],), torch.tensor(True))
+        assert bool((last[~any_on] == first[~any_on]).all())
+        skipped += int((nk - (last - first)).sum())
+        # the GEMM over only those chunks gives the full result
+        want = sp.unpack_dft_plain(packed, start, zlo, cnt, fl, w)
+        got = _unpack_over_chunks(packed, start, zlo, cnt, fl, w, ranges)
+        _close(got.numpy(), want.numpy(), rtol=1e-6)
+        assert _plus_zero(got.numpy()[want.numpy() == 0])
+    assert skipped > 0                         # the case skips something
+
+
+def test_slab_layout_names_what_the_kernel_reads_in_place():
+    B, n = 2, 12
+    for d, fits in ((8, True), (64, True), (128, True), (6, False),
+                    (40, False)):
+        t = torch.zeros((B, d, n, d), dtype=torch.complex64)
+        assert sp.slab_layout(torch.zeros((B, d, d, n),
+                                          dtype=torch.complex64)) == 0
+        assert sp.slab_layout(t.transpose(2, 3)) is None
+        assert sp.slab_layout(t.permute(0, 3, 1, 2)) == (1 if fits else None)
+        assert sp.slab_layout(t.permute(0, 3, 1, 2)[:, :, ::2]) is None
+
+
 # -------------------------------------------------------------- dft_pack
 @pytest.mark.parametrize("d,n,nbands,kpts", [
     (8, 16, 3, ((0, 0, 0), (0.5, 0.5, 0.5))),
