@@ -16,6 +16,23 @@ public entry point ``repro_torch.dft.run_scf`` on the kernel route
 the two.  Every kernel of the path must have launched during the kernel
 route's run.
 
+Three phases follow on the same SCF configuration:
+
+* the executor modes at the SCF's stacked inverse plan (B = 32, d = 128
+  → n = 256): eager, lazy fp32 and lazy bf16, each timed with CUDA
+  events, its error against the eager result's largest value and its
+  peak memory; then ``tune()`` of a copy of that plan;
+* the SCF under ``ExecPolicy(mode="lazy")`` against the eager "cuda"
+  run (the sphere kernels launch, kernel #1 does not);
+* the fused step (``jit_step=True``), captured as CUDA graphs: once
+  with linear mixing against an eager run with linear mixing, once with
+  the Anderson mixer on the device; each prints its first and steady
+  seconds per iteration, graphs, replays, the host syncs of one steady
+  iteration (counted by the sync debug mode, and named), peak memory and
+  one traced steady iteration by graph.  The launches inside the capture
+  are counted once; the steady iterations must launch no wrapper and run
+  no plan call.
+
 Two more paths follow, each with the launch counts set to 0 just before
 it and read just after:
 
@@ -55,7 +72,8 @@ errors/exact-zero checks/times with two bounds each (fp32 FMA, and
 times of PERF.md's call C, with the K chunks and tiles ``unpack_dft``
 skips and the time of ``dft_pack``'s zero-tail kernel), the SCF
 comparison and its breakdown, the layout of the slab the fused pack gets
-on the SCF path (read in place, or copied), the
+on the SCF path under each executor (read in place, or copied), the
+executor-mode, lazy-SCF and fused-step phases, the
 four-step phase (kernel #2's and the composition's times beside
 ``torch.fft``'s), the service phase (each pass's metrics summary beside
 the card's name and power limit, its batches, the warm pass's dispatch
@@ -595,8 +613,10 @@ def check_dft_pack(torch, dev, gen, spheres):
 
 def check_slab_layout(torch, dev, gen):
     """Whether the slab that the fused pack gets on the SCF path (the
-    forward plan's lead stages' output) is read in place: its layout, and
-    the time of the ``contiguous()`` copy the kernel no longer needs."""
+    forward plan's lead stages' output, under the eager and the lazy
+    executor) is read in place: its layout, and the time of the
+    ``contiguous()`` copy the kernel does not need."""
+    from repro_torch.core.policy import ExecPolicy
     from repro_torch.dft.basis import PlaneWaveBasis
     from repro_torch.kernels import sphere_pack as sp
     b = PlaneWaveBasis(N, diameter=DIAMETER, kpts=KPTS, nbands=NBANDS,
@@ -604,21 +624,31 @@ def check_slab_layout(torch, dev, gen):
     _, fwd = b.stacked_hamiltonian_plans()
     parts = fwd._fused_out_parts()
     cube = crandn(torch, gen, (b.nk * NBANDS, N, N, N), dev)
-    slab = parts["lead"](cube)
+    out = {}
+    for mode in ("eager", "lazy"):
+        pol = ExecPolicy(mode=mode)
+        slab = parts["lead"](cube, policy=pol)
+        layout = sp.slab_layout(slab)
+        copy_ms = time_ms(torch, lambda: slab.contiguous(), reps=5)
+        lead_ms = time_ms(torch, lambda pol=pol: parts["lead"](
+            cube, policy=pol), reps=3)
+        print(f"fused pack's slab on the SCF path, {mode} lead plan "
+              f"({lead_ms:.3f} ms): {tuple(slab.shape)}, strides "
+              f"{slab.stride()}, contiguous {slab.is_contiguous()}: "
+              + ({0: "contiguous lines, read in place, no copy",
+                  1: "y planes z-major, read in place, no copy"}.get(
+                      layout, "copied first"))
+              + f"; a contiguous() copy of it takes {copy_ms:.3f} ms",
+              flush=True)
+        check(layout is not None,
+              f"dft_pack reads the {mode} SCF path's slab in place")
+        out[mode] = {"shape": list(slab.shape),
+                     "strides": list(slab.stride()),
+                     "contiguous": slab.is_contiguous(), "layout": layout,
+                     "copy_ms": copy_ms, "lead_ms": lead_ms}
+        del slab
     del cube
-    layout = sp.slab_layout(slab)
-    copy_ms = time_ms(torch, lambda: slab.contiguous(), reps=5)
-    print(f"fused pack's slab on the SCF path: {tuple(slab.shape)}, strides "
-          f"{slab.stride()}, contiguous {slab.is_contiguous()}: "
-          + ({0: "contiguous lines, no copy",
-              1: "y planes z-major, read in place, no copy"}.get(
-                  layout, "copied first"))
-          + f"; a contiguous() copy of it takes {copy_ms:.3f} ms",
-          flush=True)
-    check(layout is not None, "dft_pack reads the SCF path's slab in place")
-    return {"shape": list(slab.shape), "strides": list(slab.stride()),
-            "contiguous": slab.is_contiguous(), "layout": layout,
-            "copy_ms": copy_ms}
+    return out
 
 
 def check_four_step(torch, dev, gen, stages):
@@ -1146,7 +1176,7 @@ def trace_eager_apply(torch, dev, svc, req):
 def run_slice(torch, dev, stages):
     import numpy as np
 
-    from repro_torch.dft import SCFConfig, run_scf
+    from repro_torch.dft import run_scf
     from repro_torch.dft.basis import PlaneWaveBasis
     from repro_torch.dft.hamiltonian import orthonormalize
     from repro_torch.kernels import sphere_pack
@@ -1167,17 +1197,17 @@ def run_slice(torch, dev, stages):
     print(f"  stacked batch B={basis.nk * NBANDS}, npacked_max="
           f"{basis.npacked_max}", flush=True)
 
-    def cfg(backend):
-        # mix_warmup >= max_iter: a fixed trajectory, no early stop
-        return SCFConfig(n=N, diameter=DIAMETER, nbands=NBANDS, kpts=KPTS,
-                         stack_k=True, backend=backend, max_iter=MAX_ITER,
-                         mix_warmup=MAX_ITER)
-
+    cfg = scf_config
     wrappers = (dft_matmul, sphere_pack.unpack_dft, sphere_pack.dft_pack)
     for fn in wrappers:
         fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
     with stages.record("scf") as shapes:
-        res_k = run_scf(cfg("cuda"), device=dev, coeffs=coeffs)
+        res_k_stamps = Stamps()
+        res_k = run_scf(cfg("cuda"), device=dev, coeffs=coeffs,
+                        callback=res_k_stamps)
+    peak_k = torch.cuda.max_memory_allocated(dev)
+    res_k.stamps = res_k_stamps
     launches = {fn.__name__: fn.launches for fn in wrappers}
     check(sum(shapes.values()) == launches["dft_matmul"],
           f"the {len(shapes)} recorded line shapes cover every dft_matmul "
@@ -1195,7 +1225,12 @@ def run_slice(torch, dev, stages):
         per_it = [round(r["seconds"], 3) for r in res.iteration_records]
         print(f"  {res.backend:6s}: energies {res.energies}, "
               f"{res.seconds_per_iteration:.3f} s/iteration "
-              f"(per iteration {per_it})", flush=True)
+              f"(per-iteration records {per_it}, which leave out the "
+              "host mixing)", flush=True)
+    steady_k = iteration_times(res_k)
+    print(f"  cuda route, wall time between iteration ends (mixing "
+          f"included): {[round(x, 4) for x in steady_k['steady_wall_s']]} "
+          f"s", flush=True)
     ek, em = np.asarray(res_k.energies), np.asarray(res_m.energies)
     de = float(np.abs(ek - em).max())
     check(len(ek) == len(em) == MAX_ITER and np.isfinite(ek).all(),
@@ -1215,11 +1250,330 @@ def run_slice(torch, dev, stages):
           f"rho is a finite ({N},{N},{N}) field")
     check(drho <= RHO_RTOL * rmax,
           f"rho agrees: max diff {drho:.3e} <= {RHO_RTOL:g}·{rmax:.3e}")
+    print(f"  cuda route: peak memory {peak_k / 2**30:.2f} GiB", flush=True)
     return launches, {"cuda_s_per_iteration": res_k.seconds_per_iteration,
+                      "cuda_steady_wall_s": steady_k["steady_s"],
+                      "cuda_peak_gib": peak_k / 2**30,
                       "matmul_s_per_iteration": res_m.seconds_per_iteration,
                       "energy_cuda": res_k.energy,
                       "energy_matmul": res_m.energy, "max_dE": de,
-                      "max_deig": deig, "max_drho": drho}
+                      "max_deig": deig, "max_drho": drho}, \
+        {"coeffs": coeffs, "cuda": res_k}
+
+
+def scf_config(backend, **kw):
+    """The smoke SCF's configuration; mix_warmup >= max_iter: a fixed
+    (linearly mixed) trajectory, no early stop."""
+    from repro_torch.dft import SCFConfig
+    return SCFConfig(**{"n": N, "diameter": DIAMETER, "nbands": NBANDS,
+                        "kpts": KPTS, "stack_k": True, "backend": backend,
+                        "max_iter": MAX_ITER, "mix_warmup": MAX_ITER, **kw})
+
+
+def agreement(torch, res, ref, what: str) -> dict:
+    """Hold an SCF run against a reference run of the same trajectory to
+    PERF.md's limits: energies rel. 1e-4, eigenvalues abs. 1e-4, ρ 1e-3 of
+    max ρ."""
+    import numpy as np
+    e, er = np.asarray(res.energies), np.asarray(ref.energies)
+    check(len(e) == len(er) and bool(np.isfinite(e).all()),
+          f"{what}: {len(e)} finite energies")
+    de = float(np.abs(e - er).max())
+    deig = float(np.abs(res.eigenvalues - ref.eigenvalues).max())
+    drho = float((res.rho - ref.rho).abs().max())
+    rmax = float(ref.rho.abs().max())
+    check(de <= ENERGY_RTOL * max(1.0, float(np.abs(er).max())),
+          f"{what}: energies agree, max |dE| {de:.3e}")
+    check(bool(np.all(np.diff(res.eigenvalues, axis=1) >= -1e-6))
+          and deig <= EIG_ATOL * max(1.0, float(
+              np.abs(ref.eigenvalues).max())),
+          f"{what}: eigenvalues ascending and agree, max diff {deig:.3e}")
+    check(tuple(res.rho.shape) == (N, N, N)
+          and bool(torch.isfinite(res.rho).all())
+          and drho <= RHO_RTOL * rmax,
+          f"{what}: rho finite and agrees, max diff {drho:.3e} <= "
+          f"{RHO_RTOL:g}·{rmax:.3e}")
+    return {"max_dE": de, "max_deig": deig, "max_drho": drho}
+
+
+class Stamps:
+    """An SCF callback keeping the host clock at the end of every
+    iteration (after its host read of energy and residual)."""
+
+    def __init__(self, then=None):
+        self.t: list[float] = []
+        self.then = then
+
+    def __call__(self, it, energy, resid):
+        self.t.append(time.perf_counter())
+        if self.then is not None:
+            self.then(it, energy, resid)
+
+
+def iteration_times(res) -> dict:
+    """Seconds per iteration, two ways.  ``first_s``/``record_s``: the
+    run's own per-iteration records, which time each iteration's body
+    only (the eager loop mixes after the record is taken).  ``steady_s``:
+    the wall time between the ends of consecutive iterations (the
+    callback's host clock), the mixing included: what a user waits per
+    iteration, the same for every route."""
+    secs = [r["seconds"] for r in res.iteration_records]
+    t = res.stamps.t
+    walls = [b - a for a, b in zip(t, t[1:])]
+    return {"first_s": secs[0], "steady_s": sum(walls) / len(walls),
+            "steady_wall_s": walls, "record_s": secs}
+
+
+# ------------------------------------------------- executor modes, lazy SCF
+def check_exec_modes(torch, dev, gen):
+    """The stacked SCF's inverse plan (B=32, d=128 → n=256) on the "cuda"
+    backend under the eager executor and the lazy one in fp32 and bf16:
+    CUDA-event times, error against the eager result's largest value, peak
+    memory; then ``tune()`` of a fresh copy of that plan."""
+    from repro_torch.core import fftb
+    from repro_torch.core.policy import ExecPolicy
+    from repro_torch.dft.basis import PlaneWaveBasis
+    b = PlaneWaveBasis(N, diameter=DIAMETER, kpts=KPTS, nbands=NBANDS,
+                       backend="cuda", device=dev)
+    plan = b.stacked_inverse_plan()
+    print(f"executor modes at the stacked SCF's inverse plan "
+          f"{plan.tin.shape} -> {plan.tout.shape} (backend cuda):",
+          flush=True)
+    x = crandn(torch, gen, plan.tin.shape, dev)
+    ref = plan(x)
+    scale = float(ref.abs().max())
+    out = {}
+    for name, tol in (("eager", 0.0), ("lazy", 1e-5), ("lazy_bf16", 3e-2)):
+        pol = ExecPolicy.from_mode(name)
+        y = plan(x, policy=pol)
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        del y
+        y = plan(x, policy=pol)
+        torch.cuda.synchronize(dev)
+        peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+        rel = float((y - ref).abs().max()) / scale
+        del y
+        ms = time_ms(torch, lambda pol=pol: plan(x, policy=pol), reps=5)
+        out[name] = {"ms": ms, "rel_err": rel, "peak_gib": peak}
+        print(f"  {name:9s}: {ms:.3f} ms, rel err {rel:.3e} of the eager "
+              f"result's largest value, peak {peak:.2f} GiB above the "
+              "input, the eager result and the output", flush=True)
+        if tol:
+            check(rel <= tol, f"{name} agrees with eager within {tol:g}")
+    del ref
+    # a plan of its own: tune() pins its winner on the plan it tunes
+    fresh = fftb(b._pw_spec, domains=plan.tin.domains, grid=b.grid,
+                 sizes=(N,) * 3, inverse=True, backend="cuda")
+    best = fresh.tune(x)
+    out["tune"] = {"seconds": fresh.tune_seconds,
+                   "winner": best.legacy_mode}
+    print("  tune(): " + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in
+                                   fresh.tune_seconds.items())
+          + f" per call (host clock, synchronized); winner "
+          f"{best.legacy_mode}", flush=True)
+    check(fresh.policy == best and best.legacy_mode in fresh.tune_seconds,
+          "tune() pinned its winner on the plan")
+    del x
+    return out
+
+
+def run_lazy_scf(torch, dev, ctx):
+    """The smoke SCF under ``ExecPolicy(mode="lazy")`` on "cuda", against
+    the eager "cuda" run of the same trajectory.  The fused sphere
+    kernels still unpack and pack; every other stage is a lazy GEMM, so
+    kernel #1 does not launch."""
+    from repro_torch.core.policy import ExecPolicy
+    from repro_torch.dft import run_scf
+    from repro_torch.kernels import sphere_pack
+    from repro_torch.kernels.dft_matmul import dft_matmul
+    wrappers = (dft_matmul, sphere_pack.unpack_dft, sphere_pack.dft_pack)
+    for fn in wrappers:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    stamps = Stamps()
+    res = run_scf(scf_config("cuda", policy=ExecPolicy(mode="lazy")),
+                  device=dev, coeffs=ctx["coeffs"], callback=stamps)
+    res.stamps = stamps
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    launches = {fn.__name__: fn.launches for fn in wrappers}
+    print(f"SCF, lazy fp32 executor (cuda backend): launches {launches}",
+          flush=True)
+    check(launches["unpack_dft"] > 0 and launches["dft_pack"] > 0
+          and launches["dft_matmul"] == 0,
+          "the lazy route ran the sphere kernels and no line-DFT kernel")
+    agree = agreement(torch, res, ctx["cuda"], "lazy vs eager cuda")
+    t = iteration_times(res)
+    print(f"  lazy: first iteration {t['first_s']:.3f} s, steady "
+          f"{t['steady_s']:.3f} s/iteration, wall between iteration ends "
+          f"(eager cuda: {iteration_times(ctx['cuda'])['steady_s']:.3f}), "
+          f"peak {peak:.2f} GiB", flush=True)
+    return {**t, **agree, "peak_gib": peak, "launches": launches,
+            "energies": res.energies}
+
+
+# ---------------------------------------------------------- fused SCF step
+def run_fused_step(torch, dev, ctx):
+    """The smoke SCF with ``jit_step=True`` on "cuda": the step captured as
+    CUDA graphs and replayed.
+
+    Once with linear mixing (``mix_history=1``) against an eager run with
+    the same settings; once with the default Anderson mixer (device DIIS),
+    whose mixing replaces the eager loop's host mixer.  Launch counts:
+    the wrappers count a launch when their Python runs, which the fused
+    step does twice (the warm-up and the capture) and the replays never;
+    each captured launch is counted once, as half the run's count, and
+    the counts must not grow with the iterations.  Host syncs per steady
+    iteration are counted by ``torch.cuda.set_sync_debug_mode("warn")``
+    over one replayed iteration, between two callbacks.
+    """
+    import warnings
+
+    import numpy as np
+
+    from repro_torch.core import FftPlan
+    from repro_torch.dft import run_scf
+    from repro_torch.dft.scf import jit_mix, jit_mixer_init
+    from repro_torch.kernels import sphere_pack
+    from repro_torch.kernels.dft_matmul import dft_matmul
+    from repro_torch.obs import get_tracer
+    wrappers = (dft_matmul, sphere_pack.unpack_dft, sphere_pack.dft_pack)
+    tr = get_tracer()
+
+    stamps = Stamps()
+    eager = run_scf(scf_config("cuda", mix_history=1), device=dev,
+                    coeffs=ctx["coeffs"], callback=stamps)
+    eager.stamps = stamps
+    out = {"eager_linear": iteration_times(eager)}
+    print(f"SCF, eager loop with linear mixing on the device: steady "
+          f"{out['eager_linear']['steady_s']:.3f} s/iteration (wall between "
+          "iteration ends)", flush=True)
+    graphs_mod = sys.modules["repro_torch.dft.graphs"]
+    capture = graphs_mod.StepGraphs.capture
+    torch.cuda.empty_cache()
+    for name, kw in (("linear", {"mix_history": 1}),
+                     ("anderson", {"mix_warmup": 2})):
+        for fn in wrappers:
+            fn.launches = 0
+        marks = []
+        syncs = {}
+        captured = {}
+
+        def counted_capture(self, fn, *args):
+            # the launches inside the capture, each counted once: the
+            # replays re-issue them without running the wrappers
+            before = {f.__name__: f.launches for f in wrappers}
+            res = capture(self, fn, *args)
+            captured.update({f.__name__: f.launches - before[f.__name__]
+                             for f in wrappers})
+            return res
+
+        def callback(it, energy, resid, marks=marks):
+            marks.append((FftPlan.executions,
+                          {f.__name__: f.launches for f in wrappers}))
+            # iteration 1: count its host syncs; iteration 2: trace it
+            # (the graph and host-sync spans of StepGraphs.replay)
+            if it == 0:
+                torch.cuda.set_sync_debug_mode("warn")
+                syncs["start"] = len(caught)
+            elif it == 1:
+                torch.cuda.set_sync_debug_mode(0)
+                syncs["end"] = len(caught)
+                tr.clear()
+                tr.enable(sync=True, per_stage=False)
+            elif it == 2:
+                tr.disable()
+        stamps = Stamps(callback)
+        torch.cuda.reset_peak_memory_stats(dev)
+        graphs_mod.StepGraphs.capture = counted_capture
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            try:
+                res = run_scf(scf_config("cuda", jit_step=True, **kw),
+                              device=dev, coeffs=ctx["coeffs"],
+                              callback=stamps)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+                graphs_mod.StepGraphs.capture = capture
+        res.stamps = stamps
+        tr.disable()
+        pieces = [{"name": e["name"] if e["name"] != "step_graph" else
+                   f"graph[{e['attrs']['index']}]",
+                   "ms": (e["t1"] - e["t0"]) * 1e3} for e in tr.events()
+                  if e["name"] == "step_graph"
+                  or e["name"].startswith("host_sync:")]
+        tr.clear()
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        found = [str(w.message) for w in caught[syncs["start"]:syncs["end"]]
+                 if "synchroniz" in str(w.message)
+                 and "prototype" not in str(w.message)]
+        st = res.graphs
+        t = iteration_times(res)
+        steady_execs = marks[-1][0] - marks[0][0]
+        steady_launches = {k: marks[-1][1][k] - marks[0][1][k]
+                           for k in captured}
+        print(f"SCF, fused step ({name} mixing, cuda backend): jitted "
+              f"{res.jitted}, {st['graphs']} graphs per iteration, "
+              f"{st['replays']} replays of the step ({st['graphs']} graph "
+              f"launches and {len(st['host_syncs'])} host syncs each), "
+              f"capture {st['capture_seconds']:.3f} s", flush=True)
+        print(f"  first iteration (warm-up + capture) {t['first_s']:.3f} s, "
+              f"steady {t['steady_s']:.3f} s/iteration (wall between "
+              f"iteration ends {[round(x, 4) for x in t['steady_wall_s']]}),"
+              f" peak {peak:.2f} GiB", flush=True)
+        print("  one steady iteration by piece (traced, synchronized "
+              "spans, ms): " + ", ".join(f"{p['name']} {p['ms']:.1f}"
+                                         for p in pieces), flush=True)
+        print(f"  host syncs in one steady iteration: {len(found)} seen by "
+              f"the sync debug mode; named: {st['host_syncs']} between the "
+              "graphs, plus the energy/residual read", flush=True)
+        print(f"  kernel launches captured (each counted once; the replays "
+              f"re-issue them): {captured}; wrapper launches over the "
+              f"steady iterations: {steady_launches}; FftPlan.executions "
+              f"over the steady iterations: {steady_execs}", flush=True)
+        check(res.jitted and st["replays"] == MAX_ITER - 1,
+              f"{name}: {MAX_ITER - 1} steady iterations replayed the graphs")
+        check(steady_execs == 0,
+              f"{name}: the steady iterations ran no plan call")
+        check(all(v > 0 for v in captured.values())
+              and not any(steady_launches.values()),
+              f"{name}: every kernel of the path was captured, and the "
+              "replays ran no wrapper")
+        check(len(found) == len(st["host_syncs"]) + 1,
+              f"{name}: {len(found)} host syncs per steady iteration = the "
+              f"{len(st['host_syncs'])} named ones + the energy/residual "
+              "read")
+        rec = {**t, "peak_gib": peak, "graphs": st["graphs"],
+               "replays": st["replays"], "host_syncs": st["host_syncs"],
+               "syncs_seen": len(found), "pieces": pieces,
+               "capture_s": st["capture_seconds"],
+               "captured_launches": captured,
+               "steady_plan_executions": steady_execs,
+               "energies": res.energies}
+        if name == "linear":
+            rec.update(agreement(torch, res, eager,
+                                 "fused step vs eager, linear mixing"))
+        else:
+            check(bool(np.isfinite(res.energies).all())
+                  and bool(np.all(np.diff(res.eigenvalues, axis=1)
+                                  >= -1e-6)),
+                  "anderson: finite energies, ascending eigenvalues")
+        out[name] = rec
+        del res
+        torch.cuda.empty_cache()
+    # the device mixer alone at n=256, history 5, its DIIS solve active
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    rho = torch.rand((N, N, N), generator=gen, device=dev)
+    state = jit_mixer_init(N ** 3, 5, dev)
+    for _ in range(5):
+        jit_mix(state, rho, rho * 1.01 + 0.001, alpha=0.7, warmup=0)
+    out["mix_ms"] = time_ms(torch, lambda: jit_mix(
+        state, rho, rho * 1.01 + 0.001, alpha=0.7, warmup=0), reps=5)
+    print(f"  device Anderson mix alone (n={N}, history 5): "
+          f"{out['mix_ms']:.3f} ms (CUDA events)", flush=True)
+    del state, rho
+    return out
 
 
 def breakdown(torch, dev):
@@ -1377,13 +1731,33 @@ def main() -> int:
         print(f"{r['name']}: " + json.dumps(r), flush=True)
     torch.cuda.empty_cache()
     stages = LineStages()
-    launches, scf = run_slice(torch, dev, stages)
+    t0 = time.perf_counter()
+    launches, scf, ctx = run_slice(torch, dev, stages)
     print("scf: " + json.dumps(scf), flush=True)
+    print(f"SCF phase: {time.perf_counter() - t0:.1f} s", flush=True)
     print("iteration breakdown (host clock, synchronized):", flush=True)
     scf["breakdown"] = breakdown(torch, dev)
     torch.cuda.empty_cache()
     scf["pack_slab"] = check_slab_layout(torch, dev, gen)
     print("pack_slab: " + json.dumps(scf["pack_slab"]), flush=True)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    modes = check_exec_modes(torch, dev, gen)
+    print("exec_modes: " + json.dumps(modes), flush=True)
+    print(f"executor-mode phase: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lazy = run_lazy_scf(torch, dev, ctx)
+    print("scf_lazy: " + json.dumps(lazy), flush=True)
+    print(f"lazy SCF phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fused = run_fused_step(torch, dev, ctx)
+    print("scf_fused: " + json.dumps(fused), flush=True)
+    print(f"fused-step phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    del ctx
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()

@@ -18,7 +18,9 @@ length), identical to ``ifft(pad(x, n))``.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -58,7 +60,9 @@ def _dft_matrix_device(n_out: int, n_in: int, inverse: bool,
     w = dft_matrix(n_out, n_in, inverse)
     return (torch.as_tensor(np.ascontiguousarray(w.real), device=device),
             torch.as_tensor(np.ascontiguousarray(w.imag), device=device),
-            torch.as_tensor(np.ascontiguousarray(w), device=device))
+            torch.as_tensor(np.ascontiguousarray(w), device=device),
+            torch.as_tensor(np.ascontiguousarray(w.real + w.imag),
+                            device=device))
 
 
 def dft_matrix_device(n_out: int, n_in: int, inverse: bool, device=None):
@@ -72,7 +76,50 @@ def dft_matrix_device(n_out: int, n_in: int, inverse: bool, device=None):
     means CUDA and raises without it (:func:`~.grid.resolve_device`).
     """
     return _dft_matrix_device(int(n_out), int(n_in), bool(inverse),
-                              resolve_device(device))
+                              resolve_device(device))[:3]
+
+
+def dft_matrix_planes(n_out: int, n_in: int, inverse: bool, device=None):
+    """The ``(real, imag, real + imag)`` f32 planes of ``dft_matrix`` from
+    the same device cache as :func:`dft_matrix_device`; the sum plane
+    feeds the lazy executor's Gauss three-product complex GEMM."""
+    wr, wi, _, ws = _dft_matrix_device(int(n_out), int(n_in), bool(inverse),
+                                       resolve_device(device))
+    return wr, wi, ws
+
+
+_FP32_LOCK = threading.Lock()
+_FP32_USERS = 0
+_FP32_SAVED = False
+
+
+@contextlib.contextmanager
+def full_fp32_matmul(device):
+    """Run the enclosed fp32 CUDA GEMMs in full fp32, not TF32.
+
+    cuBLAS reads the process-wide ``torch.backends.cuda.matmul.allow_tf32``
+    at each call; TF32 products would lose the ~1e-6 agreement of the fp32
+    GEMM routes (the "matmul" backend, the lazy executor, the jitted
+    mixer's Gram).  The first of any nested or concurrent users clears
+    the flag and the last puts back what it found, so the caller's setting
+    survives.  A no-op off CUDA.
+    """
+    global _FP32_USERS, _FP32_SAVED
+    if torch.device(device).type != "cuda":
+        yield
+        return
+    with _FP32_LOCK:
+        if _FP32_USERS == 0:
+            _FP32_SAVED = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = False
+        _FP32_USERS += 1
+    try:
+        yield
+    finally:
+        with _FP32_LOCK:
+            _FP32_USERS -= 1
+            if _FP32_USERS == 0:
+                torch.backends.cuda.matmul.allow_tf32 = _FP32_SAVED
 
 
 def _fft_backend(x, axis, n_in, n_out, inverse):
@@ -88,15 +135,13 @@ def _fft_backend(x, axis, n_in, n_out, inverse):
 
 
 def _matmul_backend(x, axis, n_in, n_out, inverse):
-    if x.is_cuda:
-        # full fp32 products: TF32 would lose the ~1e-6 agreement
-        torch.backends.cuda.matmul.allow_tf32 = False
     wr, wi, _ = dft_matrix_device(n_out, n_in, inverse, x.device)
     xm = torch.movedim(x, axis, -1)
     xr, xi = xm.real, xm.imag
     # y = x @ W^T with complex split into real GEMMs
-    yr = xr @ wr.T - xi @ wi.T
-    yi = xr @ wi.T + xi @ wr.T
+    with full_fp32_matmul(x.device):
+        yr = xr @ wr.T - xi @ wi.T
+        yi = xr @ wi.T + xi @ wr.T
     return torch.movedim(torch.complex(yr, yi), -1, axis)
 
 

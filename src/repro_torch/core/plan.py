@@ -11,15 +11,17 @@ emits an alternating sequence of
 reproducing slab-pencil (1 move on a 1D grid), pencil-pencil-pencil (2 moves
 on a 2D grid) and volumetric (3D grid) schedules from the declared
 distributions alone.  The schedule search and the mirrors are the
-reference's, line for line.  Execution is the eager stage walk on one
-device: a move over an axis of size 1 is the identity, and moves over
-larger axes belong to the distributed slice of the port.
+reference's, line for line.  Execution runs on one device, by one of two
+executors that ``ExecPolicy.mode`` picks: the eager stage walk
+(``_raw_apply``) or the lazy split-plane executor (``_raw_apply_lazy``).
+A move over an axis of size 1 is the identity; moves over larger axes
+belong to the distributed slice of the port.
 
 ``Plan`` is the common base of ``FftPlan`` and ``PlaneWaveFFT``: execution
-policy resolution, tracing and the flop/comm accounting shared by both.
-With the tracer on (``repro_torch.obs.get_tracer().enable()``) a plan
-records a ``plan:`` span and one span per stage, each synchronized with
-the card at exit.  Every plan
+policy resolution, ``tune()``, tracing and the flop/comm accounting shared
+by both.  With the tracer on (``repro_torch.obs.get_tracer().enable()``) a
+plan records a ``plan:`` span and one span per stage, each synchronized
+with the card at exit.  Every plan
 can *derive* its mirror transforms — ``plan.inverse()`` and
 ``plan.adjoint()`` reverse the stage list (each stage knows its own mirror)
 instead of running a second schedule search.
@@ -29,14 +31,18 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import math
+import time
 from functools import cached_property
+
+import torch
 
 from . import layout as L
 from ..obs.metrics import global_metrics
-from ..obs.trace import get_tracer
+from ..obs.trace import drain, get_tracer
 from .dtensor import DistTensor
-from .local_fft import dft_flops, local_dft, realized_backend
-from .policy import ExecPolicy
+from .local_fft import (dft_flops, dft_matrix_planes, full_fp32_matmul,
+                        local_dft, realized_backend)
+from .policy import TUNE_CANDIDATES, ExecPolicy
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,8 +110,8 @@ class Plan:
     """Common protocol + shared accounting of FFTB plans.
 
     Concrete plans provide ``tin``/``tout``/``grid``/``dims``/``stages`` and
-    ``_execute``; the base supplies policy resolution and the stage-walking
-    flop/comm accounting.
+    ``_execute``; the base supplies policy resolution, ``tune()``, and the
+    stage-walking flop/comm accounting.
     """
 
     tin: DistTensor
@@ -137,6 +143,45 @@ class Plan:
 
     def _execute(self, x, pol: ExecPolicy):
         raise NotImplementedError
+
+    def tune(self, x, *, candidates=TUNE_CANDIDATES, warmup: int = 1,
+             iters: int = 3) -> ExecPolicy:
+        """Time candidate policies on ``x`` and pin the fastest.
+
+        Returns the winning policy (also set as the plan's default, so
+        subsequent plain ``plan(x)`` calls use it).  Each candidate's mean
+        seconds per call stay in ``plan.tune_seconds`` (legacy mode name →
+        seconds), in candidate order.
+        """
+        best, best_t = None, None
+        times = {}
+        for cand in candidates:
+            pol = dataclasses.replace(
+                cand, check_shapes=self.policy.check_shapes)
+            for _ in range(warmup):
+                drain(self(x, policy=pol))
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                # drain inside the timed window: the clock must stop only
+                # after the card finished, or tune() would rank candidates
+                # by launch latency
+                drain(self(x, policy=pol))
+            dt = (time.perf_counter() - t0) / iters
+            times[pol.legacy_mode] = dt
+            if best_t is None or dt < best_t:
+                best, best_t = pol, dt
+        self.policy = best
+        self.tune_seconds = times
+        m = global_metrics()
+        m.counter("fftb.tunes").inc()
+        m.histogram("fftb.tune_best_us").record(best_t * 1e6)
+        # memoized mirrors inherited the pre-tune policy — keep the pair
+        # in sync, as a freshly derived mirror would be
+        for attr in ("_inverse_memo", "_adjoint_memo"):
+            memo = getattr(self, attr, None)
+            if memo is not None:
+                memo.policy = best
+        return best
 
     # ------------------------------------------------------------- mirrors
     def inverse(self) -> "Plan":
@@ -184,16 +229,16 @@ class Plan:
         """Device bytes of the ``dft_matrix_device`` operand tables the
         plan's FFT stages reference, keyed by ``(n_out, n_in, inverse)``.
 
-        The tables are memoized process-wide (real and imaginary f32 planes
-        plus the interleaved complex64 matrix: 16 bytes per entry), so two
-        plans with the same key share one device allocation; the PlanCache
-        refcounts these keys and charges each table once.
+        The tables are memoized process-wide (real, imaginary and sum f32
+        planes plus the interleaved complex64 matrix: 20 bytes per entry),
+        so two plans with the same key share one device allocation; the
+        PlanCache refcounts these keys and charges each table once.
         """
         out: dict[tuple, int] = {}
         for st in self.stages:
             if isinstance(st, FFTStage):
                 out.setdefault((st.n_out, st.n_in, st.inverse),
-                               16 * st.n_in * st.n_out)
+                               20 * st.n_in * st.n_out)
         return out
 
     def estimated_bytes(self) -> int:
@@ -448,26 +493,87 @@ class FftPlan(Plan):
             x = x * self.scale
         return x
 
-    def _check_executable(self, pol: ExecPolicy) -> None:
-        if pol.mode != "eager":
-            raise NotImplementedError(
-                f"execution mode {pol.mode!r}: only the eager executor is "
-                "ported; the lazy split-plane executor is queued in "
-                "ROADMAP §1 item 3")
+    def _raw_apply_lazy(self, x, compute_dtype=torch.float32):
+        """Lazy-permutation, split-complex executor.
+
+        The eager path pays, per stage, two transposes plus a complex
+        interleave/deinterleave around the real GEMMs.  Here (a) each
+        stage contracts its axis and the output axis lands at the end (a
+        logical permutation undone once, at exit; torch's GEMM reads the
+        contracted axis last, so a plane whose axis is not last is copied
+        into that order first), and (b) data flows as separate (re, im)
+        planes in ``compute_dtype`` from entry to exit, so nothing
+        interleaves between stages.  Each complex
+        product is Gauss's three real GEMMs with f32 results (for bf16
+        operands too); the f32 differences are cast back to
+        ``compute_dtype``.  Same stages as the eager walk, same result to
+        rounding.
+        """
+        dev = x.device
+        perm = list(range(x.ndim))        # perm[i] = logical dim at pos i
+        x = x.to(torch.complex64)
+        xr = x.real.to(compute_dtype)
+        xi = x.imag.to(compute_dtype)
+        with full_fp32_matmul(dev):
+            for st in self.stages:
+                if not isinstance(st, FFTStage):
+                    # one process per axis: the identity (larger axes raise)
+                    xr, xi = st.apply(xr), st.apply(xi)
+                    continue
+                pos = perm.index(st.index)
+                wr, wi, ws = (w.to(compute_dtype) for w in dft_matrix_planes(
+                    st.n_out, st.n_in, st.inverse, dev))
+                ar = xr.movedim(pos, -1)
+                ai = xi.movedim(pos, -1)
+                shape = ar.shape[:-1] + (st.n_out,)
+                ar = ar.reshape(-1, st.n_in)
+                ai = ai.reshape(-1, st.n_in)
+                # Gauss 3-multiplication complex product: 3 real GEMMs
+                # instead of 4:
+                #   m1 = xr·wr, m2 = xi·wi, m3 = (xr+xi)·(wr+wi)
+                #   yr = m1 − m2, yi = m3 − m1 − m2
+                m1 = _gemm_f32(ar, wr)
+                m2 = _gemm_f32(ai, wi)
+                m3 = _gemm_f32((ar + ai).to(compute_dtype), ws)
+                xi = m3.sub_(m1).sub_(m2).to(compute_dtype).reshape(shape)
+                xr = m1.sub_(m2).to(compute_dtype).reshape(shape)
+                perm = [p for i, p in enumerate(perm) if i != pos] \
+                    + [st.index]
+        out_axes = [perm.index(i) for i in range(len(perm))]
+        xr = xr.permute(out_axes).to(torch.float32)
+        xi = xi.permute(out_axes).to(torch.float32)
+        if self.scale != 1.0:
+            xr, xi = xr * self.scale, xi * self.scale
+        # the exit permutation, materialized once: the complex result is
+        # written in its logical (contiguous) order
+        out = torch.empty(xr.shape, dtype=torch.complex64, device=dev)
+        return torch.complex(xr, xi, out=out)
+
+    def _check_executable(self) -> None:
         if self.grid.is_abstract:
             raise RuntimeError("an abstract (device-less) grid cannot "
                                "execute a plan; build it on ProcGrid.create")
 
+    def _run(self, x, pol: ExecPolicy):
+        """The whole stage list by the executor ``pol.mode`` names."""
+        if pol.mode == "lazy":
+            return self._raw_apply_lazy(x, pol.torch_compute_dtype())
+        return self._raw_apply(x)
+
     def _execute(self, x, pol: ExecPolicy, tr=None):
-        self._check_executable(pol)
+        self._check_executable()
         FftPlan.executions += 1
         if tr is None:
-            return self._raw_apply(x)
+            return self._run(x, pol)
         name = ("ifft" if self.is_inverse else "fft") \
             + f"{len(self.fft_pairs)}d"
         with tr.span(f"plan:{name}", shape=list(self.tin.shape),
                      mode=pol.mode, stages=len(self.stages)) as sp:
-            return sp.sync(self._raw_apply(x, tr if tr.per_stage else None))
+            if not tr.per_stage:
+                return sp.sync(self._run(x, pol))
+            # stage by stage: the eager walk with one span per stage (the
+            # lazy executor interleaves stages and cannot be split)
+            return sp.sync(self._raw_apply(x, tr))
 
     # -------------------------------------------------- traced execution
     @cached_property
@@ -498,6 +604,24 @@ class FftPlan(Plan):
 
     def _execute_traced(self, x, pol: ExecPolicy, tr):
         return self._execute(x, pol, tr)
+
+
+def _gemm_f32(a, w):
+    """``a @ w.T`` with f32 results: (M, K) by (N, K) → (M, N).
+
+    f32 operands multiply in fp32 (the caller holds
+    :func:`~.local_fft.full_fp32_matmul`).  bf16 operands on CUDA take
+    cuBLAS's bf16 GEMM with an f32 output (``out_dtype``), so the Gauss
+    differences run in f32 as the reference's
+    ``preferred_element_type=float32`` asks; on the CPU, which has no such
+    GEMM, they are widened to f32 first, which is exact for bf16 values,
+    and multiplied in f32.
+    """
+    if a.dtype == torch.float32:
+        return a @ w.T
+    if a.is_cuda:
+        return torch.mm(a, w.T, out_dtype=torch.float32)
+    return a.float() @ w.float().T
 
 
 global_metrics().register_probe(

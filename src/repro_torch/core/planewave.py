@@ -173,7 +173,11 @@ class _FusedTransformMixin:
     "cuda" backend they route the trailing-dim line-DFT stage through the
     fused sphere-pack kernels; on every other backend (or when the plan
     shape rules fusion out) they compose the existing ``unpack``/``pack``
-    with the full plan — the same result to rounding.
+    with the full plan — the same result to rounding.  The call's policy
+    runs the plan's other stages (the remainder or lead plan), so under a
+    lazy policy the kernels still unpack and pack and only those stages
+    change executor.  (The reference composes ``unpack``/plan/``pack``
+    under a lazy policy; the results agree to rounding.)
     """
 
     def _fused_in_parts(self):
@@ -197,13 +201,12 @@ class _FusedTransformMixin:
     def unpack_transform(self, packed, *, policy: ExecPolicy | None = None):
         """``unpack`` + transform in one go — fused on the "cuda" backend.
 
-        The fused route needs the eager executor and the exact ``(B,
-        npacked)`` hot-path shape; anything else takes the composed route.
+        The fused route needs the exact ``(B, npacked)`` hot-path shape;
+        anything else takes the composed route.
         """
         pol = self.resolve_policy(policy=policy)
         parts = self._fused_in_parts()
-        if (parts is None or pol.mode != "eager"
-                or tuple(packed.shape) != parts["in_shape"]):
+        if parts is None or tuple(packed.shape) != parts["in_shape"]:
             return self(self.unpack(packed), policy=pol)
         from ..kernels import sphere_pack
         sphere_pack.DISPATCHES["unpack_dft"] += 1
@@ -216,7 +219,7 @@ class _FusedTransformMixin:
         """Transform + ``pack`` in one go — fused on the "cuda" backend."""
         pol = self.resolve_policy(policy=policy)
         parts = self._fused_out_parts()
-        if parts is None or pol.mode != "eager":
+        if parts is None:
             return self.pack(self(cube, policy=pol))
         from ..kernels import sphere_pack
         sphere_pack.DISPATCHES["dft_pack"] += 1

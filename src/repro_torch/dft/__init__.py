@@ -26,7 +26,8 @@ from .hamiltonian import (apply_hamiltonian, apply_hamiltonian_padded,
 from .hartree import HartreeSolver, coulomb_kernel
 from .potentials import gaussian_wells, lda_exchange
 from .scf import (AndersonMixer, LinearMixer, SCFConfig, SCFResult,
-                  coefficients_from_numpy, run_scf, total_energy)
+                  coefficients_from_numpy, run_scf, total_energy,
+                  total_energy_stacked)
 
 __all__ = [
     "PlaneWaveBasis", "StackedBandTables", "PW_SPEC", "CUBE_SPEC",
@@ -36,5 +37,5 @@ __all__ = [
     "update_bands", "update_bands_all_k", "update_bands_stacked",
     "HartreeSolver", "coulomb_kernel", "gaussian_wells", "lda_exchange",
     "SCFConfig", "SCFResult", "run_scf", "total_energy",
-    "coefficients_from_numpy", "LinearMixer", "AndersonMixer",
+    "total_energy_stacked", "coefficients_from_numpy", "LinearMixer", "AndersonMixer",
 ]

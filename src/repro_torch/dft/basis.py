@@ -140,6 +140,7 @@ class PlaneWaveBasis:
         self.cube = Domain((0, 0, 0), (self.n - 1,) * 3)
         self._kin = [None] * nk
         self._gvec = [None] * nk
+        self._occ_weights: dict[tuple, torch.Tensor] = {}
 
         self.segment_padding = (float(segment_padding)
                                 if segment_padding is not None else None)
@@ -296,6 +297,26 @@ class PlaneWaveBasis:
         # valid lanes agree bitwise; mask zeroes the padded lanes exactly
         precond = mask / (1.0 + kin)
         return StackedBandTables(kinetic=kin, mask=mask, precond=precond)
+
+    def occupancy_weights(self, seg: int, occ) -> torch.Tensor:
+        """Segment ``seg``'s f32 weights w_k·f_kb over its (nk_seg·nbands)
+        stacked rows, on the basis device.
+
+        Built once per segment and occupation table and kept here, beside
+        the band tables, so the density and energy of the stacked route
+        (and the fused SCF step, which a CUDA graph replays) make no
+        host→device copy.  ``occ`` is the full (nk, nbands) table.
+        """
+        occ = np.asarray(occ, np.float64)
+        key = (seg, occ.shape, occ.tobytes())
+        w = self._occ_weights.get(key)
+        if w is None:
+            idx = list(self.segments[seg])
+            w = torch.as_tensor(
+                (self.weights[idx, None] * occ[idx]).reshape(-1)
+                .astype(np.float32), device=self.device)
+            self._occ_weights[key] = w
+        return w
 
     def cube_plans(self):
         """(forward, inverse) full-cube pair for density/potential fields."""

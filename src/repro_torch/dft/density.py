@@ -26,16 +26,15 @@ def density_from_stacked(basis, c_pad, occ, seg: int = 0) -> torch.Tensor:
     ``occ`` is the *full* (nk, nbands) table — the segment's rows are
     selected here, weights included, so summing the per-segment
     contributions gives exactly ρ.  Padded lanes never reach the cube (the
-    unpack scatter routes them to the dump slot).
+    unpack scatter routes them to the dump slot).  The weights come from
+    ``basis.occupancy_weights`` (on the device, built once), so the call
+    makes no host→device copy.
     """
     inv, _ = basis.stacked_hamiltonian_plans(seg)
     nks, nb, npm = c_pad.shape
     psi = inv(inv.unpack(c_pad.reshape(nks * nb, npm)))
-    idx = list(basis.segments[seg])
-    w = (basis.weights[idx, None] * np.asarray(occ, np.float64)[idx]
-         ).reshape(-1).astype(np.float32)
-    rho = torch.tensordot(torch.as_tensor(w, device=psi.device),
-                          psi.abs() ** 2, dims=([0], [0]))
+    w = basis.occupancy_weights(seg, occ)
+    rho = torch.tensordot(w, psi.abs() ** 2, dims=([0], [0]))
     return rho * float(np.float32(basis.n ** 3 / basis.dv))
 
 

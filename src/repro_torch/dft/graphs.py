@@ -1,0 +1,189 @@
+"""CUDA-graph capture of the fused SCF step, split at its host syncs.
+
+The reference fuses one SCF iteration into a single ``jax.jit`` dispatch.
+On the card the counterpart is a CUDA graph: the step is captured once
+into static buffers and replayed once per iteration, so no Python and no
+per-launch overhead run between its kernels.  A graph cannot hold an
+operation that waits for the host.  Such an operation goes through
+:func:`host_sync`, which is a plain call outside a capture; inside one it
+ends the graph being captured, runs the operation eagerly between two
+graphs, and begins the next graph.  A step with k host syncs becomes k + 1
+graphs, replayed in order with the k operations in between
+(:meth:`StepGraphs.replay`).
+
+A capture that fails raises: nothing falls back to running the step
+eagerly.
+"""
+from __future__ import annotations
+
+import threading
+import time
+
+import torch
+
+from ..obs.trace import get_tracer
+
+_LOCAL = threading.local()
+
+
+def host_sync(name: str, fn, *args):
+    """``fn(*args)``, an operation that synchronizes with the host.
+
+    Outside a capture this is ``fn(*args)``.  Inside one
+    (:meth:`StepGraphs.capture`) the graph captured so far is closed and
+    run, ``fn`` runs eagerly on its outputs, and a new graph begins; each
+    replay runs ``fn`` again at the same place and writes its results into
+    the tensors returned here, which the later graphs read.  ``fn`` returns
+    a tensor or a tuple of tensors.
+    """
+    cap = getattr(_LOCAL, "active", None)
+    if cap is None:
+        return fn(*args)
+    return cap._split(name, fn, args)
+
+
+class StepGraphs:
+    """One step captured as CUDA graphs around its named host syncs.
+
+    ``warmup(fn, *args)`` runs ``fn`` once on a side stream (kernel builds,
+    library handles and caches fill there, outside any capture);
+    ``capture(fn, *args)`` captures ``fn(*args)`` and runs it once,
+    returning its outputs, which are static: every ``replay()`` recomputes
+    them in place from the same argument buffers.
+    """
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.pool = torch.cuda.graph_pool_handle()
+        self.stream = torch.cuda.Stream(self.device)
+        self._tape: list = []           # graphs and host syncs, in order
+        self._graph = None
+        self._stream_ctx = None
+        self._outputs = None
+        self.replays = 0                # replay() calls
+        self.capture_seconds = 0.0
+
+    # ------------------------------------------------------------ queries
+    @property
+    def graph_count(self) -> int:
+        """The captured graphs, each replayed once per ``replay()``."""
+        return sum(not isinstance(item, tuple) for item in self._tape)
+
+    @property
+    def sync_names(self) -> list[str]:
+        """The host syncs between the graphs, in replay order."""
+        return [item[0] for item in self._tape if isinstance(item, tuple)]
+
+    # ---------------------------------------------------------- capture
+    def warmup(self, fn, *args):
+        """``fn(*args)`` once on the side stream, drained."""
+        self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self.stream):
+            out = fn(*args)
+        torch.cuda.current_stream(self.device).wait_stream(self.stream)
+        torch.cuda.synchronize(self.device)
+        return out
+
+    def capture(self, fn, *args):
+        """Capture ``fn(*args)`` as graphs split at its host syncs, and run
+        it once (each graph is replayed as soon as it is captured, so the
+        eager operations between them see real values).  The tracer is off
+        meanwhile: spans would time the capture and their syncs are not
+        allowed in a graph.  Raises ``RuntimeError`` if the capture fails.
+        """
+        if self._tape:
+            raise RuntimeError("this step is already captured")
+        tr = get_tracer()
+        was_enabled = tr.enabled
+        tr.enabled = False
+        t0 = time.perf_counter()
+        torch.cuda.synchronize(self.device)
+        _LOCAL.active = self
+        try:
+            self._begin()
+            out = fn(*args)
+            self._end()
+            self._outputs = out
+        except Exception as exc:
+            self._abort()
+            raise RuntimeError(
+                "capturing the fused SCF step as CUDA graphs failed (an "
+                "operation that waits for the host must go through "
+                f"dft.graphs.host_sync): {exc}") from exc
+        finally:
+            _LOCAL.active = None
+            tr.enabled = was_enabled
+        torch.cuda.synchronize(self.device)
+        self.capture_seconds = time.perf_counter() - t0
+        return out
+
+    def replay(self) -> None:
+        """Run the captured step again: graphs and host syncs in order.
+
+        With the tracer on, each graph records a ``step_graph`` span
+        (``index`` in replay order) and each host sync a
+        ``host_sync:<name>`` span, each synchronized at exit: the step's
+        device time by piece, and what each sync costs.
+        """
+        tr = get_tracer()
+        k = 0
+        for item in self._tape:
+            if isinstance(item, tuple):
+                name, fn, args, outs = item
+                with tr.span(f"host_sync:{name}") as sp:
+                    new = fn(*args)
+                    for o, n in zip(_as_tuple(outs), _as_tuple(new)):
+                        o.copy_(n)
+                    sp.sync(outs)
+            else:
+                with tr.span("step_graph", index=k) as sp:
+                    item.replay()
+                    sp.sync(self._outputs)
+                k += 1
+        self.replays += 1
+
+    # --------------------------------------------------------- internals
+    def _begin(self) -> None:
+        self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        self._graph = torch.cuda.CUDAGraph()
+        self._stream_ctx = torch.cuda.stream(self.stream)
+        self._stream_ctx.__enter__()
+        # thread_local: a sync from this thread breaks the capture, work
+        # of other threads (a service's warming thread) does not
+        self._graph.capture_begin(pool=self.pool,
+                                  capture_error_mode="thread_local")
+
+    def _end(self) -> None:
+        g, self._graph = self._graph, None
+        try:
+            g.capture_end()
+        finally:
+            self._stream_ctx.__exit__(None, None, None)
+            self._stream_ctx = None
+        self._tape.append(g)
+        torch.cuda.current_stream(self.device).wait_stream(self.stream)
+        g.replay()
+
+    def _split(self, name: str, fn, args):
+        self._end()
+        out = fn(*args)
+        self._tape.append((name, fn, args, out))
+        self._begin()
+        return out
+
+    def _abort(self) -> None:
+        """End a capture that failed, so the stream leaves capture mode."""
+        if self._graph is not None:
+            try:
+                self._graph.capture_end()
+            except RuntimeError:        # the capture is invalid already
+                pass
+            self._graph = None
+        if self._stream_ctx is not None:
+            self._stream_ctx.__exit__(None, None, None)
+            self._stream_ctx = None
+        self._tape.clear()
+
+
+def _as_tuple(x) -> tuple:
+    return tuple(x) if isinstance(x, (tuple, list)) else (x,)

@@ -36,6 +36,7 @@ import torch
 
 from ..obs.metrics import global_metrics
 from ..obs.trace import get_tracer
+from .graphs import host_sync
 
 #: process-wide count of per-k eager linalg calls (descent-direction
 #: builds and Rayleigh-Ritz solves dispatched for a single k-point) —
@@ -249,13 +250,19 @@ def _descent_direction_stacked(c, hc, pre):
 def _rayleigh_ritz_stacked(c, d, hc, hd):
     """Batched lowest-nb Ritz vectors of span{c, d} for every k at once:
     one (nk, 2nb, 2nb) blocked Gram build, one nk-batched ``eigh``, one
-    batched back-rotation.  Returns (c', eps) with eps ascending per k."""
+    batched back-rotation.  Returns (c', eps) with eps ascending per k.
+
+    ``torch.linalg.eigh`` reads its solver status on the host (its error
+    check), so it is the band update's one host sync; it goes through
+    :func:`~.graphs.host_sync`, which runs it between two CUDA graphs when
+    the fused SCF step is captured."""
     nb = c.shape[1]
     bb = torch.cat([c, d], dim=1)                        # (nk, 2nb, np)
     hb = torch.cat([hc, hd], dim=1)
     hmat = torch.einsum("kip,kjp->kij", bb.conj(), hb)
     hmat = 0.5 * (hmat + hmat.transpose(-1, -2).conj())
-    eps, vecs = torch.linalg.eigh(hmat)                  # nk-batched solve
+    eps, vecs = host_sync("linalg.eigh", torch.linalg.eigh,
+                          hmat)                          # nk-batched solve
     new = torch.einsum("kin,kip->knp", vecs[:, :, :nb], bb)
     return _orthonormalize_stacked(new), eps[:, :nb]
 

@@ -11,11 +11,28 @@ Anderson/Pulay acceleration on the stored residual history.  Convergence is
 declared when |ΔE| stays below ``e_tol`` (and the density residual below
 ``r_tol``) after the warm-up.
 
-The orchestration is eager Python: every transform goes through a plan
-fetched from the process-global ``PlanCache``, so the cache's hit counter
-is the subsystem's plan-reuse ledger and ``SCFResult.transforms`` counts
-real batched 3D transforms.  The fused single-dispatch step of the
-reference (``jit_step=True``) is not ported yet (ROADMAP §1 item 6).
+The orchestration is eager Python by default: every transform goes
+through a plan fetched from the process-global ``PlanCache``, so the
+cache's hit counter is the subsystem's plan-reuse ledger and
+``SCFResult.transforms`` counts real batched 3D transforms.
+
+``SCFConfig(jit_step=True)`` (requires the stacked band-update route)
+fuses one whole outer iteration — v_eff build, the stacked band update,
+density rebuild, total energy, residual, **and the density mixing** — into
+one step on the device whose state (density, band and mixer buffers) is
+updated in place.  On CUDA the step is captured as CUDA graphs
+(:mod:`.graphs`) and replayed once per iteration: no per-k Python and no
+plan call runs in a steady iteration, and the host reads only the energy
+and the residual.  The band update's ``eigh`` reads its solver status on
+the host, so the step is split there: ``inner_steps`` such syncs per
+segment, each between two graphs.  On the CPU the same step function runs
+eagerly each iteration.  Plans and band tables come from the PlanCache
+when the step's Python runs (the warm-up and the capture on CUDA, every
+iteration on the CPU); ``SCFResult.transforms`` keeps the same analytic
+per-iteration count as the eager path.  The mixer runs in f32 on the
+device (the eager AndersonMixer keeps its history on the host in f64),
+so the two agree to mixing precision; with plain linear mixing
+(``mix_history<=1``) they do the same f32 arithmetic.
 """
 from __future__ import annotations
 
@@ -26,11 +43,15 @@ import numpy as np
 import torch
 
 from ..core import ProcGrid, global_plan_cache
+from ..core.local_fft import full_fp32_matmul
 from ..core.policy import ExecPolicy
 from ..obs.trace import get_tracer
 from .basis import PlaneWaveBasis
-from .density import density_from_orbitals, electron_count
-from .hamiltonian import orthonormalize, update_bands, update_bands_all_k
+from .density import (density_from_orbitals, density_from_stacked,
+                      electron_count)
+from .graphs import StepGraphs
+from .hamiltonian import (orthonormalize, update_bands, update_bands_all_k,
+                          update_bands_stacked)
 from .hartree import HartreeSolver
 from .potentials import gaussian_wells, lda_exchange
 
@@ -98,6 +119,74 @@ class AndersonMixer:
             device=rho_in.device)
 
 
+# ------------------------------------------------------------- jitted mixing
+def jit_mixer_init(nvol: int, history: int, device) -> dict:
+    """Mixer state for the fused SCF step, on ``device``.
+
+    Linear mixing (``history <= 1``) needs only the iteration counter;
+    Anderson/Pulay keeps fixed-size ρ_in/residual history buffers (rows
+    ordered oldest→newest, zero-filled until ``seen`` fills them), so the
+    state has fixed shapes that a CUDA graph can read and update in place.
+    """
+    state = {"seen": torch.zeros((), dtype=torch.int32, device=device)}
+    if history > 1:
+        state["rho_in"] = torch.zeros((history, nvol), dtype=torch.float32,
+                                      device=device)
+        state["res"] = torch.zeros((history, nvol), dtype=torch.float32,
+                                   device=device)
+    return state
+
+
+def jit_mix(state: dict, rho_in, rho_out, *, alpha: float, warmup: int):
+    """One mixing step inside the fused step; returns ρ_mixed.
+
+    The device twin of ``AndersonMixer.mix``/``LinearMixer.mix``: the same
+    bordered DIIS system with rows that are not yet (or no longer) in the
+    history pinned to identity rows, the same linear-mixing fallback for
+    the warm-up iterations and whenever the solve goes non-finite.  The
+    solve is ``torch.linalg.solve_ex``, which neither raises nor waits for
+    the host on a singular system (its solution comes out non-finite,
+    which selects the fallback).  Runs in f32 (the eager mixer accumulates
+    in f64); with ``history <= 1`` it is exactly the eager linear mixer's
+    f32 arithmetic.  ``state``'s buffers are updated in place — the port's
+    counterpart of the reference's donated buffers.
+    """
+    a32 = float(np.float32(alpha))
+    rin = rho_in.reshape(-1)
+    res = rho_out.reshape(-1) - rin
+    seen = state["seen"]
+    seen.add_(1)
+    linear = rin + a32 * res
+    if "rho_in" not in state:                     # plain linear mixing
+        return linear.reshape(rho_in.shape)
+    rho_hist, res_hist = state["rho_in"], state["res"]
+    h = rho_hist.shape[0]
+    dev = rho_hist.device
+    rho_hist.copy_(torch.cat([rho_hist[1:], rin[None]]))
+    res_hist.copy_(torch.cat([res_hist[1:], res[None]]))
+    m = torch.clamp(seen, max=h)
+    valid = torch.arange(h, device=dev) >= h - m  # newest rows are valid
+    vf = valid.to(torch.float32)
+    r = res_hist * vf[:, None]
+    with full_fp32_matmul(dev):
+        a = r @ r.T
+    a = a * (vf[:, None] * vf[None, :])           # invalid rows/cols → 0
+    a = a + torch.diag(1.0 - vf)                  # … pinned to identity
+    top = torch.cat([a, vf[:, None]], dim=1)
+    bot = torch.cat([vf, torch.zeros(1, device=dev)])[None, :]
+    # e_h, built on the device: an item assignment would copy a host
+    # scalar, which a CUDA graph cannot hold
+    rhs = (torch.arange(h + 1, device=dev) == h).to(torch.float32)
+    beta = torch.linalg.solve_ex(torch.cat([top, bot], dim=0), rhs)[0][:h]
+    beta = beta * vf
+    with full_fp32_matmul(dev):
+        mixed = beta @ (rho_hist + a32 * res_hist)
+    use_linear = ((seen <= warmup) | (m < 2)
+                  | ~torch.all(torch.isfinite(beta)))
+    out = torch.where(use_linear, linear, mixed)
+    return out.reshape(rho_in.shape)
+
+
 # -------------------------------------------------------------------- config
 @dataclasses.dataclass
 class SCFConfig:
@@ -122,8 +211,10 @@ class SCFConfig:
     stack_k: bool | None = None       # ragged-stack the H apply across k
                                       # (None: auto via basis.stacks_k;
                                       # True requires pipeline=True)
-    jit_step: bool = False            # the fused single-dispatch step: not
-                                      # ported yet, True raises
+    jit_step: bool = False            # fuse mixing + band update + density
+                                      # into one step on the device, replayed
+                                      # as CUDA graphs (requires the stacked
+                                      # band-update route)
     batch_axes: tuple | None = None   # grid axes carrying the band batch
     fft_axes: tuple | None = None     # grid axes carrying the transforms
     segment_padding: float | None = None
@@ -159,6 +250,13 @@ class SCFResult:
     segments: int = 1                 # ragged-stacking segment count
     segment_padding_fractions: tuple = ()
     device: str = "cpu"               # the device the run computed on
+    jitted: bool = False              # iterations ran as the fused step's
+                                      # CUDA graphs
+    #: the fused step's graphs on CUDA: {"graphs": graphs per iteration,
+    #: "replays": replays of the step, "host_syncs": the named syncs
+    #: between graphs per iteration, "capture_seconds": capture time};
+    #: empty for the eager loop and for the fused step on the CPU
+    graphs: dict = dataclasses.field(default_factory=dict)
     #: per-iteration telemetry: one dict per outer iteration with
     #: {iteration, energy, residual, seconds, transforms}
     iteration_records: list = dataclasses.field(default_factory=list)
@@ -199,7 +297,162 @@ def total_energy(basis, coeffs, rho, v_ext, hartree: HartreeSolver, occ,
                    "xc": e_xc, "total": total}
 
 
+def total_energy_stacked(basis, c_pad, rho, v_ext, hartree: HartreeSolver,
+                         occ, *, xc: bool = True, tables=None):
+    """E[{ψ}, ρ] on the padded per-segment coefficient stacks, as a 0-d
+    f32 tensor on the device (no host read).
+
+    ``c_pad`` is either one (nk_seg, nbands, pad_width) stack (the
+    single-segment case) or a tuple/list of them, one per basis segment
+    in segment order.  The kinetic term is one masked reduction per
+    segment against the dense padded kinetic table (padded lanes
+    contribute exact zeros), everything else is cube arithmetic.
+    Accumulates in f32 where the eager :func:`total_energy` reduces
+    per-band terms in host f64; the two agree to f32 reduction precision.
+    """
+    if not isinstance(c_pad, (tuple, list)):
+        c_pad = (c_pad,)
+    if tables is None:
+        tables = [basis.stacked_band_tables(s) for s in range(len(c_pad))]
+    elif not isinstance(tables, (tuple, list)):
+        tables = (tables,)
+    e_kin = 0.0
+    for s, (cs, tab) in enumerate(zip(c_pad, tables)):
+        w = basis.occupancy_weights(s, occ).reshape(cs.shape[:2])
+        per_band = torch.sum(tab.kinetic[:, None, :] * cs.abs() ** 2,
+                             dim=-1)
+        e_kin = e_kin + torch.sum(w * per_band)
+    dv = float(np.float32(basis.dv))
+    e_ext = torch.sum(rho * v_ext) * dv
+    vh = hartree(rho)
+    e_h = torch.sum(rho * vh) * (0.5 * dv)
+    e_xc = torch.sum(lda_exchange(rho)[0]) * dv if xc else 0.0
+    return e_kin + e_ext + e_h + e_xc
+
+
 # -------------------------------------------------------------------- driver
+def _jit_scf_loop(cfg: "SCFConfig", basis, v_ext, hartree, occ,
+                  nelec: float, coeffs, callback):
+    """The fused SCF loop: one step on the device per outer iteration.
+
+    Everything the eager loop does per iteration — v_eff build, the
+    stacked band update, density rebuild, total energy, residual, density
+    mixing — runs as one step function whose state (the density, the
+    padded band stacks, the mixer buffers) it updates in place.  On CUDA
+    the step is warmed up once on a side stream (kernel builds and every
+    cache fill there), captured once as CUDA graphs split at its host
+    syncs (:class:`~.graphs.StepGraphs`), and replayed once per
+    iteration; iteration 0 is the capture's own run.  On the CPU the step
+    runs eagerly each iteration.  The host reads the energy and the
+    residual once per iteration, in one copy.
+
+    Returns (energies, residuals, records, eigs, ρ_out, transforms,
+    converged, seconds, graph stats) with the same accounting semantics as
+    the eager loop.
+    """
+    dev = basis.device
+    segs = basis.segments
+    invs = [basis.stacked_hamiltonian_plans(s)[0] for s in range(len(segs))]
+    tables = [basis.stacked_band_tables(s) for s in range(len(segs))]
+    c_segs = [invs[s].stack([coeffs[ik] for ik in seg]).reshape(
+        len(seg), basis.nbands, invs[s].npacked_max)
+        for s, seg in enumerate(segs)]
+    rho = sum(density_from_stacked(basis, c_segs[s], occ, seg=s)
+              for s in range(len(segs)))
+    mix_state = jit_mixer_init(basis.n ** 3, cfg.mix_history, dev)
+    inelec = 1.0 / max(nelec, 1e-9)
+    rscale = float(np.float32(basis.dv ** 0.5 * inelec))
+
+    def step(rho, c_segs, mix_state):
+        """One iteration on the state buffers, updated in place; returns
+        (ρ_out, eigenvalues per segment, [energy, residual])."""
+        vh = hartree(rho)
+        v_eff = v_ext + vh
+        if cfg.xc:
+            v_eff = v_eff + lda_exchange(rho)[1]
+        c_new, eps_segs = [], []
+        for s in range(len(segs)):
+            c_s, eps_s, _ = update_bands_stacked(
+                basis, c_segs[s], v_eff, steps=cfg.inner_steps,
+                tables=tables[s], seg=s)
+            c_new.append(c_s)
+            eps_segs.append(eps_s)
+        rho_out = sum(density_from_stacked(basis, c_new[s], occ, seg=s)
+                      for s in range(len(segs)))
+        energy = total_energy_stacked(basis, c_new, rho_out, v_ext,
+                                      hartree, occ, xc=cfg.xc,
+                                      tables=tables)
+        resid = torch.linalg.norm(rho_out - rho) * rscale
+        rho_next = jit_mix(mix_state, rho, rho_out, alpha=cfg.mix_alpha,
+                           warmup=cfg.mix_warmup)
+        rho.copy_(rho_next)
+        for c, cn in zip(c_segs, c_new):
+            c.copy_(cn)
+        return rho_out, eps_segs, torch.stack([energy, resid])
+
+    graphs = None
+    if dev.type == "cuda":
+        graphs = StepGraphs(dev)
+
+    energies: list[float] = []
+    residuals: list[float] = []
+    records: list[dict] = []
+    transforms = 0
+    converged = False
+    rho_out, eps_segs = rho, None
+    # per-iteration analytic transform count, matching the eager loop:
+    # Hartree pair + band-update sweeps + density + the energy's Hartree
+    per_iter = (2 + 2 * cfg.inner_steps * basis.nk * 2 * basis.nbands
+                + basis.nk * basis.nbands + 2)
+    tr = get_tracer()
+    _sync(dev)
+    t0 = time.perf_counter()
+    for it in range(cfg.max_iter):
+        it_t0 = time.perf_counter()
+        with tr.span("scf_iteration", iteration=it,
+                     route="jit" if graphs is not None else "jit-eager"):
+            if graphs is None:
+                out = step(rho, c_segs, mix_state)
+            elif it == 0:
+                # warm up on copies, so the capture's own run is iteration 0
+                graphs.warmup(step, rho.clone(),
+                              [c.clone() for c in c_segs],
+                              {k: v.clone() for k, v in mix_state.items()})
+                out = graphs.capture(step, rho, c_segs, mix_state)
+            else:
+                graphs.replay()
+            rho_out, eps_segs, er = out
+            # the one host read of the iteration: it waits for the step
+            energy, resid = er.tolist()
+        transforms += per_iter
+        energies.append(energy)
+        residuals.append(resid)
+        records.append({"iteration": it, "energy": energy,
+                        "residual": resid,
+                        "seconds": time.perf_counter() - it_t0,
+                        "transforms": per_iter})
+        if callback is not None:
+            callback(it, energy, resid)
+        if (it > cfg.mix_warmup
+                and abs(energies[-1] - energies[-2]) < cfg.e_tol
+                and resid < cfg.r_tol):
+            converged = True
+            break
+    _sync(dev)
+    seconds = time.perf_counter() - t0
+    eigs = np.zeros((basis.nk, basis.nbands))
+    if eps_segs is not None:
+        for s, seg in enumerate(segs):
+            eigs[list(seg)] = eps_segs[s].cpu().numpy()
+    stats = {}
+    if graphs is not None:
+        stats = {"graphs": graphs.graph_count, "replays": graphs.replays,
+                 "host_syncs": graphs.sync_names,
+                 "capture_seconds": graphs.capture_seconds}
+    return (energies, residuals, records, eigs, rho_out.clone(), transforms,
+            converged, seconds, stats)
+
+
 def coefficients_from_numpy(blocks, device=None):
     """Per-k ``(nbands, npacked_k)`` coefficient blocks as numpy (e.g. the
     reference package's start) → the port's complex64 tensors on
@@ -239,10 +492,6 @@ def run_scf(cfg: SCFConfig, *, device=None, grid: ProcGrid | None = None,
     orthonormal blocks from ``cfg.seed``.  ``callback(it, energy,
     residual)`` is invoked after every outer iteration.
     """
-    if cfg.jit_step:
-        raise NotImplementedError(
-            "jit_step=True: the fused single-dispatch SCF step is not "
-            "ported yet (ROADMAP §1 item 6); run the eager loop")
     basis = PlaneWaveBasis(
         cfg.n, diameter=cfg.diameter, kpts=cfg.kpts, weights=cfg.weights,
         nbands=cfg.nbands, L=cfg.L, grid=grid,
@@ -273,6 +522,12 @@ def run_scf(cfg: SCFConfig, *, device=None, grid: ProcGrid | None = None,
                          "stacked route sweeps all k-points per step; "
                          "pipeline=False runs the serial per-k loop)")
     stacked = bool(stack_k and cfg.pipeline)
+    if cfg.jit_step and not stacked:
+        # the fused step is built on the padded stacked engine — running
+        # it per-k would re-introduce the dispatch overhead it removes
+        raise ValueError("jit_step=True requires the stacked band-update "
+                         "route (stack_k=True, or a grid satisfying "
+                         "basis.stacks_k with stack_k left on auto)")
 
     if coeffs is None:
         coeffs = _init_coefficients(basis, cfg.seed)
@@ -285,78 +540,87 @@ def run_scf(cfg: SCFConfig, *, device=None, grid: ProcGrid | None = None,
                     f"coeffs[{ik}] shape {tuple(c.shape)} != (nbands, "
                     f"npacked) = ({basis.nbands}, {basis.npacked(ik)})")
 
-    rho = density_from_orbitals(basis, coeffs, occ)
-    mixer = AndersonMixer(cfg.mix_alpha, cfg.mix_history, cfg.mix_warmup) \
-        if cfg.mix_history > 1 else LinearMixer(cfg.mix_alpha)
+    if cfg.jit_step:
+        (energies, residuals, iteration_records, eigs, rho, transforms,
+         converged, seconds, graph_stats) = _jit_scf_loop(
+            cfg, basis, v_ext, hartree, occ, nelec, coeffs, callback)
+    else:
+        graph_stats = {}
+        rho = density_from_orbitals(basis, coeffs, occ)
+        mixer = AndersonMixer(cfg.mix_alpha, cfg.mix_history,
+                              cfg.mix_warmup) \
+            if cfg.mix_history > 1 else LinearMixer(cfg.mix_alpha)
 
-    energies: list[float] = []
-    residuals: list[float] = []
-    iteration_records: list[dict] = []
-    eigs = np.zeros((basis.nk, basis.nbands))
-    # counter and timer both cover the SCF loop only: the warm-up density
-    # build above (plan construction, first kernel builds) is excluded
-    transforms = 0
-    converged = False
-    _sync(dev)
-    t0 = time.perf_counter()
+        energies: list[float] = []
+        residuals: list[float] = []
+        iteration_records: list[dict] = []
+        eigs = np.zeros((basis.nk, basis.nbands))
+        # counter and timer both cover the SCF loop only: the warm-up
+        # density build above (plan construction, first kernel builds) is
+        # excluded
+        transforms = 0
+        converged = False
+        _sync(dev)
+        t0 = time.perf_counter()
 
-    tr = get_tracer()
-    for it in range(cfg.max_iter):
-        it_t0 = time.perf_counter()
-        it_transforms0 = transforms
-        with tr.span("scf_iteration", iteration=it,
-                     route="stacked" if stacked else "per-k"):
-            vh = hartree(rho)
-            transforms += 2                    # cube fwd + derived inv
-            v_eff = v_ext + vh
-            if cfg.xc:
-                _, v_x = lda_exchange(rho)
-                v_eff = v_eff + v_x
-            if cfg.pipeline:
-                # all-k loop: the batched stacked engine when stacking,
-                # the pipelined per-k dispatch otherwise
-                coeffs, eps_list, nsweep = update_bands_all_k(
-                    basis, coeffs, v_eff, steps=cfg.inner_steps,
-                    stacked=stack_k)
-                for ik in range(basis.nk):
-                    eigs[ik] = eps_list[ik].cpu().numpy()
-                transforms += nsweep * basis.nk * 2 * basis.nbands
-            else:
-                for ik in range(basis.nk):
-                    coeffs[ik], eps, napply = update_bands(
-                        basis, ik, coeffs[ik], v_eff,
-                        steps=cfg.inner_steps)
-                    eigs[ik] = eps.cpu().numpy()
-                    transforms += napply * 2 * basis.nbands
-            rho_out = density_from_orbitals(basis, coeffs, occ)
-            transforms += basis.nk * basis.nbands
-            energy, _ = total_energy(basis, coeffs, rho_out, v_ext,
-                                     hartree, occ, xc=cfg.xc)
-            transforms += 2                    # energy's Hartree solve
-            # float() waits for rho_out, so the iteration's time (and the
-            # span) is real work
-            resid = float(torch.linalg.norm(rho_out - rho)
-                          * basis.dv ** 0.5) / max(nelec, 1e-9)
-        energies.append(energy)
-        residuals.append(resid)
-        iteration_records.append({
-            "iteration": it, "energy": energy, "residual": resid,
-            "seconds": time.perf_counter() - it_t0,
-            "transforms": transforms - it_transforms0})
-        if callback is not None:
-            callback(it, energy, resid)
-        if (it > cfg.mix_warmup
-                and abs(energies[-1] - energies[-2]) < cfg.e_tol
-                and resid < cfg.r_tol):
-            converged = True
-            break
-        rho = mixer.mix(rho, rho_out)
+        tr = get_tracer()
+        for it in range(cfg.max_iter):
+            it_t0 = time.perf_counter()
+            it_transforms0 = transforms
+            with tr.span("scf_iteration", iteration=it,
+                         route="stacked" if stacked else "per-k"):
+                vh = hartree(rho)
+                transforms += 2                    # cube fwd + derived inv
+                v_eff = v_ext + vh
+                if cfg.xc:
+                    _, v_x = lda_exchange(rho)
+                    v_eff = v_eff + v_x
+                if cfg.pipeline:
+                    # all-k loop: the batched stacked engine when stacking,
+                    # the pipelined per-k dispatch otherwise
+                    coeffs, eps_list, nsweep = update_bands_all_k(
+                        basis, coeffs, v_eff, steps=cfg.inner_steps,
+                        stacked=stack_k)
+                    for ik in range(basis.nk):
+                        eigs[ik] = eps_list[ik].cpu().numpy()
+                    transforms += nsweep * basis.nk * 2 * basis.nbands
+                else:
+                    for ik in range(basis.nk):
+                        coeffs[ik], eps, napply = update_bands(
+                            basis, ik, coeffs[ik], v_eff,
+                            steps=cfg.inner_steps)
+                        eigs[ik] = eps.cpu().numpy()
+                        transforms += napply * 2 * basis.nbands
+                rho_out = density_from_orbitals(basis, coeffs, occ)
+                transforms += basis.nk * basis.nbands
+                energy, _ = total_energy(basis, coeffs, rho_out, v_ext,
+                                         hartree, occ, xc=cfg.xc)
+                transforms += 2                    # energy's Hartree solve
+                # float() waits for rho_out, so the iteration's time (and
+                # the span) is real work
+                resid = float(torch.linalg.norm(rho_out - rho)
+                              * basis.dv ** 0.5) / max(nelec, 1e-9)
+            energies.append(energy)
+            residuals.append(resid)
+            iteration_records.append({
+                "iteration": it, "energy": energy, "residual": resid,
+                "seconds": time.perf_counter() - it_t0,
+                "transforms": transforms - it_transforms0})
+            if callback is not None:
+                callback(it, energy, resid)
+            if (it > cfg.mix_warmup
+                    and abs(energies[-1] - energies[-2]) < cfg.e_tol
+                    and resid < cfg.r_tol):
+                converged = True
+                break
+            rho = mixer.mix(rho, rho_out)
 
-    _sync(dev)                             # drain the last mix
-    seconds = time.perf_counter() - t0
-    # return the density the orbitals actually produced (not the mixed
-    # guess) — coeffs are unchanged since the loop's last rho_out
-    rho = rho_out if energies else density_from_orbitals(basis, coeffs, occ)
+        _sync(dev)                             # drain the last mix
+        seconds = time.perf_counter() - t0
+        # return the density the orbitals actually produced (not the mixed
+        # guess) — coeffs are unchanged since the loop's last rho_out
+        rho = rho_out if energies else density_from_orbitals(basis, coeffs,
+                                                              occ)
 
     cache1 = global_plan_cache().stats
     delta = {k: cache1[k] - cache0.get(k, 0)
@@ -378,5 +642,6 @@ def run_scf(cfg: SCFConfig, *, device=None, grid: ProcGrid | None = None,
         backend=basis.backend,
         segments=basis.nsegments,
         segment_padding_fractions=basis.segment_padding_fractions,
-        device=str(dev),
+        device=str(dev), jitted=bool(graph_stats.get("graphs")),
+        graphs=graph_stats,
         iteration_records=iteration_records)

@@ -1,6 +1,7 @@
 """repro_torch on the card: each hand-written CUDA kernel against its plain
 PyTorch version, the four-step DFT against ``torch.fft``, the SCF slice
-on the kernel route, and a small transform-service run.
+on the kernel route, a small transform-service run, the lazy executor
+against the eager one, and the fused SCF step replayed as CUDA graphs.
 
 These tests need a CUDA device and skip without one (the kernels have no
 CPU mode).  They import neither JAX nor the reference package, so they run
@@ -287,3 +288,78 @@ def test_cuda_transform_service_coalesces_and_matches_eager(cuda_device):
         if v is None:
             assert float(np.abs(out - c).max()) <= RTOL * float(
                 np.abs(c).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,tol", [("lazy", RTOL), ("lazy_bf16", 3e-2)])
+def test_cuda_lazy_executor_matches_eager(mode, tol, cuda_device):
+    from repro_torch.core import Domain, ProcGrid, fftb
+    from repro_torch.core.policy import ExecPolicy
+    g = ProcGrid.create([1], device=cuda_device)
+    plan = fftb("b x{0} y z -> b X Y Z{0}",
+                domains=(Domain((0,), (1,)), Domain((0, 0, 0), (15,) * 3)),
+                grid=g, backend="cuda")
+    x = _cx(np.random.default_rng(3), (2, 16, 16, 16), cuda_device)
+    eager = plan(x)
+    got = plan(x, policy=ExecPolicy.from_mode(mode))
+    assert got.device == x.device and got.is_contiguous()
+    _close(got, eager, rtol=tol)
+
+
+def _jit_cfg(**kw):
+    return SCFConfig(n=16, nbands=3, kpts=KPTS2, stack_k=True,
+                     backend="cuda", mix_warmup=99, mix_history=1, **kw)
+
+
+@pytest.mark.cuda
+def test_cuda_jit_step_replays_graphs_and_matches_eager(cuda_device):
+    from repro_torch.core import FftPlan
+    eager = run_scf(_jit_cfg(max_iter=6), device=cuda_device)
+    ex0 = FftPlan.executions
+    jit6 = run_scf(_jit_cfg(max_iter=6, jit_step=True), device=cuda_device)
+    d6 = FftPlan.executions - ex0
+    ex0 = FftPlan.executions
+    jit3 = run_scf(_jit_cfg(max_iter=3, jit_step=True), device=cuda_device)
+    # plan calls happen in the warm-up and the capture only: the same
+    # count for 3 and 6 iterations
+    assert FftPlan.executions - ex0 == d6 > 0
+    assert jit6.jitted and jit3.jitted and jit6.iterations == 6
+    st = jit6.graphs
+    steps = SCFConfig().inner_steps
+    assert st["host_syncs"] == ["linalg.eigh"] * steps
+    assert st["graphs"] == steps + 1 and st["replays"] == 5
+    assert jit6.transforms == eager.transforms
+    assert abs(jit6.energy - eager.energy) < 1e-4
+    assert np.abs(jit6.eigenvalues - eager.eigenvalues).max() < 1e-4
+    assert float((jit6.rho - eager.rho).abs().max()) \
+        < 1e-4 * float(eager.rho.max())
+
+
+@pytest.mark.cuda
+def test_cuda_jit_step_capture_failure_raises(cuda_device, monkeypatch):
+    from repro_torch.dft import scf
+    real = scf.total_energy_stacked
+
+    def reads_host(*args, **kwargs):
+        e = real(*args, **kwargs)
+        float(e)                     # a host sync inside the step
+        return e
+    monkeypatch.setattr(scf, "total_energy_stacked", reads_host)
+    with pytest.raises(RuntimeError, match="capturing the fused SCF step"):
+        run_scf(_jit_cfg(max_iter=2, jit_step=True), device=cuda_device)
+    monkeypatch.undo()
+    # the card is usable afterwards, and the step captures again
+    assert run_scf(_jit_cfg(max_iter=2, jit_step=True),
+                   device=cuda_device).jitted
+
+
+@pytest.mark.cuda
+def test_cuda_jit_step_anderson_converges(cuda_device):
+    res = run_scf(SCFConfig(n=16, nbands=4, kpts=KPTS2, max_iter=50,
+                            stack_k=True, backend="cuda", jit_step=True),
+                  device=cuda_device)
+    assert res.converged, (res.energies, res.residuals)
+    assert res.jitted and res.graphs["replays"] == res.iterations - 1
+    assert abs(res.energy - (-1.9197)) < 5e-3, res.energy
+    for eps in res.eigenvalues:
+        assert np.all(np.diff(eps) >= -1e-6)

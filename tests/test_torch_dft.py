@@ -229,7 +229,9 @@ def test_scf_slice_matches_reference(stack_k, backend, ref_scf):
 
 
 def test_scf_refuses_unported_and_contradictory_routes():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the fused step needs the stacked route; one device stacks only when
+    # asked (stack_k=True), so the default per-k route is refused
+    with pytest.raises(ValueError, match="jit_step=True requires"):
         run_scf(SCFConfig(n=16, nbands=2, jit_step=True), device="cpu")
     with pytest.raises(ValueError, match="stack_k=True requires"):
         run_scf(SCFConfig(n=16, nbands=2, stack_k=True, pipeline=False,
