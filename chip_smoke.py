@@ -51,8 +51,28 @@ it and read just after:
   one ``eager_apply``: its per-stage spans must match the plan's stages
   and cover each stage's CUDA-event time.
 
-Last, kernel #1 is timed at every distinct line shape that the three
-paths launched (recorded while each path ran), beside its two bounds,
+Two more phases run the paper's own workload and the spectral layers:
+
+* the paper phase: ``repro_torch.configs.fftb_paper.CONFIG`` (n = 256,
+  d = 128, 256 bands), its grid from ``choose_dft_grid``, audited by
+  ``preflight_basis(deep=True, backend="cuda")``, then the fused pair of
+  ``make_planewave_pair`` on "cuda" (``unpack_transform``: kernel #3,
+  then kernel #1 per stage; ``transform_pack``: kernel #1, then kernel
+  #4) over every band, in batches of the largest of ``PAPER_BATCHES``
+  bands whose peak memory, estimated from the plans' stage shapes before
+  any launch, fits (printed beside the measured peak); every band's cube
+  and forward are held to the "matmul" route and the round trip to its
+  input, the launches per call are counted, and each call is timed
+  beside its bound.  Then the full-cube baseline of the paper's Fig. 9:
+  an inverse ``FftPlan`` over the whole (nb, n³) cube (kernel #1 only);
+* the spectral phase: ``fourier_mixer`` on (8, 2048, 1024) and
+  ``fft_conv`` at Mamba-2 370M's conv width (8, 1024, 2304), K = 4, on
+  "cuda" (kernel #1 on lines of 1024 and 2048) against the "matmul" route
+  and torch.fft.
+
+Last, kernel #1 is timed at every distinct line shape that the SCF, the
+four-step, the service and the spectral paths launched (recorded while
+each path ran), beside its two bounds,
 complex64 ``torch.matmul`` on the same lines, its call-C time and the
 ``movedim``/``reshape`` copy that the "cuda" backend makes of a stage's
 input whose axis is not the last.
@@ -77,13 +97,17 @@ executor-mode, lazy-SCF and fused-step phases, the
 four-step phase (kernel #2's and the composition's times beside
 ``torch.fft``'s), the service phase (each pass's metrics summary beside
 the card's name and power limit, its batches, the warm pass's dispatch
-spans and the synced pass's dispatches by piece), the per-shape table of
-kernel #1, one JSON line ``{"kernels": [...]}``, and last the device JSON
-line.
+spans and the synced pass's dispatches by piece), the paper phase (grid,
+preflight, memory estimate and measured peak, batch, agreement, launches
+per call, times and bounds, the full-cube baseline), the spectral phase,
+the per-shape table of kernel #1, one JSON line ``{"kernels": [...]}``
+(each kernel's launches on the main path, the smoke SCF, and by path),
+and last the device JSON line.
 """
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -113,6 +137,24 @@ SERVICE_TRACE = (
 # a traced stage's host-clock span against its CUDA-event time: the span
 # is synchronized at exit, so it covers the device work (and more)
 SPAN_COVERAGE = 0.9
+# the paper phase: the paper's own workload at full width
+# (repro_torch/configs/fftb_paper.py: n = 256, d = 128, 256 bands) in band
+# batches, the largest of PAPER_BATCHES whose memory estimate stays within
+# PAPER_MEM_SHARE of the free device memory (the rest is for the caching
+# allocator's split blocks and the libraries' workspaces); the "matmul"
+# route that the kernels' route is held to runs PAPER_CHECK_BANDS bands a
+# call; both routes fp32, sums in another order: PAIR_RTOL of the largest
+# value
+PAPER_BATCHES = (256, 128, 64)
+PAPER_MEM_SHARE = 0.9
+PAPER_CHECK_BANDS = 8
+PAIR_RTOL = 1e-5
+# the spectral phase: fourier_mixer on (B, S, D) float32 (kernel #1 on
+# lines of 1024 and 2048), fft_conv at Mamba-2 370M's conv width (d_inner
+# 2048 + 2 * ssm_state 128 channels, kernel 4: src/repro/configs/
+# mamba2_370m.py, src/repro/models/ssm.py:29), S = 1024 padded to L = 2048
+MIXER_SHAPE = (8, 2048, 1024)
+CONV_SHAPE, CONV_K = (8, 1024, 2304), 4
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM, fp32 without tensor
 # cores, dense TF32 on the tensor cores (every kernel: three TF32 products
@@ -1691,6 +1733,328 @@ def compare_kernel1(torch, dev, other: str, pairs: int = 10) -> list:
     return rows
 
 
+# ------------------------------------------------------- the paper workload
+def stage_walk(stages, shape, last, held, *, model="cuda"):
+    """Peak live bytes of the eager executor over ``stages`` (complex64).
+
+    ``shape`` is the input's logical shape, ``last`` the logical axis that
+    is innermost in memory, ``held`` the bytes that stay allocated
+    throughout (the caller's tensors, this input among them).  A stage on
+    axis a writes its output with a innermost; on the "cuda" backend its
+    input is first copied into lines (``movedim`` + ``reshape``) unless a
+    is already innermost.  On the "matmul" backend a stage may hold up to
+    its input again (the real and imaginary operands) and three times
+    its output (the f32 products and planes, then the complex result).
+    Returns ``(peak, output shape, output's innermost axis)``; a
+    distributed move on one process is the identity and costs nothing.
+    """
+    from repro_torch.core.plan import FFTStage
+    peak, prev = held, 0
+    shape = list(shape)
+    for st in stages:
+        if not isinstance(st, FFTStage):
+            continue
+        in_b = 8 * math.prod(shape)
+        shape[st.index] = st.n_out
+        out_b = 8 * math.prod(shape)
+        if model == "cuda":
+            extra = (in_b if st.index != last else 0) + out_b
+        else:
+            extra = in_b + 3 * out_b
+        peak = max(peak, held + prev + extra)
+        prev, last = out_b, st.index
+    return peak, tuple(shape), last
+
+
+def pair_peak_bytes(inv, fwd, chk_inv, chk_fwd, nb, bands, npk, n,
+                    d) -> int:
+    """The paper phase's peak device bytes at a band batch of ``nb``, from
+    the plans' stage shapes: the packed coefficients of all ``bands``
+    bands stay on the card; the fused inverse (kernel #3 writes the (nb, d, d, n) slab,
+    which the caller holds while the other stages run), the fused forward
+    from the cube it made (the cube held; kernel #4 writes the packed
+    result), and the "matmul" route's check ``chk_*`` (PAPER_CHECK_BANDS
+    bands a call) while the cube and the round trip are held."""
+    coeffs = 8 * bands * npk
+    slab = 8 * nb * d * d * n
+    inv_peak, cube_shape, last = stage_walk(
+        inv.plan.stages[1:], (nb, d, d, n), 3, coeffs + slab)
+    cube = 8 * math.prod(cube_shape)
+    fwd_peak, slab_shape, _ = stage_walk(
+        fwd.plan.stages[:-1], cube_shape, last, coeffs + cube)
+    fwd_peak = max(fwd_peak, coeffs + cube + 8 * math.prod(slab_shape)
+                   + 8 * nb * npk)
+    held = coeffs + cube + 8 * nb * npk
+    c = PAPER_CHECK_BANDS
+    unpacked = 8 * c * d ** 3
+    chk_inv_peak, _, _ = stage_walk(chk_inv.plan.stages, (c, d, d, d), 3,
+                                    held + unpacked, model="matmul")
+    chk_fwd_peak, _, _ = stage_walk(chk_fwd.plan.stages, (c, n, n, n), last,
+                                    held, model="matmul")
+    return max(inv_peak, fwd_peak, chk_inv_peak, chk_fwd_peak + 8 * c * npk)
+
+
+def pair_bound(nb, lanes, n, d) -> dict:
+    """The least time of one inverse (or forward) of the pair for ``nb``
+    bands: the fused z stage's MACs over this run's ``lanes`` packed lanes
+    (each feeds n outputs), then the two dense stages over d→n lines
+    (B·d·n and B·n² lines); 8 FLOP per complex MAC.  Bytes: the packed
+    coefficients read once, the n³ cube written once."""
+    macs = n * lanes + nb * d * n * d * n + nb * n * n * d * n
+    return bound_ms(8.0 * (lanes + nb * n ** 3), 8.0 * macs)
+
+
+def run_paper(torch, dev, gen, gpu):
+    """The paper's own workload at full width: the configuration of
+    ``repro_torch.configs.fftb_paper`` (n = 256, d = 128, 256 bands), its
+    grid from ``choose_dft_grid``, audited by ``preflight_basis``, then the
+    fused plane-wave pair of ``make_planewave_pair`` on "cuda" over every
+    band, in batches of the largest of ``PAPER_BATCHES`` that the memory
+    estimate fits; then the full-cube baseline of the paper's Fig. 9."""
+    from repro_torch.check import preflight_basis
+    from repro_torch.check.preflight import _basis_plan_bytes
+    from repro_torch.configs.fftb_paper import CONFIG as cfg
+    from repro_torch.core import SphereDomain, make_planewave_pair
+    from repro_torch.core.planewave import kpoint_sphere
+    from repro_torch.kernels import sphere_pack
+    from repro_torch.kernels.dft_matmul import dft_matmul
+    from repro_torch.sharding import DFT_AXES_1D, choose_dft_grid
+    n, d = cfg.n, cfg.diameter
+    print(f"paper workload ({cfg.name}): n={n} d={d} nb={cfg.nb} "
+          f"({gpu})", flush=True)
+    grid = choose_dft_grid(nbands=cfg.nb, diameter=d, device=dev)
+    check(grid.shape == (1,) and grid.axes == DFT_AXES_1D
+          and grid.device == dev,
+          f"choose_dft_grid: {grid.shape} {grid.axes} on {grid.device}")
+    diags = preflight_basis(n, diameter=d, nbands=cfg.nb, grid=grid,
+                            backend="cuda", deep=True)
+    check(diags == [], f"preflight_basis(deep, backend='cuda') is clean "
+          f"({[dg.code for dg in diags]})")
+    plan_bytes = _basis_plan_bytes([kpoint_sphere(d)], ((0,),), cfg.nb, n,
+                                   d)
+    print(f"  preflight: plan-cache working set {plan_bytes} bytes "
+          "(_basis_plan_bytes)", flush=True)
+    sph = SphereDomain.from_diameter(d)
+    npk = sph.npacked
+    chk_inv, chk_fwd = make_planewave_pair(grid, n, sph, PAPER_CHECK_BANDS,
+                                           backend="matmul")
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(dev)
+    base = torch.cuda.memory_allocated(dev)
+    limit = PAPER_MEM_SHARE * free
+    est = {}
+    nb = pair = None
+    for cand in PAPER_BATCHES:
+        p = make_planewave_pair(grid, n, sph, cand, backend="cuda")
+        est[cand] = pair_peak_bytes(*p, chk_inv, chk_fwd, cand, cfg.nb,
+                                    npk, n, d)
+        if nb is None and est[cand] <= limit:
+            nb, pair = cand, p
+    print("  memory estimate before any launch: " + ", ".join(
+        f"nb={k} {v / 2**30:.2f} GiB" for k, v in est.items())
+        + f"; free {free / 2**30:.2f} of {total / 2**30:.2f} GiB, limit "
+        f"{PAPER_MEM_SHARE:g} x free = {limit / 2**30:.2f} GiB", flush=True)
+    check(nb is not None, f"a band batch of {PAPER_BATCHES} fits")
+    inv, fwd = pair
+    batches = cfg.nb // nb
+    reduced = ({} if nb == cfg.nb else
+               {"band_batch": f"{cfg.nb} -> {nb} bands per call "
+                f"({batches} calls each way; the estimate at {cfg.nb} is "
+                f"{est[cfg.nb] / 2**30:.2f} GiB)"})
+    print(f"  band batch nb={nb}, {batches} batch(es); reduced: "
+          + json.dumps(reduced), flush=True)
+
+    coeffs = crandn(torch, gen, (cfg.nb, npk), dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    wrappers = (dft_matmul, sphere_pack.unpack_dft, sphere_pack.dft_pack)
+    counts = {}
+    errs = {"cube": [0.0, 0.0], "forward": [0.0, 0.0], "round_trip": 0.0}
+    cmax = float(coeffs.abs().max())
+    for b in range(batches):
+        packed = coeffs[b * nb:(b + 1) * nb]
+        for fn in wrappers:
+            fn.launches = 0
+        cube = inv.unpack_transform(packed)
+        sync(torch, dev)
+        if b == 0:
+            counts["inverse"] = {fn.__name__: fn.launches for fn in wrappers}
+            for fn in wrappers:
+                fn.launches = 0
+        back = fwd.transform_pack(cube)
+        sync(torch, dev)
+        if b == 0:
+            counts["forward"] = {fn.__name__: fn.launches for fn in wrappers}
+        check(tuple(cube.shape) == (nb, n, n, n) and bool(
+            torch.isfinite(torch.view_as_real(back)).all()),
+            f"batch {b}: cube {tuple(cube.shape)}, finite round trip")
+        errs["round_trip"] = max(errs["round_trip"],
+                                 float((back - packed).abs().max()))
+        for j in range(0, nb, PAPER_CHECK_BANDS):
+            sl = slice(j, j + PAPER_CHECK_BANDS)
+            ref = chk_inv.unpack_transform(packed[sl])
+            e = errs["cube"]
+            e[0] = max(e[0], float((cube[sl] - ref).abs().max()))
+            e[1] = max(e[1], float(ref.abs().max()))
+            del ref
+            ref = chk_fwd.transform_pack(cube[sl])
+            e = errs["forward"]
+            e[0] = max(e[0], float((back[sl] - ref).abs().max()))
+            e[1] = max(e[1], float(ref.abs().max()))
+            del ref
+        del cube, back
+    rel = {"cube": errs["cube"][0] / errs["cube"][1],
+           "forward": errs["forward"][0] / errs["forward"][1],
+           "round_trip": errs["round_trip"] / cmax}
+    print(f"  launches per call: inverse {counts['inverse']}, forward "
+          f"{counts['forward']}", flush=True)
+    check(counts["inverse"] == {"dft_matmul": 2, "unpack_dft": 1,
+                                "dft_pack": 0},
+          "inverse: unpack_dft once, then dft_matmul per remaining stage")
+    check(counts["forward"] == {"dft_matmul": 2, "unpack_dft": 0,
+                                "dft_pack": 1},
+          "forward: dft_matmul per stage, then dft_pack once")
+    for name, r in rel.items():
+        check(r <= PAIR_RTOL, f"{name}: "
+              + ("cuda vs matmul route" if name != "round_trip" else
+                 "fwd(inv(c)) vs c")
+              + f", rel err {r:.3e} of the largest value <= {PAIR_RTOL:g}")
+
+    # times: the last batch's coefficients, CUDA events
+    packed = coeffs[(batches - 1) * nb:]
+    cube = inv.unpack_transform(packed)
+    fwd_ms = time_ms(torch, lambda: fwd.transform_pack(cube), reps=5)
+
+    def all_forward():             # each batch's forward, from one cube
+        for _ in range(batches):
+            fwd.transform_pack(cube)
+    all_fwd_ms = time_ms(torch, all_forward, reps=1, warmup=0)
+    del cube
+    inv_ms = time_ms(torch, lambda: inv.unpack_transform(packed), reps=5)
+
+    def all_inverse():
+        for b in range(batches):
+            inv.unpack_transform(coeffs[b * nb:(b + 1) * nb])
+    all_inv_ms = time_ms(torch, all_inverse, reps=1, warmup=0)
+    peak = torch.cuda.max_memory_allocated(dev)
+    lanes = nb * npk
+    bnd = pair_bound(nb, lanes, n, d)
+    bnd_all = pair_bound(cfg.nb, cfg.nb * npk, n, d)
+    print(f"  inverse {inv_ms:.3f} ms, forward {fwd_ms:.3f} ms per call of "
+          f"{nb} bands (mean of 5); all {cfg.nb} bands: inverse "
+          f"{all_inv_ms:.3f} ms, forward {all_fwd_ms:.3f} ms; per call "
+          f"{bound_text(bnd)}; all bands bound {bnd_all['bound_ms']:.3f} ms"
+          f" ({gpu})", flush=True)
+    print(f"  peak memory: estimated {(base + est[nb]) / 2**30:.2f} GiB "
+          f"({est[nb] / 2**30:.2f} above the {base / 2**30:.2f} GiB "
+          f"allocated before), measured {peak / 2**30:.2f} GiB "
+          "(max_memory_allocated)", flush=True)
+    del coeffs, packed
+    torch.cuda.empty_cache()
+    out = {"grid": list(grid.shape), "plan_cache_bytes": plan_bytes,
+           "band_batch": nb, "batches": batches, "reduced": reduced,
+           "estimate_gib": {k: v / 2**30 for k, v in est.items()},
+           "free_gib": free / 2**30, "limit_gib": limit / 2**30,
+           "peak_gib": peak / 2**30, "allocated_before_gib": base / 2**30,
+           "launches_per_call": counts, "rel_err": rel,
+           "inverse_ms": inv_ms, "forward_ms": fwd_ms,
+           "all_bands_inverse_ms": all_inv_ms,
+           "all_bands_forward_ms": all_fwd_ms, "bound": bnd,
+           "all_bands_bound_ms": bnd_all["bound_ms"]}
+    out["full_cube"] = full_cube_baseline(torch, dev, gen, grid, n, cfg.nb)
+    return out
+
+
+def full_cube_baseline(torch, dev, gen, grid, n, bands):
+    """The paper's Fig. 9 baseline: an inverse FftPlan over the whole
+    (nb, n³) cube (no sphere: each stage a dense n→n line DFT, kernel #1
+    only), built as the reference's dry run builds it, at the largest of
+    ``PAPER_BATCHES`` whose estimate fits; held to ``torch.fft.ifftn`` on
+    two bands."""
+    from repro_torch.core import DistTensor, Domain, FftPlan
+    from repro_torch.kernels.dft_matmul import dft_matmul
+    free, _ = torch.cuda.mem_get_info(dev)
+    limit = PAPER_MEM_SHARE * free
+    cube = Domain((0, 0, 0), (n - 1,) * 3)
+    est, nb, plan = {}, None, None
+    for cand in PAPER_BATCHES:
+        bdom = Domain((0,), (cand - 1,))
+        p = FftPlan(DistTensor.create((bdom, cube), "b x{0} y z", grid),
+                    DistTensor.create((bdom, cube), "B X Y Z{0}", grid),
+                    [("x", "X"), ("y", "Y"), ("z", "Z")], inverse=True,
+                    backend="cuda")
+        in_b = 8 * cand * n ** 3
+        est[cand] = stage_walk(p.stages, (cand, n, n, n), 3, in_b)[0]
+        if nb is None and est[cand] <= limit:
+            nb, plan = cand, p
+    print("  full-cube baseline: estimate " + ", ".join(
+        f"nb={k} {v / 2**30:.2f} GiB" for k, v in est.items())
+        + f"; limit {limit / 2**30:.2f} GiB", flush=True)
+    check(nb is not None, "a full-cube batch fits")
+    x = crandn(torch, gen, (nb, n, n, n), dev)
+    dft_matmul.launches = 0
+    y = plan(x)
+    sync(torch, dev)
+    launches = dft_matmul.launches
+    e, r = rel_err(torch, y[:2], torch.fft.ifftn(x[:2], dim=(1, 2, 3)))
+    del y
+    check(launches == 3 and r <= PAIR_RTOL,
+          f"full cube ({nb}, {n}^3): dft_matmul x{launches}, vs "
+          f"torch.fft.ifftn rel err {r:.3e} <= {PAIR_RTOL:g}")
+    ms = time_ms(torch, lambda: plan(x), reps=3, warmup=1)
+    b = bound_ms(8.0 * 2 * nb * n ** 3, 8.0 * 3 * nb * n ** 4)
+    scale = bands / nb
+    print(f"  full-cube baseline: {ms:.3f} ms per call of {nb} bands "
+          f"(mean of 3), {ms * scale:.3f} ms for {bands} bands at "
+          f"that rate; {bound_text(b)} per call", flush=True)
+    del x
+    torch.cuda.empty_cache()
+    return {"band_batch": nb, "estimate_gib": {
+        k: v / 2**30 for k, v in est.items()}, "ms": ms,
+        "all_bands_ms_at_rate": ms * scale, "launches_per_call": launches,
+        "rel_err": r, "bound": b}
+
+
+# ------------------------------------------------------ the spectral layers
+def check_spectral(torch, dev, gen, stages):
+    """``fourier_mixer`` and ``fft_conv`` on the "cuda" backend (every
+    line DFT one launch of kernel #1), held to the "matmul" route and to
+    torch.fft (the "fft" backend) on the same inputs."""
+    from repro_torch.core import fft_conv, fourier_mixer
+    from repro_torch.kernels.dft_matmul import dft_matmul
+    x = torch.randn(MIXER_SHAPE, generator=gen, device=dev)
+    xc = torch.randn(CONV_SHAPE, generator=gen, device=dev)
+    k = torch.randn((CONV_K, CONV_SHAPE[-1]), generator=gen, device=dev)
+    out = {}
+    for name, fn, want_launches in (
+            ("fourier_mixer", lambda be: fourier_mixer(x, backend=be), 2),
+            ("fft_conv", lambda be: fft_conv(xc, k, backend=be), 3)):
+        dft_matmul.launches = 0
+        with stages.record(f"spectral:{name}") as shapes:
+            y = fn("cuda")
+        sync(torch, dev)
+        launches = dft_matmul.launches
+        lines = sorted(f"{m}x{a}->{b}{' inv' if i else ''}"
+                       for m, a, b, i in shapes)
+        check(launches == want_launches == sum(shapes.values()),
+              f"{name}: dft_matmul launched {launches} times, line shapes "
+              f"{lines}")
+        rec = {"launches": launches, "line_shapes": lines}
+        for be in ("matmul", "fft"):
+            e, r = rel_err(torch, y, fn(be))
+            check(r <= KERNEL_RTOL, f"{name}: cuda vs {be} route rel err "
+                  f"{r:.3e} <= {KERNEL_RTOL:g}")
+            rec[f"{be}_rel_err"] = r
+        del y
+        for be in ("cuda", "matmul", "fft"):
+            rec[f"{be}_ms"] = time_ms(torch, lambda be=be: fn(be), reps=5)
+        print(f"  {name}: " + ", ".join(
+            f"{be} {rec[f'{be}_ms']:.3f} ms" for be in
+            ("cuda", "matmul", "fft")) + " per call (mean of 5)",
+            flush=True)
+        out[name] = rec
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1776,6 +2140,19 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
+    paper = run_paper(torch, dev, gen, gpu)
+    print("paper: " + json.dumps(paper), flush=True)
+    print(f"paper phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    print("spectral layers:", flush=True)
+    spectral = check_spectral(torch, dev, gen, stages)
+    print("spectral: " + json.dumps(spectral), flush=True)
+    print(f"spectral phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
     shapes = time_line_shapes(torch, dev, gen, stages, gpu)
     print("line_shapes: " + json.dumps(shapes), flush=True)
     print(f"line-shape phase: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -1789,11 +2166,24 @@ def main() -> int:
                               "src/repro/kernels/sphere_pack.py:134"),
                "dft_pack": ("src/repro_torch/kernels/csrc/sphere_pack.cu",
                             "src/repro/kernels/sphere_pack.py:175")}
+    per_call = paper["launches_per_call"]
+    by_path = {"scf": {k: v for k, v in launches.items()
+                       if k != "dft_matmul_twiddle"},
+               "four_step": four_step["launches"],
+               "service": service["launches"],
+               "paper_inverse_and_forward": {
+                   k: per_call["inverse"][k] + per_call["forward"][k]
+                   for k in per_call["inverse"]},
+               "spectral": {"dft_matmul": sum(
+                   r["launches"] for r in spectral.values())}}
     kernels = []
     for r in results:
         src, rep = sources[r["name"]]
         kernels.append({"name": r["name"], "route": "cuda", "source": src,
                         "replaces": rep, "launches": launches[r["name"]],
+                        "launches_by_path": {
+                            p: c.get(r["name"], 0)
+                            for p, c in by_path.items()},
                         "passed": True, **{k: r[k] for k in (
                             "max_abs_err", "rel_err", "tolerance", "ms",
                             "plain_ms", "bound_ms", "bound_by",

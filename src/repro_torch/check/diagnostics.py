@@ -53,14 +53,15 @@ CODES: dict[str, str] = {
     "FFTB122": "request band count exceeds the service's max_rows",
     "FFTB130": "plan would not fit the plan-cache byte budget",
     # --------------------------------------------------- lint (FFTB2xx)
-    "FFTB201": "host-sync call inside a traced function (reachable from "
-               "jit_step / a jitted stage executor)",
-    "FFTB202": "plan construction / PlanCache build inside a traced "
-               "function (use the eager-fetch-at-trace-time pattern)",
+    "FFTB201": "host sync inside captured code (reachable from the fused "
+               "step / a plan executor it runs): breaks a CUDA-graph "
+               "capture",
+    "FFTB202": "plan construction / PlanCache build inside captured code "
+               "(fetch plans before the capture)",
     "FFTB203": "time.time() used for interval timing (use "
                "time.perf_counter())",
-    "FFTB204": "wall-clock window around device dispatch without a "
-               "block_until_ready/sync before the clock stops",
+    "FFTB204": "wall-clock window around device work without a "
+               "torch.cuda.synchronize/sync before the clock stops",
     "FFTB205": "bare threading.Lock/RLock on the serving path (use "
                "check.locks.TrackedLock)",
     # -------------------------------------------------- locks (FFTB3xx)

@@ -15,13 +15,19 @@ Entry points
   DSL well-formedness, grid-axis references, rank, sharded-extent
   divisibility.  ``fftb.plan_for`` runs it (:func:`check_transform`) on
   every cache miss.
+* :func:`preflight_basis` — a ``PlaneWaveBasis`` configuration, from a
+  live :class:`~repro_torch.core.grid.ProcGrid` **or** a bare
+  ``grid_shape`` tuple (so an 8-process scenario audits from one card).
+  With ``deep=True`` it also builds the k-point spheres host-side and
+  checks segmentation, stackability and plan-cache byte feasibility.
+  ``PlaneWaveBasis`` runs it on construction.
 * :func:`preflight_service` / :func:`preflight_request` — a
   ``TransformService`` configuration / one submit call.  Coefficients may
   be numpy arrays or torch tensors.
 * :func:`preflight` — the umbrella ``fftb.preflight``: a spec string
-  routes to the transform checks, a service config dict to the service
-  checks.  SCF-basis configs (``preflight_basis`` and its feasibility
-  model for the fused kernels) are not ported yet.
+  routes to the transform checks, a config dict (e.g. one scenario from
+  ``benchmarks/baseline.json``) to the basis/service checks;
+  :func:`preflight_scenario` audits one full baseline record.
 
 All functions *return* the diagnostics list; they never raise.  Library
 call sites wrap them in
@@ -34,14 +40,16 @@ import math
 import numpy as np
 import torch
 
-from .diagnostics import Diagnostic, error, raise_if_errors
+from .diagnostics import Diagnostic, error, raise_if_errors, warning
 
 __all__ = [
     "preflight",
     "preflight_transform",
+    "preflight_basis",
     "preflight_service",
     "preflight_request",
     "preflight_config",
+    "preflight_scenario",
     "check_transform",
 ]
 
@@ -201,6 +209,181 @@ def preflight_transform(spec: str, *, domains=None, grid=None, sizes=None,
     return diags
 
 
+# ----------------------------------------------------------------- basis
+def _basis_plan_bytes(spheres, segments, nbands: int, n: int, d: int
+                      ) -> int:
+    """Static byte estimate of a basis's full plan-cache working set.
+
+    Per-k pack tables + mask cubes, per-segment stacked pack tables and
+    band tables, plus the shared rectangular DFT operand matrices — the
+    same quantities the cache bills at runtime, computed from extents
+    alone.
+    """
+    per_k = sum(s.npacked * 4 + d ** 3 for s in spheres)
+    stacked = 0
+    for seg in segments:
+        pad = max(spheres[i].npacked for i in seg)
+        lanes = len(seg) * pad
+        stacked += lanes * 5                   # int32 idx + bool valid
+        stacked += 3 * lanes * 4               # kinetic/mask/precond f32
+    dft = 2 * (3 * n * d * 8 + n * n * 8)      # fwd+inv operand tables
+    return per_k + stacked + dft
+
+
+def preflight_basis(n: int, *, diameter: int | None = None,
+                    kpts=((0.0, 0.0, 0.0),), nbands: int = 4,
+                    grid=None, grid_shape=None, batch_axes=None,
+                    fft_axes=None, segment_padding: float | None = None,
+                    cache_max_bytes: int | None = None,
+                    backend: str | None = None,
+                    deep: bool = False) -> list[Diagnostic]:
+    """Feasibility of a ``PlaneWaveBasis`` configuration.
+
+    Cheap arithmetic checks always run; ``deep=True`` additionally
+    builds the k-point spheres host-side (still no device work) for
+    segmentation, stackability (FFTB114/115) and cache-budget (FFTB130)
+    analysis — the CLI/self-audit mode.  ``backend`` (the resolved
+    line-DFT backend) enables the FFTB118 checks: an unknown backend, or
+    a "cuda" request whose line lengths exceed the dense-DFT crossover,
+    is an error *here*, not a silent downgrade at plan-build time.
+    """
+    diags: list[Diagnostic] = []
+    n = int(n)
+    d = int(diameter) if diameter is not None else n // 2
+    if not 0 < d <= n:
+        diags.append(error(
+            "FFTB116", f"sphere diameter {d} not in (0, {n}]",
+            location="diameter",
+            hint="the cutoff sphere must fit the FFT cube "
+                 "(conventionally d = n/2)"))
+
+    shape = _grid_shape(grid, grid_shape)
+    if shape is None:
+        shape = (1,)
+    batch_axes, fft_axes, bp, fp, axis_diags = _axes_split(
+        shape, batch_axes, fft_axes, where="grid")
+    diags.extend(axis_diags)
+    if axis_diags:
+        return diags
+
+    if int(nbands) % bp:
+        diags.append(error(
+            "FFTB112",
+            f"nbands {int(nbands)} not divisible by the batch-axis "
+            f"size {bp} of the grid {shape}",
+            location="nbands",
+            hint="round nbands up to a multiple of the batch-axis "
+                 "process count"))
+    if n % fp:
+        diags.append(error(
+            "FFTB110",
+            f"cube width {n} must divide over the fft-axis size {fp} "
+            f"of the grid {shape}",
+            location="n",
+            hint="choose n as a multiple of the fft-axis process "
+                 "count"))
+    if d > 0 and d % fp:
+        diags.append(error(
+            "FFTB111",
+            f"sphere diameter {d} must divide over the fft-axis size "
+            f"{fp} of the grid {shape}",
+            location="diameter",
+            hint="choose a cutoff diameter divisible by the fft-axis "
+                 "process count"))
+
+    kpts = np.atleast_2d(np.asarray(kpts, np.float64))
+    if kpts.ndim != 2 or kpts.shape[1] != 3:
+        diags.append(error(
+            "FFTB120", f"kpts must be (nk, 3), got shape {kpts.shape}",
+            location="kpts",
+            hint="one reduced-coordinate 3-vector per k-point"))
+        return diags
+    nk = kpts.shape[0]
+
+    if segment_padding is not None and not 0.0 <= segment_padding < 1.0:
+        diags.append(error(
+            "FFTB117",
+            f"segment_padding must be in [0, 1), got {segment_padding}",
+            location="segment_padding",
+            hint="it is a padded-lane *fraction* budget"))
+
+    if backend is not None:
+        from ..core.local_fft import _BACKENDS, MATMUL_MAX_N
+        if backend not in _BACKENDS:
+            diags.append(error(
+                "FFTB118",
+                f"unknown line-DFT backend {backend!r}",
+                location="backend",
+                hint=f"choose one of {_BACKENDS}"))
+        elif backend == "cuda" and d > 0 and max(n, d) > MATMUL_MAX_N:
+            diags.append(error(
+                "FFTB118",
+                f"backend 'cuda' requested but the line lengths "
+                f"(n={n}, d={d}) exceed the dense-DFT crossover "
+                f"{MATMUL_MAX_N} — the fused sphere-pack kernels "
+                "would silently realize as 'fft'",
+                location="backend",
+                hint="shrink the cube/cutoff below the crossover or "
+                     "request backend='fft' explicitly"))
+        # No working-set rule beside it, unlike the reference's TPU VMEM
+        # budget: a block of the CUDA kernels uses a fixed SMEM =
+        # SRC_OFFSET + BM*16 + 1024 bytes of shared memory (BM = BN = 128,
+        # STAGES = 3; kernels/csrc/cgemm_tc.cuh:96-110), whatever nbands,
+        # nk or d, so no problem size can overflow it.
+
+    if not deep or any(dg.is_error for dg in diags):
+        return diags
+
+    # ---- deep mode: build spheres host-side, no device work ----------
+    from ..core.planewave import kpoint_sphere, segment_spheres
+
+    spheres = [kpoint_sphere(d, kp) for kp in kpts]
+    if segment_padding is None:
+        segments = (tuple(range(nk)),)
+    else:
+        div = bp if bp > 1 else None
+        segments = segment_spheres(spheres, segment_padding,
+                                   size_divisor=div)
+
+    if bp > 1:
+        bad = [seg for seg in segments
+               if bp % len(seg) or (len(seg) * int(nbands)) % bp]
+        if bad and segment_padding is not None:
+            diags.append(error(
+                "FFTB115",
+                f"segment sizes {[len(s) for s in bad]} violate the "
+                f"batch-axis size_divisor contract (batch procs {bp}, "
+                f"nbands {int(nbands)})",
+                location="segment_padding",
+                hint="segment lengths must divide the batch-axis size "
+                     "and nk_seg*nbands must be divisible by it"))
+        elif bad and nk > 1:
+            diags.append(warning(
+                "FFTB114",
+                f"nk={nk} does not stack over the batch-axis size "
+                f"{bp} (nbands {int(nbands)}) — the stacked route "
+                "falls back to per-k dispatch",
+                location="kpts",
+                hint="set segment_padding to let the segmenter emit "
+                     "divisor-sized segments, or choose nk so "
+                     "nk*nbands splits over the batch axes"))
+
+    est = _basis_plan_bytes(spheres, segments, int(nbands), n, d)
+    if cache_max_bytes is None:
+        from ..core.cache import global_plan_cache
+        cache_max_bytes = global_plan_cache().max_bytes
+    if est > int(cache_max_bytes):
+        diags.append(error(
+            "FFTB130",
+            f"estimated plan working set ~{est} bytes exceeds the "
+            f"plan-cache byte budget {int(cache_max_bytes)} — every "
+            "SCF iteration would rebuild evicted plans",
+            location="cache.max_bytes",
+            hint="raise PlanCache(max_bytes=...) or shrink "
+                 "nk/diameter"))
+    return diags
+
+
 # --------------------------------------------------------------- service
 def preflight_service(n: int, *, grid=None, grid_shape=None,
                       batch_axes=(), fft_axes=None, max_rows: int = 8,
@@ -312,32 +495,58 @@ def preflight_request(sphere, *, n: int, fft_procs: int,
 # ------------------------------------------------------------- umbrella
 def preflight_config(cfg: dict, *, name: str = "",
                      grid_shape=None) -> list[Diagnostic]:
-    """Audit one service config dict (``tenants``/``max_rows`` keys or
-    ``kind: "service"``) through :func:`preflight_service`.
+    """Audit one scenario/config dict (``benchmarks/baseline.json``).
 
-    SCF-basis configs need ``preflight_basis``, which is not ported yet:
-    they raise ``NotImplementedError``.
+    ``scf``-style records route to :func:`preflight_basis` (deep),
+    ``serve``-style records (``tenants``/``max_rows`` keys) to
+    :func:`preflight_service`.  A record's ``backend`` is taken as the
+    port's backend name.
     """
     cfg = dict(cfg)
-    if not ("tenants" in cfg or cfg.get("kind") == "service"):
-        raise NotImplementedError(
-            "preflight of SCF-basis configs (preflight_basis) is not "
-            "ported yet; only transform specs and service configs are")
     shape = grid_shape or cfg.get("grid_shape")
     if shape is None and cfg.get("devices"):
         shape = (int(cfg["devices"]),)
     loc = name or "config"
-    diams = [cfg[k] for k in ("d", "d_small") if cfg.get(k)]
-    diags = preflight_service(
-        cfg["n"], grid_shape=shape,
-        batch_axes=tuple(cfg.get("batch_axes", ())),
-        fft_axes=cfg.get("fft_axes"),
-        max_rows=cfg.get("max_rows", 8),
-        padding_budget=cfg.get("padding_budget", 0.5),
-        diameters=diams)
+    if "tenants" in cfg or cfg.get("kind") == "service":
+        diams = [cfg[k] for k in ("d", "d_small") if cfg.get(k)]
+        diags = preflight_service(
+            cfg["n"], grid_shape=shape,
+            batch_axes=tuple(cfg.get("batch_axes", ())),
+            fft_axes=cfg.get("fft_axes"),
+            max_rows=cfg.get("max_rows", 8),
+            padding_budget=cfg.get("padding_budget", 0.5),
+            diameters=diams)
+    else:
+        diags = preflight_basis(
+            cfg["n"], diameter=cfg.get("diameter"),
+            kpts=cfg.get("kpts", ((0.0, 0.0, 0.0),)),
+            nbands=cfg.get("nbands", 4), grid_shape=shape,
+            batch_axes=cfg.get("batch_axes"),
+            fft_axes=cfg.get("fft_axes"),
+            segment_padding=cfg.get("segment_padding"),
+            cache_max_bytes=cfg.get("cache_max_bytes"),
+            backend=cfg.get("backend"), deep=True)
     return [Diagnostic(dg.code, dg.severity, dg.message,
                        f"{loc}: {dg.location}" if dg.location else loc,
                        dg.hint) for dg in diags]
+
+
+#: the reference's backend names in its benchmark records, as the port's
+#: (a record of ``benchmarks/baseline.json`` says "jnp" or "pallas")
+_REFERENCE_BACKENDS = {"jnp": "fft", "pallas": "cuda"}
+
+
+def preflight_scenario(name: str, record: dict) -> list[Diagnostic]:
+    """Audit one full baseline.json record (scenario + grid_shape).
+
+    The record's reference backend name is translated to the port's
+    (:data:`_REFERENCE_BACKENDS`); nothing else translates it.
+    """
+    cfg = dict(record.get("scenario", record))
+    if cfg.get("backend") in _REFERENCE_BACKENDS:
+        cfg["backend"] = _REFERENCE_BACKENDS[cfg["backend"]]
+    return preflight_config(cfg, name=name,
+                            grid_shape=record.get("grid_shape"))
 
 
 def preflight(target, **kwargs) -> list[Diagnostic]:
@@ -345,7 +554,7 @@ def preflight(target, **kwargs) -> list[Diagnostic]:
 
     * ``preflight("b x{0} ... -> ...", domains=, grid=, sizes=)`` —
       transform-spec checks (:func:`preflight_transform`);
-    * ``preflight({"n": 16, "tenants": 3, ...})`` — service config
+    * ``preflight({"n": 16, "kpts": ..., ...})`` — config/scenario
       checks (:func:`preflight_config`).
 
     Returns the diagnostics list (possibly empty); never raises on a bad

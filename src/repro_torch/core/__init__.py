@@ -1,5 +1,5 @@
-"""FFTB core — flexible multi-dimensional FFTs (the paper's contribution)
-and the plane-wave sphere transform, in PyTorch."""
+"""FFTB core — flexible multi-dimensional FFTs (the paper's contribution),
+the plane-wave sphere transform and spectral model ops, in PyTorch."""
 
 from .cache import PlanCache, global_plan_cache
 from .domain import Domain, SphereDomain, sphere_for_cutoff
@@ -16,6 +16,7 @@ from .planewave import (PlaneWaveFFT, StackedPlaneWaveFFT, cube_spec,
                         segment_padding_fraction, segment_spheres,
                         sphere_gvectors, sphere_kinetic_row)
 from .policy import ExecPolicy
+from .spectral import fft_conv, fourier_mixer
 
 __all__ = [
     "Domain", "SphereDomain", "sphere_for_cutoff", "DistTensor",
@@ -27,5 +28,6 @@ __all__ = [
     "padded_pack_tables", "planewave_spec", "cube_spec",
     "segment_padding_fraction", "segment_spheres",
     "sphere_gvectors", "sphere_kinetic_row",
-    "ExecPolicy", "PlanCache", "global_plan_cache",
+    "ExecPolicy", "PlanCache", "global_plan_cache", "fft_conv",
+    "fourier_mixer",
 ]

@@ -9,7 +9,7 @@ Here a ProcGrid is either *concrete* — every axis of size 1, all of it on
 one torch device — or *abstract*: any shape, no device, for plan
 construction and inspection (costing a schedule for a 1024-GPU run from a
 laptop, as the paper's planner does).  Grids whose axes span several
-processes belong to the distributed slice of the port (ROADMAP §1 item 3)
+processes belong to the distributed slice of the port (ROADMAP §1 item 2)
 and are refused by :meth:`ProcGrid.create`.
 """
 from __future__ import annotations
@@ -63,7 +63,7 @@ class ProcGrid:
             raise NotImplementedError(
                 f"grid {procs} spans {math.prod(procs)} processes; "
                 "multi-rank grids are the distributed slice of the port "
-                "(ROADMAP §1 item 3) — use ProcGrid.create_abstract to "
+                "(ROADMAP §1 item 2) — use ProcGrid.create_abstract to "
                 "inspect such a plan")
         names = tuple(axis_names) if axis_names else tuple(
             f"g{i}" for i in range(len(procs)))

@@ -172,7 +172,9 @@ def realized_backend(n_in: int, n_out: int, backend: str) -> str:
 
 def local_dft(x, axis: int, n_out: int | None = None, *,
               inverse: bool = False, backend: str = "matmul"):
-    """Apply a (possibly rectangular) DFT along ``axis`` of complex ``x``."""
+    """Apply a (possibly rectangular) DFT along ``axis`` of complex ``x``
+    (a negative ``axis`` counts from the end)."""
+    axis = axis % x.ndim
     n_in = x.shape[axis]
     n_out = n_in if n_out is None else n_out
     backend = realized_backend(n_in, n_out, backend)

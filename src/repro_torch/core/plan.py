@@ -97,7 +97,7 @@ class MoveStage:
         raise NotImplementedError(
             f"all-to-all over grid axis {self.axis_name!r} of size "
             f"{self.axis_size}: multi-rank moves are the distributed slice "
-            "of the port (ROADMAP §1 item 3)")
+            "of the port (ROADMAP §1 item 2)")
 
     def mirrored(self) -> "MoveStage":
         """The opposite distributed transpose (all_to_all is a permutation,

@@ -137,7 +137,7 @@ def _fused_pack_parts(wrapper, spheres, nbands: int, npacked: int):
         return None
     if any(grid.shape[a] != 1 for a in lay.get(xdim, ())):
         # lanes would need localizing to each shard's x planes and merging
-        # across shards: the distributed slice (ROADMAP §1 item 3)
+        # across shards: the distributed slice (ROADMAP §1 item 2)
         return None
 
     dev = grid.device

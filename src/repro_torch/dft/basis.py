@@ -26,13 +26,15 @@ import math
 import numpy as np
 import torch
 
+from ..check.diagnostics import raise_if_errors
+from ..check.preflight import preflight_basis
 from ..core import (Domain, ProcGrid, cube_spec, fftb, global_plan_cache,
                     kpoint_sphere, make_stacked_planewave_pair,
                     padded_kinetic_table, planewave_spec,
                     segment_padding_fraction, segment_spheres,
                     sphere_gvectors, sphere_kinetic_row)
 from ..core.cache import domains_key, grid_key
-from ..core.policy import BACKENDS, ExecPolicy
+from ..core.policy import ExecPolicy
 
 #: sphere bounding-cube (bands, x, y, z) → real-space cube, x/Z sharded
 PW_SPEC = planewave_spec()
@@ -104,12 +106,7 @@ class PlaneWaveBasis:
         if backend is None:
             backend = policy.backend if policy is not None and \
                 policy.backend is not None else "matmul"
-        if backend not in BACKENDS:
-            raise ValueError(f"backend {backend!r} not in {BACKENDS}")
         self.backend = backend
-        if not 0 < self.d <= self.n:
-            raise ValueError(f"sphere diameter {self.d} must be in "
-                             f"(0, n={self.n}]")
 
         if batch_axes is None:
             batch_axes = () if self.grid.ndim == 1 else (0,)
@@ -118,6 +115,14 @@ class PlaneWaveBasis:
             fft_axes = tuple(a for a in range(self.grid.ndim)
                              if a not in self.batch_axes)
         self.fft_axes = tuple(fft_axes)
+        # coded preflight diagnostics (FFTB110–118, 120), as the
+        # reference's constructor runs them; DiagnosticError is a
+        # ValueError, so existing handlers keep working
+        raise_if_errors(preflight_basis(
+            self.n, diameter=self.d, kpts=kpts, nbands=self.nbands,
+            grid=self.grid, batch_axes=self.batch_axes,
+            fft_axes=self.fft_axes, segment_padding=segment_padding,
+            backend=self.backend))
         self.batch_procs = math.prod(
             self.grid.axis_size(a) for a in self.batch_axes)
         self.fft_procs = math.prod(

@@ -313,7 +313,10 @@ def total_energy_stacked(basis, c_pad, rho, v_ext, hartree: HartreeSolver,
     if not isinstance(c_pad, (tuple, list)):
         c_pad = (c_pad,)
     if tables is None:
-        tables = [basis.stacked_band_tables(s) for s in range(len(c_pad))]
+        # eager callers only: the fused step passes the tables it fetched
+        # before its capture, so this lookup never runs inside a graph
+        tables = [basis.stacked_band_tables(s)  # noqa: FFTB202
+                  for s in range(len(c_pad))]
     elif not isinstance(tables, (tuple, list)):
         tables = (tables,)
     e_kin = 0.0

@@ -1,8 +1,9 @@
 """repro_torch.check against the reference ``repro.check``.
 
 * The preflights give the reference's codes on the same transform,
-  service and request inputs (torch tensors are accepted where the
-  reference takes numpy arrays).
+  basis, service and request inputs (torch tensors are accepted where the
+  reference takes numpy arrays), and on every record of
+  ``benchmarks/baseline.json``; ``PlaneWaveBasis`` raises them.
 * ``fftb.plan_for`` runs the transform preflight on a cache miss, so a
   bad spec, size list or grid raises ``DiagnosticError`` with the
   reference's code before any plan work.
@@ -10,6 +11,8 @@
   across a dispatch boundary (FFTB302); ``PlanCache`` and the service
   hold tracked locks and never build under them.
 """
+import json
+import pathlib
 import threading
 
 import numpy as np
@@ -20,12 +23,16 @@ import repro.check as RC
 import repro.check.preflight as RP
 import repro.core as R
 import repro_torch.core as T
+import repro.dft.basis as RB
 from repro_torch.check import (CODES, DiagnosticError, LockOrderError,
                                TrackedLock, check_dispatch_hazard,
                                disable_lock_checking, enable_lock_checking,
-                               lock_violations, preflight,
-                               preflight_request, preflight_service,
+                               lock_violations, preflight, preflight_basis,
+                               preflight_config, preflight_request,
+                               preflight_scenario, preflight_service,
                                preflight_transform)
+from repro_torch.check.preflight import _basis_plan_bytes
+from repro_torch.dft.basis import PlaneWaveBasis
 from repro_torch.check.diagnostics import error, raise_if_errors, warning
 
 
@@ -153,10 +160,181 @@ def test_fftb_preflight_routes_spec_and_service_config():
     assert codes(diags) == codes(RP.preflight_config(
         cfg, name="serve", grid_shape=(4,))) == ["FFTB111"]
     assert diags[0].location.startswith("serve")
-    with pytest.raises(NotImplementedError, match="preflight_basis"):
-        preflight({"n": 16, "diameter": 8})
+    # SCF-basis configs route to the deep basis preflight, as the
+    # reference's do
+    for scf in ({"n": 16, "diameter": 8}, {"n": 16, "diameter": 0},
+                {"n": 15, "diameter": 7, "nbands": 3}):
+        assert codes(preflight(scf, grid_shape=(2, 2))) == codes(
+            RP.preflight_config(scf, grid_shape=(2, 2)))
+    assert codes(preflight({"n": 16, "diameter": 0})) == ["FFTB116"]
     with pytest.raises(TypeError, match="arrow-spec string or a config"):
         preflight(42)
+
+
+# ------------------------------------------------ basis preflight vs reference
+KP3 = [(0, 0, 0), (0.1, 0, 0), (0.2, 0, 0)]
+KP4 = KP3 + [(0.3, 0, 0)]
+
+BASIS_CASES = [
+    # (n, keywords) — the reference's golden cases, each code in turn
+    (15, dict(diameter=7, nbands=3, grid_shape=(2, 2))),     # 112 110 111
+    (16, dict(grid_shape=(2, 2), batch_axes=(0, 1))),        # 113
+    (16, dict(diameter=0)),                                  # 116
+    (16, dict(diameter=17)),                                 # 116
+    (16, dict(diameter=8, segment_padding=1.5)),             # 117
+    (16, dict(diameter=8, kpts=((0, 0),))),                  # 120
+    (16, dict(diameter=8, kpts=((0, 0, 0, 0),))),            # 120
+    (16, dict(diameter=8, backend="fftw")),                  # 118
+    (16, dict(diameter=8, backend="matmul")),                # clean
+    (16, dict(diameter=8, nbands=2, grid_shape=(2, 2), kpts=KP3,
+              deep=True)),                                   # 114 warning
+    (16, dict(diameter=8, nbands=2, grid_shape=(2, 2), kpts=KP4,
+              segment_padding=0.5, deep=True)),              # clean
+    (16, dict(diameter=8, nbands=3, grid_shape=(2, 2), kpts=KP3,
+              segment_padding=0.5, deep=True)),              # 112
+    (16, dict(diameter=8, nbands=4, grid_shape=(4, 1), kpts=KP3,
+              segment_padding=0.0, deep=True)),              # clean
+    (16, dict(diameter=8, nbands=2, grid_shape=(1,),
+              cache_max_bytes=1024, deep=True)),             # 130
+    (16, dict(diameter=8, nbands=4, kpts=((0, 0, 0), (0.5, 0.5, 0.5)),
+              grid_shape=(2, 2), deep=True)),                # clean
+]
+
+
+@pytest.mark.parametrize("n,kw", BASIS_CASES)
+def test_basis_preflight_codes_equal_reference(n, kw):
+    got = preflight_basis(n, **kw)
+    want = RP.preflight_basis(n, **kw)
+    assert codes(got) == codes(want)
+    assert [d.severity for d in got] == [d.severity for d in want]
+    assert [d.message for d in got] == [d.message for d in want]
+    assert [d.location for d in got] == [d.location for d in want]
+
+
+def test_basis_deep_segment_contract_is_fftb115(monkeypatch):
+    """FFTB115 guards the segmenter's size_divisor contract, which
+    ``segment_spheres`` itself keeps; a segmenter that broke it (one
+    segment of 3 k-points over a batch axis of 2) is reported the same
+    way by both packages."""
+    import repro.core.planewave as RPW
+    import repro_torch.core.planewave as TPW
+    for mod in (RPW, TPW):
+        monkeypatch.setattr(mod, "segment_spheres",
+                            lambda spheres, pad, size_divisor=None: (
+                                tuple(range(len(spheres))),))
+    kw = dict(diameter=8, nbands=2, grid_shape=(2, 2), kpts=KP3,
+              segment_padding=0.5, deep=True)
+    got, want = preflight_basis(16, **kw), RP.preflight_basis(16, **kw)
+    assert codes(got) == codes(want) == ["FFTB115"]
+    assert got[0].message == want[0].message
+
+
+def test_basis_preflight_covers_every_basis_code():
+    seen = {c for n, kw in BASIS_CASES for c in codes(preflight_basis(n,
+                                                                      **kw))}
+    # FFTB115 has its own test above: no input reaches it through the
+    # real segmenter
+    assert seen == {"FFTB110", "FFTB111", "FFTB112", "FFTB113", "FFTB114",
+                    "FFTB116", "FFTB117", "FFTB118", "FFTB120", "FFTB130"}
+
+
+def test_basis_plan_bytes_equal_reference():
+    sph = [T.kpoint_sphere(8, k) for k in KP4]
+    rsph = [R.kpoint_sphere(8, k) for k in KP4]
+    segs = ((0, 1), (2, 3))
+    assert _basis_plan_bytes(sph, segs, 2, 16, 8) == \
+        RP._basis_plan_bytes(rsph, segs, 2, 16, 8)
+
+
+def test_basis_cuda_backend_over_crossover_is_fftb118():
+    # n=4096 exceeds MATMUL_MAX_N: the fused kernels would realize 'fft'
+    diags = preflight_basis(4096, diameter=2048, grid_shape=(1,),
+                            backend="cuda")
+    assert codes(diags) == ["FFTB118"]
+    assert "dense-DFT crossover" in diags[0].message
+    assert codes(RP.preflight_basis(4096, diameter=2048, grid_shape=(1,),
+                                    backend="pallas")) == ["FFTB118"]
+    assert preflight_basis(16, diameter=8, nbands=4,
+                           kpts=[(0, 0, 0), (0.5, 0.5, 0.5)],
+                           grid_shape=(1,), backend="cuda") == []
+    # the reference's names are not the port's backends
+    for name in ("pallas", "jnp"):
+        assert codes(preflight_basis(16, diameter=8, backend=name)) == \
+            ["FFTB118"]
+
+
+def test_basis_cuda_has_no_vmem_rule():
+    """The deliberate difference: the reference's VMEM-overflow case is
+    an FFTB118 error on "pallas" and clean on "cuda", whose kernels use a
+    fixed shared-memory footprint per block whatever the band batch."""
+    kw = dict(diameter=64, nbands=64, grid_shape=(1,))
+    assert "VMEM budget" in RP.preflight_basis(128, backend="pallas",
+                                               **kw)[0].message
+    assert preflight_basis(128, backend="cuda", **kw) == []
+    assert preflight_basis(128, backend="cuda", deep=True, **kw) == []
+
+
+def test_preflight_config_routes_backend_to_fftb118():
+    cfg = {"n": 16, "diameter": 8, "nbands": 4, "backend": "fftw"}
+    assert "FFTB118" in codes(preflight_config(cfg, grid_shape=(1,)))
+    assert preflight_config(dict(cfg, backend="cuda"), grid_shape=(1,)) == []
+
+
+def test_paper_config_is_clean_under_the_default_cache_budget():
+    """Deep preflight of the paper's workload (n=256, d=128, 256 bands)
+    on one process under the default PlanCache budget: no FFTB130."""
+    from repro_torch.configs.fftb_paper import CONFIG
+    assert preflight_basis(CONFIG.n, diameter=CONFIG.diameter,
+                           nbands=CONFIG.nb, grid_shape=(1,),
+                           backend="cuda", deep=True) == []
+
+
+BASELINE = json.loads((pathlib.Path(__file__).parent.parent / "benchmarks"
+                       / "baseline.json").read_text())["scenarios"]
+
+
+@pytest.mark.parametrize("name", sorted(BASELINE))
+def test_baseline_records_equal_reference(name):
+    got = preflight_scenario(name, BASELINE[name])
+    want = RP.preflight_scenario(name, BASELINE[name])
+    assert codes(got) == codes(want) == []
+    assert [d.location for d in got] == [d.location for d in want]
+
+
+def test_scenario_translates_reference_backends_only_there():
+    rec = {"grid_shape": [1], "scenario": {"n": 4096, "diameter": 2048,
+                                           "backend": "pallas"}}
+    assert codes(preflight_scenario("big", rec)) == ["FFTB118"]
+    assert "backend 'cuda'" in preflight_scenario("big", rec)[0].message
+    assert preflight_scenario("jnp", {"grid_shape": [1], "scenario": {
+        "n": 16, "diameter": 8, "backend": "jnp"}}) == []
+    assert rec["scenario"]["backend"] == "pallas"      # not mutated
+    assert codes(preflight_config(rec["scenario"], grid_shape=(1,))) == \
+        ["FFTB118"]
+    assert "unknown" in preflight_config(rec["scenario"])[0].message
+
+
+BASIS_RAISE_CASES = [dict(segment_padding=1.5), dict(kpts=((0, 0),)),
+                     dict(diameter=0), dict(diameter=20)]
+
+
+@pytest.mark.parametrize("kw", BASIS_RAISE_CASES)
+def test_plane_wave_basis_raises_the_reference_code(kw):
+    with pytest.raises(RC.DiagnosticError) as want:
+        RB.PlaneWaveBasis(16, nbands=4, **kw)
+    with pytest.raises(DiagnosticError) as got:
+        PlaneWaveBasis(16, nbands=4, device="cpu", **kw)
+    assert got.value.code == want.value.code
+    assert str(got.value) == str(want.value)
+    assert isinstance(got.value, ValueError)
+
+
+def test_plane_wave_basis_raises_fftb118_for_unknown_backend():
+    with pytest.raises(DiagnosticError) as exc:
+        PlaneWaveBasis(16, nbands=4, device="cpu", backend="pallas")
+    assert exc.value.code == "FFTB118"
+    assert PlaneWaveBasis(16, nbands=4, device="cpu",
+                          backend="cuda").backend == "cuda"
 
 
 # ------------------------------------------------ the plan_for repair
