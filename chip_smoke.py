@@ -33,6 +33,21 @@ Three phases follow on the same SCF configuration:
   are counted once; the steady iterations must launch no wrapper and run
   no plan call.
 
+Then the multi-rank phase: four processes spawned on the one card
+(``repro_torch.sharding.procs.run_ranks``, gloo, a ``file://``
+rendezvous under ``build/multirank/``; gloo carries each collective
+through host memory, so the phase times what the ranks' local shapes
+cost under that transport and gives no scaling number) run the SCF's
+widths on the 2×2 batch×fft grid: one stacked H apply per rank against
+the single-rank one (within 1e-5 of the largest value, padded lanes
+exactly +0.0), one all-to-all timed, then the same 3-iteration SCF from
+the same start against the single-rank eager "cuda" run (PERF.md §2's
+limits); kernels #1, #3 and #4 are counted per rank, with the counts set
+to 0 in each rank just before its run.  Eight processes then run the
+SCF of the reference's pencil case (n = 16, the (2, 2, 2) grid from
+``choose_dft_grid``) to convergence, against one rank.  A rank that
+fails, or a run past its time limit, fails the script.
+
 Two more paths follow, each with the launch counts set to 0 just before
 it and read just after:
 
@@ -93,7 +108,10 @@ times of PERF.md's call C, with the K chunks and tiles ``unpack_dft``
 skips and the time of ``dft_pack``'s zero-tail kernel), the SCF
 comparison and its breakdown, the layout of the slab the fused pack gets
 on the SCF path under each executor (read in place, or copied), the
-executor-mode, lazy-SCF and fused-step phases, the
+executor-mode, lazy-SCF and fused-step phases, the multi-rank phase
+(per rank: coordinate, H apply and all-to-all ms, first and steady
+s/iteration, peak memory and launches, each tagged "4 processes on one
+card, gloo"; the checks against one rank; the pencil run), the
 four-step phase (kernel #2's and the composition's times beside
 ``torch.fft``'s), the service phase (each pass's metrics summary beside
 the card's name and power limit, its batches, the warm pass's dispatch
@@ -114,6 +132,9 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+#: where the multi-rank phase keeps its inputs and rendezvous files
+#: (ignored by git)
+MR_DIR = os.path.join(HERE, "build", "multirank")
 
 # the slice's configuration: the paper's transform widths, cut in scale only
 N, DIAMETER = 256, 128
@@ -257,14 +278,19 @@ def sync(torch, dev) -> None:
 
 
 def wall_ms(torch, fn, reps: int = 2) -> float:
-    """Host-clock ms of ``fn()`` between device synchronizations, mean
-    of ``reps`` calls after one warm-up call."""
+    """Host-clock ms of ``fn()`` between device synchronizations (none on
+    a machine without CUDA), mean of ``reps`` calls after one warm-up
+    call."""
+    def drain():
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+
     fn()
-    torch.cuda.synchronize()
+    drain()
     t0 = time.perf_counter()
     for _ in range(reps):
         fn()
-    torch.cuda.synchronize()
+    drain()
     return (time.perf_counter() - t0) / reps * 1e3
 
 
@@ -1618,6 +1644,421 @@ def run_fused_step(torch, dev, ctx):
     return out
 
 
+# ------------------------------------------------------------- multi-rank
+#: the multi-rank phase.  One card takes the ranks as processes that share
+#: it over gloo (NCCL takes one card per rank): gloo copies CUDA tensors
+#: through host memory, so its times show what local shard shapes cost
+#: per rank, and no scaling.  First the smoke SCF's widths on the 2×2
+#: batch×fft grid, then the chooser's (2, 2, 2) pencil grid at the
+#: reference's own n = 16 (tests/test_dft.py).
+MR_PROCS, MR_GRID, MR_AXES = 4, (2, 2), ("dft_b", "dft_f")
+MR_ITERS, MR_TIMEOUT, MR_THREADS = MAX_ITER, 600.0, 2
+PENCIL_PROCS, PENCIL_N, PENCIL_NBANDS = 8, 16, 4
+MR_TAG = "4 processes on one card, gloo"
+
+
+def _gib(x) -> str:
+    return "not measured" if x is None else f"{x:.2f} GiB"
+
+
+def rank_kernel_checks(torch, dev, basis, c_pad, v, lines, rank, world):
+    """Each kernel of a rank's path against its plain version on the
+    rank's own inputs: kernel #3 on its rows of ``c_pad`` with the fused
+    route's sliced line tables, flag and chunk ranges; kernel #4 in its
+    ``partial`` mode on the slab that the forward lead plan leaves from
+    those rows times ``v`` (its lanes outside the rank's lines must be
+    +0.0); kernel #1 at each line shape in ``lines`` (the rank's launches
+    by ``(lines, n_in, n_out, inverse)``).  Ranks take turns (a barrier
+    between them), so each one's CUDA-event times are its own."""
+    import torch.distributed as dist
+
+    from repro_torch.core.local_fft import dft_matrix_device
+    from repro_torch.kernels import sphere_pack as sp
+    from repro_torch.kernels.dft_matmul import dft_matmul, dft_matmul_plain
+    from repro_torch.kernels.ops import dft_operand_device
+    timed = dev.type == "cuda"
+    gen = torch.Generator(device=dev).manual_seed(SEED + rank)
+
+    def entry(shape, kernel, plain, got=None):
+        got = kernel() if got is None else got
+        err, rel = rel_err(torch, got, plain())
+        return {"shape": shape, "max_abs_err": err, "rel_err": rel,
+                "ms": time_ms(torch, kernel) if timed else None,
+                "plain_ms": time_ms(torch, plain, reps=3) if timed else None}
+
+    inv, fwd = basis.stacked_hamiltonian_plans()
+    ip, fp = inv._fused_in_parts(), fwd._fused_out_parts()
+    rows = inv.local_rows(c_pad.reshape(-1, c_pad.shape[-1])).contiguous()
+    ustart, uzlo, ucnt, flag, chunks = ip["private"]
+
+    def unpack():
+        return sp.unpack_dft(rows, ustart, uzlo, ucnt, flag, ip["w"],
+                             chunks=chunks, wsplit=ip["wsplit"])
+    mid = unpack()
+    # the plans' other stages hold the all-to-alls: every rank runs them
+    slab = fp["lead"](ip["rem"](mid) * v)
+    start, zlo, cnt, nvalid = fp["private"]
+    npk, w = fp["out_shape"][1], fp["w"]
+
+    def pack():
+        return sp.dft_pack(slab, start, zlo, cnt, nvalid, w, npk,
+                           wsplit=fp["wsplit"], partial=fp["partial"])
+    out = {}
+    for turn in range(world):
+        dist.barrier()
+        if turn != rank:
+            continue
+        out["unpack_dft"] = entry(
+            f"{tuple(rows.shape)}->{tuple(mid.shape)}", unpack,
+            lambda: sp.unpack_dft_plain(rows, ustart, uzlo, ucnt, flag,
+                                        ip["w"]), mid)
+        got = pack()
+        out["dft_pack"] = entry(
+            f"{tuple(slab.shape)}->{tuple(got.shape)}", pack,
+            lambda: sp.dft_pack_plain(slab, start, zlo, cnt, nvalid, w,
+                                      npk), got)
+        # the lanes the rank's lines do not cover: other ranks' x planes
+        # and padding, each written +0.0 for the all-reduce
+        z = torch.arange(w.shape[0], device=dev)
+        lane = start.long()[..., None] + z
+        inside = z < cnt.long()[..., None]
+        rr = torch.arange(got.shape[0], device=dev)[:, None, None]
+        mine = torch.zeros(got.shape, dtype=torch.bool, device=dev)
+        mine[rr.expand_as(lane)[inside], lane[inside]] = True
+        out["dft_pack"].update(partial=fp["partial"],
+                               other_lanes=int((~mine).sum()),
+                               other_lanes_plus_zero=is_plus_zero(
+                                   torch, got[~mine]))
+        del got, mine
+        out["dft_matmul"] = []
+        for M, n_in, n_out, inverse in sorted(lines):
+            x = crandn(torch, gen, (M, n_in), dev)
+            _, _, wm = dft_matrix_device(n_out, n_in, inverse, dev)
+            ws = dft_operand_device(n_out, n_in, inverse, wm.device)
+            out["dft_matmul"].append(entry(
+                f"{M}x{n_in}->{n_out}{' inv' if inverse else ''}",
+                lambda: dft_matmul(x, wm, wsplit=ws),
+                lambda: dft_matmul_plain(x, wm)))
+            del x
+    del mid, slab
+    if timed:
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def check_rank_kernels(r, what, kc) -> None:
+    """The parent's checks of one rank's :func:`rank_kernel_checks`."""
+    for name in ("unpack_dft", "dft_pack"):
+        k = kc[name]
+        check(k["rel_err"] <= KERNEL_RTOL,
+              f"{what} rank {r}: {name} at {k['shape']} vs its plain "
+              f"version, rel err {k['rel_err']:.2e} <= {KERNEL_RTOL:g}")
+    p = kc["dft_pack"]
+    check(p["partial"] and p["other_lanes"] > 0
+          and p["other_lanes_plus_zero"],
+          f"{what} rank {r}: dft_pack(partial=True) wrote its "
+          f"{p['other_lanes']} lanes of other x planes and padding +0.0")
+    check(len(kc["dft_matmul"]) > 0, f"{what} rank {r}: kernel #1 launched")
+    for k in kc["dft_matmul"]:
+        check(k["rel_err"] <= KERNEL_RTOL,
+              f"{what} rank {r}: dft_matmul at {k['shape']} vs its plain "
+              f"version, rel err {k['rel_err']:.2e} <= {KERNEL_RTOL:g}")
+
+
+def print_rank_kernels(r, kc) -> None:
+    def t(k):
+        return ("" if k["ms"] is None else
+                f" {k['ms']:.3f} ms (plain {k['plain_ms']:.3f} ms)")
+    print(f"  rank {r} kernels at its own shapes ({MR_TAG}, one rank at a "
+          "time; CUDA events, mean of 10): " + "; ".join(
+              f"{name} {k['shape']}{t(k)}, rel err {k['rel_err']:.1e}"
+              for name, k in (("unpack_dft", kc["unpack_dft"]),
+                              ("dft_pack", kc["dft_pack"]),
+                              *(("dft_matmul", k)
+                                for k in kc["dft_matmul"]))), flush=True)
+
+
+def multirank_rank(rank, job):
+    """One rank of the multi-rank phase (a spawned process of
+    ``repro_torch.sharding.procs.run_ranks``).  Sizes come in ``job``;
+    the rank measures and compares, and returns what it found: the
+    parent makes every check."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import ProcGrid
+    from repro_torch.core.plan import MoveStage
+    from repro_torch.dft import PlaneWaveBasis, SCFConfig, run_scf
+    from repro_torch.dft.hamiltonian import apply_hamiltonian_padded
+    from repro_torch.kernels import sphere_pack
+    from repro_torch.kernels.dft_matmul import dft_matmul
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(job["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    wrappers = (dft_matmul, sphere_pack.unpack_dft, sphere_pack.dft_pack)
+
+    def zero():
+        for fn in wrappers:
+            fn.launches = 0
+
+    def counts():
+        return {fn.__name__: fn.launches for fn in wrappers}
+
+    kpts = tuple(tuple(k) for k in job["kpts"])
+    if job["kind"] == "pencil":
+        from repro_torch.sharding.grids import choose_dft_grid
+        grid = choose_dft_grid(nbands=job["nbands"], nk=len(kpts),
+                               diameter=job["n"] // 2, device=dev)
+        zero()
+        stages = LineStages()
+        with stages.record("pencil"):
+            res = run_scf(SCFConfig(n=job["n"], nbands=job["nbands"],
+                                    kpts=kpts, max_iter=50, backend="cuda"),
+                          grid=grid)
+        out = {"grid": grid.shape, "energy": res.energy,
+               "converged": res.converged, "iterations": res.iterations,
+               "stacked": res.stacked, "launches": counts()}
+        basis = PlaneWaveBasis(job["n"], kpts=kpts, nbands=job["nbands"],
+                               grid=grid, backend="cuda")
+        inv, _ = basis.stacked_hamiltonian_plans()
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        c_pad = crandn(torch, gen, (len(kpts), job["nbands"],
+                                    inv.npacked_max), dev)
+        v = torch.rand(basis.field.local_shape, generator=gen, device=dev)
+        out["kernels"] = rank_kernel_checks(
+            torch, dev, basis, c_pad, v, stages.counts["pencil"], rank,
+            grid.nprocs)
+        return out
+
+    data = np.load(job["inputs"])
+    n, nb, nk = job["n"], job["nbands"], len(kpts)
+    grid = ProcGrid.create(MR_GRID, MR_AXES, device=dev)
+    basis = PlaneWaveBasis(n, diameter=job["d"], kpts=kpts, nbands=nb,
+                           grid=grid, backend="cuda")
+    coeffs = [torch.as_tensor(data[f"c{ik}"], device=dev)
+              for ik in range(nk)]
+    v = basis.field.scatter(torch.as_tensor(data["v"], device=dev))
+    inv, _ = basis.stacked_hamiltonian_plans()
+    c_pad = inv.stack(coeffs).reshape(nk, nb, inv.npacked_max)
+
+    def happly():
+        return apply_hamiltonian_padded(basis, c_pad, v)
+
+    happly()                                 # plans, tables, first launch
+    sync(torch, dev)
+    zero()
+    d0 = dict(sphere_pack.DISPATCHES)
+    stages = LineStages()
+    with stages.record("multirank"):
+        hc = happly()
+    sync(torch, dev)
+    out = {"coordinate": grid.coordinate, "h_launches": counts(),
+           "h_dispatches": {k: sphere_pack.DISPATCHES[k] - d0[k]
+                            for k in d0},
+           "h_ms": wall_ms(torch, happly, 3)}
+    if rank == 0:
+        ref = torch.as_tensor(data["hc"], device=dev)
+        err = float((hc - ref).abs().max())
+        pad = ~torch.as_tensor(data["valid"], device=dev)
+        lanes = torch.view_as_real(hc[pad[:, None, :].expand_as(hc)])
+        out["h_vs_one_rank"] = {
+            "max_abs_err": err, "rel_err": err / float(ref.abs().max()),
+            "padded_plus_zero": bool(((lanes == 0)
+                                      & ~torch.signbit(lanes)).all()),
+            "padded_lanes": int(pad.sum()) * nb}
+        del ref, lanes
+    # one all-to-all of the inverse transform, at its local shape
+    rem = inv._fused_in_parts()["rem"]
+    move = next(st for st in rem.stages if isinstance(st, MoveStage))
+    x = torch.ones(rem.tin.local_shape, dtype=torch.complex64, device=dev)
+    out["a2a_ms"] = wall_ms(torch, lambda: move.apply(x), 3)
+    out["a2a_shape"] = list(x.shape)
+    del hc, x
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    zero()
+    stamps = []
+    with stages.record("multirank"):
+        res = run_scf(
+            SCFConfig(n=n, diameter=job["d"], nbands=nb, kpts=kpts,
+                      stack_k=True, backend="cuda", max_iter=job["iters"],
+                      mix_warmup=job["iters"]),
+            grid=grid, coeffs=coeffs,
+            callback=lambda *a: stamps.append(time.perf_counter()))
+    walls = [b - a for a, b in zip(stamps, stamps[1:])]
+    out.update({
+        "scf_launches": counts(), "energies": res.energies,
+        "eigenvalues": res.eigenvalues, "grid_shape": res.grid_shape,
+        "stacked": res.stacked,
+        "first_s": res.iteration_records[0]["seconds"],
+        "steady_s": sum(walls) / len(walls) if walls else None,
+        "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
+                     if dev.type == "cuda" else None)})
+    if rank == 0:
+        ref = torch.as_tensor(data["rho"], device=dev)
+        out["rho_vs_one_rank"] = {
+            "max_diff": float((res.rho - ref).abs().max()),
+            "max_rho": float(ref.abs().max()),
+            "shape": list(res.rho.shape),
+            "finite": bool(torch.isfinite(res.rho).all())}
+        del ref
+    del res
+    # every kernel of the path against its plain version at the rank's
+    # shapes: kernel #1 at each line shape of its H apply and SCF
+    out["kernels"] = rank_kernel_checks(
+        torch, dev, basis, c_pad, v, stages.counts["multirank"], rank,
+        grid.nprocs)
+    return out
+
+
+def run_multirank(torch, dev, ctx, gpu):
+    """The multi-rank phase: the smoke SCF's stacked H apply and SCF on
+    the 2×2 (batch × fft) grid over four processes, each held against the
+    single-rank "cuda" run; then the (2, 2, 2) pencil grid over eight
+    processes at n = 16.  Any rank's failure, or a run past
+    ``MR_TIMEOUT``, fails the phase."""
+    import numpy as np
+
+    from repro_torch.dft import PlaneWaveBasis, SCFConfig, run_scf
+    from repro_torch.dft.hamiltonian import apply_hamiltonian_padded
+    from repro_torch.dft.potentials import gaussian_wells
+    from repro_torch.sharding.procs import run_ranks
+    print(f"multi-rank phase ({MR_TAG}; gloo carries each collective "
+          "through host memory, so these times are per-rank costs of the "
+          "local shard shapes, not a scaling measurement): grid "
+          f"{MR_GRID} {MR_AXES}, n={N} d={DIAMETER} nbands={NBANDS} "
+          f"kpts={KPTS} (B={len(KPTS) * NBANDS}), {MR_ITERS} SCF "
+          f"iterations; card {gpu}", flush=True)
+    os.makedirs(MR_DIR, exist_ok=True)
+    path = os.path.join(MR_DIR, "inputs.npz")
+    basis = PlaneWaveBasis(N, diameter=DIAMETER, kpts=KPTS, nbands=NBANDS,
+                           device=dev, backend="cuda")
+    inv, _ = basis.stacked_hamiltonian_plans()
+    coeffs = ctx["coeffs"]
+    v = gaussian_wells(N)
+    c_pad = inv.stack(coeffs).reshape(len(KPTS), NBANDS, inv.npacked_max)
+    hc = apply_hamiltonian_padded(basis, c_pad,
+                                  torch.as_tensor(v, device=dev))
+    ref = ctx["cuda"]
+    if MR_ITERS != len(ref.energies):
+        ref = run_scf(scf_config("cuda", max_iter=MR_ITERS,
+                                 mix_warmup=MR_ITERS),
+                      device=dev, coeffs=coeffs)
+    np.savez(path, v=v, hc=hc.cpu().numpy(), rho=ref.rho.cpu().numpy(),
+             valid=inv.valid_lanes(),
+             **{f"c{ik}": c.cpu().numpy() for ik, c in enumerate(coeffs)})
+    del hc, c_pad
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    job = {"kind": "full", "device": str(dev), "inputs": path, "n": N,
+           "d": DIAMETER, "nbands": NBANDS, "kpts": KPTS,
+           "iters": MR_ITERS}
+    t0 = time.perf_counter()
+    ranks = run_ranks(multirank_rank, MR_PROCS, args=(job,),
+                      rendezvous_dir=MR_DIR, timeout=MR_TIMEOUT,
+                      threads=MR_THREADS)
+    seconds = time.perf_counter() - t0
+    os.remove(path)
+    for r, out in enumerate(ranks):
+        hl, sl = out["h_launches"], out["scf_launches"]
+        print(f"  rank {r} {out['coordinate']}: H apply {out['h_ms']:.1f} "
+              f"ms, one all-to-all of {out['a2a_shape']} "
+              f"{out['a2a_ms']:.1f} ms, SCF first iteration "
+              f"{out['first_s']:.3f} s, steady {out['steady_s']:.3f} "
+              f"s/iteration, peak {_gib(out['peak_gib'])} ({MR_TAG}); "
+              f"launches: H apply {hl}, SCF {sl}", flush=True)
+        check(out["h_dispatches"] == {"unpack_dft": 1, "dft_pack": 1},
+              f"rank {r}: the H apply took the fused route, x sharded")
+        check(all(hl[k] > 0 for k in hl) and all(sl[k] > 0 for k in sl),
+              f"rank {r}: kernels #1, #3, #4 launched in its H apply and "
+              "its SCF")
+        check(out["grid_shape"] == MR_GRID and out["stacked"],
+              f"rank {r}: SCF on the {MR_GRID} grid, stacked route")
+        print_rank_kernels(r, out["kernels"])
+        check_rank_kernels(r, f"{MR_GRID}", out["kernels"])
+    h = ranks[0]["h_vs_one_rank"]
+    check(h["rel_err"] <= PAIR_RTOL,
+          f"H apply on {MR_GRID} vs one rank: {h['max_abs_err']:.3e} "
+          f"({h['rel_err']:.2e} of the largest value) <= {PAIR_RTOL:g}")
+    check(h["padded_plus_zero"],
+          f"H apply on {MR_GRID}: its {h['padded_lanes']} padded lanes are "
+          "exactly +0.0 after the all-reduce")
+    rho = ranks[0]["rho_vs_one_rank"]
+    e, er = np.asarray(ranks[0]["energies"]), np.asarray(ref.energies)
+    check(all(out["energies"] == ranks[0]["energies"] for out in ranks),
+          "every rank reports the same energies")
+    check(len(e) == len(er) == MR_ITERS and bool(np.isfinite(e).all()),
+          f"{MR_ITERS} finite energies")
+    de = float(np.abs(e - er).max())
+    deig = float(np.abs(ranks[0]["eigenvalues"] - ref.eigenvalues).max())
+    check(de <= ENERGY_RTOL * max(1.0, float(np.abs(er).max())),
+          f"SCF on {MR_GRID} vs one rank: energies agree, max |dE| "
+          f"{de:.3e}")
+    check(deig <= EIG_ATOL * max(1.0, float(np.abs(ref.eigenvalues).max())),
+          f"SCF on {MR_GRID} vs one rank: eigenvalues agree, max diff "
+          f"{deig:.3e}")
+    check(rho["shape"] == [N, N, N] and rho["finite"]
+          and rho["max_diff"] <= RHO_RTOL * rho["max_rho"],
+          f"SCF on {MR_GRID} vs one rank: rho agrees, max diff "
+          f"{rho['max_diff']:.3e} <= {RHO_RTOL:g}·{rho['max_rho']:.3e}")
+    steady = [out["steady_s"] for out in ranks]
+    print(f"  {MR_PROCS} ranks: steady {max(steady):.3f} s/iteration "
+          f"(slowest rank), {seconds:.1f} s for the whole run ({MR_TAG})",
+          flush=True)
+
+    # the pencil grid of the reference's case, against one rank
+    pcfg = SCFConfig(n=PENCIL_N, nbands=PENCIL_NBANDS, kpts=KPTS,
+                     max_iter=50, backend="cuda", stack_k=True)
+    one = run_scf(pcfg, device=dev)
+    job = {"kind": "pencil", "device": str(dev), "n": PENCIL_N,
+           "nbands": PENCIL_NBANDS, "kpts": KPTS}
+    t0 = time.perf_counter()
+    pencil = run_ranks(multirank_rank, PENCIL_PROCS, args=(job,),
+                       rendezvous_dir=MR_DIR, timeout=MR_TIMEOUT / 2,
+                       threads=1)
+    pseconds = time.perf_counter() - t0
+    for r, out in enumerate(pencil):
+        check(out["grid"] == (2, 2, 2) and out["converged"]
+              and out["stacked"]
+              and all(c > 0 for c in out["launches"].values()),
+              f"pencil rank {r}: grid {out['grid']} from choose_dft_grid, "
+              f"converged in {out['iterations']}, launches "
+              f"{out['launches']}")
+        print_rank_kernels(r, out["kernels"])
+        check_rank_kernels(r, "pencil", out["kernels"])
+    dp = abs(pencil[0]["energy"] - one.energy)
+    check(len({out["energy"] for out in pencil}) == 1
+          and dp <= ENERGY_RTOL * abs(one.energy),
+          f"pencil SCF (n={PENCIL_N}, 8 processes): E "
+          f"{pencil[0]['energy']:.6f} vs one rank {one.energy:.6f}, "
+          f"|dE| {dp:.2e}")
+    print(f"  pencil run: {pseconds:.1f} s (8 processes on one card, "
+          "gloo)", flush=True)
+    return {"tag": MR_TAG, "grid": list(MR_GRID), "iterations": MR_ITERS,
+            "seconds": seconds, "steady_s_per_rank": steady,
+            "h_ms_per_rank": [out["h_ms"] for out in ranks],
+            "a2a_ms_per_rank": [out["a2a_ms"] for out in ranks],
+            "a2a_shape": ranks[0]["a2a_shape"],
+            "first_s_per_rank": [out["first_s"] for out in ranks],
+            "peak_gib_per_rank": [out["peak_gib"] for out in ranks],
+            "h_apply_vs_one_rank": h, "max_dE": de, "max_deig": deig,
+            "max_drho": rho["max_diff"],
+            "launches_per_rank": [out["scf_launches"] for out in ranks],
+            "h_launches_per_rank": [out["h_launches"] for out in ranks],
+            "kernels_per_rank": [out["kernels"] for out in ranks],
+            "pencil": {"energy": pencil[0]["energy"],
+                       "one_rank_energy": one.energy, "dE": dp,
+                       "iterations": pencil[0]["iterations"],
+                       "seconds": pseconds,
+                       "launches_per_rank": [out["launches"]
+                                             for out in pencil],
+                       "kernels_per_rank": [out["kernels"]
+                                            for out in pencil]}}
+
+
 def breakdown(torch, dev):
     """Host-clock time of each piece of one SCF iteration, per route.
 
@@ -2121,6 +2562,11 @@ def main() -> int:
     fused = run_fused_step(torch, dev, ctx)
     print("scf_fused: " + json.dumps(fused), flush=True)
     print(f"fused-step phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    multirank = run_multirank(torch, dev, ctx, gpu)
+    print("multirank: " + json.dumps(multirank), flush=True)
+    print(f"multi-rank phase: {time.perf_counter() - t0:.1f} s", flush=True)
     del ctx
     torch.cuda.empty_cache()
 
@@ -2176,14 +2622,20 @@ def main() -> int:
                    for k in per_call["inverse"]},
                "spectral": {"dft_matmul": sum(
                    r["launches"] for r in spectral.values())}}
+    # the multi-rank SCF's launches, per rank (each a list over the ranks)
+    per_rank = {"multirank_scf_per_rank": multirank["launches_per_rank"],
+                "pencil_scf_per_rank": multirank["pencil"][
+                    "launches_per_rank"]}
     kernels = []
     for r in results:
         src, rep = sources[r["name"]]
         kernels.append({"name": r["name"], "route": "cuda", "source": src,
                         "replaces": rep, "launches": launches[r["name"]],
                         "launches_by_path": {
-                            p: c.get(r["name"], 0)
-                            for p, c in by_path.items()},
+                            **{p: c.get(r["name"], 0)
+                               for p, c in by_path.items()},
+                            **{p: [c.get(r["name"], 0) for c in runs]
+                               for p, runs in per_rank.items()}},
                         "passed": True, **{k: r[k] for k in (
                             "max_abs_err", "rel_err", "tolerance", "ms",
                             "plain_ms", "bound_ms", "bound_by",

@@ -227,5 +227,15 @@ def domains_key(domains) -> tuple:
 
 
 def grid_key(grid: ProcGrid) -> tuple:
-    """Hashable identity of a grid: axes, shape and device."""
-    return (grid.axes, grid.shape, str(grid.device))
+    """Hashable identity of a grid: axes, shape, device, its ranks and
+    its axis groups.
+
+    The ranks name the grid's process group: plans built over two groups
+    of one shape (say ranks 0–1 and 0–2 of a 2×2 world) hold different
+    process groups in their moves, so they must not share an entry.  The
+    groups' identities keep a plan of a destroyed world (the same ranks
+    before ``destroy_process_group`` and a new init) from serving the new
+    one; a cached plan holds its grid's groups, so their ids stay unique.
+    """
+    return (grid.axes, grid.shape, str(grid.device), grid.ranks,
+            tuple(id(g) for g in grid.groups))

@@ -11,6 +11,27 @@ Multiple grid axes on one dim ("x{0,1}") shard it over both, major→minor in
 the order written.  The distribution is *blocked*; a tensor's local block
 shape follows from the global shape and the grid axis sizes
 (:attr:`DistTensor.local_shape`).
+
+What each rank holds (one process per grid point).  Every rank holds the
+*local block* of a distributed tensor: along a dim sharded over axes
+``{a, b}`` the block at index ``c_a · size_b + c_b`` (its coordinates
+``c``), and along every other dim the whole extent.  A grid axis that no
+dim names replicates the tensor: every rank along it holds the same block.
+Plans and the plane-wave entry points take and return local blocks.  The
+rule the DFT layer keeps on top of that:
+
+* packed coefficient blocks ``(bands, lanes)`` outside a plan are
+  replicated (what the reference's ``grid.replicate`` pins); a plan
+  reads the rank's rows of them (:meth:`DistTensor.scatter` along the
+  batch dim) and its packed result is gathered back over the batch axes;
+* real-space and G-space cubes (orbitals, ρ, potentials) stay sharded —
+  z-blocks over the fft axes — from the inverse transform to the forward
+  one; a reduction over a cube (an energy, a norm, ρ's band sum) is an
+  all-reduce over the axes that split it.
+
+:meth:`DistTensor.scatter` and :meth:`DistTensor.gather` convert between
+the global tensor and the local block; on one process both are the
+identity.
 """
 from __future__ import annotations
 
@@ -141,3 +162,41 @@ class DistTensor:
                 n //= s
             out.append(n)
         return tuple(out)
+
+    def local_offsets(self) -> tuple[int, ...]:
+        """Global index of this rank's block's first element, per dim."""
+        out = []
+        for name, n in zip(self.dims, self.shape):
+            block, loc = 0, n
+            for a in self.layout.get(name, ()):
+                s = self.grid.axis_size(a)
+                block = block * s + self.grid.coordinate[a]
+                loc //= s
+            out.append(block * loc)
+        return tuple(out)
+
+    def local_slices(self) -> tuple[slice, ...]:
+        """This rank's block of the global tensor, as one slice per dim."""
+        return tuple(slice(o, o + n) for o, n in
+                     zip(self.local_offsets(), self.local_shape))
+
+    def scatter(self, x):
+        """Global tensor (every rank holds all of it) → this rank's local
+        block (a contiguous copy, or ``x`` itself when nothing is
+        sharded)."""
+        if tuple(x.shape) != self.shape:
+            raise ValueError(f"scatter: shape {tuple(x.shape)} != "
+                             f"{self.shape}")
+        if self.local_shape == self.shape:
+            return x
+        return x[self.local_slices()].contiguous()
+
+    def gather(self, x):
+        """This rank's local block → the global tensor, gathered from every
+        rank's block (each dim over its axes, major→minor)."""
+        if tuple(x.shape) != self.local_shape:
+            raise ValueError(f"gather: shape {tuple(x.shape)} != local "
+                             f"{self.local_shape}")
+        for i, name in enumerate(self.dims):
+            x = self.grid.replicate(x, self.layout.get(name, ()), dim=i)
+        return x

@@ -11,11 +11,12 @@ emits an alternating sequence of
 reproducing slab-pencil (1 move on a 1D grid), pencil-pencil-pencil (2 moves
 on a 2D grid) and volumetric (3D grid) schedules from the declared
 distributions alone.  The schedule search and the mirrors are the
-reference's, line for line.  Execution runs on one device, by one of two
-executors that ``ExecPolicy.mode`` picks: the eager stage walk
-(``_raw_apply``) or the lazy split-plane executor (``_raw_apply_lazy``).
-A move over an axis of size 1 is the identity; moves over larger axes
-belong to the distributed slice of the port.
+reference's, line for line.  Execution is SPMD, one process per grid point:
+each rank runs the same stage list on its local block (``DistTensor``'s
+rule), by one of two executors that ``ExecPolicy.mode`` picks: the eager
+stage walk (``_raw_apply``) or the lazy split-plane executor
+(``_raw_apply_lazy``).  A move is a tiled ``all_to_all_single`` over its
+axis' process group; over an axis of size 1 it is the identity.
 
 ``Plan`` is the common base of ``FftPlan`` and ``PlaneWaveFFT``: execution
 policy resolution, ``tune()``, tracing and the flop/comm accounting shared
@@ -82,6 +83,38 @@ class FFTStage:
         return realized_backend(self.n_in, self.n_out, self.backend)
 
 
+def all_to_all(x, group, size: int, split_dim: int, concat_dim: int):
+    """Tiled all-to-all of a local block over one grid axis.
+
+    What ``jax.lax.all_to_all(x, axis, split_axis=split_dim,
+    concat_axis=concat_dim, tiled=True)`` does: ``split_dim`` is cut into
+    ``size`` blocks, block j goes to the axis' j-th rank, and the blocks
+    received are concatenated along ``concat_dim`` in rank order.  Complex
+    data travels as its real view.
+    """
+    import torch.distributed as dist
+    if size == 1:
+        return x
+    shp = list(x.shape)
+    if shp[split_dim] % size:
+        raise ValueError(f"all_to_all: dim {split_dim} of {tuple(shp)} does "
+                         f"not split into {size} blocks")
+    # blocks of split_dim, block index leading: (size, ..., S/size, ...)
+    send = x.reshape(shp[:split_dim] + [size, shp[split_dim] // size]
+                     + shp[split_dim + 1:]).movedim(split_dim, 0)
+    send = send.contiguous()
+    recv = torch.empty_like(send)
+    real = send.is_complex()
+    dist.all_to_all_single(torch.view_as_real(recv) if real else recv,
+                           torch.view_as_real(send) if real else send,
+                           group=group)
+    # received block i (from rank i) lands before concat_dim's extent
+    out = recv.movedim(0, concat_dim)
+    shp = list(out.shape)
+    return out.reshape(shp[:concat_dim] + [size * shp[concat_dim + 1]]
+                       + shp[concat_dim + 2:])
+
+
 @dataclasses.dataclass(frozen=True)
 class MoveStage:
     axis_name: str               # grid axis
@@ -90,20 +123,25 @@ class MoveStage:
     dst: str
     src_index: int
     dst_index: int
+    #: the axis' process group (None on one process or an abstract grid)
+    group: object = dataclasses.field(default=None, compare=False,
+                                      repr=False)
 
-    def apply(self, x):
-        if self.axis_size == 1:
-            return x                 # a transpose over one process: identity
-        raise NotImplementedError(
-            f"all-to-all over grid axis {self.axis_name!r} of size "
-            f"{self.axis_size}: multi-rank moves are the distributed slice "
-            "of the port (ROADMAP §1 item 2)")
+    def apply(self, x, split_dim: int | None = None,
+              concat_dim: int | None = None):
+        """The distributed transpose on a local block: ``dst`` splits
+        over the axis, ``src`` gathers (at the given positions when the
+        block's dims are permuted)."""
+        return all_to_all(
+            x, self.group, self.axis_size,
+            self.dst_index if split_dim is None else split_dim,
+            self.src_index if concat_dim is None else concat_dim)
 
     def mirrored(self) -> "MoveStage":
         """The opposite distributed transpose (all_to_all is a permutation,
         so the mirror is both its inverse and its adjoint)."""
         return MoveStage(self.axis_name, self.axis_size, self.dst, self.src,
-                         self.dst_index, self.src_index)
+                         self.dst_index, self.src_index, self.group)
 
 
 class Plan:
@@ -121,9 +159,13 @@ class Plan:
     # ----------------------------------------------------------- execution
     def __call__(self, x, *, policy: ExecPolicy | None = None):
         pol = self.resolve_policy(policy=policy)
-        if pol.check_shapes and tuple(x.shape) != self.tin.shape:
+        if self.grid.is_abstract:
+            raise RuntimeError("an abstract (device-less) grid cannot "
+                               "execute a plan; build it on ProcGrid.create")
+        if pol.check_shapes and tuple(x.shape) != self.tin.local_shape:
             raise ValueError(f"input shape {tuple(x.shape)} != "
-                             f"{self.tin.shape}")
+                             f"{self.tin.local_shape} (the local block of "
+                             f"{self.tin.shape})")
         tr = get_tracer()
         if tr.enabled:
             return self._execute_traced(x, pol, tr)
@@ -151,7 +193,11 @@ class Plan:
         Returns the winning policy (also set as the plan's default, so
         subsequent plain ``plan(x)`` calls use it).  Each candidate's mean
         seconds per call stay in ``plan.tune_seconds`` (legacy mode name →
-        seconds), in candidate order.
+        seconds), in candidate order.  On a multi-process grid a
+        candidate's time is the largest over the grid's ranks (an
+        all-reduce), so every rank pins the same policy: the executors
+        issue their collectives differently, and ranks that chose apart
+        would wait on each other forever.
         """
         best, best_t = None, None
         times = {}
@@ -166,7 +212,9 @@ class Plan:
                 # after the card finished, or tune() would rank candidates
                 # by launch latency
                 drain(self(x, policy=pol))
-            dt = (time.perf_counter() - t0) / iters
+            dt = self.grid.all_reduce_host(
+                (time.perf_counter() - t0) / iters, range(self.grid.ndim),
+                "max")
             times[pol.legacy_mode] = dt
             if best_t is None or dt < best_t:
                 best, best_t = pol, dt
@@ -401,7 +449,7 @@ class FftPlan(Plan):
         def emit_move(axis: int, src: str, dst: str):
             stages.append(MoveStage(
                 self.grid.axis_name(axis), grid_shape[axis], src, dst,
-                idx[src], idx[dst]))
+                idx[src], idx[dst], self.grid.group(axis)))
 
         def local(d):
             return L.local_size(d, sizes[d], lay, grid_shape)
@@ -517,8 +565,10 @@ class FftPlan(Plan):
         with full_fp32_matmul(dev):
             for st in self.stages:
                 if not isinstance(st, FFTStage):
-                    # one process per axis: the identity (larger axes raise)
-                    xr, xi = st.apply(xr), st.apply(xi)
+                    # the move on each plane, at the dims' current places
+                    sp, cp = perm.index(st.dst_index), perm.index(
+                        st.src_index)
+                    xr, xi = st.apply(xr, sp, cp), st.apply(xi, sp, cp)
                     continue
                 pos = perm.index(st.index)
                 wr, wi, ws = (w.to(compute_dtype) for w in dft_matrix_planes(

@@ -21,6 +21,14 @@ All of this reuses FftPlan's machinery: the comm-cost schedule search finds
 this order automatically; this module adds the sphere bookkeeping (CSR
 offset arrays → static pack/unpack index tables) and, on the "cuda"
 backend, the fused sphere-pack kernels at both ends of the stage list.
+
+On a multi-process grid every entry point works on the rank's local block
+(``DistTensor``'s rule): packed coefficients ``(rows, lanes)`` hold the
+rank's batch rows and *every* lane; the bounding cube holds the rank's
+rows and x planes.  ``unpack`` scatters only the lanes of the rank's x
+planes; ``pack`` gathers them, writes +0.0 to the other lanes, and sums
+the blocks over the axes that split x (each lane lives on exactly one x
+plane, so the sum is that lane's value, and a padded lane stays +0.0).
 """
 from __future__ import annotations
 
@@ -45,6 +53,31 @@ def _split_operand(st, dev):
         return None
     from ..kernels.ops import dft_operand_device
     return dft_operand_device(st.n_out, st.n_in, st.inverse, dev)
+
+
+def _local_lines(sphere_side: DistTensor):
+    """The rank's part of the ``(rows, ex·ey)`` line tables of the sphere
+    side ``(b, x, y, z)``: (row slice, line slice, x-plane slice).  Lines
+    are x-major, so the rank's x planes are one run of lines."""
+    rows, xs = sphere_side.local_slices()[:2]
+    ey = sphere_side.shape[2]
+    return rows, slice(xs.start * ey, xs.stop * ey), xs
+
+
+def _lane_tables(idx: np.ndarray, sphere_side: DistTensor):
+    """Pack tables cut to the rank's x planes.
+
+    ``idx`` holds flat bounding-cube indices (``prod(extents)`` marks a
+    padded lane).  Returns ``(local, cells)``: each lane's flat index in
+    the rank's block of x planes, ``cells`` (the block's dump slot) for a
+    lane outside them or padded, and the block's cell count."""
+    _, ex, ey, ez = sphere_side.shape
+    xs = sphere_side.local_slices()[1]
+    plane = ey * ez
+    cells = (xs.stop - xs.start) * plane
+    x = idx // plane
+    inside = (idx < ex * plane) & (x >= xs.start) & (x < xs.stop)
+    return np.where(inside, idx - xs.start * plane, cells), cells
 
 
 def _fused_unpack_parts(wrapper, spheres, nbands: int, npacked: int):
@@ -81,8 +114,14 @@ def _fused_unpack_parts(wrapper, spheres, nbands: int, npacked: int):
         return None
 
     dev = grid.device
-    start, zlo, cnt, flag = (torch.as_tensor(t, device=dev) for t in
-                             sphere_pack.line_tables(spheres, nbands))
+    # the rank's rows and x planes of the line tables (the reference's
+    # P(b, x) split of them): a line's start stays an offset inside its row
+    rows, lines, xs = _local_lines(tin)
+    start, zlo, cnt, flag = sphere_pack.line_tables(spheres, nbands)
+    start, zlo, cnt = (t[rows, lines] for t in (start, zlo, cnt))
+    start, zlo, cnt, flag = (torch.as_tensor(np.ascontiguousarray(t),
+                                             device=dev)
+                             for t in (start, zlo, cnt, flag[xs]))
     chunks = sphere_pack.chunk_ranges(zlo, cnt, flag)
     _, _, w = dft_matrix_device(st.n_out, st.n_in, st.inverse, dev)
     ws = _split_operand(st, dev)
@@ -96,13 +135,13 @@ def _fused_unpack_parts(wrapper, spheres, nbands: int, npacked: int):
                   _scale=p.scale)
 
     def fn(packed):
-        # one device: the line tables need no split with the x planes
         return sphere_pack.unpack_dft(
             packed.to(torch.complex64).contiguous(), start, zlo, cnt, flag,
             w, chunks=chunks, wsplit=ws)
 
-    return {"fn": fn, "rem": rem, "in_shape": (B, npacked),
-            "private": (start, zlo, cnt, flag, chunks)}
+    return {"fn": fn, "rem": rem, "in_shape": (tin.local_shape[0], npacked),
+            "private": (start, zlo, cnt, flag, chunks), "w": w,
+            "wsplit": ws}
 
 
 def _fused_pack_parts(wrapper, spheres, nbands: int, npacked: int):
@@ -111,10 +150,13 @@ def _fused_pack_parts(wrapper, spheres, nbands: int, npacked: int):
     The mirror of :func:`_fused_unpack_parts`: when the plan *closes* with
     a local truncating line-DFT on the trailing dim, a derived *lead* plan
     runs every stage but the last, and ``sphere_pack.dft_pack`` fuses that
-    final n→d stage with the CSR gather to ``(B, npacked)``; padded lanes
-    come out exactly +0.0.  Each lane is produced on exactly one device
-    here, so the cross-shard merge of the multi-rank reference has nothing
-    to merge.
+    final n→d stage with the CSR gather to ``(rows, npacked)``; padded
+    lanes come out exactly +0.0.  With x sharded, the kernel reads the
+    rank's x planes with its rows' line tables cut to them, writes +0.0
+    to every lane it does not own (``partial=True``), and an all-reduce
+    over the axes that split x merges the blocks, as the reference's
+    ``psum`` does: each lane is made on exactly one rank, so the sum is
+    its value, and padded lanes stay +0.0.
     """
     from ..kernels import sphere_pack
 
@@ -135,17 +177,17 @@ def _fused_pack_parts(wrapper, spheres, nbands: int, npacked: int):
     B = tout.shape[0]
     if B != len(spheres) * nbands:
         return None
-    if any(grid.shape[a] != 1 for a in lay.get(xdim, ())):
-        # lanes would need localizing to each shard's x planes and merging
-        # across shards: the distributed slice (ROADMAP §1 item 2)
-        return None
+    partial = any(grid.shape[a] > 1 for a in lay.get(xdim, ()))
 
     dev = grid.device
+    rows, lines, _ = _local_lines(tout)
     start, zlo, cnt, _ = sphere_pack.line_tables(spheres, nbands)
     nvalid = np.repeat(np.asarray([s.npacked for s in spheres], np.int32),
                        nbands)
-    start, zlo, cnt, nvalid = (torch.as_tensor(t, device=dev)
-                               for t in (start, zlo, cnt, nvalid))
+    start, zlo, cnt = (t[rows, lines] for t in (start, zlo, cnt))
+    start, zlo, cnt, nvalid = (torch.as_tensor(np.ascontiguousarray(t),
+                                               device=dev)
+                               for t in (start, zlo, cnt, nvalid[rows]))
     _, _, w = dft_matrix_device(st.n_out, st.n_in, st.inverse, dev)
     ws = _split_operand(st, dev)
     mid = DistTensor(tout.domains[:-1]
@@ -159,11 +201,22 @@ def _fused_pack_parts(wrapper, spheres, nbands: int, npacked: int):
 
     def fn(slab):
         # the kernel reads the slab where the lead plan's x stage left it
-        return sphere_pack.dft_pack(slab.to(torch.complex64), start, zlo,
-                                    cnt, nvalid, w, npacked, wsplit=ws)
+        out = sphere_pack.dft_pack(slab.to(torch.complex64), start, zlo,
+                                   cnt, nvalid, w, npacked, wsplit=ws,
+                                   partial=partial)
+        return _merge_x_blocks(wrapper, out)
 
-    return {"fn": fn, "lead": lead, "out_shape": (B, npacked),
-            "private": (start, zlo, cnt, nvalid)}
+    return {"fn": fn, "lead": lead,
+            "out_shape": (tout.local_shape[0], npacked),
+            "private": (start, zlo, cnt, nvalid), "w": w, "wsplit": ws,
+            "partial": partial}
+
+
+def _merge_x_blocks(wrapper, packed):
+    """Sum packed lanes over the grid axes that split the sphere side's
+    x (each lane was written on one rank, +0.0 on the others)."""
+    side = wrapper._sphere_side
+    return wrapper.grid.all_reduce(packed, side.layout.get(side.dims[1], ()))
 
 
 class _FusedTransformMixin:
@@ -228,6 +281,27 @@ class _FusedTransformMixin:
                                npacked=parts["out_shape"][1]) as sp:
             return sp.sync(parts["fn"](mid))
 
+    def local_rows(self, packed):
+        """This rank's rows of a replicated ``(B, …)`` packed block (the
+        batch dim of the sphere side, split over its grid axes); the block
+        itself on one process."""
+        rows = self._sphere_side.local_slices()[0]
+        if rows == slice(0, packed.shape[0]):
+            return packed
+        return packed[rows]
+
+    def gather_rows(self, packed):
+        """The replicated ``(B, …)`` block from every rank's rows (the
+        inverse of :meth:`local_rows`)."""
+        side = self._sphere_side
+        return self.grid.replicate(packed, side.layout.get(side.dims[0], ()))
+
+    @property
+    def _sphere_side(self) -> DistTensor:
+        """The sphere side ``(b, x, y, z)`` of the transform: the input of
+        an inverse wrapper, the output of a forward one."""
+        return self.tin if self.is_inverse else self.tout
+
     def _fused_table_bytes(self) -> int:
         tot = 0
         for key in ("_fused_in_memo", "_fused_out_memo"):
@@ -261,8 +335,17 @@ class PlaneWaveFFT(_FusedTransformMixin, Plan):
                            backend=backend, policy=self.policy)
         self.plan = plan
         dev = self.grid.device
-        self._pack_idx = torch.as_tensor(sphere.pack_indices(), device=dev)
-        self._mask = torch.as_tensor(sphere.mask(), device=dev)
+        side = self._sphere_side
+        # pack tables of the rank's x planes (all of them on one process):
+        # the lanes that live there and their flat index in the block
+        local, cells = _lane_tables(np.asarray(sphere.pack_indices()), side)
+        sel = np.flatnonzero(local < cells)
+        split = side.local_shape[1] != side.shape[1]
+        self._lane_sel = torch.as_tensor(sel, device=dev) if split else None
+        self._pack_idx = torch.as_tensor(local[sel], device=dev)
+        self._block = side.local_shape[1:]
+        xs = side.local_slices()[1]
+        self._mask = torch.as_tensor(sphere.mask()[xs], device=dev)
 
     # ------------------------------------------------------------- execute
     def _execute(self, x, pol: ExecPolicy):
@@ -304,18 +387,27 @@ class PlaneWaveFFT(_FusedTransformMixin, Plan):
 
     # ------------------------------------------------- sphere pack/unpack
     def unpack(self, packed):
-        """(…, npacked) CSR coefficients → (…, d, d, d) bounding cube."""
-        d = self.sphere.extents
+        """(…, npacked) CSR coefficients → (…, d, d, d) bounding cube (the
+        rank's x planes of it)."""
+        d = self._block
         flat = torch.zeros(packed.shape[:-1] + (math.prod(d),),
                            dtype=packed.dtype, device=packed.device)
+        if self._lane_sel is not None:
+            packed = packed[..., self._lane_sel]
         flat[..., self._pack_idx] = packed
         return flat.reshape(packed.shape[:-1] + d)
 
     def pack(self, cube):
-        """(…, d, d, d) bounding cube → (…, npacked) CSR coefficients."""
-        d = self.sphere.extents
-        flat = cube.reshape(cube.shape[:-3] + (math.prod(d),))
-        return flat[..., self._pack_idx]
+        """(…, d, d, d) bounding cube → (…, npacked) CSR coefficients (the
+        rank's x planes, summed over the ranks that split x)."""
+        flat = cube.reshape(cube.shape[:-3] + (math.prod(self._block),))
+        vals = flat[..., self._pack_idx]
+        if self._lane_sel is None:
+            return vals
+        out = torch.zeros(cube.shape[:-3] + (self.sphere.npacked,),
+                          dtype=vals.dtype, device=vals.device)
+        out[..., self._lane_sel] = vals
+        return _merge_x_blocks(self, out)
 
     def mask_cube(self, cube):
         """Zero out everything outside the cut-off sphere (cube form)."""
@@ -594,17 +686,21 @@ class StackedPlaneWaveFFT(_FusedTransformMixin, Plan):
         self.plan = plan
         dev = self.grid.device
         idx, valid = padded_pack_tables(self.spheres)
-        self._pad_idx = torch.as_tensor(idx.astype(np.int64), device=dev)
         # validity is fully baked into the dump slots of _pad_idx; the
         # host mask is kept for introspection/tests
         self._valid = valid
         self.npacked_max = int(idx.shape[1])
+        # the rank's x planes (all of them on one process): a lane outside
+        # them goes to the block's dump slot, like a padded lane
+        local, cells = _lane_tables(idx, self._sphere_side)
+        self._block = self._sphere_side.local_shape[1:]
+        self._pad_idx = torch.as_tensor(local.astype(np.int64), device=dev)
         # pack-side gather table: the dump slot is clipped back into the
-        # cube and masked with the lane validity instead
-        cells = math.prod(self.extents)
+        # block and masked with the lane's validity there instead
         self._pack_gather_idx = torch.as_tensor(
-            np.minimum(idx, cells - 1).astype(np.int64), device=dev)
-        self._valid_dev = torch.as_tensor(valid, device=dev)
+            np.minimum(local, cells - 1).astype(np.int64), device=dev)
+        self._valid_dev = torch.as_tensor(local < cells, device=dev)
+        self._rows = self._row_blocks()
 
     # ------------------------------------------------------------- queries
     @property
@@ -682,40 +778,58 @@ class StackedPlaneWaveFFT(_FusedTransformMixin, Plan):
         return [c[ik, :, :s.npacked] for ik, s in enumerate(self.spheres)]
 
     # ------------------------------------------------- sphere pack/unpack
-    def unpack(self, padded):
-        """``(nk·nbands, npacked_max)`` coefficients → ``(nk·nbands, d³)``.
+    def _row_blocks(self) -> tuple[int, int, int]:
+        """The rank's rows of the stacked batch as ``(k0, kk, nbb)``: kk
+        k-blocks of nbb rows each, from sphere k0 on.  The batch splits
+        into whole k-blocks, or into parts of one (the basis's stacking
+        contract); anything else is refused."""
+        rows = self._sphere_side.local_slices()[0]
+        r0, nr, nb = rows.start, rows.stop - rows.start, self.nbands
+        if r0 % nb == 0 and nr % nb == 0:
+            return r0 // nb, nr // nb, nb
+        if r0 // nb == (rows.stop - 1) // nb:
+            return r0 // nb, 1, nr
+        raise ValueError(f"rows [{r0}, {rows.stop}) of this rank straddle "
+                         f"k-blocks of {nb} bands")
 
-        Each k-block scatters through its own pack table; padded lanes land
-        in the dump slot and are dropped, so garbage there never reaches
-        the bounding cube.
+    def unpack(self, padded):
+        """``(rows, npacked_max)`` coefficients → ``(rows, d³)`` (the rank's
+        rows and x planes).
+
+        Each k-block scatters through its own pack table; padded lanes (and
+        lanes of other ranks' x planes) land in the dump slot and are
+        dropped, so garbage there never reaches the bounding cube.
         """
-        d = self.extents
+        d = self._block
         cells = math.prod(d)
-        c = padded.reshape(self.nk, self.nbands, self.npacked_max)
-        flat = torch.zeros((self.nk, self.nbands, cells + 1),
+        k0, kk, nbb = self._rows
+        c = padded.reshape(kk, nbb, self.npacked_max)
+        flat = torch.zeros((kk, nbb, cells + 1),
                            dtype=padded.dtype, device=padded.device)
-        idx = self._pad_idx[:, None, :].expand(self.nk, self.nbands,
-                                               self.npacked_max)
+        idx = self._pad_idx[k0:k0 + kk, None, :].expand(kk, nbb,
+                                                        self.npacked_max)
         flat.scatter_(2, idx, c)
-        return flat[..., :cells].reshape((self.nk * self.nbands,) + d)
+        return flat[..., :cells].reshape((kk * nbb,) + d)
 
     def pack(self, cube):
-        """``(nk·nbands, d, d, d)`` cubes → ``(nk·nbands, npacked_max)``.
+        """``(rows, d, d, d)`` cubes → ``(rows, npacked_max)``.
 
         Padded lanes come out exactly +0.0, whatever the cube holds: the
         gather table clips their dump slot back into the cube and the
-        precomputed validity mask zeroes the result.
+        precomputed validity mask zeroes the result.  With x split over
+        ranks, each rank's lanes of the other x planes are +0.0 too, and
+        the blocks are summed over the axes that split x.
         """
-        d = self.extents
-        cells = math.prod(d)
-        flat = cube.reshape(self.nk, self.nbands, cells)
-        idx = self._pack_gather_idx[:, None, :].expand(
-            self.nk, self.nbands, self.npacked_max)
+        k0, kk, nbb = self._rows
+        flat = cube.reshape(kk, nbb, math.prod(self._block))
+        idx = self._pack_gather_idx[k0:k0 + kk, None, :].expand(
+            kk, nbb, self.npacked_max)
         out = torch.gather(flat, 2, idx)
-        out = torch.where(self._valid_dev[:, None, :], out,
+        out = torch.where(self._valid_dev[k0:k0 + kk, None, :], out,
                           torch.zeros((), dtype=out.dtype,
                                       device=out.device))
-        return out.reshape(self.nk * self.nbands, self.npacked_max)
+        return _merge_x_blocks(self, out.reshape(kk * nbb,
+                                                 self.npacked_max))
 
     # ------------------------------------------------------- fused kernels
     @property

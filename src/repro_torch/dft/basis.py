@@ -8,9 +8,12 @@ d³ bounding box and one n³ FFT cube, so every k-point's transform has the
 same data layout but a *different* static pack/unpack table — the
 multi-plan traffic the process-global ``PlanCache`` exists for.
 
-The grid is one device (``ProcGrid.create``) unless the caller passes an
-abstract grid for inspection; batch×fft grids over several processes are
-the distributed slice of the port.
+Processing grids (paper §3.3): the basis runs on 1D fft-only grids *or*
+2D (batch × fft) and 3-axis pencil (batch, fft, fft) grids over several
+processes.  The band batch is sharded over the batch axes and only the fft
+axes carry the transforms' all-to-alls.  The tables built here (spheres,
+kinetic ladders, pack tables) are the same on every rank, so each rank
+builds them on its own, with no collective.
 
 Units: cubic cell of side ``L`` (default: ``n`` grid spacings of 1), so a
 reciprocal-lattice step is 2π/L.  k-points are given in reduced coordinates
@@ -34,6 +37,7 @@ from ..core import (Domain, ProcGrid, cube_spec, fftb, global_plan_cache,
                     segment_padding_fraction, segment_spheres,
                     sphere_gvectors, sphere_kinetic_row)
 from ..core.cache import domains_key, grid_key
+from ..core.dtensor import DistTensor
 from ..core.policy import ExecPolicy
 
 #: sphere bounding-cube (bands, x, y, z) → real-space cube, x/Z sharded
@@ -143,6 +147,11 @@ class PlaneWaveBasis:
         self.spheres = [kpoint_sphere(self.d, kp) for kp in self.kpts]
         self.bdom = Domain((0,), (self.nbands - 1,))
         self.cube = Domain((0, 0, 0), (self.n - 1,) * 3)
+        #: the real-space field's distribution (ρ, potentials): z over
+        #: the fft axes, as the cube plans take it; replicated over the
+        #: batch axes
+        self.field = DistTensor.create(
+            self.cube, self._cube_spec.split(" -> ")[0], self.grid)
         self._kin = [None] * nk
         self._gvec = [None] * nk
         self._occ_weights: dict[tuple, torch.Tensor] = {}
@@ -222,6 +231,11 @@ class PlaneWaveBasis:
                 and all(self.batch_procs % len(seg) == 0
                         and (len(seg) * self.nbands) % self.batch_procs == 0
                         for seg in self.segments))
+
+    def field_sum(self, x) -> float:
+        """Σ over the whole cube of a field given as the rank's block
+        (the sum over the fft axes of the local sums)."""
+        return self.grid.all_reduce_host(float(torch.sum(x)), self.fft_axes)
 
     # ------------------------------------------------------- G bookkeeping
     def gvectors(self, ik: int) -> np.ndarray:

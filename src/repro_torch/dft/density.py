@@ -10,6 +10,10 @@ The per-k inverse plans come from the plan cache (one batched transform per
 k-point, bands batched).  When the basis stacks k-points on its own
 (``basis.stacks_k``), all k-points' padded coefficients ride one ragged
 batch of nk·nbands through a single transform instead.
+
+On a multi-process grid each rank transforms its rows of the (replicated)
+coefficient blocks; the cubes come out as z-blocks, so ρ is the rank's
+z-block (``basis.field``), its band sum an all-reduce over the batch axes.
 """
 from __future__ import annotations
 
@@ -32,9 +36,10 @@ def density_from_stacked(basis, c_pad, occ, seg: int = 0) -> torch.Tensor:
     """
     inv, _ = basis.stacked_hamiltonian_plans(seg)
     nks, nb, npm = c_pad.shape
-    psi = inv(inv.unpack(c_pad.reshape(nks * nb, npm)))
-    w = basis.occupancy_weights(seg, occ)
+    psi = inv(inv.unpack(inv.local_rows(c_pad.reshape(nks * nb, npm))))
+    w = inv.local_rows(basis.occupancy_weights(seg, occ))
     rho = torch.tensordot(w, psi.abs() ** 2, dims=([0], [0]))
+    rho = basis.grid.all_reduce(rho, basis.batch_axes)
     return rho * float(np.float32(basis.n ** 3 / basis.dv))
 
 
@@ -63,17 +68,20 @@ def density_from_orbitals(basis, coeffs, occ) -> torch.Tensor:
             f"({basis.nk}, {basis.nbands})")
     if getattr(basis, "stacks_k", False):
         return _density_stacked(basis, coeffs, occ)   # prefactor included
-    rho = torch.zeros((basis.n,) * 3, dtype=torch.float32,
+    rho = torch.zeros(basis.field.local_shape, dtype=torch.float32,
                       device=basis.device)
     for ik, c in enumerate(coeffs):
         inv, _ = basis.plans_for_k(ik)
-        psi = inv(inv.unpack(c))              # (nb, n, n, n)
+        psi = inv(inv.unpack(inv.local_rows(c)))     # (nb, n, n, n)
         f = torch.as_tensor((basis.weights[ik] * occ[ik]).astype(np.float32),
                             device=psi.device)
-        rho = rho + torch.tensordot(f, psi.abs() ** 2, dims=([0], [0]))
+        rho = rho + torch.tensordot(inv.local_rows(f), psi.abs() ** 2,
+                                    dims=([0], [0]))
+    rho = basis.grid.all_reduce(rho, basis.batch_axes)
     return rho * float(np.float32(basis.n ** 3 / basis.dv))
 
 
 def electron_count(basis, rho) -> float:
-    """∫ ρ dr — sanity invariant (should equal Σ_k w_k Σ_b f_kb)."""
-    return float(torch.sum(rho) * basis.dv)
+    """∫ ρ dr — sanity invariant (should equal Σ_k w_k Σ_b f_kb).  ``rho``
+    is the rank's z-block (the whole cube on one process)."""
+    return basis.field_sum(rho) * basis.dv

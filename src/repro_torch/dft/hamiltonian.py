@@ -29,6 +29,15 @@ Two band-update engines share that math:
     ``(nk, nbands, npacked_max)`` coefficient tensor, with the kinetic
     and preconditioner served as dense per-k tables.  Padded lanes hold
     exact zeros in coefficients, H·c blocks and tables alike.
+
+On a multi-process grid the coefficient blocks are replicated (every rank
+holds all of them and runs the same linear algebra); an H apply hands the
+plans the rank's rows, multiplies the rank's z-block of ``v_eff``, and
+gathers the packed result over the batch axes (the plan's
+``gather_rows``: the reference pins every block it mixes with a plan's
+output with ``grid.replicate``; here the plan's packed output is the
+only block that is not already whole, so it is gathered once, where it
+leaves the plan).
 """
 from __future__ import annotations
 
@@ -47,24 +56,18 @@ global_metrics().register_probe(
     "dft", lambda: {"per_k_linalg_calls": PERK_LINALG_CALLS})
 
 
-def _replicated(basis, x):
-    """Replicated placement of a coefficient block on the basis grid (the
-    identity on one device; kept so the per-k and stacked engines read as
-    in the multi-device reference)."""
-    return basis.grid.replicate(x)
-
-
 def apply_hamiltonian(basis, ik: int, c, v_eff):
     """H·c for one k-point block c of shape (nbands, npacked_k).
 
-    ``v_eff`` is the real (n, n, n) effective local potential.  Plans are
-    fetched through the plan cache on every call.
+    ``v_eff`` is the real effective local potential: the (n, n, n) cube,
+    the rank's z-block of it on a multi-process grid.  Plans are fetched
+    through the plan cache on every call.
     """
     inv, fwd = basis.plans_for_k(ik)
     kin = basis.kinetic(ik)
-    psi = inv(inv.unpack(c))                  # sphere → real space, batched
+    psi = inv(inv.unpack(inv.local_rows(c)))  # sphere → real space, batched
     vpsi = fwd(psi * v_eff)                   # apply V, truncate back
-    return kin[None, :] * c + inv.pack(vpsi)
+    return kin[None, :] * c + inv.gather_rows(inv.pack(vpsi))
 
 
 def apply_hamiltonian_pipelined(basis, blocks, v_eff):
@@ -80,18 +83,21 @@ def apply_hamiltonian_pipelined(basis, blocks, v_eff):
     if nk == 0:
         return []
     plans = [basis.plans_for_k(ik) for ik in range(nk)]
-    inv0 = plans[0][0]
-    psi = inv0(inv0.unpack(blocks[0]))        # prologue: k=0 in flight
+
+    def inverse(ik):
+        inv = plans[ik][0]
+        return inv(inv.unpack(inv.local_rows(blocks[ik])))
+
+    psi = inverse(0)                          # prologue: k=0 in flight
     out = []
     for ik in range(nk):
         psi_next = None
         if ik + 1 < nk:                       # issue k+1's transform first …
-            inv_n = plans[ik + 1][0]
-            psi_next = inv_n(inv_n.unpack(blocks[ik + 1]))
+            psi_next = inverse(ik + 1)
         inv, fwd = plans[ik]                  # … then apply V for k
         vpsi = fwd(psi * v_eff)
         out.append(basis.kinetic(ik)[None, :] * blocks[ik]
-                   + inv.pack(vpsi))
+                   + inv.gather_rows(inv.pack(vpsi)))
         psi = psi_next
     return out
 
@@ -110,15 +116,18 @@ def apply_hamiltonian_padded(basis, c_pad, v_eff, kin_pad=None,
     (``unpack_transform`` / ``transform_pack``): with ``backend="cuda"``
     these run the unpack + first iDFT stage and the last DFT stage + pack
     as the fused sphere-pack kernels (no d³ cube ever materialized); on
-    every other backend they compose ``unpack``/plan/``pack``.
+    every other backend they compose ``unpack``/plan/``pack``.  On a
+    multi-process grid the plans run on the rank's rows of ``c_pad`` and
+    its z-block ``v_eff``, and the packed result is gathered over the batch
+    axes, so the H·c stack comes back replicated like ``c_pad``.
     """
     if kin_pad is None:
         kin_pad = basis.stacked_band_tables(seg).kinetic
     inv, fwd = basis.stacked_hamiltonian_plans(seg)
     nk, nb, npm = c_pad.shape
-    psi = inv.unpack_transform(c_pad.reshape(nk * nb, npm))
-    vc = fwd.transform_pack(psi * v_eff).reshape(nk, nb, npm)
-    return kin_pad[:, None, :] * c_pad + vc
+    psi = inv.unpack_transform(inv.local_rows(c_pad.reshape(nk * nb, npm)))
+    vc = fwd.gather_rows(fwd.transform_pack(psi * v_eff))
+    return kin_pad[:, None, :] * c_pad + vc.reshape(nk, nb, npm)
 
 
 def apply_hamiltonian_stacked(basis, blocks, v_eff):
@@ -185,12 +194,11 @@ def update_bands(basis, ik: int, c, v_eff, *, steps: int = 3):
     pre = _padded_precond(basis, ik)
     napply = 0
     eps = None
-    c = _replicated(basis, c)
     for _ in range(steps):
-        hc = _replicated(basis, apply_hamiltonian(basis, ik, c, v_eff))
+        hc = apply_hamiltonian(basis, ik, c, v_eff)
         napply += 1
-        d = _replicated(basis, _descent_direction(c, hc, pre, npm))
-        hd = _replicated(basis, apply_hamiltonian(basis, ik, d, v_eff))
+        d = _descent_direction(c, hc, pre, npm)
+        hd = apply_hamiltonian(basis, ik, d, v_eff)
         napply += 1
         c, eps = _rayleigh_ritz(c, d, hc, hd, npm)
     return c, eps, napply
@@ -283,16 +291,14 @@ def update_bands_stacked(basis, c_pad, v_eff, *, steps: int = 3,
     if tables is None:
         tables = basis.stacked_band_tables(seg)
     kin, pre = tables.kinetic, tables.precond
-    c = _replicated(basis, c_pad)
+    c = c_pad
     eps = None
     nsweep = 0
     for _ in range(steps):
-        hc = _replicated(basis, apply_hamiltonian_padded(basis, c, v_eff,
-                                                         kin, seg=seg))
+        hc = apply_hamiltonian_padded(basis, c, v_eff, kin, seg=seg)
         nsweep += 1
-        d = _replicated(basis, _descent_direction_stacked(c, hc, pre))
-        hd = _replicated(basis, apply_hamiltonian_padded(basis, d, v_eff,
-                                                         kin, seg=seg))
+        d = _descent_direction_stacked(c, hc, pre)
+        hd = apply_hamiltonian_padded(basis, d, v_eff, kin, seg=seg)
         nsweep += 1
         c, eps = _rayleigh_ritz_stacked(c, d, hc, hd)
     return c, eps, nsweep
@@ -332,21 +338,17 @@ def update_bands_all_k(basis, coeffs, v_eff, *, steps: int = 3,
                     cs[ik] = outs[j]
                     eps_out[ik] = eps[j]
         return cs, eps_out, nsweep
-    cs = [_replicated(basis, c) for c in coeffs]
+    cs = list(coeffs)
     npms = [basis.pad_width(ik) for ik in range(nk)]
     pres = [_padded_precond(basis, ik) for ik in range(nk)]
     eps_out = [None] * nk
     nsweep = 0
     for _ in range(steps):
-        hcs = [_replicated(basis, hc)
-               for hc in apply_hamiltonian_pipelined(basis, cs, v_eff)]
+        hcs = apply_hamiltonian_pipelined(basis, cs, v_eff)
         nsweep += 1
-        ds = [_replicated(basis,
-                          _descent_direction(cs[ik], hcs[ik], pres[ik],
-                                             npms[ik]))
+        ds = [_descent_direction(cs[ik], hcs[ik], pres[ik], npms[ik])
               for ik in range(nk)]
-        hds = [_replicated(basis, hd)
-               for hd in apply_hamiltonian_pipelined(basis, ds, v_eff)]
+        hds = apply_hamiltonian_pipelined(basis, ds, v_eff)
         nsweep += 1
         for ik in range(nk):
             cs[ik], eps_out[ik] = _rayleigh_ritz(cs[ik], ds[ik], hcs[ik],

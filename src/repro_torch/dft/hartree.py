@@ -35,10 +35,14 @@ class HartreeSolver:
 
     def __init__(self, basis):
         self.basis = basis
-        self.kernel = coulomb_kernel(basis.n, basis.L, basis.device)
+        # the rank's G-space block: the cube plans leave G space split as
+        # real space is, its last dim over the fft axes
+        self.kernel = basis.field.scatter(
+            coulomb_kernel(basis.n, basis.L, basis.device))
 
     def __call__(self, rho):
-        """ρ(r) → v_H(r), both real (n, n, n) fields.
+        """ρ(r) → v_H(r), both real (n, n, n) fields (the rank's z-blocks
+        on a multi-process grid).
 
         One forward full-cube plan, a diagonal multiply in G-space, one
         derived-inverse full-cube plan — two transforms.
@@ -48,5 +52,6 @@ class HartreeSolver:
         return inv(rho_g * self.kernel).real
 
     def energy(self, rho, vh) -> float:
-        """E_H = ½ ∫ ρ v_H  (discretized with ΔV)."""
-        return float(torch.sum(rho * vh) * 0.5 * self.basis.dv)
+        """E_H = ½ ∫ ρ v_H  (discretized with ΔV; summed over the ranks'
+        blocks)."""
+        return self.basis.field_sum(rho * vh) * 0.5 * self.basis.dv

@@ -42,6 +42,7 @@ import time
 import numpy as np
 import torch
 
+from ..check.diagnostics import DiagnosticError, error
 from ..core import ProcGrid, global_plan_cache
 from ..core.local_fft import full_fp32_matmul
 from ..core.policy import ExecPolicy
@@ -73,14 +74,20 @@ class AndersonMixer:
     Minimizes |Σ_i β_i r_i|² over Σ β_i = 1 (r_i = ρ_out,i − ρ_in,i), then
     takes ρ ← Σ β_i (ρ_in,i + α r_i).  Falls back to linear mixing for the
     first ``warmup`` iterations and whenever the DIIS system is singular.
-    The history is kept on the host in float64.
+    The history is kept on the host in float64.  On a multi-process grid
+    each rank mixes its z-block of ρ: the only sum over the whole cube,
+    the DIIS Gram matrix, goes through ``reduce``, so every rank solves
+    the same system.
     """
 
     def __init__(self, alpha: float = 0.5, history: int = 4,
-                 warmup: int = 2):
+                 warmup: int = 2, reduce=None):
         self.alpha = float(alpha)
         self.history = int(history)
         self.warmup = int(warmup)
+        #: sums a host array over the ranks that hold the other blocks of
+        #: ρ (a multi-process grid's fft axes); None on one process
+        self.reduce = reduce
         self._rho_in: list[np.ndarray] = []
         self._res: list[np.ndarray] = []
         self._seen = 0
@@ -100,7 +107,8 @@ class AndersonMixer:
         else:
             r = np.stack(self._res)                       # (m, N)
             a = np.empty((m + 1, m + 1))
-            a[:m, :m] = r @ r.T
+            gram = r @ r.T
+            a[:m, :m] = gram if self.reduce is None else self.reduce(gram)
             a[m, :m] = a[:m, m] = 1.0
             a[m, m] = 0.0
             rhs = np.zeros(m + 1)
@@ -284,12 +292,12 @@ def total_energy(basis, coeffs, rho, v_ext, hartree: HartreeSolver, occ,
                        * (occ[ik] @ per_band.cpu().numpy()
                           .astype(np.float64)))
     dv = basis.dv
-    e_ext = float(torch.sum(rho * v_ext) * dv)
+    e_ext = basis.field_sum(rho * v_ext) * dv
     vh = hartree(rho)
     e_h = hartree.energy(rho, vh)
     if xc:
         e_x, _ = lda_exchange(rho)
-        e_xc = float(torch.sum(e_x) * dv)
+        e_xc = basis.field_sum(e_x) * dv
     else:
         e_xc = 0.0
     total = e_kin + e_ext + e_h + e_xc
@@ -330,7 +338,8 @@ def total_energy_stacked(basis, c_pad, rho, v_ext, hartree: HartreeSolver,
     vh = hartree(rho)
     e_h = torch.sum(rho * vh) * (0.5 * dv)
     e_xc = torch.sum(lda_exchange(rho)[0]) * dv if xc else 0.0
-    return e_kin + e_ext + e_h + e_xc
+    # the cube terms of the ranks' z-blocks (no collective on one process)
+    return e_kin + basis.grid.all_reduce(e_ext + e_h + e_xc, basis.fft_axes)
 
 
 # -------------------------------------------------------------------- driver
@@ -505,7 +514,9 @@ def run_scf(cfg: SCFConfig, *, device=None, grid: ProcGrid | None = None,
     cache0 = dict(global_plan_cache().stats)
     if v_ext is None:
         v_ext = gaussian_wells(cfg.n, depth=cfg.depth)
-    v_ext = torch.as_tensor(v_ext, dtype=torch.float32, device=dev)
+    # every field of the run is the rank's z-block (the cube on one process)
+    v_ext = basis.field.scatter(torch.as_tensor(v_ext, dtype=torch.float32,
+                                                device=dev))
     hartree = HartreeSolver(basis)
 
     if cfg.inner_steps < 1:
@@ -532,6 +543,23 @@ def run_scf(cfg: SCFConfig, *, device=None, grid: ProcGrid | None = None,
                          "route (stack_k=True, or a grid satisfying "
                          "basis.stacks_k with stack_k left on auto)")
 
+    grid = basis.grid
+    if cfg.jit_step and grid.multi_process:
+        # gloo's collectives wait on the host, and NCCL needs a card per
+        # rank: neither can sit inside the captured step
+        raise DiagnosticError(error(
+            "FFTB201", f"jit_step=True on a grid of {grid.nprocs} processes "
+            f"{grid.shape}: the fused step's collectives would sync with "
+            "the "
+            "host inside the captured graphs; the fused step on several "
+            "ranks is a later slice of the port (ROADMAP.md §1)",
+            location="SCFConfig.jit_step",
+            hint="run the eager loop (jit_step=False) on this grid"))
+    every_axis = range(grid.ndim)
+
+    def fft_sum(a):
+        return grid.all_reduce_host(a, basis.fft_axes)
+
     if coeffs is None:
         coeffs = _init_coefficients(basis, cfg.seed)
     else:
@@ -551,7 +579,7 @@ def run_scf(cfg: SCFConfig, *, device=None, grid: ProcGrid | None = None,
         graph_stats = {}
         rho = density_from_orbitals(basis, coeffs, occ)
         mixer = AndersonMixer(cfg.mix_alpha, cfg.mix_history,
-                              cfg.mix_warmup) \
+                              cfg.mix_warmup, reduce=fft_sum) \
             if cfg.mix_history > 1 else LinearMixer(cfg.mix_alpha)
 
         energies: list[float] = []
@@ -601,8 +629,8 @@ def run_scf(cfg: SCFConfig, *, device=None, grid: ProcGrid | None = None,
                 transforms += 2                    # energy's Hartree solve
                 # float() waits for rho_out, so the iteration's time (and
                 # the span) is real work
-                resid = float(torch.linalg.norm(rho_out - rho)
-                              * basis.dv ** 0.5) / max(nelec, 1e-9)
+                resid = (basis.field_sum((rho_out - rho) ** 2)
+                         * basis.dv) ** 0.5 / max(nelec, 1e-9)
             energies.append(energy)
             residuals.append(resid)
             iteration_records.append({
@@ -611,9 +639,11 @@ def run_scf(cfg: SCFConfig, *, device=None, grid: ProcGrid | None = None,
                 "transforms": transforms - it_transforms0})
             if callback is not None:
                 callback(it, energy, resid)
-            if (it > cfg.mix_warmup
+            done = (it > cfg.mix_warmup
                     and abs(energies[-1] - energies[-2]) < cfg.e_tol
-                    and resid < cfg.r_tol):
+                    and resid < cfg.r_tol)
+            # one decision for every rank: each stops only when all do
+            if grid.all_reduce_host(float(done), every_axis, "min"):
                 converged = True
                 break
             rho = mixer.mix(rho, rho_out)
@@ -633,6 +663,7 @@ def run_scf(cfg: SCFConfig, *, device=None, grid: ProcGrid | None = None,
     if abs(ne - nelec) >= 1e-3 * max(nelec, 1.0):
         raise RuntimeError(f"density integrates to {ne} electrons, "
                            f"expected {nelec}")
+    rho = basis.field.gather(rho)
     padding = basis.padding_fraction if stacked else 0.0
     return SCFResult(
         converged=converged, iterations=len(energies),

@@ -8,10 +8,14 @@ rebuilt and a stale library is never loaded.
 
 Nothing here runs at import: importing the package needs no ``nvcc``;
 the first launch of a kernel on a CUDA tensor builds the libraries.
+Several processes may start at once (one per rank of a grid): a file lock
+beside the libraries lets the first one compile while the others wait,
+and then they load what it built.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -84,30 +88,40 @@ def build_all() -> dict[str, ctypes.CDLL]:
         if not missing:
             return dict(_LIBS)
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        procs = {}
-        for stem in missing:
-            path = _lib_path(stem)
-            if path.exists():
-                continue
-            tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   str(CSRC / f"{stem}.cu")]
-            procs[stem] = (subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True), tmp, path)
-        errors = []
-        for stem, (proc, tmp, path) in procs.items():
-            out, _ = proc.communicate()
-            _LOGS[stem] = out
-            if proc.returncode != 0:
-                errors.append(f"nvcc failed for {stem}.cu:\n{out}")
-                continue
-            os.replace(tmp, path)         # atomic: readers never see halves
-        if errors:
-            raise RuntimeError("\n".join(errors))
+        # threads of this process wait on _LOCK, other processes on the
+        # file lock; a process that waited finds the libraries built
+        with open(BUILD_DIR / "build.lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            _compile(missing)
         for stem in missing:
             _LIBS[stem] = _load(stem, _lib_path(stem))
         return dict(_LIBS)
+
+
+def _compile(missing: list[str]) -> None:
+    """Run ``nvcc`` on every source of ``missing`` whose library is not
+    on disk yet, all at once; raise with the output of any that fails."""
+    procs = {}
+    for stem in missing:
+        path = _lib_path(stem)
+        if path.exists():
+            continue
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC / f"{stem}.cu")]
+        procs[stem] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True), tmp, path)
+    errors = []
+    for stem, (proc, tmp, path) in procs.items():
+        out, _ = proc.communicate()
+        _LOGS[stem] = out
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for {stem}.cu:\n{out}")
+            continue
+        os.replace(tmp, path)         # atomic: readers never see halves
+    if errors:
+        raise RuntimeError("\n".join(errors))
 
 
 def library(stem: str) -> ctypes.CDLL:

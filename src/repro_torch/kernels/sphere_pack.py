@@ -291,7 +291,7 @@ def slab_layout(slab) -> int | None:
 
 
 def dft_pack(slab, start, zlo, cnt, nvalid, w, npacked: int, *,
-             wsplit=None):
+             wsplit=None, partial: bool = False):
     """Fused final truncating line DFT + CSR pack.
 
     ``slab``: (B, ex, ey, n) complex64 last-stage slab, its lines
@@ -302,6 +302,14 @@ def dft_pack(slab, start, zlo, cnt, nvalid, w, npacked: int, *,
     packed lanes, exact +0.0 past ``nvalid``.  CUDA tensors launch the
     kernel (counted in ``dft_pack.launches``), with ``wsplit`` as in
     :func:`unpack_dft`; CPU tensors run :func:`dft_pack_plain`.
+
+    ``partial=True`` says the slab holds only some of each row's lines (a
+    rank's x planes, the tables cut to them): the lanes of the other lines
+    are then written +0.0 too, so that summing the ranks' outputs gives
+    every lane once.  The kernel stores only its own lines' lanes and the
+    tail past ``nvalid``, so the wrapper zero-fills the output first (one
+    memset of the output, against a kernel that reads the whole slab); the
+    plain version always writes +0.0 to the lanes no line covers.
     """
     B, ex, ey, n = slab.shape
     d = w.shape[0]
@@ -318,7 +326,8 @@ def dft_pack(slab, start, zlo, cnt, nvalid, w, npacked: int, *,
     if layout is None:
         slab, layout = slab.contiguous(), 0
     ws = _operand(w, wsplit, d, n, dev)
-    out = torch.empty((B, npacked), dtype=torch.complex64, device=dev)
+    out = (torch.zeros if partial else torch.empty)(
+        (B, npacked), dtype=torch.complex64, device=dev)
     status = _launch(build.library("sphere_pack").dft_pack_launch, dev,
                      slab.data_ptr(), start.data_ptr(), zlo.data_ptr(),
                      cnt.data_ptr(), nvalid.data_ptr(), ws.data_ptr(),

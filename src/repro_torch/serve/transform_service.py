@@ -92,6 +92,11 @@ class TransformService:
                  fft_axes: tuple[int, ...] | None = None,
                  policy: ExecPolicy | None = None, cache=None,
                  coalesce: bool = True, warm_async: bool = True):
+        if grid.multi_process:
+            raise NotImplementedError(
+                f"TransformService on a grid of {grid.nprocs} processes: "
+                "the service runs on one process; on several ranks it is a "
+                "later slice of the port (ROADMAP.md §1)")
         self.grid = grid
         self.device = grid.device
         self.n = int(n)

@@ -153,10 +153,11 @@ def choose_dft_grid(ndevices: int | None = None, *, nbands: int,
 
     ``ndevices`` defaults to the number of processes
     (``torch.distributed.get_world_size()`` when a process group is up,
-    else 1).  ``device`` is the device of the one-process grid (CUDA when
-    omitted; see :func:`~repro_torch.core.grid.resolve_device`).  Shapes
-    that span several processes raise ``NotImplementedError`` from
-    :meth:`ProcGrid.create` until multi-rank execution is ported.
+    else 1).  A shape of several points is built over the default process
+    group (:meth:`ProcGrid.create`: its world must have exactly that many
+    ranks, and every rank calls this alike).  ``device`` is the rank's
+    device (CUDA when omitted; see
+    :func:`~repro_torch.core.grid.resolve_device`).
     """
     nd = int(ndevices) if ndevices is not None else _process_count()
     shape = choose_dft_grid_shape(nd, nbands=nbands, diameter=diameter,

@@ -295,9 +295,11 @@ def test_single_device_moves_and_refusals():
     mv = MoveStage("g0", 1, "x", "z", 1, 3)
     x = torch.ones(2, 3)
     assert mv.apply(x) is x
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MoveStage("g0", 4, "x", "z", 1, 3).apply(x)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a move over 4 processes: its split dim must divide into 4 blocks,
+    # and a grid of 4 points needs torch.distributed's 4 processes
+    with pytest.raises(ValueError, match="does not split into 4"):
+        MoveStage("g0", 4, "x", "z", 0, 1).apply(x)
+    with pytest.raises(RuntimeError, match="initialize torch.distributed"):
         T.ProcGrid.create([4], device="cpu")
     g = T.ProcGrid.create([1], device="cpu")
     plan = T.fftb("x{0} y -> X Y{0}", domains=T.Domain((0, 0), (3, 3)),

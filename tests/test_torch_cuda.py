@@ -1,5 +1,6 @@
 """repro_torch on the card: each hand-written CUDA kernel against its plain
-PyTorch version, the four-step DFT against ``torch.fft``, the SCF slice
+PyTorch version (the sphere kernels also on one rank's block of a
+batch×fft grid), the four-step DFT against ``torch.fft``, the SCF slice
 on the kernel route, a small transform-service run, the lazy executor
 against the eager one, and the fused SCF step replayed as CUDA graphs.
 
@@ -190,6 +191,99 @@ def test_cuda_kernel_matches_plain(kernel, cuda_device):
              else _check_pack(rng, dev, d, n, kpts, nb, layout))
     # one launch per wrapper call on a CUDA tensor
     assert fn.launches == before + calls
+
+
+# one rank's blocks on a batch×fft grid, as the multi-rank fused route
+# hands them to the kernels: its rows [r0, r1) of the stacked batch and
+# its x planes [x0, x1), the line tables cut to both (kernel, d, n,
+# k-points, bands, rows, x planes, slab layout)
+RANK_CASES = {
+    "unpack_dft-rank-block-d8": ("unpack", 8, 16, KPTS2, 4, (4, 8), (4, 8),
+                                 None),
+    "unpack_dft-rank-block-d128": ("unpack", 128, 256, KPTS2, 2, (0, 2),
+                                   (64, 128), None),
+    "dft_pack-rank-block-d8": ("pack", 8, 16, KPTS2, 4, (4, 8), (0, 4),
+                               "rows"),
+    "dft_pack-rank-block-y-planes-d128": ("pack", 128, 256, KPTS2, 2,
+                                          (2, 4), (64, 128), "y-planes"),
+}
+
+
+def _rank_tables(spheres, nb, rows, xs, dev):
+    """The line tables of rows ``rows`` and x planes ``xs``, and the flag
+    column of those planes."""
+    ey = spheres[0].extents[1]
+    start, zlo, cnt, flag = sp.line_tables(spheres, nb)
+    r, lines = slice(*rows), slice(xs[0] * ey, xs[1] * ey)
+    return [torch.as_tensor(np.ascontiguousarray(t[r, lines]), device=dev)
+            for t in (start, zlo, cnt)] + \
+        [torch.as_tensor(np.ascontiguousarray(flag[slice(*xs)]), device=dev)]
+
+
+def _check_rank_unpack(rng, dev, d, n, kpts, nb, rows, xs):
+    spheres = [kpoint_sphere(d, k) for k in kpts]
+    npm = max(s.npacked for s in spheres)
+    start, zlo, cnt, flag = _rank_tables(spheres, nb, rows, xs, dev)
+    packed = _cx(rng, (rows[1] - rows[0], npm), dev)
+    _, _, w = dft_matrix_device(n, d, True, dev)
+    got = sp.unpack_dft(packed, start, zlo, cnt, flag, w)
+    assert tuple(got.shape) == (rows[1] - rows[0], xs[1] - xs[0], d, n)
+    _close(got, sp.unpack_dft_plain(packed, start, zlo, cnt, flag, w))
+    # the rank's block of the unpack over every row and plane
+    full = [torch.as_tensor(t, device=dev)
+            for t in sp.line_tables(spheres, nb)]
+    whole = torch.zeros((len(spheres) * nb, npm), dtype=torch.complex64,
+                        device=dev)
+    whole[slice(*rows)] = packed
+    _close(got, sp.unpack_dft_plain(whole, *full, w)[slice(*rows),
+                                                     slice(*xs)])
+
+
+def _check_rank_pack(rng, dev, d, n, kpts, nb, rows, xs, layout):
+    spheres = [kpoint_sphere(d, k) for k in kpts]
+    npm = max(s.npacked for s in spheres)
+    start, zlo, cnt, _ = _rank_tables(spheres, nb, rows, xs, dev)
+    B, ex = rows[1] - rows[0], xs[1] - xs[0]
+    slab = _slab(rng, B, d, n, layout, dev)
+    if layout == "rows":
+        slab = slab[:, :ex].contiguous()
+    else:                # the rank's x planes, each y plane z-major
+        slab = slab.permute(0, 2, 3, 1)[..., :ex].contiguous() \
+            .permute(0, 3, 1, 2)
+    assert sp.slab_layout(slab) == {"rows": 0, "y-planes": 1}[layout]
+    nvalid = torch.as_tensor(np.repeat(np.asarray(
+        [s.npacked for s in spheres], np.int32), nb)[slice(*rows)],
+        device=dev)
+    _, _, w = dft_matrix_device(d, n, False, dev)
+    # poison the memory the output will take: the caching allocator hands
+    # a freed block of the same size to the next allocation
+    poison = torch.full((B, npm), float("nan"), dtype=torch.complex64,
+                        device=dev)
+    del poison
+    got = sp.dft_pack(slab, start, zlo, cnt, nvalid, w, npm, partial=True)
+    _close(got, sp.dft_pack_plain(slab, start, zlo, cnt, nvalid, w, npm))
+    # every lane outside the rank's lines (other planes, padding) is +0.0
+    mine = torch.zeros((B, npm), dtype=torch.bool, device=dev)
+    z = torch.arange(d, device=dev)
+    lane = start.long()[..., None] + z
+    inside = z < cnt.long()[..., None]
+    rr = torch.arange(B, device=dev)[:, None, None].expand_as(lane)
+    mine[rr[inside], lane[inside]] = True
+    assert (~mine).any() and _plus_zero(got[~mine])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(RANK_CASES))
+def test_cuda_sphere_kernels_on_a_rank_block(case, cuda_device):
+    which, d, n, kpts, nb, rows, xs, layout = RANK_CASES[case]
+    rng = np.random.default_rng(13)
+    fn = sp.unpack_dft if which == "unpack" else sp.dft_pack
+    before = fn.launches
+    if which == "unpack":
+        _check_rank_unpack(rng, cuda_device, d, n, kpts, nb, rows, xs)
+    else:
+        _check_rank_pack(rng, cuda_device, d, n, kpts, nb, rows, xs, layout)
+    assert fn.launches == before + 1
 
 
 @pytest.mark.cuda

@@ -66,9 +66,10 @@ def test_choose_dft_grid_counts_processes_not_cards(monkeypatch):
                         device="cpu")
     assert g.shape == (1,) and g.axes == DFT_AXES_1D
     assert g.device == torch.device("cpu")
-    # a process group of four would choose (4,), which needs multi-rank
+    # a process group of four chooses (4,), a grid of four processes,
+    # which needs torch.distributed initialized over them
     monkeypatch.setattr(TG, "_process_count", lambda: 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="initialize torch.distributed"):
         choose_dft_grid(nbands=CONFIG.nb, diameter=CONFIG.diameter,
                         device="cpu")
     assert choose_dft_grid(1, nbands=4, diameter=8,
