@@ -43,10 +43,15 @@ the single-rank one (within 1e-5 of the largest value, padded lanes
 exactly +0.0), one all-to-all timed, then the same 3-iteration SCF from
 the same start against the single-rank eager "cuda" run (PERF.md §2's
 limits); kernels #1, #3 and #4 are counted per rank, with the counts set
-to 0 in each rank just before its run.  Eight processes then run the
-SCF of the reference's pencil case (n = 16, the (2, 2, 2) grid from
-``choose_dft_grid``) to convergence, against one rank.  A rank that
-fails, or a run past its time limit, fails the script.
+to 0 in each rank just before its run.  In the same processes the fused
+step (``jit_step=True``, linear mixing) runs that SCF on that grid: its
+graphs and host syncs per iteration (by name), first and steady
+seconds per iteration and peak memory per rank, held against the 2×2
+eager run and against one rank's fused step.  Eight processes then run
+the SCF of the reference's pencil case (n = 16, the (2, 2, 2) grid from
+``choose_dft_grid``) to convergence, eager against one rank and fused
+against the eager run.  A rank that fails, or a run past its time
+limit, fails the script.
 
 Two more paths follow, each with the launch counts set to 0 just before
 it and read just after:
@@ -60,11 +65,17 @@ it and read just after:
   started with ``start()`` and warming asynchronously, the trace sent
   once cold, once to the warm service and once more with the tracer's
   sync on (the by-piece breakdown of each dispatch, read from the
-  service's own spans); every result is held against ``eager_apply``,
-  against the same trace through a ``backend="matmul"`` service, and the
-  round trips against their input.  Inside it the port's tracer records
-  one ``eager_apply``: its per-stage spans must match the plan's stages
-  and cover each stage's CUDA-event time.
+  service's own spans); its dispatches run the fused sphere kernels;
+  every result is held against ``eager_apply``, against the same trace
+  through a ``backend="matmul"`` service, and the round trips against
+  their input; the padded lanes of every packed block must be +0.0.
+  Inside it the port's tracer records one ``eager_apply``: its per-stage
+  spans must match the plan's stages and cover each stage's CUDA-event
+  time.  Then the same trace through a service on the 2×2 grid of four
+  processes over gloo (front end rank 0, the other ranks following it),
+  every result held against the one-rank service's, padded lanes +0.0,
+  p50/p99 latency and requests/s on the front end, kernels #1, #3, #4
+  counted per rank.
 
 Two more phases run the paper's own workload and the spectral layers:
 
@@ -111,15 +122,19 @@ on the SCF path under each executor (read in place, or copied), the
 executor-mode, lazy-SCF and fused-step phases, the multi-rank phase
 (per rank: coordinate, H apply and all-to-all ms, first and steady
 s/iteration, peak memory and launches, each tagged "4 processes on one
-card, gloo"; the checks against one rank; the pencil run), the
+card, gloo"; the checks against one rank; the fused step's graphs,
+host syncs and times per rank and its checks; the pencil runs), the
 four-step phase (kernel #2's and the composition's times beside
 ``torch.fft``'s), the service phase (each pass's metrics summary beside
 the card's name and power limit, its batches, the warm pass's dispatch
-spans and the synced pass's dispatches by piece), the paper phase (grid,
+spans and the synced pass's dispatches by piece; then the multi-rank
+service's passes, dispatches by piece and launches per rank), the paper
+phase (grid,
 preflight, memory estimate and measured peak, batch, agreement, launches
 per call, times and bounds, the full-cube baseline), the spectral phase,
 the per-shape table of kernel #1, one JSON line ``{"kernels": [...]}``
-(each kernel's launches on the main path, the smoke SCF, and by path),
+(each kernel's launches on the main path, the smoke SCF, by path and
+per rank on each multi-rank path),
 and last the device JSON line.
 """
 from __future__ import annotations
@@ -155,6 +170,9 @@ SERVICE_TRACE = (
     ("delta", 2, 4, (0.0, 0.0, 0.0), "d_small", True, None),
     ("alpha", 1, 1, (0.0, 0.0, 0.0), "d", True, 0.0),
 )
+# the piece spans of every dispatch (TransformService._dispatch)
+SERVICE_PIECES = {"upload_coeffs_ms", "unpack_transform_ms",
+                  "transform_pack_ms", "download_ms"}
 # a traced stage's host-clock span against its CUDA-event time: the span
 # is synchronized at exit, so it covers the device work (and more)
 SPAN_COVERAGE = 0.9
@@ -962,7 +980,66 @@ def service_requests(rng):
     return reqs
 
 
-def serve_trace(dev, backend, reqs):
+def make_service(dev, backend, grid=None):
+    """The service phase's ``TransformService``: on one process, or on
+    ``grid`` with its first axis as the batch axis (and then
+    ``svc.pairs`` records the plan pairs it runs, :func:`watch_pairs`)."""
+    from repro_torch.core import ProcGrid
+    from repro_torch.serve import TransformService
+    if grid is None:
+        grid = ProcGrid.create([1], ["dft_f"], device=dev)
+    svc = TransformService(
+        grid, n=SERVICE_N, padding_budget=0.5, max_rows=SERVICE_MAX_ROWS,
+        backend=backend, batch_axes=(0,) if grid.multi_process else ())
+    if grid.multi_process:
+        svc.pairs = watch_pairs(svc)
+    return svc
+
+
+def watch_pairs(svc) -> dict:
+    """Record each plan pair ``svc`` builds or takes from its cache for a
+    dispatch or a warm-up, once per row composition, in the order it ran
+    them (on a grid, the same order on every rank):
+    ``{(composition, bucket): (sphere extents, inverse, forward)}``."""
+    from repro_torch.core.cache import domains_key
+    pairs = {}
+    pair_for = svc._pair_for
+
+    def recorded(spheres, bucket):
+        inv, fwd = pair_for(spheres, bucket)
+        pairs.setdefault((domains_key(spheres), bucket),
+                         (tuple(spheres[0].extents), inv, fwd))
+        return inv, fwd
+    svc._pair_for = recorded
+    return pairs
+
+
+def watch_padding(torch, svc) -> dict:
+    """Check the padded lanes of every packed block that ``svc`` makes on
+    this rank (every rank's rows, after the pack's all-reduce and the row
+    gather): each must be exactly +0.0.  Returns the running tally."""
+    tally = {"blocks": 0, "padded_lanes": 0, "plus_zero": True}
+    run = svc._run_pair
+
+    def watched(prepare):
+        box = {}
+
+        def prep():
+            out = prepare()
+            box["inv"] = out[0]
+            return out
+        packed = run(prep)
+        pad = ~torch.as_tensor(box["inv"].valid_lanes(),
+                               device=packed.device)
+        tally["blocks"] += 1
+        tally["padded_lanes"] += int(pad.sum())
+        tally["plus_zero"] &= is_plus_zero(torch, packed[pad])
+        return packed
+    svc._run_pair = watched
+    return tally
+
+
+def serve_trace(dev, backend, reqs, grid=None):
     """Start a service, send the trace three times, stop it.
 
     The first (cold) pass pays the asynchronous plan builds and warm-up;
@@ -974,14 +1051,17 @@ def serve_trace(dev, backend, reqs):
     breakdown).  Returns the service and, per pass, its handles, each
     request's result (the output array, or the ``ServeError`` it failed
     with), the metrics summary, the dispatch spans' ms and, for the
-    third pass, the pieces of each dispatch.
+    third pass, the pieces of each dispatch.  On a ``grid`` of several
+    processes this is the front end's part (the other ranks follow with
+    ``start``/``stop``).  ``svc.padding`` tallies the padded lanes of its
+    packed blocks (:func:`watch_padding`).
     """
-    from repro_torch.core import ProcGrid
+    import torch
+
     from repro_torch.obs import get_tracer
-    from repro_torch.serve import ServeError, TransformService
-    svc = TransformService(
-        ProcGrid.create([1], ["dft_f"], device=dev), n=SERVICE_N,
-        padding_budget=0.5, max_rows=SERVICE_MAX_ROWS, backend=backend)
+    from repro_torch.serve import ServeError
+    svc = make_service(dev, backend, grid)
+    svc.padding = watch_padding(torch, svc)
     tr = get_tracer()
     passes = []
     svc.start()
@@ -1020,8 +1100,10 @@ def serve_trace(dev, backend, reqs):
 
 def dispatch_pieces(events) -> list[dict]:
     """Per ``serve.dispatch`` span: its rows, bucket and ms, and the ms of
-    each child span the service's ``_dispatch`` records (uploads, unpack,
-    the two plans, ×v, pack, download), in dispatch order."""
+    each child span the service's ``_dispatch`` records (uploads, the
+    fused unpack and inverse plan, ×v, the forward plan and fused pack,
+    download; on several ranks also the sends and the row gather), in
+    dispatch order."""
     out = []
     for d in sorted((e for e in events if e["name"] == "serve.dispatch"),
                     key=lambda e: e["t0"]):
@@ -1032,9 +1114,6 @@ def dispatch_pieces(events) -> list[dict]:
             if (e["parent"] == "serve.dispatch" and e["tid"] == d["tid"]
                     and d["t0"] <= e["t0"] and e["t1"] <= d["t1"]):
                 name = e["name"].removeprefix("serve.")
-                if name == "stacked_planewave":
-                    name = ("inverse" if e["attrs"]["inverse"]
-                            else "forward") + "_plan"
                 pieces[f"{name}_ms"] = (e["t1"] - e["t0"]) * 1e3
         row.update(pieces)
         row["pieces_sum_ms"] = sum(pieces.values())
@@ -1063,6 +1142,9 @@ def batch_compositions(handles, reqs) -> list[str]:
 
 
 def check_service(torch, dev, gpu, stages):
+    """The service phase (see the module docstring); returns its record
+    and the warm pass's results, which the multi-rank service is held
+    against."""
     import numpy as np
 
     from repro_torch.kernels.dft_matmul import dft_matmul
@@ -1103,8 +1185,11 @@ def check_service(torch, dev, gpu, stages):
     check(launches["dft_matmul"] > 0,
           f"dft_matmul launched {launches['dft_matmul']} times in the "
           "cuda service")
-    check(launches["unpack_dft"] == launches["dft_pack"] == 0,
-          "the service composes unpack/plan/pack: no fused sphere kernel")
+    check(launches["unpack_dft"] > 0 and launches["dft_pack"] > 0,
+          "the service's dispatches ran the fused sphere kernels #3, #4")
+    check(svc.padding["plus_zero"] and svc.padding["padded_lanes"] > 0,
+          f"the {svc.padding['padded_lanes']} padded lanes of its "
+          f"{svc.padding['blocks']} packed blocks are exactly +0.0")
 
     ok = [i for i, r in enumerate(reqs) if r["deadline"] is None]
     late = [i for i, r in enumerate(reqs) if r["deadline"] is not None]
@@ -1115,8 +1200,7 @@ def check_service(torch, dev, gpu, stages):
           f"{len(reqs)} requests")
     pieces = synced["pieces"]
     check(len(pieces) == synced["summary"]["dispatches"] and all(
-        {"upload_coeffs_ms", "unpack_ms", "inverse_plan_ms",
-         "forward_plan_ms", "pack_ms", "download_ms"} <= row.keys()
+        SERVICE_PIECES <= row.keys()
         and row["pieces_sum_ms"] <= row["dispatch_ms"] for row in pieces),
           f"synced pass: {len(pieces)} dispatches, each with its piece "
           "spans, nested inside it")
@@ -1174,8 +1258,10 @@ def check_service(torch, dev, gpu, stages):
             "matmul_warm": m_passes[1]["summary"],
             "matmul_warm_dispatch_ms": m_passes[1]["dispatch_ms"],
             "wall_s": wall, "launches": launches, "max_rel_err": errs,
-            "tracer": tracer, "synced_dispatch_pieces": pieces,
-            "matmul_synced_dispatch_pieces": m_passes[2]["pieces"]}
+            "padding": svc.padding, "tracer": tracer,
+            "synced_dispatch_pieces": pieces,
+            "matmul_synced_dispatch_pieces": m_passes[2]["pieces"]}, \
+        warm["results"]
 
 
 def trace_eager_apply(torch, dev, svc, req):
@@ -1210,14 +1296,16 @@ def trace_eager_apply(torch, dev, svc, req):
     # each stage again, alone, on the same inputs: its mean device time
     # over back-to-back calls between CUDA events (one call alone also
     # times the host's launch of the stage's first kernel, with the card
-    # idle meanwhile)
+    # idle meanwhile), the least of three such means: a host stall inside
+    # one window leaves the card idle there and counts as device time
     c = torch.as_tensor(req["coeffs"], device=dev)
     x = inv.unpack(c)
     dev_ms = []
     for i, st in enumerate(stages):
         if i == len(inv.stages) and req["v_eff"] is not None:
             x = x * torch.as_tensor(req["v_eff"], device=dev)
-        dev_ms.append(time_ms(torch, lambda st=st, x=x: st.apply(x), reps=5))
+        dev_ms.append(min(time_ms(torch, lambda st=st, x=x: st.apply(x),
+                                  reps=5) for _ in range(3)))
         x = st.apply(x)
     span_ms = [(e["t1"] - e["t0"]) * 1e3 for e in evs]
     # line-DFT stages only: a move over a one-process axis does no work
@@ -1622,6 +1710,8 @@ def run_fused_step(torch, dev, ctx):
         if name == "linear":
             rec.update(agreement(torch, res, eager,
                                  "fused step vs eager, linear mixing"))
+            # the multi-rank fused step is held against this run
+            ctx["fused_linear"] = res
         else:
             check(bool(np.isfinite(res.energies).all())
                   and bool(np.all(np.diff(res.eigenvalues, axis=1)
@@ -1661,34 +1751,30 @@ def _gib(x) -> str:
     return "not measured" if x is None else f"{x:.2f} GiB"
 
 
-def rank_kernel_checks(torch, dev, basis, c_pad, v, lines, rank, world):
-    """Each kernel of a rank's path against its plain version on the
-    rank's own inputs: kernel #3 on its rows of ``c_pad`` with the fused
-    route's sliced line tables, flag and chunk ranges; kernel #4 in its
-    ``partial`` mode on the slab that the forward lead plan leaves from
-    those rows times ``v`` (its lanes outside the rank's lines must be
-    +0.0); kernel #1 at each line shape in ``lines`` (the rank's launches
-    by ``(lines, n_in, n_out, inverse)``).  Ranks take turns (a barrier
-    between them), so each one's CUDA-event times are its own."""
+def _kernel_entry(torch, shape, kernel, plain, got=None, timed=True):
+    """One kernel call against its plain version on the same inputs, with
+    both timed (CUDA events) when ``timed``."""
+    got = kernel() if got is None else got
+    err, rel = rel_err(torch, got, plain())
+    return {"shape": shape, "max_abs_err": err, "rel_err": rel,
+            "ms": time_ms(torch, kernel) if timed else None,
+            "plain_ms": time_ms(torch, plain, reps=3) if timed else None}
+
+
+def pair_kernel_checks(torch, dev, inv, fwd, rows, v, rank, world,
+                       timed=True):
+    """Kernels #3 and #4 of one plan pair against their plain versions on
+    a rank's own inputs: #3 on its ``rows`` with the fused route's sliced
+    line tables, flag and chunk ranges; #4 in its ``partial`` mode on the
+    slab that the forward lead plan leaves from those rows times ``v``
+    (its lanes outside the rank's lines must be +0.0).  Every rank runs
+    the plans' all-to-alls first; then ranks take turns (a barrier between
+    them), so each one's CUDA-event times are its own."""
     import torch.distributed as dist
 
-    from repro_torch.core.local_fft import dft_matrix_device
     from repro_torch.kernels import sphere_pack as sp
-    from repro_torch.kernels.dft_matmul import dft_matmul, dft_matmul_plain
-    from repro_torch.kernels.ops import dft_operand_device
-    timed = dev.type == "cuda"
-    gen = torch.Generator(device=dev).manual_seed(SEED + rank)
-
-    def entry(shape, kernel, plain, got=None):
-        got = kernel() if got is None else got
-        err, rel = rel_err(torch, got, plain())
-        return {"shape": shape, "max_abs_err": err, "rel_err": rel,
-                "ms": time_ms(torch, kernel) if timed else None,
-                "plain_ms": time_ms(torch, plain, reps=3) if timed else None}
-
-    inv, fwd = basis.stacked_hamiltonian_plans()
+    timed = timed and dev.type == "cuda"
     ip, fp = inv._fused_in_parts(), fwd._fused_out_parts()
-    rows = inv.local_rows(c_pad.reshape(-1, c_pad.shape[-1])).contiguous()
     ustart, uzlo, ucnt, flag, chunks = ip["private"]
 
     def unpack():
@@ -1708,15 +1794,15 @@ def rank_kernel_checks(torch, dev, basis, c_pad, v, lines, rank, world):
         dist.barrier()
         if turn != rank:
             continue
-        out["unpack_dft"] = entry(
-            f"{tuple(rows.shape)}->{tuple(mid.shape)}", unpack,
+        out["unpack_dft"] = _kernel_entry(
+            torch, f"{tuple(rows.shape)}->{tuple(mid.shape)}", unpack,
             lambda: sp.unpack_dft_plain(rows, ustart, uzlo, ucnt, flag,
-                                        ip["w"]), mid)
+                                        ip["w"]), mid, timed)
         got = pack()
-        out["dft_pack"] = entry(
-            f"{tuple(slab.shape)}->{tuple(got.shape)}", pack,
+        out["dft_pack"] = _kernel_entry(
+            torch, f"{tuple(slab.shape)}->{tuple(got.shape)}", pack,
             lambda: sp.dft_pack_plain(slab, start, zlo, cnt, nvalid, w,
-                                      npk), got)
+                                      npk), got, timed)
         # the lanes the rank's lines do not cover: other ranks' x planes
         # and padding, each written +0.0 for the all-reduce
         z = torch.arange(w.shape[0], device=dev)
@@ -1730,40 +1816,95 @@ def rank_kernel_checks(torch, dev, basis, c_pad, v, lines, rank, world):
                                other_lanes_plus_zero=is_plus_zero(
                                    torch, got[~mine]))
         del got, mine
-        out["dft_matmul"] = []
-        for M, n_in, n_out, inverse in sorted(lines):
-            x = crandn(torch, gen, (M, n_in), dev)
-            _, _, wm = dft_matrix_device(n_out, n_in, inverse, dev)
-            ws = dft_operand_device(n_out, n_in, inverse, wm.device)
-            out["dft_matmul"].append(entry(
-                f"{M}x{n_in}->{n_out}{' inv' if inverse else ''}",
-                lambda: dft_matmul(x, wm, wsplit=ws),
-                lambda: dft_matmul_plain(x, wm)))
-            del x
     del mid, slab
-    if timed:
-        torch.cuda.empty_cache()
     dist.barrier()
     return out
 
 
-def check_rank_kernels(r, what, kc) -> None:
-    """The parent's checks of one rank's :func:`rank_kernel_checks`."""
+def line_kernel_checks(torch, dev, lines, rank, world):
+    """Kernel #1 against its plain version at each line shape in
+    ``lines`` (the rank's launches by ``(lines, n_in, n_out, inverse)``),
+    ranks taking turns as in :func:`pair_kernel_checks`."""
+    import torch.distributed as dist
+
+    from repro_torch.core.local_fft import dft_matrix_device
+    from repro_torch.kernels.dft_matmul import dft_matmul, dft_matmul_plain
+    from repro_torch.kernels.ops import dft_operand_device
+    gen = torch.Generator(device=dev).manual_seed(SEED + rank)
+    out = []
+    for turn in range(world):
+        dist.barrier()
+        if turn != rank:
+            continue
+        for M, n_in, n_out, inverse in sorted(lines):
+            x = crandn(torch, gen, (M, n_in), dev)
+            _, _, wm = dft_matrix_device(n_out, n_in, inverse, dev)
+            ws = dft_operand_device(n_out, n_in, inverse, wm.device)
+            out.append(_kernel_entry(
+                torch, f"{M}x{n_in}->{n_out}{' inv' if inverse else ''}",
+                lambda: dft_matmul(x, wm, wsplit=ws),
+                lambda: dft_matmul_plain(x, wm), timed=dev.type == "cuda"))
+            del x
+    dist.barrier()
+    return out
+
+
+def rank_kernel_checks(torch, dev, basis, c_pad, v, lines, rank, world):
+    """Each kernel of a rank's H apply and SCF against its plain version
+    on the rank's own inputs: #3 and #4 on the stacked Hamiltonian pair
+    (:func:`pair_kernel_checks`, its rows of ``c_pad``), #1 at each line
+    shape in ``lines`` (:func:`line_kernel_checks`)."""
+    inv, fwd = basis.stacked_hamiltonian_plans()
+    rows = inv.local_rows(c_pad.reshape(-1, c_pad.shape[-1])).contiguous()
+    out = pair_kernel_checks(torch, dev, inv, fwd, rows, v, rank, world)
+    out["dft_matmul"] = line_kernel_checks(torch, dev, lines, rank, world)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_pair_kernels(what, k) -> None:
+    """The parent's checks of one :func:`pair_kernel_checks` result."""
     for name in ("unpack_dft", "dft_pack"):
-        k = kc[name]
-        check(k["rel_err"] <= KERNEL_RTOL,
-              f"{what} rank {r}: {name} at {k['shape']} vs its plain "
-              f"version, rel err {k['rel_err']:.2e} <= {KERNEL_RTOL:g}")
-    p = kc["dft_pack"]
+        check(k[name]["rel_err"] <= KERNEL_RTOL,
+              f"{what}: {name} at {k[name]['shape']} vs its plain "
+              f"version, rel err {k[name]['rel_err']:.2e} <= "
+              f"{KERNEL_RTOL:g}")
+    p = k["dft_pack"]
     check(p["partial"] and p["other_lanes"] > 0
           and p["other_lanes_plus_zero"],
-          f"{what} rank {r}: dft_pack(partial=True) wrote its "
-          f"{p['other_lanes']} lanes of other x planes and padding +0.0")
-    check(len(kc["dft_matmul"]) > 0, f"{what} rank {r}: kernel #1 launched")
-    for k in kc["dft_matmul"]:
+          f"{what}: dft_pack(partial=True) wrote its {p['other_lanes']} "
+          "lanes of other x planes and padding +0.0")
+
+
+def check_line_kernels(what, lines) -> None:
+    """The parent's checks of one :func:`line_kernel_checks` result."""
+    check(len(lines) > 0, f"{what}: kernel #1 launched")
+    for k in lines:
         check(k["rel_err"] <= KERNEL_RTOL,
-              f"{what} rank {r}: dft_matmul at {k['shape']} vs its plain "
+              f"{what}: dft_matmul at {k['shape']} vs its plain "
               f"version, rel err {k['rel_err']:.2e} <= {KERNEL_RTOL:g}")
+
+
+def check_rank_kernels(r, what, kc) -> None:
+    """The parent's checks of one rank's :func:`rank_kernel_checks`."""
+    check_pair_kernels(f"{what} rank {r}", kc)
+    check_line_kernels(f"{what} rank {r}", kc["dft_matmul"])
+
+
+def print_service_kernels(r, kc) -> None:
+    def worst(name):
+        return max(k[name]["rel_err"] for k in kc["pairs"])
+    timed = "; ".join(
+        f"{name} {k[name]['shape']} {k[name]['ms']:.3f} ms (plain "
+        f"{k[name]['plain_ms']:.3f} ms)" for k in kc["pairs"]
+        for name in ("unpack_dft", "dft_pack") if k[name]["ms"] is not None)
+    print(f"  rank {r} service kernels at its own shapes ({MR_TAG}, one "
+          f"rank at a time; CUDA events, mean of 10): {len(kc['pairs'])} "
+          f"pairs, unpack_dft max rel err {worst('unpack_dft'):.1e}, "
+          f"dft_pack {worst('dft_pack'):.1e}; {timed}; dft_matmul at "
+          f"{len(kc['dft_matmul'])} line shapes, max rel err "
+          f"{max(k['rel_err'] for k in kc['dft_matmul']):.1e}", flush=True)
 
 
 def print_rank_kernels(r, kc) -> None:
@@ -1777,6 +1918,13 @@ def print_rank_kernels(r, kc) -> None:
                               ("dft_pack", kc["dft_pack"]),
                               *(("dft_matmul", k)
                                 for k in kc["dft_matmul"]))), flush=True)
+
+
+def rho_agreement(torch, rho, ref) -> dict:
+    """ρ against a reference ρ: largest difference and largest value."""
+    return {"max_diff": float((rho - ref).abs().max()),
+            "max_rho": float(ref.abs().max()), "shape": list(rho.shape),
+            "finite": bool(torch.isfinite(rho).all())}
 
 
 def multirank_rank(rank, job):
@@ -1820,6 +1968,15 @@ def multirank_rank(rank, job):
         out = {"grid": grid.shape, "energy": res.energy,
                "converged": res.converged, "iterations": res.iterations,
                "stacked": res.stacked, "launches": counts()}
+        zero()
+        res = run_scf(SCFConfig(n=job["n"], nbands=job["nbands"], kpts=kpts,
+                                max_iter=50, backend="cuda", jit_step=True),
+                      grid=grid)
+        out["fused"] = {"energy": res.energy, "converged": res.converged,
+                        "iterations": res.iterations, "jitted": res.jitted,
+                        "graphs": res.graphs.get("graphs"),
+                        "host_syncs": res.graphs.get("host_syncs", []),
+                        "launches": counts()}
         basis = PlaneWaveBasis(job["n"], kpts=kpts, nbands=job["nbands"],
                                grid=grid, backend="cuda")
         inv, _ = basis.stacked_hamiltonian_plans()
@@ -1899,13 +2056,42 @@ def multirank_rank(rank, job):
                      if dev.type == "cuda" else None)})
     if rank == 0:
         ref = torch.as_tensor(data["rho"], device=dev)
-        out["rho_vs_one_rank"] = {
-            "max_diff": float((res.rho - ref).abs().max()),
-            "max_rho": float(ref.abs().max()),
-            "shape": list(res.rho.shape),
-            "finite": bool(torch.isfinite(res.rho).all())}
+        out["rho_vs_one_rank"] = rho_agreement(torch, res.rho, ref)
         del ref
+    rho_eager = res.rho.cpu()
     del res
+    # the fused step on the same grid, configuration and start, with
+    # linear mixing as the one-rank fused run it is held against
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    zero()
+    stamps = []
+    res = run_scf(
+        SCFConfig(n=n, diameter=job["d"], nbands=nb, kpts=kpts,
+                  stack_k=True, backend="cuda", max_iter=job["iters"],
+                  mix_warmup=job["iters"], mix_history=1, jit_step=True),
+        grid=grid, coeffs=coeffs,
+        callback=lambda *a: stamps.append(time.perf_counter()))
+    walls = [b - a for a, b in zip(stamps, stamps[1:])]
+    out["fused"] = {
+        "launches": counts(), "energies": res.energies,
+        "eigenvalues": res.eigenvalues, "jitted": res.jitted,
+        "graphs": res.graphs.get("graphs"),
+        "host_syncs": res.graphs.get("host_syncs", []),
+        "replays": res.graphs.get("replays"),
+        "capture_s": res.graphs.get("capture_seconds"),
+        "first_s": res.iteration_records[0]["seconds"],
+        "steady_s": sum(walls) / len(walls) if walls else None,
+        "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
+                     if dev.type == "cuda" else None)}
+    if rank == 0:
+        ref = torch.as_tensor(data["rho_fused"], device=dev)
+        out["fused"]["rho_vs_one_rank"] = rho_agreement(torch, res.rho, ref)
+        out["fused"]["rho_vs_eager"] = rho_agreement(
+            torch, res.rho, rho_eager.to(dev))
+        del ref
+    del res, rho_eager
     # every kernel of the path against its plain version at the rank's
     # shapes: kernel #1 at each line shape of its H apply and SCF
     out["kernels"] = rank_kernel_checks(
@@ -1913,6 +2099,72 @@ def multirank_rank(rank, job):
         grid.nprocs)
     return out
 
+
+def sync_counts(names) -> dict:
+    """The host syncs of one fused step by name, with their counts."""
+    from collections import Counter
+    return dict(Counter(names))
+
+
+def check_multirank_fused(ranks, eager, one):
+    """The parent's checks of the fused step on the 2×2 grid: against the
+    same grid's eager run (``ranks[r]``'s eager record) and against one
+    rank's fused run ``one``, to PERF.md §2's limits."""
+    import numpy as np
+    f0 = ranks[0]["fused"]
+    for r, out in enumerate(ranks):
+        f = out["fused"]
+        print(f"  rank {r} {out['coordinate']}, fused step: {f['graphs']} "
+              f"graphs and {len(f['host_syncs'])} host syncs per iteration,"
+              f" first iteration (warm-up + capture) {f['first_s']:.3f} s, "
+              f"steady {f['steady_s']:.3f} s/iteration, peak "
+              f"{_gib(f['peak_gib'])} ({MR_TAG}); launches (the warm-up's "
+              f"and the capture's; replays launch no wrapper) "
+              f"{f['launches']}", flush=True)
+        check(all(v > 0 for v in f["launches"].values()),
+              f"rank {r}: kernels #1, #3, #4 launched in its fused step")
+        check(f["energies"] == f0["energies"],
+              f"rank {r}: the fused step's energies equal rank 0's")
+        if f["graphs"] is not None:
+            check(f["jitted"] and f["replays"] == len(f["energies"]) - 1,
+                  f"rank {r}: the steady iterations replayed the graphs")
+    print(f"  fused step host syncs per iteration, by name: "
+          f"{sync_counts(f0['host_syncs'])}", flush=True)
+    e = np.asarray(f0["energies"])
+    out = {}
+    for what, ref_e, ref_eig, rho in (
+            ("2x2 eager run", ranks[0]["energies"], ranks[0]["eigenvalues"],
+             f0["rho_vs_eager"]),
+            ("one rank's fused step", one.energies, one.eigenvalues,
+             f0["rho_vs_one_rank"])):
+        er = np.asarray(ref_e)
+        de = float(np.abs(e - er).max()) if len(e) == len(er) else np.inf
+        deig = float(np.abs(f0["eigenvalues"] - ref_eig).max())
+        check(bool(np.isfinite(e).all()) and de <= ENERGY_RTOL * max(
+            1.0, float(np.abs(er).max())),
+              f"fused step on {MR_GRID} vs the {what}: energies agree, max "
+              f"|dE| {de:.3e}")
+        check(deig <= EIG_ATOL * max(1.0, float(np.abs(ref_eig).max())),
+              f"fused step on {MR_GRID} vs the {what}: eigenvalues agree, "
+              f"max diff {deig:.3e}")
+        check(rho["shape"] == [N, N, N] and rho["finite"]
+              and rho["max_diff"] <= RHO_RTOL * rho["max_rho"],
+              f"fused step on {MR_GRID} vs the {what}: rho agrees, max diff "
+              f"{rho['max_diff']:.3e} <= {RHO_RTOL:g}·{rho['max_rho']:.3e}")
+        out[what] = {"max_dE": de, "max_deig": deig,
+                     "max_drho": rho["max_diff"]}
+    steady = [o["fused"]["steady_s"] for o in ranks]
+    print(f"  fused step: steady {max(steady):.3f} s/iteration (slowest "
+          f"rank) against the eager run's "
+          f"{max(o['steady_s'] for o in ranks):.3f} ({MR_TAG})", flush=True)
+    return {"graphs": f0["graphs"], "host_syncs": sync_counts(
+                f0["host_syncs"]),
+            "steady_s_per_rank": steady,
+            "first_s_per_rank": [o["fused"]["first_s"] for o in ranks],
+            "capture_s_per_rank": [o["fused"]["capture_s"] for o in ranks],
+            "peak_gib_per_rank": [o["fused"]["peak_gib"] for o in ranks],
+            "launches_per_rank": [o["fused"]["launches"] for o in ranks],
+            "agreement": out}
 
 def run_multirank(torch, dev, ctx, gpu):
     """The multi-rank phase: the smoke SCF's stacked H apply and SCF on
@@ -1947,8 +2199,9 @@ def run_multirank(torch, dev, ctx, gpu):
         ref = run_scf(scf_config("cuda", max_iter=MR_ITERS,
                                  mix_warmup=MR_ITERS),
                       device=dev, coeffs=coeffs)
+    fused = ctx["fused_linear"]
     np.savez(path, v=v, hc=hc.cpu().numpy(), rho=ref.rho.cpu().numpy(),
-             valid=inv.valid_lanes(),
+             rho_fused=fused.rho.cpu().numpy(), valid=inv.valid_lanes(),
              **{f"c{ik}": c.cpu().numpy() for ik, c in enumerate(coeffs)})
     del hc, c_pad
     if dev.type == "cuda":
@@ -2008,6 +2261,7 @@ def run_multirank(torch, dev, ctx, gpu):
     print(f"  {MR_PROCS} ranks: steady {max(steady):.3f} s/iteration "
           f"(slowest rank), {seconds:.1f} s for the whole run ({MR_TAG})",
           flush=True)
+    mr_fused = check_multirank_fused(ranks, ref, fused)
 
     # the pencil grid of the reference's case, against one rank
     pcfg = SCFConfig(n=PENCIL_N, nbands=PENCIL_NBANDS, kpts=KPTS,
@@ -2035,6 +2289,21 @@ def run_multirank(torch, dev, ctx, gpu):
           f"pencil SCF (n={PENCIL_N}, 8 processes): E "
           f"{pencil[0]['energy']:.6f} vs one rank {one.energy:.6f}, "
           f"|dE| {dp:.2e}")
+    pf = pencil[0]["fused"]
+    dpf = abs(pf["energy"] - pencil[0]["energy"])
+    print(f"  pencil fused step: {pf['graphs']} graphs and "
+          f"{len(pf['host_syncs'])} host syncs per iteration "
+          f"({sync_counts(pf['host_syncs'])}), {pf['iterations']} "
+          f"iterations; launches per rank "
+          f"{[out['fused']['launches'] for out in pencil]}", flush=True)
+    check(all(out["fused"]["converged"] and out["fused"]["energy"]
+              == pf["energy"] for out in pencil)
+          and dpf <= ENERGY_RTOL * abs(pencil[0]["energy"]),
+          f"pencil fused step (jit_step=True, 8 processes): converged, E "
+          f"{pf['energy']:.6f} vs its eager run, |dE| {dpf:.2e}")
+    check(all(out["fused"]["jitted"] for out in pencil)
+          or dev.type != "cuda",
+          "pencil fused step replayed CUDA graphs on every rank")
     print(f"  pencil run: {pseconds:.1f} s (8 processes on one card, "
           "gloo)", flush=True)
     return {"tag": MR_TAG, "grid": list(MR_GRID), "iterations": MR_ITERS,
@@ -2049,15 +2318,201 @@ def run_multirank(torch, dev, ctx, gpu):
             "launches_per_rank": [out["scf_launches"] for out in ranks],
             "h_launches_per_rank": [out["h_launches"] for out in ranks],
             "kernels_per_rank": [out["kernels"] for out in ranks],
+            "fused": mr_fused,
             "pencil": {"energy": pencil[0]["energy"],
                        "one_rank_energy": one.energy, "dE": dp,
                        "iterations": pencil[0]["iterations"],
                        "seconds": pseconds,
                        "launches_per_rank": [out["launches"]
                                              for out in pencil],
+                       "fused": {"energy": pf["energy"], "dE": dpf,
+                                 "iterations": pf["iterations"],
+                                 "graphs": pf["graphs"],
+                                 "host_syncs": len(pf["host_syncs"]),
+                                 "launches_per_rank": [
+                                     out["fused"]["launches"]
+                                     for out in pencil]},
                        "kernels_per_rank": [out["kernels"]
                                             for out in pencil]}}
 
+
+
+def multirank_service_rank(rank, job):
+    """One rank of the multi-rank service phase (a spawned process of
+    ``run_ranks``): rank 0 is the service's front end and sends the trace
+    three times (:func:`serve_trace`), holding every result against the
+    one-rank service's; the other ranks follow it (``start``, then
+    ``stop``, which returns on the front end's stop).  Each rank counts
+    its kernel launches from 0 over the run."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import ProcGrid
+    from repro_torch.kernels import sphere_pack
+    from repro_torch.kernels.dft_matmul import dft_matmul
+    from repro_torch.serve import DeadlineExceeded
+    # the service's sizes as the parent has them (a spawned process
+    # imports this module afresh)
+    globals().update(job["sizes"])
+    stages = LineStages()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(job["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    grid = ProcGrid.create(MR_GRID, MR_AXES, device=dev)
+    wrappers = (dft_matmul, sphere_pack.unpack_dft, sphere_pack.dft_pack)
+    for fn in wrappers:
+        fn.launches = 0
+    out = {"coordinate": grid.coordinate}
+    t0 = time.perf_counter()
+    if rank == grid.ranks[0]:
+        reqs = service_requests(np.random.default_rng(SEED + 2))
+        with stages.record("service"):
+            svc, passes = serve_trace(dev, "cuda", reqs, grid=grid)
+        one = np.load(job["one_rank"])
+        ok = [i for i, r in enumerate(reqs) if r["deadline"] is None]
+        late = [i for i, r in enumerate(reqs) if r["deadline"] is not None]
+        rel, bitwise, resolved = 0.0, True, True
+        for p in passes:
+            for i in ok:
+                got, want = p["results"][i], one[f"r{i}"]
+                if not isinstance(got, np.ndarray):
+                    resolved = False
+                    continue
+                rel = max(rel, float(np.abs(got - want).max()
+                                     / np.abs(want).max()))
+                bitwise &= bool(np.array_equal(got, want))
+        out.update({
+            "passes": [{"name": p["name"], "summary": p["summary"],
+                        "batches": p["batches"],
+                        "dispatch_ms": p["dispatch_ms"],
+                        "pieces": p["pieces"]} for p in passes],
+            "resolved": resolved, "rel_err": rel, "bitwise": bitwise,
+            "late_failed": all(isinstance(p["results"][i],
+                                          DeadlineExceeded)
+                               for p in passes for i in late),
+            "padding": svc.padding})
+    else:
+        svc = make_service(dev, "cuda", grid)
+        with stages.record("service"):
+            svc.start()
+            svc.stop(timeout=job["timeout"])
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = {fn.__name__: fn.launches for fn in wrappers}
+    out["peak_gib"] = (torch.cuda.max_memory_allocated(dev) / 2**30
+                       if dev.type == "cuda" else None)
+    # every kernel of the path against its plain version at the rank's
+    # shapes, after the count: #3 and #4 on every pair the rank ran, #1
+    # at each line shape of its dispatches and warm-ups
+    out["kernels"] = service_kernel_checks(
+        torch, dev, svc.pairs, stages.counts["service"], rank, grid.nprocs)
+    return out
+
+
+def service_kernel_checks(torch, dev, pairs, lines, rank, world):
+    """Kernels #3 and #4 of every plan pair a service rank ran
+    (:func:`watch_pairs`; the same pairs in the same order on every rank)
+    against their plain versions, on random rows and a random potential
+    of the rank's shapes, the first pair of each (sphere extents, bucket)
+    timed; kernel #1 at each line shape in ``lines``."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + rank)
+    out = {"pairs": []}
+    timed = set()
+    for (_, bucket), (extents, inv, fwd) in pairs.items():
+        rows = inv.local_rows(crandn(torch, gen, (bucket, inv.npacked_max),
+                                     dev)).contiguous()
+        v = torch.rand(inv.tout.local_shape[1:], generator=gen, device=dev)
+        k = pair_kernel_checks(torch, dev, inv, fwd, rows, v, rank, world,
+                               timed=(extents, bucket) not in timed)
+        timed.add((extents, bucket))
+        out["pairs"].append({"extents": list(extents), "bucket": bucket,
+                             **k})
+        del rows, v
+    out["dft_matmul"] = line_kernel_checks(torch, dev, lines, rank, world)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_multirank_service(torch, dev, gpu, served):
+    """The service phase's trace on the 2×2 (batch × fft) grid of four
+    processes over gloo, front end rank 0: every result held against the
+    one-rank service's (``served``, its warm pass), padded lanes +0.0,
+    the deadline=0.0 request failed, kernels #1, #3, #4 launched on every
+    rank.  Any rank's failure, or a run past ``MR_TIMEOUT``, fails it."""
+    import numpy as np
+
+    from repro_torch.sharding.procs import run_ranks
+    print(f"multi-rank service ({MR_TAG}): grid {MR_GRID} {MR_AXES} "
+          f"(batch x fft), n={SERVICE_N}, max_rows={SERVICE_MAX_ROWS}, "
+          f"backend cuda, front end rank 0, start() + async warming; card "
+          f"{gpu}", flush=True)
+    os.makedirs(MR_DIR, exist_ok=True)
+    path = os.path.join(MR_DIR, "service.npz")
+    np.savez(path, **{f"r{i}": r for i, r in enumerate(served)
+                      if isinstance(r, np.ndarray)})
+    job = {"device": str(dev), "one_rank": path, "timeout": MR_TIMEOUT,
+           "sizes": {k: globals()[k] for k in (
+               "SERVICE_N", "SERVICE_D", "SERVICE_D_SMALL",
+               "SERVICE_MAX_ROWS")}}
+    t0 = time.perf_counter()
+    ranks = run_ranks(multirank_service_rank, MR_PROCS, args=(job,),
+                      rendezvous_dir=MR_DIR, timeout=MR_TIMEOUT,
+                      threads=MR_THREADS)
+    seconds = time.perf_counter() - t0
+    os.remove(path)
+    front = ranks[0]
+    for p in front["passes"]:
+        s = p["summary"]
+        print(f"  {p['name']} pass ({MR_TAG}, {gpu}): latency p50 "
+              f"{s['latency_p50_ms']} ms, p99 {s['latency_p99_ms']} ms, "
+              f"{s['requests_per_s']} requests/s, {s['dispatches']} "
+              f"dispatches ({s['coalesced_dispatches']} coalesced); "
+              f"batches {p['batches']}", flush=True)
+    warm = front["passes"][1]
+    print(f"  warm pass: serve.dispatch spans {warm['dispatch_ms']} ms",
+          flush=True)
+    print_pieces(f"synced pass ({MR_TAG})", front["passes"][2]["pieces"])
+    for r, out in enumerate(ranks):
+        print(f"  rank {r} {out['coordinate']}: launches {out['launches']},"
+              f" {out['seconds']:.1f} s, peak {_gib(out['peak_gib'])} "
+              f"({MR_TAG})", flush=True)
+        check(all(v > 0 for v in out["launches"].values()),
+              f"rank {r}: kernels #1, #3, #4 launched in its dispatches")
+        kc = out["kernels"]
+        check(len(kc["pairs"]) > 0, f"service rank {r}: pairs recorded")
+        for i, k in enumerate(kc["pairs"]):
+            check_pair_kernels(f"service rank {r} pair {i} (sphere extents "
+                               f"{tuple(k['extents'])}, bucket "
+                               f"{k['bucket']})", k)
+        check_line_kernels(f"service rank {r}", kc["dft_matmul"])
+        print_service_kernels(r, kc)
+    check(front["resolved"] and front["late_failed"],
+          "every request resolved on the front end, the deadline=0.0 one "
+          "with DeadlineExceeded")
+    check(front["passes"][0]["summary"]["coalesced_dispatches"] >= 1,
+          "requests coalesced on the grid")
+    check(front["rel_err"] <= KERNEL_RTOL,
+          f"every result vs the one-rank service: max rel err "
+          f"{front['rel_err']:.3e} <= {KERNEL_RTOL:g}; bitwise "
+          f"{front['bitwise']}")
+    pad = front["padding"]
+    check(pad["plus_zero"] and pad["padded_lanes"] > 0,
+          f"the {pad['padded_lanes']} padded lanes of {pad['blocks']} "
+          "packed blocks are exactly +0.0")
+    print(f"  {MR_PROCS} ranks: {seconds:.1f} s for the whole run "
+          f"({MR_TAG})", flush=True)
+    return {"tag": MR_TAG, "grid": list(MR_GRID), "seconds": seconds,
+            "passes": [{k: p[k] for k in ("name", "summary",
+                                           "dispatch_ms", "pieces")}
+                       for p in front["passes"]],
+            "rel_err": front["rel_err"], "bitwise": front["bitwise"],
+            "padding": pad,
+            "launches_per_rank": [out["launches"] for out in ranks],
+            "kernels_per_rank": [out["kernels"] for out in ranks],
+            "seconds_per_rank": [out["seconds"] for out in ranks],
+            "peak_gib_per_rank": [out["peak_gib"] for out in ranks]}
 
 def breakdown(torch, dev):
     """Host-clock time of each piece of one SCF iteration, per route.
@@ -2580,10 +3035,16 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    service = check_service(torch, dev, gpu, stages)
+    service, served = check_service(torch, dev, gpu, stages)
     print("service: " + json.dumps(service), flush=True)
     print(f"service phase: {time.perf_counter() - t0:.1f} s", flush=True)
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mr_service = run_multirank_service(torch, dev, gpu, served)
+    del served
+    print("multirank_service: " + json.dumps(mr_service), flush=True)
+    print(f"multi-rank service phase: {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     t0 = time.perf_counter()
     paper = run_paper(torch, dev, gen, gpu)
@@ -2622,9 +3083,16 @@ def main() -> int:
                    for k in per_call["inverse"]},
                "spectral": {"dft_matmul": sum(
                    r["launches"] for r in spectral.values())}}
-    # the multi-rank SCF's launches, per rank (each a list over the ranks)
+    # the multi-rank paths' launches, per rank (each a list over the
+    # ranks): the fused steps count the warm-up's and the capture's
     per_rank = {"multirank_scf_per_rank": multirank["launches_per_rank"],
+                "multirank_fused_scf_per_rank": multirank["fused"][
+                    "launches_per_rank"],
+                "multirank_service_per_rank": mr_service[
+                    "launches_per_rank"],
                 "pencil_scf_per_rank": multirank["pencil"][
+                    "launches_per_rank"],
+                "pencil_fused_scf_per_rank": multirank["pencil"]["fused"][
                     "launches_per_rank"]}
     kernels = []
     for r in results:

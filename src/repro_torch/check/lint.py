@@ -14,10 +14,16 @@ Rules (all ``FFTB2xx``, suppressible per line with ``# noqa: FFTB2xx``):
   from the host (``torch.from_numpy``, ``torch.as_tensor``/
   ``torch.tensor`` of a non-literal) and item assignment of a Python
   scalar into a subscripted tensor (``x[i] = 1.0`` copies the scalar
-  from the host).  Each one makes a CUDA-graph capture fail.
-  ``graphs.host_sync(name, fn, ...)`` ends the graph on purpose and runs
-  ``fn`` eagerly between two graphs: the rule knows it by name, reports
-  no call of it, and does not follow the functions passed to it.
+  from the host).  Each one makes a CUDA-graph capture fail.  So does a
+  collective on several processes under gloo, which copies through host
+  memory and waits on the host: a ``dist.*``/``torch.distributed.*``
+  call, the grid's ``all_reduce_host`` (its result is a host value), and
+  the grid's ``all_reduce``/``replicate`` (a call on a receiver named
+  ``grid``) unless it names its split point with ``name=`` — then the
+  grid runs it through ``host_sync`` under that name.
+  ``host_sync(name, fn, ...)`` ends the graph on purpose and runs ``fn``
+  eagerly between two graphs: the rule knows it by name, reports no call
+  of it, and does not follow the functions passed to it.
 * **FFTB202** — plan construction (``PlanCache.get_or_build``,
   ``fftb.plan_for``, the basis plan getters) inside captured code.
   Plans are fetched before the capture and closed over; a capture
@@ -82,6 +88,10 @@ _CONVERSIONS = frozenset({"float", "int", "bool"})
 _HOST_ROOTS = frozenset({"np", "numpy", "math", "len"})
 #: host→device uploads (FFTB201) when given a non-literal
 _UPLOADS = frozenset({"torch.as_tensor", "torch.tensor"})
+#: the process-group API: every call is a host sync under gloo (FFTB201)
+_DIST_ROOTS = ("dist.", "torch.distributed.")
+#: the grid's collectives (FFTB201) — a split point when named (``name=``)
+_GRID_COLLECTIVES = frozenset({"all_reduce", "replicate"})
 
 #: files where FFTB205 applies (relative-path substring match)
 _LOCK_SCOPE = ("serve/", "core/cache.py")
@@ -292,6 +302,14 @@ def _host_sync_of(node) -> str:
         return f".{attr}()"
     if name == "torch.from_numpy":
         return "torch.from_numpy (an upload from the host)"
+    if name.startswith(_DIST_ROOTS):
+        return f"{name}(...) (a collective: under gloo it waits on the host)"
+    if attr == "all_reduce_host":
+        return f"{name or attr}(...) (a collective with a host result)"
+    if (attr in _GRID_COLLECTIVES and _attr_of(name[:-len(attr) - 1])
+            == "grid" and not any(kw.arg == "name" for kw in node.keywords)):
+        return (f"{name}(...) without name= (an unnamed collective: name it "
+                "to make it a split point)")
     if name in _UPLOADS and node.args and not _is_literal(node.args[0]):
         return f"{name} of a host value (an upload)"
     return ""
@@ -313,7 +331,8 @@ def _rule_host_sync(fn: _FnInfo, path: str, lines) -> list[Diagnostic]:
                 location=f"{path}:{node.lineno}",
                 hint="keep the value on the device (build constants "
                      "there), move the sync out of the captured step, or "
-                     "route an unavoidable one through graphs.host_sync"))
+                     "route an unavoidable one through host_sync (a grid "
+                     "collective: pass its split point's name=)"))
     return out
 
 

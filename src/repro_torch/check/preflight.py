@@ -395,7 +395,7 @@ def preflight_service(n: int, *, grid=None, grid_shape=None,
     shape = _grid_shape(grid, grid_shape)
     if shape is None:
         shape = (1,)
-    batch_axes, fft_axes, _, fp, axis_diags = _axes_split(
+    batch_axes, fft_axes, bp, fp, axis_diags = _axes_split(
         shape, batch_axes if batch_axes is not None else (), fft_axes,
         where="grid")
     diags.extend(axis_diags)
@@ -415,6 +415,15 @@ def preflight_service(n: int, *, grid=None, grid_shape=None,
             "FFTB122", f"max_rows must be >= 1, got {max_rows}",
             location="max_rows",
             hint="max_rows caps the coalesced batch's row bucket"))
+    elif int(max_rows) % bp:
+        diags.append(error(
+            "FFTB122",
+            f"max_rows {max_rows} must split over the batch-axis size "
+            f"{bp} of the grid {shape}: a bucket's rows are sharded "
+            "over the batch axes",
+            location="max_rows",
+            hint="choose max_rows as a multiple of the batch-axis "
+                 "process count"))
     if not 0.0 <= float(padding_budget) < 1.0:
         diags.append(error(
             "FFTB117",

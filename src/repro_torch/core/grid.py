@@ -30,6 +30,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from .hostsync import host_sync
+
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``device`` if given, else CUDA.
@@ -234,13 +236,19 @@ class ProcGrid:
     def _live(self, axes) -> list[int]:
         return [a for a in axes if self.shape[a] > 1 and self.group(a)]
 
-    def all_reduce(self, x: torch.Tensor, axes, op: str = "sum"):
-        """``x`` reduced over grid ``axes`` (sum or max), in place where
-        a collective runs; ``x`` itself when every axis has one process.
-        Complex tensors travel as their real view."""
+    def all_reduce(self, x: torch.Tensor, axes, op: str = "sum", *,
+                   name: str = "grid.all_reduce"):
+        """``x`` reduced over grid ``axes`` (sum, max or min), in place
+        where a collective runs; ``x`` itself when every axis has one
+        process.  Complex tensors travel as their real view.  A collective
+        that runs is a split point ``name`` of a captured step
+        (:func:`~repro_torch.core.hostsync.host_sync`)."""
         live = self._live(axes)
         if not live:
             return x
+        return host_sync(name, self._all_reduce, x, live, op)
+
+    def _all_reduce(self, x, live, op):
         import torch.distributed as dist
         red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
                "min": dist.ReduceOp.MIN}[op]
@@ -262,14 +270,23 @@ class ProcGrid:
         return float(out[0]) if np.ndim(value) == 0 else \
             out.reshape(np.shape(value))
 
-    def replicate(self, x: torch.Tensor, axes=(), dim: int = 0):
+    def replicate(self, x: torch.Tensor, axes=(), dim: int = 0, *,
+                  name: str = "grid.replicate"):
         """Replicated placement of a block sharded over grid ``axes``
         along ``dim``: its blocks concatenated, blocked major→minor in the
         order given (the distribution ``x{a,b}`` describes; the minor axis
         is gathered first).  With no sharded axis (one process) every
-        tensor already is replicated, and ``x`` comes back unchanged."""
+        tensor already is replicated, and ``x`` comes back unchanged.  A
+        gather that runs is a split point ``name`` of a captured step, as
+        in :meth:`all_reduce`."""
+        live = self._live(axes)
+        if not live:
+            return x
+        return host_sync(name, self._replicate, x, live, dim)
+
+    def _replicate(self, x, live, dim):
         import torch.distributed as dist
-        for a in reversed(self._live(axes)):
+        for a in reversed(live):
             x = x.contiguous()
             real = x.is_complex()
             buf = torch.view_as_real(x) if real else x

@@ -41,6 +41,7 @@ from . import layout as L
 from ..obs.metrics import global_metrics
 from ..obs.trace import drain, get_tracer
 from .dtensor import DistTensor
+from .hostsync import host_sync
 from .local_fft import (dft_flops, dft_matrix_planes, full_fp32_matmul,
                         local_dft, realized_backend)
 from .policy import TUNE_CANDIDATES, ExecPolicy
@@ -83,16 +84,32 @@ class FFTStage:
         return realized_backend(self.n_in, self.n_out, self.backend)
 
 
-def all_to_all(x, group, size: int, split_dim: int, concat_dim: int):
+def _exchange(send, group):
+    """The blocks of ``send`` (block index leading) exchanged over
+    ``group``: block j to its j-th rank, block i of the result from its
+    i-th.  A new tensor, so that a captured step's later graphs read it."""
+    import torch.distributed as dist
+    recv = torch.empty_like(send)
+    real = send.is_complex()
+    dist.all_to_all_single(torch.view_as_real(recv) if real else recv,
+                           torch.view_as_real(send) if real else send,
+                           group=group)
+    return recv
+
+
+def all_to_all(x, group, size: int, split_dim: int, concat_dim: int, *,
+               name: str = "all_to_all"):
     """Tiled all-to-all of a local block over one grid axis.
 
     What ``jax.lax.all_to_all(x, axis, split_axis=split_dim,
     concat_axis=concat_dim, tiled=True)`` does: ``split_dim`` is cut into
     ``size`` blocks, block j goes to the axis' j-th rank, and the blocks
     received are concatenated along ``concat_dim`` in rank order.  Complex
-    data travels as its real view.
+    data travels as its real view.  The exchange is a split point
+    ``name`` of a captured step
+    (:func:`~repro_torch.core.hostsync.host_sync`); the copies around it
+    are device work of the graphs on either side.
     """
-    import torch.distributed as dist
     if size == 1:
         return x
     shp = list(x.shape)
@@ -102,12 +119,7 @@ def all_to_all(x, group, size: int, split_dim: int, concat_dim: int):
     # blocks of split_dim, block index leading: (size, ..., S/size, ...)
     send = x.reshape(shp[:split_dim] + [size, shp[split_dim] // size]
                      + shp[split_dim + 1:]).movedim(split_dim, 0)
-    send = send.contiguous()
-    recv = torch.empty_like(send)
-    real = send.is_complex()
-    dist.all_to_all_single(torch.view_as_real(recv) if real else recv,
-                           torch.view_as_real(send) if real else send,
-                           group=group)
+    recv = host_sync(name, _exchange, send.contiguous(), group)
     # received block i (from rank i) lands before concat_dim's extent
     out = recv.movedim(0, concat_dim)
     shp = list(out.shape)
@@ -135,7 +147,8 @@ class MoveStage:
         return all_to_all(
             x, self.group, self.axis_size,
             self.dst_index if split_dim is None else split_dim,
-            self.src_index if concat_dim is None else concat_dim)
+            self.src_index if concat_dim is None else concat_dim,
+            name=f"all_to_all[{self.axis_name}]")
 
     def mirrored(self) -> "MoveStage":
         """The opposite distributed transpose (all_to_all is a permutation,

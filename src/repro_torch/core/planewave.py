@@ -216,7 +216,8 @@ def _merge_x_blocks(wrapper, packed):
     """Sum packed lanes over the grid axes that split the sphere side's
     x (each lane was written on one rank, +0.0 on the others)."""
     side = wrapper._sphere_side
-    return wrapper.grid.all_reduce(packed, side.layout.get(side.dims[1], ()))
+    return wrapper.grid.all_reduce(packed, side.layout.get(side.dims[1], ()),
+                                   name="pack.all_reduce")
 
 
 class _FusedTransformMixin:
@@ -294,7 +295,8 @@ class _FusedTransformMixin:
         """The replicated ``(B, …)`` block from every rank's rows (the
         inverse of :meth:`local_rows`)."""
         side = self._sphere_side
-        return self.grid.replicate(packed, side.layout.get(side.dims[0], ()))
+        return self.grid.replicate(packed, side.layout.get(side.dims[0], ()),
+                                   name="rows.replicate")
 
     @property
     def _sphere_side(self) -> DistTensor:

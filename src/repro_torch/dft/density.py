@@ -39,7 +39,8 @@ def density_from_stacked(basis, c_pad, occ, seg: int = 0) -> torch.Tensor:
     psi = inv(inv.unpack(inv.local_rows(c_pad.reshape(nks * nb, npm))))
     w = inv.local_rows(basis.occupancy_weights(seg, occ))
     rho = torch.tensordot(w, psi.abs() ** 2, dims=([0], [0]))
-    rho = basis.grid.all_reduce(rho, basis.batch_axes)
+    rho = basis.grid.all_reduce(rho, basis.batch_axes,
+                                name="density.all_reduce")
     return rho * float(np.float32(basis.n ** 3 / basis.dv))
 
 
@@ -77,7 +78,8 @@ def density_from_orbitals(basis, coeffs, occ) -> torch.Tensor:
                             device=psi.device)
         rho = rho + torch.tensordot(inv.local_rows(f), psi.abs() ** 2,
                                     dims=([0], [0]))
-    rho = basis.grid.all_reduce(rho, basis.batch_axes)
+    rho = basis.grid.all_reduce(rho, basis.batch_axes,
+                                name="density.all_reduce")
     return rho * float(np.float32(basis.n ** 3 / basis.dv))
 
 

@@ -5,10 +5,12 @@ On the card the counterpart is a CUDA graph: the step is captured once
 into static buffers and replayed once per iteration, so no Python and no
 per-launch overhead run between its kernels.  A graph cannot hold an
 operation that waits for the host.  Such an operation goes through
-:func:`host_sync`, which is a plain call outside a capture; inside one it
-ends the graph being captured, runs the operation eagerly between two
-graphs, and begins the next graph.  A step with k host syncs becomes k + 1
-graphs, replayed in order with the k operations in between
+:func:`repro_torch.core.hostsync.host_sync`, which is a plain call
+outside a capture; inside one it ends the graph being captured, runs the
+operation eagerly between two graphs, and begins the next graph (on
+several processes the grid's collectives and the plans' all-to-alls go
+through it too).  A step with k host syncs becomes k + 1 graphs,
+replayed in order with the k operations in between
 (:meth:`StepGraphs.replay`).
 
 A capture that fails raises: nothing falls back to running the step
@@ -16,30 +18,14 @@ eagerly.
 """
 from __future__ import annotations
 
-import threading
 import time
 
 import torch
 
+from ..core.hostsync import set_capture
 from ..obs.trace import get_tracer
 
-_LOCAL = threading.local()
-
-
-def host_sync(name: str, fn, *args):
-    """``fn(*args)``, an operation that synchronizes with the host.
-
-    Outside a capture this is ``fn(*args)``.  Inside one
-    (:meth:`StepGraphs.capture`) the graph captured so far is closed and
-    run, ``fn`` runs eagerly on its outputs, and a new graph begins; each
-    replay runs ``fn`` again at the same place and writes its results into
-    the tensors returned here, which the later graphs read.  ``fn`` returns
-    a tensor or a tuple of tensors.
-    """
-    cap = getattr(_LOCAL, "active", None)
-    if cap is None:
-        return fn(*args)
-    return cap._split(name, fn, args)
+__all__ = ["StepGraphs"]
 
 
 class StepGraphs:
@@ -57,6 +43,8 @@ class StepGraphs:
         self.pool = torch.cuda.graph_pool_handle()
         self.stream = torch.cuda.Stream(self.device)
         self._tape: list = []           # graphs and host syncs, in order
+        #: the host syncs' argument and result buffers, by signature
+        self._buffers: dict = {}
         self._graph = None
         self._stream_ctx = None
         self._outputs = None
@@ -82,6 +70,9 @@ class StepGraphs:
             out = fn(*args)
         torch.cuda.current_stream(self.device).wait_stream(self.stream)
         torch.cuda.synchronize(self.device)
+        # the warm-up's blocks stay cached for the side stream, where the
+        # capture's own pool cannot use them: hand them back first
+        torch.cuda.empty_cache()
         return out
 
     def capture(self, fn, *args):
@@ -98,7 +89,7 @@ class StepGraphs:
         tr.enabled = False
         t0 = time.perf_counter()
         torch.cuda.synchronize(self.device)
-        _LOCAL.active = self
+        set_capture(self)
         try:
             self._begin()
             out = fn(*args)
@@ -109,9 +100,9 @@ class StepGraphs:
             raise RuntimeError(
                 "capturing the fused SCF step as CUDA graphs failed (an "
                 "operation that waits for the host must go through "
-                f"dft.graphs.host_sync): {exc}") from exc
+                f"core.hostsync.host_sync): {exc}") from exc
         finally:
-            _LOCAL.active = None
+            set_capture(None)
             tr.enabled = was_enabled
         torch.cuda.synchronize(self.device)
         self.capture_seconds = time.perf_counter() - t0
@@ -165,11 +156,38 @@ class StepGraphs:
         g.replay()
 
     def _split(self, name: str, fn, args):
+        """End the graph at a host sync, run it, begin the next graph.
+
+        The tensor arguments are copied into buffers of this host sync's
+        signature (its name, the argument's position, shape and dtype)
+        by the graph that ends here, ``fn`` reads those, its results are
+        copied into result buffers of the same kind, and the caller gets
+        copies of them made by the next graph.  Host syncs of one
+        signature share their buffers — each is read before the next
+        such sync writes it — so the buffers that outlive the capture
+        are one set per signature, not one per call: the step's other
+        tensors stay in the graphs' pool, free to be reused as in an
+        eager step.
+        """
+        ins = tuple(self._buffer(("in", name, i), a).copy_(a)
+                    if isinstance(a, torch.Tensor) else a
+                    for i, a in enumerate(args))
         self._end()
-        out = fn(*args)
-        self._tape.append((name, fn, args, out))
+        new = fn(*ins)
+        outs = tuple(self._buffer(("out", name, i), t).copy_(t)
+                     for i, t in enumerate(_as_tuple(new)))
+        self._tape.append((name, fn, ins, outs))
         self._begin()
-        return out
+        res = tuple(o.clone() for o in outs)
+        return res if isinstance(new, (tuple, list)) else res[0]
+
+    def _buffer(self, key: tuple, like: torch.Tensor) -> torch.Tensor:
+        key = key + (tuple(like.shape), like.dtype)
+        buf = self._buffers.get(key)
+        if buf is None:
+            buf = self._buffers[key] = torch.empty(
+                like.shape, dtype=like.dtype, device=like.device)
+        return buf
 
     def _abort(self) -> None:
         """End a capture that failed, so the stream leaves capture mode."""
@@ -183,6 +201,7 @@ class StepGraphs:
             self._stream_ctx.__exit__(None, None, None)
             self._stream_ctx = None
         self._tape.clear()
+        self._buffers.clear()
 
 
 def _as_tuple(x) -> tuple:

@@ -43,9 +43,9 @@ from __future__ import annotations
 
 import torch
 
+from ..core.hostsync import host_sync
 from ..obs.metrics import global_metrics
 from ..obs.trace import get_tracer
-from .graphs import host_sync
 
 #: process-wide count of per-k eager linalg calls (descent-direction
 #: builds and Rayleigh-Ritz solves dispatched for a single k-point) —
@@ -262,8 +262,8 @@ def _rayleigh_ritz_stacked(c, d, hc, hd):
 
     ``torch.linalg.eigh`` reads its solver status on the host (its error
     check), so it is the band update's one host sync; it goes through
-    :func:`~.graphs.host_sync`, which runs it between two CUDA graphs when
-    the fused SCF step is captured."""
+    :func:`~repro_torch.core.hostsync.host_sync`, which runs it between
+    two CUDA graphs when the fused SCF step is captured."""
     nb = c.shape[1]
     bb = torch.cat([c, d], dim=1)                        # (nk, 2nb, np)
     hb = torch.cat([hc, hd], dim=1)

@@ -25,11 +25,18 @@ updated in place.  On CUDA the step is captured as CUDA graphs
 plan call runs in a steady iteration, and the host reads only the energy
 and the residual.  The band update's ``eigh`` reads its solver status on
 the host, so the step is split there: ``inner_steps`` such syncs per
-segment, each between two graphs.  On the CPU the same step function runs
-eagerly each iteration.  Plans and band tables come from the PlanCache
-when the step's Python runs (the warm-up and the capture on CUDA, every
-iteration on the CPU); ``SCFResult.transforms`` keeps the same analytic
-per-iteration count as the eager path.  The mixer runs in f32 on the
+segment, each between two graphs.  On a grid of several processes every
+collective of the step (the plans' all-to-alls, the pack's all-reduce
+and row gather, the density's, energy's, residual's and mixer's
+reductions) waits on the host under gloo, so each is a split point of
+the same kind (:mod:`repro_torch.core.hostsync`): a steady iteration is
+then many graphs with those collectives between them, and the stop
+decision is all-reduced outside the step, as in the eager loop.  On the
+CPU the same step function runs eagerly each iteration.  Plans and band
+tables come from the PlanCache when the step's Python runs (the warm-up
+and the capture on CUDA, every iteration on the CPU);
+``SCFResult.transforms`` keeps the same analytic per-iteration count as
+the eager path.  The mixer runs in f32 on the
 device (the eager AndersonMixer keeps its history on the host in f64),
 so the two agree to mixing precision; with plain linear mixing
 (``mix_history<=1``) they do the same f32 arithmetic.
@@ -42,7 +49,6 @@ import time
 import numpy as np
 import torch
 
-from ..check.diagnostics import DiagnosticError, error
 from ..core import ProcGrid, global_plan_cache
 from ..core.local_fft import full_fp32_matmul
 from ..core.policy import ExecPolicy
@@ -145,7 +151,8 @@ def jit_mixer_init(nvol: int, history: int, device) -> dict:
     return state
 
 
-def jit_mix(state: dict, rho_in, rho_out, *, alpha: float, warmup: int):
+def jit_mix(state: dict, rho_in, rho_out, *, alpha: float, warmup: int,
+            reduce=None):
     """One mixing step inside the fused step; returns ρ_mixed.
 
     The device twin of ``AndersonMixer.mix``/``LinearMixer.mix``: the same
@@ -157,7 +164,11 @@ def jit_mix(state: dict, rho_in, rho_out, *, alpha: float, warmup: int):
     which selects the fallback).  Runs in f32 (the eager mixer accumulates
     in f64); with ``history <= 1`` it is exactly the eager linear mixer's
     f32 arithmetic.  ``state``'s buffers are updated in place — the port's
-    counterpart of the reference's donated buffers.
+    counterpart of the reference's donated buffers.  On a multi-process
+    grid each rank mixes its z-block of ρ, and ``reduce`` sums the DIIS
+    Gram matrix over the ranks that hold the other blocks (as
+    ``AndersonMixer``'s ``reduce`` does), so every rank solves the same
+    system.
     """
     a32 = float(np.float32(alpha))
     rin = rho_in.reshape(-1)
@@ -178,6 +189,8 @@ def jit_mix(state: dict, rho_in, rho_out, *, alpha: float, warmup: int):
     r = res_hist * vf[:, None]
     with full_fp32_matmul(dev):
         a = r @ r.T
+    if reduce is not None:
+        a = reduce(a)
     a = a * (vf[:, None] * vf[None, :])           # invalid rows/cols → 0
     a = a + torch.diag(1.0 - vf)                  # … pinned to identity
     top = torch.cat([a, vf[:, None]], dim=1)
@@ -339,7 +352,8 @@ def total_energy_stacked(basis, c_pad, rho, v_ext, hartree: HartreeSolver,
     e_h = torch.sum(rho * vh) * (0.5 * dv)
     e_xc = torch.sum(lda_exchange(rho)[0]) * dv if xc else 0.0
     # the cube terms of the ranks' z-blocks (no collective on one process)
-    return e_kin + basis.grid.all_reduce(e_ext + e_h + e_xc, basis.fft_axes)
+    return e_kin + basis.grid.all_reduce(e_ext + e_h + e_xc, basis.fft_axes,
+                                         name="energy.all_reduce")
 
 
 # -------------------------------------------------------------------- driver
@@ -371,7 +385,10 @@ def _jit_scf_loop(cfg: "SCFConfig", basis, v_ext, hartree, occ,
         for s, seg in enumerate(segs)]
     rho = sum(density_from_stacked(basis, c_segs[s], occ, seg=s)
               for s in range(len(segs)))
-    mix_state = jit_mixer_init(basis.n ** 3, cfg.mix_history, dev)
+    # the rank's z-block of ρ (the whole cube on one process)
+    mix_state = jit_mixer_init(rho.numel(), cfg.mix_history, dev)
+    grid = basis.grid
+    fft_axes = basis.fft_axes
     inelec = 1.0 / max(nelec, 1e-9)
     rscale = float(np.float32(basis.dv ** 0.5 * inelec))
 
@@ -394,9 +411,14 @@ def _jit_scf_loop(cfg: "SCFConfig", basis, v_ext, hartree, occ,
         energy = total_energy_stacked(basis, c_new, rho_out, v_ext,
                                       hartree, occ, xc=cfg.xc,
                                       tables=tables)
-        resid = torch.linalg.norm(rho_out - rho) * rscale
-        rho_next = jit_mix(mix_state, rho, rho_out, alpha=cfg.mix_alpha,
-                           warmup=cfg.mix_warmup)
+        # ‖ρ_out − ρ‖ over the ranks' z-blocks
+        dr = rho_out - rho
+        resid = torch.sqrt(grid.all_reduce(
+            torch.sum(dr * dr), fft_axes, name="residual")) * rscale
+        rho_next = jit_mix(
+            mix_state, rho, rho_out, alpha=cfg.mix_alpha,
+            warmup=cfg.mix_warmup,
+            reduce=lambda a: grid.all_reduce(a, fft_axes, name="mix.gram"))
         rho.copy_(rho_next)
         for c, cn in zip(c_segs, c_new):
             c.copy_(cn)
@@ -445,9 +467,11 @@ def _jit_scf_loop(cfg: "SCFConfig", basis, v_ext, hartree, occ,
                         "transforms": per_iter})
         if callback is not None:
             callback(it, energy, resid)
-        if (it > cfg.mix_warmup
+        done = (it > cfg.mix_warmup
                 and abs(energies[-1] - energies[-2]) < cfg.e_tol
-                and resid < cfg.r_tol):
+                and resid < cfg.r_tol)
+        # one decision for every rank, outside the captured step
+        if grid.all_reduce_host(float(done), range(grid.ndim), "min"):
             converged = True
             break
     _sync(dev)
@@ -544,17 +568,6 @@ def run_scf(cfg: SCFConfig, *, device=None, grid: ProcGrid | None = None,
                          "basis.stacks_k with stack_k left on auto)")
 
     grid = basis.grid
-    if cfg.jit_step and grid.multi_process:
-        # gloo's collectives wait on the host, and NCCL needs a card per
-        # rank: neither can sit inside the captured step
-        raise DiagnosticError(error(
-            "FFTB201", f"jit_step=True on a grid of {grid.nprocs} processes "
-            f"{grid.shape}: the fused step's collectives would sync with "
-            "the "
-            "host inside the captured graphs; the fused step on several "
-            "ranks is a later slice of the port (ROADMAP.md §1)",
-            location="SCFConfig.jit_step",
-            hint="run the eager loop (jit_step=False) on this grid"))
     every_axis = range(grid.ndim)
 
     def fft_sum(a):

@@ -179,12 +179,6 @@ def _four_ranks(rank, reinit):
     gm = T.ProcGrid.from_mesh(mesh, ["b", "f"], device="cpu")
     out["grid-2x2"] = (g.shape, g.coordinate, gm.coordinate, g.ranks,
                        gm.ranks, dist.get_rank())
-    from repro_torch.serve import TransformService
-    try:
-        TransformService(g, N)
-        out["service"] = None
-    except NotImplementedError as exc:
-        out["service"] = str(exc)
 
     # scatter/gather of a dim split over both axes, major→minor
     b = T.Domain((0,), (NB - 1,))
@@ -375,11 +369,6 @@ def test_grid_over_processes_and_mesh_agree(four):
         shape, coord, mcoord, ranks, mranks, rank = out["grid-2x2"]
         assert shape == (2, 2) and ranks == mranks == (0, 1, 2, 3)
         assert coord == mcoord == divmod(rank, 2)
-
-
-def test_service_refuses_a_multi_process_grid(four):
-    for out in four:
-        assert "later slice" in out["service"]
 
 
 def test_scatter_gather_over_two_axes(four):

@@ -11,12 +11,15 @@ in ``tmp_path``, joined with a timeout) and runs every case there.
   dispatched once each and padded lanes exactly +0.0; and against the
   reference's H apply on 4 forced host devices (the ``dist`` fixture),
   the same inputs passed as ``.npz``, within 1e-5 of the largest value.
-* The SCF on 2×2 and on (2, 2, 2), plain and segmented
-  (``segment_padding=0.02``): within 5e-3 of the reference's pinned
+* The SCF on 2×2 and on (2, 2, 2), plain, segmented
+  (``segment_padding=0.02``) and as the fused step (``jit_step=True``,
+  which runs eagerly on the CPU, its collectives and reductions over the
+  ranks as on the card): within 5e-3 of the reference's pinned
   energy −1.9197 (its own limit), within rel. 1e-4 of the port on one
   process (``PERF.md`` §2's energy limit), and energy and eigenvalues
   within rel. 1e-4 of the reference's own run of the same config and
-  seed on the same grid (4 and 8 forced host devices).
+  seed on the same grid (4 and 8 forced host devices; the fused case
+  against the reference's jitted step).
 
 The module imports no JAX: the ranks import it to find their functions;
 the reference runs in the ``dist`` fixture's subprocess.
@@ -44,6 +47,7 @@ def _spawn(fn, nprocs, **kw):
 SCF_CASES = {
     "plain": {"backend": "cuda"},
     "segmented": {"backend": "cuda", "segment_padding": 0.02},
+    "jit": {"backend": "cuda", "jit_step": True},
 }
 
 
@@ -77,9 +81,8 @@ def _scf(grid, **kw):
 
 # ------------------------------------------------------------ rank bodies
 def _four_ranks(rank, path):
-    from repro_torch.check.diagnostics import DiagnosticError
     from repro_torch.core import ProcGrid
-    from repro_torch.dft import PlaneWaveBasis, SCFConfig, run_scf
+    from repro_torch.dft import PlaneWaveBasis
     from repro_torch.dft.hamiltonian import (apply_hamiltonian,
                                              apply_hamiltonian_padded,
                                              apply_hamiltonian_stacked)
@@ -112,12 +115,6 @@ def _four_ranks(rank, path):
                      np.repeat(inv.valid_lanes(), 4, axis=0))
     out["scf"] = {name: _scf(grid, **kw) for name, kw in SCF_CASES.items()}
     out["scf"]["per-k"] = _scf(grid, stack_k=False)
-    try:
-        run_scf(SCFConfig(n=16, nbands=4, kpts=KPTS2, max_iter=2,
-                          jit_step=True), grid=grid)
-        out["jit_step"] = None
-    except DiagnosticError as exc:
-        out["jit_step"] = (exc.code, str(exc))
     return out
 
 
@@ -278,7 +275,7 @@ def test_h_apply_matches_reference_on_four_devices(four, reference_h):
             assert _rel(out["h"]["composed"][ik], reference_h[ik]) < HC_RTOL
 
 
-@pytest.mark.parametrize("case", ["plain", "segmented", "per-k"])
+@pytest.mark.parametrize("case", ["plain", "segmented", "jit", "per-k"])
 def test_scf_on_2x2_matches_reference_and_one_rank(case, four, one_rank,
                                                    reference_scf):
     energies = {out["scf"][case]["energy"] for out in four}
@@ -327,9 +324,3 @@ def test_scf_on_pencil_grid_matches_reference_and_one_rank(case, eight,
     assert rho.shape == (16, 16, 16)
     assert abs(float(rho.sum()) * (16 / 16) ** 3 - 4.0) < 1e-3
 
-
-def test_fused_step_refused_on_several_processes(four):
-    for out in four:
-        code, message = out["jit_step"]
-        assert code == "FFTB201"
-        assert "later slice" in message and "ROADMAP" in message

@@ -6,7 +6,7 @@ Each rule gets a minimal source string that *must* trip it, a close
 sibling that must *not*, and a ``# noqa: FFTB2xx`` escape hatch.  The
 captured roots are the port's: a function passed to
 ``StepGraphs.capture``, the fused step's name and the plan executors;
-``graphs.host_sync`` ends a graph on purpose and is never reported.
+``host_sync`` ends a graph on purpose and is never reported.
 Plus the meta-tests: the port's tree lints clean, and the command line
 (``python -m repro_torch.check``, run in-process) gives the reference's
 exit statuses and, on ``benchmarks/baseline.json``, the reference's
@@ -79,6 +79,12 @@ def test_host_sync_reachable_through_helper():
     ("return torch.tensor(w, device=x.device)", "torch.tensor"),
     ("x[0] = 1.0", "item assignment of a Python scalar"),
     ("x[h, 0] = -2", "item assignment of a Python scalar"),
+    # collectives wait on the host under gloo
+    ("dist.all_reduce(x)", "dist.all_reduce(...) (a collective"),
+    ("torch.distributed.barrier()", "torch.distributed.barrier(...)"),
+    ("return basis.grid.all_reduce(x, (1,))", "without name="),
+    ("return self.grid.replicate(x, (0,))", "without name="),
+    ("return grid.all_reduce_host(1.0, (0,))", "with a host result"),
 ])
 def test_every_host_sync_kind_under_capture(stmt, what):
     diags = lint(f"""
@@ -98,6 +104,10 @@ def test_every_host_sync_kind_under_capture(stmt, what):
     "t = torch.tensor([0.0, 1.0], device=x.device)",   # a literal
     "x[0] = y",                              # a device value, no upload
     "rhs = (torch.arange(4, device=x.device) == 3).float()",
+    # a named grid collective is a split point (the grid's host_sync)
+    "x = basis.grid.all_reduce(x, (1,), name='energy.all_reduce')",
+    "x = grid.replicate(x, (0,), name='rows.replicate')",
+    "x = plan.all_reduce(x)",                # not the grid's
 ])
 def test_host_values_under_capture_are_fine(stmt):
     assert lint(f"""
@@ -134,6 +144,25 @@ def test_graphs_host_sync_is_allowed():
             return v
 
         graphs_obj.capture(step, g)
+    """) == []
+
+
+def test_collective_run_through_host_sync_is_fine():
+    # the exchange runs between two graphs: neither the host_sync call
+    # nor the dist call inside the function it runs is reported
+    assert lint("""
+        import torch.distributed as dist
+        from ..core.hostsync import host_sync
+
+        def _exchange(send, group):
+            recv = send.new_empty(send.shape)
+            dist.all_to_all_single(recv, send, group=group)
+            return recv
+
+        def step(x, group):
+            return host_sync("all_to_all", _exchange, x.contiguous(), group)
+
+        graphs.capture(step, x, group)
     """) == []
 
 

@@ -1,10 +1,11 @@
 """repro_torch.serve: the multi-tenant transform service on the CPU.
 
-Mirrors ``tests/test_transform_service.py`` (all but its 4-device test:
-multi-rank grids are not ported yet).  A mixed-workload trace served
-concurrently must equal per-request eager dispatch and the reference
-service's ``eager_apply`` on the same numpy arrays — at a tolerance, not
-bitwise (the reference's own bitwise claim fails in the reference):
+Mirrors ``tests/test_transform_service.py`` (its 4-device test is
+``tests/test_torch_dist_serve.py``'s, over four processes).  A
+mixed-workload trace served concurrently must equal per-request eager
+dispatch and the reference service's ``eager_apply`` on the same numpy
+arrays — at a tolerance, not bitwise (the reference's own bitwise claim
+fails in the reference):
 rel. 1e-5 of the result's max.  Coalesced requests share one stacked
 dispatch (two ``FftPlan.executions``); realized padding stays within the
 configured budget; deadlines expire as errors, never hangs.
@@ -161,13 +162,17 @@ def test_traced_dispatch_records_its_pieces(svc, with_potential):
     kids = sorted((e for e in evs if e["parent"] == "serve.dispatch"),
                   key=lambda e: e["t0"])
     assert all(d["t0"] <= e["t0"] <= e["t1"] <= d["t1"] for e in kids)
-    want = (["serve.upload_coeffs", "serve.unpack", "stacked_planewave"]
-            + (["serve.upload_potential", "serve.times_v"]
-               if with_potential else [])
-            + ["stacked_planewave", "serve.pack", "serve.download"])
+    want = (["serve.upload_coeffs"]
+            + (["serve.upload_potential"] if with_potential else [])
+            + ["serve.unpack_transform"]
+            + (["serve.times_v"] if with_potential else [])
+            + ["serve.transform_pack", "serve.download"])
     assert [e["name"] for e in kids] == want
-    assert [e["attrs"]["inverse"] for e in kids
-            if e["name"] == "stacked_planewave"] == [True, False]
+    # each plan's own span nests in the piece that runs it
+    plans = sorted((e for e in evs if e["name"] == "stacked_planewave"),
+                   key=lambda e: e["t0"])
+    assert [(e["parent"], e["attrs"]["inverse"]) for e in plans] == [
+        ("serve.unpack_transform", True), ("serve.transform_pack", False)]
 
 
 def test_eager_baseline_two_dispatches_per_request(svc):
