@@ -96,6 +96,30 @@ Two more phases run the paper's own workload and the spectral layers:
   "cuda" (kernel #1 on lines of 1024 and 2048) against the "matmul" route
   and torch.fft.
 
+Then the LM phase, the reference's LM serving path through the port's
+``repro_torch.models`` and ``repro_torch.serve.engine.ServeEngine``
+(no hand kernel: the reference's LM path reaches no Pallas kernel, so
+every kernel's launches on it must be 0):
+
+* ``granite-moe-3b-a800m`` and ``mamba2-370m`` at their published
+  configs (bf16), random weights from a seeded generator on the card, 8
+  requests (prompts of 64–512 tokens from a seeded draw, 32 new tokens
+  each) through ``ServeEngine(slots=4, capacity=1024)``, a cold pass and
+  a warm pass for Granite-MoE, one pass for Mamba-2: parameters against
+  ``param_count()``, ms per prefill by prompt length, ms per decode step
+  (p50, p99), generated tokens/s, peak memory, and one decode step under
+  ``torch.profiler`` (aten ops, CUDA kernels, kernel time) beside the
+  bound of reading every weight once; then the same weights in fp32
+  (TF32 off, ``capacity_factor`` = ``n_experts`` so nothing drops):
+  prefill 32 tokens and decode 32 for B = 2 against the teacher-forced
+  forward's logits (1e-4 of the largest |logit|), the bf16 run's logits
+  beside them (a report), and for Mamba-2 the forward with
+  ``conv_impl="fft"`` against ``"direct"``;
+* the other families reduced, fp32 on the card (dense, VLM with image
+  embeddings, hybrid, encoder-decoder with frames): prefill and decode
+  against teacher-forced, 1e-4.  Every tensor of every model and cache
+  lies on the card.
+
 Last, kernel #1 is timed at every distinct line shape that the SCF, the
 four-step, the service and the spectral paths launched (recorded while
 each path ran), beside its two bounds,
@@ -132,6 +156,9 @@ service's passes, dispatches by piece and launches per rank), the paper
 phase (grid,
 preflight, memory estimate and measured peak, batch, agreement, launches
 per call, times and bounds, the full-cube baseline), the spectral phase,
+the LM phase (per served model and pass: prefill and decode times,
+tokens/s, peak memory, the card's name and power limit; the decode
+step's launches and bound; the agreements),
 the per-shape table of kernel #1, one JSON line ``{"kernels": [...]}``
 (each kernel's launches on the main path, the smoke SCF, by path and
 per rank on each multi-rank path),
@@ -194,6 +221,28 @@ PAIR_RTOL = 1e-5
 # mamba2_370m.py, src/repro/models/ssm.py:29), S = 1024 padded to L = 2048
 MIXER_SHAPE = (8, 2048, 1024)
 CONV_SHAPE, CONV_K = (8, 1024, 2304), 4
+# the LM phase: two models served at their published configs (bf16,
+# random weights from a seeded generator on the card) through ServeEngine;
+# prompts drawn in LM_PROMPT, LM_NEW tokens each; then the same weights
+# in fp32 (TF32 off, nothing dropped by the MoE) prefill LM_AGREE_PREFIX
+# tokens and decode as many against the teacher-forced forward: fp32 sums
+# in another order, LM_RTOL of the largest |logit|.  The other families
+# run reduced, fp32, held to the same limit.  conv_impl="fft" vs "direct"
+# at Mamba-2's full width: the reference's own test tolerance
+# (tests/test_models.py, rtol = atol = 2e-3); parameter count vs the
+# analytic count within the reference test's 5%
+# model, passes: Granite-MoE cold and warm; Mamba-2 once, in a process the
+# first model has warmed (its odd prompt lengths prefill in 1-token chunks)
+LM_SERVED = (("granite-moe-3b-a800m", ("cold", "warm")),
+             ("mamba2-370m", ("first",)))
+LM_REDUCED = ("tinyllama-1.1b", "pixtral-12b", "recurrentgemma-9b",
+              "whisper-small")
+LM_REQUESTS, LM_SLOTS, LM_CAPACITY, LM_NEW = 8, 4, 1024, 32
+LM_PROMPT = (64, 512)
+LM_AGREE_B, LM_AGREE_PREFIX = 2, 32
+LM_RTOL = 1e-4
+LM_FFT_TOL = 2e-3
+LM_PARAM_RTOL = 0.05
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM, fp32 without tensor
 # cores, dense TF32 on the tensor cores (every kernel: three TF32 products
@@ -2951,6 +3000,271 @@ def check_spectral(torch, dev, gen, stages):
     return out
 
 
+# ------------------------------------------------------------ the LM path
+def lm_tensors(model, cache) -> list:
+    """Every tensor of a model and its cache (nested dicts)."""
+    out = list(model.parameters())
+    todo = [cache]
+    while todo:
+        for v in todo.pop().values():
+            (todo if isinstance(v, dict) else out).append(v)
+    return out
+
+
+def check_on_card(torch, what, model, cache) -> None:
+    ts = lm_tensors(model, cache)
+    check(all(t.device.type == "cuda" for t in ts),
+          f"{what}: all {len(ts)} tensors of the model and its cache on cuda")
+
+
+def teacher_forced_errors(torch, bundle, model, cfg, batch, prefix: int,
+                          cache_dtype, full) -> float:
+    """Prefill ``prefix`` tokens of ``batch``, then decode the rest one by
+    one; the largest |logit - full[position]| over every step, relative to
+    the largest |full|.  ``full``: the teacher-forced forward's logits."""
+    from repro_torch.models.transformer import logits_fn
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    extra = cfg.n_img_tokens if cfg.family == "vlm" else 0
+    with torch.inference_mode():
+        if full is None:
+            full = logits_fn(model, bundle.forward(model, batch), cfg)
+        cache = bundle.init_cache(B, S + extra, cache_dtype)
+        check_on_card(torch, cfg.name, model, cache)
+        lg, cache = bundle.prefill(
+            model, dict(batch, tokens=tokens[:, :prefix]), cache)
+        err = (lg[:, 0] - full[:, extra + prefix - 1]).abs().max()
+        lengths = torch.full((B,), prefix + extra, dtype=torch.long,
+                             device=tokens.device)
+        for t in range(prefix, S):
+            lg, cache = bundle.decode(model, tokens[:, t:t + 1], cache,
+                                      lengths)
+            lengths += 1
+            err = torch.maximum(
+                err, (lg[:, 0] - full[:, extra + t]).abs().max())
+        return float(err) / float(full.abs().max())
+
+
+def lm_batch(torch, cfg, rng, B: int, S: int, dev) -> dict:
+    """Tokens (and the stub frontends' embeddings) from ``rng``."""
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)),
+                             device=dev)
+    batch = {"tokens": tokens}
+    if cfg.family == "vlm":
+        batch["image_embeds"] = torch.as_tensor(0.1 * rng.standard_normal(
+            (B, cfg.n_img_tokens, cfg.d_model)), dtype=torch.float32,
+            device=dev)
+    if cfg.family == "encdec":
+        batch["frames"] = torch.as_tensor(0.1 * rng.standard_normal(
+            (B, cfg.enc_seq, cfg.d_model)), dtype=torch.float32, device=dev)
+    return batch
+
+
+def timed(torch, dev, fn, record):
+    """``fn`` with its host-clock ms (between synchronizations) appended
+    to ``record`` with the call's sequence length."""
+    def run(params, arg, *rest):
+        tokens = arg["tokens"] if isinstance(arg, dict) else arg
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        out = fn(params, arg, *rest)
+        sync(torch, dev)
+        record.append((tokens.shape[1], (time.perf_counter() - t0) * 1e3))
+        return out
+    return run
+
+
+def serve_pass(torch, dev, bundle, model, cfg, prompts) -> dict:
+    """One pass of LM_REQUESTS requests through a new ServeEngine: ms per
+    prefill (by prompt length) and per decode step, tokens/s, peak
+    memory."""
+    import dataclasses
+    from repro_torch.serve.engine import Request, ServeEngine
+    prefills, decodes = [], []
+    spied = dataclasses.replace(
+        bundle, prefill=timed(torch, dev, bundle.prefill, prefills),
+        decode=timed(torch, dev, bundle.decode, decodes))
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    eng = ServeEngine(spied, slots=LM_SLOTS, capacity=LM_CAPACITY,
+                      cache_dtype=torch.bfloat16)
+    eng.load(model)
+    check_on_card(torch, f"{cfg.name} engine", model, eng.cache)
+    reqs = [Request(rid=i, prompt=p, max_new=LM_NEW)
+            for i, p in enumerate(prompts)]
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_done()
+    sync(torch, dev)
+    wall = time.perf_counter() - t0
+    check(all(r.done and len(r.out) == LM_NEW
+              and all(0 <= t < cfg.vocab for t in r.out) for r in reqs),
+          f"{cfg.name}: every request finished with {LM_NEW} tokens in "
+          f"[0, {cfg.vocab})")
+    steps = sorted(ms for _, ms in decodes)
+    return {"wall_s": wall, "decode_steps": len(steps),
+            "tokens_per_s": len(reqs) * LM_NEW / wall,
+            "prefill_ms_by_len": sorted(prefills),
+            "decode_ms_p50": steps[len(steps) // 2],
+            "decode_ms_p99": steps[min(len(steps) - 1,
+                                       int(0.99 * len(steps)))],
+            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+            "allocated_before_gib": before / 2**30}, eng
+
+
+def decode_step_trace(torch, dev, bundle, model, eng) -> dict:
+    """One decode step of the engine's batch under torch.profiler: aten
+    ops (host trace), CUDA kernels and their summed device time (device
+    trace; None when the profiler saw no device events)."""
+    from torch.profiler import ProfilerActivity, profile
+    toks = torch.zeros((LM_SLOTS, 1), dtype=torch.long, device=dev)
+    with torch.inference_mode():
+        bundle.decode(model, toks, eng.cache, eng.lengths)
+        sync(torch, dev)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            bundle.decode(model, toks, eng.cache, eng.lengths)
+            sync(torch, dev)
+    evs = prof.events()
+    kernels = [e for e in evs
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    ops = [e for e in evs if e.device_type == torch.autograd.DeviceType.CPU
+           and e.name.startswith("aten::") and e.cpu_parent is None]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    return {"aten_ops": len(ops), "cuda_kernels": len(kernels) or None,
+            "kernel_ms": busy if kernels else None}
+
+
+def serve_full_width(torch, dev, gpu, arch, passes) -> dict:
+    """``arch`` at its published config (bf16), random weights from a
+    seeded generator on the card, served once per name in ``passes``;
+    then the same weights in fp32 against the teacher-forced forward."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model_zoo import build
+    from repro_torch.models.transformer import logits_fn
+    cfg = get_config(arch)
+    bundle = build(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        model = bundle.init(gen)
+    sync(torch, dev)
+    init_s = time.perf_counter() - t0
+    n = sum(p.numel() for p in model.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    est = cfg.param_count()
+    check(abs(n - est) / n <= LM_PARAM_RTOL,
+          f"{arch}: {n:,} parameters vs param_count() {est:,} "
+          f"(within {LM_PARAM_RTOL:.0%})")
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, LM_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab, int(L)) for L in lens]
+    out = {"params": n, "param_count": est, "weights_gib": nbytes / 2**30,
+           "init_s": init_s, "prompt_lens": lens.tolist(),
+           "decode_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+    for name in passes:
+        rec, eng = serve_pass(torch, dev, bundle, model, cfg, prompts)
+        out[name] = rec
+        print(f"  {arch} {name}: prefill ms by prompt length "
+              + ", ".join(f"{L}: {ms:.1f}" for L, ms in
+                          rec["prefill_ms_by_len"])
+              + f"; decode step p50 {rec['decode_ms_p50']:.2f} ms, p99 "
+              f"{rec['decode_ms_p99']:.2f} ms over {rec['decode_steps']} "
+              f"steps ({LM_SLOTS} slots); {rec['tokens_per_s']:.1f} "
+              f"generated tokens/s; peak {rec['peak_gib']:.2f} GiB, "
+              f"{rec['allocated_before_gib']:.2f} of it allocated before the "
+              f"pass ({gpu})", flush=True)
+    t0 = time.perf_counter()
+    out["decode_step"] = decode_step_trace(torch, dev, bundle, model, eng)
+    out["trace_s"] = time.perf_counter() - t0
+    del eng
+    print(f"  {arch}: one decode step of {LM_SLOTS} slots runs "
+          f"{out['decode_step']['aten_ops']} aten ops and "
+          f"{out['decode_step']['cuda_kernels']} CUDA kernels "
+          f"({out['decode_step']['kernel_ms']} ms of kernel time); "
+          f"weights {out['weights_gib']:.2f} GiB, read once per step: "
+          f"bound {out['decode_bound_ms']:.3f} ms at 3.35 TB/s ({gpu})",
+          flush=True)
+
+    # agreement at full width: fp32, TF32 off, nothing dropped
+    t0 = time.perf_counter()
+    over = {"dtype": "float32"}
+    if cfg.family == "moe":
+        over["capacity_factor"] = float(cfg.n_experts)
+    cfg32 = dataclasses.replace(cfg, **over)
+    b32 = build(cfg32, device=dev)
+    with torch.inference_mode():
+        m32 = b32.init(None)
+        m32.load_state_dict(model.state_dict())
+    batch = lm_batch(torch, cfg, rng, LM_AGREE_B, 2 * LM_AGREE_PREFIX, dev)
+    with torch.inference_mode():
+        full = logits_fn(m32, b32.forward(m32, batch), cfg32)
+    rel = teacher_forced_errors(torch, b32, m32, cfg32, batch,
+                                LM_AGREE_PREFIX, torch.float32, full)
+    check(rel <= LM_RTOL,
+          f"{arch} fp32: prefill {LM_AGREE_PREFIX} + decode "
+          f"{LM_AGREE_PREFIX} steps (B={LM_AGREE_B}) vs the teacher-forced "
+          f"forward, max error {rel:.3e} of the largest |logit| <= "
+          f"{LM_RTOL:g}")
+    bf = build(dataclasses.replace(cfg, capacity_factor=cfg32.capacity_factor),
+               device=dev)
+    rel_bf16 = teacher_forced_errors(torch, bf, model, cfg, batch,
+                                     LM_AGREE_PREFIX, torch.bfloat16, full)
+    print(f"  {arch} bf16 weights and cache, same steps, vs the fp32 "
+          f"forward: max error {rel_bf16:.3e} of the largest |logit| "
+          "(report only)", flush=True)
+    out["fp32_rel_err"], out["bf16_rel_err"] = rel, rel_bf16
+    if cfg.family == "ssm":
+        b_fft = build(dataclasses.replace(cfg32, conv_impl="fft"),
+                      device=dev)
+        with torch.inference_mode():
+            h_dir = b32.forward(m32, batch)
+            h_fft = b_fft.forward(m32, batch)
+        err = float((h_fft - h_dir).abs().max())
+        ok = bool(torch.allclose(h_fft, h_dir, rtol=LM_FFT_TOL,
+                                 atol=LM_FFT_TOL))
+        check(ok, f"{arch} fp32 forward, conv_impl='fft' (fft_conv, "
+              f"'fft' backend) vs 'direct': max |diff| {err:.3e}, within "
+              f"rtol = atol = {LM_FFT_TOL:g}")
+        out["fft_conv_max_abs_diff"] = err
+    out["agreement_s"] = time.perf_counter() - t0
+    del model, m32, full
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_lm(torch, dev, gpu) -> dict:
+    """The LM phase (see the module docstring)."""
+    import numpy as np
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model_zoo import build
+    out = {}
+    for arch, passes in LM_SERVED:
+        t0 = time.perf_counter()
+        out[arch] = serve_full_width(torch, dev, gpu, arch, passes)
+        out[arch]["seconds"] = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED)
+    for arch in LM_REDUCED:
+        cfg = get_config(arch).reduced()
+        bundle = build(cfg, device=dev)
+        with torch.inference_mode():
+            model = bundle.init(torch.Generator(device=dev).manual_seed(
+                SEED))
+        batch = lm_batch(torch, cfg, rng, 2, 16, dev)
+        rel = teacher_forced_errors(torch, bundle, model, cfg, batch, 8,
+                                    torch.float32, None)
+        check(rel <= LM_RTOL,
+              f"{cfg.name} ({cfg.family}, fp32): prefill 8 + decode 8 vs "
+              f"teacher-forced, max error {rel:.3e} of the largest "
+              f"|logit| <= {LM_RTOL:g}")
+        out[cfg.name] = {"rel_err": rel}
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2960,6 +3274,9 @@ def main() -> int:
     try:
         from repro_torch.dft.basis import PlaneWaveBasis
         from repro_torch.kernels import build
+        from repro_torch.kernels.dft_matmul import (dft_matmul,
+                                                    dft_matmul_twiddle)
+        from repro_torch.kernels.sphere_pack import dft_pack, unpack_dft
     except ImportError as exc:
         print(f"chip_smoke: the port is not importable: {exc}",
               file=sys.stderr)
@@ -3060,6 +3377,22 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
+    print(f"LM serving path ({gpu}):", flush=True)
+    wrappers = {"dft_matmul": dft_matmul,
+                "dft_matmul_twiddle": dft_matmul_twiddle,
+                "unpack_dft": unpack_dft, "dft_pack": dft_pack}
+    for fn in wrappers.values():
+        fn.launches = 0
+    lm = check_lm(torch, dev, gpu)
+    lm["launches"] = {k: fn.launches for k, fn in wrappers.items()}
+    check(not any(lm["launches"].values()),
+          "the LM path launched no hand kernel (the reference's LM path "
+          f"reaches no Pallas kernel): {lm['launches']}")
+    print("lm: " + json.dumps(lm), flush=True)
+    print(f"lm phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
     shapes = time_line_shapes(torch, dev, gen, stages, gpu)
     print("line_shapes: " + json.dumps(shapes), flush=True)
     print(f"line-shape phase: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -3082,7 +3415,8 @@ def main() -> int:
                    k: per_call["inverse"][k] + per_call["forward"][k]
                    for k in per_call["inverse"]},
                "spectral": {"dft_matmul": sum(
-                   r["launches"] for r in spectral.values())}}
+                   r["launches"] for r in spectral.values())},
+               "lm": lm["launches"]}
     # the multi-rank paths' launches, per rank (each a list over the
     # ranks): the fused steps count the warm-up's and the capture's
     per_rank = {"multirank_scf_per_rank": multirank["launches_per_rank"],

@@ -1,6 +1,7 @@
 """repro_torch.configs — workload configurations of the port.
 
-Only the paper's own plane-wave workload (:mod:`.fftb_paper`) is here;
-the reference's language-model configurations belong to its LM stack,
-which is not ported.
+The paper's own plane-wave workload (:mod:`.fftb_paper`) and the
+language-model configurations of the reference's LM stack
+(:mod:`.base`: ``ArchConfig``, ``SHAPES``, ``ARCH_IDS``, ``get_config``;
+one module per architecture), each the reference's field for field.
 """

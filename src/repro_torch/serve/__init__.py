@@ -1,9 +1,8 @@
-"""Serving: the multi-tenant transform service.
+"""Serving: the LM decode engine (continuous batching over the model
+bundles of :mod:`repro_torch.models`) and the multi-tenant transform
+service."""
 
-(The reference package's LM decode engine, ``serve/engine.py``, belongs
-to the LM stack and is not ported yet.)
-"""
-
+from .engine import Request, ServeEngine
 from .metrics import ServiceMetrics
 from .scheduler import (CoalescingScheduler, DeadlineExceeded, QueueFull,
                         ServeError, ServiceStopped, TransformHandle,
@@ -11,6 +10,7 @@ from .scheduler import (CoalescingScheduler, DeadlineExceeded, QueueFull,
 from .transform_service import TransformService
 
 __all__ = [
+    "Request", "ServeEngine",
     "TransformService", "TransformRequest", "TransformHandle",
     "CoalescingScheduler", "ServiceMetrics", "compat_key",
     "ServeError", "DeadlineExceeded", "QueueFull", "ServiceStopped",

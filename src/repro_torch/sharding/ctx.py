@@ -1,0 +1,70 @@
+"""Ambient sharding context (the reference's ``sharding/ctx.py``): lets
+model code ask about the placement without threading grid objects
+through every layer.
+
+The reference installs a GSPMD mesh here, and ``constrain*`` pin
+activation shardings with ``with_sharding_constraint``.  The port places
+data explicitly, by local blocks (each rank holds its block;
+``core/dtensor.py``), so there is nothing to pin: ``use()`` records the
+:class:`~repro_torch.core.grid.ProcGrid` and its batch axes, the sizes
+(``axis_size``, ``batch_size``) answer from that grid, and every
+``constrain*`` returns its input.  Only a training run installs a grid;
+on the serving path nothing is installed, as in the reference, so
+``axis_size`` answers None (and ``moe_apply`` routes in one group).
+"""
+from __future__ import annotations
+
+import contextlib
+
+_GRID = None             # ProcGrid | None
+_BATCH_AXES = None       # tuple[str, ...] | None
+_SEQ_AXIS = None         # str | None — sequence parallelism (Megatron-SP)
+
+
+@contextlib.contextmanager
+def use(grid, batch_axes, seq_axis=None):
+    global _GRID, _BATCH_AXES, _SEQ_AXIS
+    old = (_GRID, _BATCH_AXES, _SEQ_AXIS)
+    _GRID, _BATCH_AXES, _SEQ_AXIS = grid, batch_axes, seq_axis
+    try:
+        yield
+    finally:
+        _GRID, _BATCH_AXES, _SEQ_AXIS = old
+
+
+def active() -> bool:
+    return _GRID is not None
+
+
+def constrain(x, *entries):
+    """The reference's sharding constraint; the port's placement is the
+    caller's local block, so ``x`` comes back as it is."""
+    del entries
+    return x
+
+
+def axis_size(name: str):
+    """Size of a grid axis, or None when no grid is installed."""
+    if _GRID is None or name not in _GRID.axes:
+        return None
+    return _GRID.shape[_GRID.axis_index(name)]
+
+
+def batch_size():
+    if _GRID is None or not _BATCH_AXES:
+        return None
+    n = 1
+    for a in _BATCH_AXES:
+        n *= _GRID.shape[_GRID.axis_index(a)]
+    return n
+
+
+def constrain_batch(x):
+    """Dim 0 over the batch axes in the reference; here ``x`` itself."""
+    return x
+
+
+def constrain_act(x):
+    """Layer-boundary activations (B, S, D) in the reference; here ``x``
+    itself."""
+    return x
