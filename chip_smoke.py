@@ -120,6 +120,31 @@ every kernel's launches on it must be 0):
   against teacher-forced, 1e-4.  Every tensor of every model and cache
   lies on the card.
 
+Then the train phase, the reference's LM training path through the
+port's ``repro_torch.train`` (no hand kernel either: every kernel's
+launches over the phase must be 0; TF32 stays off):
+
+* ``tinyllama-1.1b`` at its published config (bf16, remat "full") through
+  ``Trainer``: 6 steps on one fixed batch of 8 x 1024 tokens in 2
+  microbatches, a final blocking checkpoint (10.25 GiB: bf16 weights,
+  f32 m and v) under ``build/``, then a second ``Trainer`` resuming at
+  step 6 to step 8, and the restored weights served through
+  ``ServeEngine`` (one request, 3 tokens): per-step ms, tokens/s, peak
+  memory against the state's estimate, the checkpoint's bytes, write
+  and restore seconds, the loss curve; the loss must fall from within
+  1.0 of ln 32000;
+* ``granite-moe-3b-a800m``'s train step at its published config, 3
+  steps on a fixed batch: ms per step, peak memory; the loss must fall;
+* the six families reduced, fp32, from the same weights on the card and
+  on the CPU: the gradients of one step within 1e-5 of the largest, two
+  compressed train steps (loss within 1e-5, the int8 codes equal but at
+  rounding boundaries, grad_norm within 1e-4, parameters within 2·lr);
+  TinyLlama at published width cut to 2 layers, fp32: the gradients
+  under remat "full" and "dots" against "none" within 1e-5, with each
+  mode's peak memory;
+* ``python -m repro_torch.launch.train --preset 100m --steps 20
+  --fixed-batch`` in a subprocess: its last loss below its first.
+
 Last, kernel #1 is timed at every distinct line shape that the SCF, the
 four-step, the service and the spectral paths launched (recorded while
 each path ran), beside its two bounds,
@@ -158,7 +183,8 @@ preflight, memory estimate and measured peak, batch, agreement, launches
 per call, times and bounds, the full-cube baseline), the spectral phase,
 the LM phase (per served model and pass: prefill and decode times,
 tokens/s, peak memory, the card's name and power limit; the decode
-step's launches and bound; the agreements),
+step's launches and bound; the agreements), the train phase (step
+times, losses, peaks, checkpoint, agreements, launcher),
 the per-shape table of kernel #1, one JSON line ``{"kernels": [...]}``
 (each kernel's launches on the main path, the smoke SCF, by path and
 per rank on each multi-rank path),
@@ -243,6 +269,33 @@ LM_AGREE_B, LM_AGREE_PREFIX = 2, 32
 LM_RTOL = 1e-4
 LM_FFT_TOL = 2e-3
 LM_PARAM_RTOL = 0.05
+# the train phase: TinyLlama-1.1B at its published config (bf16, remat
+# "full") through Trainer on a fixed batch of TRAIN_BATCH x TRAIN_SEQ
+# tokens in TRAIN_MB microbatches, TRAIN_STEPS steps, a final blocking
+# checkpoint, then a second Trainer resuming to TRAIN_RESUME_STEPS and the
+# restored weights served (TRAIN_NEW tokens); Granite-MoE 3B-A800M's train
+# step at its published config for TRAIN_MOE_STEPS steps; the six families
+# reduced (fp32) on the card against the port's CPU route, two steps with
+# compression: float32 sums in another order, TRAIN_RTOL relative (loss,
+# grad_norm) and of the largest gradient; the launcher's 100m preset
+TRAIN_ARCH, TRAIN_MOE = "tinyllama-1.1b", "granite-moe-3b-a800m"
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MB = 1024, 8, 2
+TRAIN_STEPS, TRAIN_RESUME_STEPS, TRAIN_MOE_STEPS, TRAIN_NEW = 6, 8, 3, 3
+TRAIN_LR, TRAIN_AGREE_LR = 3e-4, 1e-4
+TRAIN_FAMILIES = ("tinyllama-1.1b", "granite-moe-3b-a800m", "pixtral-12b",
+                  "mamba2-370m", "recurrentgemma-9b", "whisper-small")
+TRAIN_RTOL = 1e-5
+# compressed steps: an element whose int8 code sits at a rounding boundary
+# may round the other way on the card (its gradient differs by ~1e-6);
+# such a flip moves the element's gradient by a whole quantisation step
+# and its update by up to lr, so grad_norm is held to TRAIN_COMP_RTOL
+# (measured up to 1.1e-5 on an NVIDIA H100 80GB HBM3 at 700 W) and at
+# most TRAIN_FLIP_SHARE of the codes and parameters may differ that way
+TRAIN_COMP_RTOL, TRAIN_FLIP_SHARE = 1e-4, 1e-3
+TRAIN_REMAT_LAYERS, TRAIN_REMAT_B = 2, 2
+TRAIN_LAUNCHER_STEPS = 20
+#: free disk the TinyLlama checkpoint needs: bf16 params, f32 m and v
+TRAIN_CKPT_GIB = 10.25
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM, fp32 without tensor
 # cores, dense TF32 on the tensor cores (every kernel: three TF32 products
@@ -3265,6 +3318,514 @@ def check_lm(torch, dev, gpu) -> dict:
     return out
 
 
+# ---------------------------------------------------------- the train path
+def train_tensors(params, opt) -> list:
+    """Every tensor of a model and its optimizer state."""
+    out = list(params.parameters())
+    for v in opt.values():
+        out.extend(v.values() if isinstance(v, dict) else [v])
+    return out
+
+
+def fixed_batch_trainer(trainer):
+    """Every step on the step-0 batch, as the launcher's --fixed-batch."""
+    batch_at = type(trainer.pipeline).batch_at
+    trainer.pipeline.batch_at = lambda step: batch_at(trainer.pipeline, 0)
+    return trainer
+
+
+def timed_calls(obj, name, record):
+    """Wrap ``obj.name`` to append each call's host seconds to
+    ``record``."""
+    fn = getattr(obj, name)
+
+    def run(*args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        record.append(time.perf_counter() - t0)
+        return out
+    setattr(obj, name, run)
+
+
+def profile_train_step(torch, dev, step_fn, params, opt, batch) -> dict:
+    """One train step under torch.profiler: its CUDA kernels and their
+    summed time, its top-level aten ops, and the ten aten ops with the
+    most self device time (name, calls, ms)."""
+    from torch.profiler import ProfilerActivity, profile
+    sync(torch, dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        params, opt, met = step_fn(params, opt, batch)
+        float(met["loss"])
+    evs = prof.events()
+    kernels = [e for e in evs
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    ops = [e for e in evs if e.device_type == torch.autograd.DeviceType.CPU
+           and e.name.startswith("aten::") and e.cpu_parent is None]
+    avg = sorted(prof.key_averages(),
+                 key=lambda a: a.self_device_time_total, reverse=True)
+    return {"kernels": len(kernels), "aten_ops": len(ops),
+            "kernel_ms": sum(e.time_range.elapsed_us()
+                             for e in kernels) / 1e3,
+            "top": [(a.key, a.count, a.self_device_time_total / 1e3)
+                    for a in avg[:10]]}
+
+
+def train_tinyllama(torch, dev, gpu) -> dict:
+    """TinyLlama-1.1B at its published config through Trainer: train,
+    checkpoint, resume, serve the restored weights."""
+    import math
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models.model_zoo import build, load_tree
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = get_config(TRAIN_ARCH)
+    bundle = build(cfg, device=dev)
+    root = os.path.join(HERE, "build")
+    os.makedirs(root, exist_ok=True)
+    free = shutil.disk_usage(root).free / 2**30
+    print(f"  checkpoint directory under {root}: {free:.1f} GiB free, "
+          f"2 x {TRAIN_CKPT_GIB} GiB needed", flush=True)
+    check(free >= 2.1 * TRAIN_CKPT_GIB,
+          f"{free:.1f} GiB of free disk for two {TRAIN_CKPT_GIB} GiB "
+          "checkpoints (the resumed run's commits beside the first) with "
+          "5% to spare")
+    ckpt = tempfile.mkdtemp(prefix="train_ckpt_", dir=root)
+    dcfg = DataConfig(vocab=cfg.vocab, seq=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH)
+    ocfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                       total_steps=TRAIN_RESUME_STEPS)
+    out = {"config": {"layers": cfg.n_layers, "d_model": cfg.d_model,
+                      "heads": cfg.n_heads, "kv": cfg.n_kv,
+                      "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+                      "dtype": cfg.dtype, "remat": cfg.remat,
+                      "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+                      "microbatches": TRAIN_MB}}
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        tcfg = TrainerConfig(total_steps=TRAIN_STEPS, ckpt_every=1000,
+                             ckpt_keep=1, log_every=1,
+                             microbatches=TRAIN_MB, ckpt_dir=ckpt)
+        tr = fixed_batch_trainer(Trainer(bundle, ocfg, tcfg, dcfg))
+        saves, restores = [], []
+        timed_calls(tr.ckpt, "save", saves)
+        params, opt = tr.run()
+        sync(torch, dev)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        n = sum(p.numel() for p in params.parameters())
+        ts = train_tensors(params, opt)
+        check(all(t.device.type == "cuda" for t in ts),
+              f"{TRAIN_ARCH}: all {len(ts)} tensors of the model and its "
+              "optimizer state on cuda")
+        del ts
+        out["profile"] = profile_train_step(
+            torch, dev, tr.step_fn, params, opt,
+            {k: torch.from_numpy(v).to(dev)
+             for k, v in tr.pipeline.batch_at(0).items()})
+        del params, opt
+        torch.cuda.empty_cache()
+        losses = [h["loss"] for h in tr.history]
+        dts = [h["dt"] for h in tr.history]
+        steady = sum(dts[1:]) / len(dts[1:])
+        step_dir = os.path.join(ckpt, f"step_{TRAIN_STEPS:08d}")
+        nbytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                     for f in os.listdir(step_dir))
+        est = (2 * 2 * n + 4 * n + 8 * n) / 2**30
+        prof = out["profile"]
+        print(f"  one more step under torch.profiler: {prof['kernels']} "
+              f"CUDA kernels, {prof['kernel_ms']:.1f} ms of kernel time "
+              f"against the steady {steady * 1e3:.1f} ms step (device busy "
+              f"{prof['kernel_ms'] / (steady * 1e3):.0%}); "
+              f"{prof['aten_ops']} aten ops; by self device time: "
+              + "; ".join(f"{k} x{c} {ms:.1f} ms" for k, c, ms in
+                          prof["top"]), flush=True)
+        out.update({"params": n, "losses": losses,
+                    "step_ms": [d * 1e3 for d in dts],
+                    "steady_step_ms": steady * 1e3,
+                    "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / steady,
+                    "peak_gib": peak, "allocated_before_gib": before / 2**30,
+                    "state_estimate_gib": est,
+                    "ckpt_bytes": nbytes, "ckpt_write_s": saves[-1]})
+        print(f"  {TRAIN_ARCH} ({n:,} parameters, bf16, remat "
+              f"{cfg.remat!r}, {TRAIN_BATCH}x{TRAIN_SEQ} tokens in "
+              f"{TRAIN_MB} microbatches): step ms "
+              + ", ".join(f"{d * 1e3:.1f}" for d in dts)
+              + f"; steady {steady * 1e3:.1f} ms, "
+              f"{out['tokens_per_s']:.0f} tokens/s; peak {peak:.2f} GiB "
+              f"({before / 2**30:.2f} allocated before) against "
+              f"{est:.2f} GiB of weights, gradients, f32 accumulator and "
+              f"moments plus activations; checkpoint {nbytes / 2**30:.2f} "
+              f"GiB written in {saves[-1]:.1f} s ({gpu})", flush=True)
+        print("  loss curve: " + ", ".join(f"{x:.4f}" for x in losses),
+              flush=True)
+        check(all(math.isfinite(x) for x in losses),
+              f"{TRAIN_ARCH}: every loss finite")
+        check(losses[-1] < losses[0],
+              f"{TRAIN_ARCH}: the loss fell ({losses[0]:.4f} -> "
+              f"{losses[-1]:.4f})")
+        check(abs(losses[0] - math.log(cfg.vocab)) <= 1.0,
+              f"{TRAIN_ARCH}: first loss {losses[0]:.4f} within 1.0 of "
+              f"ln {cfg.vocab} = {math.log(cfg.vocab):.4f}")
+        check(tr.ckpt.latest_step() == TRAIN_STEPS,
+              f"checkpoint committed at step {TRAIN_STEPS}")
+
+        tcfg2 = TrainerConfig(total_steps=TRAIN_RESUME_STEPS,
+                              ckpt_every=1000, ckpt_keep=1, log_every=1,
+                              microbatches=TRAIN_MB, ckpt_dir=ckpt)
+        tr2 = fixed_batch_trainer(Trainer(bundle, ocfg, tcfg2, dcfg))
+        timed_calls(tr2.ckpt, "restore", restores)
+        params, opt = tr2.run()
+        del params, opt
+        torch.cuda.empty_cache()
+        resumed = [h["loss"] for h in tr2.history]
+        out.update({"resumed_first_step": tr2.history[0]["step"],
+                    "resumed_losses": resumed,
+                    "ckpt_restore_s": restores[0]})
+        print(f"  resumed at step {tr2.history[0]['step']} (restore "
+              f"{restores[0]:.1f} s): losses "
+              + ", ".join(f"{x:.4f}" for x in resumed), flush=True)
+        check(tr2.history[0]["step"] == TRAIN_STEPS,
+              f"the second Trainer resumed at step {TRAIN_STEPS}")
+        check(all(math.isfinite(x) for x in resumed) and
+              resumed[-1] < losses[0], "the resumed run's losses finite and "
+              "below the first step's")
+
+        t0 = time.perf_counter()
+        step, tree = CheckpointManager(ckpt).restore()
+        model = bundle.init(None)
+        load_tree(model, tree["params"])
+        del tree
+        eng = ServeEngine(bundle, slots=1, capacity=64,
+                          cache_dtype=torch.bfloat16)
+        eng.load(model)
+        check_on_card(torch, f"{TRAIN_ARCH} served", model, eng.cache)
+        rng = np.random.default_rng(SEED)
+        req = Request(rid=0, prompt=rng.integers(0, cfg.vocab, 8),
+                      max_new=TRAIN_NEW)
+        eng.submit(req)
+        eng.run_until_done()
+        out["served"] = {"step": step, "tokens": req.out,
+                         "seconds": time.perf_counter() - t0}
+        check(step == TRAIN_RESUME_STEPS and len(req.out) == TRAIN_NEW
+              and all(0 <= t < cfg.vocab for t in req.out),
+              f"served one request from the step-{step} checkpoint: "
+              f"{TRAIN_NEW} tokens {req.out}")
+        del model, eng
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_moe(torch, dev, gpu) -> dict:
+    """Granite-MoE 3B-A800M's train step at its published config."""
+    import math
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model_zoo import build
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.train_step import init_opt_state, make_train_step
+    cfg = get_config(TRAIN_MOE)
+    bundle = build(cfg, device=dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = bundle.init(gen)
+    opt = init_opt_state(params)
+    n = sum(p.numel() for p in params.parameters())
+    tokens = torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                           generator=gen, device=dev)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    step = make_train_step(bundle, AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                                               total_steps=8),
+                           microbatches=TRAIN_MB)
+    losses, ms = [], []
+    for _ in range(TRAIN_MOE_STEPS):
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, batch)
+        losses.append(float(met["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    ts = train_tensors(params, opt)
+    check(all(t.device.type == "cuda" for t in ts),
+          f"{TRAIN_MOE}: all {len(ts)} tensors on cuda")
+    del params, opt, ts, batch
+    torch.cuda.empty_cache()
+    # bf16 weights and a microbatch's gradients, the f32 accumulator, f32
+    # m and v: 2 + 2 + 4 + 8 bytes a parameter
+    est = 16 * n / 2**30
+    tokens_mb = TRAIN_BATCH * TRAIN_SEQ // TRAIN_MB
+    from repro_torch.models.moe import _capacity
+    C = _capacity(tokens_mb, cfg.top_k, cfg.n_experts, cfg.capacity_factor)
+    print(f"  {TRAIN_MOE} ({n:,} parameters, bf16, remat {cfg.remat!r}, "
+          f"{tokens_mb} tokens a microbatch, expert capacity {C}): step "
+          "ms " + ", ".join(f"{x:.1f}" for x in ms) + "; losses "
+          + ", ".join(f"{x:.4f}" for x in losses) + f"; peak {peak:.2f} GiB "
+          f"({before / 2**30:.2f} allocated before) against ~{est:.2f} GiB "
+          f"of state plus activations ({gpu})", flush=True)
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"{TRAIN_MOE}: losses finite and falling ({losses[0]:.4f} -> "
+          f"{losses[-1]:.4f})")
+    return {"params": n, "step_ms": ms, "losses": losses, "peak_gib": peak,
+            "allocated_before_gib": before / 2**30, "capacity": C,
+            "state_estimate_gib": est}
+
+
+class watch_compression:
+    """Record the float32 input of every ``compress_grads`` call of the
+    train step (gradient plus residual, on the host) in ``seen``."""
+
+    def __init__(self, seen):
+        self.seen = seen
+
+    def __enter__(self):
+        from repro_torch.train import train_step
+        self.mod, self.real = train_step, train_step.compress_grads
+
+        def spy(grads, residuals):
+            self.seen.append({n: (g.float() + residuals[n]).cpu()
+                              for n, g in grads.items()})
+            return self.real(grads, residuals)
+        train_step.compress_grads = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.compress_grads = self.real
+
+
+def code_flips(torch, got: dict, want: dict) -> dict:
+    """The int8 codes of two compression inputs compared: how many differ
+    and by how many steps at most."""
+    from repro_torch.optim.compression import _quantize
+    n = diff = worst = 0
+    for k, x in want.items():
+        qa = _quantize(got[k])[0].int()
+        qb = _quantize(x)[0].int()
+        d = (qa - qb).abs()
+        n += d.numel()
+        diff += int((d > 0).sum())
+        worst = max(worst, int(d.max()))
+    return {"codes": n, "codes_differing": diff, "code_max_step": worst}
+
+
+def grads_of(torch, bundle, model, batch) -> dict:
+    """{name: gradient} of the bundle's loss on ``batch``, on the host."""
+    model.zero_grad(set_to_none=True)
+    loss = bundle.loss(model, batch)
+    loss.backward()
+    out = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), out
+
+
+def grad_err(got: dict, want: dict) -> float:
+    scale = max(float(w.abs().max()) for w in want.values())
+    return max(float((got[k] - w).abs().max()) for k, w in want.items()) \
+        / scale
+
+
+def to_device(torch, batch, dev) -> dict:
+    return {k: v.to(dev) for k, v in batch.items()}
+
+
+def train_agreement(torch, dev) -> dict:
+    """The six families reduced, fp32: the card against the port's CPU
+    route (gradients on one step, two compressed train steps), then
+    TinyLlama at published width cut to TRAIN_REMAT_LAYERS layers: the
+    gradients under remat "full" and "dots" against "none"."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model_zoo import build
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.train_step import init_opt_state, make_train_step
+    cpu = torch.device("cpu")
+    out = {}
+    rng = np.random.default_rng(SEED)
+    for arch in TRAIN_FAMILIES:
+        cfg = get_config(arch).reduced()
+        bc, bd = build(cfg, device=cpu), build(cfg, device=dev)
+        host = bc.init(torch.Generator().manual_seed(SEED))
+        card = bd.init(None)
+        with torch.no_grad():
+            for p, q in zip(card.parameters(), host.parameters()):
+                p.copy_(q)
+        batch = lm_batch(torch, cfg, rng, 4, 32, cpu)
+        batch["labels"] = torch.roll(batch["tokens"], -1, 1)
+        lc, gc = grads_of(torch, bc, host, batch)
+        ld, gd = grads_of(torch, bd, card, to_device(torch, batch, dev))
+        rec = {"loss_rel": abs(ld - lc) / abs(lc),
+               "grad_err": grad_err(gd, gc)}
+        ocfg = AdamWConfig(lr=TRAIN_AGREE_LR, warmup_steps=1, total_steps=8)
+        runs = {}
+        for name, bundle, model, d in (("cpu", bc, host, cpu),
+                                       ("cuda", bd, card, dev)):
+            step = make_train_step(bundle, ocfg, microbatches=2,
+                                   compress=True)
+            opt = init_opt_state(model, compress=True)
+            mets, seen = [], []
+            b = to_device(torch, batch, d)
+            with watch_compression(seen):
+                for _ in range(2):
+                    model, opt, met = step(model, opt, b)
+                    mets.append((float(met["loss"]),
+                                 float(met["grad_norm"])))
+            runs[name] = (mets, {n: p.detach().cpu() for n, p in
+                                 model.named_parameters()}, seen[0])
+        (mc, pc, xc), (md, pd, xd) = runs["cpu"], runs["cuda"]
+        rec["loss_rel_by_step"] = [abs(a[0] - b[0]) / abs(b[0])
+                                   for a, b in zip(md, mc)]
+        rec["grad_norm_rel_by_step"] = [abs(a[1] - b[1]) / abs(b[1])
+                                        for a, b in zip(md, mc)]
+        rec.update(code_flips(torch, xd, xc))
+        diff = torch.cat([(pd[k] - pc[k]).abs().reshape(-1) for k in pc])
+        rec["param_max_abs_diff"] = float(diff.max())
+        rec["params"] = diff.numel()
+        rec["params_beyond_1e-6"] = int((diff > 1e-6).sum())
+        rec["params_beyond_lr_half"] = int((diff > TRAIN_AGREE_LR / 2).sum())
+        out[arch] = rec
+        print(f"  {cfg.name} ({cfg.family}, fp32, card vs CPU): loss "
+              f"{rec['loss_rel']:.2e}, gradients {rec['grad_err']:.2e} of "
+              "the largest; 2 compressed steps: loss "
+              + ", ".join(f"{x:.2e}" for x in rec["loss_rel_by_step"])
+              + ", grad_norm "
+              + ", ".join(f"{x:.2e}" for x in rec["grad_norm_rel_by_step"])
+              + f"; first step's int8 codes: {rec['codes_differing']} of "
+              f"{rec['codes']} differ (by at most {rec['code_max_step']}); "
+              f"parameters: max |diff| {rec['param_max_abs_diff']:.2e}, "
+              f"{rec['params_beyond_1e-6']} of {rec['params']} beyond 1e-6, "
+              f"{rec['params_beyond_lr_half']} beyond lr/2", flush=True)
+        check(rec["loss_rel"] <= TRAIN_RTOL and
+              rec["grad_err"] <= TRAIN_RTOL,
+              f"{cfg.name}: loss and gradients on the card within "
+              f"{TRAIN_RTOL:g} of the CPU route's")
+        check(max(rec["loss_rel_by_step"]) <= TRAIN_RTOL,
+              f"{cfg.name}: loss of 2 compressed steps within "
+              f"{TRAIN_RTOL:g} relative")
+        check(rec["code_max_step"] <= 1 and
+              rec["codes_differing"] <= TRAIN_FLIP_SHARE * rec["codes"],
+              f"{cfg.name}: the first step's int8 codes equal but at "
+              f"rounding boundaries (each by one step, <= "
+              f"{TRAIN_FLIP_SHARE:.1%} of them)")
+        check(max(rec["grad_norm_rel_by_step"]) <= TRAIN_COMP_RTOL,
+              f"{cfg.name}: grad_norm of 2 compressed steps within "
+              f"{TRAIN_COMP_RTOL:g} relative (a flipped code moves its "
+              "element by a whole quantisation step)")
+        check(rec["param_max_abs_diff"] <= 2 * 2 * TRAIN_AGREE_LR and
+              rec["params_beyond_lr_half"] <= TRAIN_FLIP_SHARE
+              * rec["params"],
+              f"{cfg.name}: parameters after 2 steps within 2·lr per step, "
+              f"<= {TRAIN_FLIP_SHARE:.1%} of them beyond lr/2")
+    # remat at published width, 2 layers, fp32
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), dtype="float32",
+                              n_layers=TRAIN_REMAT_LAYERS)
+    model = build(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(SEED))
+    batch = lm_batch(torch, cfg, rng, TRAIN_REMAT_B, TRAIN_SEQ, dev)
+    batch["labels"] = torch.roll(batch["tokens"], -1, 1)
+    grads, peaks = {}, {}
+    for remat in ("none", "full", "dots"):
+        b = build(dataclasses.replace(cfg, remat=remat), device=dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        grads[remat] = grads_of(torch, b, model, batch)[1]
+        peaks[remat] = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+    rec = {r: grad_err(grads[r], grads["none"]) for r in ("full", "dots")}
+    rec["peak_above_weights_gib"] = peaks
+    out["remat"] = rec
+    print(f"  {TRAIN_ARCH} published width, {TRAIN_REMAT_LAYERS} layers, "
+          f"fp32, B={TRAIN_REMAT_B}, S={TRAIN_SEQ}: gradients under remat "
+          f"'full' {rec['full']:.2e}, 'dots' {rec['dots']:.2e} of the "
+          "largest against 'none'; peak above the weights "
+          + ", ".join(f"{k} {v:.2f} GiB" for k, v in peaks.items()),
+          flush=True)
+    check(rec["full"] <= TRAIN_RTOL and rec["dots"] <= TRAIN_RTOL,
+          f"remat 'full' and 'dots' gradients within {TRAIN_RTOL:g} of "
+          "'none'")
+    del model, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_launcher(gpu) -> dict:
+    """``python -m repro_torch.launch.train --preset 100m`` on the card."""
+    import re
+    import shutil
+    import tempfile
+    root = os.path.join(HERE, "build")
+    ckpt = tempfile.mkdtemp(prefix="launch_ckpt_", dir=root)
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--preset",
+           "100m", "--steps", str(TRAIN_LAUNCHER_STEPS), "--fixed-batch",
+           "--ckpt-dir", ckpt]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True,
+                              text=True, timeout=600, check=False)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    tail = proc.stdout.strip().splitlines()[-1:] or [""]
+    m = re.match(r"first loss ([0-9.]+) -> last loss ([0-9.]+)", tail[0])
+    print(f"  launcher --preset 100m, {TRAIN_LAUNCHER_STEPS} steps: "
+          f"exit {proc.returncode}, {wall:.1f} s: {tail[0]} ({gpu})",
+          flush=True)
+    if proc.returncode:
+        print(proc.stderr[-4000:], flush=True)
+    check(proc.returncode == 0 and m is not None
+          and float(m.group(2)) < float(m.group(1)),
+          "the launcher trained the 100m preset on the card and its last "
+          "loss is below its first")
+    return {"first_loss": float(m.group(1)), "last_loss": float(m.group(2)),
+            "seconds": wall}
+
+
+def run_train(torch, dev, gpu, wrappers) -> dict:
+    """The train phase with every kernel wrapper's count set to 0 just
+    before it and read just after: the LM training path reaches no hand
+    kernel (nor does the reference's any Pallas kernel)."""
+    t0 = time.perf_counter()
+    print(f"LM training path ({gpu}):", flush=True)
+    for fn in wrappers.values():
+        fn.launches = 0
+    train = check_train(torch, dev, gpu)
+    train["launches"] = {k: fn.launches for k, fn in wrappers.items()}
+    check(not any(train["launches"].values()),
+          "the LM training path launched no hand kernel: "
+          f"{train['launches']}")
+    print(f"train phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    return train
+
+
+def check_train(torch, dev, gpu) -> dict:
+    """The train phase (see the module docstring)."""
+    check(torch.backends.cuda.matmul.allow_tf32 is False,
+          "TF32 off for the train phase's fp32 products")
+    out = {}
+    for name, fn in (("tinyllama", lambda: train_tinyllama(torch, dev, gpu)),
+                     ("granite_moe", lambda: train_moe(torch, dev, gpu)),
+                     ("agreement", lambda: train_agreement(torch, dev)),
+                     ("launcher", lambda: train_launcher(gpu))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        out[name]["seconds"] = time.perf_counter() - t0
+        print(f"  {name}: {out[name]['seconds']:.1f} s", flush=True)
+    check(torch.backends.cuda.matmul.allow_tf32 is False,
+          "the train phase left TF32 off")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3291,6 +3852,9 @@ def main() -> int:
         return 0
     gpu = gpu_line()
     print(f"gpu: {gpu}", flush=True)
+    wrappers = {"dft_matmul": dft_matmul,
+                "dft_matmul_twiddle": dft_matmul_twiddle,
+                "unpack_dft": unpack_dft, "dft_pack": dft_pack}
     t0 = time.perf_counter()
     build.build_all()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -3378,9 +3942,6 @@ def main() -> int:
 
     t0 = time.perf_counter()
     print(f"LM serving path ({gpu}):", flush=True)
-    wrappers = {"dft_matmul": dft_matmul,
-                "dft_matmul_twiddle": dft_matmul_twiddle,
-                "unpack_dft": unpack_dft, "dft_pack": dft_pack}
     for fn in wrappers.values():
         fn.launches = 0
     lm = check_lm(torch, dev, gpu)
@@ -3391,6 +3952,8 @@ def main() -> int:
     print("lm: " + json.dumps(lm), flush=True)
     print(f"lm phase: {time.perf_counter() - t0:.1f} s", flush=True)
     torch.cuda.empty_cache()
+    train = run_train(torch, dev, gpu, wrappers)
+    print("train: " + json.dumps(train), flush=True)
 
     t0 = time.perf_counter()
     shapes = time_line_shapes(torch, dev, gen, stages, gpu)
@@ -3416,7 +3979,7 @@ def main() -> int:
                    for k in per_call["inverse"]},
                "spectral": {"dft_matmul": sum(
                    r["launches"] for r in spectral.values())},
-               "lm": lm["launches"]}
+               "lm": lm["launches"], "train": train["launches"]}
     # the multi-rank paths' launches, per rank (each a list over the
     # ranks): the fused steps count the warm-up's and the capture's
     per_rank = {"multirank_scf_per_rank": multirank["launches_per_rank"],

@@ -17,8 +17,8 @@ from repro_torch.sharding import ctx
 
 from .attention import blocked_attention, decode_attention
 from .layers import mlp_apply, rms_norm, sinusoidal_pos, weight, zeros
-from .transformer import Layer, _dtype, _positions, attn_apply, embedding, \
-    lm_head, logits_fn
+from .transformer import Layer, _dtype, _positions, _remat, attn_apply, \
+    embedding, lm_head, logits_fn
 
 
 class Cross(nn.Module):
@@ -60,8 +60,8 @@ def encode(params, frames, cfg):
     B, S, D = frames.shape
     dt = _dtype(cfg)
     x = frames.to(dt) + sinusoidal_pos(S, D, frames.device).to(dt)
-    x = ctx.constrain_act(x)
-    for lp in params.enc_layers:
+
+    def body(lp, x):
         h = rms_norm(x, lp.ln1, cfg.norm_eps)
         q = (h @ lp.wq).reshape(B, S, cfg.n_heads, cfg.head_dim)
         k = (h @ lp.wk).reshape(B, S, cfg.n_kv, cfg.head_dim)
@@ -69,7 +69,12 @@ def encode(params, frames, cfg):
         o = blocked_attention(q, k, v, causal=False)
         x = x + o.reshape(B, S, -1) @ lp.wo
         h = rms_norm(x, lp.ln2, cfg.norm_eps)
-        x = ctx.constrain_act(x + mlp_apply(lp.mlp, h, cfg.activation))
+        return ctx.constrain_act(x + mlp_apply(lp.mlp, h, cfg.activation))
+
+    x = ctx.constrain_act(x)
+    body = _remat(body, cfg)
+    for lp in params.enc_layers:
+        x = body(lp, x)
     return rms_norm(x, params.ln_enc, cfg.norm_eps)
 
 
@@ -90,18 +95,25 @@ def _cross_apply(xp, x, k, v, cfg):
 
 def _decoder(params, x, enc, cfg, positions, cache=None):
     """The decoder stack over (B, S) positions; with ``cache``, each
-    layer's self-attention k/v and cross k/v are written into it."""
-    for i, (lp, xp) in enumerate(zip(params.dec_layers, params.cross)):
-        kv = None if cache is None else (cache["k"][i], cache["v"][i])
+    layer's self-attention k/v and cross k/v are written into it.  With
+    no cache (the teacher-forced training pass) each layer body is
+    rematerialised by ``cfg.remat``."""
+    def body(lp, xp, x, enc, i=None):
+        kv = None if i is None else (cache["k"][i], cache["v"][i])
         a, _ = attn_apply(lp, x, cfg, positions, cache=kv)
         x = x + a
         k, v = _cross_kv(xp, enc, cfg)
-        if cache is not None:
+        if i is not None:
             cache["xk"][i] = k.to(cache["xk"].dtype)
             cache["xv"][i] = v.to(cache["xv"].dtype)
         x = x + _cross_apply(xp, x, k, v, cfg)
         h = rms_norm(x, lp.ln2, cfg.norm_eps)
-        x = ctx.constrain_act(x + mlp_apply(lp.mlp, h, cfg.activation))
+        return ctx.constrain_act(x + mlp_apply(lp.mlp, h, cfg.activation))
+
+    train = _remat(body, cfg)
+    for i, (lp, xp) in enumerate(zip(params.dec_layers, params.cross)):
+        x = train(lp, xp, x, enc) if cache is None else \
+            body(lp, xp, x, enc, i)
     return rms_norm(x, params.ln_f, cfg.norm_eps)
 
 

@@ -29,29 +29,41 @@ from repro_torch.sharding import ctx
 from . import encdec, rglru, ssm, transformer
 from .attention import blocked_attention, decode_attention
 from .layers import MLP, apply_rope, mlp_apply, rms_norm, zeros
-from .transformer import Layer, _dtype, embedding, layer_apply, lm_head, \
-    logits_fn
+from .transformer import Layer, _dtype, _remat, embedding, layer_apply, \
+    lm_head, logits_fn
 
 
 # ------------------------------------------------------------------ loss
 def chunked_xent(params, h, labels, cfg, chunk: int = 512, mask=None):
     """Sequence-chunked softmax cross-entropy; never materializes
-    (B, S, V): logits are built per chunk.  (The forward computation; its
-    backward belongs to the training path.)"""
+    (B, S, V): logits are built per chunk, and with gradients on each
+    chunk's body is rematerialised in the backward (the reference's
+    ``jax.checkpoint``), so the backward holds one chunk's (B, chunk, V)
+    float32 logits at a time.  ``labels`` are int64 (``torch.gather``)."""
     B, S, D = h.shape
     chunk = min(chunk, S)
     while S % chunk:
         chunk //= 2
+
+    def body(hc, lc, mc):
+        logits = logits_fn(params, hc, cfg)                 # (B,chunk,V) f32
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lc[..., None])[..., 0]
+        nll = lse - gold
+        if mc is not None:
+            nll = nll * mc
+        return nll.sum()
+
+    if torch.is_grad_enabled():
+        from torch.utils.checkpoint import checkpoint
+        run = functools.partial(checkpoint, body, use_reentrant=False)
+    else:
+        run = body
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for idx in range(S // chunk):
         sl = slice(idx * chunk, (idx + 1) * chunk)
-        logits = logits_fn(params, h[:, sl], cfg)          # (B,chunk,V) f32
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, labels[:, sl, None])[..., 0]
-        nll = lse - gold
-        if mask is not None:
-            nll = nll * mask[:, sl]
-        total = total + nll.sum()
+        total = total + run(h[:, sl], labels[:, sl],
+                            None if mask is None else mask[:, sl])
     if mask is None:
         return total / (B * S)
     return total / torch.clamp(mask.sum(), min=1.0)
@@ -98,10 +110,15 @@ class SSMLM(nn.Module):
 
 def ssm_forward(params, tokens, cfg):
     x = ctx.constrain_act(params.embed[tokens])
-    for lp in params.layers:
+
+    def body(lp, x):
         h = rms_norm(x, lp.ln, cfg.norm_eps)
         y, _ = ssm.ssm_block(lp.ssm, h, cfg)
-        x = ctx.constrain_act(x + y)
+        return ctx.constrain_act(x + y)
+
+    body = _remat(body, cfg)
+    for lp in params.layers:
+        x = body(lp, x)
     return rms_norm(x, params.ln_f, cfg.norm_eps)
 
 
@@ -190,14 +207,22 @@ def hybrid_forward(params, tokens, cfg):
     x = ctx.constrain_act(params.embed[tokens])
     B, S = tokens.shape
     positions = transformer._positions(B, S, x.device)
-    for gp in params.groups:
+
+    def body(gp, x):
         x, _ = _rec_apply(gp.rec1, x, cfg)
         x, _ = _rec_apply(gp.rec2, x, cfg)
         x, _ = layer_apply(gp.attn, x, cfg, positions,
                            window=cfg.local_window)
-        x = ctx.constrain_act(x)
+        return ctx.constrain_act(x)
+
+    def tbody(tp, x):
+        return _rec_apply(tp, x, cfg)[0]
+
+    body, tbody = _remat(body, cfg), _remat(tbody, cfg)
+    for gp in params.groups:
+        x = body(gp, x)
     for tp in getattr(params, "tail", ()):
-        x, _ = _rec_apply(tp, x, cfg)
+        x = tbody(tp, x)
     return rms_norm(x, params.ln_f, cfg.norm_eps)
 
 
@@ -397,13 +422,114 @@ def build(cfg, *, device=None) -> ModelBundle:
     return _BUILDERS[cfg.family](cfg, resolve_device(device))
 
 
-# ----------------------------------------------------- reference weights
+# ------------------------------------------------- reference state trees
+# The reference's parameter tree stacks each layer group on a leading
+# axis; the port holds the same tensors as entries of an ``nn.ModuleList``
+# of that name.  These functions carry trees across by name: a stacked
+# leaf's layer ``i`` is entry ``i`` of the list.
+
+def stacked_lists(model) -> set[str]:
+    """The model's top-level ``nn.ModuleList``s: the reference's stacked
+    layer groups."""
+    return {name for name, m in model.named_children()
+            if isinstance(m, nn.ModuleList)}
+
+
+def reference_name(name: str, lists) -> tuple[str, int | None]:
+    """``(the reference leaf's dotted path, layer index or None)`` of the
+    port parameter ``name`` ("layers.3.moe.w_up" → ("layers.moe.w_up",
+    3))."""
+    top, _, rest = name.partition(".")
+    if top in lists:
+        idx, _, rest = rest.partition(".")
+        return f"{top}.{rest}", int(idx)
+    return name, None
+
+
+def reference_ndims(model) -> dict[str, int]:
+    """Each parameter's rank in the reference's tree: its own, plus 1
+    inside a stacked layer group (the reference's optimizer decays a leaf
+    by that rank)."""
+    lists = stacked_lists(model)
+    return {n: p.ndim + (reference_name(n, lists)[1] is not None)
+            for n, p in model.named_parameters()}
+
+
+def tree_of(model, named: dict, combine=list) -> dict:
+    """The nested reference-shaped tree of ``named`` (values keyed by the
+    model's parameter names): a stacked leaf is ``combine`` of its layers'
+    values, in layer order (a list by default)."""
+    lists = stacked_lists(model)
+    flat: dict[str, object] = {}
+    layers: dict[str, dict[int, object]] = {}
+    for name, value in named.items():
+        ref, idx = reference_name(name, lists)
+        if idx is None:
+            flat[ref] = value
+        else:
+            layers.setdefault(ref, {})[idx] = value
+    for ref, by_idx in layers.items():
+        flat[ref] = combine([by_idx[i] for i in range(len(by_idx))])
+    tree: dict = {}
+    for ref, value in flat.items():
+        *path, leaf = ref.split(".")
+        node = tree
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = value
+    return tree
+
+
 def _flatten(tree, prefix=""):
     for k, v in tree.items():
         if isinstance(v, dict):
             yield from _flatten(v, f"{prefix}{k}.")
         else:
             yield f"{prefix}{k}", v
+
+
+def _as_tensor(x) -> torch.Tensor:
+    """A host tensor of a leaf: a tensor as it is; a numpy array as a
+    tensor (a numpy bfloat16, which torch cannot wrap, through float32:
+    exact)."""
+    if isinstance(x, torch.Tensor):
+        return x
+    arr = np.asarray(x)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    if not (arr.flags.c_contiguous and arr.flags.writeable):
+        arr = np.array(arr)
+    return torch.from_numpy(arr)
+
+
+def split_tree(model, tree) -> dict:
+    """``tree`` (reference-shaped) as values keyed by the model's
+    parameter names; every leaf must match a parameter and every
+    parameter a leaf."""
+    lists = stacked_lists(model)
+    leaves = dict(_flatten(tree))
+    out, used = {}, set()
+    for name, _ in model.named_parameters():
+        ref, idx = reference_name(name, lists)
+        if ref not in leaves:
+            raise KeyError(f"no leaf {ref!r} for parameter {name!r}")
+        used.add(ref)
+        leaf = _as_tensor(leaves[ref])
+        out[name] = leaf if idx is None else leaf[idx]
+    extra = set(leaves) - used
+    if extra:
+        raise KeyError(f"leaves with no parameter: {sorted(extra)}")
+    return out
+
+
+def load_tree(model, tree) -> None:
+    """Copy the reference-shaped parameter tree ``tree`` (numpy arrays or
+    tensors) into ``model``'s parameters, in place (cast to each
+    parameter's dtype and device)."""
+    values = split_tree(model, tree)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(values[name])
 
 
 def params_from_numpy(cfg, tree, *, device):
@@ -413,16 +539,38 @@ def params_from_numpy(cfg, tree, *, device):
     the layouts are the same, and a stacked leaf's layer ``i`` goes to
     entry ``i`` of the ``nn.ModuleList`` of that name."""
     model = build(cfg, device=device).init(None)
-    lists = {name for name, m in model.named_children()
-             if isinstance(m, nn.ModuleList)}
-    state = {}
-    for name, leaf in _flatten(tree):
-        arr = torch.from_numpy(np.array(leaf, dtype=np.float32))
-        top, _, rest = name.partition(".")
-        if top in lists:
-            for i in range(arr.shape[0]):
-                state[f"{top}.{i}.{rest}"] = arr[i]
-        else:
-            state[name] = arr
-    model.load_state_dict(state, strict=True)
+    load_tree(model, tree)
     return model
+
+
+def opt_state_from_numpy(model, tree) -> dict:
+    """The port's optimizer state from the reference's ``{"m", "v",
+    "step"[, "residuals"]}`` tree (numpy arrays or tensors): each tree of
+    moments split by parameter name as :func:`params_from_numpy` splits
+    the parameters, on the model's device, in the leaves' dtypes."""
+    dev = next(model.parameters()).device
+    out = {}
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            out[key] = {n: t.to(dev, copy=True)
+                        for n, t in split_tree(model, value).items()}
+        else:
+            out[key] = _as_tensor(value).to(dev, torch.int32, copy=True)
+    return out
+
+
+def _to_numpy(t) -> np.ndarray:
+    t = t.detach().to("cpu", copy=True)      # never a view of live state
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def state_to_numpy(model, state=None) -> dict:
+    """The inverse of :func:`opt_state_from_numpy` (and, with ``state``
+    None, of :func:`params_from_numpy`): reference-shaped trees of numpy
+    arrays, stacked leaves stacked again (bfloat16 as float32, exact)."""
+    if state is None:
+        return tree_of(model, {n: _to_numpy(p) for n, p in
+                               model.named_parameters()}, np.stack)
+    return {k: tree_of(model, {n: _to_numpy(t) for n, t in v.items()},
+                       np.stack) if isinstance(v, dict) else _to_numpy(v)
+            for k, v in state.items()}

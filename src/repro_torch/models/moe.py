@@ -117,3 +117,11 @@ def moe_apply(p, x, cfg, groups: int | None = None):
     out = torch.stack([_dispatch_group(xg[g], p, cfg, C) for g in range(G)])
     return out.reshape(B, S, D).to(x.dtype)
 
+
+def aux_load_balance_loss(router_logits, top_idx, E: int):
+    """Switch-style auxiliary loss (fraction·probability per expert): the
+    reference's, which no model calls in either package."""
+    probs = torch.softmax(router_logits, dim=-1)
+    frac = torch.mean(F.one_hot(top_idx[..., 0], E).float(), dim=0)
+    prob = torch.mean(probs, dim=0)
+    return E * torch.sum(frac * prob)

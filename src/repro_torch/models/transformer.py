@@ -10,10 +10,14 @@ as ``params`` with the config, as the reference's do.
 The KV cache is layer-leading, ``(L, B, capacity, Kh, hd)``, as in the
 reference.  Prefill and decode write it in place (the reference returns a
 new cache from a jitted call that donates the old one) and return it.
-Serving runs under ``torch.inference_mode()``; the reference's
-``jax.checkpoint`` (remat) only matters for training and is not here.
+Serving runs under ``torch.inference_mode()``.  The training forward
+rematerialises each layer body by ``cfg.remat`` (:func:`_remat`, the
+reference's ``jax.checkpoint`` of its scan body); with gradients off
+(serving) remat does nothing.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 from torch import nn
@@ -126,6 +130,46 @@ def layer_apply(p, x, cfg, positions, *, window: int = 0, cache=None,
     return x + f, cache
 
 
+def _save_dots(ctx, op, *args, **kwargs):
+    """``dots_with_no_batch_dims_saveable``: keep the outputs of matrix
+    products with no batch dimension (``aten.mm``: an activation times a
+    weight), recompute everything else (``aten.bmm`` of attention and
+    the expert einsums included)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    del ctx, args, kwargs
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg):
+    """``fn`` rematerialised in the backward by ``cfg.remat`` (the
+    reference's ``_remat``): ``"none"`` keeps every activation, ``"full"``
+    keeps only ``fn``'s inputs, ``"dots"`` also keeps the outputs of
+    :func:`_save_dots`' products.  With gradients off ``fn`` runs as it
+    is."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+
+    def run(*args):
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return run
+
+
+def _body(cfg, positions):
+    """One layer of the training forward, as :func:`_remat` wraps it."""
+    def body(lp, x):
+        x, _ = layer_apply(lp, x, cfg, positions)
+        return ctx.constrain_act(x)
+    return _remat(body, cfg)
+
+
 def _positions(B: int, S: int, device):
     return torch.arange(S, device=device).expand(B, S)
 
@@ -146,10 +190,9 @@ def forward(params, tokens, cfg, *, embeds=None):
     """
     x = _embed(params, tokens, embeds)
     B, S, _ = x.shape
-    positions = _positions(B, S, x.device)
+    body = _body(cfg, _positions(B, S, x.device))
     for lp in params.layers:
-        x, _ = layer_apply(lp, x, cfg, positions)
-        x = ctx.constrain_act(x)
+        x = body(lp, x)
     return rms_norm(x, params.ln_f, cfg.norm_eps)
 
 

@@ -1,0 +1,111 @@
+"""AdamW with cosine schedule and global-norm clipping (the reference's
+``optim/adamw.py``), as plain functions over a model's named parameters.
+
+``params`` is an ``nn.Module`` or a dict of tensors keyed by name; the
+state is ``{"m": {name: tensor}, "v": {name: tensor}, "step": int32
+tensor}``, on the parameters' device.  The update runs in float32 and is
+written back in place, cast to each tensor's dtype (the port's
+counterpart of the reference's donated buffers).
+
+Decoupled weight decay applies to a tensor whose rank *in the reference's
+parameter tree* is at least 2.  The reference stacks every layer group on
+a leading axis, so its per-layer norm scales and vectors (``layers.ln1``
+of shape (L, D), the SSM's ``A_log``/``D_skip``/``dt_bias`` of shape
+(L, H)) are decayed, and only the unstacked ones (``ln_f``) are not.  The
+port holds a stacked group as an ``nn.ModuleList``, where the same
+tensors have one dimension less, so the rule counts that dimension back
+(:func:`~repro_torch.models.model_zoo.reference_ndims`).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+from torch import nn
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    min_lr_frac: float = 0.1
+
+
+def named_tensors(params) -> tuple[dict, dict]:
+    """``({name: tensor}, {name: rank in the reference's tree})`` of an
+    ``nn.Module`` (stacked groups count their layer axis) or of a dict of
+    tensors (each its own rank)."""
+    if isinstance(params, nn.Module):
+        from repro_torch.models.model_zoo import reference_ndims
+        return dict(params.named_parameters()), reference_ndims(params)
+    return dict(params), {n: t.ndim for n, t in params.items()}
+
+
+def init_state(params, dtype=torch.float32) -> dict:
+    """dtype=bfloat16 gives memory-reduced states, as in the reference."""
+    named, _ = named_tensors(params)
+    dev = next(iter(named.values())).device
+
+    def zeros():
+        return {n: torch.zeros(p.shape, dtype=dtype, device=p.device)
+                for n, p in named.items()}
+    return {"m": zeros(), "v": zeros(),
+            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def schedule(cfg: AdamWConfig, step):
+    """Learning rate at ``step`` (a tensor): linear warmup, then cosine
+    down to ``min_lr_frac``; float32."""
+    step = torch.as_tensor(step).float()
+    warm = torch.clamp(step / max(cfg.warmup_steps, 1), max=1.0)
+    t = torch.clamp((step - cfg.warmup_steps)
+                    / max(cfg.total_steps - cfg.warmup_steps, 1), 0, 1)
+    cos = 0.5 * (1 + torch.cos(math.pi * t))
+    frac = cfg.min_lr_frac + (1 - cfg.min_lr_frac) * cos
+    return cfg.lr * warm * frac
+
+
+def global_norm(tree):
+    """√(Σ x²) over every tensor of the dict ``tree``, in float32."""
+    leaves = list(tree.values())
+    total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    for x in leaves:
+        total = total + torch.sum(torch.square(x.float()))
+    return torch.sqrt(total)
+
+
+@torch.no_grad()
+def apply_updates(params, grads, state, cfg: AdamWConfig):
+    """One AdamW step, in place: ``params`` and the state's moments are
+    overwritten.  Returns (params, state, metrics) as the reference's
+    does, ``metrics = {"grad_norm", "lr"}`` (tensors)."""
+    named, ndims = named_tensors(params)
+    step = state["step"] + 1
+    gnorm = global_norm(grads)
+    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12),
+                        max=1.0)
+    lr = schedule(cfg, step)
+    b1, b2 = cfg.beta1, cfg.beta2
+    t = step.float()
+    c1 = 1.0 - torch.pow(b1, t)
+    c2 = 1.0 - torch.pow(b2, t)
+    for name, p in named.items():
+        m, v = state["m"][name], state["v"][name]
+        g = grads[name].float() * scale
+        m_new = b1 * m.float() + (1 - b1) * g
+        v_new = b2 * v.float() + (1 - b2) * torch.square(g)
+        delta = (m_new / c1) / (torch.sqrt(v_new / c2) + cfg.eps)
+        if ndims[name] >= 2:                  # decoupled decay on matrices
+            delta = delta + cfg.weight_decay * p.float()
+        p.copy_(p.float() - lr * delta)
+        m.copy_(m_new)
+        v.copy_(v_new)
+    state["step"] = step
+    return params, state, {"grad_norm": gnorm, "lr": lr}

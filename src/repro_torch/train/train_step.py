@@ -1,0 +1,132 @@
+"""The train step: loss → grad → (optional compression) → AdamW (the
+reference's ``train/train_step.py``).
+
+``make_train_step`` closes over the bundle and returns
+``step(params, opt_state, batch) → (params, opt_state, metrics)``; the
+reference jits it with params and state donated, the port runs it
+eagerly and updates both in place (``donate=False`` works on copies and
+leaves the caller's untouched).
+
+Microbatching (gradient accumulation) uses the reference's strided
+split: row i of microbatch m is row ``i*mb + m``.  Each microbatch's
+gradients come from ``torch.autograd.grad`` in the parameters' dtype and
+are summed into float32 buffers (the reference's float32 accumulator;
+``.grad`` would add in bfloat16 at the published configs), then divided
+by ``mb``, as is the loss.
+
+On a grid whose batch axes span several processes (data parallel: each
+rank holds the weights, the optimizer state and its rows of the batch)
+the gradients and the loss are averaged over those axes before
+compression, so every rank compresses and applies the global gradient,
+as the reference's GSPMD step does.
+"""
+from __future__ import annotations
+
+import copy
+
+import torch
+
+from repro_torch.optim import adamw
+from repro_torch.optim.compression import compress_grads, decompress_grads
+
+
+def _dp_axes(grid) -> list[int]:
+    """The grid's batch axes (pod, data) that span several processes."""
+    if grid is None or not grid.multi_process:
+        return []
+    return [grid.axis_index(a) for a in ("pod", "data")
+            if a in grid.axes and grid.shape[grid.axis_index(a)] > 1]
+
+
+def _mean_over(grid, axes, grads: dict, loss):
+    """The gradients (float32) and the loss averaged over grid ``axes``,
+    in one all-reduce of one flat buffer."""
+    n = 1
+    for a in axes:
+        n *= grid.shape[a]
+    names = list(grads)
+    flat = torch.cat([grads[k].float().reshape(-1) for k in names]
+                     + [loss.float().reshape(1)])
+    flat = grid.all_reduce(flat, axes, name="train.grad_all_reduce") / n
+    out, at = {}, 0
+    for k in names:
+        size = grads[k].numel()
+        out[k] = flat[at:at + size].view(grads[k].shape)
+        at += size
+    return out, flat[at]
+
+
+def _device_batch(batch: dict) -> dict:
+    """Token ids as int64 (``torch.gather`` and embedding lookups)."""
+    return {k: v.long() if not v.is_floating_point() else v
+            for k, v in batch.items()}
+
+
+def make_train_step(bundle, opt_cfg: adamw.AdamWConfig, grid=None, *,
+                    microbatches: int = 1, compress: bool = False,
+                    donate: bool = True):
+    """Returns train_step(params, opt_state, batch) → (params, state,
+    metrics), ``metrics = {"loss", "grad_norm", "lr"}`` (tensors).
+
+    With compress=True, gradients pass through int8 error-feedback
+    quantization; the residual state lives in opt_state["residuals"].
+    ``grid``: the processes of a data-parallel run (see the module
+    docstring); ``batch`` holds this rank's rows."""
+    dp = _dp_axes(grid)
+
+    def value_and_grad(params, names, plist, batch):
+        loss = bundle.loss(params, batch)
+        gs = torch.autograd.grad(loss, plist)
+        return loss.detach(), dict(zip(names, gs))
+
+    def step(params, opt_state, batch):
+        if not donate:
+            params = copy.deepcopy(params)
+            opt_state = {k: ({n: t.clone() for n, t in v.items()}
+                             if isinstance(v, dict) else v.clone())
+                         for k, v in opt_state.items()}
+        batch = _device_batch(batch)
+        named = dict(params.named_parameters())
+        names, plist = list(named), list(named.values())
+        if microbatches > 1:
+            g = {n: torch.zeros(p.shape, dtype=torch.float32,
+                                device=p.device) for n, p in named.items()}
+            loss = torch.zeros((), dtype=torch.float32,
+                               device=plist[0].device)
+            for m in range(microbatches):
+                mb = {k: v[m::microbatches] for k, v in batch.items()}
+                lm, gm = value_and_grad(params, names, plist, mb)
+                for n in names:
+                    g[n].add_(gm[n])
+                del gm
+                loss = loss + lm.float()
+            for n in names:
+                g[n].div_(microbatches)
+            loss = loss / microbatches
+        else:
+            loss, g = value_and_grad(params, names, plist, batch)
+        if dp:
+            g, loss = _mean_over(grid, dp, g, loss)
+
+        if compress:
+            comp, res = compress_grads(g, opt_state["residuals"])
+            g = decompress_grads(comp)
+            opt_state = {**opt_state, "residuals": res}
+
+        inner = {k: v for k, v in opt_state.items() if k != "residuals"}
+        params, inner, metrics = adamw.apply_updates(params, g, inner,
+                                                     opt_cfg)
+        if compress:
+            inner["residuals"] = opt_state["residuals"]
+        metrics["loss"] = loss
+        return params, inner, metrics
+
+    return step
+
+
+def init_opt_state(params, *, compress: bool = False, dtype=None) -> dict:
+    st = adamw.init_state(params, dtype or torch.float32)
+    if compress:
+        from repro_torch.optim.compression import init_residuals
+        st["residuals"] = init_residuals(params)
+    return st

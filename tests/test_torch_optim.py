@@ -1,0 +1,286 @@
+"""repro_torch.optim against the reference ``repro.optim``.
+
+* ``apply_updates`` on the same parameters, gradients and moments (random,
+  from one numpy seed) as the reference's, over a reduced tinyllama tree
+  and a reduced mamba2 tree carried across by name: every parameter and
+  moment afterwards within 1e-6 of its largest magnitude (float32, the
+  same formula; sums in no other order).  The reference decays every
+  leaf of rank ≥ 2 in *its* tree, where the layer groups are stacked, so
+  its per-layer norm scales and the SSM's ``A_log``/``D_skip``/
+  ``dt_bias`` are decayed; the test checks that the decay of those
+  tensors is far above the tolerance, so a rule keyed on the port's own
+  (unstacked) rank fails it.
+* The same with bfloat16 weights and bfloat16 moments: dtypes equal,
+  values within one bfloat16 rounding step (2⁻⁸ relative: both round the
+  same float32 update, which may sit on the other side of a rounding
+  boundary after float32 sums in another order).
+* ``schedule`` and ``global_norm`` against the reference (1e-6 relative).
+* Compression: the int8 codes equal the reference's bit for bit on the
+  same input (both round half to even), the scale and the residual
+  within 1e-7 of the largest magnitude.
+* Then the reference's own optimizer tests (``tests/test_optim.py``).
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from repro.configs.base import get_config as ref_config
+from repro.models.model_zoo import build as ref_build
+from repro.optim import adamw as ref_adamw
+from repro.optim import compression as ref_comp
+from repro_torch.configs.base import get_config
+from repro_torch.models.model_zoo import opt_state_from_numpy, \
+    params_from_numpy, split_tree, state_to_numpy
+from repro_torch.optim import adamw, compression
+
+CPU = torch.device("cpu")
+CFG = adamw.AdamWConfig(lr=1e-2, weight_decay=0.1, clip_norm=1.0,
+                        warmup_steps=2, total_steps=20)
+
+
+def _random_tree(shapes, rng, positive=False):
+    def draw(s):
+        x = rng.standard_normal(s.shape).astype(np.float32)
+        return np.abs(x) if positive else x
+    return jax.tree.map(draw, shapes)
+
+
+def _max_rel(got, want) -> float:
+    errs = jax.tree.map(
+        lambda a, b: float(np.abs(np.asarray(a, np.float32)
+                                  - np.asarray(b, np.float32)).max()
+                           / max(float(np.abs(np.asarray(b, np.float32)
+                                              ).max()), 1e-30)),
+        got, want)
+    return max(jax.tree.leaves(errs))
+
+
+def _setup(arch, dtype="float32"):
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype=dtype)
+    rcfg = dataclasses.replace(ref_config(arch).reduced(), dtype=dtype)
+    shapes = jax.eval_shape(ref_build(rcfg).init, jax.random.PRNGKey(0))
+    rng = np.random.default_rng(0)
+    p = _random_tree(shapes, rng)
+    g = _random_tree(shapes, rng)
+    m = jax.tree.map(lambda x: 0.1 * x, _random_tree(shapes, rng))
+    v = jax.tree.map(lambda x: 0.01 * x, _random_tree(shapes, rng, True))
+    return cfg, rcfg, p, g, m, v
+
+
+def _decayed_names(arch):
+    return {"tinyllama-1.1b": ("ln1", "ln2"),
+            "mamba2-370m": ("ln", "A_log", "D_skip", "dt_bias")}[arch]
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mamba2-370m"])
+def test_apply_updates_matches_the_reference(arch):
+    cfg, rcfg, p, g, m, v = _setup(arch)
+    rp = jax.tree.map(lambda x, s: jnp.asarray(x, s.dtype), p,
+                      jax.eval_shape(ref_build(rcfg).init,
+                                     jax.random.PRNGKey(0)))
+    rstate = {"m": jax.tree.map(jnp.asarray, m),
+              "v": jax.tree.map(jnp.asarray, v),
+              "step": jnp.asarray(3, jnp.int32)}
+    rp2, rs2, rmet = ref_adamw.apply_updates(
+        rp, jax.tree.map(jnp.asarray, g), rstate, CFG)
+
+    model = params_from_numpy(cfg, p, device=CPU)
+    state = opt_state_from_numpy(model, {"m": m, "v": v, "step": 3})
+    grads = split_tree(model, g)
+    out, st2, met = adamw.apply_updates(model, grads, state, CFG)
+    assert out is model                            # updated in place
+    assert int(st2["step"]) == int(rs2["step"]) == 4
+    np.testing.assert_allclose(float(met["grad_norm"]),
+                               float(rmet["grad_norm"]), rtol=1e-6)
+    np.testing.assert_allclose(float(met["lr"]), float(rmet["lr"]),
+                               rtol=1e-6)
+    got = state_to_numpy(model)
+    want = jax.tree.map(np.asarray, rp2)
+    assert _max_rel(got, want) <= 1e-6
+    moments = state_to_numpy(model, {"m": st2["m"], "v": st2["v"]})
+    assert _max_rel(moments["m"], jax.tree.map(np.asarray, rs2["m"])) \
+        <= 1e-6
+    assert _max_rel(moments["v"], jax.tree.map(np.asarray, rs2["v"])) \
+        <= 1e-6
+
+    # the stacked vectors are decayed in the reference: their decay term
+    # lr·wd·p, relative to p, is far above the tolerance, so keying the
+    # rule on the port's own rank (1 for these) fails the comparison above
+    assert float(rmet["lr"]) * CFG.weight_decay > 100 * 1e-6
+    flat = {tuple(k.key for k in path): leaf for path, leaf in
+            jax.tree_util.tree_flatten_with_path(p)[0]}
+    found = {path[-1] for path, leaf in flat.items()
+             if path[0] == "layers" and path[-1] in _decayed_names(arch)
+             and leaf.ndim == 2}
+    assert found == set(_decayed_names(arch))
+    ranks = {n: t.ndim for n, t in model.named_parameters()}
+    assert all(ranks[n] == 1 for n in ranks
+               if n.split(".")[-1] in _decayed_names(arch))
+    # the unstacked final norm is not decayed in either package
+    assert np.asarray(p["ln_f"]).ndim == 1
+
+
+def test_bf16_weights_and_states_match_the_reference():
+    arch = "tinyllama-1.1b"
+    cfg, rcfg, p, g, _, _ = _setup(arch, "bfloat16")
+    shapes = jax.eval_shape(ref_build(rcfg).init, jax.random.PRNGKey(0))
+    rp = jax.tree.map(lambda x, s: jnp.asarray(x, s.dtype), p, shapes)
+    rstate = ref_adamw.init_state(rp, jnp.bfloat16)
+    rp2, rs2, _ = ref_adamw.apply_updates(rp, jax.tree.map(jnp.asarray, g),
+                                          rstate, CFG)
+    model = params_from_numpy(cfg, jax.tree.map(np.asarray, rp),
+                              device=CPU)
+    state = adamw.init_state(model, torch.bfloat16)
+    adamw.apply_updates(model, split_tree(model, g), state, CFG)
+    ref_leaves = split_tree(model, jax.tree.map(np.asarray, rp2))
+    for name, t in model.named_parameters():
+        assert t.dtype == ref_leaves[name].dtype, name
+    assert {t.dtype for t in ref_leaves.values()} == {torch.float32,
+                                                       torch.bfloat16}
+    for key in ("m", "v"):
+        assert all(t.dtype == torch.bfloat16 for t in state[key].values())
+    got = state_to_numpy(model)
+    want = jax.tree.map(lambda x: np.asarray(x, np.float32), rp2)
+    assert _max_rel(got, want) <= 2.0 ** -8
+    mom = state_to_numpy(model, {"m": state["m"], "v": state["v"]})
+    for key in ("m", "v"):
+        assert _max_rel(mom[key], jax.tree.map(
+            lambda x: np.asarray(x, np.float32), rs2[key])) <= 2.0 ** -8
+
+
+@pytest.mark.parametrize("step", [0, 1, 2, 5, 19, 20, 25])
+def test_schedule_matches_the_reference(step):
+    got = float(adamw.schedule(CFG, torch.tensor(step)))
+    want = float(ref_adamw.schedule(CFG, jnp.asarray(step)))
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+
+
+def test_global_norm_matches_the_reference():
+    rng = np.random.default_rng(1)
+    tree = {f"t{i}": rng.standard_normal((i + 1, 7)).astype(np.float32)
+            for i in range(5)}
+    got = float(adamw.global_norm({k: torch.from_numpy(v)
+                                   for k, v in tree.items()}))
+    want = float(ref_adamw.global_norm(jax.tree.map(jnp.asarray, tree)))
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_compression_codes_equal_the_reference(seed):
+    rng = np.random.default_rng(seed)
+    grads = {"a": rng.standard_normal((64, 33)).astype(np.float32),
+             "b": (1e-3 * rng.standard_normal((257,))).astype(np.float32),
+             # exact halves of the scale: round half to even decides
+             "c": (np.arange(-127, 128, 0.5, dtype=np.float32) * 0.25)}
+    res = {k: (0.01 * rng.standard_normal(v.shape)).astype(np.float32)
+           for k, v in grads.items()}
+    res["c"] = np.zeros_like(grads["c"])
+    rcomp, rres = ref_comp.compress_grads(
+        jax.tree.map(jnp.asarray, grads), jax.tree.map(jnp.asarray, res))
+    comp, pres = compression.compress_grads(
+        {k: torch.from_numpy(v) for k, v in grads.items()},
+        {k: torch.from_numpy(v) for k, v in res.items()})
+    for k in grads:
+        q, s = comp[k]
+        rq, rs = rcomp[k]
+        assert q.dtype == torch.int8
+        np.testing.assert_array_equal(q.numpy(), np.asarray(rq))
+        np.testing.assert_allclose(float(s), float(rs), rtol=1e-7)
+        scale = float(np.abs(np.asarray(rres[k])).max()) + 1e-30
+        assert float(np.abs(pres[k].numpy() - np.asarray(rres[k])).max()) \
+            <= 1e-7 * max(scale, float(np.abs(grads[k]).max()))
+    deq = compression.decompress_grads(comp)
+    rdeq = ref_comp.decompress_grads(rcomp)
+    for k in grads:
+        np.testing.assert_allclose(deq[k].numpy(), np.asarray(rdeq[k]),
+                                   rtol=1e-7, atol=0)
+    assert compression.compressed_bytes(
+        {k: torch.from_numpy(v) for k, v in grads.items()}) == \
+        ref_comp.compressed_bytes(jax.tree.map(jnp.asarray, grads))
+
+
+def test_init_residuals_shapes():
+    model = params_from_numpy(
+        get_config("tinyllama-1.1b").reduced(),
+        jax.tree.map(np.asarray, ref_build(ref_config(
+            "tinyllama-1.1b").reduced()).init(jax.random.PRNGKey(0))),
+        device=CPU)
+    res = compression.init_residuals(model)
+    assert set(res) == {n for n, _ in model.named_parameters()}
+    assert all(r.dtype == torch.float32 and not r.any()
+               for r in res.values())
+
+
+# -------------------------------------- the reference's tests, mirrored
+def _np_adamw(p, g, m, v, t, lr, b1, b2, eps, wd):
+    m = b1 * m + (1 - b1) * g
+    v = b2 * v + (1 - b2) * g * g
+    mh = m / (1 - b1 ** t)
+    vh = v / (1 - b2 ** t)
+    delta = mh / (np.sqrt(vh) + eps) + wd * p
+    return p - lr * delta, m, v
+
+
+def test_adamw_matches_numpy_over_steps():
+    cfg = adamw.AdamWConfig(lr=1e-2, beta1=0.9, beta2=0.95, eps=1e-8,
+                            weight_decay=0.01, clip_norm=1e9,
+                            warmup_steps=0, total_steps=10**9,
+                            min_lr_frac=1.0)
+    rng = np.random.default_rng(0)
+    p_np = rng.standard_normal((4, 4)).astype(np.float32)
+    params = {"w": torch.from_numpy(p_np.copy())}
+    state = adamw.init_state(params)
+    m = np.zeros_like(p_np)
+    v = np.zeros_like(p_np)
+    p_ref = p_np.copy()
+    for t in range(1, 6):
+        g_np = rng.standard_normal((4, 4)).astype(np.float32)
+        params, state, _ = adamw.apply_updates(
+            params, {"w": torch.from_numpy(g_np)}, state, cfg)
+        p_ref, m, v = _np_adamw(p_ref, g_np, m, v, t, 1e-2, 0.9, 0.95,
+                                1e-8, 0.01)
+        np.testing.assert_allclose(params["w"].numpy(), p_ref,
+                                   rtol=1e-5, atol=1e-6)
+
+
+def test_clipping_caps_update():
+    cfg = adamw.AdamWConfig(lr=1.0, clip_norm=1.0, warmup_steps=0,
+                            weight_decay=0.0, min_lr_frac=1.0)
+    params = {"w": torch.zeros((10,))}
+    state = adamw.init_state(params)
+    g = {"w": torch.full((10,), 100.0)}
+    _, st, met = adamw.apply_updates(params, g, state, cfg)
+    assert float(met["grad_norm"]) > 100
+    # after clipping, effective g has norm 1 → m = .1/sqrt(10) per entry
+    np.testing.assert_allclose(st["m"]["w"].numpy(), 0.1 / np.sqrt(10),
+                               rtol=1e-6)
+
+
+def test_schedule_warmup_and_cosine():
+    cfg = adamw.AdamWConfig(lr=1.0, warmup_steps=10, total_steps=110,
+                            min_lr_frac=0.1)
+    s = adamw.schedule(cfg, torch.tensor(5))
+    assert abs(float(s) - 0.5) < 1e-6
+    s_end = adamw.schedule(cfg, torch.tensor(110))
+    assert abs(float(s_end) - 0.1) < 1e-3
+
+
+def test_bf16_state_roundtrip():
+    params = {"w": torch.ones((8, 8), dtype=torch.bfloat16)}
+    st = adamw.init_state(params, torch.bfloat16)
+    assert st["m"]["w"].dtype == torch.bfloat16
+    cfg = adamw.AdamWConfig(warmup_steps=0)
+    p2, st2, _ = adamw.apply_updates(params, {"w": torch.ones((8, 8))}, st,
+                                     cfg)
+    assert st2["v"]["w"].dtype == torch.bfloat16
+    assert p2["w"].dtype == torch.bfloat16
+
+
+def test_global_norm():
+    t = {"a": torch.ones((3,)), "b": torch.full((4,), 2.0)}
+    assert abs(float(adamw.global_norm(t)) - np.sqrt(3 + 16)) < 1e-6
