@@ -5,7 +5,9 @@
     python3 chip_smoke.py --compare-kernel1 DIR
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``,
-holds each against its plain PyTorch version at the shapes of the stacked
+holds each against its plain PyTorch version (kernel #1 also, through
+``kernels.ops.dft_apply``, against ``kernels.ref.dft_apply_ref``, an FFT of
+the padded or truncated line) at the shapes of the stacked
 plane-wave SCF at the paper's widths (grid n = 256, sphere diameter
 d = 128: ``repro/configs/fftb_paper.py``) and, for the sphere kernels, at
 small edge cases (ragged tiles, partial K chunks, odd n, every slab
@@ -145,6 +147,24 @@ launches over the phase must be 0; TF32 stays off):
 * ``python -m repro_torch.launch.train --preset 100m --steps 20
   --fixed-batch`` in a subprocess: its last loss below its first.
 
+Then the dryrun phase, the port's dry run (``repro_torch.launch.
+dryrun``: an accounting on the ``meta`` device over abstract grids, no
+card and no process group): the paper's cell in both variants on the
+16×16 and 2×16×16 grids, ``lower_cell`` of tinyllama-1.1b × train_4k and
+granite-moe-3b-a800m × decode_32k on 16×16, and one calibration cell:
+the accounting of the train phase's own TinyLlama step (8 × 1024 tokens
+in 2 microbatches, remat "full", float32 m and v, a 1×1 grid), whose
+state bytes (parameters, m, v and the step; gradients; the float32
+accumulator) must equal, to the byte, what the train phase's profiled
+step held on the card; its FLOPs, bytes and peak are printed beside the
+measured step time, kernel time and peak, with the achieved TFLOP/s and
+``bytes_accessed`` / 3.35 TB/s.  Then the examples phase: the six
+``examples/torch_*.py`` through their ``main()`` at their defaults on the
+card (``torch_train_lm`` at 20 steps, the fewest its loss check allows),
+each passing its own assertions, with every kernel wrapper's count set to
+0 just before and read just after (the examples run the "matmul" route:
+0 launches), within 120 s.
+
 Last, kernel #1 is timed at every distinct line shape that the SCF, the
 four-step, the service and the spectral paths launched (recorded while
 each path ran), beside its two bounds,
@@ -184,7 +204,9 @@ per call, times and bounds, the full-cube baseline), the spectral phase,
 the LM phase (per served model and pass: prefill and decode times,
 tokens/s, peak memory, the card's name and power limit; the decode
 step's launches and bound; the agreements), the train phase (step
-times, losses, peaks, checkpoint, agreements, launcher),
+times, losses, peaks, checkpoint, agreements, launcher), the dryrun
+phase (the cells' records, the calibration beside the measured step),
+the examples phase (each example's numbers and wall time, the launches),
 the per-shape table of kernel #1, one JSON line ``{"kernels": [...]}``
 (each kernel's launches on the main path, the smoke SCF, by path and
 per rank on each multi-rank path),
@@ -296,6 +318,19 @@ TRAIN_REMAT_LAYERS, TRAIN_REMAT_B = 2, 2
 TRAIN_LAUNCHER_STEPS = 20
 #: free disk the TinyLlama checkpoint needs: bf16 params, f32 m and v
 TRAIN_CKPT_GIB = 10.25
+
+# the dryrun phase: the port's dry-run accounting (repro_torch.launch.
+# dryrun, the meta device, abstract grids, nothing allocated) of the
+# paper's cell in both variants on both production grids, of these
+# (arch, shape) cells on the single-pod grid, and of train_tinyllama's own
+# step on a 1x1 grid, held against that step as the train phase measured it
+DRYRUN_CELLS = (("tinyllama-1.1b", "train_4k"),
+                ("granite-moe-3b-a800m", "decode_32k"))
+# the examples phase: the six examples/torch_*.py at their defaults on the
+# card (the "matmul" route: no hand kernel launches), torch_train_lm at
+# the fewest steps its loss check allows, all within EXAMPLES_MAX_S
+EXAMPLE_TRAIN_STEPS = 20
+EXAMPLES_MAX_S = 120.0
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM, fp32 without tensor
 # cores, dense TF32 on the tensor cores (every kernel: three TF32 products
@@ -522,10 +557,42 @@ def check_dft_matmul(torch, dev, gen):
     check(ms < lib, f"kernel {ms:.3f} ms faster than complex64 torch.matmul "
           f"{lib:.3f} ms")
     del x
+    oracle = check_dft_apply_oracle(torch, dev, gen)
     return {"name": "dft_matmul", "max_abs_err": err, "rel_err": rel,
+            "fft_oracle_rel_err": oracle,
             "edge_max_rel_err": worst, "tolerance": KERNEL_RTOL, "ms": ms,
             "plain_ms": plain, **b, "library_ms": lib,
             "shape": f"{M}x{K}->{Nn}"}
+
+
+def check_dft_apply_oracle(torch, dev, gen) -> float:
+    """Kernel #1 through ``kernels.ops.dft_apply`` on CUDA tensors (the
+    "cuda" route's line DFT) against ``kernels.ref.dft_apply_ref``
+    (``torch.fft`` of the padded or truncated line, no DFT matrix) at the
+    SCF's line shapes, d → n and n → n, both directions; returns the
+    largest error relative to the largest value."""
+    from repro_torch.kernels.dft_matmul import dft_matmul
+    from repro_torch.kernels.ops import dft_apply
+    from repro_torch.kernels.ref import dft_apply_ref
+    B = len(KPTS) * NBANDS
+    worst = 0.0
+    for M, n_in, n_out in ((B * DIAMETER * N, DIAMETER, N), (N * N, N, N)):
+        x = crandn(torch, gen, (M, n_in), dev)
+        for inverse in (True, False):
+            before = dft_matmul.launches
+            y = dft_apply(x, n_out, inverse=inverse)
+            launched = dft_matmul.launches - before
+            _, rel = rel_err(torch, y, dft_apply_ref(x, n_out,
+                                                     inverse=inverse))
+            del y
+            worst = max(worst, rel)
+            check(launched == 1 and rel <= KERNEL_RTOL,
+                  f"dft_apply {'inverse' if inverse else 'forward'} {M}x"
+                  f"{n_in}->{n_out} vs torch.fft oracle: 1 launch, rel err "
+                  f"{rel:.3e} <= {KERNEL_RTOL:g}")
+        del x
+    torch.cuda.empty_cache()
+    return worst
 
 
 # the sphere kernels' edge cases beside the SCF's shapes: (d, n, k-points,
@@ -3371,6 +3438,37 @@ def profile_train_step(torch, dev, step_fn, params, opt, batch) -> dict:
                     for a in avg[:10]]}
 
 
+def state_spies(torch, seen: dict):
+    """Wrap ``torch.autograd.grad`` and ``adamw.apply_updates`` for one
+    train step: ``seen`` gets the bytes (and devices) of the first
+    microbatch's gradients and of the float32 accumulator the step hands
+    the optimizer.  Returns a function that removes the wrappers."""
+    import repro_torch.optim.adamw as adamw
+    grad, apply = torch.autograd.grad, adamw.apply_updates
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def grad_spy(*args, **kw):
+        out = grad(*args, **kw)
+        if "grads" not in seen:
+            seen["grads"] = nbytes(out)
+            seen["devices"] = sorted({t.device.type for t in out})
+        return out
+
+    def apply_spy(params, grads, state, cfg):
+        seen["accumulator"] = nbytes(grads.values())
+        seen["accumulator_dtypes"] = sorted({str(t.dtype)
+                                             for t in grads.values()})
+        return apply(params, grads, state, cfg)
+
+    torch.autograd.grad, adamw.apply_updates = grad_spy, apply_spy
+
+    def remove():
+        torch.autograd.grad, adamw.apply_updates = grad, apply
+    return remove
+
+
 def train_tinyllama(torch, dev, gpu) -> dict:
     """TinyLlama-1.1B at its published config through Trainer: train,
     checkpoint, resume, serve the restored weights."""
@@ -3425,11 +3523,25 @@ def train_tinyllama(torch, dev, gpu) -> dict:
         check(all(t.device.type == "cuda" for t in ts),
               f"{TRAIN_ARCH}: all {len(ts)} tensors of the model and its "
               "optimizer state on cuda")
+        state = {"params_and_opt": sum(t.numel() * t.element_size()
+                                       for t in ts)}
         del ts
-        out["profile"] = profile_train_step(
-            torch, dev, tr.step_fn, params, opt,
-            {k: torch.from_numpy(v).to(dev)
-             for k, v in tr.pipeline.batch_at(0).items()})
+        # the profiled step also reads, on the card, the bytes of the
+        # gradients and of the float32 accumulator (the dry run's
+        # calibration holds its state bytes to these)
+        remove = state_spies(torch, state)
+        try:
+            out["profile"] = profile_train_step(
+                torch, dev, tr.step_fn, params, opt,
+                {k: torch.from_numpy(v).to(dev)
+                 for k, v in tr.pipeline.batch_at(0).items()})
+        finally:
+            remove()
+        check(state["devices"] == ["cuda"] and
+              state["accumulator_dtypes"] == ["torch.float32"],
+              f"{TRAIN_ARCH}: gradients on {state['devices']}, accumulator "
+              f"{state['accumulator_dtypes']}")
+        out["state_bytes_on_card"] = state
         del params, opt
         torch.cuda.empty_cache()
         losses = [h["loss"] for h in tr.history]
@@ -3826,6 +3938,173 @@ def check_train(torch, dev, gpu) -> dict:
     return out
 
 
+# ------------------------------------------------------------- the dry run
+def dryrun_calibration(torch, gpu, tiny) -> dict:
+    """The dry run's accounting of train_tinyllama's own step (8 x 1024
+    tokens in 2 microbatches, remat "full", float32 m and v, a 1x1 grid)
+    beside what the train phase measured of it: the state bytes held to
+    the card's to the byte, the rest printed."""
+    from repro_torch.configs.base import Shape, get_config
+    from repro_torch.core.grid import ProcGrid
+    from repro_torch.launch.dryrun import lower_step
+    cfg = get_config(TRAIN_ARCH)
+    rec = lower_step(cfg, Shape("train_tinyllama", "train", TRAIN_SEQ,
+                                TRAIN_BATCH),
+                     ProcGrid.create_abstract((1, 1), ("data", "model")),
+                     microbatches=TRAIN_MB, opt_dtype=torch.float32)
+    mem, card = rec["mem"], tiny["state_bytes_on_card"]
+    acct = {"params_and_opt": mem["params"] + mem["opt_state"],
+            "grads": mem["grads"], "accumulator": mem["accumulator"]}
+    print(f"  calibration, {TRAIN_ARCH} train step ({TRAIN_BATCH}x"
+          f"{TRAIN_SEQ} tokens, {TRAIN_MB} microbatches, remat "
+          f"{cfg.remat!r}, float32 m and v): state bytes, accounting vs "
+          "card: " + ", ".join(f"{k} {acct[k]:,} vs {card[k]:,}"
+                               for k in acct), flush=True)
+    check(acct == {k: card[k] for k in acct},
+          "the accounting's state bytes (parameters, m, v and the step; "
+          "gradients; float32 accumulator) equal the card's to the byte")
+    steady_s = tiny["steady_step_ms"] / 1e3
+    kernel_s = tiny["profile"]["kernel_ms"] / 1e3
+    above = (tiny["peak_gib"] - tiny["allocated_before_gib"]) * 2**30
+    out = {"flops": rec["flops"], "bytes_accessed": rec["bytes_accessed"],
+           "aten_ops": rec["aten_ops"], "mem": mem,
+           "peak_bytes": rec["peak_bytes_per_device"],
+           "measured_peak_above_bytes": above,
+           "steady_step_ms": tiny["steady_step_ms"],
+           "kernel_ms": tiny["profile"]["kernel_ms"],
+           "measured_aten_ops": tiny["profile"]["aten_ops"],
+           "achieved_tflops_step": rec["flops"] / steady_s / 1e12,
+           "achieved_tflops_kernel": rec["flops"] / kernel_s / 1e12,
+           "bytes_bound_ms": rec["bytes_accessed"] / HBM_BYTES_PER_S * 1e3,
+           "pass_s": rec["t_lower_s"], "state_bytes_on_card": card}
+    print(f"  calibration ({gpu}): accounting {rec['flops']:.4e} FLOP, "
+          f"{rec['bytes_accessed']:.4e} B accessed, {rec['aten_ops']:,} aten "
+          f"ops (profiled step: {out['measured_aten_ops']:,} top-level); "
+          f"measured steady step {out['steady_step_ms']:.1f} ms, kernel "
+          f"time {out['kernel_ms']:.1f} ms: {out['achieved_tflops_step']:.1f}"
+          f" TFLOP/s over the step, {out['achieved_tflops_kernel']:.1f} over "
+          f"the kernel time; bytes_accessed / 3.35 TB/s = "
+          f"{out['bytes_bound_ms']:.1f} ms; peak: accounting "
+          f"{rec['peak_bytes_per_device'] / 2**30:.2f} GiB (activations "
+          f"{mem['activations'] / 2**30:.2f}), measured above the earlier "
+          f"phases {above / 2**30:.2f} GiB (gap "
+          f"{(above - rec['peak_bytes_per_device']) / 2**30:+.2f})",
+          flush=True)
+    return out
+
+
+def run_dryrun(torch, gpu, tiny) -> dict:
+    """The dryrun phase (see DRYRUN_CELLS): the port's dry run on this
+    machine, no card and no process group, then the calibration cell."""
+    import math
+    from repro_torch.launch.dryrun import lower_cell, lower_paper_workload
+    from repro_torch.launch.mesh import make_abstract_production_grid
+    out = {"paper": {}, "cells": {}}
+    grids = {"single": make_abstract_production_grid(),
+             "multi": make_abstract_production_grid(multi_pod=True)}
+    for variant in ("planewave", "padded"):
+        for gname, grid in grids.items():
+            rec = lower_paper_workload(grid, variant=variant)
+            out["paper"][f"{variant}|{gname}"] = {
+                k: rec[k] for k in ("mesh", "flops", "bytes_accessed",
+                                    "collective_total", "model_comm_bytes",
+                                    "peak_bytes_per_device", "stages")}
+            check(rec["flops"] > 0 and rec["collective_total"] > 0 and
+                  rec["model_comm_bytes"][0]["bytes_per_device"] > 0,
+                  f"paper cell {variant} on {rec['mesh']}: FLOPs, one "
+                  "all-to-all")
+    for arch, shape in DRYRUN_CELLS:
+        rec = lower_cell(arch, shape, grids["single"])
+        out["cells"][f"{arch}|{shape}"] = rec
+        check(all(math.isfinite(rec[k]) and rec[k] > 0 for k in (
+            "flops", "bytes_accessed", "collective_total",
+            "peak_bytes_per_device")),
+              f"{arch} x {shape} on {rec['mesh']}: finite, positive "
+              "FLOPs, bytes, collectives and peak")
+    check(out["cells"][f"{TRAIN_ARCH}|train_4k"]["n_params"] ==
+          tiny["params"], f"{TRAIN_ARCH}: the accounting's parameter count "
+          f"{tiny['params']:,} as trained on the card")
+    out["calibration"] = dryrun_calibration(torch, gpu, tiny)
+    return out
+
+
+def run_examples(torch, gpu, wrappers) -> dict:
+    """The examples phase: each examples/torch_*.py through its main() at
+    its defaults on the card, with every kernel wrapper's count set to 0
+    just before and read just after (the examples' "matmul" route
+    reaches no hand kernel)."""
+    import importlib.util
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    print(f"examples ({gpu}):", flush=True)
+    for fn in wrappers.values():
+        fn.launches = 0
+    ckpt = tempfile.mkdtemp(prefix="example_ckpt_",
+                            dir=os.path.join(HERE, "build"))
+
+    def load(name):
+        spec = importlib.util.spec_from_file_location(
+            f"example_{name}", os.path.join(HERE, "examples", f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    def quickstart(r):
+        return {"rel_err": r["err"], "roundtrip_err": r["roundtrip"]}
+
+    def planewave(r):
+        return {"energy": r.energy, "iterations": r.iterations,
+                "converged": r.converged, "device": r.device,
+                "seconds": r.seconds}
+
+    def serve_transforms(r):
+        m = r["metrics"]
+        return {"requests": m["requests"], "dispatches": m["dispatches"],
+                "latency_p50_ms": m["latency_p50_ms"],
+                "max_rel_err": r["max_rel_err"]}
+
+    def mixer(r):
+        return {"first_loss": r["losses"][0], "last_loss": r["losses"][-1]}
+
+    def serve_lm(r):
+        return {"requests": len(r), "tokens": sum(len(q.out) for q in r)}
+
+    def train_lm(r):
+        return {"steps": len(r), "first10": sum(r[:10]) / 10,
+                "last10": sum(r[-10:]) / 10}
+
+    runs = (("torch_quickstart", [], quickstart),
+            ("torch_planewave_dft", [], planewave),
+            ("torch_serve_transforms", [], serve_transforms),
+            ("torch_fourier_mixer_lm", [], mixer),
+            ("torch_serve_lm", [], serve_lm),
+            ("torch_train_lm", ["--steps", str(EXAMPLE_TRAIN_STEPS),
+                                "--ckpt-dir", ckpt], train_lm))
+    out = {}
+    try:
+        for name, argv, numbers in runs:
+            t1 = time.perf_counter()
+            res = load(name).main(argv)
+            sync(torch, torch.device("cuda"))
+            out[name] = {**numbers(res), "seconds": time.perf_counter() - t1}
+            print(f"  {name} {' '.join(argv)}: " + json.dumps(out[name]),
+                  flush=True)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    check(out["torch_planewave_dft"]["device"].startswith("cuda"),
+          "torch_planewave_dft computed on the card")
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    check(not any(launches.values()),
+          f"the examples launched no hand kernel (expected 0): {launches}")
+    wall = time.perf_counter() - t0
+    check(wall <= EXAMPLES_MAX_S,
+          f"examples phase {wall:.1f} s <= {EXAMPLES_MAX_S:g} s")
+    print(f"examples phase: {wall:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    return {"runs": out, "launches": launches, "seconds": wall}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3956,6 +4235,15 @@ def main() -> int:
     print("train: " + json.dumps(train), flush=True)
 
     t0 = time.perf_counter()
+    print(f"dry run (meta device, abstract grids; calibration on {gpu}):",
+          flush=True)
+    dry = run_dryrun(torch, gpu, train["tinyllama"])
+    print("dryrun: " + json.dumps(dry), flush=True)
+    print(f"dryrun phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    examples = run_examples(torch, gpu, wrappers)
+    print("examples: " + json.dumps(examples), flush=True)
+
+    t0 = time.perf_counter()
     shapes = time_line_shapes(torch, dev, gen, stages, gpu)
     print("line_shapes: " + json.dumps(shapes), flush=True)
     print(f"line-shape phase: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -3979,7 +4267,8 @@ def main() -> int:
                    for k in per_call["inverse"]},
                "spectral": {"dft_matmul": sum(
                    r["launches"] for r in spectral.values())},
-               "lm": lm["launches"], "train": train["launches"]}
+               "lm": lm["launches"], "train": train["launches"],
+               "examples": examples["launches"]}
     # the multi-rank paths' launches, per rank (each a list over the
     # ranks): the fused steps count the warm-up's and the capture's
     per_rank = {"multirank_scf_per_rank": multirank["launches_per_rank"],
@@ -4006,7 +4295,9 @@ def main() -> int:
                             "plain_ms", "bound_ms", "bound_by",
                             "tf32x3_bound_ms", "tf32x3_bound_by",
                             "fp32_fma_bound_ms", "fp32_fma_bound_by",
-                            "library_ms", "shape")}})
+                            "library_ms", "shape")},
+                        **({"fft_oracle_rel_err": r["fft_oracle_rel_err"]}
+                           if "fft_oracle_rel_err" in r else {})})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

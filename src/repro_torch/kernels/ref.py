@@ -7,6 +7,20 @@ import numpy as np
 import torch
 
 
+def dft_apply_ref(x, n_out: int | None = None, *, inverse: bool = False):
+    """Oracle for ``kernels.ops.dft_apply``: (B, n_in) complex → (B, n_out).
+
+    ``torch.fft`` of the zero-padded or truncated line, so the oracle does
+    not depend on the DFT matrices the kernel multiplies by.
+    """
+    n_in = x.shape[1]
+    n_out = n_in if n_out is None else n_out
+    fn = torch.fft.ifft if inverse else torch.fft.fft
+    if n_in <= n_out:
+        return fn(torch.nn.functional.pad(x, (0, n_out - n_in)), dim=-1)
+    return fn(x, dim=-1)[:, :n_out]
+
+
 def complex_matmul_ref(xr, xi, wr, wi):
     """Oracle for the raw GEMM: y = x @ w.T in split re/im form."""
     yr = xr @ wr.T - xi @ wi.T

@@ -27,7 +27,7 @@ from repro_torch.kernels import sphere_pack as sp
 from repro_torch.kernels.dft_matmul import (dft_matmul, dft_matmul_plain,
                                             dft_matmul_twiddle,
                                             dft_matmul_twiddle_plain)
-from repro_torch.kernels.ref import twiddle_matrix
+from repro_torch.kernels.ref import dft_apply_ref, twiddle_matrix
 
 KPTS2 = ((0.0, 0.0, 0.0), (0.5, 0.5, 0.5))
 RTOL = 1e-5
@@ -191,6 +191,24 @@ def test_cuda_kernel_matches_plain(kernel, cuda_device):
              else _check_pack(rng, dev, d, n, kpts, nb, layout))
     # one launch per wrapper call on a CUDA tensor
     assert fn.launches == before + calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n_in,n_out,inverse", [
+    (4096, 128, 256, True), (4096, 256, 128, False), (2048, 256, 256, True),
+    (2048, 256, 256, False), (1000, 24, 40, True), (300, 9, 18, False)])
+def test_cuda_dft_apply_matches_fft_oracle(B, n_in, n_out, inverse,
+                                           cuda_device):
+    """Kernel #1 through ``ops.dft_apply`` against ``dft_apply_ref``
+    (``torch.fft`` of the padded or truncated line, no DFT matrix): the
+    SCF's line shapes (d = 128 → n = 256 and n = 256 → n = 256, both
+    directions) and two ragged ones."""
+    rng = np.random.default_rng(B + n_in + n_out)
+    x = _cx(rng, (B, n_in), cuda_device)
+    before = dft_matmul.launches
+    y = ops.dft_apply(x, n_out, inverse=inverse)
+    assert dft_matmul.launches == before + 1
+    _close(y, dft_apply_ref(x, n_out, inverse=inverse))
 
 
 # one rank's blocks on a batch×fft grid, as the multi-rank fused route

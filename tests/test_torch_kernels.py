@@ -24,6 +24,7 @@ from repro.kernels import ops as ref_ops
 from repro.kernels import sphere_pack as ref_sp
 from repro.kernels.dft_matmul import dft_matmul as ref_dft_matmul
 from repro.kernels.ref import complex_matmul_ref as ref_complex_matmul_ref
+from repro.kernels.ref import dft_apply_ref as ref_dft_apply_ref
 from repro.kernels.ref import twiddle_matrix as ref_twiddle_matrix
 from repro_torch.core import kpoint_sphere
 from repro_torch.core.local_fft import dft_matrix_device
@@ -33,8 +34,8 @@ from repro_torch.kernels.dft_matmul import (dft_matmul, dft_matmul_plain,
                                             dft_matmul_twiddle,
                                             dft_matmul_twiddle_plain,
                                             embed_operand, tf32_split)
-from repro_torch.kernels.ref import (complex_matmul_ref, four_step_ref,
-                                     twiddle_matrix)
+from repro_torch.kernels.ref import (complex_matmul_ref, dft_apply_ref,
+                                     four_step_ref, twiddle_matrix)
 
 RTOL = 2e-6          # relative to the largest output magnitude
 
@@ -70,9 +71,12 @@ def _plus_zero(a) -> bool:
 
 
 # ------------------------------------------------------------ dft_matmul
-@pytest.mark.parametrize("B,n_in,n_out,inverse", [
-    (1, 8, 8, False), (33, 16, 16, True), (256, 8, 32, True),
-    (16, 32, 8, False), (40, 24, 48, True), (16, 128, 64, False)])
+DFT_APPLY_CASES = [(1, 8, 8, False), (33, 16, 16, True), (256, 8, 32, True),
+                   (16, 32, 8, False), (40, 24, 48, True),
+                   (16, 128, 64, False)]
+
+
+@pytest.mark.parametrize("B,n_in,n_out,inverse", DFT_APPLY_CASES)
 def test_dft_apply_matches_reference_pallas(B, n_in, n_out, inverse):
     rng = np.random.default_rng(B * 1000 + n_in * 10 + n_out)
     x = _cx(rng, (B, n_in))
@@ -81,6 +85,21 @@ def test_dft_apply_matches_reference_pallas(B, n_in, n_out, inverse):
                           interpret=True)
     assert y.dtype == torch.complex64
     _close(y.numpy(), r)
+
+
+@pytest.mark.parametrize("B,n_in,n_out,inverse", DFT_APPLY_CASES)
+def test_dft_apply_matches_fft_oracle(B, n_in, n_out, inverse):
+    """``dft_apply`` against ``dft_apply_ref`` (torch.fft of the padded or
+    truncated line, no DFT matrix), and that oracle against the
+    reference's ``dft_apply_ref`` (jnp.fft)."""
+    rng = np.random.default_rng(B * 1000 + n_in * 10 + n_out)
+    x = _cx(rng, (B, n_in))
+    want = dft_apply_ref(torch.as_tensor(x), n_out, inverse=inverse)
+    assert want.shape == (B, n_out) and want.dtype == torch.complex64
+    _close(ops.dft_apply(torch.as_tensor(x), n_out, inverse=inverse).numpy(),
+           want.numpy())
+    _close(want.numpy(), ref_dft_apply_ref(jnp.asarray(x), n_out,
+                                           inverse=inverse))
 
 
 def test_dft_matmul_plain_matches_raw_reference_kernel():
