@@ -147,6 +147,30 @@ launches over the phase must be 0; TF32 stays off):
 * ``python -m repro_torch.launch.train --preset 100m --steps 20
   --fixed-batch`` in a subprocess: its last loss below its first.
 
+Then the sharded_train phase, the train path on placed weights
+(``repro_torch.sharding.rules.place_params``: each rank keeps its block of
+every parameter and of the AdamW moments, FSDP over "data" and tensor
+parallelism over "model"; no hand kernel: every kernel's launches over
+the phase must be 0).  Four processes share the card over gloo on the
+2×2 ("data", "model") grid (``run_ranks``; gloo stages each collective
+through host memory, so no scaling number):
+
+* ``tinyllama-1.1b`` at its published config through ``Trainer``, the
+  train phase's batch of 8 x 1024 tokens in 2 microbatches, 3 steps:
+  per rank the parameter and AdamW state bytes, which must equal
+  ``launch/dryrun.py::state_bytes`` on the abstract 2×2 grid to the
+  byte, the peak memory, ms per steady step and the operand bytes of
+  each collective kind per step (``core/grid.py::COLLECTIVE_BYTES``)
+  beside ``model_collectives``' prediction; the first step's loss and
+  grad_norm against one process's step from the same weights and batch
+  (run first, in this process); the Trainer's final checkpoint (whole
+  tensors, gathered to the writer) restored into each rank's blocks,
+  bitwise equal to what it saved;
+* float32 at published width cut to 2 layers, 2 steps: loss, grad_norm
+  and the first step's gradient within 1e-5 relative and the gathered
+  parameters within 1e-3 of their largest, against one process (which
+  also runs twice, to show how far it is from itself).
+
 Then the dryrun phase, the port's dry run (``repro_torch.launch.
 dryrun``: an accounting on the ``meta`` device over abstract grids, no
 card and no process group): the paper's cell in both variants on the
@@ -204,7 +228,10 @@ per call, times and bounds, the full-cube baseline), the spectral phase,
 the LM phase (per served model and pass: prefill and decode times,
 tokens/s, peak memory, the card's name and power limit; the decode
 step's launches and bound; the agreements), the train phase (step
-times, losses, peaks, checkpoint, agreements, launcher), the dryrun
+times, losses, peaks, checkpoint, agreements, launcher), the
+sharded_train phase (per rank: state bytes against the accounting, peak,
+step times, losses, checkpoint seconds; the counted collective bytes
+beside the model; the agreements), the dryrun
 phase (the cells' records, the calibration beside the measured step),
 the examples phase (each example's numbers and wall time, the launches),
 the per-shape table of kernel #1, one JSON line ``{"kernels": [...]}``
@@ -318,6 +345,35 @@ TRAIN_REMAT_LAYERS, TRAIN_REMAT_B = 2, 2
 TRAIN_LAUNCHER_STEPS = 20
 #: free disk the TinyLlama checkpoint needs: bf16 params, f32 m and v
 TRAIN_CKPT_GIB = 10.25
+
+# the sharded_train phase: the train path on placed weights (FSDP over
+# "data" x tensor parallelism over "model", sharding/rules.py::
+# place_params), SHARD_PROCS processes sharing the card over gloo on the
+# SHARD_GRID grid.  TinyLlama-1.1B at its published config through
+# Trainer (the train phase's batch, microbatches and learning rate,
+# SHARD_STEPS steps, its final checkpoint restored into blocks); the
+# first step's loss and grad_norm against one process's step from the
+# same weights and batch within SHARD_LOSS_RTOL / SHARD_GNORM_RTOL (bf16:
+# each row-parallel output rounds to bf16 once more; measured 5.75e-6
+# and 2.78e-4 on an NVIDIA H100 80GB HBM3 at 700 W, the same in two
+# calls); then float32 at published width cut to SHARD_EXACT_LAYERS
+# layers, SHARD_EXACT_STEPS steps at TRAIN_AGREE_LR: loss, grad_norm and
+# the first step's gradient (its first moment, of its largest) within
+# SHARD_EXACT_RTOL (measured 8.8e-8, 9.7e-8 and 4.6e-6), the gathered
+# parameters within SHARD_EXACT_PARAM of their largest: Adam divides each
+# gradient element by its own RMS, so an element whose gradient lies
+# within its float32 rounding of zero moves by up to the learning rate
+# either way (measured 2.85e-4, in the embedding; one process against
+# itself: 0)
+SHARD_PROCS, SHARD_GRID, SHARD_AXES = 4, (2, 2), ("data", "model")
+SHARD_STEPS, SHARD_EXACT_LAYERS, SHARD_EXACT_STEPS = 3, 2, 2
+SHARD_LOSS_RTOL, SHARD_GNORM_RTOL = 2e-5, 1e-3
+SHARD_EXACT_RTOL, SHARD_EXACT_PARAM = 1e-5, 1e-3
+SHARD_TIMEOUT, SHARD_THREADS = 900.0, 2
+SHARD_DIR = os.path.join(HERE, "build", "sharded")
+SHARD_TAG = "4 processes on one card, gloo"
+#: a rehearsal on the CPU trains the reduced config (the job carries it)
+SHARD_REDUCED = False
 
 # the dryrun phase: the port's dry-run accounting (repro_torch.launch.
 # dryrun, the meta device, abstract grids, nothing allocated) of the
@@ -3703,10 +3759,10 @@ class watch_compression:
         from repro_torch.train import train_step
         self.mod, self.real = train_step, train_step.compress_grads
 
-        def spy(grads, residuals):
+        def spy(grads, residuals, *rest):
             self.seen.append({n: (g.float() + residuals[n]).cpu()
                               for n, g in grads.items()})
-            return self.real(grads, residuals)
+            return self.real(grads, residuals, *rest)
         train_step.compress_grads = spy
         return self
 
@@ -3935,6 +3991,349 @@ def check_train(torch, dev, gpu) -> dict:
         print(f"  {name}: {out[name]['seconds']:.1f} s", flush=True)
     check(torch.backends.cuda.matmul.allow_tf32 is False,
           "the train phase left TF32 off")
+    return out
+
+
+# ------------------------------------------------------ the placed train path
+def _one_process_step(torch, dev, cfg, ocfg, batch, steps):
+    """One process's ``steps`` train steps of ``cfg`` from the weights
+    drawn from SEED on ``dev``: (losses, grad norms, the model, the first
+    moment after the first step (host tensors): 1 - beta1 times its
+    gradient)."""
+    from repro_torch.models.model_zoo import build
+    from repro_torch.train.train_step import init_opt_state, make_train_step
+    bundle = build(cfg, device=dev)
+    model = bundle.init(torch.Generator(device=dev).manual_seed(SEED))
+    opt = init_opt_state(model)
+    step = make_train_step(bundle, ocfg, microbatches=TRAIN_MB)
+    losses, norms, first = [], [], None
+    for _ in range(steps):
+        model, opt, met = step(model, opt, batch)
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+        if first is None and steps > 1:
+            first = {n: t.to("cpu", copy=True)
+                     for n, t in opt["m"].items()}
+    del opt
+    return losses, norms, model, first
+
+
+def tree_err(torch, got: dict, want: dict) -> tuple[float, str]:
+    """(max |got - want| over the largest |want|, the tensor where it
+    is)."""
+    scale = max(float(v.abs().max()) for v in want.values())
+    errs = {n: float((got[n].cpu() - want[n]).abs().max()) / scale
+            for n in want}
+    worst = max(errs, key=errs.get)
+    return errs[worst], worst
+
+
+def shard_config(reduced: bool):
+    """TinyLlama-1.1B's published config, or (a rehearsal on the CPU) its
+    reduced config in bf16 with remat "full"."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    cfg = get_config(TRAIN_ARCH)
+    if reduced:
+        cfg = dataclasses.replace(cfg.reduced(), dtype="bfloat16",
+                                  remat="full")
+    return cfg
+
+
+def sharded_train_rank(rank, job):
+    """One rank of the sharded_train phase (a spawned process of
+    ``run_ranks``): the placed Trainer at full width, its checkpoint
+    restored into blocks, then the float32 depth-cut run.  It measures
+    and compares; the parent makes every check."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.grid import ProcGrid, collective_bytes
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.kernels import sphere_pack
+    from repro_torch.kernels.dft_matmul import dft_matmul, \
+        dft_matmul_twiddle
+    from repro_torch.models.model_zoo import build
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.sharding import ctx, rules
+    from repro_torch.train.train_step import init_opt_state, make_train_step
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(job["device"])
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev)
+    wrappers = (dft_matmul, dft_matmul_twiddle, sphere_pack.unpack_dft,
+                sphere_pack.dft_pack)
+    for fn in wrappers:
+        fn.launches = 0
+    grid = ProcGrid.create(SHARD_GRID, SHARD_AXES, device=dev)
+    cfg = shard_config(job["reduced"])
+    dcfg = DataConfig(vocab=cfg.vocab, seq=job["seq"],
+                      global_batch=job["batch"])
+    ocfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                       total_steps=TRAIN_RESUME_STEPS)
+    out = {"coordinate": grid.coordinate}
+    with ctx.use(grid, ("data",)):
+        bundle = build(cfg, device=dev)
+
+        def trainer():
+            return fixed_batch_trainer(Trainer(bundle, ocfg, TrainerConfig(
+                total_steps=SHARD_STEPS, ckpt_every=1000, ckpt_keep=1,
+                log_every=1000, microbatches=TRAIN_MB,
+                ckpt_dir=job["ckpt"]), dcfg, grid=grid))
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        tr = trainer()
+        counted, saves = [], []
+        step_fn = tr.step_fn
+
+        def step_counted(*args):
+            collective_bytes(reset=True)
+            res = step_fn(*args)
+            counted.append(collective_bytes())
+            return res
+        tr.step_fn = step_counted
+        timed_calls(tr, "_save", saves)
+        params, opt = tr.run(torch.Generator(device=dev).manual_seed(SEED))
+        sync(torch, dev)
+        out["peak_bytes"] = torch.cuda.max_memory_allocated(dev) if cuda \
+            else 0
+        out["placed"] = rules.placement_of(params) is not None
+        out["param_bytes"] = sum(p.numel() * p.element_size()
+                                 for p in params.parameters())
+        out["opt_bytes"] = sum(t.numel() * t.element_size() for k in
+                               ("m", "v") for t in opt[k].values()) + \
+            opt["step"].numel() * opt["step"].element_size()
+        out["on_card"] = all(t.device == dev
+                             for t in train_tensors(params, opt))
+        out["history"] = [{k: h[k] for k in ("loss", "grad_norm", "dt")}
+                          for h in tr.history]
+        out["collectives_per_step"] = counted
+        out["save_s"] = saves[-1]
+        mine = {n: p.detach().cpu() for n, p in params.named_parameters()}
+        mine_opt = {k: ({n: t.cpu() for n, t in v.items()}
+                        if isinstance(v, dict) else v.cpu())
+                    for k, v in opt.items()}
+        del params, opt, tr
+        if cuda:
+            torch.cuda.empty_cache()
+        dist.barrier()                  # the writer has committed
+        tr2 = trainer()
+        t0 = time.perf_counter()
+        start, params, opt = tr2._restore_or_init(None)
+        sync(torch, dev)
+        out["restore_s"] = time.perf_counter() - t0
+        out["restored_step"] = start
+        out["restored_bitwise"] = all(
+            torch.equal(p.detach().cpu(), mine[n])
+            for n, p in params.named_parameters()) and all(
+            torch.equal(opt[k][n].cpu(), mine_opt[k][n])
+            for k in ("m", "v") for n in mine) and \
+            torch.equal(opt["step"].cpu(), mine_opt["step"])
+        out["restored_local"] = all(
+            tuple(p.shape) == tuple(mine[n].shape)
+            for n, p in params.named_parameters())
+        del params, opt, tr2, mine, mine_opt
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # float32 at published width, SHARD_EXACT_LAYERS layers
+        c32 = dataclasses.replace(cfg, dtype="float32",
+                                  n_layers=SHARD_EXACT_LAYERS)
+        b32 = build(c32, device=dev)
+        model = b32.init(torch.Generator(device=dev).manual_seed(SEED))
+        rules.place_params(model, grid)
+        opt = init_opt_state(model)
+        step = make_train_step(b32, AdamWConfig(
+            lr=TRAIN_AGREE_LR, warmup_steps=1, total_steps=TRAIN_STEPS),
+            grid, microbatches=TRAIN_MB)
+        shard = grid.coordinate[grid.axis_index("data")]
+        host = Pipeline(dcfg, shard, 2).batch_at(0)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        losses, norms, first = [], [], None
+        for _ in range(SHARD_EXACT_STEPS):
+            model, opt, met = step(model, opt, batch)
+            losses.append(float(met["loss"]))
+            norms.append(float(met["grad_norm"]))
+            if first is None:
+                first = rules.gather_named(model, opt["m"], device="cpu",
+                                           keep=rank == 0)
+        whole = rules.gather_params(model)
+        out["exact"] = {"losses": losses, "norms": norms}
+        if rank == 0:
+            ref = torch.load(job["exact_params"])
+            out["exact"]["param_err"] = tree_err(torch, whole,
+                                                 ref["params"])
+            out["exact"]["first_moment_err"] = tree_err(torch, first,
+                                                        ref["m1"])
+        del model, opt, whole, first
+    out["launches"] = {fn.__name__: fn.launches for fn in wrappers}
+    return out
+
+
+def run_sharded_train(torch, dev, gpu, wrappers) -> dict:
+    """The sharded_train phase (see SHARD_*): one process's references in
+    this process, then SHARD_PROCS ranks, with every kernel wrapper's
+    count set to 0 just before and read just after (the path reaches no
+    hand kernel)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch.core.grid import ProcGrid
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.launch.dryrun import model_collectives, param_leaves, \
+        state_bytes
+    from repro_torch.models.model_zoo import build
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.sharding.procs import run_ranks
+    t0 = time.perf_counter()
+    print(f"placed train path ({SHARD_TAG}; gloo carries each collective "
+          "through host memory: per-rank state, agreement and bytes, no "
+          f"scaling number): grid {SHARD_GRID} {SHARD_AXES}; card {gpu}",
+          flush=True)
+    for fn in wrappers.values():
+        fn.launches = 0
+    cfg = shard_config(SHARD_REDUCED)
+    dcfg = DataConfig(vocab=cfg.vocab, seq=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in Pipeline(dcfg).batch_at(0).items()}
+    os.makedirs(SHARD_DIR, exist_ok=True)
+    free = shutil.disk_usage(SHARD_DIR).free / 2**30
+    check(free >= 1.05 * TRAIN_CKPT_GIB,
+          f"{free:.1f} GiB of free disk for the {TRAIN_CKPT_GIB} GiB "
+          "checkpoint with 5% to spare")
+    # one process: the first full-width step, the float32 depth-cut run
+    torch.cuda.empty_cache()
+    lw, nw, model, _ = _one_process_step(
+        torch, dev, cfg, AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                                     total_steps=TRAIN_RESUME_STEPS),
+        batch, 1)
+    del model
+    torch.cuda.empty_cache()
+    c32 = dataclasses.replace(cfg, dtype="float32",
+                              n_layers=SHARD_EXACT_LAYERS)
+    o32 = AdamWConfig(lr=TRAIN_AGREE_LR, warmup_steps=1,
+                      total_steps=TRAIN_STEPS)
+    l32, n32, model, m32 = _one_process_step(torch, dev, c32, o32, batch,
+                                             SHARD_EXACT_STEPS)
+    exact = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    del model
+    # the same run again: how far one process is from itself (the
+    # embedding's backward adds with atomics on the card)
+    _, _, model, again = _one_process_step(torch, dev, c32, o32, batch,
+                                           SHARD_EXACT_STEPS)
+    self_err = {"params": tree_err(torch, {n: p.detach() for n, p in
+                                           model.named_parameters()},
+                                   exact),
+                "first_moment": tree_err(torch, again, m32)}
+    exact_path = os.path.join(SHARD_DIR, "exact_params.pt")
+    torch.save({"params": exact, "m1": m32}, exact_path)
+    del model, batch, exact, m32, again
+    torch.cuda.empty_cache()
+    ckpt = tempfile.mkdtemp(prefix="sharded_ckpt_", dir=SHARD_DIR)
+    job = {"device": str(dev), "ckpt": ckpt, "exact_params": exact_path,
+           "reduced": SHARD_REDUCED, "seq": TRAIN_SEQ,
+           "batch": TRAIN_BATCH}
+    t1 = time.perf_counter()
+    try:
+        ranks = run_ranks(sharded_train_rank, SHARD_PROCS, args=(job,),
+                          rendezvous_dir=SHARD_DIR, timeout=SHARD_TIMEOUT,
+                          threads=SHARD_THREADS)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+        os.remove(exact_path)
+    ranks_s = time.perf_counter() - t1
+
+    agrid = ProcGrid.create_abstract(SHARD_GRID, SHARD_AXES)
+    leaves = param_leaves(build(cfg, device="meta").init(None), agrid)
+    acct = state_bytes(leaves, agrid, kind="train", microbatches=TRAIN_MB)
+    model_coll = model_collectives(
+        cfg, "train", leaves, agrid, batch=TRAIN_BATCH // SHARD_GRID[0],
+        seq=TRAIN_SEQ, microbatches=TRAIN_MB, batch_split=True)
+    out = {"one_process": {"loss": lw[0], "grad_norm": nw[0],
+                           "exact_losses": l32, "exact_norms": n32},
+           "accounting": acct, "model_collectives": model_coll,
+           "ranks_s": ranks_s, "ranks": ranks}
+    for r, o in enumerate(ranks):
+        h = o["history"]
+        dts = [x["dt"] for x in h]
+        steady = sum(dts[1:]) / len(dts[1:])
+        o["steady_step_ms"] = steady * 1e3
+        print(f"  rank {r} {o['coordinate']}: parameters "
+              f"{o['param_bytes']:,} B, AdamW state {o['opt_bytes']:,} B "
+              f"(accounting {acct['params']:,} and {acct['opt_state']:,});"
+              f" peak {_gib(o['peak_bytes'] / 2**30)}; step ms "
+              + ", ".join(f"{d * 1e3:.1f}" for d in dts)
+              + f", steady {steady * 1e3:.1f} ({SHARD_TAG}, {gpu}); "
+              f"losses " + ", ".join(f"{x['loss']:.5f}" for x in h)
+              + f"; checkpoint save {o['save_s']:.1f} s, restore "
+              f"{o['restore_s']:.1f} s", flush=True)
+        check(o["placed"] and o["on_card"],
+              f"rank {r}: weights placed, every tensor on {dev}")
+        check(o["param_bytes"] == acct["params"] and
+              o["opt_bytes"] == acct["opt_state"],
+              f"rank {r}: parameter and AdamW state bytes equal the dry "
+              f"run's state_bytes on the abstract {SHARD_GRID} grid to the "
+              "byte")
+        check(o["restored_step"] == SHARD_STEPS and o["restored_bitwise"]
+              and o["restored_local"],
+              f"rank {r}: the step-{SHARD_STEPS} checkpoint (whole tensors)"
+              " restored into this rank's blocks, bitwise")
+        check(o["history"][0]["loss"] == ranks[0]["history"][0]["loss"],
+              f"rank {r}: the same loss as rank 0")
+    print("  collective operand bytes per step and device (counted on rank "
+          "0, step 1) vs the dry run's model_collectives: " + ", ".join(
+              f"{k} {ranks[0]['collectives_per_step'][0].get(k, 0):,} vs "
+              f"{model_coll[k]:,}" for k in model_coll), flush=True)
+    check(all(o["collectives_per_step"][0] == o["collectives_per_step"][-1]
+              for o in ranks),
+          "every step runs the same collectives")
+    first = ranks[0]["history"][0]
+    dl = abs(first["loss"] - lw[0]) / abs(lw[0])
+    dg = abs(first["grad_norm"] - nw[0]) / abs(nw[0])
+    out["full_width_agreement"] = {"loss_rel": dl, "grad_norm_rel": dg}
+    check(dl <= SHARD_LOSS_RTOL and dg <= SHARD_GNORM_RTOL,
+          f"{TRAIN_ARCH} bf16 placed vs one process, first step: loss "
+          f"{first['loss']:.6f} vs {lw[0]:.6f} ({dl:.2e} <= "
+          f"{SHARD_LOSS_RTOL:g}), grad_norm {first['grad_norm']:.6f} vs "
+          f"{nw[0]:.6f} ({dg:.2e} <= {SHARD_GNORM_RTOL:g})")
+    ex = ranks[0]["exact"]
+    el = max(abs(a - b) / abs(b) for a, b in zip(ex["losses"], l32))
+    en = max(abs(a - b) / abs(b) for a, b in zip(ex["norms"], n32))
+    out["exact_agreement"] = {"loss_rel": el, "grad_norm_rel": en,
+                              "param_err": ex["param_err"],
+                              "first_moment_err": ex["first_moment_err"],
+                              "one_process_vs_itself": self_err}
+    print(f"  float32: one process against itself (the same run twice): "
+          f"parameters {self_err['params'][0]:.2e} of the largest (at "
+          f"{self_err['params'][1]}), first moment "
+          f"{self_err['first_moment'][0]:.2e} (at "
+          f"{self_err['first_moment'][1]})", flush=True)
+    check(el <= SHARD_EXACT_RTOL and en <= SHARD_EXACT_RTOL and
+          ex["first_moment_err"][0] <= SHARD_EXACT_RTOL and
+          ex["param_err"][0] <= SHARD_EXACT_PARAM,
+          f"{TRAIN_ARCH} float32, {SHARD_EXACT_LAYERS} layers, "
+          f"{SHARD_EXACT_STEPS} steps, placed vs one process: loss "
+          f"{el:.2e}, grad_norm {en:.2e}, the first step's gradient "
+          f"(first moment) {ex['first_moment_err'][0]:.2e} of its largest "
+          f"(at {ex['first_moment_err'][1]}) <= {SHARD_EXACT_RTOL:g}; "
+          f"parameters {ex['param_err'][0]:.2e} of the largest (at "
+          f"{ex['param_err'][1]}) <= {SHARD_EXACT_PARAM:g}")
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    for o in ranks:
+        for k, v in o["launches"].items():
+            launches[k] += v
+    out["launches"] = launches
+    check(not any(launches.values()),
+          f"the placed train path launched no hand kernel: {launches}")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"sharded_train phase: {out['seconds']:.1f} s (ranks "
+          f"{ranks_s:.1f} s)", flush=True)
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4233,6 +4632,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     train = run_train(torch, dev, gpu, wrappers)
     print("train: " + json.dumps(train), flush=True)
+    sharded = run_sharded_train(torch, dev, gpu, wrappers)
+    print("sharded_train: " + json.dumps(sharded), flush=True)
 
     t0 = time.perf_counter()
     print(f"dry run (meta device, abstract grids; calibration on {gpu}):",
@@ -4268,6 +4669,7 @@ def main() -> int:
                "spectral": {"dft_matmul": sum(
                    r["launches"] for r in spectral.values())},
                "lm": lm["launches"], "train": train["launches"],
+               "sharded_train": sharded["launches"],
                "examples": examples["launches"]}
     # the multi-rank paths' launches, per rank (each a list over the
     # ranks): the fused steps count the warm-up's and the capture's

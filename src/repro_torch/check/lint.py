@@ -18,9 +18,10 @@ Rules (all ``FFTB2xx``, suppressible per line with ``# noqa: FFTB2xx``):
   collective on several processes under gloo, which copies through host
   memory and waits on the host: a ``dist.*``/``torch.distributed.*``
   call, the grid's ``all_reduce_host`` (its result is a host value), and
-  the grid's ``all_reduce``/``replicate`` (a call on a receiver named
-  ``grid``) unless it names its split point with ``name=`` — then the
-  grid runs it through ``host_sync`` under that name.
+  the grid's ``all_reduce``/``replicate``/``reduce_scatter`` (a call on
+  a receiver named ``grid``) unless it names its split point with
+  ``name=`` — then the grid runs it through ``host_sync`` under that
+  name.
   ``host_sync(name, fn, ...)`` ends the graph on purpose and runs ``fn``
   eagerly between two graphs: the rule knows it by name, reports no call
   of it, and does not follow the functions passed to it.
@@ -91,7 +92,8 @@ _UPLOADS = frozenset({"torch.as_tensor", "torch.tensor"})
 #: the process-group API: every call is a host sync under gloo (FFTB201)
 _DIST_ROOTS = ("dist.", "torch.distributed.")
 #: the grid's collectives (FFTB201) — a split point when named (``name=``)
-_GRID_COLLECTIVES = frozenset({"all_reduce", "replicate"})
+_GRID_COLLECTIVES = frozenset({"all_reduce", "replicate",
+                               "reduce_scatter"})
 
 #: files where FFTB205 applies (relative-path substring match)
 _LOCK_SCOPE = ("serve/", "core/cache.py")

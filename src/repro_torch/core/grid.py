@@ -20,6 +20,15 @@ Here a ProcGrid is one of three kinds:
 
 The caller's process group decides the communication backend (NCCL,
 gloo, ...); the grid only builds sub-groups of it.
+
+Every collective the grid runs adds its per-device *operand* bytes to
+:data:`COLLECTIVE_BYTES`, under the dry run's names and operand convention
+(``launch/dryrun.py``): an all-gather's operand is this rank's block (the
+result over the participants), a reduce-scatter's the whole input (the
+result times the participants), an all-reduce's its buffer, an
+all-to-all's its send buffer.  A collective over several axes counts once,
+as the one operation of the reference's HLO would.  Read and reset it
+with :func:`collective_bytes`.
 """
 from __future__ import annotations
 
@@ -31,6 +40,26 @@ import numpy as np
 import torch
 
 from .hostsync import host_sync
+
+#: per-device operand bytes of the collectives this process ran, by kind
+#: (the module docstring's convention)
+COLLECTIVE_BYTES = {"all-gather": 0, "reduce-scatter": 0, "all-reduce": 0,
+                    "all-to-all": 0}
+
+
+def collective_bytes(reset: bool = False) -> dict:
+    """A copy of :data:`COLLECTIVE_BYTES`; with ``reset`` every count is
+    set to 0 after it is read."""
+    out = dict(COLLECTIVE_BYTES)
+    if reset:
+        for k in COLLECTIVE_BYTES:
+            COLLECTIVE_BYTES[k] = 0
+    return out
+
+
+def count_collective(kind: str, x: torch.Tensor) -> None:
+    """Add ``x``'s bytes to the ``kind`` count (``x`` the operand)."""
+    COLLECTIVE_BYTES[kind] += x.numel() * x.element_size()
 
 
 def resolve_device(device=None) -> torch.device:
@@ -246,6 +275,7 @@ class ProcGrid:
         live = self._live(axes)
         if not live:
             return x
+        count_collective("all-reduce", x)
         return host_sync(name, self._all_reduce, x, live, op)
 
     def _all_reduce(self, x, live, op):
@@ -282,6 +312,7 @@ class ProcGrid:
         live = self._live(axes)
         if not live:
             return x
+        count_collective("all-gather", x)
         return host_sync(name, self._replicate, x, live, dim)
 
     def _replicate(self, x, live, dim):
@@ -296,6 +327,37 @@ class ProcGrid:
                 parts = [torch.view_as_complex(p) for p in parts]
             x = torch.cat(parts, dim=dim)
         return x
+
+    def reduce_scatter(self, x: torch.Tensor, axes=(), dim: int = 0, *,
+                       name: str = "grid.reduce_scatter"):
+        """The inverse of :meth:`replicate` for sums: ``x`` summed over
+        grid ``axes``, of which this rank keeps its block along ``dim``
+        (blocked major→minor in the order given, as :meth:`replicate`
+        concatenates).  ``x`` itself when every axis has one process.  A
+        reduce-scatter that runs is a split point ``name``, as in
+        :meth:`all_reduce`."""
+        live = self._live(axes)
+        if not live:
+            return x
+        n = math.prod(self.shape[a] for a in live)
+        if x.shape[dim] % n:
+            raise ValueError(
+                f"reduce_scatter: dim {dim} of {tuple(x.shape)} does not "
+                f"split into {n} blocks")
+        count_collective("reduce-scatter", x)
+        return host_sync(name, self._reduce_scatter, x, live, dim)
+
+    def _reduce_scatter(self, x, live, dim):
+        import torch.distributed as dist
+        for a in live:                      # major axis first
+            # dim leading: this axis' blocks follow one another
+            parts = x.movedim(dim, 0).contiguous()
+            out = torch.empty((parts.shape[0] // self.shape[a],)
+                              + tuple(parts.shape[1:]), dtype=x.dtype,
+                              device=x.device)
+            dist.reduce_scatter_tensor(out, parts, group=self.group(a))
+            x = out.movedim(0, dim)
+        return x.contiguous()
 
     def __repr__(self) -> str:  # pragma: no cover - cosmetic
         dims = "x".join(str(s) for s in self.shape)

@@ -38,6 +38,7 @@ from functools import cached_property
 import torch
 
 from . import layout as L
+from .grid import count_collective
 from ..obs.metrics import global_metrics
 from ..obs.trace import drain, get_tracer
 from .dtensor import DistTensor
@@ -90,6 +91,7 @@ def _exchange(send, group):
     i-th.  A new tensor, so that a captured step's later graphs read it."""
     import torch.distributed as dist
     recv = torch.empty_like(send)
+    count_collective("all-to-all", send)
     real = send.is_complex()
     dist.all_to_all_single(torch.view_as_real(recv) if real else recv,
                            torch.view_as_real(send) if real else send,

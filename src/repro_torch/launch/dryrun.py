@@ -35,9 +35,13 @@ A record holds, per device:
   save nothing; their transients are not counted.
 * ``peak_bytes_per_device``: the sum of ``mem``.
 * ``collective_bytes``: modelled (``"collective_model": "reference
-  specs"``), because the port places nothing and so runs no collective
-  that could be counted.  The reference's five names and its operand
-  convention (``collective_bytes``' docstring): all-gather operand =
+  specs"``): the accounting runs one rank's step on whole weights on the
+  ``meta`` device, where no collective runs.  The placed train step on a
+  grid of processes (``sharding/rules.py::place_params``) runs these
+  collectives and counts their operand bytes in
+  ``core/grid.py::COLLECTIVE_BYTES``; PERF.md §5 holds the model to those
+  counts for TinyLlama on 2×2.  The reference's five names and its
+  operand convention (``collective_bytes``' docstring): all-gather operand =
   result / participants, reduce-scatter operand = result × participants.
   For a parameter leaf p (the reference's leaf, stacked layers included)
   of B_p bytes and N_p elements whose spec splits it S_p ways, F_p of them

@@ -5,11 +5,17 @@ the port's: the card unless the caller asks for the CPU).
         --preset cpu-ci --steps 50 --device cpu
 
 Presets size the run: ``cpu-ci`` trains the reduced config, ``100m`` a
-~100M-parameter member of the family, both on one process; ``full``
+~100M-parameter member of the family, both on one process unless
+``--grid`` names a grid of several (``--grid 2x2``: ("data", "model");
+three sizes: ("pod", "data", "model")), whose ``torch.distributed``
+world the caller has initialized with one process per point; ``full``
 trains the published config on the production grid, which needs 256
-ranks (512 with ``--multi-pod``) and raises otherwise.  Checkpointing,
-auto-resume (run again with the same ``--ckpt-dir``: training continues
-from the newest committed step) and gradient compression are flags.
+ranks (512 with ``--multi-pod``) and raises otherwise.  On a grid of
+several processes whose specs split a leaf the ``Trainer`` places the
+weights (FSDP over the batch axes, tensor parallelism over "model").
+Checkpointing, auto-resume (run again with the same ``--ckpt-dir``:
+training continues from the newest committed step) and gradient
+compression are flags.
 """
 from __future__ import annotations
 
@@ -44,22 +50,30 @@ def main(argv=None):
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--fixed-batch", action="store_true",
                     help="repeat step-0 batch (memorization curve for CI)")
+    ap.add_argument("--grid", default=None,
+                    help="DATAxMODEL or PODxDATAxMODEL: a grid of that many "
+                    "processes (torch.distributed initialized by the "
+                    "caller); default one process")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
+    shape = tuple(int(n) for n in args.grid.split("x")) if args.grid \
+        else (1, 1)
+    axes = ("data", "model") if len(shape) == 2 else \
+        ("pod", "data", "model")
     if args.preset == "cpu-ci":
         cfg = cfg.reduced()
-        grid = make_host_grid((1, 1), device=dev)
+        grid = make_host_grid(shape, axes, device=dev)
     elif args.preset == "100m":
         # ~100M-param member of the same family
         cfg = dataclasses.replace(
             cfg.reduced(), name=cfg.name + "-100m", n_layers=12,
             d_model=768, n_heads=12, n_kv=max(cfg.n_kv and 4, 0),
             head_dim=64, d_ff=3072, vocab=32000)
-        grid = make_host_grid((1, 1), device=dev)
+        grid = make_host_grid(shape, axes, device=dev)
     else:
         grid = make_production_grid(multi_pod=args.multi_pod, device=dev)
 

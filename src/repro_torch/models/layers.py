@@ -20,6 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.sharding import tp
+
 
 def dense_init(gen, shape, scale: float | None = None,
                dtype=torch.float32, *, device=None):
@@ -109,6 +111,15 @@ class MLP(nn.Module):
 
 
 def mlp_apply(p, x, activation: str):
+    """The MLP; on placed weights whose "model" axis splits ``d_ff``,
+    column-parallel ``w_up``/``w_gate`` (the input through
+    ``copy_to_model``) and row-parallel ``w_down`` (its partial sums
+    reduced over "model")."""
+    split = tp.model_split(p, "w_up", 1)
+    if split != tp.model_split(p, "w_down", 0):
+        raise ValueError("w_up and w_down split d_ff differently")
+    if split:
+        x = tp.copy_to_model(x)
     up = x @ p.w_up
     if activation == "swiglu":
         h = F.silu(x @ p.w_gate) * up
@@ -120,7 +131,8 @@ def mlp_apply(p, x, activation: str):
         h = gelu(up)
     else:
         raise ValueError(activation)
-    return h @ p.w_down
+    out = h @ p.w_down
+    return tp.reduce_from_model(out) if split else out
 
 
 def _left_context(x, cache, K: int):

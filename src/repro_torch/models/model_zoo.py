@@ -24,13 +24,13 @@ import torch
 from torch import nn
 
 from repro_torch.core.grid import resolve_device
-from repro_torch.sharding import ctx
+from repro_torch.sharding import ctx, tp
 
 from . import encdec, rglru, ssm, transformer
 from .attention import blocked_attention, decode_attention
 from .layers import MLP, apply_rope, mlp_apply, rms_norm, zeros
-from .transformer import Layer, _dtype, _remat, embedding, layer_apply, \
-    lm_head, logits_fn
+from .transformer import Layer, _dtype, _remat, embedding, head_weight, \
+    layer_apply, lm_head, logits_fn
 
 
 # ------------------------------------------------------------------ loss
@@ -39,16 +39,27 @@ def chunked_xent(params, h, labels, cfg, chunk: int = 512, mask=None):
     (B, S, V): logits are built per chunk, and with gradients on each
     chunk's body is rematerialised in the backward (the reference's
     ``jax.checkpoint``), so the backward holds one chunk's (B, chunk, V)
-    float32 logits at a time.  ``labels`` are int64 (``torch.gather``)."""
+    float32 logits at a time.  ``labels`` are int64 (``torch.gather``).
+
+    On placed weights whose "model" axis splits the vocab, each rank
+    builds its vocab columns of the logits: the max and the sum of
+    exponentials are all-reduced over "model", and the gold logit comes
+    from the rank that holds it (zeros elsewhere, summed)."""
     B, S, D = h.shape
     chunk = min(chunk, S)
     while S % chunk:
         chunk //= 2
+    w, split = head_weight(params, cfg)
+    if split:
+        h = tp.copy_to_model(h)
 
     def body(hc, lc, mc):
-        logits = logits_fn(params, hc, cfg)                 # (B,chunk,V) f32
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, lc[..., None])[..., 0]
+        logits = (hc @ w.to(hc.dtype)).float()              # (B,chunk,V) f32
+        if split:
+            lse, gold = _vocab_parallel_terms(logits, lc)
+        else:
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, lc[..., None])[..., 0]
         nll = lse - gold
         if mc is not None:
             nll = nll * mc
@@ -67,6 +78,17 @@ def chunked_xent(params, h, labels, cfg, chunk: int = 512, mask=None):
     if mask is None:
         return total / (B * S)
     return total / torch.clamp(mask.sum(), min=1.0)
+
+
+def _vocab_parallel_terms(logits, labels):
+    """(log-sum-exp, gold logit) of each row from this rank's vocab
+    columns ``logits``."""
+    local, hit = transformer._vocab_block(logits.shape[-1], labels)
+    m = tp.max_over_model(logits.detach().amax(-1))
+    se = torch.exp(logits - m[..., None]).sum(-1)
+    gold = torch.gather(logits, -1, local[..., None])[..., 0] * hit
+    se, gold = tp.reduce_from_model(torch.stack([se, gold])).unbind(0)
+    return m + torch.log(se), gold
 
 
 def _state(tree, i: int):

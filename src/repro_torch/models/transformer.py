@@ -14,6 +14,14 @@ Serving runs under ``torch.inference_mode()``.  The training forward
 rematerialises each layer body by ``cfg.remat`` (:func:`_remat`, the
 reference's ``jax.checkpoint`` of its scan body); with gradients off
 (serving) remat does nothing.
+
+On placed weights (``sharding/rules.py::place_params``) each layer body
+first gathers its FSDP-split weights (``sharding/tp.py``, inside the
+remat region), and the "model" axis runs Megatron's tensor parallelism:
+each rank computes its heads (:func:`attn_apply`) and its columns of the
+MLP, the row-parallel ``wo``/``w_down`` sums go through an all-reduce,
+the embedding looks up its vocab block (:func:`_embed`) and
+:func:`logits_fn` gives this rank's vocab columns.
 """
 from __future__ import annotations
 
@@ -22,7 +30,7 @@ import functools
 import torch
 from torch import nn
 
-from repro_torch.sharding import ctx
+from repro_torch.sharding import ctx, tp
 
 from . import moe as moe_mod
 from .attention import blocked_attention, decode_attention
@@ -88,6 +96,9 @@ def attn_apply(p, x, cfg, positions, *, window: int = 0, cache=None,
     """Self-attention sublayer.  cache: (k, v) of (B, Smax, Kh, hd) → decode
     (S==1, the new k/v written at ``lengths``) or prefill (the first S
     positions written).  Returns (out, cache)."""
+    if cache is None and any(tp.model_split(p, n, d) for n, d in (
+            ("wq", 1), ("wk", 1), ("wv", 1), ("wo", 0))):
+        return _attn_tp(p, x, cfg, positions, window), None
     B, S, D = x.shape
     H, Kh, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
     h = rms_norm(x, p.ln1, cfg.norm_eps)
@@ -115,6 +126,51 @@ def attn_apply(p, x, cfg, positions, *, window: int = 0, cache=None,
         o = blocked_attention(q, k, v, causal=True, window=window)
     out = o.reshape(B, S, H * hd) @ p.wo
     return out, cache
+
+
+def _kv_whole(p, name: str):
+    """``wk``/``wv`` whole on every model rank, for heads the model axis
+    does not split evenly: gathered over "model" when it splits the
+    columns, else the replicated weight through ``copy_to_model`` (each
+    rank uses part of it, so the gradient sums over the model axis)."""
+    if tp.model_split(p, name, 1):
+        return tp.gather(getattr(p, name), {1: ("model",)})
+    return tp.copy_to_model(getattr(p, name))
+
+
+def _attn_tp(p, x, cfg, positions, window: int):
+    """The training attention on this rank's heads (tensor parallelism
+    over "model"): ``wq``'s column block gives H/M query heads, ``wk``/
+    ``wv`` give the matching KV heads when M divides Kh (else each local
+    query head's KV head, from the whole ``wk``/``wv``), and ``wo``'s row
+    block gives a partial sum, reduced over "model"."""
+    B, S, _ = x.shape
+    H, Kh, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    M = tp.model_size()
+    if H % M or not (tp.model_split(p, "wq", 1)
+                     and tp.model_split(p, "wo", 0)):
+        raise NotImplementedError(
+            f"tensor-parallel attention needs the 'model' axis ({M}) to "
+            f"split the {H} query heads evenly, wq by columns and wo by "
+            "rows")
+    Hl = H // M
+    h = tp.copy_to_model(rms_norm(x, p.ln1, cfg.norm_eps))
+    q = (h @ p.wq).reshape(B, S, Hl, hd)
+    if Kh % M == 0 and tp.model_split(p, "wk", 1):
+        k = (h @ p.wk).reshape(B, S, Kh // M, hd)
+        v = (h @ p.wv).reshape(B, S, Kh // M, hd)
+    else:
+        h0 = tp.model_rank() * Hl
+        kv = torch.arange(h0, h0 + Hl, device=x.device) // (H // Kh)
+        k = (h @ _kv_whole(p, "wk")).reshape(B, S, Kh, hd)[:, :, kv]
+        v = (h @ _kv_whole(p, "wv")).reshape(B, S, Kh, hd)[:, :, kv]
+    if cfg.qk_norm:              # every model rank scales its own heads
+        q = rms_norm(q, tp.copy_to_model(p.q_norm), cfg.norm_eps)
+        k = rms_norm(k, tp.copy_to_model(p.k_norm), cfg.norm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    o = blocked_attention(q, k, v, causal=True, window=window)
+    return tp.reduce_from_model(o.reshape(B, S, Hl * hd) @ p.wo)
 
 
 def layer_apply(p, x, cfg, positions, *, window: int = 0, cache=None,
@@ -147,7 +203,10 @@ def _remat(fn, cfg):
     reference's ``_remat``): ``"none"`` keeps every activation, ``"full"``
     keeps only ``fn``'s inputs, ``"dots"`` also keeps the outputs of
     :func:`_save_dots`' products.  With gradients off ``fn`` runs as it
-    is."""
+    is.  ``fn(module, ...)`` of placed modules runs on their FSDP-gathered
+    weights (:func:`~repro_torch.sharding.tp.with_gathered`), gathered
+    inside the remat region."""
+    fn = tp.with_gathered(fn)
     if cfg.remat == "none" or not torch.is_grad_enabled():
         return fn
     from torch.utils.checkpoint import (checkpoint,
@@ -174,8 +233,22 @@ def _positions(B: int, S: int, device):
     return torch.arange(S, device=device).expand(B, S)
 
 
+def _vocab_block(n: int, ids):
+    """(ids within this rank's block of ``n`` vocab rows, clamped; the
+    mask of the ids the block holds)."""
+    local = ids - tp.model_rank() * n
+    hit = (local >= 0) & (local < n)
+    return local.clamp(0, n - 1), hit
+
+
 def _embed(params, tokens, embeds=None):
-    x = params.embed[tokens]
+    if tp.model_split(params, "embed", 0):
+        # vocab-parallel: this rank's rows, zeros elsewhere, summed
+        local, hit = _vocab_block(params.embed.shape[0], tokens)
+        x = params.embed[local] * hit[..., None].to(params.embed.dtype)
+        x = tp.reduce_from_model(x)
+    else:
+        x = params.embed[tokens]
     if embeds is not None:
         x = torch.cat([embeds.to(x.dtype), x], dim=1)
     return ctx.constrain_act(x)
@@ -196,8 +269,18 @@ def forward(params, tokens, cfg, *, embeds=None):
     return rms_norm(x, params.ln_f, cfg.norm_eps)
 
 
+def head_weight(params, cfg):
+    """(the (D, V) output projection, or this rank's vocab columns of it;
+    whether the "model" axis splits its vocab)."""
+    if cfg.tie_embeddings:
+        return params.embed.T, tp.model_split(params, "embed", 0)
+    return params.lm_head, tp.model_split(params, "lm_head", 1)
+
+
 def logits_fn(params, h, cfg):
-    w = params.embed.T if cfg.tie_embeddings else params.lm_head
+    w, split = head_weight(params, cfg)
+    if split:                     # each model rank's columns
+        h = tp.copy_to_model(h)
     return (h @ w.to(h.dtype)).float()
 
 

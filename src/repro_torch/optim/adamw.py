@@ -15,6 +15,11 @@ of shape (L, D), the SSM's ``A_log``/``D_skip``/``dt_bias`` of shape
 port holds a stacked group as an ``nn.ModuleList``, where the same
 tensors have one dimension less, so the rule counts that dimension back
 (:func:`~repro_torch.models.model_zoo.reference_ndims`).
+
+On placed parameters (``sharding/rules.py::place_params``) every tensor
+here is this rank's block: the update is elementwise, so each rank
+updates its blocks, and only the global norm needs the grid
+(:func:`global_norm`).
 """
 from __future__ import annotations
 
@@ -72,12 +77,27 @@ def schedule(cfg: AdamWConfig, step):
     return cfg.lr * warm * frac
 
 
-def global_norm(tree):
-    """√(Σ x²) over every tensor of the dict ``tree``, in float32."""
+def global_norm(tree, placement=None):
+    """√(Σ x²) over every tensor of the dict ``tree``, in float32.
+
+    With a :class:`~repro_torch.sharding.rules.Placement`, ``tree`` holds
+    this rank's blocks: each leaf's sum of squares is summed over exactly
+    the grid axes that split it (one all-reduce per set of axes), so a
+    leaf that several ranks hold whole counts once."""
     leaves = list(tree.values())
     total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-    for x in leaves:
-        total = total + torch.sum(torch.square(x.float()))
+    if placement is None:
+        for x in leaves:
+            total = total + torch.sum(torch.square(x.float()))
+        return torch.sqrt(total)
+    groups: dict[tuple, torch.Tensor] = {}
+    for name, x in tree.items():
+        axes = placement.split_axes(name)
+        groups[axes] = groups.get(axes, total) + \
+            torch.sum(torch.square(x.float()))
+    for axes in sorted(groups):
+        total = total + placement.grid.all_reduce(
+            groups[axes].reshape(1), axes, name="adamw.global_norm")[0]
     return torch.sqrt(total)
 
 
@@ -88,7 +108,7 @@ def apply_updates(params, grads, state, cfg: AdamWConfig):
     does, ``metrics = {"grad_norm", "lr"}`` (tensors)."""
     named, ndims = named_tensors(params)
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, getattr(params, "_placement", None))
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12),
                         max=1.0)
     lr = schedule(cfg, step)

@@ -6,6 +6,11 @@ reduction 4× against float32; error feedback (the residual of step t
 added to the gradient of step t+1) keeps the accumulated update
 unbiased.  ``torch.round`` rounds half to even, as ``jnp.round`` does, so
 the int8 codes equal the reference's on the same input.
+
+On placed parameters each gradient is this rank's block, and its scale
+is the whole leaf's, as the reference's global array's is: the block's
+``amax`` maximised over the grid axes that split the leaf.  So the codes
+of a block are the slices of one process's codes.
 """
 from __future__ import annotations
 
@@ -21,9 +26,11 @@ def init_residuals(params) -> dict:
             for n, p in named.items()}
 
 
-def _quantize(x):
-    """Per-tensor symmetric int8. Returns (q, scale)."""
-    amax = torch.max(torch.abs(x))
+def _quantize(x, amax=None):
+    """Per-tensor symmetric int8 (``amax``: the whole tensor's, when ``x``
+    is a block of it). Returns (q, scale)."""
+    if amax is None:
+        amax = torch.max(torch.abs(x))
     scale = torch.clamp(amax, min=1e-30) / 127.0
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale
@@ -33,15 +40,36 @@ def _dequantize(q, scale):
     return q.float() * scale
 
 
-def compress_grads(grads, residuals):
+def _whole_amax(grads: dict, residuals: dict, placement) -> dict:
+    """|max| of each block of gradient plus residual, maximised over the
+    axes that split its leaf (one all-reduce per set of axes)."""
+    local = {n: torch.max(torch.abs(g.float() + residuals[n]))
+             for n, g in grads.items()}
+    groups: dict[tuple, list] = {}
+    for n in grads:
+        groups.setdefault(placement.split_axes(n), []).append(n)
+    out = {}
+    for axes, names in sorted(groups.items()):
+        vals = torch.stack([local[n] for n in names])
+        vals = placement.grid.all_reduce(vals, axes, "max",
+                                         name="compression.amax")
+        out.update(zip(names, vals.unbind(0)))
+    return out
+
+
+def compress_grads(grads, residuals, placement=None):
     """→ ({name: (int8 codes, float32 scale)}, new residuals).
 
     The codes are what would cross the wire; the residual keeps what the
-    quantisation lost, for the next step."""
+    quantisation lost, for the next step.  ``placement``: the
+    :class:`~repro_torch.sharding.rules.Placement` of the parameters
+    whose blocks ``grads`` holds."""
     comp, res = {}, {}
+    amax = _whole_amax(grads, residuals, placement) \
+        if placement is not None else {}
     for name, g in grads.items():
         x = g.float() + residuals[name]
-        q, s = _quantize(x)
+        q, s = _quantize(x, amax.get(name))
         comp[name] = (q, s)
         res[name] = x - _dequantize(q, s)
     return comp, res

@@ -3,14 +3,18 @@ model code ask about the placement without threading grid objects
 through every layer.
 
 The reference installs a GSPMD mesh here, and ``constrain*`` pin
-activation shardings with ``with_sharding_constraint``.  The port places
-data explicitly, by local blocks (each rank holds its block;
-``core/dtensor.py``), so there is nothing to pin: ``use()`` records the
-:class:`~repro_torch.core.grid.ProcGrid` and its batch axes, the sizes
-(``axis_size``, ``batch_size``) answer from that grid, and every
-``constrain*`` returns its input.  Only a training run installs a grid;
-on the serving path nothing is installed, as in the reference, so
-``axis_size`` answers None (and ``moe_apply`` routes in one group).
+activation shardings with ``with_sharding_constraint``, from which XLA
+derives the collectives.  The port places explicitly: a placed model's
+ranks hold blocks of its weights (``sharding/rules.py::place_params``),
+and its layers run the gathers and the model-axis reductions themselves
+(``sharding/tp.py``), finding the "model" and batch-axis process groups
+through the grid recorded here.  So ``use()`` records the
+:class:`~repro_torch.core.grid.ProcGrid` and its batch axes, ``grid()``
+returns it, the sizes (``axis_size``, ``batch_size``) answer from it, and
+every ``constrain*`` returns its input: each rank's activations already
+are its block.  Only a training run installs a grid; on the serving path
+nothing is installed, as in the reference, so ``axis_size`` answers None
+(and ``moe_apply`` routes in one group).
 """
 from __future__ import annotations
 
@@ -36,9 +40,15 @@ def active() -> bool:
     return _GRID is not None
 
 
+def grid():
+    """The installed :class:`~repro_torch.core.grid.ProcGrid`, or None."""
+    return _GRID
+
+
 def constrain(x, *entries):
-    """The reference's sharding constraint; the port's placement is the
-    caller's local block, so ``x`` comes back as it is."""
+    """The reference's sharding constraint; the port's placement is
+    explicit (each rank's tensor is its block), so ``x`` comes back as it
+    is."""
     del entries
     return x
 

@@ -11,18 +11,29 @@ over "model"; stacked-layer leading dims are unsharded.  ``pod`` is pure
 DP.  :func:`param_specs` gives each parameter of a port model the spec
 of its *reference* leaf, stacked layer axis included.
 
-The specs describe placements; the port applies none of them to
-weights.  Its training path is data parallel: weights and optimizer
-state are replicated on every rank, each rank runs its rows of the
-batch, and the train step all-reduces the gradients over the batch
-axes (:func:`batch_axis`).  So the reference's ``param_shardings`` and
-``logical_axis_env``, which hand specs to XLA, have no counterpart; the
-specs go into the checkpoint manifest, from which a spec'd restore reads
-each rank's block.
+The port applies them as the reference's ``jax.device_put(params,
+param_shardings(params, mesh))`` does: :func:`place_params` keeps, on
+each rank of a grid of processes, only its block of every parameter (the
+slices ``spec`` gives its grid coordinates), in place and under the same
+names, and records the placement on the model (:class:`Placement`).  The
+AdamW moments made from placed parameters are blocks too.  The layers
+then gather what they use (``sharding/tp.py``: FSDP over the batch axes
+for every family, tensor parallelism over "model" for the dense
+decoder), and the train step reduces each gradient by its placement
+(``train/train_step.py``).  :func:`gather_params` is the inverse, for
+checkpoints and tests.  There is no counterpart of ``logical_axis_env``:
+the port names no logical axes for a compiler.  A grid whose batch axes
+do not divide the batch replicates the batch (:func:`batch_axis`), and
+each rank then runs every row.
 """
 from __future__ import annotations
 
+import dataclasses
 import re
+
+import torch
+
+from repro_torch.sharding.tp import FSDP_AXES
 
 # leaf-name → spec for the *trailing* dims (leading stack dims padded None).
 # "fsdp" resolves to ("pod","data") on multi-pod grids (ZeRO spans pods),
@@ -116,17 +127,161 @@ def leaf_spec(names, shape, grid=None) -> tuple:
 def param_specs(model, grid=None) -> dict:
     """``{parameter name: spec of its reference leaf}`` for the port's
     ``model``: a parameter of a stacked group gets the spec of the
-    stacked leaf, leading ``None`` included."""
+    stacked leaf, leading ``None`` included.  A placed model's parameters
+    count with their whole shapes."""
     from repro_torch.models.model_zoo import reference_name, stacked_lists
     lists = stacked_lists(model)
     sizes = {name: len(getattr(model, name)) for name in lists}
+    pl = placement_of(model)
     out = {}
     for n, p in model.named_parameters():
         ref, idx = reference_name(n, lists)
-        shape = tuple(p.shape) if idx is None else \
-            (sizes[ref.partition(".")[0]],) + tuple(p.shape)
+        whole = pl.shapes[n] if pl is not None else tuple(p.shape)
+        shape = whole if idx is None else \
+            (sizes[ref.partition(".")[0]],) + tuple(whole)
         out[n] = leaf_spec(ref.split("."), shape, grid)
     return out
+
+
+# -------------------------------------------------------------- placement
+@dataclasses.dataclass
+class Placement:
+    """What :func:`place_params` did to a model: the grid, each
+    parameter's spec over its own dims (a tuple of the grid axes of more
+    than one process that split each dim; the stacked layer axis of the
+    reference's leaf left out) and each parameter's whole shape."""
+
+    grid: object
+    specs: dict
+    shapes: dict
+
+    def __deepcopy__(self, memo):      # a model copy shares its grid
+        return self
+
+    def split_axes(self, name: str) -> tuple[int, ...]:
+        """The grid axes (indices) that split parameter ``name``."""
+        return tuple(sorted({self.grid.axis_index(a)
+                             for axes in self.specs[name] for a in axes}))
+
+    def fsdp_split(self, name: str) -> bool:
+        """Whether the batch axes split parameter ``name`` (its gradient
+        then comes reduce-scattered from the FSDP gather's backward)."""
+        return any(a in FSDP_AXES for axes in self.specs[name]
+                   for a in axes)
+
+
+def placement_of(model) -> Placement | None:
+    """The model's :class:`Placement`, or None when it holds whole
+    weights."""
+    return getattr(model, "_placement", None)
+
+
+def _live_spec(spec, grid, ndim: int) -> tuple:
+    """``spec`` over ``ndim`` dims as one tuple of axis names per dim,
+    keeping only the axes of more than one process."""
+    ent = list(spec) + [None] * (ndim - len(spec))
+    out = []
+    for e in ent:
+        axes = () if e is None else (e if isinstance(e, tuple) else (e,))
+        out.append(tuple(a for a in axes if a in grid.axes
+                         and grid.shape[grid.axis_index(a)] > 1))
+    return tuple(out)
+
+
+def _tp_covered(model) -> str:
+    """'' when the "model" axis may split ``model``'s leaves, else the
+    ROADMAP item that will cover its family."""
+    from repro_torch.models.transformer import TransformerLM
+    if not isinstance(model, TransformerLM):
+        return (f"{type(model).__name__} (ROADMAP §1 item 3: tensor "
+                "parallelism for the SSM, RG-LRU and encoder-decoder "
+                "families)")
+    if any(hasattr(layer, "moe") for layer in model.layers):
+        return ("an MoE model (ROADMAP §1 item 2: expert "
+                "parallelism)")
+    return ""
+
+
+def place_params(model, grid) -> Placement | None:
+    """Keep on this rank only its block of each of ``model``'s parameters
+    under :func:`param_specs` on ``grid``, in place: the same parameter
+    objects and names, each holding the slices of its spec at the rank's
+    grid coordinates.  An entry that :func:`drop_indivisible` replicates
+    stays whole.  Returns the :class:`Placement` (also kept on the model),
+    or None when no axis of ``grid`` splits any parameter.  Raises when
+    the "model" axis would split a leaf of a family the port's tensor
+    parallelism does not cover yet."""
+    from repro_torch.ckpt.checkpoint import _block
+    from repro_torch.models.model_zoo import reference_name, stacked_lists
+    if placement_of(model) is not None:
+        raise ValueError("the model is placed already")
+    lists = stacked_lists(model)
+    ref = param_specs(model, grid)
+    specs, shapes = {}, {}
+    for n, p in model.named_parameters():
+        spec = ref[n]
+        if reference_name(n, lists)[1] is not None:
+            spec = spec[1:]                   # the stacked layer axis
+        specs[n] = _live_spec(spec, grid, p.ndim)
+        shapes[n] = tuple(p.shape)
+    if not any(a for sp in specs.values() for a in sp):
+        return None
+    model_split = sorted(n for n, sp in specs.items()
+                         if any(a not in FSDP_AXES for ax in sp for a in ax))
+    why = _tp_covered(model) if model_split else ""
+    if why:
+        raise NotImplementedError(
+            f"the grid's 'model' axis splits {model_split[0]} of {why}; "
+            "the port places these only over the batch axes (FSDP): use a "
+            "grid whose 'model' axis has one process")
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            sp = specs[n]
+            if any(sp):
+                p.data = p.data[_block(shapes[n], sp, grid)].clone()
+    owners = dict(model.named_modules())
+    for n, sp in specs.items():
+        if any(sp):
+            mod, _, leaf = n.rpartition(".")
+            owner = owners[mod]
+            owner.__dict__.setdefault("_tp_specs", {})[leaf] = sp
+    pl = Placement(grid, specs, shapes)
+    model._placement = pl
+    return pl
+
+
+def gather_named(model, named: dict, *, device=None,
+                 keep: bool = True) -> dict:
+    """``named`` (tensors keyed by ``model``'s parameter names, each this
+    rank's block as the parameter of that name is placed: the parameters,
+    the AdamW moments) gathered whole, one at a time, each copied to
+    ``device`` at once (by default it stays where it is, and a tensor
+    that no axis splits comes back as it is, detached).  A collective:
+    every rank calls it; with ``keep`` False this rank drops what it
+    gathered and gets ``{}``."""
+    pl = placement_of(model)
+    out = {}
+    for n, t in named.items():
+        t = t.detach()
+        sp = pl.specs[n] if pl is not None else ()
+        for dim, axes in enumerate(sp):
+            ids = tuple(pl.grid.axis_index(a) for a in axes)
+            if ids:
+                t = pl.grid.replicate(t, ids, dim, name="rules.gather")
+        if keep:
+            out[n] = t if device is None else t.to(device, copy=True)
+    return out
+
+
+def gather_params(model, grid=None) -> dict:
+    """``{name: whole tensor}`` of a placed ``model`` on every rank (the
+    inverse of :func:`place_params`; its own grid when ``grid`` is None).
+    A collective: every rank calls it."""
+    pl = placement_of(model)
+    if grid is not None and pl is not None and grid is not pl.grid:
+        raise ValueError("gather_params: the model is placed on another "
+                         "grid")
+    return gather_named(model, dict(model.named_parameters()))
 
 
 # ------------------------------------------------------------- activations

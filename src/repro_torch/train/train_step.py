@@ -14,20 +14,32 @@ are summed into float32 buffers (the reference's float32 accumulator;
 ``.grad`` would add in bfloat16 at the published configs), then divided
 by ``mb``, as is the loss.
 
-On a grid whose batch axes span several processes (data parallel: each
-rank holds the weights, the optimizer state and its rows of the batch)
-the gradients and the loss are averaged over those axes before
-compression, so every rank compresses and applies the global gradient,
-as the reference's GSPMD step does.
+On a grid whose batch axes span several processes each rank runs its
+rows of the batch, and the gradients and the loss are averaged over
+those axes before compression, so every rank compresses and applies the
+global gradient, as the reference's GSPMD step does.  With whole weights
+(data parallel: each rank holds the weights and the optimizer state) that
+is one all-reduce of one flat buffer.  On placed weights
+(``sharding/rules.py::place_params``: each rank holds its blocks of the
+weights and of the optimizer state) a leaf that the batch axes split
+gets its gradient block from the FSDP gather's backward reduce-scatter
+(a sum over the batch axes; ``sharding/tp.py``), divided here by their
+size; only the leaves they do not split, and the loss, take the flat
+all-reduce (the dry run's ``grad_all_reduce`` set).  The loss runs with
+the model's top-level weights (embedding, head, final norm) gathered
+over the batch axes once per microbatch; each layer gathers its own.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
+import math
 
 import torch
 
 from repro_torch.optim import adamw
 from repro_torch.optim.compression import compress_grads, decompress_grads
+from repro_torch.sharding import rules, tp
 
 
 def _dp_axes(grid) -> list[int]:
@@ -56,6 +68,35 @@ def _mean_over(grid, axes, grads: dict, loss):
     return out, flat[at]
 
 
+def _reduce_placed(grid, axes, placement, grads: dict, loss):
+    """Placed weights: the FSDP-split leaves' reduce-scattered sums
+    divided by the batch axes' size; the other leaves and the loss
+    averaged by :func:`_mean_over`."""
+    n = math.prod(grid.shape[a] for a in axes)
+    split = {k for k in grads if placement.fsdp_split(k)}
+    rest, loss = _mean_over(grid, axes, {k: v for k, v in grads.items()
+                                         if k not in split}, loss)
+    out = {k: grads[k].float() / n if k in split else rest[k]
+           for k in grads}
+    return out, loss
+
+
+def _top_level_gathered(params):
+    """The placed model's weights outside its stacked layers gathered over
+    the batch axes for the loss (``tp.gathered``); nothing to do on whole
+    weights."""
+    if rules.placement_of(params) is None:
+        return contextlib.nullcontext()
+    from repro_torch.models.model_zoo import stacked_lists
+    return tp.gathered(params, skip=stacked_lists(params))
+
+
+def _check_placement(placement, grid) -> None:
+    if placement is not None and placement.grid is not grid:
+        raise ValueError("the parameters are placed on another grid than "
+                         "the train step's")
+
+
 def _device_batch(batch: dict) -> dict:
     """Token ids as int64 (``torch.gather`` and embedding lookups)."""
     return {k: v.long() if not v.is_floating_point() else v
@@ -70,12 +111,14 @@ def make_train_step(bundle, opt_cfg: adamw.AdamWConfig, grid=None, *,
 
     With compress=True, gradients pass through int8 error-feedback
     quantization; the residual state lives in opt_state["residuals"].
-    ``grid``: the processes of a data-parallel run (see the module
-    docstring); ``batch`` holds this rank's rows."""
+    ``grid``: the processes of the run, whose parameters are whole or
+    placed on it (see the module docstring); ``batch`` holds this rank's
+    rows."""
     dp = _dp_axes(grid)
 
     def value_and_grad(params, names, plist, batch):
-        loss = bundle.loss(params, batch)
+        with _top_level_gathered(params):
+            loss = bundle.loss(params, batch)
         gs = torch.autograd.grad(loss, plist)
         return loss.detach(), dict(zip(names, gs))
 
@@ -86,6 +129,8 @@ def make_train_step(bundle, opt_cfg: adamw.AdamWConfig, grid=None, *,
                              if isinstance(v, dict) else v.clone())
                          for k, v in opt_state.items()}
         batch = _device_batch(batch)
+        placement = rules.placement_of(params)
+        _check_placement(placement, grid)
         named = dict(params.named_parameters())
         names, plist = list(named), list(named.values())
         if microbatches > 1:
@@ -105,11 +150,14 @@ def make_train_step(bundle, opt_cfg: adamw.AdamWConfig, grid=None, *,
             loss = loss / microbatches
         else:
             loss, g = value_and_grad(params, names, plist, batch)
-        if dp:
+        if dp and placement is not None:
+            g, loss = _reduce_placed(grid, dp, placement, g, loss)
+        elif dp:
             g, loss = _mean_over(grid, dp, g, loss)
 
         if compress:
-            comp, res = compress_grads(g, opt_state["residuals"])
+            comp, res = compress_grads(g, opt_state["residuals"],
+                                       placement)
             g = decompress_grads(comp)
             opt_state = {**opt_state, "residuals": res}
 

@@ -9,10 +9,16 @@ Behaviours:
 
 The checkpoint holds ``{"params", "opt"}`` as the reference's trees
 (names, stacked layer leaves; ``model_zoo.tree_of``), so a checkpoint
-carries across by name.  On a data-parallel grid (``make_train_step``)
-each rank draws its own rows (``Pipeline(cfg, shard, n_shards)``, its
-coordinate over the batch axes) and the first rank of the grid writes
-the checkpoints; every rank restores them.
+carries across by name.  On a grid of several processes each rank draws
+its own rows (``Pipeline(cfg, shard, n_shards)``, its coordinate over the
+batch axes; ranks along "model" draw the same rows) and the first rank of
+the grid writes the checkpoints.  When the grid's specs split a leaf the
+weights are placed (``rules.place_params``): every rank draws them whole
+from the same generator and keeps its blocks, so a placed run starts from
+one process's weights; a checkpoint gathers the blocks to the writer, so
+its files hold whole tensors; a restore reads each rank's blocks
+(``CheckpointManager.restore(grid=...)``).  Otherwise (no leaf split)
+every rank holds the whole weights and restores the whole checkpoint.
 """
 from __future__ import annotations
 
@@ -100,35 +106,62 @@ class Trainer:
         self.writer = grid is None or not grid.multi_process or \
             grid.ranks.index(_rank()) == 0
         self.monitor = StragglerMonitor(tcfg.straggler_sigma)
+        #: whether the weights are placed on the grid (set by run())
+        self.placed = False
         self._stop = False
         self.history: list[dict] = []
 
     # ------------------------------------------------------------ state
+    def _place(self, params) -> bool:
+        """Place ``params`` on a grid of several processes whose specs
+        split a leaf (``self.placed``); False when they stay whole."""
+        if self.grid is not None and self.grid.multi_process:
+            self.placed = rules.place_params(params, self.grid) is not None
+        return self.placed
+
+    def _spec_tree(self, params, opt_keys) -> dict:
+        """The checkpoint's spec tree: each leaf's reference spec on the
+        grid, the moments' as their parameters'."""
+        pspecs = rules.param_specs(params, self.grid)
+        ptree = tree_of(params, pspecs, lambda xs: xs[0])
+        return {"params": ptree,
+                "opt": {k: () if k == "step" else ptree for k in opt_keys}}
+
     def _save(self, step, params, opt_state, block=False):
+        named = dict(params.named_parameters())
+        if rules.placement_of(params) is not None:
+            # every rank takes part in the gathers; the writer keeps the
+            # whole tensors, on the host
+            keep = {"keep": self.writer, "device": "cpu"}
+            named = rules.gather_named(params, named, **keep)
+            opt_state = {k: rules.gather_named(params, v, **keep)
+                         if isinstance(v, dict) else v
+                         for k, v in opt_state.items()}
         if not self.writer:
             return
-        pspecs = rules.param_specs(params, self.grid)
 
-        def tree(named, combine=list):
-            return tree_of(params, named, combine)
-        first = (lambda xs: xs[0])
+        def tree(values):
+            return tree_of(params, values)
         opt = {k: tree(v) if isinstance(v, dict) else v
                for k, v in opt_state.items()}
-        ospecs = {k: tree(pspecs, first) if isinstance(v, dict) else ()
-                  for k, v in opt_state.items()}
-        self.ckpt.save(step, {"params": tree(dict(params.named_parameters())),
-                              "opt": opt},
-                       {"params": tree(pspecs, first), "opt": ospecs},
-                       block=block)
+        self.ckpt.save(step, {"params": tree(named), "opt": opt},
+                       self._spec_tree(params, opt_state), block=block)
 
     def _restore_or_init(self, gen):
         latest = self.ckpt.latest_step()
         if latest is not None:
-            step, tree = self.ckpt.restore()
             params = self.bundle.init(None)
+            if self._place(params):          # this rank's blocks
+                keys = ["m", "v", "step"] + (
+                    ["residuals"] if self.tcfg.compress_grads else [])
+                step, tree = self.ckpt.restore(
+                    grid=self.grid, specs_tree=self._spec_tree(params, keys))
+            else:
+                step, tree = self.ckpt.restore()
             load_tree(params, tree["params"])
             return step, params, opt_state_from_numpy(params, tree["opt"])
         params = self.bundle.init(gen)
+        self._place(params)
         opt = init_opt_state(params, compress=self.tcfg.compress_grads)
         return 0, params, opt
 
