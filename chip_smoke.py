@@ -171,6 +171,18 @@ through host memory, so no scaling number):
   parameters within 1e-3 of their largest, against one process (which
   also runs twice, to show how far it is from itself).
 
+Then the ep_train phase, expert parallelism on placed weights (each
+model rank keeps 20 of Granite-MoE's 40 experts, FSDP over "data";
+every kernel's launches over the phase must be 0): ``granite-moe-3b-
+a800m`` at its published config through ``Trainer`` on the same 2×2 grid,
+batch and microbatches, 3 steps, with no checkpoint at full width; per
+rank the state bytes against ``state_bytes`` to the byte, the peak, ms
+per steady step and the counted collective bytes per kind, which must
+equal ``ep_counted_bytes`` (PERF.md §5's arithmetic) and are printed
+beside ``model_collectives``; the first step against one process routed
+per batch row (run first and freed before the ranks start), and the
+float32 2-layer run held as the sharded_train phase's.
+
 Then the dryrun phase, the port's dry run (``repro_torch.launch.
 dryrun``: an accounting on the ``meta`` device over abstract grids, no
 card and no process group): the paper's cell in both variants on the
@@ -231,7 +243,8 @@ step's launches and bound; the agreements), the train phase (step
 times, losses, peaks, checkpoint, agreements, launcher), the
 sharded_train phase (per rank: state bytes against the accounting, peak,
 step times, losses, checkpoint seconds; the counted collective bytes
-beside the model; the agreements), the dryrun
+beside the model; the agreements), the ep_train phase (the same for the
+MoE, without a checkpoint), the dryrun
 phase (the cells' records, the calibration beside the measured step),
 the examples phase (each example's numbers and wall time, the launches),
 the per-shape table of kernel #1, one JSON line ``{"kernels": [...]}``
@@ -374,6 +387,33 @@ SHARD_DIR = os.path.join(HERE, "build", "sharded")
 SHARD_TAG = "4 processes on one card, gloo"
 #: a rehearsal on the CPU trains the reduced config (the job carries it)
 SHARD_REDUCED = False
+
+# the ep_train phase: expert parallelism (sharding/rules.py::place_params
+# keeps E/M experts per "model" rank, FSDP over "data"), EP_PROCS
+# processes sharing the card over gloo on the EP_GRID grid.  Granite-MoE
+# 3B-A800M at its published config through Trainer (the train phase's
+# batch, microbatches and learning rate, EP_STEPS steps, no checkpoint);
+# the first step's loss and grad_norm against one process's step from the
+# same weights and batch, routed per batch row as on the grid, within
+# EP_LOSS_RTOL / EP_GNORM_RTOL (bf16: each row-parallel sum rounds once
+# more, and tokens near a routing tie may take another expert; measured
+# 2.09e-5 / 9.19e-4 and 2.61e-5 / 4.48e-4 in two calls on an NVIDIA H100
+# 80GB HBM3 at 700 W); then float32 at published width
+# cut to EP_EXACT_LAYERS layers, EP_EXACT_STEPS steps, held as the
+# sharded_train phase's (SHARD_EXACT_RTOL, SHARD_EXACT_PARAM), the placed
+# run replaying one process's routing (RouteTape): a token whose K-th and
+# (K+1)-th logits differ by float32 rounding may pick another expert in
+# each run, and one such token moved the first step's gradient by 8.06e-4
+# of its largest (measured on an NVIDIA H100 80GB HBM3 at 700 W); every
+# row that routes otherwise must lie within EP_TIE of a tie
+EP_PROCS, EP_GRID, EP_AXES = 4, (2, 2), ("data", "model")
+EP_STEPS, EP_EXACT_LAYERS, EP_EXACT_STEPS = 3, 2, 2
+EP_LOSS_RTOL, EP_GNORM_RTOL = 8e-5, 3e-3
+EP_TIE = 1e-5
+EP_TIMEOUT = 900.0
+EP_DIR = os.path.join(HERE, "build", "ep")
+#: a rehearsal on the CPU trains the reduced config (the job carries it)
+EP_REDUCED = False
 
 # the dryrun phase: the port's dry-run accounting (repro_torch.launch.
 # dryrun, the meta device, abstract grids, nothing allocated) of the
@@ -4028,12 +4068,12 @@ def tree_err(torch, got: dict, want: dict) -> tuple[float, str]:
     return errs[worst], worst
 
 
-def shard_config(reduced: bool):
-    """TinyLlama-1.1B's published config, or (a rehearsal on the CPU) its
+def shard_config(reduced: bool, arch: str = TRAIN_ARCH):
+    """``arch``'s published config, or (a rehearsal on the CPU) its
     reduced config in bf16 with remat "full"."""
     import dataclasses
     from repro_torch.configs.base import get_config
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(arch)
     if reduced:
         cfg = dataclasses.replace(cfg.reduced(), dtype="bfloat16",
                                   remat="full")
@@ -4050,14 +4090,13 @@ def sharded_train_rank(rank, job):
     import torch.distributed as dist
 
     from repro_torch.core.grid import ProcGrid, collective_bytes
-    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.data.pipeline import DataConfig
     from repro_torch.kernels import sphere_pack
     from repro_torch.kernels.dft_matmul import dft_matmul, \
         dft_matmul_twiddle
     from repro_torch.models.model_zoo import build
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.sharding import ctx, rules
-    from repro_torch.train.train_step import init_opt_state, make_train_step
     from repro_torch.train.trainer import Trainer, TrainerConfig
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device(job["device"])
@@ -4139,37 +4178,52 @@ def sharded_train_rank(rank, job):
         if cuda:
             torch.cuda.empty_cache()
 
-        # float32 at published width, SHARD_EXACT_LAYERS layers
-        c32 = dataclasses.replace(cfg, dtype="float32",
-                                  n_layers=SHARD_EXACT_LAYERS)
-        b32 = build(c32, device=dev)
-        model = b32.init(torch.Generator(device=dev).manual_seed(SEED))
-        rules.place_params(model, grid)
-        opt = init_opt_state(model)
-        step = make_train_step(b32, AdamWConfig(
-            lr=TRAIN_AGREE_LR, warmup_steps=1, total_steps=TRAIN_STEPS),
-            grid, microbatches=TRAIN_MB)
-        shard = grid.coordinate[grid.axis_index("data")]
-        host = Pipeline(dcfg, shard, 2).batch_at(0)
-        batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
-        losses, norms, first = [], [], None
-        for _ in range(SHARD_EXACT_STEPS):
+        out["exact"] = placed_exact_run(
+            torch, grid, dataclasses.replace(
+                cfg, dtype="float32", n_layers=SHARD_EXACT_LAYERS), dcfg,
+            job, rank, SHARD_EXACT_STEPS)
+    out["launches"] = {fn.__name__: fn.launches for fn in wrappers}
+    return out
+
+
+def placed_exact_run(torch, grid, c32, dcfg, job, rank, steps, tape=None):
+    """``steps`` float32 steps of ``c32`` on weights placed on ``grid``
+    (drawn from SEED), this rank's rows of the batch at step 0: losses
+    and grad norms; on rank 0 the gathered parameters' and the first
+    step's first moment's errors against one process's
+    (``job["exact_params"]``).  ``tape``: a context the steps run in."""
+    import contextlib
+    from repro_torch.data.pipeline import Pipeline
+    from repro_torch.models.model_zoo import build
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.sharding import rules
+    from repro_torch.train.train_step import init_opt_state, make_train_step
+    dev = grid.device
+    b32 = build(c32, device=dev)
+    model = b32.init(torch.Generator(device=dev).manual_seed(SEED))
+    rules.place_params(model, grid)
+    opt = init_opt_state(model)
+    step = make_train_step(b32, AdamWConfig(
+        lr=TRAIN_AGREE_LR, warmup_steps=1, total_steps=TRAIN_STEPS),
+        grid, microbatches=TRAIN_MB)
+    d = grid.axis_index("data")
+    host = Pipeline(dcfg, grid.coordinate[d], grid.shape[d]).batch_at(0)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    losses, norms, first = [], [], None
+    with tape or contextlib.nullcontext():
+        for _ in range(steps):
             model, opt, met = step(model, opt, batch)
             losses.append(float(met["loss"]))
             norms.append(float(met["grad_norm"]))
             if first is None:
                 first = rules.gather_named(model, opt["m"], device="cpu",
                                            keep=rank == 0)
-        whole = rules.gather_params(model)
-        out["exact"] = {"losses": losses, "norms": norms}
-        if rank == 0:
-            ref = torch.load(job["exact_params"])
-            out["exact"]["param_err"] = tree_err(torch, whole,
-                                                 ref["params"])
-            out["exact"]["first_moment_err"] = tree_err(torch, first,
-                                                        ref["m1"])
-        del model, opt, whole, first
-    out["launches"] = {fn.__name__: fn.launches for fn in wrappers}
+    whole = rules.gather_params(model)
+    out = {"losses": losses, "norms": norms}
+    if rank == 0:
+        ref = torch.load(job["exact_params"])
+        out["param_err"] = tree_err(torch, whole, ref["params"])
+        out["first_moment_err"] = tree_err(torch, first, ref["m1"])
     return out
 
 
@@ -4332,6 +4386,356 @@ def run_sharded_train(torch, dev, gpu, wrappers) -> dict:
           f"the placed train path launched no hand kernel: {launches}")
     out["seconds"] = time.perf_counter() - t0
     print(f"sharded_train phase: {out['seconds']:.1f} s (ranks "
+          f"{ranks_s:.1f} s)", flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------- the expert-parallel path
+def ep_counted_bytes(cfg, leaves, grid, *, tokens: int,
+                     microbatches: int) -> dict:
+    """The operand bytes per step and rank that the placed MoE step counts
+    (``core/grid.py::COLLECTIVE_BYTES``; PERF.md §5's arithmetic): the
+    layers' FSDP gathers in the forward and, under remat, the recompute,
+    the top-level ones once a microbatch; the reduce-scatters once a
+    microbatch; the flat all-reduce of the unsplit leaves and the loss;
+    the global norm's sum per set of splitting axes; per layer and
+    microbatch the attention's two reduces (``wo``'s, recomputed under
+    remat, and ``copy_to_model``'s backward) and the expert-parallel
+    MoE's three (its combine, which torch's recompute stops before, and
+    the backward of its input and of its float32 router); the
+    vocab-parallel embedding, head and loss terms where "model" splits
+    the vocabulary.  T = ``tokens`` a rank and microbatch."""
+    from repro_torch.launch.dryrun import fsdp_all_gather, \
+        grad_all_reduce, grad_reduce_scatter
+    mb, T, D, a = microbatches, tokens, cfg.d_model, \
+        2 if cfg.dtype == "bfloat16" else 4
+    M = grid.shape[grid.axis_index("model")]
+    remat = cfg.remat != "none"
+    layers = [lf for lf in leaves if lf["path"][0] == "layers"]
+    top = [lf for lf in leaves if lf["path"][0] != "layers"]
+    gather = fsdp_all_gather(layers, grid, passes=1 + remat,
+                             microbatches=mb) + \
+        fsdp_all_gather(top, grid, passes=1, microbatches=mb)
+    reduce = grad_all_reduce(leaves, grid, batch_split=True) + 2 * 4
+    if M > 1:
+        per_layer = (2 + remat) * T * D * a
+        if cfg.n_experts % M == 0:
+            per_layer += 2 * T * D * a + D * cfg.n_experts * 4
+        reduce += mb * cfg.n_layers * per_layer
+        if cfg.vocab % M == 0:
+            reduce += mb * (2 * T * D * a + (1 + remat) * 3 * T * 4)
+    return {"all-gather": gather,
+            "reduce-scatter": grad_reduce_scatter(leaves, grid,
+                                                  microbatches=mb),
+            "all-reduce": reduce, "all-to-all": 0}
+
+
+class RouteTape:
+    """Records, or replays, the experts that ``models/moe.py::_top_k``
+    picks, call by call: the float32 comparison of the ep_train phase
+    routes the placed run as one process routed, so that a token whose
+    K-th and (K+1)-th logits lie within float32 rounding of each other
+    (the two runs sum the hidden state in different orders) cannot send
+    one run down another path.  Replaying, it counts the (token, call)
+    rows whose own choice differs from the tape's and keeps their own
+    gaps between the K-th and (K+1)-th logits.  ``rows`` picks this
+    rank's groups of each recorded call."""
+
+    def __init__(self, torch, replay=None, rows=None):
+        self.torch, self.replay, self.rows = torch, replay, rows
+        self.calls, self.flips, self.flip_gaps = [], 0, []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.mod, self.real = moe, moe._top_k
+        moe._top_k = self.top_k
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._top_k = self.real
+
+    def top_k(self, logits, K):
+        torch = self.torch
+        vals, idx = self.real(logits, K + 1)
+        gap = vals[..., K - 1] - vals[..., K]
+        vals, idx = vals[..., :K], idx[..., :K]
+        if self.replay is None:
+            self.calls.append(idx.to(torch.int16).cpu())
+            return vals, idx
+        want = self.replay[len(self.calls)][self.rows].to(idx.device,
+                                                         torch.long)
+        self.calls.append(None)
+        differ = (idx.sort(-1)[0] != want.sort(-1)[0]).any(-1)
+        self.flips += int(differ.sum())
+        self.flip_gaps += gap[differ].tolist()
+        return torch.gather(logits, -1, want), want
+
+
+def ep_train_rank(rank, job):
+    """One rank of the ep_train phase (a spawned process of
+    ``run_ranks``): the placed Trainer at full width (no checkpoint), then
+    the float32 depth-cut run.  It measures and compares; the parent makes
+    every check."""
+    import dataclasses
+    import torch
+
+    from repro_torch.core.grid import ProcGrid, collective_bytes
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels import sphere_pack
+    from repro_torch.kernels.dft_matmul import dft_matmul, \
+        dft_matmul_twiddle
+    from repro_torch.models.model_zoo import build
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.sharding import ctx, rules
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(job["device"])
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev)
+    wrappers = (dft_matmul, dft_matmul_twiddle, sphere_pack.unpack_dft,
+                sphere_pack.dft_pack)
+    for fn in wrappers:
+        fn.launches = 0
+    grid = ProcGrid.create(EP_GRID, EP_AXES, device=dev)
+    cfg = shard_config(job["reduced"], TRAIN_MOE)
+    dcfg = DataConfig(vocab=cfg.vocab, seq=job["seq"],
+                      global_batch=job["batch"])
+    ocfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                       total_steps=TRAIN_RESUME_STEPS)
+    out = {"coordinate": grid.coordinate}
+    with ctx.use(grid, ("data",)):
+        bundle = build(cfg, device=dev)
+        tr = fixed_batch_trainer(Trainer(bundle, ocfg, TrainerConfig(
+            total_steps=EP_STEPS, ckpt_every=1000, log_every=1000,
+            microbatches=TRAIN_MB, ckpt_dir=job["ckpt"]), dcfg, grid=grid))
+        tr._save = lambda *args, **kw: None      # no full-width checkpoint
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        counted = []
+        step_fn = tr.step_fn
+
+        def step_counted(*args):
+            collective_bytes(reset=True)
+            res = step_fn(*args)
+            counted.append(collective_bytes())
+            return res
+        tr.step_fn = step_counted
+        params, opt = tr.run(torch.Generator(device=dev).manual_seed(SEED))
+        sync(torch, dev)
+        out["peak_bytes"] = torch.cuda.max_memory_allocated(dev) if cuda \
+            else 0
+        pl = rules.placement_of(params)
+        out["placed"] = pl is not None
+        out["expert_block"] = (tuple(params.layers[0].moe.w_up.shape),
+                               pl.shapes["layers.0.moe.w_up"])
+        out["param_bytes"] = sum(p.numel() * p.element_size()
+                                 for p in params.parameters())
+        out["opt_bytes"] = sum(t.numel() * t.element_size() for k in
+                               ("m", "v") for t in opt[k].values()) + \
+            opt["step"].numel() * opt["step"].element_size()
+        out["on_card"] = all(t.device == dev
+                             for t in train_tensors(params, opt))
+        out["history"] = [{k: h[k] for k in ("loss", "grad_norm", "dt")}
+                          for h in tr.history]
+        out["collectives_per_step"] = counted
+        del params, opt, tr, pl
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # float32 at published width, EP_EXACT_LAYERS layers, routed as
+        # one process routed (this rank's rows of each recorded call)
+        shard = grid.coordinate[grid.axis_index("data")]
+        n = job["batch"] // EP_GRID[0] // TRAIN_MB      # rows a group call
+        tape = RouteTape(torch, torch.load(job["routes"]),
+                         slice(shard * n, (shard + 1) * n))
+        out["exact"] = placed_exact_run(
+            torch, grid, dataclasses.replace(
+                cfg, dtype="float32", n_layers=EP_EXACT_LAYERS), dcfg,
+            job, rank, EP_EXACT_STEPS, tape)
+        out["exact"].update(route_flips=tape.flips,
+                            flip_gaps=tape.flip_gaps)
+    out["launches"] = {fn.__name__: fn.launches for fn in wrappers}
+    return out
+
+
+def run_ep_train(torch, dev, gpu, wrappers) -> dict:
+    """The ep_train phase (see EP_*): one process's references in this
+    process, routed as on EP_GRID and freed before the ranks start, then
+    EP_PROCS ranks, with every kernel wrapper's count set to 0 just before
+    and read just after (the path reaches no hand kernel).  No checkpoint
+    is written at full width (3.30 B parameters × 10 B, ~33 GB): the
+    sharded_train phase restores TinyLlama's into blocks on the card, and
+    the CPU tests (``tests/test_torch_ep_train.py``) restore expert
+    blocks bitwise."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch.core.grid import ProcGrid
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.launch.dryrun import model_collectives, param_leaves, \
+        state_bytes
+    from repro_torch.models.model_zoo import build
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.sharding import ctx
+    from repro_torch.sharding.procs import run_ranks
+    t0 = time.perf_counter()
+    print(f"expert-parallel train path ({SHARD_TAG}; experts over "
+          f"\"model\", FSDP over \"data\"): grid {EP_GRID} {EP_AXES}; card "
+          f"{gpu}", flush=True)
+    for fn in wrappers.values():
+        fn.launches = 0
+    cfg = shard_config(EP_REDUCED, TRAIN_MOE)
+    dcfg = DataConfig(vocab=cfg.vocab, seq=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in Pipeline(dcfg).batch_at(0).items()}
+    # one process, routed per batch row as on the grid: the first
+    # full-width step (a whole 3.30 B model, its accumulator and moments,
+    # freed before the ranks start), the float32 depth-cut run
+    torch.cuda.empty_cache()
+    # a one-point grid of EP_AXES installed: the MoE routes per batch row,
+    # as on EP_GRID (the reference's groups where "model" divides E)
+    with ctx.use(ProcGrid.create((1,) * len(EP_AXES), EP_AXES, device=dev),
+                 None):
+        lw, nw, model, _ = _one_process_step(
+            torch, dev, cfg, AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                                         total_steps=TRAIN_RESUME_STEPS),
+            batch, 1)
+        del model
+        torch.cuda.empty_cache()
+        c32 = dataclasses.replace(cfg, dtype="float32",
+                                  n_layers=EP_EXACT_LAYERS)
+        with RouteTape(torch) as tape:
+            l32, n32, model, m32 = _one_process_step(
+                torch, dev, c32, AdamWConfig(
+                    lr=TRAIN_AGREE_LR, warmup_steps=1,
+                    total_steps=TRAIN_STEPS), batch, EP_EXACT_STEPS)
+    os.makedirs(EP_DIR, exist_ok=True)
+    exact_path = os.path.join(EP_DIR, "exact_params.pt")
+    routes_path = os.path.join(EP_DIR, "routes.pt")
+    torch.save({"params": {n: p.detach().cpu()
+                           for n, p in model.named_parameters()},
+                "m1": m32}, exact_path)
+    torch.save(tape.calls, routes_path)
+    del model, batch, m32, tape
+    torch.cuda.empty_cache()
+    ckpt = tempfile.mkdtemp(prefix="ep_ckpt_", dir=EP_DIR)
+    job = {"device": str(dev), "ckpt": ckpt, "exact_params": exact_path,
+           "routes": routes_path, "reduced": EP_REDUCED, "seq": TRAIN_SEQ,
+           "batch": TRAIN_BATCH}
+    t1 = time.perf_counter()
+    try:
+        ranks = run_ranks(ep_train_rank, EP_PROCS, args=(job,),
+                          rendezvous_dir=EP_DIR, timeout=EP_TIMEOUT,
+                          threads=SHARD_THREADS, nice=19)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+        os.remove(exact_path)
+        os.remove(routes_path)
+    ranks_s = time.perf_counter() - t1
+
+    agrid = ProcGrid.create_abstract(EP_GRID, EP_AXES)
+    leaves = param_leaves(build(cfg, device="meta").init(None), agrid)
+    acct = state_bytes(leaves, agrid, kind="train", microbatches=TRAIN_MB)
+    rows = TRAIN_BATCH // EP_GRID[0]
+    model_coll = model_collectives(
+        cfg, "train", leaves, agrid, batch=rows, seq=TRAIN_SEQ,
+        microbatches=TRAIN_MB, batch_split=True)
+    arith = ep_counted_bytes(cfg, leaves, agrid,
+                             tokens=rows // TRAIN_MB * TRAIN_SEQ,
+                             microbatches=TRAIN_MB)
+    out = {"one_process": {"loss": lw[0], "grad_norm": nw[0],
+                           "exact_losses": l32, "exact_norms": n32},
+           "accounting": acct, "model_collectives": model_coll,
+           "arithmetic": arith, "ranks_s": ranks_s, "ranks": ranks}
+    El = cfg.n_experts // EP_GRID[1]
+    for r, o in enumerate(ranks):
+        h = o["history"]
+        dts = [x["dt"] for x in h]
+        steady = sum(dts[1:]) / len(dts[1:])
+        o["steady_step_ms"] = steady * 1e3
+        print(f"  rank {r} {o['coordinate']}: parameters "
+              f"{o['param_bytes']:,} B, AdamW state {o['opt_bytes']:,} B "
+              f"(accounting {acct['params']:,} and {acct['opt_state']:,});"
+              f" expert block {o['expert_block'][0]} of "
+              f"{o['expert_block'][1]}; peak "
+              f"{_gib(o['peak_bytes'] / 2**30)}; step ms "
+              + ", ".join(f"{d * 1e3:.1f}" for d in dts)
+              + f", steady {steady * 1e3:.1f} ({SHARD_TAG}, {gpu}); "
+              f"losses " + ", ".join(f"{x['loss']:.5f}" for x in h),
+              flush=True)
+        check(o["placed"] and o["on_card"] and
+              o["expert_block"][0][0] == El,
+              f"rank {r}: weights placed, {El} experts a model rank, every "
+              f"tensor on {dev}")
+        check(o["param_bytes"] == acct["params"] and
+              o["opt_bytes"] == acct["opt_state"],
+              f"rank {r}: parameter and AdamW state bytes equal the dry "
+              f"run's state_bytes on the abstract {EP_GRID} grid to the "
+              "byte")
+        check(all(c == arith for c in o["collectives_per_step"]),
+              f"rank {r}: the counted collective bytes of every step equal "
+              f"the arithmetic {arith} (counted "
+              f"{o['collectives_per_step']})")
+        check(o["history"][0]["loss"] == ranks[0]["history"][0]["loss"],
+              f"rank {r}: the same loss as rank 0")
+    counted = ranks[0]["collectives_per_step"][0]
+    print("  collective operand bytes per step and device (counted on rank "
+          "0, step 1) vs the dry run's model_collectives (its all-to-all: "
+          "the sequence-parallel routed tokens): " + ", ".join(
+              f"{k} {counted.get(k, 0):,} vs {model_coll[k]:,} "
+              f"({counted.get(k, 0) - model_coll[k]:+,})"
+              for k in model_coll), flush=True)
+    first = ranks[0]["history"][0]
+    dl = abs(first["loss"] - lw[0]) / abs(lw[0])
+    dg = abs(first["grad_norm"] - nw[0]) / abs(nw[0])
+    out["full_width_agreement"] = {"loss_rel": dl, "grad_norm_rel": dg}
+    check(dl <= EP_LOSS_RTOL and dg <= EP_GNORM_RTOL,
+          f"{TRAIN_MOE} bf16 placed vs one process routed per row, first "
+          f"step: loss {first['loss']:.6f} vs {lw[0]:.6f} ({dl:.2e} <= "
+          f"{EP_LOSS_RTOL:g}), grad_norm {first['grad_norm']:.6f} vs "
+          f"{nw[0]:.6f} ({dg:.2e} <= {EP_GNORM_RTOL:g})")
+    ex = ranks[0]["exact"]
+    el = max(abs(a - b) / abs(b) for a, b in zip(ex["losses"], l32))
+    en = max(abs(a - b) / abs(b) for a, b in zip(ex["norms"], n32))
+    # the routing census: each data rank's rows once (model rank 0)
+    lead = [o["exact"] for o in ranks if o["coordinate"][1] == 0]
+    flips = sum(e["route_flips"] for e in lead)
+    gaps = [abs(g) for e in lead for g in e["flip_gaps"]]
+    out["exact_agreement"] = {"loss_rel": el, "grad_norm_rel": en,
+                              "param_err": ex["param_err"],
+                              "first_moment_err": ex["first_moment_err"],
+                              "route_flips": flips,
+                              "flip_gap_max": max(gaps, default=0.0)}
+    check(all(g <= EP_TIE for g in gaps),
+          f"{TRAIN_MOE} float32: {flips} (token, call) rows of the "
+          f"{EP_EXACT_STEPS} steps route otherwise on the grid than in one "
+          "process (replayed as one process routed), each at a near tie: "
+          f"the K-th and (K+1)-th logits within {max(gaps, default=0.0):.2e}"
+          f" <= {EP_TIE:g}")
+    check(el <= SHARD_EXACT_RTOL and en <= SHARD_EXACT_RTOL and
+          ex["first_moment_err"][0] <= SHARD_EXACT_RTOL and
+          ex["param_err"][0] <= SHARD_EXACT_PARAM,
+          f"{TRAIN_MOE} float32, {EP_EXACT_LAYERS} layers, "
+          f"{EP_EXACT_STEPS} steps, placed vs one process: loss "
+          f"{el:.2e}, grad_norm {en:.2e}, the first step's gradient "
+          f"(first moment) {ex['first_moment_err'][0]:.2e} of its largest "
+          f"(at {ex['first_moment_err'][1]}) <= {SHARD_EXACT_RTOL:g}; "
+          f"parameters {ex['param_err'][0]:.2e} of the largest (at "
+          f"{ex['param_err'][1]}) <= {SHARD_EXACT_PARAM:g}")
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    for o in ranks:
+        for k, v in o["launches"].items():
+            launches[k] += v
+    out["launches"] = launches
+    check(not any(launches.values()),
+          f"the expert-parallel train path launched no hand kernel: "
+          f"{launches}")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"ep_train phase: {out['seconds']:.1f} s (ranks "
           f"{ranks_s:.1f} s)", flush=True)
     torch.cuda.empty_cache()
     return out
@@ -4634,6 +5038,8 @@ def main() -> int:
     print("train: " + json.dumps(train), flush=True)
     sharded = run_sharded_train(torch, dev, gpu, wrappers)
     print("sharded_train: " + json.dumps(sharded), flush=True)
+    ep = run_ep_train(torch, dev, gpu, wrappers)
+    print("ep_train: " + json.dumps(ep), flush=True)
 
     t0 = time.perf_counter()
     print(f"dry run (meta device, abstract grids; calibration on {gpu}):",
@@ -4670,6 +5076,7 @@ def main() -> int:
                    r["launches"] for r in spectral.values())},
                "lm": lm["launches"], "train": train["launches"],
                "sharded_train": sharded["launches"],
+               "ep_train": ep["launches"],
                "examples": examples["launches"]}
     # the multi-rank paths' launches, per rank (each a list over the
     # ranks): the fused steps count the warm-up's and the capture's

@@ -40,7 +40,7 @@ A record holds, per device:
   grid of processes (``sharding/rules.py::place_params``) runs these
   collectives and counts their operand bytes in
   ``core/grid.py::COLLECTIVE_BYTES``; PERF.md §5 holds the model to those
-  counts for TinyLlama on 2×2.  The reference's five names and its
+  counts for TinyLlama and for Granite-MoE (expert parallelism) on 2×2.  The reference's five names and its
   operand convention (``collective_bytes``' docstring): all-gather operand =
   result / participants, reduce-scatter operand = result × participants.
   For a parameter leaf p (the reference's leaf, stacked layers included)
@@ -62,7 +62,14 @@ A record holds, per device:
     head_dim over the model axis: the scores, layers · B · n_heads ·
     capacity · 4;
   - all-to-all (expert parallelism, MoE leaves whose experts the model
-    axis splits): 2 · P · mb · layers_p · T · top_k · d_model · a;
+    axis splits): 2 · P · mb · layers_p · T · top_k · d_model · a, the
+    routed tokens of a step whose tokens the model axis splits (sequence
+    parallelism, which the reference's dry run turns on and the port's
+    train step does not yet read).  Without it the hidden state is whole
+    on every model rank: each rank dispatches its own experts' slots
+    locally and the partial combines are all-reduced over "model", as
+    the reference's compiled step does (no all-to-all; PERF.md §5 and
+    §7);
   - collective-permute: 0 (no pipeline stage in the reference's rules).
 
 Left out of the reference's record, having no counterpart: ``mem.code``
@@ -487,7 +494,8 @@ def ep_all_to_all(leaves, grid, cfg, *, passes: int, microbatches: int,
                   tokens: int, act_bytes: int) -> int:
     """All-to-all of the routed tokens (dispatch and combine) of every MoE
     layer whose experts the model axis splits: 2 · P · mb · layers_p · T ·
-    top_k · d_model · a."""
+    top_k · d_model · a (under sequence parallelism; see the module
+    docstring)."""
     total = 0
     for lf in leaves:
         spec, shape = lf["spec"], lf["shape"]

@@ -21,7 +21,10 @@ remat region), and the "model" axis runs Megatron's tensor parallelism:
 each rank computes its heads (:func:`attn_apply`) and its columns of the
 MLP, the row-parallel ``wo``/``w_down`` sums go through an all-reduce,
 the embedding looks up its vocab block (:func:`_embed`) and
-:func:`logits_fn` gives this rank's vocab columns.
+:func:`logits_fn` gives this rank's vocab columns.  An MoE layer keeps
+its E/M experts a model rank (expert parallelism): ``moe_apply`` reads
+the placement from the layer's ``moe`` module and sums its partial
+combines over "model" (``models/moe.py``).
 """
 from __future__ import annotations
 

@@ -83,7 +83,8 @@ def global_norm(tree, placement=None):
     With a :class:`~repro_torch.sharding.rules.Placement`, ``tree`` holds
     this rank's blocks: each leaf's sum of squares is summed over exactly
     the grid axes that split it (one all-reduce per set of axes), so a
-    leaf that several ranks hold whole counts once."""
+    leaf that several ranks hold whole counts once (a model rank's block
+    of experts, split over "model" and "data", once over both)."""
     leaves = list(tree.values())
     total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
     if placement is None:

@@ -14,7 +14,8 @@ returns it, the sizes (``axis_size``, ``batch_size``) answer from it, and
 every ``constrain*`` returns its input: each rank's activations already
 are its block.  Only a training run installs a grid; on the serving path
 nothing is installed, as in the reference, so ``axis_size`` answers None
-(and ``moe_apply`` routes in one group).
+(and ``moe_apply`` routes in one group).  ``batch_axes`` tells
+``moe_apply`` which ranks hold disjoint rows of the batch.
 """
 from __future__ import annotations
 
@@ -58,6 +59,12 @@ def axis_size(name: str):
     if _GRID is None or name not in _GRID.axes:
         return None
     return _GRID.shape[_GRID.axis_index(name)]
+
+
+def batch_axes():
+    """The installed batch axes (a tuple of names), or None when no grid
+    is installed or the batch is replicated."""
+    return _BATCH_AXES if _GRID is not None else None
 
 
 def batch_size():

@@ -18,10 +18,11 @@ slices ``spec`` gives its grid coordinates), in place and under the same
 names, and records the placement on the model (:class:`Placement`).  The
 AdamW moments made from placed parameters are blocks too.  The layers
 then gather what they use (``sharding/tp.py``: FSDP over the batch axes
-for every family, tensor parallelism over "model" for the dense
-decoder), and the train step reduces each gradient by its placement
-(``train/train_step.py``).  :func:`gather_params` is the inverse, for
-checkpoints and tests.  There is no counterpart of ``logical_axis_env``:
+for every family, tensor parallelism over "model" for the decoder-only
+transformer, whose MoE layers keep E/M experts per model rank by
+``_MOE_RULES``: expert parallelism, ``models/moe.py``), and the train
+step reduces each gradient by its placement (``train/train_step.py``).
+:func:`gather_params` is the inverse, for checkpoints and tests.  There is no counterpart of ``logical_axis_env``:
 the port names no logical axes for a compiler.  A grid whose batch axes
 do not divide the batch replicates the batch (:func:`batch_axis`), and
 each rank then runs every row.
@@ -196,9 +197,6 @@ def _tp_covered(model) -> str:
         return (f"{type(model).__name__} (ROADMAP §1 item 3: tensor "
                 "parallelism for the SSM, RG-LRU and encoder-decoder "
                 "families)")
-    if any(hasattr(layer, "moe") for layer in model.layers):
-        return ("an MoE model (ROADMAP §1 item 2: expert "
-                "parallelism)")
     return ""
 
 
