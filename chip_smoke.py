@@ -144,7 +144,7 @@ launches over the phase must be 0; TF32 stays off):
   TinyLlama at published width cut to 2 layers, fp32: the gradients
   under remat "full" and "dots" against "none" within 1e-5, with each
   mode's peak memory;
-* ``python -m repro_torch.launch.train --preset 100m --steps 20
+* ``python -m repro_torch.launch.train --preset 100m --steps 10
   --fixed-batch`` in a subprocess: its last loss below its first.
 
 Then the sharded_train phase, the train path on placed weights
@@ -155,13 +155,14 @@ the phase must be 0).  Four processes share the card over gloo on the
 2×2 ("data", "model") grid (``run_ranks``; gloo stages each collective
 through host memory, so no scaling number):
 
-* ``tinyllama-1.1b`` at its published config through ``Trainer``, the
-  train phase's batch of 8 x 1024 tokens in 2 microbatches, 3 steps:
-  per rank the parameter and AdamW state bytes, which must equal
-  ``launch/dryrun.py::state_bytes`` on the abstract 2×2 grid to the
-  byte, the peak memory, ms per steady step and the operand bytes of
-  each collective kind per step (``core/grid.py::COLLECTIVE_BYTES``)
-  beside ``model_collectives``' prediction; the first step's loss and
+* ``tinyllama-1.1b`` at its published widths cut to 4 layers through
+  ``Trainer``, the train phase's batch of 8 x 1024 tokens in 2
+  microbatches, 3 steps: per rank the parameter and AdamW state bytes,
+  which must equal ``launch/dryrun.py::state_bytes`` on the abstract
+  2×2 grid to the byte, the peak memory, ms per steady step and the
+  operand bytes of each collective kind per step
+  (``core/grid.py::COLLECTIVE_BYTES``) beside ``model_collectives``'
+  prediction; the first step's loss and
   grad_norm against one process's step from the same weights and batch
   (run first, in this process); the Trainer's final checkpoint (whole
   tensors, gathered to the writer) restored into each rank's blocks,
@@ -174,14 +175,29 @@ through host memory, so no scaling number):
 Then the ep_train phase, expert parallelism on placed weights (each
 model rank keeps 20 of Granite-MoE's 40 experts, FSDP over "data";
 every kernel's launches over the phase must be 0): ``granite-moe-3b-
-a800m`` at its published config through ``Trainer`` on the same 2×2 grid,
-batch and microbatches, 3 steps, with no checkpoint at full width; per
-rank the state bytes against ``state_bytes`` to the byte, the peak, ms
-per steady step and the counted collective bytes per kind, which must
+a800m`` at its published widths cut to 4 layers through ``Trainer`` on
+the same 2×2 grid, batch and microbatches, 3 steps, with no checkpoint;
+per rank the state bytes against ``state_bytes`` to the byte, the peak,
+ms per steady step and the counted collective bytes per kind, which must
 equal ``ep_counted_bytes`` (PERF.md §5's arithmetic) and are printed
 beside ``model_collectives``; the first step against one process routed
 per batch row (run first and freed before the ranks start), and the
 float32 2-layer run held as the sharded_train phase's.
+
+Then the tp_train phase, tensor parallelism over "model" for the SSM,
+RG-LRU and encoder-decoder families on the same 2×2 grid, batch and
+microbatches (FSDP over "data"; every kernel's launches over the phase
+must be 0): ``mamba2-370m`` at its published config (its final
+checkpoint restored into blocks, bitwise), ``recurrentgemma-9b`` at
+published widths cut to one (rec, rec, attn) period and
+``whisper-small`` cut to 2 encoder and 2 decoder layers, each through
+``Trainer`` for 3 steps in one spawn of four ranks: per rank the state
+bytes against ``state_bytes`` to the byte, the peak, ms per steady step
+and the counted collective bytes per kind, which must equal
+``tp_counted_bytes`` (PERF.md §5's arithmetic) and are printed beside
+``model_collectives``; the first step against one process (run first,
+and freed, in this process), and a float32 cut run (TP_MODELS) held as
+the sharded_train phase's.
 
 Then the dryrun phase, the port's dry run (``repro_torch.launch.
 dryrun``: an accounting on the ``meta`` device over abstract grids, no
@@ -355,16 +371,18 @@ TRAIN_RTOL = 1e-5
 # most TRAIN_FLIP_SHARE of the codes and parameters may differ that way
 TRAIN_COMP_RTOL, TRAIN_FLIP_SHARE = 1e-4, 1e-3
 TRAIN_REMAT_LAYERS, TRAIN_REMAT_B = 2, 2
-TRAIN_LAUNCHER_STEPS = 20
+TRAIN_LAUNCHER_STEPS = 10
 #: free disk the TinyLlama checkpoint needs: bf16 params, f32 m and v
 TRAIN_CKPT_GIB = 10.25
 
 # the sharded_train phase: the train path on placed weights (FSDP over
 # "data" x tensor parallelism over "model", sharding/rules.py::
 # place_params), SHARD_PROCS processes sharing the card over gloo on the
-# SHARD_GRID grid.  TinyLlama-1.1B at its published config through
-# Trainer (the train phase's batch, microbatches and learning rate,
-# SHARD_STEPS steps, its final checkpoint restored into blocks); the
+# SHARD_GRID grid.  TinyLlama-1.1B at its published widths cut to
+# SHARD_LAYERS of its 22 layers (a cut of depth that keeps the script
+# within its time since the tp_train phase came) through Trainer (the
+# train phase's batch, microbatches and learning rate, SHARD_STEPS
+# steps, its final checkpoint restored into blocks); the
 # first step's loss and grad_norm against one process's step from the
 # same weights and batch within SHARD_LOSS_RTOL / SHARD_GNORM_RTOL (bf16:
 # each row-parallel output rounds to bf16 once more; measured 5.75e-6
@@ -379,6 +397,7 @@ TRAIN_CKPT_GIB = 10.25
 # either way (measured 2.85e-4, in the embedding; one process against
 # itself: 0)
 SHARD_PROCS, SHARD_GRID, SHARD_AXES = 4, (2, 2), ("data", "model")
+SHARD_LAYERS = 4
 SHARD_STEPS, SHARD_EXACT_LAYERS, SHARD_EXACT_STEPS = 3, 2, 2
 SHARD_LOSS_RTOL, SHARD_GNORM_RTOL = 2e-5, 1e-3
 SHARD_EXACT_RTOL, SHARD_EXACT_PARAM = 1e-5, 1e-3
@@ -391,8 +410,10 @@ SHARD_REDUCED = False
 # the ep_train phase: expert parallelism (sharding/rules.py::place_params
 # keeps E/M experts per "model" rank, FSDP over "data"), EP_PROCS
 # processes sharing the card over gloo on the EP_GRID grid.  Granite-MoE
-# 3B-A800M at its published config through Trainer (the train phase's
-# batch, microbatches and learning rate, EP_STEPS steps, no checkpoint);
+# 3B-A800M at its published widths cut to EP_LAYERS of its 32 layers (a
+# cut of depth that keeps the script within its time since the tp_train
+# phase came) through Trainer (the train phase's batch, microbatches and
+# learning rate, EP_STEPS steps, no checkpoint);
 # the first step's loss and grad_norm against one process's step from the
 # same weights and batch, routed per batch row as on the grid, within
 # EP_LOSS_RTOL / EP_GNORM_RTOL (bf16: each row-parallel sum rounds once
@@ -407,6 +428,7 @@ SHARD_REDUCED = False
 # of its largest (measured on an NVIDIA H100 80GB HBM3 at 700 W); every
 # row that routes otherwise must lie within EP_TIE of a tie
 EP_PROCS, EP_GRID, EP_AXES = 4, (2, 2), ("data", "model")
+EP_LAYERS = 4
 EP_STEPS, EP_EXACT_LAYERS, EP_EXACT_STEPS = 3, 2, 2
 EP_LOSS_RTOL, EP_GNORM_RTOL = 8e-5, 3e-3
 EP_TIE = 1e-5
@@ -414,6 +436,43 @@ EP_TIMEOUT = 900.0
 EP_DIR = os.path.join(HERE, "build", "ep")
 #: a rehearsal on the CPU trains the reduced config (the job carries it)
 EP_REDUCED = False
+
+# the tp_train phase: tensor parallelism over "model" for the SSM, RG-LRU
+# and encoder-decoder families (sharding/rules.py::place_params, FSDP over
+# "data"), TP_PROCS processes sharing the card over gloo on the TP_GRID
+# grid, through Trainer with the train phase's batch, microbatches and
+# learning rate, TP_STEPS steps.  TP_MODELS: each model's cut of its
+# published config for that run and for the float32 run (TP_EXACT_STEPS
+# steps at TRAIN_AGREE_LR), held as the sharded_train phase's
+# (SHARD_EXACT_RTOL, SHARD_EXACT_PARAM).  Mamba-2 370M runs whole;
+# RecurrentGemma-9B is cut to one (rec, rec, attn) period (its 38 layers'
+# bf16 weights, float32 moments and accumulator, ~126 GB across the four
+# ranks, do not fit one 80 GB card), and its float32 run to a vocabulary
+# of 32000 (the four ranks' float32 state and gathered embedding and head
+# at 256000, ~92 GB, do not fit either); Whisper-small is cut to 2
+# encoder and 2 decoder layers (its 1500-frame encoder attention runs 375
+# key blocks in Python, on four ranks sharing one card).  The first bf16
+# step's loss and grad_norm against one process's, within TP_BF16_RTOL
+# (~3x the measured on an NVIDIA H100 80GB HBM3 at 700 W: loss 7.18e-6,
+# 7.26e-6, 4.94e-6; grad_norm 7.13e-3, 1.26e-4, 6.06e-4: each
+# row-parallel sum and the gathered activations round to bf16 once more,
+# through Mamba-2's 48 layers most); TP_CKPT's final checkpoint restored
+# into blocks
+TP_PROCS, TP_GRID, TP_AXES = 4, (2, 2), ("data", "model")
+TP_STEPS, TP_EXACT_STEPS = 3, 2
+TP_MODELS = {"mamba2-370m": ({}, {"n_layers": 2}),
+             "recurrentgemma-9b": ({"n_layers": 3},
+                                   {"n_layers": 3, "vocab": 32000}),
+             "whisper-small": ({"n_layers": 2, "enc_layers": 2},
+                               {"n_layers": 2, "enc_layers": 2})}
+TP_CKPT = "mamba2-370m"
+TP_BF16_RTOL = {"mamba2-370m": (2.5e-5, 2.5e-2),
+                "recurrentgemma-9b": (2.5e-5, 4e-4),
+                "whisper-small": (2.5e-5, 2e-3)}
+TP_TIMEOUT = 1200.0
+TP_DIR = os.path.join(HERE, "build", "tp")
+#: a rehearsal on the CPU trains the reduced configs (the job carries it)
+TP_REDUCED = False
 
 # the dryrun phase: the port's dry-run accounting (repro_torch.launch.
 # dryrun, the meta device, abstract grids, nothing allocated) of the
@@ -4068,16 +4127,104 @@ def tree_err(torch, got: dict, want: dict) -> tuple[float, str]:
     return errs[worst], worst
 
 
-def shard_config(reduced: bool, arch: str = TRAIN_ARCH):
-    """``arch``'s published config, or (a rehearsal on the CPU) its
-    reduced config in bf16 with remat "full"."""
+def ckpt_gib(cfg) -> float:
+    """GiB of a checkpoint of ``cfg``'s bf16 parameters and float32 m and
+    v."""
+    from repro_torch.models.model_zoo import build
+    return 10 * sum(p.numel() for p in build(cfg, device="meta").init(
+        None).parameters()) / 2**30
+
+
+def shard_config(reduced: bool, arch: str = TRAIN_ARCH,
+                 layers: int | None = None):
+    """``arch``'s published config (cut to ``layers`` layers when given),
+    or (a rehearsal on the CPU) its reduced config in bf16 with remat
+    "full"."""
     import dataclasses
     from repro_torch.configs.base import get_config
     cfg = get_config(arch)
     if reduced:
-        cfg = dataclasses.replace(cfg.reduced(), dtype="bfloat16",
-                                  remat="full")
-    return cfg
+        return dataclasses.replace(cfg.reduced(), dtype="bfloat16",
+                                   remat="full")
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def placed_trainer_run(torch, dev, tr):
+    """Run the placed Trainer ``tr`` from SEED, counting each step's
+    collective operand bytes and timing its checkpoint saves: (this
+    rank's record: peak, placement, state bytes, history, bytes per step,
+    the last save's seconds; the parameters; the optimizer state)."""
+    from repro_torch.core.grid import collective_bytes
+    from repro_torch.sharding import rules
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    counted, saves = [], []
+    step_fn = tr.step_fn
+
+    def step_counted(*args):
+        collective_bytes(reset=True)
+        res = step_fn(*args)
+        counted.append(collective_bytes())
+        return res
+    tr.step_fn = step_counted
+    timed_calls(tr, "_save", saves)
+    params, opt = tr.run(torch.Generator(device=dev).manual_seed(SEED))
+    sync(torch, dev)
+    out = {"peak_bytes": torch.cuda.max_memory_allocated(dev) if cuda
+           else 0,
+           "placed": rules.placement_of(params) is not None,
+           "param_bytes": sum(p.numel() * p.element_size()
+                              for p in params.parameters()),
+           "opt_bytes": sum(t.numel() * t.element_size() for k in ("m", "v")
+                            for t in opt[k].values())
+           + opt["step"].numel() * opt["step"].element_size(),
+           "on_card": all(t.device == dev
+                          for t in train_tensors(params, opt)),
+           "history": [{k: h[k] for k in ("loss", "grad_norm", "dt")}
+                       for h in tr.history],
+           "collectives_per_step": counted}
+    if saves:
+        out["save_s"] = saves[-1]
+    return out, params, opt
+
+
+def host_state(params, opt) -> tuple[dict, dict]:
+    """Host copies of the parameters and of the optimizer state."""
+    return ({n: p.detach().cpu() for n, p in params.named_parameters()},
+            {k: ({n: t.cpu() for n, t in v.items()}
+                 if isinstance(v, dict) else v.cpu())
+             for k, v in opt.items()})
+
+
+def restore_into_blocks(torch, dev, trainer, mine, mine_opt) -> dict:
+    """A new Trainer (``trainer()``) restored from the checkpoint the
+    writer has committed (every rank waits for it), against this rank's
+    blocks ``mine``/``mine_opt`` (:func:`host_state`) as it saved them:
+    seconds, the step restored, and whether the blocks came back bitwise
+    at this rank's local shapes."""
+    import torch.distributed as dist
+    dist.barrier()                      # the writer has committed
+    tr2 = trainer()
+    t0 = time.perf_counter()
+    start, params, opt = tr2._restore_or_init(None)
+    sync(torch, dev)
+    out = {"restore_s": time.perf_counter() - t0, "restored_step": start,
+           "restored_bitwise": all(
+               torch.equal(p.detach().cpu(), mine[n])
+               for n, p in params.named_parameters()) and all(
+               torch.equal(opt[k][n].cpu(), mine_opt[k][n])
+               for k in ("m", "v") for n in mine) and
+           torch.equal(opt["step"].cpu(), mine_opt["step"]),
+           "restored_local": all(
+               tuple(p.shape) == tuple(mine[n].shape)
+               for n, p in params.named_parameters())}
+    del params, opt, tr2
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
 
 
 def sharded_train_rank(rank, job):
@@ -4087,28 +4234,26 @@ def sharded_train_rank(rank, job):
     and compares; the parent makes every check."""
     import dataclasses
     import torch
-    import torch.distributed as dist
 
-    from repro_torch.core.grid import ProcGrid, collective_bytes
+    from repro_torch.core.grid import ProcGrid
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.kernels import sphere_pack
     from repro_torch.kernels.dft_matmul import dft_matmul, \
         dft_matmul_twiddle
     from repro_torch.models.model_zoo import build
     from repro_torch.optim.adamw import AdamWConfig
-    from repro_torch.sharding import ctx, rules
+    from repro_torch.sharding import ctx
     from repro_torch.train.trainer import Trainer, TrainerConfig
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device(job["device"])
-    cuda = dev.type == "cuda"
-    if cuda:
+    if dev.type == "cuda":
         torch.cuda.set_device(dev)
     wrappers = (dft_matmul, dft_matmul_twiddle, sphere_pack.unpack_dft,
                 sphere_pack.dft_pack)
     for fn in wrappers:
         fn.launches = 0
     grid = ProcGrid.create(SHARD_GRID, SHARD_AXES, device=dev)
-    cfg = shard_config(job["reduced"])
+    cfg = shard_config(job["reduced"], layers=SHARD_LAYERS)
     dcfg = DataConfig(vocab=cfg.vocab, seq=job["seq"],
                       global_batch=job["batch"])
     ocfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
@@ -4122,61 +4267,12 @@ def sharded_train_rank(rank, job):
                 total_steps=SHARD_STEPS, ckpt_every=1000, ckpt_keep=1,
                 log_every=1000, microbatches=TRAIN_MB,
                 ckpt_dir=job["ckpt"]), dcfg, grid=grid))
-        if cuda:
-            torch.cuda.reset_peak_memory_stats(dev)
-        tr = trainer()
-        counted, saves = [], []
-        step_fn = tr.step_fn
-
-        def step_counted(*args):
-            collective_bytes(reset=True)
-            res = step_fn(*args)
-            counted.append(collective_bytes())
-            return res
-        tr.step_fn = step_counted
-        timed_calls(tr, "_save", saves)
-        params, opt = tr.run(torch.Generator(device=dev).manual_seed(SEED))
-        sync(torch, dev)
-        out["peak_bytes"] = torch.cuda.max_memory_allocated(dev) if cuda \
-            else 0
-        out["placed"] = rules.placement_of(params) is not None
-        out["param_bytes"] = sum(p.numel() * p.element_size()
-                                 for p in params.parameters())
-        out["opt_bytes"] = sum(t.numel() * t.element_size() for k in
-                               ("m", "v") for t in opt[k].values()) + \
-            opt["step"].numel() * opt["step"].element_size()
-        out["on_card"] = all(t.device == dev
-                             for t in train_tensors(params, opt))
-        out["history"] = [{k: h[k] for k in ("loss", "grad_norm", "dt")}
-                          for h in tr.history]
-        out["collectives_per_step"] = counted
-        out["save_s"] = saves[-1]
-        mine = {n: p.detach().cpu() for n, p in params.named_parameters()}
-        mine_opt = {k: ({n: t.cpu() for n, t in v.items()}
-                        if isinstance(v, dict) else v.cpu())
-                    for k, v in opt.items()}
-        del params, opt, tr
-        if cuda:
-            torch.cuda.empty_cache()
-        dist.barrier()                  # the writer has committed
-        tr2 = trainer()
-        t0 = time.perf_counter()
-        start, params, opt = tr2._restore_or_init(None)
-        sync(torch, dev)
-        out["restore_s"] = time.perf_counter() - t0
-        out["restored_step"] = start
-        out["restored_bitwise"] = all(
-            torch.equal(p.detach().cpu(), mine[n])
-            for n, p in params.named_parameters()) and all(
-            torch.equal(opt[k][n].cpu(), mine_opt[k][n])
-            for k in ("m", "v") for n in mine) and \
-            torch.equal(opt["step"].cpu(), mine_opt["step"])
-        out["restored_local"] = all(
-            tuple(p.shape) == tuple(mine[n].shape)
-            for n, p in params.named_parameters())
-        del params, opt, tr2, mine, mine_opt
-        if cuda:
-            torch.cuda.empty_cache()
+        rec, params, opt = placed_trainer_run(torch, dev, trainer())
+        out.update(rec)
+        mine = host_state(params, opt)
+        del params, opt
+        out.update(restore_into_blocks(torch, dev, trainer, *mine))
+        del mine
 
         out["exact"] = placed_exact_run(
             torch, grid, dataclasses.replace(
@@ -4186,12 +4282,14 @@ def sharded_train_rank(rank, job):
     return out
 
 
-def placed_exact_run(torch, grid, c32, dcfg, job, rank, steps, tape=None):
+def placed_exact_run(torch, grid, c32, dcfg, job, rank, steps, tape=None,
+                     extra=None):
     """``steps`` float32 steps of ``c32`` on weights placed on ``grid``
-    (drawn from SEED), this rank's rows of the batch at step 0: losses
-    and grad norms; on rank 0 the gathered parameters' and the first
-    step's first moment's errors against one process's
-    (``job["exact_params"]``).  ``tape``: a context the steps run in."""
+    (drawn from SEED), this rank's rows of the batch at step 0 (and of
+    ``extra``, whole-batch tensors such as frames): losses and grad
+    norms; on rank 0 the gathered parameters' and the first step's first
+    moment's errors against one process's (``job["exact_params"]``).
+    ``tape``: a context the steps run in."""
     import contextlib
     from repro_torch.data.pipeline import Pipeline
     from repro_torch.models.model_zoo import build
@@ -4207,8 +4305,12 @@ def placed_exact_run(torch, grid, c32, dcfg, job, rank, steps, tape=None):
         lr=TRAIN_AGREE_LR, warmup_steps=1, total_steps=TRAIN_STEPS),
         grid, microbatches=TRAIN_MB)
     d = grid.axis_index("data")
-    host = Pipeline(dcfg, grid.coordinate[d], grid.shape[d]).batch_at(0)
-    batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    pipe = Pipeline(dcfg, grid.coordinate[d], grid.shape[d])
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in pipe.batch_at(0).items()}
+    rows = slice(grid.coordinate[d] * pipe.local_batch,
+                 (grid.coordinate[d] + 1) * pipe.local_batch)
+    batch.update({k: v[rows] for k, v in (extra or {}).items()})
     losses, norms, first = [], [], None
     with tape or contextlib.nullcontext():
         for _ in range(steps):
@@ -4250,16 +4352,17 @@ def run_sharded_train(torch, dev, gpu, wrappers) -> dict:
           flush=True)
     for fn in wrappers.values():
         fn.launches = 0
-    cfg = shard_config(SHARD_REDUCED)
+    cfg = shard_config(SHARD_REDUCED, layers=SHARD_LAYERS)
     dcfg = DataConfig(vocab=cfg.vocab, seq=TRAIN_SEQ,
                       global_batch=TRAIN_BATCH)
     batch = {k: torch.from_numpy(v).to(dev)
              for k, v in Pipeline(dcfg).batch_at(0).items()}
     os.makedirs(SHARD_DIR, exist_ok=True)
     free = shutil.disk_usage(SHARD_DIR).free / 2**30
-    check(free >= 1.05 * TRAIN_CKPT_GIB,
-          f"{free:.1f} GiB of free disk for the {TRAIN_CKPT_GIB} GiB "
-          "checkpoint with 5% to spare")
+    need = ckpt_gib(cfg)
+    check(free >= 1.05 * need,
+          f"{free:.1f} GiB of free disk for the {need:.2f} GiB checkpoint "
+          "with 5% to spare")
     # one process: the first full-width step, the float32 depth-cut run
     torch.cuda.empty_cache()
     lw, nw, model, _ = _one_process_step(
@@ -4474,13 +4577,13 @@ class RouteTape:
 
 def ep_train_rank(rank, job):
     """One rank of the ep_train phase (a spawned process of
-    ``run_ranks``): the placed Trainer at full width (no checkpoint), then
-    the float32 depth-cut run.  It measures and compares; the parent makes
+    ``run_ranks``): the placed Trainer (no checkpoint), then the float32
+    depth-cut run.  It measures and compares; the parent makes
     every check."""
     import dataclasses
     import torch
 
-    from repro_torch.core.grid import ProcGrid, collective_bytes
+    from repro_torch.core.grid import ProcGrid
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.kernels import sphere_pack
     from repro_torch.kernels.dft_matmul import dft_matmul, \
@@ -4499,7 +4602,7 @@ def ep_train_rank(rank, job):
     for fn in wrappers:
         fn.launches = 0
     grid = ProcGrid.create(EP_GRID, EP_AXES, device=dev)
-    cfg = shard_config(job["reduced"], TRAIN_MOE)
+    cfg = shard_config(job["reduced"], TRAIN_MOE, EP_LAYERS)
     dcfg = DataConfig(vocab=cfg.vocab, seq=job["seq"],
                       global_batch=job["batch"])
     ocfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
@@ -4510,36 +4613,12 @@ def ep_train_rank(rank, job):
         tr = fixed_batch_trainer(Trainer(bundle, ocfg, TrainerConfig(
             total_steps=EP_STEPS, ckpt_every=1000, log_every=1000,
             microbatches=TRAIN_MB, ckpt_dir=job["ckpt"]), dcfg, grid=grid))
-        tr._save = lambda *args, **kw: None      # no full-width checkpoint
-        if cuda:
-            torch.cuda.reset_peak_memory_stats(dev)
-        counted = []
-        step_fn = tr.step_fn
-
-        def step_counted(*args):
-            collective_bytes(reset=True)
-            res = step_fn(*args)
-            counted.append(collective_bytes())
-            return res
-        tr.step_fn = step_counted
-        params, opt = tr.run(torch.Generator(device=dev).manual_seed(SEED))
-        sync(torch, dev)
-        out["peak_bytes"] = torch.cuda.max_memory_allocated(dev) if cuda \
-            else 0
+        tr._save = lambda *args, **kw: None      # no checkpoint
+        rec, params, opt = placed_trainer_run(torch, dev, tr)
+        out.update(rec)
         pl = rules.placement_of(params)
-        out["placed"] = pl is not None
         out["expert_block"] = (tuple(params.layers[0].moe.w_up.shape),
                                pl.shapes["layers.0.moe.w_up"])
-        out["param_bytes"] = sum(p.numel() * p.element_size()
-                                 for p in params.parameters())
-        out["opt_bytes"] = sum(t.numel() * t.element_size() for k in
-                               ("m", "v") for t in opt[k].values()) + \
-            opt["step"].numel() * opt["step"].element_size()
-        out["on_card"] = all(t.device == dev
-                             for t in train_tensors(params, opt))
-        out["history"] = [{k: h[k] for k in ("loss", "grad_norm", "dt")}
-                          for h in tr.history]
-        out["collectives_per_step"] = counted
         del params, opt, tr, pl
         if cuda:
             torch.cuda.empty_cache()
@@ -4565,8 +4644,9 @@ def run_ep_train(torch, dev, gpu, wrappers) -> dict:
     process, routed as on EP_GRID and freed before the ranks start, then
     EP_PROCS ranks, with every kernel wrapper's count set to 0 just before
     and read just after (the path reaches no hand kernel).  No checkpoint
-    is written at full width (3.30 B parameters × 10 B, ~33 GB): the
-    sharded_train phase restores TinyLlama's into blocks on the card, and
+    is written (the whole model's would be 3.30 B parameters × 10 B, ~33
+    GB): the sharded_train and tp_train phases restore theirs into blocks
+    on the card, and
     the CPU tests (``tests/test_torch_ep_train.py``) restore expert
     blocks bitwise."""
     import dataclasses
@@ -4587,7 +4667,7 @@ def run_ep_train(torch, dev, gpu, wrappers) -> dict:
           f"{gpu}", flush=True)
     for fn in wrappers.values():
         fn.launches = 0
-    cfg = shard_config(EP_REDUCED, TRAIN_MOE)
+    cfg = shard_config(EP_REDUCED, TRAIN_MOE, EP_LAYERS)
     dcfg = DataConfig(vocab=cfg.vocab, seq=TRAIN_SEQ,
                       global_batch=TRAIN_BATCH)
     batch = {k: torch.from_numpy(v).to(dev)
@@ -4737,6 +4817,450 @@ def run_ep_train(torch, dev, gpu, wrappers) -> dict:
     out["seconds"] = time.perf_counter() - t0
     print(f"ep_train phase: {out['seconds']:.1f} s (ranks "
           f"{ranks_s:.1f} s)", flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------- the tensor-parallel path
+def tp_config(arch: str, reduced: bool, cut: dict):
+    """``arch``'s config for the tp_train phase: :func:`shard_config`
+    with ``cut`` applied (a rehearsal's reduced config stays as it
+    is)."""
+    import dataclasses
+    cfg = shard_config(reduced, arch)
+    return cfg if reduced else dataclasses.replace(cfg, **cut)
+
+
+def tp_extra(torch, cfg, dev) -> dict:
+    """The batch's stub frontend input beside its tokens: an
+    encoder-decoder's frames (TRAIN_BATCH, enc_seq, d_model), drawn from
+    SEED on ``dev`` (the same on every process)."""
+    if cfg.family != "encdec":
+        return {}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    return {"frames": torch.randn((TRAIN_BATCH, cfg.enc_seq, cfg.d_model),
+                                  generator=gen, device=dev)}
+
+
+def _stacked_leaf(leaf) -> bool:
+    return leaf["path"][0] in ("layers", "groups", "tail", "enc_layers",
+                               "dec_layers", "cross")
+
+
+def tp_counted_bytes(cfg, leaves, grid, *, tokens: int, enc_tokens: int,
+                     microbatches: int) -> dict:
+    """The operand bytes per step and rank that the placed step of the
+    SSM, hybrid or encoder-decoder family counts
+    (``core/grid.py::COLLECTIVE_BYTES``; PERF.md §5's arithmetic): the
+    layers' FSDP gathers in the forward and, under remat, the recompute,
+    the top-level ones once a microbatch, the reduce-scatters once; the
+    flat all-reduce of the leaves the batch axes do not split and the
+    loss; the global norm's sum per set of splitting axes.  Over "model",
+    a microbatch: each column-parallel input's backward all-reduce
+    (``copy_to_model``) once; each row-parallel sum (``reduce_from_model``)
+    in the forward and in the recompute, but for the last of a layer
+    body, which torch's recompute stops before; the gathers over "model"
+    inside the layer bodies (Mamba-2's ``in_proj`` and ``conv_w``, the
+    RG-LRU's u, a KV weight whose heads M does not divide) in both
+    passes, their reduce-scatters once; Mamba-2's norm statistic
+    (``sum_over_model``) in both passes and once in the backward, and
+    the replicated float32 vectors each rank uses a slice of
+    (``copy_to_model``) once; the encoder states' ``copy_to_model`` once;
+    the vocab-parallel embedding, head and loss terms where "model"
+    splits them.  T (Te) = a rank's decoder (encoder) ``tokens`` a
+    microbatch."""
+    from repro_torch.launch.dryrun import fsdp_all_gather, \
+        grad_all_reduce, grad_reduce_scatter
+    mb, T, Te, D = microbatches, tokens, enc_tokens, cfg.d_model
+    a = 2 if cfg.dtype == "bfloat16" else 4
+    M = grid.shape[grid.axis_index("model")]
+    P = 1 + (cfg.remat != "none")              # a layer body's passes
+    layers = [lf for lf in leaves if _stacked_leaf(lf)]
+    top = [lf for lf in leaves if not _stacked_leaf(lf)]
+    gather = fsdp_all_gather(layers, grid, passes=P, microbatches=mb) + \
+        fsdp_all_gather(top, grid, passes=1, microbatches=mb)
+    split_sets = set()
+    for lf in leaves:
+        axes = frozenset(a_ for e in lf["spec"] if e is not None
+                         for a_ in (e if isinstance(e, tuple) else (e,))
+                         if grid.shape[grid.axis_index(a_)] > 1)
+        if axes:
+            split_sets.add(axes)
+    reduce = grad_all_reduce(leaves, grid, batch_split=True) + \
+        4 * len(split_sets)
+    scatter = grad_reduce_scatter(leaves, grid, microbatches=mb)
+    if M == 1:
+        return {"all-gather": gather, "reduce-scatter": scatter,
+                "all-reduce": reduce, "all-to-all": 0}
+    Kh, hd, K = cfg.n_kv, cfg.head_dim, cfg.conv_kernel
+    specs = {lf["path"][-2:] if _stacked_leaf(lf) else lf["path"][:1]:
+             lf["spec"] for lf in leaves}
+
+    def split(key, dim) -> bool:
+        """Whether "model" splits dim ``dim`` (of the layer's own dims)
+        of the leaf ``key`` (its last two path names)."""
+        e = specs[key][dim - 2]
+        return e is not None and "model" in (e if isinstance(e, tuple)
+                                              else (e,))
+    ag = rs = ar = 0
+
+    def whole(nbytes, is_split):
+        """A weight used whole on every model rank: gathered in both
+        passes and reduce-scattered once, or, replicated, its gradient
+        all-reduced once (``tp.whole_over_model``)."""
+        nonlocal ag, rs, ar
+        if is_split:
+            ag += P * nbytes // M
+            rs += nbytes
+        else:
+            ar += nbytes
+
+    def attn(t, last, mod):
+        """A self- or cross-attention on t tokens: the input's backward,
+        wo's sum (recomputed unless ``last``), the KV weights whole where
+        M does not divide the KV heads."""
+        nonlocal ar
+        ar += t * D * a + (1 if last else P) * t * D * a
+        if Kh % M:
+            whole(2 * D * Kh * hd * a, split((mod, "wk"), 1))
+
+    def mlp(t, last):
+        nonlocal ar
+        ar += t * D * a + (1 if last else P) * t * D * a
+
+    def rec(t, last_mlp):
+        nonlocal ag, rs, ar
+        R = cfg.d_rnn or D
+        ag += P * t * R // M * a              # u, for the gates
+        rs += t * R * a
+        ar += t * D * a + P * t * D * a + R * 4
+        mlp(t, last_mlp)
+
+    if cfg.family == "ssm":
+        din, N, Hs = cfg.d_inner, cfg.ssm_state, cfg.ssm_nheads
+        for _ in range(cfg.n_layers):
+            whole(D * (2 * din + 2 * N + Hs) * a,
+                  split(("ssm", "in_proj"), 1))
+            whole(K * (din + 2 * N) * a, split(("ssm", "conv_w"), 1))
+            ar += 2 * T * D * a + (P + 1) * T * 4 + (3 * Hs + din) * 4
+    elif cfg.family == "hybrid":
+        n_groups = cfg.n_layers // len(cfg.block_pattern)
+        for _ in range(n_groups):
+            rec(T, False)
+            rec(T, False)
+            attn(T, False, "attn")
+            mlp(T, True)
+        for _ in range(cfg.n_layers - n_groups * len(cfg.block_pattern)):
+            rec(T, True)
+    else:                                     # encdec
+        for _ in range(cfg.enc_layers):
+            attn(Te, False, "enc_layers")
+            mlp(Te, True)
+        for _ in range(cfg.n_layers):
+            attn(T, False, "dec_layers")
+            attn(T, False, "cross")
+            mlp(T, True)
+        ar += Te * D * a                      # the encoder states' copy
+    head = ("lm_head",) if ("lm_head",) in specs else ("embed",)
+    if split(("embed",), 0):
+        ar += T * D * a                       # the embedding's sum
+    if split(head, 1 if head == ("lm_head",) else 0):
+        ar += T * D * a + 2 * 3 * T * 4       # head input; loss terms
+    return {"all-gather": gather + mb * ag,
+            "reduce-scatter": scatter + mb * rs,
+            "all-reduce": reduce + mb * ar, "all-to-all": 0}
+
+
+def tp_model_rank(torch, grid, arch: str, job: dict, rank: int) -> dict:
+    """One model of the tp_train phase on this rank: the placed Trainer
+    (TP_CKPT's final checkpoint restored into blocks), then the float32
+    cut run.  It measures and compares; the parent makes every check."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models.model_zoo import build
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.sharding import ctx, rules
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    dev = grid.device
+    cut, cut32 = TP_MODELS[arch]
+    cfg = tp_config(arch, job["reduced"], cut)
+    extra = tp_extra(torch, cfg, dev)
+    dcfg = DataConfig(vocab=cfg.vocab, seq=job["seq"],
+                      global_batch=job["batch"])
+    ocfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                       total_steps=TRAIN_RESUME_STEPS)
+    ckpt = os.path.join(job["ckpt"], arch)
+    out = {}
+    with ctx.use(grid, ("data",)):
+        bundle = build(cfg, device=dev)
+
+        def trainer():
+            return fixed_batch_trainer(Trainer(bundle, ocfg, TrainerConfig(
+                total_steps=TP_STEPS, ckpt_every=1000, ckpt_keep=1,
+                log_every=1000, microbatches=TRAIN_MB, ckpt_dir=ckpt),
+                dcfg, grid=grid, extra_batch=extra))
+        tr = trainer()
+        if arch != TP_CKPT:
+            tr._save = lambda *args, **kw: None
+        rec, params, opt = placed_trainer_run(torch, dev, tr)
+        out.update(rec)
+        out["model_split"] = sorted(
+            n for n, sp in rules.placement_of(params).specs.items()
+            if any("model" in ax for ax in sp))
+        mine = host_state(params, opt) if arch == TP_CKPT else None
+        del params, opt, tr
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        if mine is not None:
+            out.update(restore_into_blocks(torch, dev, trainer, *mine))
+            del mine
+        c32 = dataclasses.replace(tp_config(arch, job["reduced"], cut32),
+                                  dtype="float32")
+        d32 = dataclasses.replace(dcfg, vocab=c32.vocab)
+        out["exact"] = placed_exact_run(
+            torch, grid, c32, d32, {**job, "exact_params":
+                                    job["exact_params"][arch]},
+            rank, TP_EXACT_STEPS, extra=tp_extra(torch, c32, dev))
+    return out
+
+
+def tp_train_rank(rank, job):
+    """One rank of the tp_train phase (a spawned process of
+    ``run_ranks``): every model of TP_MODELS in turn."""
+    import torch
+
+    from repro_torch.core.grid import ProcGrid
+    from repro_torch.kernels import sphere_pack
+    from repro_torch.kernels.dft_matmul import dft_matmul, \
+        dft_matmul_twiddle
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(job["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    wrappers = (dft_matmul, dft_matmul_twiddle, sphere_pack.unpack_dft,
+                sphere_pack.dft_pack)
+    for fn in wrappers:
+        fn.launches = 0
+    grid = ProcGrid.create(TP_GRID, TP_AXES, device=dev)
+    out = {"coordinate": grid.coordinate, "models": {}}
+    for arch in TP_MODELS:
+        t0 = time.perf_counter()
+        out["models"][arch] = tp_model_rank(torch, grid, arch, job, rank)
+        out["models"][arch]["seconds"] = time.perf_counter() - t0
+    out["launches"] = {fn.__name__: fn.launches for fn in wrappers}
+    return out
+
+
+def tp_references(torch, dev, arch: str) -> dict:
+    """One process's runs of ``arch`` for the tp_train phase, in this
+    process: the first bf16 step's loss and grad_norm, and the float32
+    cut run (its parameters and first moment saved under TP_DIR)."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.optim.adamw import AdamWConfig
+    cut, cut32 = TP_MODELS[arch]
+    cfg = tp_config(arch, TP_REDUCED, cut)
+    dcfg = DataConfig(vocab=cfg.vocab, seq=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in Pipeline(dcfg).batch_at(0).items()}
+    torch.cuda.empty_cache()
+    lw, nw, model, _ = _one_process_step(
+        torch, dev, cfg, AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                                     total_steps=TRAIN_RESUME_STEPS),
+        {**batch, **tp_extra(torch, cfg, dev)}, 1)
+    del model
+    torch.cuda.empty_cache()
+    c32 = dataclasses.replace(tp_config(arch, TP_REDUCED, cut32),
+                              dtype="float32")
+    d32 = dataclasses.replace(dcfg, vocab=c32.vocab)
+    b32 = {k: torch.from_numpy(v).to(dev)
+           for k, v in Pipeline(d32).batch_at(0).items()}
+    l32, n32, model, m32 = _one_process_step(
+        torch, dev, c32, AdamWConfig(lr=TRAIN_AGREE_LR, warmup_steps=1,
+                                     total_steps=TRAIN_STEPS),
+        {**b32, **tp_extra(torch, c32, dev)}, TP_EXACT_STEPS)
+    path = os.path.join(TP_DIR, f"exact_{arch}.pt")
+    torch.save({"params": {n: p.detach().cpu()
+                           for n, p in model.named_parameters()},
+                "m1": m32}, path)
+    del model, m32
+    torch.cuda.empty_cache()
+    return {"cfg": cfg, "loss": lw[0], "grad_norm": nw[0],
+            "exact_losses": l32, "exact_norms": n32, "path": path}
+
+
+def run_tp_train(torch, dev, gpu, wrappers) -> dict:
+    """The tp_train phase (see TP_*): one process's references of every
+    model in this process, freed before the ranks start, then TP_PROCS
+    ranks running every model, with every kernel wrapper's count set to 0
+    just before and read just after (the path reaches no hand kernel)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core.grid import ProcGrid
+    from repro_torch.launch.dryrun import model_collectives, param_leaves, \
+        state_bytes
+    from repro_torch.models.model_zoo import build
+    from repro_torch.sharding.procs import run_ranks
+    t0 = time.perf_counter()
+    print(f"tensor-parallel train path ({SHARD_TAG}; the SSM, RG-LRU and "
+          "encoder-decoder families' heads and channels over \"model\", "
+          f"FSDP over \"data\"): grid {TP_GRID} {TP_AXES}; card {gpu}",
+          flush=True)
+    for fn in wrappers.values():
+        fn.launches = 0
+    os.makedirs(TP_DIR, exist_ok=True)
+    refs = {}
+    for arch in TP_MODELS:
+        t1 = time.perf_counter()
+        refs[arch] = tp_references(torch, dev, arch)
+        print(f"  {arch}: one process's references "
+              f"{time.perf_counter() - t1:.1f} s", flush=True)
+    need = ckpt_gib(refs[TP_CKPT]["cfg"])
+    free = shutil.disk_usage(TP_DIR).free / 2**30
+    check(free >= 1.05 * need,
+          f"{free:.1f} GiB of free disk for {TP_CKPT}'s {need:.2f} GiB "
+          "checkpoint with 5% to spare")
+    ckpt = tempfile.mkdtemp(prefix="tp_ckpt_", dir=TP_DIR)
+    job = {"device": str(dev), "ckpt": ckpt, "reduced": TP_REDUCED,
+           "seq": TRAIN_SEQ, "batch": TRAIN_BATCH,
+           "exact_params": {a: r["path"] for a, r in refs.items()}}
+    t1 = time.perf_counter()
+    try:
+        ranks = run_ranks(tp_train_rank, TP_PROCS, args=(job,),
+                          rendezvous_dir=TP_DIR, timeout=TP_TIMEOUT,
+                          threads=SHARD_THREADS, nice=19)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+        for r in refs.values():
+            os.remove(r["path"])
+    ranks_s = time.perf_counter() - t1
+
+    agrid = ProcGrid.create_abstract(TP_GRID, TP_AXES)
+    rows = TRAIN_BATCH // TP_GRID[0]
+    out = {"ranks_s": ranks_s, "models": {}}
+    for arch, ref in refs.items():
+        cfg = ref["cfg"]
+        leaves = param_leaves(build(cfg, device="meta").init(None), agrid)
+        acct = state_bytes(leaves, agrid, kind="train",
+                           microbatches=TRAIN_MB)
+        model_coll = model_collectives(
+            cfg, "train", leaves, agrid, batch=rows, seq=TRAIN_SEQ,
+            microbatches=TRAIN_MB, batch_split=True)
+        arith = tp_counted_bytes(
+            cfg, leaves, agrid, tokens=rows // TRAIN_MB * TRAIN_SEQ,
+            enc_tokens=rows // TRAIN_MB * cfg.enc_seq,
+            microbatches=TRAIN_MB)
+        res = {"one_process": {k: ref[k] for k in (
+            "loss", "grad_norm", "exact_losses", "exact_norms")},
+            "accounting": acct, "model_collectives": model_coll,
+            "arithmetic": arith, "ranks": []}
+        print(f"  {arch} ({cfg.n_layers} layers"
+              + (f", {cfg.enc_layers} encoder layers" if cfg.enc_layers
+                 else "") + f", d_model {cfg.d_model}, vocab {cfg.vocab}, "
+              f"{cfg.dtype}, remat {cfg.remat!r}):", flush=True)
+        for r, o in enumerate(ranks):
+            m = o["models"][arch]
+            res["ranks"].append(m)
+            h = m["history"]
+            dts = [x["dt"] for x in h]
+            steady = sum(dts[1:]) / len(dts[1:])
+            m["steady_step_ms"] = steady * 1e3
+            print(f"    rank {r} {o['coordinate']}: parameters "
+                  f"{m['param_bytes']:,} B, AdamW state {m['opt_bytes']:,} "
+                  f"B (accounting {acct['params']:,} and "
+                  f"{acct['opt_state']:,}); peak "
+                  f"{_gib(m['peak_bytes'] / 2**30)}; step ms "
+                  + ", ".join(f"{d * 1e3:.1f}" for d in dts)
+                  + f", steady {steady * 1e3:.1f} ({SHARD_TAG}, {gpu}); "
+                  "losses " + ", ".join(f"{x['loss']:.5f}" for x in h)
+                  + (f"; checkpoint save {m['save_s']:.1f} s, restore "
+                     f"{m['restore_s']:.1f} s" if arch == TP_CKPT else "")
+                  + f"; {m['seconds']:.1f} s", flush=True)
+            check(m["placed"] and m["on_card"] and m["model_split"],
+                  f"{arch} rank {r}: weights placed, {len(m['model_split'])}"
+                  f" parameters split over \"model\", every tensor on "
+                  f"{dev}")
+            check(m["param_bytes"] == acct["params"] and
+                  m["opt_bytes"] == acct["opt_state"],
+                  f"{arch} rank {r}: parameter and AdamW state bytes equal "
+                  f"the dry run's state_bytes on the abstract {TP_GRID} "
+                  "grid to the byte")
+            check(all(c == arith for c in m["collectives_per_step"]),
+                  f"{arch} rank {r}: the counted collective bytes of every "
+                  f"step equal the arithmetic {arith} (counted "
+                  f"{m['collectives_per_step']})")
+            check(h[0]["loss"] == ranks[0]["models"][arch]["history"][0][
+                "loss"], f"{arch} rank {r}: the same loss as rank 0")
+            if arch == TP_CKPT:
+                check(m["restored_step"] == TP_STEPS and
+                      m["restored_bitwise"] and m["restored_local"],
+                      f"{arch} rank {r}: the step-{TP_STEPS} checkpoint "
+                      "(whole tensors) restored into this rank's blocks, "
+                      "bitwise")
+        counted = ranks[0]["models"][arch]["collectives_per_step"][0]
+        print(f"    collective operand bytes per step and device (counted "
+              "on rank 0, step 1) vs the dry run's model_collectives: "
+              + ", ".join(f"{k} {counted.get(k, 0):,} vs {model_coll[k]:,}"
+                          f" ({counted.get(k, 0) - model_coll[k]:+,})"
+                          for k in model_coll), flush=True)
+        first = ranks[0]["models"][arch]["history"][0]
+        dl = abs(first["loss"] - ref["loss"]) / abs(ref["loss"])
+        dg = abs(first["grad_norm"] - ref["grad_norm"]) / \
+            abs(ref["grad_norm"])
+        res["full_width_agreement"] = {"loss_rel": dl, "grad_norm_rel": dg}
+        print(f"    bf16 first step, placed vs one process: loss "
+              f"{first['loss']:.6f} vs {ref['loss']:.6f} ({dl:.2e}), "
+              f"grad_norm {first['grad_norm']:.6f} vs {ref['grad_norm']:.6f}"
+              f" ({dg:.2e})", flush=True)
+        ex = ranks[0]["models"][arch]["exact"]
+        el = max(abs(a - b) / abs(b)
+                 for a, b in zip(ex["losses"], ref["exact_losses"]))
+        en = max(abs(a - b) / abs(b)
+                 for a, b in zip(ex["norms"], ref["exact_norms"]))
+        res["exact_agreement"] = {"loss_rel": el, "grad_norm_rel": en,
+                                  "param_err": ex["param_err"],
+                                  "first_moment_err": ex["first_moment_err"]}
+        print(f"    float32 ({TP_MODELS[arch][1]}), {TP_EXACT_STEPS} steps, "
+              f"placed vs one process: loss {el:.2e}, grad_norm {en:.2e}, "
+              f"first moment {ex['first_moment_err'][0]:.2e} (at "
+              f"{ex['first_moment_err'][1]}), parameters "
+              f"{ex['param_err'][0]:.2e} (at {ex['param_err'][1]})",
+              flush=True)
+        out["models"][arch] = res
+    for arch, res in out["models"].items():
+        agree, ex = res["full_width_agreement"], res["exact_agreement"]
+        lim_loss, lim_norm = TP_BF16_RTOL[arch]
+        check(agree["loss_rel"] <= lim_loss and
+              agree["grad_norm_rel"] <= lim_norm,
+              f"{arch} bf16 placed vs one process, first step: loss "
+              f"{agree['loss_rel']:.2e} <= {lim_loss:g}, grad_norm "
+              f"{agree['grad_norm_rel']:.2e} <= {lim_norm:g}")
+        check(ex["loss_rel"] <= SHARD_EXACT_RTOL and
+              ex["grad_norm_rel"] <= SHARD_EXACT_RTOL and
+              ex["first_moment_err"][0] <= SHARD_EXACT_RTOL and
+              ex["param_err"][0] <= SHARD_EXACT_PARAM,
+              f"{arch} float32, {TP_EXACT_STEPS} steps, placed vs one "
+              f"process: loss {ex['loss_rel']:.2e}, grad_norm "
+              f"{ex['grad_norm_rel']:.2e}, the first step's gradient "
+              f"(first moment) {ex['first_moment_err'][0]:.2e} of its "
+              f"largest <= {SHARD_EXACT_RTOL:g}; parameters "
+              f"{ex['param_err'][0]:.2e} of the largest <= "
+              f"{SHARD_EXACT_PARAM:g}")
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    for o in ranks:
+        for k, v in o["launches"].items():
+            launches[k] += v
+    out["launches"] = launches
+    check(not any(launches.values()),
+          f"the tensor-parallel train path launched no hand kernel: "
+          f"{launches}")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"tp_train phase: {out['seconds']:.1f} s (ranks {ranks_s:.1f} s)",
+          flush=True)
     torch.cuda.empty_cache()
     return out
 
@@ -5040,6 +5564,8 @@ def main() -> int:
     print("sharded_train: " + json.dumps(sharded), flush=True)
     ep = run_ep_train(torch, dev, gpu, wrappers)
     print("ep_train: " + json.dumps(ep), flush=True)
+    tp_run = run_tp_train(torch, dev, gpu, wrappers)
+    print("tp_train: " + json.dumps(tp_run, default=str), flush=True)
 
     t0 = time.perf_counter()
     print(f"dry run (meta device, abstract grids; calibration on {gpu}):",
@@ -5077,6 +5603,7 @@ def main() -> int:
                "lm": lm["launches"], "train": train["launches"],
                "sharded_train": sharded["launches"],
                "ep_train": ep["launches"],
+               "tp_train": tp_run["launches"],
                "examples": examples["launches"]}
     # the multi-rank paths' launches, per rank (each a list over the
     # ranks): the fused steps count the warm-up's and the capture's

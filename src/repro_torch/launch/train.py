@@ -12,8 +12,11 @@ world the caller has initialized with one process per point; ``full``
 trains the published config on the production grid, which needs 256
 ranks (512 with ``--multi-pod``) and raises otherwise.  On a grid of
 several processes whose specs split a leaf the ``Trainer`` places the
-weights (FSDP over the batch axes, tensor parallelism over "model", the
-MoE's experts over "model": ``--arch granite-moe-3b-a800m --grid 2x2``).
+weights of every family (FSDP over the batch axes; over "model" the
+heads and MLP columns of the dense, VLM and encoder-decoder models, the
+MoE's experts, Mamba-2's SSD heads and the RG-LRU's channels:
+``--arch granite-moe-3b-a800m --grid 2x2``, ``--arch mamba2-370m --grid
+2x2``).
 Checkpointing, auto-resume (run again with the same ``--ckpt-dir``:
 training continues from the newest committed step) and gradient
 compression are flags.

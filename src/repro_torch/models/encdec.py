@@ -7,18 +7,27 @@ use causal self-attention (RoPE, the reference's documented deviation
 from Whisper's learned positions) plus cross-attention over the encoder
 output.  The cache holds the decoder's self-attention k/v and the
 cross-attention k/v of the encoder states, layer-leading.
+
+On placed weights whose "model" axis splits the attention (training
+only; ``sharding/rules.py::place_params``) the encoder's and the
+cross-attention's heads split over it as the decoder's self-attention's
+(``transformer._attn_tp``): this rank's ``wq`` columns and KV heads, and
+``wo``'s rows summed over "model".  The encoder states enter the
+decoder's cross-attention through ``copy_to_model`` once, so their
+gradient sums over "model" once for every layer.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from repro_torch.sharding import ctx
+from repro_torch.sharding import ctx, tp
 
 from .attention import blocked_attention, decode_attention
 from .layers import mlp_apply, rms_norm, sinusoidal_pos, weight, zeros
-from .transformer import Layer, _dtype, _positions, _remat, attn_apply, \
-    embedding, lm_head, logits_fn
+from .transformer import Layer, _attn_tp, _dtype, _embed, _positions, \
+    _remat, attn_apply, attn_split, embedding, lm_head, local_heads, \
+    local_kv, logits_fn
 
 
 class Cross(nn.Module):
@@ -62,12 +71,15 @@ def encode(params, frames, cfg):
     x = frames.to(dt) + sinusoidal_pos(S, D, frames.device).to(dt)
 
     def body(lp, x):
-        h = rms_norm(x, lp.ln1, cfg.norm_eps)
-        q = (h @ lp.wq).reshape(B, S, cfg.n_heads, cfg.head_dim)
-        k = (h @ lp.wk).reshape(B, S, cfg.n_kv, cfg.head_dim)
-        v = (h @ lp.wv).reshape(B, S, cfg.n_kv, cfg.head_dim)
-        o = blocked_attention(q, k, v, causal=False)
-        x = x + o.reshape(B, S, -1) @ lp.wo
+        if attn_split(lp):               # this model rank's heads
+            x = x + _attn_tp(lp, x, cfg, None, causal=False, rope=False)
+        else:
+            h = rms_norm(x, lp.ln1, cfg.norm_eps)
+            q = (h @ lp.wq).reshape(B, S, cfg.n_heads, cfg.head_dim)
+            k = (h @ lp.wk).reshape(B, S, cfg.n_kv, cfg.head_dim)
+            v = (h @ lp.wv).reshape(B, S, cfg.n_kv, cfg.head_dim)
+            o = blocked_attention(q, k, v, causal=False)
+            x = x + o.reshape(B, S, -1) @ lp.wo
         h = rms_norm(x, lp.ln2, cfg.norm_eps)
         return ctx.constrain_act(x + mlp_apply(lp.mlp, h, cfg.activation))
 
@@ -79,6 +91,10 @@ def encode(params, frames, cfg):
 
 
 def _cross_kv(xp, enc, cfg):
+    """The cross-attention's k/v of the encoder states; on a model split,
+    those of this rank's heads (``enc`` went through ``copy_to_model``)."""
+    if attn_split(xp):
+        return local_kv(xp, enc, cfg, local_heads(xp, cfg))
     B, Se, _ = enc.shape
     k = (enc @ xp.wk).reshape(B, Se, cfg.n_kv, cfg.head_dim)
     v = (enc @ xp.wv).reshape(B, Se, cfg.n_kv, cfg.head_dim)
@@ -87,10 +103,14 @@ def _cross_kv(xp, enc, cfg):
 
 def _cross_apply(xp, x, k, v, cfg):
     B, S, D = x.shape
+    split = attn_split(xp)
     h = rms_norm(x, xp.ln, cfg.norm_eps)
-    q = (h @ xp.wq).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    if split:                            # this model rank's heads
+        h = tp.copy_to_model(h)
+    q = (h @ xp.wq).reshape(B, S, -1, cfg.head_dim)
     o = blocked_attention(q, k, v, causal=False)
-    return o.reshape(B, S, -1) @ xp.wo
+    out = o.reshape(B, S, -1) @ xp.wo
+    return tp.reduce_from_model(out) if split else out
 
 
 def _decoder(params, x, enc, cfg, positions, cache=None):
@@ -111,6 +131,8 @@ def _decoder(params, x, enc, cfg, positions, cache=None):
         return ctx.constrain_act(x + mlp_apply(lp.mlp, h, cfg.activation))
 
     train = _remat(body, cfg)
+    if cache is None and any(attn_split(xp) for xp in params.cross):
+        enc = tp.copy_to_model(enc)
     for i, (lp, xp) in enumerate(zip(params.dec_layers, params.cross)):
         x = train(lp, xp, x, enc) if cache is None else \
             body(lp, xp, x, enc, i)
@@ -121,7 +143,7 @@ def _decoder(params, x, enc, cfg, positions, cache=None):
 def decode_train(params, tokens, enc, cfg):
     """Teacher-forced decoder pass. tokens: (B, S) → hidden (B, S, D)."""
     B, S = tokens.shape
-    return _decoder(params, params.embed[tokens], enc, cfg,
+    return _decoder(params, _embed(params, tokens), enc, cfg,
                     _positions(B, S, tokens.device))
 
 

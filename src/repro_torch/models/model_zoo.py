@@ -131,7 +131,7 @@ class SSMLM(nn.Module):
 
 
 def ssm_forward(params, tokens, cfg):
-    x = ctx.constrain_act(params.embed[tokens])
+    x = transformer._embed(params, tokens)
 
     def body(lp, x):
         h = rms_norm(x, lp.ln, cfg.norm_eps)
@@ -226,7 +226,7 @@ def _rec_apply(p, x, cfg, state=None):
 
 
 def hybrid_forward(params, tokens, cfg):
-    x = ctx.constrain_act(params.embed[tokens])
+    x = transformer._embed(params, tokens)
     B, S = tokens.shape
     positions = transformer._positions(B, S, x.device)
 

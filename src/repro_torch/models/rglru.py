@@ -10,12 +10,22 @@ Train/prefill composes the affine maps (a, b) with a log-depth doubling
 scan (:func:`affine_scan`; the reference uses
 ``jax.lax.associative_scan``, which torch lacks).  Decode is the
 single-step recurrence with a carried state.
+
+On placed weights whose "model" axis splits R (training only;
+``sharding/rules.py::place_params``) each model rank runs its contiguous
+block of R: ``w_x``, ``w_gate_in`` and ``conv_w`` give its block of u,
+the gate and the conv; the gates' products with ``w_r``/``w_i`` (this
+rank's columns) contract over the whole R, so u is gathered over "model"
+for them; the product ``i ⊙ u``, the scan (elementwise in R) and
+``hs ⊙ gate`` stay local, and ``w_out``'s row block is row-parallel.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.sharding import tp
 
 from .layers import causal_conv1d, gelu, weight
 
@@ -44,11 +54,15 @@ class RGLRU(nn.Module):
         self.w_out = dense((R, D))
 
 
-def _gates(p, u):
+def _gates(p, u, u_whole=None, lam=None):
+    """(a, b) of the recurrence for the channels of ``u``; ``u_whole``
+    (every channel, for the gates' products) and ``lam`` (Λ of ``u``'s
+    channels) default to ``u`` and ``p.lam``."""
     uf = u.float()
-    r = torch.sigmoid(uf @ p.w_r.float())
-    i = torch.sigmoid(uf @ p.w_i.float())
-    log_a = -_C * F.softplus(p.lam) * r
+    uw = uf if u_whole is None else u_whole.float()
+    r = torch.sigmoid(uw @ p.w_r.float())
+    i = torch.sigmoid(uw @ p.w_i.float())
+    log_a = -_C * F.softplus(p.lam if lam is None else lam) * r
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) \
         * (i * uf)
@@ -76,12 +90,21 @@ def rglru_block(p, x, cfg, *, state=None):
     """One recurrent block. x: (B,S,D) → (B,S,D); state carries
     {"conv": (B,K-1,R), "h": (B,R)} for decode."""
     S = x.shape[1]
+    split = state is None and tp.model_split(p, "w_x", 1)
+    if split:                            # this model rank's block of R
+        x = tp.copy_to_model(x)
     u = x @ p.w_x
     gate = gelu(x @ p.w_gate_in)
     u, conv_cache = causal_conv1d(
         u, p.conv_w, None if state is None else state["conv"])
 
-    a, b = _gates(p, u)                                   # (B,S,R) f32
+    if split:
+        r0, r1 = tp.model_rank() * u.shape[-1], \
+            (tp.model_rank() + 1) * u.shape[-1]
+        a, b = _gates(p, u, tp.gather(u, {2: ("model",)}),
+                      tp.copy_to_model(p.lam)[r0:r1])
+    else:
+        a, b = _gates(p, u)                               # (B,S,R) f32
     if state is not None and S == 1:
         h = a[:, 0] * state["h"] + b[:, 0]
         hs = h[:, None]
@@ -94,8 +117,8 @@ def rglru_block(p, x, cfg, *, state=None):
         _, hs = affine_scan(a, b)
         new_state = None if state is None else \
             {"conv": conv_cache, "h": hs[:, -1]}
-    y = (hs * gate.float()).to(x.dtype)
-    return y @ p.w_out, new_state
+    y = (hs * gate.float()).to(x.dtype) @ p.w_out
+    return (tp.reduce_from_model(y) if split else y), new_state
 
 
 def rglru_init_state(cfg, batch: int, dtype=torch.float32, *, device=None):

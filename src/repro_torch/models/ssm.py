@@ -6,12 +6,25 @@ quadratic matmuls plus a linear inter-chunk state recurrence.  The
 depthwise temporal conv optionally routes through FFTB's ``fft_conv``
 (``conv_impl="fft"``), the paper-technique integration point for this
 family; decode always runs the direct conv against its carried state.
+
+On placed weights whose "model" axis splits the block (training only;
+``sharding/rules.py::place_params``) each model rank runs H/M of the SSD
+heads (:func:`_ssm_block_tp`): the SSD scan is independent per head and
+B, C are one group that every head shares.  The stored column blocks of
+``in_proj`` (x | gate | B | C | dt) and ``conv_w`` (x | B | C) do not
+fall on heads, so both are gathered whole over "model" and each rank
+takes its heads' columns of x, gate and dt and all of B and C;
+``out_proj``'s row block is head-aligned and row-parallel.  The gated
+RMSNorm normalises over the whole ``d_inner``: its sum of squares is
+summed over "model" by ``tp.sum_over_model``.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.sharding import tp
 
 from .layers import causal_conv1d, fft_causal_conv1d, rms_norm, weight
 
@@ -111,6 +124,8 @@ def ssm_block(p, x, cfg, *, state=None):
     single-step decode (S == 1), the initial conv context for a prefill.
     Returns (y, new_state).
     """
+    if state is None and _model_split(p):
+        return _ssm_block_tp(p, x, cfg), None
     B, S, D = x.shape
     din, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_nheads, \
         cfg.ssm_headdim
@@ -152,6 +167,68 @@ def ssm_block(p, x, cfg, *, state=None):
     y = y.reshape(B, S, din).to(x.dtype)
     y = rms_norm(y * F.silu(gate), p.norm_scale, cfg.norm_eps)
     return y @ p.out_proj, new_state
+
+
+def _model_split(p) -> bool:
+    return any(tp.model_split(p, n, d) for n, d in (
+        ("in_proj", 1), ("conv_w", 1), ("out_proj", 0)))
+
+
+def _ssm_block_tp(p, x, cfg):
+    """The training block on this model rank's H/M heads (the module
+    docstring); ``x`` is whole on every model rank."""
+    B, S, D = x.shape
+    din, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_nheads, \
+        cfg.ssm_headdim
+    M = tp.model_size()
+    if H % M or not tp.model_split(p, "out_proj", 0):
+        raise NotImplementedError(
+            f"tensor-parallel SSD needs the 'model' axis ({M}) to split "
+            f"the {H} heads evenly and out_proj by rows")
+    Hl = H // M
+    h0 = tp.model_rank() * Hl
+    heads = slice(h0, h0 + Hl)
+    # this rank's columns of x | gate | B | C | dt, and of the conv's x | B | C
+    c0, c1 = h0 * P, (h0 + Hl) * P
+    w_in = _columns(tp.whole_over_model(p, "in_proj", 1), (
+        (c0, c1), (din + c0, din + c1), (2 * din, 2 * din + 2 * N),
+        (2 * din + 2 * N + h0, 2 * din + 2 * N + h0 + Hl)))
+    w_conv = _columns(tp.whole_over_model(p, "conv_w", 1),
+                      ((c0, c1), (din, din + 2 * N)))
+    z = tp.copy_to_model(x) @ w_in
+    zx, gate, Bm, Cm, dt = torch.split(z, [Hl * P, Hl * P, N, N, Hl],
+                                       dim=-1)
+    conv = fft_causal_conv1d if cfg.conv_impl == "fft" else causal_conv1d
+    conv_out, _ = conv(torch.cat([zx, Bm, Cm], dim=-1), w_conv)
+    zx, Bm, Cm = torch.split(F.silu(conv_out), [Hl * P, N, N], dim=-1)
+
+    dt = F.softplus(dt.float() + tp.copy_to_model(p.dt_bias)[heads])
+    A = -torch.exp(tp.copy_to_model(p.A_log)[heads])
+    xh = zx.reshape(B, S, Hl, P)
+    y = ssd_chunked(xh.float(), dt, A, Bm.float(), Cm.float(),
+                    cfg.ssm_chunk)
+    y = y + tp.copy_to_model(p.D_skip)[None, None, heads, None] * \
+        xh.float()
+    y = y.reshape(B, S, Hl * P).to(x.dtype)
+    y = _rms_norm_tp(y * F.silu(gate), tp.copy_to_model(p.norm_scale)[c0:c1],
+                     din, cfg.norm_eps)
+    return tp.reduce_from_model(y @ p.out_proj)
+
+
+def _columns(w, ranges):
+    """The columns ``[a, b)`` of ``w`` for each range, side by side."""
+    return torch.cat([w[:, a:b] for a, b in ranges], dim=1)
+
+
+def _rms_norm_tp(x, scale, n: int, eps: float):
+    """``rms_norm`` over a feature dim of ``n`` whose this rank's part is
+    ``x`` (``scale`` its part of the scale): the sum of squares summed
+    over "model" (forward and backward: ``tp.sum_over_model``)."""
+    dt = x.dtype
+    x = x.float()
+    var = tp.sum_over_model(torch.sum(torch.square(x), dim=-1,
+                                      keepdim=True)) / n
+    return ((x * torch.rsqrt(var + eps)) * (1.0 + scale.float())).to(dt)
 
 
 def _final_state(xh, dt, A, Bm, Cm):

@@ -99,8 +99,7 @@ def attn_apply(p, x, cfg, positions, *, window: int = 0, cache=None,
     """Self-attention sublayer.  cache: (k, v) of (B, Smax, Kh, hd) → decode
     (S==1, the new k/v written at ``lengths``) or prefill (the first S
     positions written).  Returns (out, cache)."""
-    if cache is None and any(tp.model_split(p, n, d) for n, d in (
-            ("wq", 1), ("wk", 1), ("wv", 1), ("wo", 0))):
+    if cache is None and attn_split(p):
         return _attn_tp(p, x, cfg, positions, window), None
     B, S, D = x.shape
     H, Kh, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
@@ -131,48 +130,68 @@ def attn_apply(p, x, cfg, positions, *, window: int = 0, cache=None,
     return out, cache
 
 
-def _kv_whole(p, name: str):
-    """``wk``/``wv`` whole on every model rank, for heads the model axis
-    does not split evenly: gathered over "model" when it splits the
-    columns, else the replicated weight through ``copy_to_model`` (each
-    rank uses part of it, so the gradient sums over the model axis)."""
-    if tp.model_split(p, name, 1):
-        return tp.gather(getattr(p, name), {1: ("model",)})
-    return tp.copy_to_model(getattr(p, name))
+def attn_split(p) -> bool:
+    """Whether the "model" axis splits any of the attention weights
+    ``wq``/``wk``/``wv`` (columns) or ``wo`` (rows) of module ``p``."""
+    return any(tp.model_split(p, n, d) for n, d in (
+        ("wq", 1), ("wk", 1), ("wv", 1), ("wo", 0)))
 
 
-def _attn_tp(p, x, cfg, positions, window: int):
-    """The training attention on this rank's heads (tensor parallelism
-    over "model"): ``wq``'s column block gives H/M query heads, ``wk``/
-    ``wv`` give the matching KV heads when M divides Kh (else each local
-    query head's KV head, from the whole ``wk``/``wv``), and ``wo``'s row
-    block gives a partial sum, reduced over "model"."""
-    B, S, _ = x.shape
-    H, Kh, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
-    M = tp.model_size()
+def local_heads(p, cfg) -> int:
+    """The query heads a model rank computes, H/M; raises unless the
+    "model" axis (M) splits the heads evenly, ``wq`` by columns and
+    ``wo`` by rows."""
+    H, M = cfg.n_heads, tp.model_size()
     if H % M or not (tp.model_split(p, "wq", 1)
                      and tp.model_split(p, "wo", 0)):
         raise NotImplementedError(
             f"tensor-parallel attention needs the 'model' axis ({M}) to "
             f"split the {H} query heads evenly, wq by columns and wo by "
             "rows")
-    Hl = H // M
-    h = tp.copy_to_model(rms_norm(x, p.ln1, cfg.norm_eps))
-    q = (h @ p.wq).reshape(B, S, Hl, hd)
+    return H // M
+
+
+def local_kv(p, h, cfg, Hl: int):
+    """(k, v) of (B, S, ·, hd) for this model rank's ``Hl`` query heads
+    from ``h`` (which went through ``copy_to_model``): ``wk``/``wv``'s
+    column blocks give the matching KV heads when M divides Kh, else each
+    local query head's KV head comes from the whole ``wk``/``wv``
+    (:func:`~repro_torch.sharding.tp.whole_over_model`)."""
+    B, S, _ = h.shape
+    H, Kh, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    M = tp.model_size()
     if Kh % M == 0 and tp.model_split(p, "wk", 1):
         k = (h @ p.wk).reshape(B, S, Kh // M, hd)
         v = (h @ p.wv).reshape(B, S, Kh // M, hd)
-    else:
-        h0 = tp.model_rank() * Hl
-        kv = torch.arange(h0, h0 + Hl, device=x.device) // (H // Kh)
-        k = (h @ _kv_whole(p, "wk")).reshape(B, S, Kh, hd)[:, :, kv]
-        v = (h @ _kv_whole(p, "wv")).reshape(B, S, Kh, hd)[:, :, kv]
+        return k, v
+    h0 = tp.model_rank() * Hl
+    kv = torch.arange(h0, h0 + Hl, device=h.device) // (H // Kh)
+    k = (h @ tp.whole_over_model(p, "wk", 1)).reshape(B, S, Kh, hd)
+    v = (h @ tp.whole_over_model(p, "wv", 1)).reshape(B, S, Kh, hd)
+    return k[:, :, kv], v[:, :, kv]
+
+
+def _attn_tp(p, x, cfg, positions, window: int = 0, *, causal: bool = True,
+             rope: bool = True):
+    """The training attention on this rank's heads (tensor parallelism
+    over "model"): ``wq``'s column block gives H/M query heads,
+    :func:`local_kv` their KV heads, and ``wo``'s row block gives a
+    partial sum, reduced over "model".  ``causal`` and ``rope`` False:
+    the encoder's bidirectional attention without positions
+    (``models/encdec.py``)."""
+    B, S, _ = x.shape
+    hd = cfg.head_dim
+    Hl = local_heads(p, cfg)
+    h = tp.copy_to_model(rms_norm(x, p.ln1, cfg.norm_eps))
+    q = (h @ p.wq).reshape(B, S, Hl, hd)
+    k, v = local_kv(p, h, cfg, Hl)
     if cfg.qk_norm:              # every model rank scales its own heads
         q = rms_norm(q, tp.copy_to_model(p.q_norm), cfg.norm_eps)
         k = rms_norm(k, tp.copy_to_model(p.k_norm), cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    o = blocked_attention(q, k, v, causal=True, window=window)
+    if rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    o = blocked_attention(q, k, v, causal=causal, window=window)
     return tp.reduce_from_model(o.reshape(B, S, Hl * hd) @ p.wo)
 
 

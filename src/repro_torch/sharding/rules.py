@@ -18,10 +18,13 @@ slices ``spec`` gives its grid coordinates), in place and under the same
 names, and records the placement on the model (:class:`Placement`).  The
 AdamW moments made from placed parameters are blocks too.  The layers
 then gather what they use (``sharding/tp.py``: FSDP over the batch axes
-for every family, tensor parallelism over "model" for the decoder-only
-transformer, whose MoE layers keep E/M experts per model rank by
-``_MOE_RULES``: expert parallelism, ``models/moe.py``), and the train
-step reduces each gradient by its placement (``train/train_step.py``).
+and tensor parallelism over "model" for every family: the attention and
+MLP heads and columns, Mamba-2's SSD heads (``models/ssm.py``), the
+RG-LRU's block of R (``models/rglru.py``), the encoder's and the
+cross-attention's heads (``models/encdec.py``), and the MoE's E/M
+experts per model rank by ``_MOE_RULES``: expert parallelism,
+``models/moe.py``), and the train step reduces each gradient by its
+placement (``train/train_step.py``).
 :func:`gather_params` is the inverse, for checkpoints and tests.  There is no counterpart of ``logical_axis_env``:
 the port names no logical axes for a compiler.  A grid whose batch axes
 do not divide the batch replicates the batch (:func:`batch_axis`), and
@@ -189,26 +192,13 @@ def _live_spec(spec, grid, ndim: int) -> tuple:
     return tuple(out)
 
 
-def _tp_covered(model) -> str:
-    """'' when the "model" axis may split ``model``'s leaves, else the
-    ROADMAP item that will cover its family."""
-    from repro_torch.models.transformer import TransformerLM
-    if not isinstance(model, TransformerLM):
-        return (f"{type(model).__name__} (ROADMAP §1 item 3: tensor "
-                "parallelism for the SSM, RG-LRU and encoder-decoder "
-                "families)")
-    return ""
-
-
 def place_params(model, grid) -> Placement | None:
     """Keep on this rank only its block of each of ``model``'s parameters
     under :func:`param_specs` on ``grid``, in place: the same parameter
     objects and names, each holding the slices of its spec at the rank's
     grid coordinates.  An entry that :func:`drop_indivisible` replicates
     stays whole.  Returns the :class:`Placement` (also kept on the model),
-    or None when no axis of ``grid`` splits any parameter.  Raises when
-    the "model" axis would split a leaf of a family the port's tensor
-    parallelism does not cover yet."""
+    or None when no axis of ``grid`` splits any parameter."""
     from repro_torch.ckpt.checkpoint import _block
     from repro_torch.models.model_zoo import reference_name, stacked_lists
     if placement_of(model) is not None:
@@ -224,14 +214,6 @@ def place_params(model, grid) -> Placement | None:
         shapes[n] = tuple(p.shape)
     if not any(a for sp in specs.values() for a in sp):
         return None
-    model_split = sorted(n for n, sp in specs.items()
-                         if any(a not in FSDP_AXES for ax in sp for a in ax))
-    why = _tp_covered(model) if model_split else ""
-    if why:
-        raise NotImplementedError(
-            f"the grid's 'model' axis splits {model_split[0]} of {why}; "
-            "the port places these only over the batch axes (FSDP): use a "
-            "grid whose 'model' axis has one process")
     with torch.no_grad():
         for n, p in model.named_parameters():
             sp = specs[n]

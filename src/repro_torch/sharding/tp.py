@@ -22,15 +22,24 @@ its axes hold one process:
   that whole is used by every model rank on its own part;
 * :func:`reduce_from_model`: all-reduce over "model" in forward,
   identity in backward (Megatron's g): the partial sums of a row-parallel
-  product.
+  product;
+* :func:`sum_over_model`: all-reduce over "model" in forward and in
+  backward: a statistic of a whole feature dim built from each rank's
+  part (the sum of squares of Mamba-2's gated RMSNorm), which every
+  model rank then uses on its own part.
+
+:func:`whole_over_model` gives a weight whole on every model rank (a
+gather, or the replicated weight through :func:`copy_to_model`), for a
+layer whose stored blocks are not the columns each rank computes with.
 
 :func:`gathered` wraps a layer body: every parameter of the layer's
 module split over the batch axes is gathered over them before the body
 runs (inside the remat region, so the recompute gathers again and the
 whole weights are never saved), and the body reads it by its usual name.
-That is FSDP for every family.  The "model" split stays: only the layers
-written for it (the dense decoder's attention and MLP, the
-vocab-parallel embedding, logits and loss) read a model-split weight.
+That is FSDP for every family.  The "model" split stays: the layers
+written for it read a model-split weight (the attention and MLP of every
+family, the vocab-parallel embedding, logits and loss, the MoE's
+experts, Mamba-2's SSD block and the RG-LRU block).
 """
 from __future__ import annotations
 
@@ -127,6 +136,20 @@ class _ReduceFromModel(torch.autograd.Function):
         return dy, None, None
 
 
+class _SumOverModel(torch.autograd.Function):
+    @staticmethod
+    def forward(c, x, g, axes):
+        c.g, c.axes = g, axes
+        out = x.clone(memory_format=torch.contiguous_format)
+        return g.all_reduce(out, axes, name="tp.sum_over_model")
+
+    @staticmethod
+    def backward(c, dy):
+        dy = dy.clone(memory_format=torch.contiguous_format)
+        return c.g.all_reduce(dy, c.axes, name="tp.sum_over_model_grad"), \
+            None, None
+
+
 def gather(x, dims: dict[int, tuple[str, ...]]):
     """``x`` (a block) gathered along each dim over its grid axes (names),
     blocked as ``rules.param_specs`` splits it; reduce-scatter (sum) of
@@ -152,6 +175,26 @@ def reduce_from_model(x):
     g = ctx.grid()
     ids = _axis_ids(g, ("model",)) if g is not None else ()
     return _ReduceFromModel.apply(x, g, ids) if ids else x
+
+
+def sum_over_model(x):
+    """All-reduce (sum) over "model", and all-reduce of the gradient: each
+    model rank's gradient of the sum differs (it uses the sum on its own
+    part), and each part's gradient is their sum."""
+    g = ctx.grid()
+    ids = _axis_ids(g, ("model",)) if g is not None else ()
+    return _SumOverModel.apply(x, g, ids) if ids else x
+
+
+def whole_over_model(module, name: str, dim: int):
+    """``module.name`` whole along ``dim`` on every model rank: gathered
+    over "model" when it splits that dim (the gradient reduce-scattered),
+    else the replicated weight through :func:`copy_to_model` (each rank
+    uses part of it, so the gradient sums over the model axis)."""
+    w = getattr(module, name)
+    if model_split(module, name, dim):
+        return gather(w, {dim: ("model",)})
+    return copy_to_model(w)
 
 
 def max_over_model(x):

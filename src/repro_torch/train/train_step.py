@@ -29,8 +29,9 @@ all-reduce (the dry run's ``grad_all_reduce`` set).  Nothing here sums
 over "model": a leaf split over it (a tensor-parallel block, a model
 rank's experts) has its own gradient on each model rank, and a whole
 leaf that each model rank uses on its own part (a qk-norm scale, the
-MoE router and input) had its gradient summed over "model" by
-``tp.copy_to_model``'s backward.  The loss runs with
+MoE router and input, Mamba-2's and the RG-LRU's float32 vectors) had
+its gradient summed over "model" by ``tp.copy_to_model``'s backward.
+The loss runs with
 the model's top-level weights (embedding, head, final norm) gathered
 over the batch axes once per microbatch; each layer gathers its own.
 """

@@ -56,16 +56,16 @@ reference's ``PRNGKey(0)`` weights (carried over by
   with each rank's blocks restored bitwise.
 * The launcher with ``--grid 2x2`` on the 4 ranks trains placed: the
   loss of a memorised batch falls.
-* An uncovered family (SSM) on a grid whose "model" axis splits one of
-  its leaves raises, naming the ROADMAP item (the MoE places since its
-  experts split over "model": ``test_torch_ep_train.py``).  Over the
-  batch axes alone (FSDP, a (4, 1) grid) every other family trains
-  placed and agrees with one process at the limits above (MoE at its
-  published capacity factor, SSM, hybrid, encoder-decoder, VLM; weights
-  drawn by torch, the stub frontends' inputs from numpy), and the VLM, a
-  dense decoder, also on 2×2.  The one process routes the MoE as the
-  grid does: under a one-point grid of the same axes, so per batch row
-  (the reference's groups where the "model" axis divides the experts).
+* Over the batch axes alone (FSDP, a (4, 1) grid) every other family
+  trains placed and agrees with one process at the limits above (MoE at
+  its published capacity factor, SSM, hybrid, encoder-decoder, VLM;
+  weights drawn by torch, the stub frontends' inputs from numpy), and
+  the VLM, a dense decoder, also on 2×2 (the MoE's experts over "model":
+  ``test_torch_ep_train.py``; the SSM, hybrid and encoder-decoder
+  families over "model": ``test_torch_tp_families.py``).  The one
+  process routes the MoE as the grid does: under a one-point grid of
+  the same axes, so per batch row (the reference's groups where the
+  "model" axis divides the experts).
 
 The module imports no JAX: the ranks import it to find their functions;
 the reference runs in the ``dist`` fixture's subprocess.
@@ -454,23 +454,12 @@ def _family_run(cfg, grid, batch_axes):
                        batch=batch)
 
 
-def _uncovered(rank, grid):
-    """Placing an SSM model on a model-split grid raises; every family
-    over the batch axes alone (FSDP) trains, against one process, and the
-    VLM (a dense decoder with image embeddings) on 2×2."""
-    import torch
+def _families(grid):
+    """Every family over the batch axes alone (FSDP) trains, against one
+    process, and the VLM (a dense decoder with image embeddings) on
+    2×2."""
     from repro_torch.core.grid import ProcGrid
-    from repro_torch.models.model_zoo import build
-    from repro_torch.sharding import rules
     out = {}
-    for arch in ("mamba2-370m",):
-        model = build(_cfg(arch), device="cpu").init(
-            torch.Generator().manual_seed(0))
-        try:
-            rules.place_params(model, grid)
-            out[arch] = ""
-        except NotImplementedError as exc:
-            out[arch] = str(exc)
     fsdp = ProcGrid.create((4, 1), ("data", "model"), device="cpu")
     for arch, kw in FSDP_FAMILIES.items():
         out[f"fsdp/{arch}"] = _family_run(_cfg(arch, **kw), fsdp,
@@ -502,7 +491,7 @@ def _four_ranks(rank, inits, ckpt_dir):
                os.path.join(ckpt_dir, "launcher"), "--device", "cpu"])
     out["launcher"] = {"placed": tr.placed,
                        "losses": [h["loss"] for h in tr.history]}
-    out["uncovered"] = _uncovered(rank, grid)
+    out["families"] = _families(grid)
     return out
 
 
@@ -790,22 +779,15 @@ def test_launcher_trains_placed_on_a_grid(four):
         assert out["losses"][-1] < out["losses"][0], out["losses"]
 
 
-@pytest.mark.parametrize("arch,item", [("mamba2-370m", "item 3")])
-def test_uncovered_family_on_a_model_split_grid_raises(arch, item, four):
-    for rank in four:
-        msg = rank["uncovered"][arch]
-        assert "ROADMAP" in msg and item in msg, msg
-
-
 @pytest.mark.parametrize("arch", list(FSDP_FAMILIES))
 def test_every_family_over_the_batch_axes_alone(arch, four):
     for rank in four:
-        _agrees(*rank["uncovered"][f"fsdp/{arch}"])
+        _agrees(*rank["families"][f"fsdp/{arch}"])
 
 
 def test_vlm_tensor_parallel_2x2(four):
     for rank in four:
-        _agrees(*rank["uncovered"]["vlm_2x2"])
+        _agrees(*rank["families"]["vlm_2x2"])
 
 
 def test_module_imports_no_jax():
