@@ -190,7 +190,8 @@ microbatches (FSDP over "data"; every kernel's launches over the phase
 must be 0): ``mamba2-370m`` at its published config (its final
 checkpoint restored into blocks, bitwise), ``recurrentgemma-9b`` at
 published widths cut to one (rec, rec, attn) period and
-``whisper-small`` cut to 2 encoder and 2 decoder layers, each through
+``whisper-small`` cut to 1 encoder and 1 decoder layer (2 + 2 until the
+tp_uneven phase came: the script's time), each through
 ``Trainer`` for 3 steps in one spawn of four ranks: per rank the state
 bytes against ``state_bytes`` to the byte, the peak, ms per steady step
 and the counted collective bytes per kind, which must equal
@@ -198,6 +199,20 @@ and the counted collective bytes per kind, which must equal
 ``model_collectives``; the first step against one process (run first,
 and freed, in this process), and a float32 cut run (TP_MODELS) held as
 the sharded_train phase's.
+
+Then the tp_uneven phase, tensor parallelism over a "model" axis that
+does not split the heads evenly (rank r of M computes heads [r·H // M,
+(r+1)·H // M), the attention weights taken whole over "model" and
+sliced; every kernel's launches over the phase must be 0):
+``whisper-small`` at its published widths (12 heads) cut to 1 encoder
+and 1 decoder layer on the (1, 8) ("data", "model") grid, eight
+processes sharing the card over gloo, run as the tp_train phase (no
+checkpoint): state bytes against ``state_bytes`` on the abstract (1, 8)
+grid, counted collective bytes against ``tp_counted_bytes`` (whose
+``attn_whole`` adds the weights taken whole), the model ranks'
+head ranges covering every head once, the bf16 first step against one
+process within UNEVEN_BF16_RTOL and the float32 run's loss and grad_norm
+within UNEVEN_EXACT_RTOL.
 
 Then the dryrun phase, the port's dry run (``repro_torch.launch.
 dryrun``: an accounting on the ``meta`` device over abstract grids, no
@@ -444,27 +459,31 @@ EP_REDUCED = False
 # learning rate, TP_STEPS steps.  TP_MODELS: each model's cut of its
 # published config for that run and for the float32 run (TP_EXACT_STEPS
 # steps at TRAIN_AGREE_LR), held as the sharded_train phase's
-# (SHARD_EXACT_RTOL, SHARD_EXACT_PARAM).  Mamba-2 370M runs whole;
-# RecurrentGemma-9B is cut to one (rec, rec, attn) period (its 38 layers'
-# bf16 weights, float32 moments and accumulator, ~126 GB across the four
-# ranks, do not fit one 80 GB card), and its float32 run to a vocabulary
-# of 32000 (the four ranks' float32 state and gathered embedding and head
-# at 256000, ~92 GB, do not fit either); Whisper-small is cut to 2
-# encoder and 2 decoder layers (its 1500-frame encoder attention runs 375
-# key blocks in Python, on four ranks sharing one card).  The first bf16
-# step's loss and grad_norm against one process's, within TP_BF16_RTOL
-# (~3x the measured on an NVIDIA H100 80GB HBM3 at 700 W: loss 7.18e-6,
-# 7.26e-6, 4.94e-6; grad_norm 7.13e-3, 1.26e-4, 6.06e-4: each
-# row-parallel sum and the gathered activations round to bf16 once more,
-# through Mamba-2's 48 layers most); TP_CKPT's final checkpoint restored
-# into blocks
+# (SHARD_EXACT_RTOL, SHARD_EXACT_PARAM).  Mamba-2 370M runs whole (cut
+# to 16 layers, its first bf16 step missed TP_BF16_RTOL's loss limit,
+# which was set at 48 layers: 5.49e-5 on an NVIDIA H100 80GB HBM3 at
+# 700 W); RecurrentGemma-9B is cut to one (rec, rec, attn) period (its
+# 38 layers' bf16 weights, float32 moments and accumulator, ~126 GB
+# across the four ranks, do not fit one 80 GB card), and its float32 run
+# to a vocabulary of 32000 (the four ranks' float32 state and gathered
+# embedding and head at 256000, ~92 GB, do not fit either);
+# Whisper-small is cut to 1 encoder and 1 decoder layer (its 1500-frame
+# attention runs 375 key blocks in Python, on four ranks sharing one
+# card), a cut of depth that keeps the script within its time since the
+# tp_uneven phase came (2 + 2 layers before).  The first bf16 step's
+# loss and grad_norm against one process's, within TP_BF16_RTOL (~3x the
+# measured on an NVIDIA H100 80GB HBM3 at 700 W, Whisper at 2 + 2
+# layers: loss 7.18e-6, 7.26e-6, 4.94e-6; grad_norm 7.13e-3, 1.26e-4,
+# 6.06e-4: each row-parallel sum and the gathered activations round to
+# bf16 once more, through Mamba-2's 48 layers most); TP_CKPT's final
+# checkpoint restored into blocks
 TP_PROCS, TP_GRID, TP_AXES = 4, (2, 2), ("data", "model")
 TP_STEPS, TP_EXACT_STEPS = 3, 2
 TP_MODELS = {"mamba2-370m": ({}, {"n_layers": 2}),
              "recurrentgemma-9b": ({"n_layers": 3},
                                    {"n_layers": 3, "vocab": 32000}),
-             "whisper-small": ({"n_layers": 2, "enc_layers": 2},
-                               {"n_layers": 2, "enc_layers": 2})}
+             "whisper-small": ({"n_layers": 1, "enc_layers": 1},
+                               {"n_layers": 1, "enc_layers": 1})}
 TP_CKPT = "mamba2-370m"
 TP_BF16_RTOL = {"mamba2-370m": (2.5e-5, 2.5e-2),
                 "recurrentgemma-9b": (2.5e-5, 4e-4),
@@ -473,6 +492,34 @@ TP_TIMEOUT = 1200.0
 TP_DIR = os.path.join(HERE, "build", "tp")
 #: a rehearsal on the CPU trains the reduced configs (the job carries it)
 TP_REDUCED = False
+
+# the tp_uneven phase: tensor parallelism over a "model" axis that does not
+# split the heads evenly (rank r of M computes heads [r·H // M, (r+1)·H //
+# M): sharding/tp.py::head_range; the attention weights taken whole over
+# "model" and sliced), UNEVEN_PROCS processes sharing the card over gloo on
+# the UNEVEN_GRID grid (no FSDP: "data" holds one process), run as the
+# tp_train phase (run_tp_train) with the train phase's batch,
+# microbatches and learning rate, TP_STEPS bf16 steps through Trainer
+# (no checkpoint) and a float32 run of TP_EXACT_STEPS steps.
+# Whisper-small at its published widths (D 768, 12 heads and 12 KV heads
+# of 64, 1500 frames, vocabulary 51865; each rank holds 1.5 query heads'
+# columns of wq and computes 1 or 2 heads) cut to 1 encoder and 1 decoder
+# layer for time (its encoder attention runs 375 key blocks in Python on
+# eight ranks sharing the host).  The first bf16 step's loss and
+# grad_norm against one process's within UNEVEN_BF16_RTOL (~3x the
+# measured on an NVIDIA H100 80GB HBM3 at 700 W: 1.13e-6 and 6.98e-5);
+# float32: loss and grad_norm within UNEVEN_EXACT_RTOL (measured 0 and
+# 0), the first step's gradient within SHARD_EXACT_RTOL of its largest
+# (7.29e-7), parameters within SHARD_EXACT_PARAM (2.80e-5)
+UNEVEN_PROCS, UNEVEN_GRID, UNEVEN_AXES = 8, (1, 8), ("data", "model")
+UNEVEN_MODELS = {"whisper-small": ({"n_layers": 1, "enc_layers": 1},
+                                   {"n_layers": 1, "enc_layers": 1})}
+UNEVEN_BF16_RTOL = {"whisper-small": (3.5e-6, 2.1e-4)}
+UNEVEN_EXACT_RTOL = 1e-6
+UNEVEN_TIMEOUT = 600.0
+UNEVEN_DIR = os.path.join(HERE, "build", "tp_uneven")
+#: a rehearsal on the CPU trains the reduced configs (the job carries it)
+UNEVEN_REDUCED = False
 
 # the dryrun phase: the port's dry-run accounting (repro_torch.launch.
 # dryrun, the meta device, abstract grids, nothing allocated) of the
@@ -4495,6 +4542,59 @@ def run_sharded_train(torch, dev, gpu, wrappers) -> dict:
 
 
 # ------------------------------------------------- the expert-parallel path
+def batch_ranks(grid) -> int:
+    """The processes of ``grid``'s batch axes ("pod", "data"): with one,
+    no gradient is all-reduced over them."""
+    return math.prod(grid.shape[grid.axis_index(x)] for x in ("pod", "data")
+                     if x in grid.axes)
+
+
+def model_split_of(leaves):
+    """``split(key, dim)``: whether "model" splits dim ``dim`` (of the
+    layer's own dims: 0 or 1) of the leaf whose path ends in ``key`` (its
+    last two names; a top-level leaf's one name)."""
+    specs = {lf["path"][-2:] if _stacked_leaf(lf) else lf["path"][:1]:
+             lf["spec"] for lf in leaves}
+
+    def split(key, dim) -> bool:
+        e = specs[key][dim - 2]
+        return e is not None and "model" in (e if isinstance(e, tuple)
+                                              else (e,))
+    return split
+
+
+def whole_bytes(weights, M: int, passes: int) -> tuple:
+    """(all-gather, reduce-scatter, all-reduce) operand bytes, a
+    microbatch, of ``weights`` used whole on every model rank
+    (``tp.whole_over_model``), each given as (its bytes, whether "model"
+    splits it): a split one is gathered in each of ``passes`` (the
+    forward and the recompute) and its whole gradient reduce-scattered
+    once; a replicated one passes ``copy_to_model``, whose backward
+    all-reduces its gradient once."""
+    ag = rs = ar = 0
+    for n, is_split in weights:
+        if is_split:
+            ag += passes * n // M
+            rs += n
+        else:
+            ar += n
+    return ag, rs, ar
+
+
+def attn_whole(cfg, M: int, split, mod: str) -> list:
+    """The weights of one attention (``mod``: its module name) taken whole
+    over "model", as :func:`whole_bytes` takes them: ``wq`` and ``wo``
+    when M does not divide the H query heads
+    (``transformer.local_q_o``), ``wk`` and ``wv`` when it does not
+    divide the Kh KV heads (``local_kv``)."""
+    a = 2 if cfg.dtype == "bfloat16" else 4
+    H, Kh, D, hd = cfg.n_heads, cfg.n_kv, cfg.d_model, cfg.head_dim
+    names = ([("wq", 1, H), ("wo", 0, H)] if H % M else []) + \
+        ([("wk", 1, Kh), ("wv", 1, Kh)] if Kh % M else [])
+    return [(n * hd * D * a, split((mod, name), dim))
+            for name, dim, n in names]
+
+
 def ep_counted_bytes(cfg, leaves, grid, *, tokens: int,
                      microbatches: int) -> dict:
     """The operand bytes per step and rank that the placed MoE step counts
@@ -4506,9 +4606,12 @@ def ep_counted_bytes(cfg, leaves, grid, *, tokens: int,
     microbatch the attention's two reduces (``wo``'s, recomputed under
     remat, and ``copy_to_model``'s backward) and the expert-parallel
     MoE's three (its combine, which torch's recompute stops before, and
-    the backward of its input and of its float32 router); the
-    vocab-parallel embedding, head and loss terms where "model" splits
-    the vocabulary.  T = ``tokens`` a rank and microbatch."""
+    the backward of its input and of its float32 router); the attention
+    weights taken whole where M does not divide the heads
+    (:func:`attn_whole`); the vocab-parallel embedding, head and
+    loss terms where "model" splits the vocabulary (the loss's three in
+    its forward and in its chunk's recompute, with or without remat).
+    T = ``tokens`` a rank and microbatch."""
     from repro_torch.launch.dryrun import fsdp_all_gather, \
         grad_all_reduce, grad_reduce_scatter
     mb, T, D, a = microbatches, tokens, cfg.d_model, \
@@ -4520,17 +4623,21 @@ def ep_counted_bytes(cfg, leaves, grid, *, tokens: int,
     gather = fsdp_all_gather(layers, grid, passes=1 + remat,
                              microbatches=mb) + \
         fsdp_all_gather(top, grid, passes=1, microbatches=mb)
-    reduce = grad_all_reduce(leaves, grid, batch_split=True) + 2 * 4
+    reduce = grad_all_reduce(leaves, grid, batch_split=batch_ranks(grid)
+                             > 1) + 2 * 4
+    scatter = grad_reduce_scatter(leaves, grid, microbatches=mb)
     if M > 1:
         per_layer = (2 + remat) * T * D * a
         if cfg.n_experts % M == 0:
             per_layer += 2 * T * D * a + D * cfg.n_experts * 4
-        reduce += mb * cfg.n_layers * per_layer
+        ag, rs, ar = whole_bytes(attn_whole(
+            cfg, M, model_split_of(leaves), "layers"), M, 1 + remat)
+        gather += mb * cfg.n_layers * ag
+        scatter += mb * cfg.n_layers * rs
+        reduce += mb * cfg.n_layers * (per_layer + ar)
         if cfg.vocab % M == 0:
-            reduce += mb * (2 * T * D * a + (1 + remat) * 3 * T * 4)
-    return {"all-gather": gather,
-            "reduce-scatter": grad_reduce_scatter(leaves, grid,
-                                                  microbatches=mb),
+            reduce += mb * (2 * T * D * a + 2 * 3 * T * 4)
+    return {"all-gather": gather, "reduce-scatter": scatter,
             "all-reduce": reduce, "all-to-all": 0}
 
 
@@ -4855,19 +4962,22 @@ def tp_counted_bytes(cfg, leaves, grid, *, tokens: int, enc_tokens: int,
     layers' FSDP gathers in the forward and, under remat, the recompute,
     the top-level ones once a microbatch, the reduce-scatters once; the
     flat all-reduce of the leaves the batch axes do not split and the
-    loss; the global norm's sum per set of splitting axes.  Over "model",
-    a microbatch: each column-parallel input's backward all-reduce
-    (``copy_to_model``) once; each row-parallel sum (``reduce_from_model``)
-    in the forward and in the recompute, but for the last of a layer
-    body, which torch's recompute stops before; the gathers over "model"
-    inside the layer bodies (Mamba-2's ``in_proj`` and ``conv_w``, the
-    RG-LRU's u, a KV weight whose heads M does not divide) in both
-    passes, their reduce-scatters once; Mamba-2's norm statistic
-    (``sum_over_model``) in both passes and once in the backward, and
-    the replicated float32 vectors each rank uses a slice of
-    (``copy_to_model``) once; the encoder states' ``copy_to_model`` once;
-    the vocab-parallel embedding, head and loss terms where "model"
-    splits them.  T (Te) = a rank's decoder (encoder) ``tokens`` a
+    loss, where the batch axes hold several processes; the global norm's
+    sum per set of splitting axes.  Over "model", a microbatch: each
+    column-parallel input's backward all-reduce (``copy_to_model``) once;
+    each row-parallel sum (``reduce_from_model``) in the forward and in
+    the recompute, but for the last of a layer body, which torch's
+    recompute stops before; the weights taken whole over "model" inside
+    the layer bodies (Mamba-2's ``in_proj`` and ``conv_w``, and its
+    ``out_proj`` when M does not divide the SSD heads; the attention
+    weights whose heads M does not divide, :func:`attn_whole`) and the
+    RG-LRU's u, gathered in both passes and reduce-scattered once;
+    Mamba-2's norm statistic (``sum_over_model``) in both passes and once
+    in the backward, and the replicated float32 vectors each rank uses a
+    slice of (``copy_to_model``) once; the encoder states'
+    ``copy_to_model`` once; the vocab-parallel embedding, head and loss
+    terms where "model" splits them.  T (Te) = a rank's decoder (encoder)
+    ``tokens`` a
     microbatch."""
     from repro_torch.launch.dryrun import fsdp_all_gather, \
         grad_all_reduce, grad_reduce_scatter
@@ -4886,43 +4996,29 @@ def tp_counted_bytes(cfg, leaves, grid, *, tokens: int, enc_tokens: int,
                          if grid.shape[grid.axis_index(a_)] > 1)
         if axes:
             split_sets.add(axes)
-    reduce = grad_all_reduce(leaves, grid, batch_split=True) + \
-        4 * len(split_sets)
+    reduce = grad_all_reduce(leaves, grid, batch_split=batch_ranks(grid)
+                             > 1) + 4 * len(split_sets)
     scatter = grad_reduce_scatter(leaves, grid, microbatches=mb)
     if M == 1:
         return {"all-gather": gather, "reduce-scatter": scatter,
                 "all-reduce": reduce, "all-to-all": 0}
-    Kh, hd, K = cfg.n_kv, cfg.head_dim, cfg.conv_kernel
-    specs = {lf["path"][-2:] if _stacked_leaf(lf) else lf["path"][:1]:
-             lf["spec"] for lf in leaves}
-
-    def split(key, dim) -> bool:
-        """Whether "model" splits dim ``dim`` (of the layer's own dims)
-        of the leaf ``key`` (its last two path names)."""
-        e = specs[key][dim - 2]
-        return e is not None and "model" in (e if isinstance(e, tuple)
-                                              else (e,))
+    K = cfg.conv_kernel
+    split = model_split_of(leaves)
     ag = rs = ar = 0
 
-    def whole(nbytes, is_split):
-        """A weight used whole on every model rank: gathered in both
-        passes and reduce-scattered once, or, replicated, its gradient
-        all-reduced once (``tp.whole_over_model``)."""
+    def whole(*weights):
+        """Weights used whole on every model rank (:func:`whole_bytes`)."""
         nonlocal ag, rs, ar
-        if is_split:
-            ag += P * nbytes // M
-            rs += nbytes
-        else:
-            ar += nbytes
+        g, r, c = whole_bytes(weights, M, P)
+        ag, rs, ar = ag + g, rs + r, ar + c
 
     def attn(t, last, mod):
         """A self- or cross-attention on t tokens: the input's backward,
-        wo's sum (recomputed unless ``last``), the KV weights whole where
-        M does not divide the KV heads."""
+        wo's sum (recomputed unless ``last``), the weights taken whole
+        where M does not divide the heads (:func:`attn_whole`)."""
         nonlocal ar
         ar += t * D * a + (1 if last else P) * t * D * a
-        if Kh % M:
-            whole(2 * D * Kh * hd * a, split((mod, "wk"), 1))
+        whole(*attn_whole(cfg, M, split, mod))
 
     def mlp(t, last):
         nonlocal ar
@@ -4939,9 +5035,11 @@ def tp_counted_bytes(cfg, leaves, grid, *, tokens: int, enc_tokens: int,
     if cfg.family == "ssm":
         din, N, Hs = cfg.d_inner, cfg.ssm_state, cfg.ssm_nheads
         for _ in range(cfg.n_layers):
-            whole(D * (2 * din + 2 * N + Hs) * a,
-                  split(("ssm", "in_proj"), 1))
-            whole(K * (din + 2 * N) * a, split(("ssm", "conv_w"), 1))
+            whole((D * (2 * din + 2 * N + Hs) * a,
+                   split(("ssm", "in_proj"), 1)),
+                  (K * (din + 2 * N) * a, split(("ssm", "conv_w"), 1)))
+            if Hs % M:                        # out_proj's rows off heads
+                whole((din * D * a, split(("ssm", "out_proj"), 0)))
             ar += 2 * T * D * a + (P + 1) * T * 4 + (3 * Hs + din) * 4
     elif cfg.family == "hybrid":
         n_groups = cfg.n_layers // len(cfg.block_pattern)
@@ -4961,7 +5059,8 @@ def tp_counted_bytes(cfg, leaves, grid, *, tokens: int, enc_tokens: int,
             attn(T, False, "cross")
             mlp(T, True)
         ar += Te * D * a                      # the encoder states' copy
-    head = ("lm_head",) if ("lm_head",) in specs else ("embed",)
+    head = ("lm_head",) if any(lf["path"] == ("lm_head",)
+                               for lf in leaves) else ("embed",)
     if split(("embed",), 0):
         ar += T * D * a                       # the embedding's sum
     if split(head, 1 if head == ("lm_head",) else 0):
@@ -4971,19 +5070,46 @@ def tp_counted_bytes(cfg, leaves, grid, *, tokens: int, enc_tokens: int,
             "all-reduce": reduce + mb * ar, "all-to-all": 0}
 
 
+def tp_phase(name: str) -> dict:
+    """The settings of a tensor-parallel phase, read from its constants
+    when called (a rehearsal may have changed them; a rank finds its
+    phase by the job's ``phase``): ``tp_train`` (TP_*) or ``tp_uneven``
+    (UNEVEN_*)."""
+    if name == "tp_train":
+        return {"name": name, "procs": TP_PROCS, "grid": TP_GRID,
+                "axes": TP_AXES, "models": TP_MODELS, "ckpt": TP_CKPT,
+                "bf16_rtol": TP_BF16_RTOL, "exact_rtol": SHARD_EXACT_RTOL,
+                "timeout": TP_TIMEOUT, "dir": TP_DIR, "reduced": TP_REDUCED,
+                "title": "tensor-parallel train path", "what":
+                "the SSM, RG-LRU and encoder-decoder families' heads and "
+                "channels over \"model\", FSDP over \"data\""}
+    if name == "tp_uneven":
+        return {"name": name, "procs": UNEVEN_PROCS, "grid": UNEVEN_GRID,
+                "axes": UNEVEN_AXES, "models": UNEVEN_MODELS, "ckpt": None,
+                "bf16_rtol": UNEVEN_BF16_RTOL,
+                "exact_rtol": UNEVEN_EXACT_RTOL, "timeout": UNEVEN_TIMEOUT,
+                "dir": UNEVEN_DIR, "reduced": UNEVEN_REDUCED,
+                "title": "tensor-parallel train path, heads split unevenly",
+                "what": "each model rank's tp.head_range of the heads, "
+                "the attention weights whole over \"model\""}
+    raise ValueError(name)
+
+
 def tp_model_rank(torch, grid, arch: str, job: dict, rank: int) -> dict:
-    """One model of the tp_train phase on this rank: the placed Trainer
-    (TP_CKPT's final checkpoint restored into blocks), then the float32
-    cut run.  It measures and compares; the parent makes every check."""
+    """One model of a tensor-parallel phase on this rank: the placed
+    Trainer (the phase's ``ckpt`` model's final checkpoint restored into
+    blocks), then the float32 cut run.  It measures and compares; the
+    parent makes every check."""
     import dataclasses
 
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.models.model_zoo import build
     from repro_torch.optim.adamw import AdamWConfig
-    from repro_torch.sharding import ctx, rules
+    from repro_torch.sharding import ctx, rules, tp
     from repro_torch.train.trainer import Trainer, TrainerConfig
+    phase = tp_phase(job["phase"])
     dev = grid.device
-    cut, cut32 = TP_MODELS[arch]
+    cut, cut32 = phase["models"][arch]
     cfg = tp_config(arch, job["reduced"], cut)
     extra = tp_extra(torch, cfg, dev)
     dcfg = DataConfig(vocab=cfg.vocab, seq=job["seq"],
@@ -4994,6 +5120,7 @@ def tp_model_rank(torch, grid, arch: str, job: dict, rank: int) -> dict:
     out = {}
     with ctx.use(grid, ("data",)):
         bundle = build(cfg, device=dev)
+        out["heads"] = tp.head_range(cfg.n_heads) if cfg.n_heads else None
 
         def trainer():
             return fixed_batch_trainer(Trainer(bundle, ocfg, TrainerConfig(
@@ -5001,14 +5128,14 @@ def tp_model_rank(torch, grid, arch: str, job: dict, rank: int) -> dict:
                 log_every=1000, microbatches=TRAIN_MB, ckpt_dir=ckpt),
                 dcfg, grid=grid, extra_batch=extra))
         tr = trainer()
-        if arch != TP_CKPT:
+        if arch != phase["ckpt"]:
             tr._save = lambda *args, **kw: None
         rec, params, opt = placed_trainer_run(torch, dev, tr)
         out.update(rec)
         out["model_split"] = sorted(
             n for n, sp in rules.placement_of(params).specs.items()
             if any("model" in ax for ax in sp))
-        mine = host_state(params, opt) if arch == TP_CKPT else None
+        mine = host_state(params, opt) if arch == phase["ckpt"] else None
         del params, opt, tr
         if dev.type == "cuda":
             torch.cuda.empty_cache()
@@ -5026,8 +5153,8 @@ def tp_model_rank(torch, grid, arch: str, job: dict, rank: int) -> dict:
 
 
 def tp_train_rank(rank, job):
-    """One rank of the tp_train phase (a spawned process of
-    ``run_ranks``): every model of TP_MODELS in turn."""
+    """One rank of a tensor-parallel phase (a spawned process of
+    ``run_ranks``): every model of the phase in turn."""
     import torch
 
     from repro_torch.core.grid import ProcGrid
@@ -5035,6 +5162,7 @@ def tp_train_rank(rank, job):
     from repro_torch.kernels.dft_matmul import dft_matmul, \
         dft_matmul_twiddle
     torch.backends.cuda.matmul.allow_tf32 = False
+    phase = tp_phase(job["phase"])
     dev = torch.device(job["device"])
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
@@ -5042,9 +5170,9 @@ def tp_train_rank(rank, job):
                 sphere_pack.dft_pack)
     for fn in wrappers:
         fn.launches = 0
-    grid = ProcGrid.create(TP_GRID, TP_AXES, device=dev)
+    grid = ProcGrid.create(phase["grid"], phase["axes"], device=dev)
     out = {"coordinate": grid.coordinate, "models": {}}
-    for arch in TP_MODELS:
+    for arch in phase["models"]:
         t0 = time.perf_counter()
         out["models"][arch] = tp_model_rank(torch, grid, arch, job, rank)
         out["models"][arch]["seconds"] = time.perf_counter() - t0
@@ -5052,16 +5180,17 @@ def tp_train_rank(rank, job):
     return out
 
 
-def tp_references(torch, dev, arch: str) -> dict:
-    """One process's runs of ``arch`` for the tp_train phase, in this
+def tp_references(torch, dev, arch: str, phase: dict) -> dict:
+    """One process's runs of ``arch`` for a tensor-parallel phase, in this
     process: the first bf16 step's loss and grad_norm, and the float32
-    cut run (its parameters and first moment saved under TP_DIR)."""
+    cut run (its parameters and first moment saved under the phase's
+    directory)."""
     import dataclasses
 
     from repro_torch.data.pipeline import DataConfig, Pipeline
     from repro_torch.optim.adamw import AdamWConfig
-    cut, cut32 = TP_MODELS[arch]
-    cfg = tp_config(arch, TP_REDUCED, cut)
+    cut, cut32 = phase["models"][arch]
+    cfg = tp_config(arch, phase["reduced"], cut)
     dcfg = DataConfig(vocab=cfg.vocab, seq=TRAIN_SEQ,
                       global_batch=TRAIN_BATCH)
     batch = {k: torch.from_numpy(v).to(dev)
@@ -5073,7 +5202,7 @@ def tp_references(torch, dev, arch: str) -> dict:
         {**batch, **tp_extra(torch, cfg, dev)}, 1)
     del model
     torch.cuda.empty_cache()
-    c32 = dataclasses.replace(tp_config(arch, TP_REDUCED, cut32),
+    c32 = dataclasses.replace(tp_config(arch, phase["reduced"], cut32),
                               dtype="float32")
     d32 = dataclasses.replace(dcfg, vocab=c32.vocab)
     b32 = {k: torch.from_numpy(v).to(dev)
@@ -5082,7 +5211,7 @@ def tp_references(torch, dev, arch: str) -> dict:
         torch, dev, c32, AdamWConfig(lr=TRAIN_AGREE_LR, warmup_steps=1,
                                      total_steps=TRAIN_STEPS),
         {**b32, **tp_extra(torch, c32, dev)}, TP_EXACT_STEPS)
-    path = os.path.join(TP_DIR, f"exact_{arch}.pt")
+    path = os.path.join(phase["dir"], f"exact_{arch}.pt")
     torch.save({"params": {n: p.detach().cpu()
                            for n, p in model.named_parameters()},
                 "m1": m32}, path)
@@ -5092,11 +5221,12 @@ def tp_references(torch, dev, arch: str) -> dict:
             "exact_losses": l32, "exact_norms": n32, "path": path}
 
 
-def run_tp_train(torch, dev, gpu, wrappers) -> dict:
-    """The tp_train phase (see TP_*): one process's references of every
-    model in this process, freed before the ranks start, then TP_PROCS
-    ranks running every model, with every kernel wrapper's count set to 0
-    just before and read just after (the path reaches no hand kernel)."""
+def run_tp_train(torch, dev, gpu, wrappers, name: str = "tp_train") -> dict:
+    """A tensor-parallel phase (:func:`tp_phase`; see TP_* and UNEVEN_*):
+    one process's references of every model in this process, freed
+    before the ranks start, then the phase's ranks running every model,
+    with every kernel wrapper's count set to 0 just before and read just
+    after (the path reaches no hand kernel)."""
     import shutil
     import tempfile
 
@@ -5105,42 +5235,46 @@ def run_tp_train(torch, dev, gpu, wrappers) -> dict:
         state_bytes
     from repro_torch.models.model_zoo import build
     from repro_torch.sharding.procs import run_ranks
+    phase = tp_phase(name)
+    grid_shape, axes, procs = phase["grid"], phase["axes"], phase["procs"]
+    tag = f"{procs} processes on one card, gloo"
     t0 = time.perf_counter()
-    print(f"tensor-parallel train path ({SHARD_TAG}; the SSM, RG-LRU and "
-          "encoder-decoder families' heads and channels over \"model\", "
-          f"FSDP over \"data\"): grid {TP_GRID} {TP_AXES}; card {gpu}",
-          flush=True)
+    print(f"{phase['title']} ({tag}; {phase['what']}): grid {grid_shape} "
+          f"{axes}; card {gpu}", flush=True)
     for fn in wrappers.values():
         fn.launches = 0
-    os.makedirs(TP_DIR, exist_ok=True)
+    os.makedirs(phase["dir"], exist_ok=True)
     refs = {}
-    for arch in TP_MODELS:
+    for arch in phase["models"]:
         t1 = time.perf_counter()
-        refs[arch] = tp_references(torch, dev, arch)
+        refs[arch] = tp_references(torch, dev, arch, phase)
         print(f"  {arch}: one process's references "
               f"{time.perf_counter() - t1:.1f} s", flush=True)
-    need = ckpt_gib(refs[TP_CKPT]["cfg"])
-    free = shutil.disk_usage(TP_DIR).free / 2**30
-    check(free >= 1.05 * need,
-          f"{free:.1f} GiB of free disk for {TP_CKPT}'s {need:.2f} GiB "
-          "checkpoint with 5% to spare")
-    ckpt = tempfile.mkdtemp(prefix="tp_ckpt_", dir=TP_DIR)
-    job = {"device": str(dev), "ckpt": ckpt, "reduced": TP_REDUCED,
-           "seq": TRAIN_SEQ, "batch": TRAIN_BATCH,
+    if phase["ckpt"] is not None:
+        need = ckpt_gib(refs[phase["ckpt"]]["cfg"])
+        free = shutil.disk_usage(phase["dir"]).free / 2**30
+        check(free >= 1.05 * need,
+              f"{free:.1f} GiB of free disk for {phase['ckpt']}'s "
+              f"{need:.2f} GiB checkpoint with 5% to spare")
+    ckpt = tempfile.mkdtemp(prefix="tp_ckpt_", dir=phase["dir"])
+    job = {"phase": name, "device": str(dev), "ckpt": ckpt,
+           "reduced": phase["reduced"], "seq": TRAIN_SEQ,
+           "batch": TRAIN_BATCH,
            "exact_params": {a: r["path"] for a, r in refs.items()}}
     t1 = time.perf_counter()
     try:
-        ranks = run_ranks(tp_train_rank, TP_PROCS, args=(job,),
-                          rendezvous_dir=TP_DIR, timeout=TP_TIMEOUT,
-                          threads=SHARD_THREADS, nice=19)
+        ranks = run_ranks(tp_train_rank, procs, args=(job,),
+                          rendezvous_dir=phase["dir"],
+                          timeout=phase["timeout"], threads=SHARD_THREADS,
+                          nice=19)
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
         for r in refs.values():
             os.remove(r["path"])
     ranks_s = time.perf_counter() - t1
 
-    agrid = ProcGrid.create_abstract(TP_GRID, TP_AXES)
-    rows = TRAIN_BATCH // TP_GRID[0]
+    agrid = ProcGrid.create_abstract(grid_shape, axes)
+    rows = TRAIN_BATCH // batch_ranks(agrid)
     out = {"ranks_s": ranks_s, "models": {}}
     for arch, ref in refs.items():
         cfg = ref["cfg"]
@@ -5149,7 +5283,7 @@ def run_tp_train(torch, dev, gpu, wrappers) -> dict:
                            microbatches=TRAIN_MB)
         model_coll = model_collectives(
             cfg, "train", leaves, agrid, batch=rows, seq=TRAIN_SEQ,
-            microbatches=TRAIN_MB, batch_split=True)
+            microbatches=TRAIN_MB, batch_split=batch_ranks(agrid) > 1)
         arith = tp_counted_bytes(
             cfg, leaves, agrid, tokens=rows // TRAIN_MB * TRAIN_SEQ,
             enc_tokens=rows // TRAIN_MB * cfg.enc_seq,
@@ -5160,7 +5294,9 @@ def run_tp_train(torch, dev, gpu, wrappers) -> dict:
             "arithmetic": arith, "ranks": []}
         print(f"  {arch} ({cfg.n_layers} layers"
               + (f", {cfg.enc_layers} encoder layers" if cfg.enc_layers
-                 else "") + f", d_model {cfg.d_model}, vocab {cfg.vocab}, "
+                 else "") + f", d_model {cfg.d_model}, "
+              + (f"{cfg.n_heads} heads, {cfg.n_kv} KV heads, "
+                 if cfg.n_heads else "") + f"vocab {cfg.vocab}, "
               f"{cfg.dtype}, remat {cfg.remat!r}):", flush=True)
         for r, o in enumerate(ranks):
             m = o["models"][arch]
@@ -5169,16 +5305,19 @@ def run_tp_train(torch, dev, gpu, wrappers) -> dict:
             dts = [x["dt"] for x in h]
             steady = sum(dts[1:]) / len(dts[1:])
             m["steady_step_ms"] = steady * 1e3
-            print(f"    rank {r} {o['coordinate']}: parameters "
-                  f"{m['param_bytes']:,} B, AdamW state {m['opt_bytes']:,} "
-                  f"B (accounting {acct['params']:,} and "
+            print(f"    rank {r} {o['coordinate']}"
+                  + (f" heads [{m['heads'][0]}, {m['heads'][1]})"
+                     if m["heads"] else "")
+                  + f": parameters {m['param_bytes']:,} B, AdamW state "
+                  f"{m['opt_bytes']:,} B (accounting {acct['params']:,} and "
                   f"{acct['opt_state']:,}); peak "
                   f"{_gib(m['peak_bytes'] / 2**30)}; step ms "
                   + ", ".join(f"{d * 1e3:.1f}" for d in dts)
-                  + f", steady {steady * 1e3:.1f} ({SHARD_TAG}, {gpu}); "
+                  + f", steady {steady * 1e3:.1f} ({tag}, {gpu}); "
                   "losses " + ", ".join(f"{x['loss']:.5f}" for x in h)
                   + (f"; checkpoint save {m['save_s']:.1f} s, restore "
-                     f"{m['restore_s']:.1f} s" if arch == TP_CKPT else "")
+                     f"{m['restore_s']:.1f} s" if arch == phase["ckpt"]
+                     else "")
                   + f"; {m['seconds']:.1f} s", flush=True)
             check(m["placed"] and m["on_card"] and m["model_split"],
                   f"{arch} rank {r}: weights placed, {len(m['model_split'])}"
@@ -5187,7 +5326,7 @@ def run_tp_train(torch, dev, gpu, wrappers) -> dict:
             check(m["param_bytes"] == acct["params"] and
                   m["opt_bytes"] == acct["opt_state"],
                   f"{arch} rank {r}: parameter and AdamW state bytes equal "
-                  f"the dry run's state_bytes on the abstract {TP_GRID} "
+                  f"the dry run's state_bytes on the abstract {grid_shape} "
                   "grid to the byte")
             check(all(c == arith for c in m["collectives_per_step"]),
                   f"{arch} rank {r}: the counted collective bytes of every "
@@ -5195,12 +5334,19 @@ def run_tp_train(torch, dev, gpu, wrappers) -> dict:
                   f"{m['collectives_per_step']})")
             check(h[0]["loss"] == ranks[0]["models"][arch]["history"][0][
                 "loss"], f"{arch} rank {r}: the same loss as rank 0")
-            if arch == TP_CKPT:
+            if arch == phase["ckpt"]:
                 check(m["restored_step"] == TP_STEPS and
                       m["restored_bitwise"] and m["restored_local"],
                       f"{arch} rank {r}: the step-{TP_STEPS} checkpoint "
                       "(whole tensors) restored into this rank's blocks, "
                       "bitwise")
+        if cfg.n_heads:
+            got = sorted(x for o in ranks for x in range(
+                *o["models"][arch]["heads"]))
+            M = grid_shape[axes.index("model")]
+            check(got == sorted(list(range(cfg.n_heads)) * (procs // M)),
+                  f"{arch}: the model ranks' head ranges cover each of the "
+                  f"{cfg.n_heads} heads once")
         counted = ranks[0]["models"][arch]["collectives_per_step"][0]
         print(f"    collective operand bytes per step and device (counted "
               "on rank 0, step 1) vs the dry run's model_collectives: "
@@ -5224,30 +5370,30 @@ def run_tp_train(torch, dev, gpu, wrappers) -> dict:
         res["exact_agreement"] = {"loss_rel": el, "grad_norm_rel": en,
                                   "param_err": ex["param_err"],
                                   "first_moment_err": ex["first_moment_err"]}
-        print(f"    float32 ({TP_MODELS[arch][1]}), {TP_EXACT_STEPS} steps, "
-              f"placed vs one process: loss {el:.2e}, grad_norm {en:.2e}, "
-              f"first moment {ex['first_moment_err'][0]:.2e} (at "
+        print(f"    float32 ({phase['models'][arch][1]}), {TP_EXACT_STEPS} "
+              f"steps, placed vs one process: loss {el:.2e}, grad_norm "
+              f"{en:.2e}, first moment {ex['first_moment_err'][0]:.2e} (at "
               f"{ex['first_moment_err'][1]}), parameters "
               f"{ex['param_err'][0]:.2e} (at {ex['param_err'][1]})",
               flush=True)
         out["models"][arch] = res
     for arch, res in out["models"].items():
         agree, ex = res["full_width_agreement"], res["exact_agreement"]
-        lim_loss, lim_norm = TP_BF16_RTOL[arch]
+        lim_loss, lim_norm = phase["bf16_rtol"][arch]
         check(agree["loss_rel"] <= lim_loss and
               agree["grad_norm_rel"] <= lim_norm,
               f"{arch} bf16 placed vs one process, first step: loss "
               f"{agree['loss_rel']:.2e} <= {lim_loss:g}, grad_norm "
               f"{agree['grad_norm_rel']:.2e} <= {lim_norm:g}")
-        check(ex["loss_rel"] <= SHARD_EXACT_RTOL and
-              ex["grad_norm_rel"] <= SHARD_EXACT_RTOL and
+        lim = phase["exact_rtol"]
+        check(ex["loss_rel"] <= lim and ex["grad_norm_rel"] <= lim and
               ex["first_moment_err"][0] <= SHARD_EXACT_RTOL and
               ex["param_err"][0] <= SHARD_EXACT_PARAM,
               f"{arch} float32, {TP_EXACT_STEPS} steps, placed vs one "
               f"process: loss {ex['loss_rel']:.2e}, grad_norm "
-              f"{ex['grad_norm_rel']:.2e}, the first step's gradient "
-              f"(first moment) {ex['first_moment_err'][0]:.2e} of its "
-              f"largest <= {SHARD_EXACT_RTOL:g}; parameters "
+              f"{ex['grad_norm_rel']:.2e} <= {lim:g}; the first step's "
+              f"gradient (first moment) {ex['first_moment_err'][0]:.2e} of "
+              f"its largest <= {SHARD_EXACT_RTOL:g}; parameters "
               f"{ex['param_err'][0]:.2e} of the largest <= "
               f"{SHARD_EXACT_PARAM:g}")
     launches = {k: fn.launches for k, fn in wrappers.items()}
@@ -5256,10 +5402,9 @@ def run_tp_train(torch, dev, gpu, wrappers) -> dict:
             launches[k] += v
     out["launches"] = launches
     check(not any(launches.values()),
-          f"the tensor-parallel train path launched no hand kernel: "
-          f"{launches}")
+          f"the {phase['title']} launched no hand kernel: {launches}")
     out["seconds"] = time.perf_counter() - t0
-    print(f"tp_train phase: {out['seconds']:.1f} s (ranks {ranks_s:.1f} s)",
+    print(f"{name} phase: {out['seconds']:.1f} s (ranks {ranks_s:.1f} s)",
           flush=True)
     torch.cuda.empty_cache()
     return out
@@ -5566,6 +5711,8 @@ def main() -> int:
     print("ep_train: " + json.dumps(ep), flush=True)
     tp_run = run_tp_train(torch, dev, gpu, wrappers)
     print("tp_train: " + json.dumps(tp_run, default=str), flush=True)
+    uneven = run_tp_train(torch, dev, gpu, wrappers, "tp_uneven")
+    print("tp_uneven: " + json.dumps(uneven, default=str), flush=True)
 
     t0 = time.perf_counter()
     print(f"dry run (meta device, abstract grids; calibration on {gpu}):",
@@ -5604,6 +5751,7 @@ def main() -> int:
                "sharded_train": sharded["launches"],
                "ep_train": ep["launches"],
                "tp_train": tp_run["launches"],
+               "tp_uneven": uneven["launches"],
                "examples": examples["launches"]}
     # the multi-rank paths' launches, per rank (each a list over the
     # ranks): the fused steps count the warm-up's and the capture's

@@ -16,7 +16,10 @@ weights of every family (FSDP over the batch axes; over "model" the
 heads and MLP columns of the dense, VLM and encoder-decoder models, the
 MoE's experts, Mamba-2's SSD heads and the RG-LRU's channels:
 ``--arch granite-moe-3b-a800m --grid 2x2``, ``--arch mamba2-370m --grid
-2x2``).
+2x2``), whether "model" splits the heads evenly or not (``--arch
+whisper-small --grid 1x8``: 4 reduced heads on 8 model ranks; ``--preset
+100m --grid 1x8``: 12 heads on 8; ``--preset full``: Whisper-small's 12
+heads and Granite-MoE's 24 on the production grid's 16).
 Checkpointing, auto-resume (run again with the same ``--ckpt-dir``:
 training continues from the newest committed step) and gradient
 compression are flags.

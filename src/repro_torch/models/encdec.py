@@ -12,9 +12,12 @@ On placed weights whose "model" axis splits the attention (training
 only; ``sharding/rules.py::place_params``) the encoder's and the
 cross-attention's heads split over it as the decoder's self-attention's
 (``transformer._attn_tp``): this rank's ``wq`` columns and KV heads, and
-``wo``'s rows summed over "model".  The encoder states enter the
-decoder's cross-attention through ``copy_to_model`` once, so their
-gradient sums over "model" once for every layer.
+``wo``'s rows summed over "model"; when the axis does not split the
+heads evenly (Whisper-small's 12 heads on 16, or on 8), each rank takes
+its ``tp.head_range`` of the whole weights (``transformer.local_q_o``).
+The encoder states enter the decoder's cross-attention through
+``copy_to_model`` once, so their gradient sums over "model" once for
+every layer.
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ from .attention import blocked_attention, decode_attention
 from .layers import mlp_apply, rms_norm, sinusoidal_pos, weight, zeros
 from .transformer import Layer, _attn_tp, _dtype, _embed, _positions, \
     _remat, attn_apply, attn_split, embedding, lm_head, local_heads, \
-    local_kv, logits_fn
+    local_kv, local_q_o, logits_fn
 
 
 class Cross(nn.Module):
@@ -94,7 +97,7 @@ def _cross_kv(xp, enc, cfg):
     """The cross-attention's k/v of the encoder states; on a model split,
     those of this rank's heads (``enc`` went through ``copy_to_model``)."""
     if attn_split(xp):
-        return local_kv(xp, enc, cfg, local_heads(xp, cfg))
+        return local_kv(xp, enc, cfg, *local_heads(cfg))
     B, Se, _ = enc.shape
     k = (enc @ xp.wk).reshape(B, Se, cfg.n_kv, cfg.head_dim)
     v = (enc @ xp.wv).reshape(B, Se, cfg.n_kv, cfg.head_dim)
@@ -107,9 +110,13 @@ def _cross_apply(xp, x, k, v, cfg):
     h = rms_norm(x, xp.ln, cfg.norm_eps)
     if split:                            # this model rank's heads
         h = tp.copy_to_model(h)
-    q = (h @ xp.wq).reshape(B, S, -1, cfg.head_dim)
+        h0, Hl = local_heads(cfg)
+        wq, wo = local_q_o(xp, cfg, h0, Hl)
+    else:
+        Hl, wq, wo = cfg.n_heads, xp.wq, xp.wo
+    q = (h @ wq).reshape(B, S, Hl, cfg.head_dim)
     o = blocked_attention(q, k, v, causal=False)
-    out = o.reshape(B, S, -1) @ xp.wo
+    out = o.reshape(B, S, Hl * cfg.head_dim) @ wo
     return tp.reduce_from_model(out) if split else out
 
 

@@ -8,15 +8,18 @@ depthwise temporal conv optionally routes through FFTB's ``fft_conv``
 family; decode always runs the direct conv against its carried state.
 
 On placed weights whose "model" axis splits the block (training only;
-``sharding/rules.py::place_params``) each model rank runs H/M of the SSD
-heads (:func:`_ssm_block_tp`): the SSD scan is independent per head and
+``sharding/rules.py::place_params``) each model rank runs its
+``tp.head_range`` of the SSD heads, H/M when M divides H
+(:func:`_ssm_block_tp`): the SSD scan is independent per head and
 B, C are one group that every head shares.  The stored column blocks of
 ``in_proj`` (x | gate | B | C | dt) and ``conv_w`` (x | B | C) do not
 fall on heads, so both are gathered whole over "model" and each rank
 takes its heads' columns of x, gate and dt and all of B and C;
-``out_proj``'s row block is head-aligned and row-parallel.  The gated
-RMSNorm normalises over the whole ``d_inner``: its sum of squares is
-summed over "model" by ``tp.sum_over_model``.
+``out_proj`` is row-parallel: its row block when that block is the
+rank's heads, else its rows of the whole weight taken over "model".
+The gated RMSNorm normalises over the whole ``d_inner``: its sum of
+squares is summed over "model" by ``tp.sum_over_model`` (the ranks'
+channels cover ``d_inner`` once, evenly split or not).
 """
 from __future__ import annotations
 
@@ -175,26 +178,26 @@ def _model_split(p) -> bool:
 
 
 def _ssm_block_tp(p, x, cfg):
-    """The training block on this model rank's H/M heads (the module
-    docstring); ``x`` is whole on every model rank."""
+    """The training block on this model rank's SSD heads
+    (``tp.head_range``; the module docstring); ``x`` is whole on every
+    model rank."""
     B, S, D = x.shape
     din, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_nheads, \
         cfg.ssm_headdim
-    M = tp.model_size()
-    if H % M or not tp.model_split(p, "out_proj", 0):
-        raise NotImplementedError(
-            f"tensor-parallel SSD needs the 'model' axis ({M}) to split "
-            f"the {H} heads evenly and out_proj by rows")
-    Hl = H // M
-    h0 = tp.model_rank() * Hl
-    heads = slice(h0, h0 + Hl)
+    h0, h1 = tp.head_range(H)
+    Hl = h1 - h0
+    heads = slice(h0, h1)
     # this rank's columns of x | gate | B | C | dt, and of the conv's x | B | C
-    c0, c1 = h0 * P, (h0 + Hl) * P
+    c0, c1 = h0 * P, h1 * P
     w_in = _columns(tp.whole_over_model(p, "in_proj", 1), (
         (c0, c1), (din + c0, din + c1), (2 * din, 2 * din + 2 * N),
-        (2 * din + 2 * N + h0, 2 * din + 2 * N + h0 + Hl)))
+        (2 * din + 2 * N + h0, 2 * din + 2 * N + h1)))
     w_conv = _columns(tp.whole_over_model(p, "conv_w", 1),
                       ((c0, c1), (din, din + 2 * N)))
+    if H % tp.model_size() == 0 and tp.model_split(p, "out_proj", 0):
+        w_out = p.out_proj                # the row block is these heads
+    else:
+        w_out = tp.whole_over_model(p, "out_proj", 0)[c0:c1]
     z = tp.copy_to_model(x) @ w_in
     zx, gate, Bm, Cm, dt = torch.split(z, [Hl * P, Hl * P, N, N, Hl],
                                        dim=-1)
@@ -212,7 +215,7 @@ def _ssm_block_tp(p, x, cfg):
     y = y.reshape(B, S, Hl * P).to(x.dtype)
     y = _rms_norm_tp(y * F.silu(gate), tp.copy_to_model(p.norm_scale)[c0:c1],
                      din, cfg.norm_eps)
-    return tp.reduce_from_model(y @ p.out_proj)
+    return tp.reduce_from_model(y @ w_out)
 
 
 def _columns(w, ranges):

@@ -18,7 +18,9 @@ reference's ``jax.checkpoint`` of its scan body); with gradients off
 On placed weights (``sharding/rules.py::place_params``) each layer body
 first gathers its FSDP-split weights (``sharding/tp.py``, inside the
 remat region), and the "model" axis runs Megatron's tensor parallelism:
-each rank computes its heads (:func:`attn_apply`) and its columns of the
+each rank computes its heads (:func:`attn_apply`; ``tp.head_range``
+names them, and when the axis does not split them evenly the attention
+weights are taken whole over "model" and sliced) and its columns of the
 MLP, the row-parallel ``wo``/``w_down`` sums go through an all-reduce,
 the embedding looks up its vocab block (:func:`_embed`) and
 :func:`logits_fn` gives this rank's vocab columns.  An MoE layer keeps
@@ -137,26 +139,41 @@ def attn_split(p) -> bool:
         ("wq", 1), ("wk", 1), ("wv", 1), ("wo", 0)))
 
 
-def local_heads(p, cfg) -> int:
-    """The query heads a model rank computes, H/M; raises unless the
-    "model" axis (M) splits the heads evenly, ``wq`` by columns and
-    ``wo`` by rows."""
-    H, M = cfg.n_heads, tp.model_size()
-    if H % M or not (tp.model_split(p, "wq", 1)
-                     and tp.model_split(p, "wo", 0)):
-        raise NotImplementedError(
-            f"tensor-parallel attention needs the 'model' axis ({M}) to "
-            f"split the {H} query heads evenly, wq by columns and wo by "
-            "rows")
-    return H // M
+def heads_even(p, cfg) -> bool:
+    """Whether the stored blocks of ``wq`` (columns) and ``wo`` (rows)
+    are this model rank's heads: the "model" axis (M) divides the H
+    query heads and splits both."""
+    return cfg.n_heads % tp.model_size() == 0 and \
+        tp.model_split(p, "wq", 1) and tp.model_split(p, "wo", 0)
 
 
-def local_kv(p, h, cfg, Hl: int):
-    """(k, v) of (B, S, ·, hd) for this model rank's ``Hl`` query heads
-    from ``h`` (which went through ``copy_to_model``): ``wk``/``wv``'s
-    column blocks give the matching KV heads when M divides Kh, else each
-    local query head's KV head comes from the whole ``wk``/``wv``
-    (:func:`~repro_torch.sharding.tp.whole_over_model`)."""
+def local_heads(cfg) -> tuple[int, int]:
+    """(h0, Hl): the first query head a model rank computes and how many
+    (``tp.head_range``: H/M each when M divides H; 0 on some ranks when
+    H < M)."""
+    h0, h1 = tp.head_range(cfg.n_heads)
+    return h0, h1 - h0
+
+
+def local_q_o(p, cfg, h0: int, Hl: int):
+    """(``wq``'s columns, ``wo``'s rows) of the query heads ``[h0, h0 +
+    Hl)``: the stored blocks when they are those heads
+    (:func:`heads_even`), else slices of the weights taken whole over
+    "model" (``tp.whole_over_model``: gathered inside the remat region,
+    the gradient reduce-scattered back to the block)."""
+    if heads_even(p, cfg):
+        return p.wq, p.wo
+    cols = slice(h0 * cfg.head_dim, (h0 + Hl) * cfg.head_dim)
+    return tp.whole_over_model(p, "wq", 1)[:, cols], \
+        tp.whole_over_model(p, "wo", 0)[cols]
+
+
+def local_kv(p, h, cfg, h0: int, Hl: int):
+    """(k, v) of (B, S, ·, hd) for the query heads ``[h0, h0 + Hl)`` from
+    ``h`` (which went through ``copy_to_model``): ``wk``/``wv``'s column
+    blocks give the matching KV heads when M divides Kh (and so H), else
+    each query head's KV head (by its global index) comes from the whole
+    ``wk``/``wv`` (:func:`~repro_torch.sharding.tp.whole_over_model`)."""
     B, S, _ = h.shape
     H, Kh, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
     M = tp.model_size()
@@ -164,7 +181,6 @@ def local_kv(p, h, cfg, Hl: int):
         k = (h @ p.wk).reshape(B, S, Kh // M, hd)
         v = (h @ p.wv).reshape(B, S, Kh // M, hd)
         return k, v
-    h0 = tp.model_rank() * Hl
     kv = torch.arange(h0, h0 + Hl, device=h.device) // (H // Kh)
     k = (h @ tp.whole_over_model(p, "wk", 1)).reshape(B, S, Kh, hd)
     v = (h @ tp.whole_over_model(p, "wv", 1)).reshape(B, S, Kh, hd)
@@ -174,17 +190,20 @@ def local_kv(p, h, cfg, Hl: int):
 def _attn_tp(p, x, cfg, positions, window: int = 0, *, causal: bool = True,
              rope: bool = True):
     """The training attention on this rank's heads (tensor parallelism
-    over "model"): ``wq``'s column block gives H/M query heads,
-    :func:`local_kv` their KV heads, and ``wo``'s row block gives a
-    partial sum, reduced over "model".  ``causal`` and ``rope`` False:
-    the encoder's bidirectional attention without positions
-    (``models/encdec.py``)."""
+    over "model"): :func:`local_heads` names them, :func:`local_q_o`
+    gives their ``wq`` columns and ``wo`` rows (the stored blocks, or
+    slices of the whole weights when M does not split the heads evenly),
+    :func:`local_kv` their KV heads; ``wo``'s partial sum is reduced over
+    "model".  A rank with no heads runs the same collectives on empty
+    heads and adds zeros.  ``causal`` and ``rope`` False: the encoder's
+    bidirectional attention without positions (``models/encdec.py``)."""
     B, S, _ = x.shape
     hd = cfg.head_dim
-    Hl = local_heads(p, cfg)
+    h0, Hl = local_heads(cfg)
     h = tp.copy_to_model(rms_norm(x, p.ln1, cfg.norm_eps))
-    q = (h @ p.wq).reshape(B, S, Hl, hd)
-    k, v = local_kv(p, h, cfg, Hl)
+    wq, wo = local_q_o(p, cfg, h0, Hl)
+    q = (h @ wq).reshape(B, S, Hl, hd)
+    k, v = local_kv(p, h, cfg, h0, Hl)
     if cfg.qk_norm:              # every model rank scales its own heads
         q = rms_norm(q, tp.copy_to_model(p.q_norm), cfg.norm_eps)
         k = rms_norm(k, tp.copy_to_model(p.k_norm), cfg.norm_eps)
@@ -192,7 +211,7 @@ def _attn_tp(p, x, cfg, positions, window: int = 0, *, causal: bool = True,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     o = blocked_attention(q, k, v, causal=causal, window=window)
-    return tp.reduce_from_model(o.reshape(B, S, Hl * hd) @ p.wo)
+    return tp.reduce_from_model(o.reshape(B, S, Hl * hd) @ wo)
 
 
 def layer_apply(p, x, cfg, positions, *, window: int = 0, cache=None,

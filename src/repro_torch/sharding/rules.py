@@ -24,7 +24,11 @@ RG-LRU's block of R (``models/rglru.py``), the encoder's and the
 cross-attention's heads (``models/encdec.py``), and the MoE's E/M
 experts per model rank by ``_MOE_RULES``: expert parallelism,
 ``models/moe.py``), and the train step reduces each gradient by its
-placement (``train/train_step.py``).
+placement (``train/train_step.py``).  The blocks are the reference's
+whatever the heads: a "model" axis that divides H·hd but not the H heads
+(Whisper-small's 12 on 16) splits ``wq`` by columns off head
+boundaries, and each rank then computes its ``tp.head_range`` of the
+heads from the weights taken whole over "model".
 :func:`gather_params` is the inverse, for checkpoints and tests.  There is no counterpart of ``logical_axis_env``:
 the port names no logical axes for a compiler.  A grid whose batch axes
 do not divide the batch replicates the batch (:func:`batch_axis`), and
@@ -197,8 +201,10 @@ def place_params(model, grid) -> Placement | None:
     under :func:`param_specs` on ``grid``, in place: the same parameter
     objects and names, each holding the slices of its spec at the rank's
     grid coordinates.  An entry that :func:`drop_indivisible` replicates
-    stays whole.  Returns the :class:`Placement` (also kept on the model),
-    or None when no axis of ``grid`` splits any parameter."""
+    stays whole; a block need not fall on head boundaries (the layers
+    take such weights whole over "model", ``sharding/tp.py``).  Returns
+    the :class:`Placement` (also kept on the model), or None when no axis
+    of ``grid`` splits any parameter."""
     from repro_torch.ckpt.checkpoint import _block
     from repro_torch.models.model_zoo import reference_name, stacked_lists
     if placement_of(model) is not None:

@@ -30,7 +30,10 @@ its axes hold one process:
 
 :func:`whole_over_model` gives a weight whole on every model rank (a
 gather, or the replicated weight through :func:`copy_to_model`), for a
-layer whose stored blocks are not the columns each rank computes with.
+layer whose stored blocks are not the columns each rank computes with:
+Mamba-2's ``in_proj``, and every attention weight when the "model" axis
+does not split the heads evenly (:func:`head_range` gives each rank its
+heads, whatever the stored blocks).
 
 :func:`gathered` wraps a layer body: every parameter of the layer's
 module split over the batch axes is gathered over them before the body
@@ -83,6 +86,16 @@ def model_rank() -> int:
     if g is None or "model" not in g.axes:
         return 0
     return g.coordinate[g.axis_index("model")]
+
+
+def head_range(n: int) -> tuple[int, int]:
+    """``[h0, h1)``: the heads of ``n`` this model rank computes.  Rank r
+    of M takes ``[r·n // M, (r+1)·n // M)``: n/M heads each when M
+    divides n, else one more or less, and none on some ranks when n < M
+    (such a rank still joins every collective of the layer, with
+    zeros).  Attention and Mamba-2's SSD take their heads by it."""
+    M, r = model_size(), model_rank()
+    return r * n // M, (r + 1) * n // M
 
 
 def model_split(module, name: str, dim: int) -> bool:

@@ -3,12 +3,16 @@
 RG-LRU and encoder-decoder families beside the dense decoder: what XLA
 compiles for their tensor parallelism over "model".
 
-    PYTHONPATH=src python tools/ref_tp_hlo.py
+    PYTHONPATH=src python tools/ref_tp_hlo.py [--uneven]
 
 Reduced configs, float32, remat "none", 4 x 32 tokens (Whisper's stub
 frames 4 x 16 x d_model from numpy): TinyLlama and Mamba-2 cut to one
 layer, RecurrentGemma to one (rec, rec, attn) period, Whisper to 2
-encoder layers and 1 decoder layer.  The reference's own
+encoder layers and 1 decoder layer.  With ``--uneven`` the same cuts
+with heads that the 2-way "model" axis does not split evenly
+(``UNEVEN``): Whisper with 3 heads and 3 KV heads, Granite-MoE with 3
+heads and 1 KV head, RecurrentGemma with 3 heads, Mamba-2 at d_model 24
+(3 SSD heads).  The reference's own
 ``make_train_step(..., donate=False)`` lowered and compiled on weights
 placed by ``param_shardings``, its optimized HLO read by
 ``repro.launch.dryrun.collective_bytes``.  Prints one row per
@@ -40,6 +44,14 @@ CASES = (("tinyllama-1.1b", {"n_layers": 1}, "dense, for scale"),
           "one (rec, rec, attn) period"),
          ("whisper-small", {"enc_layers": 2, "n_layers": 1},
           "2 encoder, 1 decoder layer"))
+UNEVEN = (("whisper-small", {"enc_layers": 2, "n_layers": 1, "n_heads": 3,
+                             "n_kv": 3}, "3 heads, 3 KV heads"),
+          ("granite-moe-3b-a800m", {"n_layers": 1, "n_heads": 3,
+                                    "n_kv": 1}, "3 heads, 1 KV head"),
+          ("recurrentgemma-9b", {"n_layers": 3, "n_heads": 3},
+           "one period, 3 heads"),
+          ("mamba2-370m", {"n_layers": 1, "d_model": 24},
+           "3 SSD heads"))
 
 
 def step_hlo(arch: str, kw: dict, mesh) -> str:
@@ -63,11 +75,13 @@ def step_hlo(arch: str, kw: dict, mesh) -> str:
 
 
 def main():
+    import sys
+    cases = UNEVEN if "--uneven" in sys.argv[1:] else CASES
     mesh = make_mesh((2, 2), ("data", "model"))
     kinds = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
              "collective-permute")
     print("config | " + " | ".join(kinds))
-    for arch, kw, what in CASES:
+    for arch, kw, what in cases:
         got = collective_bytes(step_hlo(arch, kw, mesh))
         print(f"{arch} ({what}) | "
               + " | ".join(f"{got.get(k, 0):,}" for k in kinds), flush=True)
