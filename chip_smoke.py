@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --compare-kernel1 DIR
+    python3 chip_smoke.py --production-grid
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``,
 holds each against its plain PyTorch version (kernel #1 also, through
@@ -42,11 +43,12 @@ through host memory, so the phase times what the ranks' local shapes
 cost under that transport and gives no scaling number) run the SCF's
 widths on the 2×2 batch×fft grid: one stacked H apply per rank against
 the single-rank one (within 1e-5 of the largest value, padded lanes
-exactly +0.0), one all-to-all timed, then the same 3-iteration SCF from
-the same start against the single-rank eager "cuda" run (PERF.md §2's
-limits); kernels #1, #3 and #4 are counted per rank, with the counts set
-to 0 in each rank just before its run.  In the same processes the fused
-step (``jit_step=True``, linear mixing) runs that SCF on that grid: its
+exactly +0.0), one all-to-all timed, then the SCF for MR_ITERS
+iterations from the same start against a single-rank eager "cuda" run
+of as many (PERF.md §2's limits); kernels #1, #3 and #4 are counted
+per rank, with the counts set to 0 in each rank just before its run.
+In the same processes the fused step (``jit_step=True``, linear mixing)
+runs that SCF on that grid: its
 graphs and host syncs per iteration (by name), first and steady
 seconds per iteration and peak memory per rank, held against the 2×2
 eager run and against one rank's fused step.  Eight processes then run
@@ -157,10 +159,10 @@ through host memory, so no scaling number):
 
 * ``tinyllama-1.1b`` at its published widths cut to 4 layers through
   ``Trainer``, the train phase's batch of 8 x 1024 tokens in 2
-  microbatches, 3 steps: per rank the parameter and AdamW state bytes,
-  which must equal ``launch/dryrun.py::state_bytes`` on the abstract
-  2×2 grid to the byte, the peak memory, ms per steady step and the
-  operand bytes of each collective kind per step
+  microbatches, SHARD_STEPS steps: per rank the parameter and AdamW
+  state bytes, which must equal ``launch/dryrun.py::state_bytes`` on
+  the abstract 2×2 grid to the byte, the peak memory, ms per steady
+  step and the operand bytes of each collective kind per step
   (``core/grid.py::COLLECTIVE_BYTES``) beside ``model_collectives``'
   prediction; the first step's loss and
   grad_norm against one process's step from the same weights and batch
@@ -176,25 +178,27 @@ Then the ep_train phase, expert parallelism on placed weights (each
 model rank keeps 20 of Granite-MoE's 40 experts, FSDP over "data";
 every kernel's launches over the phase must be 0): ``granite-moe-3b-
 a800m`` at its published widths cut to 4 layers through ``Trainer`` on
-the same 2×2 grid, batch and microbatches, 3 steps, with no checkpoint;
-per rank the state bytes against ``state_bytes`` to the byte, the peak,
-ms per steady step and the counted collective bytes per kind, which must
-equal ``ep_counted_bytes`` (PERF.md §5's arithmetic) and are printed
-beside ``model_collectives``; the first step against one process routed
-per batch row (run first and freed before the ranks start), and the
-float32 2-layer run held as the sharded_train phase's.
+the same 2×2 grid, batch and microbatches, EP_STEPS steps, with no
+checkpoint; per rank the state bytes against ``state_bytes`` to the
+byte, the peak, ms per steady step and the counted collective bytes
+per kind, which must equal ``ep_counted_bytes`` (PERF.md §5's
+arithmetic) and are printed beside ``model_collectives``; the first
+step against one process routed per batch row (run first and freed
+before the ranks start), and the float32 2-layer run held as the
+sharded_train phase's.
 
 Then the tp_train phase, tensor parallelism over "model" for the SSM,
 RG-LRU and encoder-decoder families on the same 2×2 grid, batch and
 microbatches (FSDP over "data"; every kernel's launches over the phase
-must be 0): ``mamba2-370m`` at its published config (its final
-checkpoint restored into blocks, bitwise), ``recurrentgemma-9b`` at
+must be 0): ``mamba2-370m`` at its published widths cut to
+MAMBA_LAYERS layers (its final checkpoint restored into blocks,
+bitwise; its bf16 limit derived from depth), ``recurrentgemma-9b`` at
 published widths cut to one (rec, rec, attn) period and
 ``whisper-small`` cut to 1 encoder and 1 decoder layer (2 + 2 until the
-tp_uneven phase came: the script's time), each through
-``Trainer`` for 3 steps in one spawn of four ranks: per rank the state
-bytes against ``state_bytes`` to the byte, the peak, ms per steady step
-and the counted collective bytes per kind, which must equal
+tp_uneven phase came: the script's time), each through ``Trainer`` for
+TP_STEPS steps in one spawn of four ranks: per rank the state bytes
+against ``state_bytes`` to the byte, the peak, ms per steady step and
+the counted collective bytes per kind, which must equal
 ``tp_counted_bytes`` (PERF.md §5's arithmetic) and are printed beside
 ``model_collectives``; the first step against one process (run first,
 and freed, in this process), and a float32 cut run (TP_MODELS) held as
@@ -213,6 +217,16 @@ grid, counted collective bytes against ``tp_counted_bytes`` (whose
 head ranges covering every head once, the bf16 first step against one
 process within UNEVEN_BF16_RTOL and the float32 run's loss and grad_norm
 within UNEVEN_EXACT_RTOL.
+
+With ``--production-grid`` the script runs only the tp_production
+phase, the tp_uneven phase on the reference's 16-way "model" axis, the
+(1, 16) grid, sixteen processes: ``granite-moe-3b-a800m`` at its
+published widths cut to 1 layer, where 16 divides none of its 24 heads,
+8 KV heads, 40 experts and 49155 rows (each rank computes 1 or 2 heads,
+query head h reads KV head h // 3, all 40 experts whole on every rank
+route in one global group; counted bytes against ``ep_counted_bytes``;
+its float32 run replays one process's routing), and ``whisper-small``
+as in tp_uneven, four of whose ranks compute no heads.
 
 Then the dryrun phase, the port's dry run (``repro_torch.launch.
 dryrun``: an accounting on the ``meta`` device over abstract grids, no
@@ -397,7 +411,8 @@ TRAIN_CKPT_GIB = 10.25
 # SHARD_LAYERS of its 22 layers (a cut of depth that keeps the script
 # within its time since the tp_train phase came) through Trainer (the
 # train phase's batch, microbatches and learning rate, SHARD_STEPS
-# steps, its final checkpoint restored into blocks); the
+# steps, 3 until Granite-MoE's (1, 16) run came (see TP_STEPS), its
+# final checkpoint restored into blocks); the
 # first step's loss and grad_norm against one process's step from the
 # same weights and batch within SHARD_LOSS_RTOL / SHARD_GNORM_RTOL (bf16:
 # each row-parallel output rounds to bf16 once more; measured 5.75e-6
@@ -413,7 +428,7 @@ TRAIN_CKPT_GIB = 10.25
 # itself: 0)
 SHARD_PROCS, SHARD_GRID, SHARD_AXES = 4, (2, 2), ("data", "model")
 SHARD_LAYERS = 4
-SHARD_STEPS, SHARD_EXACT_LAYERS, SHARD_EXACT_STEPS = 3, 2, 2
+SHARD_STEPS, SHARD_EXACT_LAYERS, SHARD_EXACT_STEPS = 2, 2, 2
 SHARD_LOSS_RTOL, SHARD_GNORM_RTOL = 2e-5, 1e-3
 SHARD_EXACT_RTOL, SHARD_EXACT_PARAM = 1e-5, 1e-3
 SHARD_TIMEOUT, SHARD_THREADS = 900.0, 2
@@ -428,7 +443,8 @@ SHARD_REDUCED = False
 # 3B-A800M at its published widths cut to EP_LAYERS of its 32 layers (a
 # cut of depth that keeps the script within its time since the tp_train
 # phase came) through Trainer (the train phase's batch, microbatches and
-# learning rate, EP_STEPS steps, no checkpoint);
+# learning rate, EP_STEPS steps, 3 until Granite-MoE's (1, 16) run came
+# (see TP_STEPS), no checkpoint);
 # the first step's loss and grad_norm against one process's step from the
 # same weights and batch, routed per batch row as on the grid, within
 # EP_LOSS_RTOL / EP_GNORM_RTOL (bf16: each row-parallel sum rounds once
@@ -444,7 +460,7 @@ SHARD_REDUCED = False
 # row that routes otherwise must lie within EP_TIE of a tie
 EP_PROCS, EP_GRID, EP_AXES = 4, (2, 2), ("data", "model")
 EP_LAYERS = 4
-EP_STEPS, EP_EXACT_LAYERS, EP_EXACT_STEPS = 3, 2, 2
+EP_STEPS, EP_EXACT_LAYERS, EP_EXACT_STEPS = 2, 2, 2
 EP_LOSS_RTOL, EP_GNORM_RTOL = 8e-5, 3e-3
 EP_TIE = 1e-5
 EP_TIMEOUT = 900.0
@@ -454,15 +470,20 @@ EP_REDUCED = False
 
 # the tp_train phase: tensor parallelism over "model" for the SSM, RG-LRU
 # and encoder-decoder families (sharding/rules.py::place_params, FSDP over
-# "data"), TP_PROCS processes sharing the card over gloo on the TP_GRID
-# grid, through Trainer with the train phase's batch, microbatches and
-# learning rate, TP_STEPS steps.  TP_MODELS: each model's cut of its
+# "data"), one process a point of the TP_GRID grid sharing the card over
+# gloo, through Trainer with the train phase's batch, microbatches and
+# learning rate, TP_STEPS steps (3 before Granite-MoE's (1, 16) run came:
+# the second step is the first with moments and a checkpoint to
+# restore, a third runs no other code, and one steady step of each of
+# the two phases' five models cost ~47 s of the script's time).
+# TP_MODELS: each model's cut of its
 # published config for that run and for the float32 run (TP_EXACT_STEPS
 # steps at TRAIN_AGREE_LR), held as the sharded_train phase's
-# (SHARD_EXACT_RTOL, SHARD_EXACT_PARAM).  Mamba-2 370M runs whole (cut
-# to 16 layers, its first bf16 step missed TP_BF16_RTOL's loss limit,
-# which was set at 48 layers: 5.49e-5 on an NVIDIA H100 80GB HBM3 at
-# 700 W); RecurrentGemma-9B is cut to one (rec, rec, attn) period (its
+# (SHARD_EXACT_RTOL, SHARD_EXACT_PARAM).  Mamba-2 370M is cut to
+# MAMBA_LAYERS of its 48 layers, its checkpoint with it, a cut of depth
+# that pays for the tp_uneven phase's Granite-MoE run, and that its
+# bf16 limit, derived from depth (MAMBA_BF16_*), allows;
+# RecurrentGemma-9B is cut to one (rec, rec, attn) period (its
 # 38 layers' bf16 weights, float32 moments and accumulator, ~126 GB
 # across the four ranks, do not fit one 80 GB card), and its float32 run
 # to a vocabulary of 32000 (the four ranks' float32 state and gathered
@@ -471,21 +492,75 @@ EP_REDUCED = False
 # attention runs 375 key blocks in Python, on four ranks sharing one
 # card), a cut of depth that keeps the script within its time since the
 # tp_uneven phase came (2 + 2 layers before).  The first bf16 step's
-# loss and grad_norm against one process's, within TP_BF16_RTOL (~3x the
-# measured on an NVIDIA H100 80GB HBM3 at 700 W, Whisper at 2 + 2
-# layers: loss 7.18e-6, 7.26e-6, 4.94e-6; grad_norm 7.13e-3, 1.26e-4,
-# 6.06e-4: each row-parallel sum and the gathered activations round to
-# bf16 once more, through Mamba-2's 48 layers most); TP_CKPT's final
-# checkpoint restored into blocks
-TP_PROCS, TP_GRID, TP_AXES = 4, (2, 2), ("data", "model")
-TP_STEPS, TP_EXACT_STEPS = 3, 2
-TP_MODELS = {"mamba2-370m": ({}, {"n_layers": 2}),
+# loss and grad_norm against one process's, within TP_BF16_RTOL: for
+# RecurrentGemma and Whisper ~3x the measured on an NVIDIA H100 80GB
+# HBM3 at 700 W (Whisper at 2 + 2 layers: loss 7.26e-6 and 4.94e-6,
+# grad_norm 1.26e-4 and 6.06e-4: each row-parallel sum and the gathered
+# activations round to bf16 once more); for Mamba-2 from its error
+# model.
+# Mamba-2's error model (tools/tp_bf16_depth.py; PERF.md §6): the
+# placed step rounds each layer's row-parallel out_proj sum, and the
+# activations around it, to bf16 once more than one process does; to
+# first order the loss (grad_norm) responds to each such rounding
+# linearly, with signs that change from one weight draw to the next, so
+# the relative error of the first step is normal with mean 0 and a
+# deviation that grows with the number of layers whose roundings add
+# up, each weighted by how much the loss responds to it there (the
+# responses grow with depth at initialisation: the one-process grad_norm
+# is 2.2, 3.8, 7.4 and 22.7 at 4, 8, 16 and 48 layers), σ(L) = s·L^α.
+# The same law holds in both packages at reduced width on the CPU (100
+# draws, 2-48 layers: loss α 1.18 in the port, 1.33 in the reference,
+# 1.24 together; no fault: the port's spread is the reference's); at
+# published width on the card (19 draws: seeds 0-2 at 4, 8, 16 and 48
+# layers and seeds 3-9 at 4, NVIDIA H100 80GB HBM3 at 700 W,
+# `tools/tp_bf16_depth.py --card`) the maximum-likelihood fit is
+# MAMBA_BF16_MODEL.  The limit at L layers is MAMBA_BF16_Z times the 95%
+# upper bound of σ(L) from those MAMBA_BF16_DRAWS draws (1.37σ), one z
+# for both kinds: the card's draws are normal (the largest at 1.9σ), and
+# z = 3.29 is the two-sided normal quantile of 1e-3, so a sound step
+# fails either kind with a chance of 2e-3 at most while σ lies under its
+# bound, 1.3e-5 at the fit.  At 4 layers the limit is 4.0e-5 (loss) and
+# 3.2e-3 (grad_norm), 4.5σ(4), 2.4 and 3.0 times the largest of the 10
+# draws there.  Its cost (`tools/tp_bf16_depth.py --fit`): a fault that
+# multiplies the placed step's extra rounding error k-fold fails it
+# with a chance of 0.13 at k = 3, 0.37 at k = 5 and 0.65 at k = 10 (even
+# chances at k = 6.7): one draw a run tells a fault from luck only when
+# the fault is several-fold.  The limit this replaces, 2.5e-5 / 2.5e-2
+# at 48 layers, was ~3x one draw (seed 0's 7.18e-6): seeds 1 and 2
+# measure 6.13e-5 and 7.60e-5 there, and the 5.49e-5 met at 16 layers is
+# seed 0's draw at that depth, 1.7σ
+MAMBA_LAYERS = 4
+MAMBA_BF16_MODEL = {"loss": (2.533e-6, 0.91), "grad_norm": (1.764e-4, 1.00)}
+MAMBA_BF16_DRAWS = 19
+MAMBA_BF16_Z = 3.29
+
+
+def sigma_upper(s: float, n: int) -> float:
+    """The 95% upper confidence bound of a normal deviation estimated as
+    ``s`` from ``n`` draws: s·sqrt(n / χ²_n(0.05)) (Wilson-Hilferty's
+    quantile)."""
+    q = n * (1 - 2 / (9 * n) - 1.6449 * math.sqrt(2 / (9 * n))) ** 3
+    return s * math.sqrt(n / q)
+
+
+def mamba_bf16_limit(kind: str, layers: int) -> float:
+    """Mamba-2's bf16 limit for ``kind`` ("loss", "grad_norm") at
+    ``layers`` layers: MAMBA_BF16_Z times the upper bound of σ(L)."""
+    s, a = MAMBA_BF16_MODEL[kind]
+    return MAMBA_BF16_Z * sigma_upper(s, MAMBA_BF16_DRAWS) * layers ** a
+
+
+TP_GRID, TP_AXES = (2, 2), ("data", "model")
+TP_STEPS, TP_EXACT_STEPS = 2, 2
+TP_MODELS = {"mamba2-370m": ({"n_layers": MAMBA_LAYERS}, {"n_layers": 2}),
              "recurrentgemma-9b": ({"n_layers": 3},
                                    {"n_layers": 3, "vocab": 32000}),
              "whisper-small": ({"n_layers": 1, "enc_layers": 1},
                                {"n_layers": 1, "enc_layers": 1})}
 TP_CKPT = "mamba2-370m"
-TP_BF16_RTOL = {"mamba2-370m": (2.5e-5, 2.5e-2),
+TP_BF16_RTOL = {"mamba2-370m": (mamba_bf16_limit("loss", MAMBA_LAYERS),
+                                mamba_bf16_limit("grad_norm",
+                                                 MAMBA_LAYERS)),
                 "recurrentgemma-9b": (2.5e-5, 4e-4),
                 "whisper-small": (2.5e-5, 2e-3)}
 TP_TIMEOUT = 1200.0
@@ -496,11 +571,11 @@ TP_REDUCED = False
 # the tp_uneven phase: tensor parallelism over a "model" axis that does not
 # split the heads evenly (rank r of M computes heads [r·H // M, (r+1)·H //
 # M): sharding/tp.py::head_range; the attention weights taken whole over
-# "model" and sliced), UNEVEN_PROCS processes sharing the card over gloo on
-# the UNEVEN_GRID grid (no FSDP: "data" holds one process), run as the
+# "model" and sliced), one process a point of the UNEVEN_GRID grid
+# sharing the card over gloo (no FSDP: "data" holds one process), run as the
 # tp_train phase (run_tp_train) with the train phase's batch,
-# microbatches and learning rate, TP_STEPS bf16 steps through Trainer
-# (no checkpoint) and a float32 run of TP_EXACT_STEPS steps.
+# microbatches and learning rate, TP_STEPS bf16 steps through Trainer (no
+# checkpoint) and a float32 run of TP_EXACT_STEPS steps.
 # Whisper-small at its published widths (D 768, 12 heads and 12 KV heads
 # of 64, 1500 frames, vocabulary 51865; each rank holds 1.5 query heads'
 # columns of wq and computes 1 or 2 heads) cut to 1 encoder and 1 decoder
@@ -511,7 +586,7 @@ TP_REDUCED = False
 # float32: loss and grad_norm within UNEVEN_EXACT_RTOL (measured 0 and
 # 0), the first step's gradient within SHARD_EXACT_RTOL of its largest
 # (7.29e-7), parameters within SHARD_EXACT_PARAM (2.80e-5)
-UNEVEN_PROCS, UNEVEN_GRID, UNEVEN_AXES = 8, (1, 8), ("data", "model")
+UNEVEN_GRID, UNEVEN_AXES = (1, 8), ("data", "model")
 UNEVEN_MODELS = {"whisper-small": ({"n_layers": 1, "enc_layers": 1},
                                    {"n_layers": 1, "enc_layers": 1})}
 UNEVEN_BF16_RTOL = {"whisper-small": (3.5e-6, 2.1e-4)}
@@ -520,6 +595,60 @@ UNEVEN_TIMEOUT = 600.0
 UNEVEN_DIR = os.path.join(HERE, "build", "tp_uneven")
 #: a rehearsal on the CPU trains the reduced configs (the job carries it)
 UNEVEN_REDUCED = False
+
+# the tp_production phase, run by `chip_smoke.py --production-grid` and not
+# by the whole script (its ~200 s do not fit the script's time): the
+# tp_uneven phase on the reference's 16-way "model" axis, PRODUCTION_GRID
+# ((1, 16), src/repro/launch/mesh.py), both models in one spawn of 16
+# processes, PRODUCTION_MB (else TRAIN_MB) microbatches.
+# Granite-MoE 3B-A800M at its published widths (D 1536, 24 heads and 8 KV
+# heads of 64, 40 experts top-8 of d_ff 512, vocabulary 49155) on the
+# reference's 16-way "model" axis, (1, 16), where 16 divides none of
+# them: each rank computes 1 or 2 heads ([24r // 16, 24(r+1) // 16)),
+# query head h reads KV head h // 3 of wk/wv taken whole, all 40
+# experts stay whole on every rank and route in one global group, and
+# the embedding stays whole (drop_indivisible).  Cut to 1 layer.  Its
+# memory, reckoned before its first run on my CPU (launch/dryrun.py on
+# the abstract (1, 16) grid, the meta device): state_bytes per rank, bf16
+# parameters 340,798,464 B (the 49155 x 1536 embedding and the 40
+# experts whole, the attention's 1/16), gradient 340,798,464, float32
+# accumulator 681,332,736 and AdamW moments 1,362,665,476: 2.73 GB;
+# count_pass's saved activations 75.6 MB at 2 microbatches, 37.8 MB at
+# 4; the transients, one 512-token chunk of the unsplit vocabulary's
+# logits (B_mb x 512 x 49155: bf16, float32 and its gradient, ~1.0 GB at
+# 2 microbatches, ~0.5 GB at 4) and the expert buffers (40 x C x 1536,
+# 0.13 or 0.06 GB); ~0.5 GB of CUDA context.  So Granite takes PRODUCTION_MB
+# = 4 microbatches of the same 8 x 1024-token batch (T = 2,048 a rank),
+# a change of microbatching, not of widths.  Left out of that reckoning
+# and found on the card (NVIDIA H100 80GB HBM3, 700.00 W): the AdamW
+# update's float32 temporaries of the largest leaf, the 49155 x 1536
+# embedding (302 MB each), five or six at once by my count; the first
+# two runs ran out of the card's 79.18 GiB in the update (79.04 and
+# 78.22 GiB in use).  optim/adamw.py::apply_updates now updates float32
+# moments in place and each leaf in slices of 16 M elements (the same
+# bits; its temporaries ~0.2 GB).  The float32 run's state is 3.41 GB a
+# rank (~80 GB for 16 with the transients and contexts), so it is cut to
+# a vocabulary of 16385, which 16 still does not divide (the embedding
+# stays whole): 25.2 M rows of embedding, ~1.0 GB a rank less
+# (RecurrentGemma's float32 run in tp_train is cut the same way).
+# Whisper-small as in tp_uneven, each rank holding 0.75 query heads'
+# columns of wq and computing 0 or 1 heads (ranks 0, 4, 8 and 12 compute
+# none and join every collective).  The first bf16 step's loss and
+# grad_norm against one process's within PRODUCTION_BF16_RTOL: Granite's
+# ~3x the measured on an NVIDIA H100 80GB HBM3 at 700 W (9.97e-6 and
+# 1.63e-4: one draw at one layer, not a depth model as Mamba-2's),
+# Whisper's tp_uneven's (measured 2.25e-6 and 7.21e-5); float32 as
+# tp_uneven's, Granite's replaying one process's routing (RouteTape, as
+# the ep_train phase's), every other choice within EP_TIE of a tie
+PRODUCTION_GRID = (1, 16)
+PRODUCTION_MODELS = {"granite-moe-3b-a800m": ({"n_layers": 1},
+                                              {"n_layers": 1,
+                                               "vocab": 16385}),
+                     **UNEVEN_MODELS}
+PRODUCTION_MB = {"granite-moe-3b-a800m": 4}
+PRODUCTION_BF16_RTOL = {"granite-moe-3b-a800m": (3e-5, 5e-4),
+                        **UNEVEN_BF16_RTOL}
+PRODUCTION_DIR = os.path.join(HERE, "build", "tp_production")
 
 # the dryrun phase: the port's dry-run accounting (repro_torch.launch.
 # dryrun, the meta device, abstract grids, nothing allocated) of the
@@ -2110,10 +2239,13 @@ def run_fused_step(torch, dev, ctx):
 #: it over gloo (NCCL takes one card per rank): gloo copies CUDA tensors
 #: through host memory, so its times show what local shard shapes cost
 #: per rank, and no scaling.  First the smoke SCF's widths on the 2×2
-#: batch×fft grid, then the chooser's (2, 2, 2) pencil grid at the
+#: batch×fft grid, MR_ITERS iterations eager and fused, each against one
+#: rank's run of as many (MAX_ITER until Granite-MoE's (1, 16) run came:
+#: the third iteration of each took ~26 s of the script's time and ran
+#: no other code), then the chooser's (2, 2, 2) pencil grid at the
 #: reference's own n = 16 (tests/test_dft.py).
 MR_PROCS, MR_GRID, MR_AXES = 4, (2, 2), ("dft_b", "dft_f")
-MR_ITERS, MR_TIMEOUT, MR_THREADS = MAX_ITER, 600.0, 2
+MR_ITERS, MR_TIMEOUT, MR_THREADS = 2, 600.0, 2
 PENCIL_PROCS, PENCIL_N, PENCIL_NBANDS = 8, 16, 4
 MR_TAG = "4 processes on one card, gloo"
 
@@ -2571,6 +2703,11 @@ def run_multirank(torch, dev, ctx, gpu):
                                  mix_warmup=MR_ITERS),
                       device=dev, coeffs=coeffs)
     fused = ctx["fused_linear"]
+    if MR_ITERS != len(fused.energies):
+        fused = run_scf(scf_config("cuda", max_iter=MR_ITERS,
+                                   mix_warmup=MR_ITERS, mix_history=1,
+                                   jit_step=True),
+                        device=dev, coeffs=coeffs)
     np.savez(path, v=v, hc=hc.cpu().numpy(), rho=ref.rho.cpu().numpy(),
              rho_fused=fused.rho.cpu().numpy(), valid=inv.valid_lanes(),
              **{f"c{ik}": c.cpu().numpy() for ik, c in enumerate(coeffs)})
@@ -4141,17 +4278,18 @@ def check_train(torch, dev, gpu) -> dict:
 
 
 # ------------------------------------------------------ the placed train path
-def _one_process_step(torch, dev, cfg, ocfg, batch, steps):
+def _one_process_step(torch, dev, cfg, ocfg, batch, steps,
+                      microbatches: int = TRAIN_MB):
     """One process's ``steps`` train steps of ``cfg`` from the weights
-    drawn from SEED on ``dev``: (losses, grad norms, the model, the first
-    moment after the first step (host tensors): 1 - beta1 times its
-    gradient)."""
+    drawn from SEED on ``dev``, in ``microbatches``: (losses, grad norms,
+    the model, the first moment after the first step (host tensors): 1 -
+    beta1 times its gradient)."""
     from repro_torch.models.model_zoo import build
     from repro_torch.train.train_step import init_opt_state, make_train_step
     bundle = build(cfg, device=dev)
     model = bundle.init(torch.Generator(device=dev).manual_seed(SEED))
     opt = init_opt_state(model)
-    step = make_train_step(bundle, ocfg, microbatches=TRAIN_MB)
+    step = make_train_step(bundle, ocfg, microbatches=microbatches)
     losses, norms, first = [], [], None
     for _ in range(steps):
         model, opt, met = step(model, opt, batch)
@@ -4221,6 +4359,8 @@ def placed_trainer_run(torch, dev, tr):
     params, opt = tr.run(torch.Generator(device=dev).manual_seed(SEED))
     sync(torch, dev)
     out = {"peak_bytes": torch.cuda.max_memory_allocated(dev) if cuda
+           else 0,
+           "reserved_bytes": torch.cuda.max_memory_reserved(dev) if cuda
            else 0,
            "placed": rules.placement_of(params) is not None,
            "param_bytes": sum(p.numel() * p.element_size()
@@ -4330,13 +4470,13 @@ def sharded_train_rank(rank, job):
 
 
 def placed_exact_run(torch, grid, c32, dcfg, job, rank, steps, tape=None,
-                     extra=None):
+                     extra=None, microbatches: int = TRAIN_MB):
     """``steps`` float32 steps of ``c32`` on weights placed on ``grid``
     (drawn from SEED), this rank's rows of the batch at step 0 (and of
-    ``extra``, whole-batch tensors such as frames): losses and grad
-    norms; on rank 0 the gathered parameters' and the first step's first
-    moment's errors against one process's (``job["exact_params"]``).
-    ``tape``: a context the steps run in."""
+    ``extra``, whole-batch tensors such as frames) in ``microbatches``:
+    losses and grad norms; on rank 0 the gathered parameters' and the
+    first step's first moment's errors against one process's
+    (``job["exact_params"]``).  ``tape``: a context the steps run in."""
     import contextlib
     from repro_torch.data.pipeline import Pipeline
     from repro_torch.models.model_zoo import build
@@ -4350,7 +4490,7 @@ def placed_exact_run(torch, grid, c32, dcfg, job, rank, steps, tape=None,
     opt = init_opt_state(model)
     step = make_train_step(b32, AdamWConfig(
         lr=TRAIN_AGREE_LR, warmup_steps=1, total_steps=TRAIN_STEPS),
-        grid, microbatches=TRAIN_MB)
+        grid, microbatches=microbatches)
     d = grid.axis_index("data")
     pipe = Pipeline(dcfg, grid.coordinate[d], grid.shape[d])
     batch = {k: torch.from_numpy(v).to(dev)
@@ -4563,6 +4703,19 @@ def model_split_of(leaves):
     return split
 
 
+def norm_bytes(leaves, grid) -> int:
+    """The global norm's float32 sums: one per set of axes of more than
+    one process that splits some leaf (``optim/adamw.py::global_norm``)."""
+    sets = set()
+    for lf in leaves:
+        axes = frozenset(a for e in lf["spec"] if e is not None
+                         for a in (e if isinstance(e, tuple) else (e,))
+                         if grid.shape[grid.axis_index(a)] > 1)
+        if axes:
+            sets.add(axes)
+    return 4 * len(sets)
+
+
 def whole_bytes(weights, M: int, passes: int) -> tuple:
     """(all-gather, reduce-scatter, all-reduce) operand bytes, a
     microbatch, of ``weights`` used whole on every model rank
@@ -4602,13 +4755,17 @@ def ep_counted_bytes(cfg, leaves, grid, *, tokens: int,
     layers' FSDP gathers in the forward and, under remat, the recompute,
     the top-level ones once a microbatch; the reduce-scatters once a
     microbatch; the flat all-reduce of the unsplit leaves and the loss;
-    the global norm's sum per set of splitting axes; per layer and
+    the global norm's sum per set of splitting axes (:func:`norm_bytes`);
+    per layer and
     microbatch the attention's two reduces (``wo``'s, recomputed under
     remat, and ``copy_to_model``'s backward) and the expert-parallel
     MoE's three (its combine, which torch's recompute stops before, and
     the backward of its input and of its float32 router); the attention
     weights taken whole where M does not divide the heads
-    (:func:`attn_whole`); the vocab-parallel embedding, head and
+    (:func:`attn_whole`); where M does not divide the experts and the
+    batch axes hold several processes, the one global group's per-expert
+    counts (int64, ``moe.expert_counts``) gathered over them in each
+    pass of each layer; the vocab-parallel embedding, head and
     loss terms where "model" splits the vocabulary (the loss's three in
     its forward and in its chunk's recompute, with or without remat).
     T = ``tokens`` a rank and microbatch."""
@@ -4624,8 +4781,10 @@ def ep_counted_bytes(cfg, leaves, grid, *, tokens: int,
                              microbatches=mb) + \
         fsdp_all_gather(top, grid, passes=1, microbatches=mb)
     reduce = grad_all_reduce(leaves, grid, batch_split=batch_ranks(grid)
-                             > 1) + 2 * 4
+                             > 1) + norm_bytes(leaves, grid)
     scatter = grad_reduce_scatter(leaves, grid, microbatches=mb)
+    if batch_ranks(grid) > 1 and cfg.n_experts % M:
+        gather += mb * cfg.n_layers * (1 + remat) * cfg.n_experts * 8
     if M > 1:
         per_layer = (2 + remat) * T * D * a
         if cfg.n_experts % M == 0:
@@ -4963,8 +5122,9 @@ def tp_counted_bytes(cfg, leaves, grid, *, tokens: int, enc_tokens: int,
     the top-level ones once a microbatch, the reduce-scatters once; the
     flat all-reduce of the leaves the batch axes do not split and the
     loss, where the batch axes hold several processes; the global norm's
-    sum per set of splitting axes.  Over "model", a microbatch: each
-    column-parallel input's backward all-reduce (``copy_to_model``) once;
+    sum per set of splitting axes (:func:`norm_bytes`).  Over "model", a
+    microbatch: each column-parallel input's backward all-reduce
+    (``copy_to_model``) once;
     each row-parallel sum (``reduce_from_model``) in the forward and in
     the recompute, but for the last of a layer body, which torch's
     recompute stops before; the weights taken whole over "model" inside
@@ -4989,15 +5149,8 @@ def tp_counted_bytes(cfg, leaves, grid, *, tokens: int, enc_tokens: int,
     top = [lf for lf in leaves if not _stacked_leaf(lf)]
     gather = fsdp_all_gather(layers, grid, passes=P, microbatches=mb) + \
         fsdp_all_gather(top, grid, passes=1, microbatches=mb)
-    split_sets = set()
-    for lf in leaves:
-        axes = frozenset(a_ for e in lf["spec"] if e is not None
-                         for a_ in (e if isinstance(e, tuple) else (e,))
-                         if grid.shape[grid.axis_index(a_)] > 1)
-        if axes:
-            split_sets.add(axes)
     reduce = grad_all_reduce(leaves, grid, batch_split=batch_ranks(grid)
-                             > 1) + 4 * len(split_sets)
+                             > 1) + norm_bytes(leaves, grid)
     scatter = grad_reduce_scatter(leaves, grid, microbatches=mb)
     if M == 1:
         return {"all-gather": gather, "reduce-scatter": scatter,
@@ -5074,17 +5227,20 @@ def tp_phase(name: str) -> dict:
     """The settings of a tensor-parallel phase, read from its constants
     when called (a rehearsal may have changed them; a rank finds its
     phase by the job's ``phase``): ``tp_train`` (TP_*) or ``tp_uneven``
-    (UNEVEN_*)."""
+    (UNEVEN_*) or ``tp_production`` (PRODUCTION_*, else UNEVEN_*), one
+    process a point of its ``grid``.  ``mb``: each model's microbatches
+    where not TRAIN_MB."""
     if name == "tp_train":
-        return {"name": name, "procs": TP_PROCS, "grid": TP_GRID,
-                "axes": TP_AXES, "models": TP_MODELS, "ckpt": TP_CKPT,
-                "bf16_rtol": TP_BF16_RTOL, "exact_rtol": SHARD_EXACT_RTOL,
-                "timeout": TP_TIMEOUT, "dir": TP_DIR, "reduced": TP_REDUCED,
+        return {"name": name, "grid": TP_GRID, "mb": {}, "axes": TP_AXES,
+                "models": TP_MODELS, "ckpt": TP_CKPT,
+                "bf16_rtol": TP_BF16_RTOL,
+                "exact_rtol": SHARD_EXACT_RTOL, "timeout": TP_TIMEOUT,
+                "dir": TP_DIR, "reduced": TP_REDUCED,
                 "title": "tensor-parallel train path", "what":
                 "the SSM, RG-LRU and encoder-decoder families' heads and "
                 "channels over \"model\", FSDP over \"data\""}
     if name == "tp_uneven":
-        return {"name": name, "procs": UNEVEN_PROCS, "grid": UNEVEN_GRID,
+        return {"name": name, "grid": UNEVEN_GRID, "mb": {},
                 "axes": UNEVEN_AXES, "models": UNEVEN_MODELS, "ckpt": None,
                 "bf16_rtol": UNEVEN_BF16_RTOL,
                 "exact_rtol": UNEVEN_EXACT_RTOL, "timeout": UNEVEN_TIMEOUT,
@@ -5092,14 +5248,91 @@ def tp_phase(name: str) -> dict:
                 "title": "tensor-parallel train path, heads split unevenly",
                 "what": "each model rank's tp.head_range of the heads, "
                 "the attention weights whole over \"model\""}
+    if name == "tp_production":
+        return {**tp_phase("tp_uneven"), "name": name,
+                "grid": PRODUCTION_GRID, "mb": PRODUCTION_MB,
+                "models": PRODUCTION_MODELS,
+                "bf16_rtol": PRODUCTION_BF16_RTOL, "dir": PRODUCTION_DIR,
+                "title": "tensor-parallel train path on the reference's "
+                "16-way \"model\" axis"}
     raise ValueError(name)
+
+
+def kv_heads_of(torch, p, cfg, dev) -> list:
+    """(query head, the KV head whose keys it reads) for each of this model
+    rank's heads: ``transformer.local_kv``'s keys of a probe input, each
+    matched against the KV heads of the whole ``wk`` (gathered over
+    "model"; every model rank takes part)."""
+    from repro_torch.models import transformer
+    from repro_torch.sharding import tp
+    h0, Hl = transformer.local_heads(cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((1, 4, cfg.d_model), generator=gen, device=dev).to(
+        p.wk.dtype)
+    with torch.no_grad():
+        k, _ = transformer.local_kv(p, x, cfg, h0, Hl)
+        whole = (x @ tp.whole_over_model(p, "wk", 1)).reshape(
+            1, 4, cfg.n_kv, cfg.head_dim)
+    return [(h0 + j, next((i for i in range(cfg.n_kv)
+                           if torch.equal(k[:, :, j], whole[:, :, i])), None))
+            for j in range(Hl)]
+
+
+class watch_dispatch:
+    """Records the (groups, tokens a group, whether the group's rows span
+    several ranks, whether the experts are split) of every MoE dispatch
+    (``models/moe.py::_dispatch``) while it is entered."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.mod, self.real, self.seen = moe, moe._dispatch, set()
+
+        def spy(xg, *args, **kw):
+            self.seen.add((xg.shape[0], xg.shape[1],
+                           kw.get("peers") is not None, bool(kw.get("ep"))))
+            return self.real(xg, *args, **kw)
+        moe._dispatch = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._dispatch = self.real
+
+
+#: the spawned ranks' allocator: up to 16 processes share the card, and
+#: each caching allocator's unused blocks would be lost to the others
+#: (Granite-MoE on (1, 16) reserved 3.85-4.14 GiB a rank for a peak of
+#: 3.41 GiB allocated, ~10 GiB over 16 ranks, and in the whole script,
+#: whose own process holds more of the card by then, ran out of it);
+#: expandable segments keep each rank's reservation near its peak
+TP_ALLOC_CONF = "expandable_segments:True"
+
+
+class alloc_conf:
+    """``PYTORCH_CUDA_ALLOC_CONF`` set to ``value`` for the processes
+    spawned while it is entered (this process's allocator has already
+    read it)."""
+
+    def __init__(self, value: str):
+        self.value = value
+
+    def __enter__(self):
+        self.old = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = self.value
+
+    def __exit__(self, *exc):
+        if self.old is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = self.old
 
 
 def tp_model_rank(torch, grid, arch: str, job: dict, rank: int) -> dict:
     """One model of a tensor-parallel phase on this rank: the placed
     Trainer (the phase's ``ckpt`` model's final checkpoint restored into
-    blocks), then the float32 cut run.  It measures and compares; the
-    parent makes every check."""
+    blocks), then the float32 cut run (an MoE's replaying one process's
+    routing).  It measures and compares; the parent makes every
+    check."""
+    import contextlib
     import dataclasses
 
     from repro_torch.data.pipeline import DataConfig
@@ -5110,7 +5343,9 @@ def tp_model_rank(torch, grid, arch: str, job: dict, rank: int) -> dict:
     phase = tp_phase(job["phase"])
     dev = grid.device
     cut, cut32 = phase["models"][arch]
+    mb = phase["mb"].get(arch, TRAIN_MB)
     cfg = tp_config(arch, job["reduced"], cut)
+    moe = cfg.family == "moe"
     extra = tp_extra(torch, cfg, dev)
     dcfg = DataConfig(vocab=cfg.vocab, seq=job["seq"],
                       global_batch=job["batch"])
@@ -5125,16 +5360,23 @@ def tp_model_rank(torch, grid, arch: str, job: dict, rank: int) -> dict:
         def trainer():
             return fixed_batch_trainer(Trainer(bundle, ocfg, TrainerConfig(
                 total_steps=TP_STEPS, ckpt_every=1000, ckpt_keep=1,
-                log_every=1000, microbatches=TRAIN_MB, ckpt_dir=ckpt),
+                log_every=1000, microbatches=mb, ckpt_dir=ckpt),
                 dcfg, grid=grid, extra_batch=extra))
         tr = trainer()
         if arch != phase["ckpt"]:
             tr._save = lambda *args, **kw: None
-        rec, params, opt = placed_trainer_run(torch, dev, tr)
+        with watch_dispatch() if moe else contextlib.nullcontext() as seen:
+            rec, params, opt = placed_trainer_run(torch, dev, tr)
         out.update(rec)
         out["model_split"] = sorted(
             n for n, sp in rules.placement_of(params).specs.items()
             if any("model" in ax for ax in sp))
+        if moe:
+            out["experts"] = params.layers[0].moe.w_up.shape[0]
+            out["moe_dispatch"] = sorted(seen.seen)
+            if cfg.n_kv % tp.model_size():        # wk/wv taken whole
+                out["kv_heads"] = kv_heads_of(torch, params.layers[0], cfg,
+                                              dev)
         mine = host_state(params, opt) if arch == phase["ckpt"] else None
         del params, opt, tr
         if dev.type == "cuda":
@@ -5145,10 +5387,19 @@ def tp_model_rank(torch, grid, arch: str, job: dict, rank: int) -> dict:
         c32 = dataclasses.replace(tp_config(arch, job["reduced"], cut32),
                                   dtype="float32")
         d32 = dataclasses.replace(dcfg, vocab=c32.vocab)
+        # an MoE routes as one process routed (every model rank the same
+        # rows: "data" holds one process, or the model ranks of a data
+        # rank alike)
+        tape = RouteTape(torch, torch.load(job["routes"][arch]),
+                         slice(None)) if moe else None
         out["exact"] = placed_exact_run(
             torch, grid, c32, d32, {**job, "exact_params":
                                     job["exact_params"][arch]},
-            rank, TP_EXACT_STEPS, extra=tp_extra(torch, c32, dev))
+            rank, TP_EXACT_STEPS, tape, extra=tp_extra(torch, c32, dev),
+            microbatches=mb)
+        if tape is not None:
+            out["exact"].update(route_flips=tape.flips,
+                                flip_gaps=tape.flip_gaps)
     return out
 
 
@@ -5180,17 +5431,38 @@ def tp_train_rank(rank, job):
     return out
 
 
-def tp_references(torch, dev, arch: str, phase: dict) -> dict:
+def drop_tp_references(refs: dict) -> None:
+    """Delete the files of :func:`tp_references`' records ``refs``."""
+    for ref in refs.values():
+        for key in ("path", "routes"):
+            if key in ref:
+                os.remove(ref[key])
+    refs.clear()
+
+
+def tp_references(torch, dev, arch: str, phase: dict, refs: dict) -> dict:
     """One process's runs of ``arch`` for a tensor-parallel phase, in this
-    process: the first bf16 step's loss and grad_norm, and the float32
-    cut run (its parameters and first moment saved under the phase's
-    directory)."""
+    process, or an earlier phase's of the same configs from ``refs`` (by
+    arch, bf16 config, float32 config and microbatches: Whisper-small
+    trains alike in tp_train and tp_uneven): the first bf16 step's loss
+    and grad_norm, and the float32 cut run (its parameters and first
+    moment saved under the phase's directory; an MoE's routing too, for
+    the ranks to replay).  An MoE routes in one group, as on a grid whose
+    "model" axis does not divide its experts and whose "data" axis holds
+    one process."""
+    import contextlib
     import dataclasses
 
     from repro_torch.data.pipeline import DataConfig, Pipeline
     from repro_torch.optim.adamw import AdamWConfig
     cut, cut32 = phase["models"][arch]
+    mb = phase["mb"].get(arch, TRAIN_MB)
     cfg = tp_config(arch, phase["reduced"], cut)
+    c32 = dataclasses.replace(tp_config(arch, phase["reduced"], cut32),
+                              dtype="float32")
+    key = (arch, cfg, c32, mb)
+    if key in refs:
+        return refs[key]
     dcfg = DataConfig(vocab=cfg.vocab, seq=TRAIN_SEQ,
                       global_batch=TRAIN_BATCH)
     batch = {k: torch.from_numpy(v).to(dev)
@@ -5199,34 +5471,43 @@ def tp_references(torch, dev, arch: str, phase: dict) -> dict:
     lw, nw, model, _ = _one_process_step(
         torch, dev, cfg, AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
                                      total_steps=TRAIN_RESUME_STEPS),
-        {**batch, **tp_extra(torch, cfg, dev)}, 1)
+        {**batch, **tp_extra(torch, cfg, dev)}, 1, mb)
     del model
     torch.cuda.empty_cache()
-    c32 = dataclasses.replace(tp_config(arch, phase["reduced"], cut32),
-                              dtype="float32")
     d32 = dataclasses.replace(dcfg, vocab=c32.vocab)
     b32 = {k: torch.from_numpy(v).to(dev)
            for k, v in Pipeline(d32).batch_at(0).items()}
-    l32, n32, model, m32 = _one_process_step(
-        torch, dev, c32, AdamWConfig(lr=TRAIN_AGREE_LR, warmup_steps=1,
-                                     total_steps=TRAIN_STEPS),
-        {**b32, **tp_extra(torch, c32, dev)}, TP_EXACT_STEPS)
+    moe = c32.family == "moe"
+    with RouteTape(torch) if moe else contextlib.nullcontext() as tape:
+        l32, n32, model, m32 = _one_process_step(
+            torch, dev, c32, AdamWConfig(lr=TRAIN_AGREE_LR, warmup_steps=1,
+                                         total_steps=TRAIN_STEPS),
+            {**b32, **tp_extra(torch, c32, dev)}, TP_EXACT_STEPS, mb)
     path = os.path.join(phase["dir"], f"exact_{arch}.pt")
     torch.save({"params": {n: p.detach().cpu()
                            for n, p in model.named_parameters()},
                 "m1": m32}, path)
-    del model, m32
+    out = {"cfg": cfg, "loss": lw[0], "grad_norm": nw[0],
+           "exact_losses": l32, "exact_norms": n32, "path": path,
+           "phase": phase["name"]}
+    if moe:
+        out["routes"] = os.path.join(phase["dir"], f"routes_{arch}.pt")
+        torch.save(tape.calls, out["routes"])
+    del model, m32, tape
     torch.cuda.empty_cache()
-    return {"cfg": cfg, "loss": lw[0], "grad_norm": nw[0],
-            "exact_losses": l32, "exact_norms": n32, "path": path}
+    refs[key] = out
+    return out
 
 
-def run_tp_train(torch, dev, gpu, wrappers, name: str = "tp_train") -> dict:
+def run_tp_train(torch, dev, gpu, wrappers, name: str = "tp_train",
+                 references: dict | None = None) -> dict:
     """A tensor-parallel phase (:func:`tp_phase`; see TP_* and UNEVEN_*):
     one process's references of every model in this process, freed
     before the ranks start, then the phase's ranks running every model,
     with every kernel wrapper's count set to 0 just before and read just
-    after (the path reaches no hand kernel)."""
+    after (the path reaches no hand kernel).  ``references``:
+    :func:`tp_references`' records that the caller keeps across phases
+    and drops; else the phase's own."""
     import shutil
     import tempfile
 
@@ -5236,7 +5517,8 @@ def run_tp_train(torch, dev, gpu, wrappers, name: str = "tp_train") -> dict:
     from repro_torch.models.model_zoo import build
     from repro_torch.sharding.procs import run_ranks
     phase = tp_phase(name)
-    grid_shape, axes, procs = phase["grid"], phase["axes"], phase["procs"]
+    grid_shape, axes = phase["grid"], phase["axes"]
+    procs, M = math.prod(grid_shape), grid_shape[axes.index("model")]
     tag = f"{procs} processes on one card, gloo"
     t0 = time.perf_counter()
     print(f"{phase['title']} ({tag}; {phase['what']}): grid {grid_shape} "
@@ -5244,12 +5526,16 @@ def run_tp_train(torch, dev, gpu, wrappers, name: str = "tp_train") -> dict:
     for fn in wrappers.values():
         fn.launches = 0
     os.makedirs(phase["dir"], exist_ok=True)
+    kept = {} if references is None else references
     refs = {}
     for arch in phase["models"]:
         t1 = time.perf_counter()
-        refs[arch] = tp_references(torch, dev, arch, phase)
+        refs[arch] = tp_references(torch, dev, arch, phase, kept)
         print(f"  {arch}: one process's references "
-              f"{time.perf_counter() - t1:.1f} s", flush=True)
+              + (f"{time.perf_counter() - t1:.1f} s"
+                 if refs[arch]["phase"] == name else
+                 f"of the {refs[arch]['phase']} phase (the same configs)"),
+              flush=True)
     if phase["ckpt"] is not None:
         need = ckpt_gib(refs[phase["ckpt"]]["cfg"])
         free = shutil.disk_usage(phase["dir"]).free / 2**30
@@ -5260,44 +5546,62 @@ def run_tp_train(torch, dev, gpu, wrappers, name: str = "tp_train") -> dict:
     job = {"phase": name, "device": str(dev), "ckpt": ckpt,
            "reduced": phase["reduced"], "seq": TRAIN_SEQ,
            "batch": TRAIN_BATCH,
-           "exact_params": {a: r["path"] for a, r in refs.items()}}
+           "exact_params": {a: r["path"] for a, r in refs.items()},
+           "routes": {a: r["routes"] for a, r in refs.items()
+                      if "routes" in r}}
+    if dev.type == "cuda":
+        torch.backends.cuda.cufft_plan_cache.clear()
+        torch.cuda.empty_cache()
+        free = torch.cuda.mem_get_info(dev)[0] / 2**30
     t1 = time.perf_counter()
     try:
-        ranks = run_ranks(tp_train_rank, procs, args=(job,),
-                          rendezvous_dir=phase["dir"],
-                          timeout=phase["timeout"], threads=SHARD_THREADS,
-                          nice=19)
+        with alloc_conf(TP_ALLOC_CONF):
+            ranks = run_ranks(tp_train_rank, procs, args=(job,),
+                              rendezvous_dir=phase["dir"],
+                              timeout=phase["timeout"],
+                              threads=SHARD_THREADS, nice=19)
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
-        for r in refs.values():
-            os.remove(r["path"])
+        if references is None:
+            drop_tp_references(kept)
     ranks_s = time.perf_counter() - t1
+    print(f"  {procs} ranks on {grid_shape}: {ranks_s:.1f} s"
+          + (f" ({free:.2f} GiB of the card free as they started)"
+             if dev.type == "cuda" else ""), flush=True)
 
     agrid = ProcGrid.create_abstract(grid_shape, axes)
     rows = TRAIN_BATCH // batch_ranks(agrid)
     out = {"ranks_s": ranks_s, "models": {}}
     for arch, ref in refs.items():
         cfg = ref["cfg"]
+        mb = phase["mb"].get(arch, TRAIN_MB)
         leaves = param_leaves(build(cfg, device="meta").init(None), agrid)
-        acct = state_bytes(leaves, agrid, kind="train",
-                           microbatches=TRAIN_MB)
+        acct = state_bytes(leaves, agrid, kind="train", microbatches=mb)
         model_coll = model_collectives(
             cfg, "train", leaves, agrid, batch=rows, seq=TRAIN_SEQ,
-            microbatches=TRAIN_MB, batch_split=batch_ranks(agrid) > 1)
-        arith = tp_counted_bytes(
-            cfg, leaves, agrid, tokens=rows // TRAIN_MB * TRAIN_SEQ,
-            enc_tokens=rows // TRAIN_MB * cfg.enc_seq,
-            microbatches=TRAIN_MB)
-        res = {"one_process": {k: ref[k] for k in (
-            "loss", "grad_norm", "exact_losses", "exact_norms")},
-            "accounting": acct, "model_collectives": model_coll,
-            "arithmetic": arith, "ranks": []}
+            microbatches=mb, batch_split=batch_ranks(agrid) > 1)
+        if cfg.family == "moe":
+            arith = ep_counted_bytes(cfg, leaves, agrid,
+                                     tokens=rows // mb * TRAIN_SEQ,
+                                     microbatches=mb)
+        else:
+            arith = tp_counted_bytes(
+                cfg, leaves, agrid, tokens=rows // mb * TRAIN_SEQ,
+                enc_tokens=rows // mb * cfg.enc_seq, microbatches=mb)
+        res = {"microbatches": mb,
+               "one_process": {k: ref[k] for k in (
+                   "loss", "grad_norm", "exact_losses", "exact_norms")},
+               "accounting": acct, "model_collectives": model_coll,
+               "arithmetic": arith, "ranks": []}
         print(f"  {arch} ({cfg.n_layers} layers"
               + (f", {cfg.enc_layers} encoder layers" if cfg.enc_layers
                  else "") + f", d_model {cfg.d_model}, "
               + (f"{cfg.n_heads} heads, {cfg.n_kv} KV heads, "
-                 if cfg.n_heads else "") + f"vocab {cfg.vocab}, "
-              f"{cfg.dtype}, remat {cfg.remat!r}):", flush=True)
+                 if cfg.n_heads else "")
+              + (f"{cfg.n_experts} experts top-{cfg.top_k}, "
+                 if cfg.n_experts else "") + f"vocab {cfg.vocab}, "
+              f"{cfg.dtype}, remat {cfg.remat!r}, {mb} microbatches of "
+              f"{rows // mb * TRAIN_SEQ} tokens a rank):", flush=True)
         for r, o in enumerate(ranks):
             m = o["models"][arch]
             res["ranks"].append(m)
@@ -5308,10 +5612,13 @@ def run_tp_train(torch, dev, gpu, wrappers, name: str = "tp_train") -> dict:
             print(f"    rank {r} {o['coordinate']}"
                   + (f" heads [{m['heads'][0]}, {m['heads'][1]})"
                      if m["heads"] else "")
+                  + (f" (KV heads {[kv for _, kv in m['kv_heads']]}), "
+                     f"{m['experts']} experts" if "experts" in m else "")
                   + f": parameters {m['param_bytes']:,} B, AdamW state "
                   f"{m['opt_bytes']:,} B (accounting {acct['params']:,} and "
                   f"{acct['opt_state']:,}); peak "
-                  f"{_gib(m['peak_bytes'] / 2**30)}; step ms "
+                  f"{_gib(m['peak_bytes'] / 2**30)} (reserved "
+                  f"{_gib(m['reserved_bytes'] / 2**30)}); step ms "
                   + ", ".join(f"{d * 1e3:.1f}" for d in dts)
                   + f", steady {steady * 1e3:.1f} ({tag}, {gpu}); "
                   "losses " + ", ".join(f"{x['loss']:.5f}" for x in h)
@@ -5340,13 +5647,40 @@ def run_tp_train(torch, dev, gpu, wrappers, name: str = "tp_train") -> dict:
                       f"{arch} rank {r}: the step-{TP_STEPS} checkpoint "
                       "(whole tensors) restored into this rank's blocks, "
                       "bitwise")
+            if cfg.n_heads:
+                c = o["coordinate"][axes.index("model")]
+                H = cfg.n_heads
+                check(tuple(m["heads"]) == (H * c // M, H * (c + 1) // M),
+                      f"{arch} rank {r}: model rank {c} of {M} computes "
+                      f"heads [{H} * {c} // {M}, {H} * {c + 1} // {M})")
+            if "kv_heads" in m:
+                G = cfg.n_heads // cfg.n_kv
+                check([q for q, _ in m["kv_heads"]] == list(range(
+                    *m["heads"])) and all(kv == q // G
+                                          for q, kv in m["kv_heads"]),
+                      f"{arch} rank {r}: local_kv gives query head h the "
+                      f"keys of KV head h // {G} ({m['kv_heads']})")
+            if "experts" in m:
+                T = rows // mb * TRAIN_SEQ
+                check(m["experts"] == cfg.n_experts and
+                      m["moe_dispatch"] == [(1, T, False, False)],
+                      f"{arch} rank {r}: all {cfg.n_experts} experts held "
+                      f"and run on every model rank ({cfg.n_experts} % {M} "
+                      f"= {cfg.n_experts % M}), each dispatch one global "
+                      f"group of {T} tokens (groups, tokens, spread over "
+                      f"ranks, experts split: {m['moe_dispatch']})")
         if cfg.n_heads:
             got = sorted(x for o in ranks for x in range(
                 *o["models"][arch]["heads"]))
-            M = grid_shape[axes.index("model")]
             check(got == sorted(list(range(cfg.n_heads)) * (procs // M)),
                   f"{arch}: the model ranks' head ranges cover each of the "
                   f"{cfg.n_heads} heads once")
+        if cfg.family == "moe":
+            whole = attn_whole(cfg, M, model_split_of(leaves), "layers")
+            check(len(whole) == 4,
+                  f"{arch}: the arithmetic takes wq, wo, wk and wv whole "
+                  f"over \"model\" ({cfg.n_heads} % {M}, {cfg.n_kv} % {M} "
+                  f"not 0): {len(whole)} weights")
         counted = ranks[0]["models"][arch]["collectives_per_step"][0]
         print(f"    collective operand bytes per step and device (counted "
               "on rank 0, step 1) vs the dry run's model_collectives: "
@@ -5370,12 +5704,19 @@ def run_tp_train(torch, dev, gpu, wrappers, name: str = "tp_train") -> dict:
         res["exact_agreement"] = {"loss_rel": el, "grad_norm_rel": en,
                                   "param_err": ex["param_err"],
                                   "first_moment_err": ex["first_moment_err"]}
+        if "route_flips" in ex:
+            gaps = [abs(g) for g in ex["flip_gaps"]]
+            res["exact_agreement"].update(
+                route_flips=ex["route_flips"],
+                flip_gap_max=max(gaps, default=0.0))
         print(f"    float32 ({phase['models'][arch][1]}), {TP_EXACT_STEPS} "
               f"steps, placed vs one process: loss {el:.2e}, grad_norm "
               f"{en:.2e}, first moment {ex['first_moment_err'][0]:.2e} (at "
               f"{ex['first_moment_err'][1]}), parameters "
-              f"{ex['param_err'][0]:.2e} (at {ex['param_err'][1]})",
-              flush=True)
+              f"{ex['param_err'][0]:.2e} (at {ex['param_err'][1]})"
+              + (f"; {ex['route_flips']} (token, call) rows route otherwise"
+                 " (replayed as one process routed)"
+                 if "route_flips" in ex else ""), flush=True)
         out["models"][arch] = res
     for arch, res in out["models"].items():
         agree, ex = res["full_width_agreement"], res["exact_agreement"]
@@ -5385,6 +5726,13 @@ def run_tp_train(torch, dev, gpu, wrappers, name: str = "tp_train") -> dict:
               f"{arch} bf16 placed vs one process, first step: loss "
               f"{agree['loss_rel']:.2e} <= {lim_loss:g}, grad_norm "
               f"{agree['grad_norm_rel']:.2e} <= {lim_norm:g}")
+        if "route_flips" in ex:
+            check(ex["flip_gap_max"] <= EP_TIE,
+                  f"{arch} float32: {ex['route_flips']} (token, call) rows "
+                  "route otherwise on the grid than in one process "
+                  "(replayed as one process routed), each at a near tie: "
+                  f"the K-th and (K+1)-th logits within "
+                  f"{ex['flip_gap_max']:.2e} <= {EP_TIE:g}")
         lim = phase["exact_rtol"]
         check(ex["loss_rel"] <= lim and ex["grad_norm_rel"] <= lim and
               ex["first_moment_err"][0] <= SHARD_EXACT_RTOL and
@@ -5606,6 +5954,10 @@ def main() -> int:
     wrappers = {"dft_matmul": dft_matmul,
                 "dft_matmul_twiddle": dft_matmul_twiddle,
                 "unpack_dft": unpack_dft, "dft_pack": dft_pack}
+    if sys.argv[1:2] == ["--production-grid"]:
+        prod = run_tp_train(torch, dev, gpu, wrappers, "tp_production")
+        print("tp_production: " + json.dumps(prod, default=str), flush=True)
+        return 0
     t0 = time.perf_counter()
     build.build_all()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -5709,10 +6061,16 @@ def main() -> int:
     print("sharded_train: " + json.dumps(sharded), flush=True)
     ep = run_ep_train(torch, dev, gpu, wrappers)
     print("ep_train: " + json.dumps(ep), flush=True)
-    tp_run = run_tp_train(torch, dev, gpu, wrappers)
-    print("tp_train: " + json.dumps(tp_run, default=str), flush=True)
-    uneven = run_tp_train(torch, dev, gpu, wrappers, "tp_uneven")
-    print("tp_uneven: " + json.dumps(uneven, default=str), flush=True)
+    references = {}
+    try:
+        tp_run = run_tp_train(torch, dev, gpu, wrappers,
+                              references=references)
+        print("tp_train: " + json.dumps(tp_run, default=str), flush=True)
+        uneven = run_tp_train(torch, dev, gpu, wrappers, "tp_uneven",
+                              references)
+        print("tp_uneven: " + json.dumps(uneven, default=str), flush=True)
+    finally:
+        drop_tp_references(references)
 
     t0 = time.perf_counter()
     print(f"dry run (meta device, abstract grids; calibration on {gpu}):",

@@ -18,8 +18,12 @@ MoE's experts, Mamba-2's SSD heads and the RG-LRU's channels:
 ``--arch granite-moe-3b-a800m --grid 2x2``, ``--arch mamba2-370m --grid
 2x2``), whether "model" splits the heads evenly or not (``--arch
 whisper-small --grid 1x8``: 4 reduced heads on 8 model ranks; ``--preset
-100m --grid 1x8``: 12 heads on 8; ``--preset full``: Whisper-small's 12
-heads and Granite-MoE's 24 on the production grid's 16).
+100m --grid 1x8``: 12 heads on 8; ``--arch granite-moe-3b-a800m --grid
+1x16``: the production grid's 16-way "model" axis, which divides none of
+Granite-MoE's heads, KV heads and experts, so every model rank holds all
+the experts and routes in one global group; ``--preset full``:
+Whisper-small's 12 heads and Granite-MoE's 24 on the production grid's
+16).
 Checkpointing, auto-resume (run again with the same ``--ckpt-dir``:
 training continues from the newest committed step) and gradient
 compression are flags.

@@ -7,7 +7,9 @@ then-k order, tokens beyond an expert's capacity are dropped
 (``capacity_factor``, 1.25 as published), and the expert FFNs run as one
 batched einsum over the expert dim.  Every dropped entry is written to a
 spare slot E·C of an (E·C + 1)-long table, which is then cut off, as the
-reference's ``mode="drop"`` writes do.
+reference's ``mode="drop"`` writes do.  The combine gathers each token's
+K slots and sums them; no step adds by scatter, so the sums run in one
+order on every run (CUDA's atomic adds do not).
 
 The groups are the reference's, over the microbatch's global rows
 (:func:`moe_apply`): where a group spans the row blocks of several
@@ -90,6 +92,30 @@ def _peer_offsets(counts, C: int, peers):
     return base, max(int(kept.max()), 1)
 
 
+class _TakeRows(torch.autograd.Function):
+    """``xg``'s rows ``src`` (G, N) of each group, the tokens of the expert
+    slots.  The backward sums each token's gradient over its K slots by
+    a gather through ``slot`` (G, T·K: each (token, k)'s slot, the spare
+    row N for a dropped one), not by a scatter-add: it adds in one order
+    on every run and rank, where CUDA's atomic adds do not (model ranks
+    that hold the experts whole must compute the same gradient)."""
+
+    @staticmethod
+    def forward(ctx, xg, src, slot):
+        ctx.save_for_backward(slot)
+        ctx.T = xg.shape[1]
+        return torch.gather(xg, 1, src[..., None].expand(-1, -1,
+                                                         xg.shape[-1]))
+
+    @staticmethod
+    def backward(ctx, grad):
+        slot, = ctx.saved_tensors
+        G, _, D = grad.shape
+        grad = torch.cat([grad, grad.new_zeros((G, 1, D))], 1)
+        picked = torch.gather(grad, 1, slot[..., None].expand(-1, -1, D))
+        return picked.reshape(G, ctx.T, -1, D).sum(2), None, None
+
+
 def _dispatch(xg, router, p, cfg, C, *, ep: bool = False, peers=None):
     """Dispatch/FFN/combine of ``G`` token groups. xg: (G, T, D) → this
     rank's part of (G, T, D).
@@ -132,8 +158,8 @@ def _dispatch(xg, router, p, cfg, C, *, ep: bool = False, peers=None):
         return out.scatter(1, slot, src)[:, :-1]
     tok_of_slot = table(torch.long, tok)
     valid = table(torch.bool, keep)
-    index = tok_of_slot[..., None].expand(-1, -1, D)
-    xe = torch.gather(xg, 1, index) * valid[..., None].to(xg.dtype)
+    xe = _TakeRows.apply(xg, tok_of_slot, slot) * \
+        valid[..., None].to(xg.dtype)
     xe = xe.reshape(G, El, cap, D)
 
     # batched expert FFN
@@ -146,10 +172,11 @@ def _dispatch(xg, router, p, cfg, C, *, ep: bool = False, peers=None):
         h = torch.square(F.relu(up))
     ye = torch.einsum("gecf,efd->gecd", h, p.w_down).reshape(G, spare, D)
 
-    # combine: weighted scatter-add back to tokens
-    contrib = ye * (table(w.dtype, w) * valid).to(ye.dtype)[..., None]
-    return torch.zeros((G, T, D), dtype=ye.dtype, device=dev).scatter_add(
-        1, index, contrib)
+    # combine: each token's K slots gathered and weighted, summed over K
+    ye = torch.cat([ye, ye.new_zeros((G, 1, D))], 1)    # the spare: zeros
+    picked = torch.gather(ye, 1, slot[..., None].expand(-1, -1, D))
+    picked = picked * (w * keep).to(ye.dtype)[..., None]
+    return picked.reshape(G, T, K, D).sum(2)
 
 
 def moe_apply(p, x, cfg, groups: int | None = None):

@@ -102,6 +102,33 @@ def global_norm(tree, placement=None):
     return torch.sqrt(total)
 
 
+#: elements of a leaf updated at once: the update's float32 temporaries
+#: are a few copies of such a slice, not of the whole leaf (a 49155-row
+#: embedding's would be 302 MB each)
+UPDATE_CHUNK = 1 << 24
+
+
+def _chunks(*tensors):
+    """Matching flat slices of ``tensors`` (a parameter, its gradient, its
+    moments) of UPDATE_CHUNK elements, views that the update writes
+    through; the tensors whole when one is not contiguous."""
+    if not all(t.is_contiguous() for t in tensors):
+        yield tensors
+        return
+    flat = [t.view(-1) for t in tensors]
+    for i in range(0, flat[0].numel(), UPDATE_CHUNK):
+        yield tuple(t[i:i + UPDATE_CHUNK] for t in flat)
+
+
+def _moment(x, beta, term):
+    """beta·x + term in float32: in place when the moment ``x`` is float32
+    (the same products and sum, so the same bits, without a copy of
+    ``x`` beside it)."""
+    if x.dtype == torch.float32:
+        return x.mul_(beta).add_(term)
+    return (beta * x.float()).add_(term)
+
+
 @torch.no_grad()
 def apply_updates(params, grads, state, cfg: AdamWConfig):
     """One AdamW step, in place: ``params`` and the state's moments are
@@ -117,16 +144,18 @@ def apply_updates(params, grads, state, cfg: AdamWConfig):
     t = step.float()
     c1 = 1.0 - torch.pow(b1, t)
     c2 = 1.0 - torch.pow(b2, t)
-    for name, p in named.items():
-        m, v = state["m"][name], state["v"][name]
-        g = grads[name].float() * scale
-        m_new = b1 * m.float() + (1 - b1) * g
-        v_new = b2 * v.float() + (1 - b2) * torch.square(g)
-        delta = (m_new / c1) / (torch.sqrt(v_new / c2) + cfg.eps)
-        if ndims[name] >= 2:                  # decoupled decay on matrices
-            delta = delta + cfg.weight_decay * p.float()
-        p.copy_(p.float() - lr * delta)
-        m.copy_(m_new)
-        v.copy_(v_new)
+    for name, leaf in named.items():
+        for p, g, m, v in _chunks(leaf, grads[name], state["m"][name],
+                                  state["v"][name]):
+            g = g.float() * scale
+            m_new = _moment(m, b1, (1 - b1) * g)
+            v_new = _moment(v, b2, torch.square(g).mul_(1 - b2))
+            del g
+            delta = (m_new / c1).div_(torch.sqrt(v_new / c2).add_(cfg.eps))
+            if ndims[name] >= 2:              # decoupled decay on matrices
+                delta.add_(cfg.weight_decay * p.float())
+            p.copy_(p.float().sub_(delta.mul_(lr)))
+            m.copy_(m_new)
+            v.copy_(v_new)
     state["step"] = step
     return params, state, {"grad_norm": gnorm, "lr": lr}

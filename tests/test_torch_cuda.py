@@ -475,3 +475,34 @@ def test_cuda_jit_step_anderson_converges(cuda_device):
     assert abs(res.energy - (-1.9197)) < 5e-3, res.energy
     for eps in res.eigenvalues:
         assert np.all(np.diff(eps) >= -1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_is_deterministic(cuda_device):
+    """The MoE's output and gradients come out bit for bit the same on
+    every run on the card: its combine gathers each token's slots and
+    its dispatch's backward gathers them too, where a scatter-add's
+    atomic adds sum in any order.  Model ranks that hold the experts
+    whole (a "model" axis that does not divide them) compute the same
+    loss and gradients only so."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(get_config("granite-moe-3b-a800m").reduced(),
+                              n_experts=8, top_k=4, dtype="bfloat16")
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    p = moe.MoE(cfg, torch.bfloat16, gen=gen, device=cuda_device)
+    x0 = torch.randn((4, 256, cfg.d_model), generator=gen,
+                     device=cuda_device).to(torch.bfloat16)
+    runs = []
+    for _ in range(3):
+        p.zero_grad(set_to_none=True)
+        x = x0.clone().requires_grad_(True)
+        out = moe.moe_apply(p, x, cfg)
+        out.float().square().sum().backward()
+        runs.append([out.detach(), x.grad] +
+                    [t.grad for t in (p.router, p.w_up, p.w_gate,
+                                      p.w_down)])
+    for other in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], other))

@@ -284,3 +284,59 @@ def test_bf16_state_roundtrip():
 def test_global_norm():
     t = {"a": torch.ones((3,)), "b": torch.full((4,), 2.0)}
     assert abs(float(adamw.global_norm(t)) - np.sqrt(3 + 16)) < 1e-6
+
+
+def _whole_leaf_updates(params, grads, state, cfg):
+    """The update as one expression per whole leaf (``apply_updates``'s
+    formula before it worked in place and in slices)."""
+    step = state["step"] + 1
+    gnorm = adamw.global_norm(grads)
+    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12),
+                        max=1.0)
+    lr = adamw.schedule(cfg, step)
+    t = step.float()
+    c1, c2 = 1.0 - torch.pow(cfg.beta1, t), 1.0 - torch.pow(cfg.beta2, t)
+    for name, p in params.items():
+        m, v = state["m"][name], state["v"][name]
+        g = grads[name].float() * scale
+        m_new = cfg.beta1 * m.float() + (1 - cfg.beta1) * g
+        v_new = cfg.beta2 * v.float() + (1 - cfg.beta2) * torch.square(g)
+        delta = (m_new / c1) / (torch.sqrt(v_new / c2) + cfg.eps)
+        if p.ndim >= 2:
+            delta = delta + cfg.weight_decay * p.float()
+        p.copy_(p.float() - lr * delta)
+        m.copy_(m_new)
+        v.copy_(v_new)
+    state["step"] = step
+
+
+@pytest.mark.parametrize("chunk", [64, 1 << 24])
+@pytest.mark.parametrize("dtype,state_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16)])
+def test_update_in_place_and_in_slices_is_bitwise_the_whole_leaf_one(
+        chunk, dtype, state_dtype, monkeypatch):
+    """``apply_updates`` writes float32 moments in place and each leaf in
+    slices of ``UPDATE_CHUNK`` elements (so that its float32 temporaries
+    are a few copies of a slice, not of the largest leaf): the same
+    products and sums, bit for bit those of whole leaves."""
+    monkeypatch.setattr(adamw, "UPDATE_CHUNK", chunk)
+    rng = np.random.default_rng(5)
+    shapes = {"w": (37, 11), "b": (29,), "e": (300, 3)}
+
+    def tree():
+        return {n: torch.from_numpy(rng.standard_normal(s).astype(
+            np.float32)).to(dtype) for n, s in shapes.items()}
+    got = tree()
+    want = {n: t.clone() for n, t in got.items()}
+    st_got = adamw.init_state(got, state_dtype)
+    st_want = adamw.init_state(want, state_dtype)
+    with torch.no_grad():
+        for _ in range(3):
+            g = tree()
+            adamw.apply_updates(got, g, st_got, CFG)
+            _whole_leaf_updates(want, g, st_want, CFG)
+    for n in shapes:
+        assert torch.equal(got[n], want[n]), n
+        for k in ("m", "v"):
+            assert torch.equal(st_got[k][n], st_want[k][n]), (k, n)

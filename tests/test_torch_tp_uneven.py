@@ -14,7 +14,12 @@ reference's ``PRNGKey(0)`` weights (carried over by
 
 * on (2, 2), more heads than ranks but not a multiple: Whisper-small with
   3 heads and 3 KV heads, Granite-MoE 3B-A800M with 3 heads and 1 KV
-  head, RecurrentGemma-9B (one (rec, rec, attn) period) with 3 heads,
+  head, the same with 3 experts (``granite-moe-h3-e3``: nor does 2
+  divide the experts, so every model rank holds them all and the
+  microbatch routes in one global group over the data ranks, the
+  layout of the production grid's 16-way "model" axis, which divides
+  none of Granite-MoE's 24 heads, 8 KV heads and 40 experts),
+  RecurrentGemma-9B (one (rec, rec, attn) period) with 3 heads,
   Mamba-2 370M at d_model 24 (3 SSD heads);
 * on (1, 8), fewer heads than ranks: Whisper-small's reduced config (4
   heads on 8 ranks: half the ranks compute none).
@@ -70,6 +75,8 @@ CASES = {
     "whisper-h3": ("whisper-small", {"n_heads": 3, "n_kv": 3}, "2x2"),
     "granite-moe-h3": ("granite-moe-3b-a800m", {"n_heads": 3, "n_kv": 1},
                        "2x2"),
+    "granite-moe-h3-e3": ("granite-moe-3b-a800m",
+                          {"n_heads": 3, "n_kv": 1, "n_experts": 3}, "2x2"),
     "recurrentgemma-h3": ("recurrentgemma-9b", {"n_heads": 3}, "2x2"),
     "mamba2-d24": ("mamba2-370m", {"d_model": 24}, "2x2"),
     "whisper-1x8": ("whisper-small", {}, "1x8"),
