@@ -25,6 +25,7 @@ import threading
 import numpy as np
 import torch
 
+from ..obs.trace import relayout
 from .grid import resolve_device
 
 _BACKENDS = ("fft", "matmul", "cuda")
@@ -149,7 +150,7 @@ def _cuda_backend(x, axis, n_in, n_out, inverse):
     from ..kernels import ops as kops
     xm = torch.movedim(x, axis, -1)
     shp = xm.shape
-    xf = xm.reshape(-1, n_in)
+    xf = relayout(xm, n_in)
     yf = kops.dft_apply(xf, n_out=n_out, inverse=inverse)
     return torch.movedim(yf.reshape(*shp[:-1], n_out), -1, axis)
 

@@ -20,10 +20,12 @@ axis' process group; over an axis of size 1 it is the identity.
 
 ``Plan`` is the common base of ``FftPlan`` and ``PlaneWaveFFT``: execution
 policy resolution, ``tune()``, tracing and the flop/comm accounting shared
-by both.  With the tracer on (``repro_torch.obs.get_tracer().enable()``) a
-plan records a ``plan:`` span and one span per stage, each synchronized
-with the card at exit.  Every plan
-can *derive* its mirror transforms — ``plan.inverse()`` and
+by both.  With the tracer on (``repro_torch.obs.get_tracer().enable()``, or
+following a running ``torch.profiler``) a plan records a ``plan:`` span and
+one span per stage from whichever executor the policy names; a stage that
+launches device work is timed on the device, and a span is synchronized
+with the card at exit only when the tracer was enabled with ``sync``.
+Every plan can *derive* its mirror transforms — ``plan.inverse()`` and
 ``plan.adjoint()`` reverse the stage list (each stage knows its own mirror)
 instead of running a second schedule search.
 """
@@ -40,7 +42,7 @@ import torch
 from . import layout as L
 from .grid import count_collective
 from ..obs.metrics import global_metrics
-from ..obs.trace import drain, get_tracer
+from ..obs.trace import NOOP_SPAN, drain, get_tracer, relayout
 from .dtensor import DistTensor
 from .hostsync import host_sync
 from .local_fft import (dft_flops, dft_matrix_planes, full_fp32_matmul,
@@ -540,23 +542,29 @@ class FftPlan(Plan):
         return self._mirror(scale)
 
     # ----------------------------------------------------------- execution
+    def _stage_span(self, tr, i: int):
+        """Stage ``i``'s span on tracer ``tr`` (the no-op span without
+        one), timed on the device where the stage launches work: a line
+        DFT, or a move over an axis of several processes."""
+        if tr is None:
+            return NOOP_SPAN
+        st, meta = self.stages[i], self._stage_meta[i]
+        span = (tr.device_span if isinstance(st, FFTStage)
+                or st.axis_size > 1 else tr.span)
+        return span(meta["name"],
+                    **{k: v for k, v in meta.items() if k != "name"})
+
     def _raw_apply(self, x, tr=None):
         """The stages in order, then the scale.  With a tracer ``tr``,
-        each stage runs in its own span, synchronized at exit, so a span
-        covers its own stage's device work."""
+        each stage runs in its own span."""
         for i, st in enumerate(self.stages):
-            if tr is None:
-                x = st.apply(x)
-                continue
-            meta = self._stage_meta[i]
-            attrs = {k: v for k, v in meta.items() if k != "name"}
-            with tr.span(meta["name"], **attrs) as ssp:
+            with self._stage_span(tr, i) as ssp:
                 x = ssp.sync(st.apply(x))
         if self.scale != 1.0:
             x = x * self.scale
         return x
 
-    def _raw_apply_lazy(self, x, compute_dtype=torch.float32):
+    def _raw_apply_lazy(self, x, compute_dtype=torch.float32, tr=None):
         """Lazy-permutation, split-complex executor.
 
         The eager path pays, per stage, two transposes plus a complex
@@ -570,7 +578,8 @@ class FftPlan(Plan):
         product is Gauss's three real GEMMs with f32 results (for bf16
         operands too); the f32 differences are cast back to
         ``compute_dtype``.  Same stages as the eager walk, same result to
-        rounding.
+        rounding.  With a tracer ``tr``, each stage runs in its own span,
+        as in the eager walk.
         """
         dev = x.device
         perm = list(range(x.ndim))        # perm[i] = logical dim at pos i
@@ -578,32 +587,38 @@ class FftPlan(Plan):
         xr = x.real.to(compute_dtype)
         xi = x.imag.to(compute_dtype)
         with full_fp32_matmul(dev):
-            for st in self.stages:
-                if not isinstance(st, FFTStage):
-                    # the move on each plane, at the dims' current places
-                    sp, cp = perm.index(st.dst_index), perm.index(
-                        st.src_index)
-                    xr, xi = st.apply(xr, sp, cp), st.apply(xi, sp, cp)
-                    continue
-                pos = perm.index(st.index)
-                wr, wi, ws = (w.to(compute_dtype) for w in dft_matrix_planes(
-                    st.n_out, st.n_in, st.inverse, dev))
-                ar = xr.movedim(pos, -1)
-                ai = xi.movedim(pos, -1)
-                shape = ar.shape[:-1] + (st.n_out,)
-                ar = ar.reshape(-1, st.n_in)
-                ai = ai.reshape(-1, st.n_in)
-                # Gauss 3-multiplication complex product: 3 real GEMMs
-                # instead of 4:
-                #   m1 = xr·wr, m2 = xi·wi, m3 = (xr+xi)·(wr+wi)
-                #   yr = m1 − m2, yi = m3 − m1 − m2
-                m1 = _gemm_f32(ar, wr)
-                m2 = _gemm_f32(ai, wi)
-                m3 = _gemm_f32((ar + ai).to(compute_dtype), ws)
-                xi = m3.sub_(m1).sub_(m2).to(compute_dtype).reshape(shape)
-                xr = m1.sub_(m2).to(compute_dtype).reshape(shape)
-                perm = [p for i, p in enumerate(perm) if i != pos] \
-                    + [st.index]
+            for i, st in enumerate(self.stages):
+                with self._stage_span(tr, i) as ssp:
+                    if not isinstance(st, FFTStage):
+                        # the move on each plane, at the dims' current
+                        # places
+                        sp, cp = perm.index(st.dst_index), perm.index(
+                            st.src_index)
+                        xr, xi = ssp.sync((st.apply(xr, sp, cp),
+                                           st.apply(xi, sp, cp)))
+                        continue
+                    pos = perm.index(st.index)
+                    wr, wi, ws = (w.to(compute_dtype)
+                                  for w in dft_matrix_planes(
+                                      st.n_out, st.n_in, st.inverse, dev))
+                    ar = xr.movedim(pos, -1)
+                    ai = xi.movedim(pos, -1)
+                    shape = ar.shape[:-1] + (st.n_out,)
+                    ar = relayout(ar, st.n_in)
+                    ai = relayout(ai, st.n_in)
+                    # Gauss 3-multiplication complex product: 3 real GEMMs
+                    # instead of 4:
+                    #   m1 = xr·wr, m2 = xi·wi, m3 = (xr+xi)·(wr+wi)
+                    #   yr = m1 − m2, yi = m3 − m1 − m2
+                    m1 = _gemm_f32(ar, wr)
+                    m2 = _gemm_f32(ai, wi)
+                    m3 = _gemm_f32((ar + ai).to(compute_dtype), ws)
+                    xi = m3.sub_(m1).sub_(m2).to(compute_dtype).reshape(
+                        shape)
+                    xr = ssp.sync(
+                        m1.sub_(m2).to(compute_dtype).reshape(shape))
+                    perm = [p for j, p in enumerate(perm) if j != pos] \
+                        + [st.index]
         out_axes = [perm.index(i) for i in range(len(perm))]
         xr = xr.permute(out_axes).to(torch.float32)
         xi = xi.permute(out_axes).to(torch.float32)
@@ -619,11 +634,12 @@ class FftPlan(Plan):
             raise RuntimeError("an abstract (device-less) grid cannot "
                                "execute a plan; build it on ProcGrid.create")
 
-    def _run(self, x, pol: ExecPolicy):
-        """The whole stage list by the executor ``pol.mode`` names."""
+    def _run(self, x, pol: ExecPolicy, tr=None):
+        """The whole stage list by the executor ``pol.mode`` names (with
+        one span per stage on tracer ``tr``)."""
         if pol.mode == "lazy":
-            return self._raw_apply_lazy(x, pol.torch_compute_dtype())
-        return self._raw_apply(x)
+            return self._raw_apply_lazy(x, pol.torch_compute_dtype(), tr)
+        return self._raw_apply(x, tr)
 
     def _execute(self, x, pol: ExecPolicy, tr=None):
         self._check_executable()
@@ -634,11 +650,7 @@ class FftPlan(Plan):
             + f"{len(self.fft_pairs)}d"
         with tr.span(f"plan:{name}", shape=list(self.tin.shape),
                      mode=pol.mode, stages=len(self.stages)) as sp:
-            if not tr.per_stage:
-                return sp.sync(self._run(x, pol))
-            # stage by stage: the eager walk with one span per stage (the
-            # lazy executor interleaves stages and cannot be split)
-            return sp.sync(self._raw_apply(x, tr))
+            return sp.sync(self._run(x, pol, tr if tr.per_stage else None))
 
     # -------------------------------------------------- traced execution
     @cached_property

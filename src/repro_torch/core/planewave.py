@@ -264,8 +264,8 @@ class _FusedTransformMixin:
             return self(self.unpack(packed), policy=pol)
         from ..kernels import sphere_pack
         sphere_pack.DISPATCHES["unpack_dft"] += 1
-        with get_tracer().span("fused:unpack_dft", backend="cuda",
-                               npacked=parts["in_shape"][1]) as sp:
+        with get_tracer().device_span("fused:unpack_dft", backend="cuda",
+                                      npacked=parts["in_shape"][1]) as sp:
             mid = sp.sync(parts["fn"](packed))
         return parts["rem"](mid, policy=pol)
 
@@ -278,8 +278,8 @@ class _FusedTransformMixin:
         from ..kernels import sphere_pack
         sphere_pack.DISPATCHES["dft_pack"] += 1
         mid = parts["lead"](cube, policy=pol)
-        with get_tracer().span("fused:dft_pack", backend="cuda",
-                               npacked=parts["out_shape"][1]) as sp:
+        with get_tracer().device_span("fused:dft_pack", backend="cuda",
+                                      npacked=parts["out_shape"][1]) as sp:
             return sp.sync(parts["fn"](mid))
 
     def local_rows(self, packed):

@@ -78,22 +78,21 @@ class StepGraphs:
     def capture(self, fn, *args):
         """Capture ``fn(*args)`` as graphs split at its host syncs, and run
         it once (each graph is replayed as soon as it is captured, so the
-        eager operations between them see real values).  The tracer is off
-        meanwhile: spans would time the capture and their syncs are not
-        allowed in a graph.  Raises ``RuntimeError`` if the capture fails.
+        eager operations between them see real values).  The tracer is
+        suspended meanwhile, also while it follows a profiler: spans would
+        time the capture and their syncs are not allowed in a graph.
+        Raises ``RuntimeError`` if the capture fails.
         """
         if self._tape:
             raise RuntimeError("this step is already captured")
-        tr = get_tracer()
-        was_enabled = tr.enabled
-        tr.enabled = False
         t0 = time.perf_counter()
         torch.cuda.synchronize(self.device)
         set_capture(self)
         try:
-            self._begin()
-            out = fn(*args)
-            self._end()
+            with get_tracer().suspended():
+                self._begin()
+                out = fn(*args)
+                self._end()
             self._outputs = out
         except Exception as exc:
             self._abort()
@@ -103,7 +102,6 @@ class StepGraphs:
                 f"core.hostsync.host_sync): {exc}") from exc
         finally:
             set_capture(None)
-            tr.enabled = was_enabled
         torch.cuda.synchronize(self.device)
         self.capture_seconds = time.perf_counter() - t0
         return out
@@ -113,21 +111,22 @@ class StepGraphs:
 
         With the tracer on, each graph records a ``step_graph`` span
         (``index`` in replay order) and each host sync a
-        ``host_sync:<name>`` span, each synchronized at exit: the step's
-        device time by piece, and what each sync costs.
+        ``host_sync:<name>`` span, each timed on the device (and
+        synchronized at exit when the tracer was enabled with ``sync``):
+        the step's device time by piece, and what each sync costs.
         """
         tr = get_tracer()
         k = 0
         for item in self._tape:
             if isinstance(item, tuple):
                 name, fn, args, outs = item
-                with tr.span(f"host_sync:{name}") as sp:
+                with tr.device_span(f"host_sync:{name}") as sp:
                     new = fn(*args)
                     for o, n in zip(_as_tuple(outs), _as_tuple(new)):
                         o.copy_(n)
                     sp.sync(outs)
             else:
-                with tr.span("step_graph", index=k) as sp:
+                with tr.device_span("step_graph", index=k) as sp:
                     item.replay()
                     sp.sync(self._outputs)
                 k += 1

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..core.local_fft import dft_matrix_device
+from ..obs.trace import relayout
 from .dft_matmul import dft_matmul, dft_matmul_twiddle, embed_operand
 from .ref import twiddle_matrix
 
@@ -49,7 +50,7 @@ def dft_apply(x, n_out: int | None = None, *, inverse: bool = False):
     n_in = x.shape[1]
     n_out = n_in if n_out is None else n_out
     w, ws = _matrix(n_out, n_in, inverse, x.device)
-    return dft_matmul(x.to(torch.complex64).contiguous(), w, wsplit=ws)
+    return dft_matmul(relayout(x.to(torch.complex64)), w, wsplit=ws)
 
 
 @functools.lru_cache(maxsize=64)

@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from ..obs.metrics import global_metrics
+from ..obs.trace import relayout
 from . import build
 from .dft_matmul import _check, _operand, dft_matmul_plain
 
@@ -324,7 +325,7 @@ def dft_pack(slab, start, zlo, cnt, nvalid, w, npacked: int, *,
         return dft_pack_plain(slab, start, zlo, cnt, nvalid, w, npacked)
     layout = slab_layout(slab)
     if layout is None:
-        slab, layout = slab.contiguous(), 0
+        slab, layout = relayout(slab), 0
     ws = _operand(w, wsplit, d, n, dev)
     out = (torch.zeros if partial else torch.empty)(
         (B, npacked), dtype=torch.complex64, device=dev)

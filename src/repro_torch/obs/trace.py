@@ -4,20 +4,41 @@ One process-global :class:`Tracer` (``get_tracer()``) records *complete*
 spans — named wall-clock intervals with nesting tracked per thread — into
 a bounded ring buffer.  The design constraints, in order:
 
-* **Disabled is free.**  ``tracer.span(...)`` on a disabled tracer returns
+* **Off is free.**  ``tracer.span(...)`` on a tracer that is off returns
   a shared no-op singleton: no span object is allocated, no lock is taken,
   no timestamp is read.  Instrumented hot paths guard on
-  ``tracer.enabled`` (a plain attribute) before building attribute dicts.
-* **Honest device timing.**  CUDA launches are asynchronous — a span that
-  closes right after ``fn(x)`` times the *launch*, not the execution.
-  ``span.sync(out)`` marks a value whose CUDA devices are synchronized
-  (``torch.cuda.synchronize``) at span exit when ``tracer.sync`` is on,
-  so the recorded duration covers the device work the span claims to
-  measure.  CPU tensors need no synchronization: their work is done when
-  the call returns.
+  ``tracer.enabled`` before building attribute dicts.
+* **Spans follow a running profiler.**  While a ``torch.profiler`` session
+  records, the tracer records as if enabled, with ``sync`` off and one span
+  per plan stage.  Following starts at the session's first span and clears
+  the buffer, so it holds that session's spans only; it ends when the
+  tracer is looked at (a span opened, its events read) with no profiler
+  recording.  Each span recorded under a profiler also opens a profiler
+  range of its own name, recorded as a CPU op (not a user annotation,
+  which the profiler would mirror on the device timeline): the port's
+  spans sit on the profiler's clock and own the operators and kernels
+  launched inside them.
+* **Device time without a sync.**  CUDA launches are asynchronous — a
+  span that closes right after ``fn(x)`` times the *launch*, not the
+  execution.  A span around device work launched in it
+  (:meth:`Tracer.device_span`) records a timing event on the current
+  stream at entry and at exit (none while the stream captures a graph);
+  a span around other spans takes its device interval from theirs, from
+  the first one's entry event to the last one's exit event, and records
+  none: each event costs the card a few microseconds between kernels.
+  :meth:`Tracer.device_summary` resolves the device time when it is
+  read, after the caller's own sync.  ``span.sync(out)`` still marks a
+  value whose CUDA devices are synchronized (``torch.cuda.synchronize``)
+  at span exit when the tracer was enabled with ``sync`` on, for
+  wall-clock spans that cover their device work.  CPU tensors need no
+  synchronization: their work is done when the call returns.
 * **Threads nest independently.**  Each thread has its own span stack;
   depth and parent are per-thread, and exported events carry a per-thread
   track id so Perfetto renders one lane per thread.
+
+:func:`relayout` is the copy that lays lines out contiguously for a GEMM;
+while the tracer records, a call that copies runs in a ``relayout`` span
+carrying its ``bytes``.
 
 Export is the Chrome trace event format (``ph: "X"`` complete events,
 timestamps in microseconds) — load the JSON in Perfetto
@@ -25,6 +46,8 @@ timestamps in microseconds) — load the JSON in Perfetto
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import os
 import threading
@@ -32,6 +55,14 @@ import time
 from collections import deque
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+try:
+    # a profiler range recorded as a CPU op (``record_function``'s is a
+    # user annotation, which the profiler mirrors on the device timeline)
+    from torch._C._profiler import _RecordFunctionFast as _ProfilerRange
+except ImportError:                      # pragma: no cover - older torch
+    _ProfilerRange = None
 
 
 def _cuda_devices(value) -> set:
@@ -100,13 +131,39 @@ class _NoopSpan:
 NOOP_SPAN = _NoopSpan()
 
 
+def _stream_event():
+    """A timing event recorded on the current CUDA stream, or None: no
+    CUDA context yet, or the stream is capturing a graph (an event
+    recorded there would belong to the graph)."""
+    if (not torch.cuda.is_initialized()
+            or torch.cuda.is_current_stream_capturing()):
+        return None
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+def _device_ms(ev: dict):
+    """The device milliseconds between a recorded span's two timing events,
+    or None when it has none.  Waits for the exit event; the result
+    replaces the events in ``ev``."""
+    dev = ev["device"]
+    if isinstance(dev, tuple):
+        start, end = dev
+        end.synchronize()
+        dev = ev["device"] = start.elapsed_time(end)
+    return dev
+
+
 class Span:
     """One live span: a context manager that records itself on exit."""
 
     __slots__ = ("_tracer", "name", "attrs", "t0", "t1", "depth", "parent",
-                 "_sync_value", "_tid")
+                 "_sync_value", "_tid", "_range", "_timed", "_start",
+                 "_inner")
 
-    def __init__(self, tracer: "Tracer", name: str, attrs: dict):
+    def __init__(self, tracer: "Tracer", name: str, attrs: dict,
+                 timed: bool = False):
         self._tracer = tracer
         self.name = name
         self.attrs = attrs
@@ -115,6 +172,10 @@ class Span:
         self.parent = None
         self._sync_value = None
         self._tid = None
+        self._range = None
+        self._timed = timed       # records its own timing events
+        self._start = None        # its entry event
+        self._inner = None        # (first entry, last exit) of its spans
 
     def set(self, **attrs):
         """Attach attributes after entry (e.g. results known at exit)."""
@@ -136,19 +197,37 @@ class Span:
         self.parent = stack[-1].name if stack else None
         self._tid = threading.get_ident()
         stack.append(self)
+        if (_autograd_profiler._is_profiler_enabled
+                and _ProfilerRange is not None):
+            self._range = _ProfilerRange(self.name)
+            self._range.__enter__()
+        if self._timed:
+            self._start = _stream_event()
         self.t0 = time.perf_counter()
         return self
 
     def __exit__(self, exc_type, exc, tb):
+        device = self._inner
+        if self._start is not None:
+            end = _stream_event()
+            device = None if end is None else (self._start, end)
+        self._start = self._inner = None
         if self._sync_value is not None and self._tracer.sync:
             drain(self._sync_value)
-            self._sync_value = None
+        self._sync_value = None
         self.t1 = time.perf_counter()
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+            self._range = None
         stack = self._tracer._stack()
         if stack and stack[-1] is self:
             stack.pop()
+        if device is not None and stack and not stack[-1]._timed:
+            outer = stack[-1]
+            outer._inner = (device[0] if outer._inner is None
+                            else outer._inner[0], device[1])
         self._tracer._record(self.name, self.t0, self.t1, self._tid,
-                             self.depth, self.parent, self.attrs)
+                             self.depth, self.parent, self.attrs, device)
         return False
 
 
@@ -156,7 +235,9 @@ class Tracer:
     """Bounded recorder of spans; export via :meth:`to_chrome`."""
 
     def __init__(self, max_events: int = 200_000):
-        self.enabled = False
+        self._on = False          # enable() called
+        self._following = False   # recording a profiler session
+        self._suspended = 0
         self.sync = True          # drain marked values at span exit
         self.per_stage = True     # plans record one span per stage
         self._events: deque = deque(maxlen=max_events)
@@ -166,27 +247,71 @@ class Tracer:
         self._origin = time.perf_counter()
 
     # ------------------------------------------------------------ lifecycle
+    @property
+    def enabled(self) -> bool:
+        """Whether spans record: after :meth:`enable`, or while a
+        ``torch.profiler`` session records (following it), unless
+        :meth:`suspended`."""
+        if self._on:
+            return True
+        if not _autograd_profiler._is_profiler_enabled:
+            self._following = False
+            return False
+        if self._suspended:
+            return False
+        if not self._following:
+            self._follow()
+        return True
+
+    def _follow(self) -> None:
+        """Start recording a profiler session: its spans only, no sync,
+        one span per plan stage."""
+        with self._lock:
+            if self._following:
+                return
+            self._events.clear()
+            self.dropped = 0
+            self._origin = time.perf_counter()
+            self.sync = False
+            self.per_stage = True
+            self._following = True
+
     def enable(self, *, sync: bool = True, per_stage: bool = True,
                clear: bool = True) -> "Tracer":
         """Start recording.  ``sync`` drains marked values at span exit
-        (honest device timing); ``per_stage`` asks plans to record one
-        span per stage so line DFTs and moves get separate spans."""
+        (wall-clock spans that cover their device work); ``per_stage``
+        asks plans to record one span per stage so line DFTs and moves
+        get separate spans."""
         if clear:
             self.clear()
         self.sync = bool(sync)
         self.per_stage = bool(per_stage)
-        self.enabled = True
+        self._on = True
         return self
 
     def disable(self) -> "Tracer":
-        self.enabled = False
+        self._on = False
         return self
+
+    @contextlib.contextmanager
+    def suspended(self):
+        """No span records inside, enabled or following (a CUDA graph
+        capture: spans would time the capture, and a sync is not allowed
+        in a graph)."""
+        was, self._on = self._on, False
+        self._suspended += 1
+        try:
+            yield self
+        finally:
+            self._suspended -= 1
+            self._on = was
 
     def clear(self) -> None:
         with self._lock:
             self._events.clear()
             self.dropped = 0
             self._origin = time.perf_counter()
+            self._following = False
 
     # ------------------------------------------------------------ recording
     def _stack(self) -> list:
@@ -197,11 +322,18 @@ class Tracer:
 
     def span(self, name: str, **attrs):
         """A context manager timing the enclosed block (no-op singleton
-        when disabled — guard attribute construction on ``enabled`` if
-        the attrs themselves are expensive)."""
+        when off — guard attribute construction on ``enabled`` if the
+        attrs themselves are expensive)."""
         if not self.enabled:
             return NOOP_SPAN
         return Span(self, name, attrs)
+
+    def device_span(self, name: str, **attrs):
+        """:meth:`span` around device work launched inside it: timed on
+        the device by events on the current stream at entry and exit."""
+        if not self.enabled:
+            return NOOP_SPAN
+        return Span(self, name, attrs, timed=True)
 
     def event(self, name: str, t0: float, t1: float, **attrs) -> None:
         """Record a complete event with explicit ``perf_counter`` bounds.
@@ -221,9 +353,11 @@ class Tracer:
         t = time.perf_counter()
         self._record(name, t, t, threading.get_ident(), 0, None, attrs)
 
-    def _record(self, name, t0, t1, tid, depth, parent, attrs) -> None:
+    def _record(self, name, t0, t1, tid, depth, parent, attrs,
+                device=None) -> None:
         ev = {"name": name, "t0": t0, "t1": t1, "tid": tid,
-              "depth": depth, "parent": parent, "attrs": attrs}
+              "depth": depth, "parent": parent, "attrs": attrs,
+              "device": device}
         with self._lock:
             if len(self._events) == self._events.maxlen:
                 self.dropped += 1
@@ -231,6 +365,8 @@ class Tracer:
 
     # -------------------------------------------------------------- queries
     def events(self) -> list[dict]:
+        if not _autograd_profiler._is_profiler_enabled:
+            self._following = False     # the session followed has ended
         with self._lock:
             return list(self._events)
 
@@ -243,6 +379,27 @@ class Tracer:
             s["total_ms"] += (ev["t1"] - ev["t0"]) * 1e3
         for s in out.values():
             s["total_ms"] = round(s["total_ms"], 3)
+        return out
+
+    def device_summary(self) -> dict:
+        """Per-name {count, device_ms, bytes} of the recorded spans.
+
+        ``device_ms`` sums each span's device time (see
+        :meth:`device_span`); it is None for a name none of whose spans
+        has one (off CUDA, inside a graph capture, or no device span
+        inside).  Reading it waits for the exit events, so read it after
+        the caller's own sync.  ``bytes`` sums the spans' ``bytes``
+        attributes.
+        """
+        out: dict[str, dict] = {}
+        for ev in self.events():
+            s = out.setdefault(ev["name"], {"count": 0, "device_ms": None,
+                                            "bytes": 0})
+            s["count"] += 1
+            s["bytes"] += int(ev["attrs"].get("bytes", 0))
+            ms = _device_ms(ev)
+            if ms is not None:
+                s["device_ms"] = (s["device_ms"] or 0.0) + ms
         return out
 
     # --------------------------------------------------------------- export
@@ -296,3 +453,31 @@ _GLOBAL = Tracer()
 def get_tracer() -> Tracer:
     """The process-global tracer every instrumented layer records into."""
     return _GLOBAL
+
+
+def relayout(x, lines: int | None = None):
+    """``x.reshape(-1, lines)``, or ``x.contiguous()`` without ``lines``:
+    the copy that lays a tensor's lines out contiguously for a GEMM.
+
+    While the tracer records, a call that copies (the data does not
+    already lie in that order) runs inside a ``relayout`` span with the
+    copy's ``bytes`` (the tensor's size: read once and written once) and
+    its ``stage``, the span it nests under.  A call that returns a view
+    records nothing.
+    """
+    tr = _GLOBAL
+    if not tr.enabled:
+        return x.contiguous() if lines is None else x.reshape(-1, lines)
+    if lines is None:
+        if x.is_contiguous():
+            return x
+        make = x.contiguous
+    else:
+        try:
+            return x.view(-1, lines)
+        except RuntimeError:             # no view: reshape copies
+            make = functools.partial(x.reshape, -1, lines)
+    stack = tr._stack()
+    with tr.device_span("relayout", bytes=x.numel() * x.element_size(),
+                        stage=stack[-1].name if stack else None) as sp:
+        return sp.sync(make())

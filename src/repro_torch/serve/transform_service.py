@@ -471,7 +471,7 @@ class TransformService:
                 # one child span per piece (the plans record their own);
                 # with the tracer's sync on, each covers its device work
                 mine, zs = _rank_slices(inv)
-                with tr.span("serve.upload_coeffs") as sp:
+                with tr.device_span("serve.upload_coeffs") as sp:
                     buf = sp.sync(_row_block(
                         reqs, mine, inv.npacked_max,
                         lambda s: torch.zeros(s, dtype=torch.complex64,
@@ -484,7 +484,7 @@ class TransformService:
             packed = self._run_pair(upload)
             # the host copy waits for the device: the span end is an
             # honest completion time without an extra sync
-            with tr.span("serve.download"):
+            with tr.device_span("serve.download"):
                 out = packed.cpu().numpy()
 
         self.metrics.record_dispatch(len(reqs), rows, padding)
@@ -523,7 +523,7 @@ class TransformService:
         None when no row has one."""
         if not blocks:
             return None
-        with get_tracer().span("serve.upload_potential") as sp:
+        with get_tracer().device_span("serve.upload_potential") as sp:
             v = torch.ones((len(index), self.n, self.n,
                             zs.stop - zs.start),
                            dtype=torch.float32, device=self.device)
@@ -559,12 +559,12 @@ class TransformService:
         with tr.span("serve.unpack_transform") as sp:
             psi = sp.sync(inv.unpack_transform(rows))
         if v is not None:
-            with tr.span("serve.times_v") as sp:
+            with tr.device_span("serve.times_v") as sp:
                 psi = sp.sync(psi * v)
         with tr.span("serve.transform_pack") as sp:
             packed = sp.sync(fwd.transform_pack(psi))
         if self.grid.multi_process:
-            with tr.span("serve.gather_rows") as sp:
+            with tr.device_span("serve.gather_rows") as sp:
                 packed = sp.sync(fwd.gather_rows(packed))
         return packed
 
@@ -650,7 +650,7 @@ class TransformService:
         inv, fwd = self._pair_for(
             tuple(self._sphere(specs[i]) for i in row_sphere), bucket)
         _, zs = _rank_slices(inv)
-        with get_tracer().span("serve.upload_coeffs") as sp:
+        with get_tracer().device_span("serve.upload_coeffs") as sp:
             rows = sp.sync(self._device_tensor(buf, torch.complex64))
         return inv, fwd, rows, self._potential_block(index, blocks, zs)
 

@@ -116,9 +116,19 @@ def test_lazy_bf16_executor_precision_bounded(g1):
     assert 0.0 < rel < 3e-2, rel     # bf16 operands, f32 products
 
 
-def test_lazy_under_per_stage_tracer_walks_eager_stages(g1):
+def test_lazy_under_per_stage_tracer_walks_eager_stages(g1, monkeypatch):
+    """Tracing never changes the executor: a lazy call under the
+    per-stage tracer runs the lazy executor (the eager walk is made to
+    fail), records one span per line stage, and is bitwise the untraced
+    lazy call."""
     plan = _cube_plan(g1)
     x = torch.as_tensor(_cx(np.random.default_rng(6), (2, 16, 16, 16)))
+    want = plan(x, policy=LAZY)
+
+    def eager_walk(*args, **kwargs):
+        raise AssertionError("the eager walk ran under a lazy policy")
+
+    monkeypatch.setattr(T.plan.FftPlan, "_raw_apply", eager_walk)
     tr = get_tracer()
     tr.clear()
     tr.enable(per_stage=True)
@@ -126,12 +136,15 @@ def test_lazy_under_per_stage_tracer_walks_eager_stages(g1):
         y = plan(x, policy=LAZY)
     finally:
         tr.disable()
-    names = [e["name"] for e in tr.events()]
+    events = tr.events()
     tr.clear()
-    stages = [n for n in names if n.startswith(("dft[", "idft["))]
+    stages = [e for e in events if e["name"].startswith(("dft[", "idft["))]
     assert len(stages) == sum(isinstance(s, T.plan.FFTStage)
                               for s in plan.stages)
-    np.testing.assert_allclose(y.numpy(), plan(x).numpy(), rtol=0, atol=0)
+    assert all(e["parent"].startswith("plan:") for e in stages)
+    assert {e["attrs"]["mode"] for e in events
+            if e["name"].startswith("plan:")} == {"lazy"}
+    np.testing.assert_array_equal(y.numpy(), want.numpy())
 
 
 # --------------------------------------------------------------- policy
