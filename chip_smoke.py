@@ -843,9 +843,26 @@ def edge_rows(torch, gen, M, K, dev, poisoned):
     return buf[:M]
 
 
+def scf_stage_reads():
+    """The SCF H apply's line stages that read strided planes, as
+    ``(name, planes, K, L, N, inverse)``: idft[x] on #3's (b, x, y, z),
+    idft[y] on (b, y, z, X), dft[X] on (b, z, X, y'); its dft[Y] reads
+    the cube's rows."""
+    B = len(KPTS) * NBANDS
+    return ((f"idft[x] {DIAMETER}->{N}", B, DIAMETER, DIAMETER * N, N, True),
+            (f"idft[y] {DIAMETER}->{N}", B, DIAMETER, N * N, N, True),
+            (f"dft[X] {N}->{DIAMETER}", B * N, N, DIAMETER, DIAMETER, False))
+
+
+def bitwise(torch, a, b) -> bool:
+    return bool(torch.equal(torch.view_as_real(a), torch.view_as_real(b)))
+
+
 def check_dft_matmul(torch, dev, gen):
     from repro_torch.core.local_fft import dft_matrix_device
-    from repro_torch.kernels.dft_matmul import dft_matmul, dft_matmul_plain
+    from repro_torch.kernels.dft_matmul import (dft_matmul, dft_matmul_cols,
+                                                dft_matmul_cols_plain,
+                                                dft_matmul_plain)
     from repro_torch.kernels.ops import dft_operand_device
     print("dft_matmul (kernel #1): complex line-DFT GEMM, split TF32 on the "
           "tensor cores", flush=True)
@@ -868,32 +885,47 @@ def check_dft_matmul(torch, dev, gen):
     check(rel <= KERNEL_RTOL, f"forward {x.shape[0]}x{N}->{DIAMETER}: rel "
           f"err {rel:.3e} <= {KERNEL_RTOL:g}")
     del x
-    # the inverse x stage: the largest line-DFT stage of the H apply
-    M, K, Nn = B * N * N, DIAMETER, N
-    x = crandn(torch, gen, (M, K), dev)
-    _, _, w = dft_matrix_device(Nn, K, True, dev)
-    ws = dft_operand_device(Nn, K, True, w.device)
-    y = dft_matmul(x, w, wsplit=ws)
-    yp = dft_matmul_plain(x, w)
-    err, rel = rel_err(torch, y, yp)
-    check(rel <= KERNEL_RTOL, f"inverse {M}x{K}->{Nn}: max abs err "
-          f"{err:.3e}, rel {rel:.3e} <= {KERNEL_RTOL:g}")
-    del y, yp
-    ms = time_ms(torch, lambda: dft_matmul(x, w, wsplit=ws))
-    plain = time_ms(torch, lambda: dft_matmul_plain(x, w), reps=5)
-    lib = time_ms(torch, lambda: torch.matmul(x, w.T))
-    b = bound_ms(8.0 * (M * K + Nn * K + M * Nn), 8.0 * M * Nn * K)
-    print(f"  time {ms:.3f} ms, plain {plain:.3f} ms, complex64 "
-          f"torch.matmul {lib:.3f} ms, {bound_text(b)}", flush=True)
-    check(ms < lib, f"kernel {ms:.3f} ms faster than complex64 torch.matmul "
-          f"{lib:.3f} ms")
-    del x
+    # the SCF's strided stages as the line stages launch them: the strided
+    # entry on the planes where they lie, against its plain version and bit
+    # for bit the rows entry on the same lines copied into rows; timed at
+    # the largest, idft[y] (the kernels line's time), with the rows entry
+    # beside it
+    for name, P, K, L, Nn, inverse in scf_stage_reads():
+        M = P * L
+        x = crandn(torch, gen, (P, K, L), dev)
+        _, _, w = dft_matrix_device(Nn, K, inverse, dev)
+        ws = dft_operand_device(Nn, K, inverse, w.device)
+        y = dft_matmul_cols(x, w, wsplit=ws)
+        rows = x.transpose(1, 2).contiguous().view(M, K)
+        same = bitwise(torch, y, dft_matmul(rows, w, wsplit=ws))
+        yp = dft_matmul_cols_plain(x, w)
+        err, rel = rel_err(torch, y, yp)
+        check(rel <= KERNEL_RTOL and same,
+              f"{name} strided ({P}, {K}, {L}) -> ({M}, {Nn}): max abs err "
+              f"{err:.3e}, rel {rel:.3e} <= {KERNEL_RTOL:g}; bitwise the "
+              "rows entry on the same lines")
+        del y, yp
+        if L != N * N:
+            del x, rows
+            continue
+        ms = time_ms(torch, lambda: dft_matmul_cols(x, w, wsplit=ws))
+        rows_ms = time_ms(torch, lambda: dft_matmul(rows, w, wsplit=ws))
+        plain = time_ms(torch, lambda: dft_matmul_cols_plain(x, w), reps=5)
+        lib = time_ms(torch, lambda: torch.matmul(rows, w.T))
+        b = bound_ms(8.0 * (M * K + Nn * K + M * Nn), 8.0 * M * Nn * K)
+        shape = f"({P},{K},{L}) strided->({M},{Nn})"
+        print(f"  {name}: time {ms:.3f} ms strided, {rows_ms:.3f} ms as "
+              f"rows, plain {plain:.3f} ms, complex64 torch.matmul "
+              f"{lib:.3f} ms, {bound_text(b)}", flush=True)
+        check(ms < lib, f"kernel {ms:.3f} ms faster than complex64 "
+              f"torch.matmul {lib:.3f} ms")
+        timed = {"max_abs_err": err, "rel_err": rel, "ms": ms,
+                 "rows_ms": rows_ms, "plain_ms": plain, **b,
+                 "library_ms": lib, "shape": shape}
+        del x, rows
     oracle = check_dft_apply_oracle(torch, dev, gen)
-    return {"name": "dft_matmul", "max_abs_err": err, "rel_err": rel,
-            "fft_oracle_rel_err": oracle,
-            "edge_max_rel_err": worst, "tolerance": KERNEL_RTOL, "ms": ms,
-            "plain_ms": plain, **b, "library_ms": lib,
-            "shape": f"{M}x{K}->{Nn}"}
+    return {"name": "dft_matmul", **timed, "fft_oracle_rel_err": oracle,
+            "edge_max_rel_err": worst, "tolerance": KERNEL_RTOL}
 
 
 def check_dft_apply_oracle(torch, dev, gen) -> float:
@@ -930,22 +962,28 @@ def check_dft_apply_oracle(torch, dev, gen) -> float:
 # bands[, slab layout]).  d = 6: rows never whole 128-line tiles, ey = 6
 # (tiles straddle planes), 2d = 12 < one 32-column K chunk; d = 8: ey = 8;
 # d = 40: K chunks skipped in the edge tiles, and an ey that the strided
-# read does not fit (the slab is copied); odd n: dft_pack's gather path
+# read does not fit (a y-plane slab is copied; a z-major one's ex·ey = 1600
+# lines fit); odd n: dft_pack's gather path
 KPTS3 = ((0.25, 0.0, 0.5), (0.0, 0.0, 0.0), (0.5, 0.5, 0.0))
 UNPACK_EDGE_CASES = ((6, 12, KPTS, 3), (8, 16, KPTS, 3), (40, 80, KPTS3, 2))
 PACK_EDGE_CASES = ((6, 12, KPTS, 3, "rows"), (6, 9, KPTS3, 2, "rows"),
                    (8, 16, KPTS, 3, "x-planes"), (8, 16, KPTS, 3, "y-planes"),
                    (8, 15, KPTS3, 2, "y-planes"),
-                   (40, 80, KPTS3, 2, "y-planes"))
+                   (40, 80, KPTS3, 2, "y-planes"),
+                   (8, 16, KPTS, 3, "z-major"), (6, 12, KPTS, 3, "z-major"),
+                   (40, 80, KPTS3, 2, "z-major"))
 
 
 def slab_as(torch, gen, B, d, n, layout, dev):
     """A (B, d, d, n) slab stored as ``layout`` says: "rows" contiguous
-    lines, "y-planes" each y plane z-major (as an x stage leaves it: the
-    stacked SCF's forward plan), "x-planes" each x plane z-major (which
-    dft_pack copies first)."""
+    lines, "z-major" each row's slab z-major, then y, then x (as the x
+    stage of the stacked SCF's forward plan leaves it: slab layout 2),
+    "y-planes" each y plane z-major (layout 1), "x-planes" each x plane
+    z-major (which dft_pack copies first)."""
     if layout == "rows":
         return crandn(torch, gen, (B, d, d, n), dev)
+    if layout == "z-major":
+        return crandn(torch, gen, (B, n, d, d), dev).permute(0, 3, 2, 1)
     s = crandn(torch, gen, (B, d, n, d), dev)
     return s.transpose(2, 3) if layout == "x-planes" else s.permute(0, 3, 1,
                                                                     2)
@@ -1139,19 +1177,24 @@ def check_dft_pack(torch, dev, gen, spheres):
     npk = max(s.npacked for s in spheres)
     nvalid = torch.as_tensor(np.repeat(np.asarray(
         [s.npacked for s in spheres], np.int32), NBANDS), device=dev)
-    # the slab as the forward plan's x stage leaves it, each y plane
-    # z-major; and the same values with contiguous lines
-    strided = slab_as(torch, gen, B, DIAMETER, N, "y-planes", dev)
+    # the slab as the forward plan's x stage leaves it, each row's slab
+    # z-major (layout 2); the same values with each y plane z-major
+    # (layout 1) and with contiguous lines (layout 0)
+    strided = slab_as(torch, gen, B, DIAMETER, N, "z-major", dev)
     rows = strided.contiguous()
-    check(sp.slab_layout(strided) == 1 and sp.slab_layout(rows) == 0,
-          "the y-plane slab is read in place, the contiguous one by rows")
+    planes = rows.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
+    check((sp.slab_layout(strided), sp.slab_layout(planes),
+           sp.slab_layout(rows)) == (2, 1, 0),
+          "the z-major and the y-plane slab are read in place, the "
+          "contiguous one by rows")
     _, _, w = dft_matrix_device(DIAMETER, N, False, dev)
     ws = dft_operand_device(DIAMETER, N, False, w.device)
     outp = sp.dft_pack_plain(rows, start, zlo, cnt, nvalid, w, npk)
     pad = (torch.arange(npk, device=dev)[None, :]
            >= nvalid.long()[:, None])
-    errs = {}
-    for name, slab in (("strided", strided), ("rows", rows)):
+    errs, outs = {}, {}
+    for name, slab in (("strided", strided), ("y-planes", planes),
+                       ("rows", rows)):
         out = sp.dft_pack(slab, start, zlo, cnt, nvalid, w, npk, wsplit=ws)
         errs[name] = rel_err(torch, out, outp)
         check(errs[name][1] <= KERNEL_RTOL, f"{name} {tuple(slab.shape)} ->"
@@ -1159,10 +1202,15 @@ def check_dft_pack(torch, dev, gen, spheres):
               f"{errs[name][1]:.3e} <= {KERNEL_RTOL:g}")
         check(int(pad.sum()) > 0 and is_plus_zero(torch, out[pad]),
               f"{name}: {int(pad.sum())} padded lanes are bitwise +0.0")
-        del out
-    del outp
+        outs[name] = out
+    check(bitwise(torch, outs["strided"], outs["rows"])
+          and bitwise(torch, outs["y-planes"], outs["rows"]),
+          "slab layouts 2, 1 and 0 give the same bits")
+    del outp, outs, out
     ms = time_ms(torch, lambda: sp.dft_pack(strided, start, zlo, cnt, nvalid,
                                             w, npk, wsplit=ws))
+    ms_planes = time_ms(torch, lambda: sp.dft_pack(
+        planes, start, zlo, cnt, nvalid, w, npk, wsplit=ws))
     ms_rows = time_ms(torch, lambda: sp.dft_pack(rows, start, zlo, cnt,
                                                  nvalid, w, npk, wsplit=ws))
     copy_ms = time_ms(torch, lambda: strided.contiguous(), reps=5)
@@ -1180,7 +1228,8 @@ def check_dft_pack(torch, dev, gen, spheres):
     nbytes = (8.0 * (strided.numel() + DIAMETER * N + B * npk)
               + 4.0 * (3 * B * nl + B))
     b = bound_ms(nbytes, 8.0 * N * lanes)
-    print(f"  time {ms:.3f} ms reading the strided slab in place, "
+    print(f"  time {ms:.3f} ms reading the z-major slab in place, "
+          f"{ms_planes:.3f} ms the y-plane one, "
           f"{ms_rows:.3f} ms from contiguous lines (the copy it saves: "
           f"{copy_ms:.3f} ms; {SIMT_MS['dft_pack']:.3f} ms on the SIMT GEMM "
           f"after that copy, call C); of which the +0.0 tail kernel "
@@ -1189,11 +1238,13 @@ def check_dft_pack(torch, dev, gen, spheres):
     del out
     return {"name": "dft_pack", "max_abs_err": errs["strided"][0],
             "rel_err": errs["strided"][1], "rows_rel_err": errs["rows"][1],
+            "y_planes_rel_err": errs["y-planes"][1],
             "edge_max_rel_err": edge, "tolerance": KERNEL_RTOL, "ms": ms,
-            "rows_ms": ms_rows, "slab_copy_ms": copy_ms,
+            "y_planes_ms": ms_planes, "rows_ms": ms_rows,
+            "slab_copy_ms": copy_ms,
             "zero_tail_ms": tail_ms, "simt_call_c_ms": SIMT_MS["dft_pack"],
             "plain_ms": plain, **b, "library_ms": None,
-            "shape": f"({B},{DIAMETER},{DIAMETER},{N}) y planes z-major"
+            "shape": f"({B},{DIAMETER},{DIAMETER},{N}) z-major"
                      f"->({B},{npk})"}
 
 
@@ -1222,7 +1273,8 @@ def check_slab_layout(torch, dev, gen):
               f"({lead_ms:.3f} ms): {tuple(slab.shape)}, strides "
               f"{slab.stride()}, contiguous {slab.is_contiguous()}: "
               + ({0: "contiguous lines, read in place, no copy",
-                  1: "y planes z-major, read in place, no copy"}.get(
+                  1: "y planes z-major, read in place, no copy",
+                  2: "each row's slab z-major, read in place, no copy"}.get(
                       layout, "copied first"))
               + f"; a contiguous() copy of it takes {copy_ms:.3f} ms",
               flush=True)
@@ -1363,16 +1415,28 @@ class LineStages:
 
     While ``record(path)`` is active, every ``kernels.ops.dft_apply`` call
     (each launches ``dft_matmul`` once on a CUDA tensor) is counted by
-    ``(lines, n_in, n_out, inverse)``, and for calls that come through the
-    "cuda" backend of ``local_dft`` the stage's input shape and axis are
-    kept: its ``movedim``/``reshape`` copy is timed beside the kernel.
+    ``(lines, n_in, n_out, inverse)`` in ``counts[path]``, and by the entry
+    it took in ``entries[path]``: the same key and L, 1 for the rows entry,
+    the lines a plane for the strided one.  For calls that come through the
+    "cuda" backend of ``local_dft`` the route of the stage's
+    ``local_fft.LineRead`` is kept in ``routes``, and a stage that copies
+    its lines into rows keeps its input's shape, strides and the
+    permutation it is copied in (``copies``), so that copy is timed beside
+    the kernel.
     """
 
     def __init__(self):
         from collections import Counter
         self.counts: dict[str, Counter] = {}
-        self.layout: dict[tuple, tuple] = {}
+        self.entries: dict[str, Counter] = {}
+        self.routes: dict[tuple, set] = {}
+        self.copies: dict[tuple, tuple] = {}
         self._new = Counter
+
+    def launched(self, path) -> list:
+        """The entries kernel #1 took on ``path``: sorted ``(lines, n_in,
+        n_out, inverse, L)``."""
+        return sorted(self.entries.get(path, ()))
 
     def record(self, path):
         import contextlib
@@ -1380,78 +1444,130 @@ class LineStages:
         from repro_torch.core import local_fft
         from repro_torch.kernels import ops
         counts = self.counts.setdefault(path, self._new())
+        entries = self.entries.setdefault(path, self._new())
         apply, backend = ops.dft_apply, local_fft._cuda_backend
+        read, taken = local_fft.line_read, []
 
         def dft_apply(x, n_out=None, *, inverse=False):
             n_in = x.shape[1]
-            counts[(x.shape[0], n_in, n_out or n_in, bool(inverse))] += 1
+            key = (x.numel() // n_in, n_in, n_out or n_in, bool(inverse))
+            counts[key] += 1
+            entries[(*key, x.shape[2] if x.ndim == 3 else 1)] += 1
             return apply(x, n_out, inverse=inverse)
 
+        def line_read(x, axis, **kw):
+            taken.append(read(x, axis, **kw))
+            return taken[-1]
+
         def cuda_backend(x, axis, n_in, n_out, inverse):
-            key = (x.numel() // n_in, n_in, n_out, bool(inverse))
-            self.layout[key] = (tuple(x.shape), axis % x.ndim)
-            return backend(x, axis, n_in, n_out, inverse)
+            y = backend(x, axis, n_in, n_out, inverse)
+            rd = taken.pop()
+            key = (x.numel() // n_in, n_in, n_out, bool(inverse),
+                   rd.L if rd.route == "strided" else 1)
+            self.routes.setdefault(key, set()).add(rd.route)
+            if rd.route == "copied":
+                self.copies[key] = (tuple(x.shape), tuple(x.stride()),
+                                    (*rd.order, axis % x.ndim))
+            return y
 
         @contextlib.contextmanager
         def patched():
             ops.dft_apply, local_fft._cuda_backend = dft_apply, cuda_backend
+            local_fft.line_read = line_read
             try:
                 yield counts
             finally:
                 ops.dft_apply, local_fft._cuda_backend = apply, backend
+                local_fft.line_read = read
         return patched()
 
 
-def time_line_shapes(torch, dev, gen, stages: LineStages, gpu: str):
-    """Kernel #1 at every distinct line shape the paths launched: its
-    time, both bounds, complex64 ``torch.matmul`` on the same lines, and
-    the copy that ``local_fft._cuda_backend`` makes of a stage's input
-    whose axis is not the last (``movedim`` + ``reshape``)."""
+def line_entry(torch, gen, dev, M, n_in, n_out, inverse, L):
+    """Kernel #1 as a line stage launches it on ``M`` random lines:
+    ``(kernel, rows, plain, lines, w)``, ``kernel`` the entry the stage
+    takes (rows, or for ``L`` > 1 the strided entry on ``(M / L, n_in, L)``
+    planes), ``rows`` the rows entry on the same lines in rows (``kernel``
+    itself when L = 1), ``plain`` the plain version, ``lines`` the lines
+    as ``(M, n_in)`` rows (a view when L = 1, a copy otherwise), ``w`` the
+    DFT matrix."""
     from repro_torch.core.local_fft import dft_matrix_device
-    from repro_torch.kernels.dft_matmul import dft_matmul
+    from repro_torch.kernels.dft_matmul import (dft_matmul, dft_matmul_cols,
+                                                dft_matmul_cols_plain,
+                                                dft_matmul_plain)
     from repro_torch.kernels.ops import dft_operand_device
-    keys = sorted({k for c in stages.counts.values() for k in c},
+    _, _, w = dft_matrix_device(n_out, n_in, inverse, dev)
+    ws = dft_operand_device(n_out, n_in, inverse, w.device)
+    if L == 1:
+        x = crandn(torch, gen, (M, n_in), dev)
+
+        def kernel():
+            return dft_matmul(x, w, wsplit=ws)
+        return kernel, kernel, lambda: dft_matmul_plain(x, w), x, w
+    x = crandn(torch, gen, (M // L, n_in, L), dev)
+    lines = x.transpose(1, 2).contiguous().view(M, n_in)
+    return (lambda: dft_matmul_cols(x, w, wsplit=ws),
+            lambda: dft_matmul(lines, w, wsplit=ws),
+            lambda: dft_matmul_cols_plain(x, w), lines, w)
+
+
+def time_line_shapes(torch, dev, gen, stages: LineStages, gpu: str):
+    """Kernel #1 at every distinct line shape the paths launched, through
+    the entry each launch took: its time, both bounds, complex64
+    ``torch.matmul`` on the same lines; where that was the strided entry,
+    the rows entry beside it on the same lines in rows, and the two
+    checked bit for bit; where the stage copied its lines into rows (the
+    "copied" route), that copy's time."""
+    from repro_torch.obs.trace import relayout
+    keys = sorted({k for c in stages.entries.values() for k in c},
                   key=lambda k: -k[0] * (k[1] + k[2]))
-    print(f"kernel #1 by line shape ({gpu}; CUDA events, mean of 10):",
-          flush=True)
+    print(f"kernel #1 by line shape and entry ({gpu}; CUDA events, mean of "
+          "10):", flush=True)
     rows = []
     for key in keys:
-        M, n_in, n_out, inverse = key
-        x = crandn(torch, gen, (M, n_in), dev)
-        _, _, w = dft_matrix_device(n_out, n_in, inverse, dev)
-        ws = dft_operand_device(n_out, n_in, inverse, w.device)
-        ms = time_ms(torch, lambda: dft_matmul(x, w, wsplit=ws))
-        lib = time_ms(torch, lambda: torch.matmul(x, w.T))
-        del x
+        M, n_in, n_out, inverse, L = key
+        kernel, on_rows, _, lines, w = line_entry(torch, gen, dev, *key)
+        ms = time_ms(torch, kernel)
+        row = {"lines": M, "n_in": n_in, "n_out": n_out, "inverse": inverse,
+               "entry": "strided" if L > 1 else "rows", "L": L,
+               "launches": {p: c[key] for p, c in stages.entries.items()
+                            if c[key]},
+               "routes": sorted(stages.routes.get(key, ())), "ms": ms,
+               "rows_ms": None, "bitwise": None}
+        if L > 1:
+            row["rows_ms"] = time_ms(torch, on_rows)
+            row["bitwise"] = bitwise(torch, kernel(), on_rows())
+            check(row["bitwise"], f"kernel #1 {M}x{n_in}->{n_out}: the "
+                  f"strided entry (L = {L}) gives the rows entry's bits")
+        row["matmul_ms"] = time_ms(torch, lambda: torch.matmul(lines, w.T))
+        del kernel, on_rows, lines, w
         b = bound_ms(8.0 * (M * n_in + n_out * n_in + M * n_out),
                      8.0 * M * n_out * n_in)
-        row = {"lines": M, "n_in": n_in, "n_out": n_out, "inverse": inverse,
-               "launches": {p: c[key] for p, c in stages.counts.items()
-                            if c[key]},
-               "ms": ms, "matmul_ms": lib, **b, "input": None, "axis": None,
-               "copy_ms": None}
-        if key in stages.layout:
-            shape, axis = stages.layout[key]
-            xs = crandn(torch, gen, shape, dev)
-
-            def copy():
-                return torch.movedim(xs, axis, -1).reshape(-1, n_in)
-            copied = (copy().untyped_storage().data_ptr()
-                      != xs.untyped_storage().data_ptr())
-            row.update(input=list(shape), axis=axis,
-                       copy_ms=time_ms(torch, copy) if copied else 0.0)
+        row.update(b)
+        row["input"], row["copy_ms"] = None, None
+        if key in stages.copies:
+            shape, stride, perm = stages.copies[key]
+            held = 1 + sum((n - 1) * st for n, st in zip(shape, stride))
+            xs = crandn(torch, gen, (held,), dev).as_strided(shape, stride)
+            row["input"], row["copy_ms"] = list(shape), time_ms(
+                torch, lambda: relayout(xs.permute(*perm), n_in))
             del xs
-        row["call_c_ms"] = CALL_C_MS.get(key)
+        row["call_c_ms"] = CALL_C_MS.get(key[:4]) if L == 1 else None
         rows.append(row)
-        copy_txt = ("four_step_dft's own transposes" if row["input"] is None
-                    else f"copy {row['copy_ms']:.3f} ms of "
-                    f"{tuple(row['input'])} axis {row['axis']}")
+        copy_txt = ("" if row["copy_ms"] is None else
+                    f"; copy {row['copy_ms']:.3f} ms of "
+                    f"{tuple(row['input'])}")
+        entry_txt = ("rows" if L == 1 else
+                     f"strided L={L} (rows {row['rows_ms']:.3f} ms, "
+                     f"{ms / row['rows_ms']:.3f}x; bitwise "
+                     f"{row['bitwise']})")
         was = ("" if row["call_c_ms"] is None else
                f" ({ms / row['call_c_ms']:.3f}x call C's "
                f"{row['call_c_ms']:.3f} ms)")
-        print(f"  {M}x{n_in}->{n_out}{' inv' if inverse else ''}: launches "
-              f"{row['launches']}, {ms:.3f} ms{was}, {bound_text(b)}, "
-              f"torch.matmul {lib:.3f} ms; {copy_txt}", flush=True)
+        print(f"  {M}x{n_in}->{n_out}{' inv' if inverse else ''} "
+              f"{entry_txt}: launches {row['launches']}, routes "
+              f"{row['routes'] or 'not through local_dft'}, {ms:.3f} ms"
+              f"{was}, {bound_text(b)}, torch.matmul "
+              f"{row['matmul_ms']:.3f} ms{copy_txt}", flush=True)
         torch.cuda.empty_cache()
     return rows
 
@@ -2326,28 +2442,24 @@ def pair_kernel_checks(torch, dev, inv, fwd, rows, v, rank, world,
 
 def line_kernel_checks(torch, dev, lines, rank, world):
     """Kernel #1 against its plain version at each line shape in
-    ``lines`` (the rank's launches by ``(lines, n_in, n_out, inverse)``),
-    ranks taking turns as in :func:`pair_kernel_checks`."""
+    ``lines`` (the rank's launches by ``(lines, n_in, n_out, inverse, L)``,
+    :meth:`LineStages.launched`), through the entry each took (the strided
+    one where L > 1), ranks taking turns as in :func:`pair_kernel_checks`."""
     import torch.distributed as dist
-
-    from repro_torch.core.local_fft import dft_matrix_device
-    from repro_torch.kernels.dft_matmul import dft_matmul, dft_matmul_plain
-    from repro_torch.kernels.ops import dft_operand_device
     gen = torch.Generator(device=dev).manual_seed(SEED + rank)
     out = []
     for turn in range(world):
         dist.barrier()
         if turn != rank:
             continue
-        for M, n_in, n_out, inverse in sorted(lines):
-            x = crandn(torch, gen, (M, n_in), dev)
-            _, _, wm = dft_matrix_device(n_out, n_in, inverse, dev)
-            ws = dft_operand_device(n_out, n_in, inverse, wm.device)
+        for M, n_in, n_out, inverse, L in lines:
+            kernel, _, plain, _, _ = line_entry(torch, gen, dev, M, n_in,
+                                                n_out, inverse, L)
             out.append(_kernel_entry(
-                torch, f"{M}x{n_in}->{n_out}{' inv' if inverse else ''}",
-                lambda: dft_matmul(x, wm, wsplit=ws),
-                lambda: dft_matmul_plain(x, wm), timed=dev.type == "cuda"))
-            del x
+                torch, f"{M}x{n_in}->{n_out}{' inv' if inverse else ''}"
+                + (f" strided L={L}" if L > 1 else ""), kernel, plain,
+                timed=dev.type == "cuda"))
+            del kernel, plain
     dist.barrier()
     return out
 
@@ -2488,7 +2600,7 @@ def multirank_rank(rank, job):
                                     inv.npacked_max), dev)
         v = torch.rand(basis.field.local_shape, generator=gen, device=dev)
         out["kernels"] = rank_kernel_checks(
-            torch, dev, basis, c_pad, v, stages.counts["pencil"], rank,
+            torch, dev, basis, c_pad, v, stages.launched("pencil"), rank,
             grid.nprocs)
         return out
 
@@ -2598,7 +2710,7 @@ def multirank_rank(rank, job):
     # every kernel of the path against its plain version at the rank's
     # shapes: kernel #1 at each line shape of its H apply and SCF
     out["kernels"] = rank_kernel_checks(
-        torch, dev, basis, c_pad, v, stages.counts["multirank"], rank,
+        torch, dev, basis, c_pad, v, stages.launched("multirank"), rank,
         grid.nprocs)
     return out
 
@@ -2914,7 +3026,7 @@ def multirank_service_rank(rank, job):
     # shapes, after the count: #3 and #4 on every pair the rank ran, #1
     # at each line shape of its dispatches and warm-ups
     out["kernels"] = service_kernel_checks(
-        torch, dev, svc.pairs, stages.counts["service"], rank, grid.nprocs)
+        torch, dev, svc.pairs, stages.launched("service"), rank, grid.nprocs)
     return out
 
 

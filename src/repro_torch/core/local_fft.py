@@ -19,7 +19,9 @@ length), identical to ``ifft(pad(x, n))``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
+import math
 import threading
 
 import numpy as np
@@ -146,13 +148,86 @@ def _matmul_backend(x, axis, n_in, n_out, inverse):
     return torch.movedim(torch.complex(yr, yi), -1, axis)
 
 
+#: line stages of the "cuda" backend by how they read their lines (the
+#: ``line_reads_*`` counters of the ``fftb`` probe): "rows" contiguous
+#: lines, "strided" planes of lines strided in the axis, read where they
+#: lie by the kernel's strided entry, "copied" lines laid out in rows
+#: first by ``obs.trace.relayout``
+LINE_READS = {"rows": 0, "strided": 0, "copied": 0}
+
+
+@dataclasses.dataclass(frozen=True)
+class LineRead:
+    """How the "cuda" backend reads the lines of a tensor along an axis.
+
+    ``order`` holds the other dims as they lie in memory, outermost first;
+    the first ``outer`` of them lie outside the axis, the rest inside it.
+    Read as ``(planes, K, L)``: ``planes`` the product of the outer dims,
+    ``K`` the axis' length, ``L`` the product of the inner dims.  The
+    stage's output rows run over ``order`` in that order, whatever the
+    route: ``"rows"`` (L = 1, the lines contiguous), ``"strided"`` (the
+    kernel reads the planes where they lie) or ``"copied"``.
+    """
+    route: str
+    order: tuple[int, ...]
+    outer: int
+    planes: int
+    K: int
+    L: int
+
+
+def line_read(x, axis: int, *, strided: bool | None = None) -> LineRead:
+    """The route by which the "cuda" backend reads ``x``'s lines along
+    ``axis`` (``strided``: whether the strided entry may be used; by
+    default whether ``x`` is a CUDA tensor).
+
+    The other dims are ordered by stride (dims of size 1 first, and an
+    axis of length 1 counts as innermost).  When ``x`` is dense in that
+    order, its lines form a ``(planes, K, L)`` view: rows if L = 1, else
+    the strided entry if it may be used, L fits its tile
+    (:func:`~repro_torch.kernels.dft_matmul.cols_fit`) and the base is
+    16-byte aligned.  Anything else is copied into rows.
+    """
+    from ..kernels.dft_matmul import cols_fit
+    strided = x.is_cuda if strided is None else strided
+    others = [d for d in range(x.ndim) if d != axis]
+    ones = [d for d in others if x.shape[d] == 1]
+    big = sorted((d for d in others if x.shape[d] > 1),
+                 key=lambda d: -x.stride(d))
+    if x.shape[axis] > 1:
+        s = x.stride(axis)
+        outer = ones + [d for d in big if x.stride(d) > s]
+        inner = [d for d in big if x.stride(d) <= s]
+    else:
+        outer, inner = ones + big, []
+    L = math.prod(x.shape[d] for d in inner)
+    dense = x.permute(*outer, axis, *inner).is_contiguous()
+    if dense and not inner:
+        route = "rows"
+    elif (dense and strided and cols_fit(L)
+          and x.data_ptr() % 16 == 0):
+        route = "strided"
+    else:
+        route = "copied"
+    return LineRead(route, tuple(outer + inner), len(outer),
+                    math.prod(x.shape[d] for d in outer), x.shape[axis], L)
+
+
 def _cuda_backend(x, axis, n_in, n_out, inverse):
     from ..kernels import ops as kops
-    xm = torch.movedim(x, axis, -1)
-    shp = xm.shape
-    xf = relayout(xm, n_in)
+    rd = line_read(x, axis)
+    LINE_READS[rd.route] += 1
+    if rd.route == "strided":
+        outer, inner = rd.order[:rd.outer], rd.order[rd.outer:]
+        xf = x.permute(*outer, axis, *inner).view(rd.planes, n_in, rd.L)
+    else:
+        xf = relayout(x.permute(*rd.order, axis), n_in)
     yf = kops.dft_apply(xf, n_out=n_out, inverse=inverse)
-    return torch.movedim(yf.reshape(*shp[:-1], n_out), -1, axis)
+    # rows over the other dims in memory order, the new axis last; the
+    # result is that block seen in the logical order
+    perm = rd.order + (axis,)
+    y = yf.view(*(x.shape[d] for d in rd.order), n_out)
+    return y.permute(*(perm.index(d) for d in range(x.ndim)))
 
 
 def realized_backend(n_in: int, n_out: int, backend: str) -> str:

@@ -45,8 +45,8 @@ from ..obs.metrics import global_metrics
 from ..obs.trace import NOOP_SPAN, drain, get_tracer, relayout
 from .dtensor import DistTensor
 from .hostsync import host_sync
-from .local_fft import (dft_flops, dft_matrix_planes, full_fp32_matmul,
-                        local_dft, realized_backend)
+from .local_fft import (LINE_READS, dft_flops, dft_matrix_planes,
+                        full_fp32_matmul, local_dft, realized_backend)
 from .policy import TUNE_CANDIDATES, ExecPolicy
 
 
@@ -703,4 +703,6 @@ def _gemm_f32(a, w):
 
 global_metrics().register_probe(
     "fftb", lambda: {"executions": FftPlan.executions,
-                     "searches": FftPlan.searches})
+                     "searches": FftPlan.searches,
+                     **{f"line_reads_{k}": v
+                        for k, v in LINE_READS.items()}})

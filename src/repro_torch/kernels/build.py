@@ -34,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "dft_matmul_launch": (_P, _P, _P, _L, _I, _I, _I, _P),
+    "dft_matmul_cols_launch": (_P, _P, _P, _L, _I, _I, _I, _P),
     "dft_matmul_twiddle_launch": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _P),
     "unpack_dft_launch": (_P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _L, _I, _I, _I, _I, _P),

@@ -76,6 +76,22 @@ extern "C" int dft_matmul_launch(const void* x, const void* wsplit, void* y,
                       stream);
 }
 
+// As dft_matmul_launch, for lines strided in K: x is (M / L, K, L)
+// complex64 in memory, planes of L lines stored K-major, line l of plane p
+// being row p·L + l of y (the layout a line-DFT stage over another axis
+// leaves).  The x^ tile comes by TMA and is transposed in shared memory
+// during the TF32 split (tc::A_COLS), so x is read where it lies, without
+// a copy into rows first.  Needs tc::cols_fit(L), L | M and x 16-byte
+// aligned.  Returns cudaGetLastError().
+extern "C" int dft_matmul_cols_launch(const void* x, const void* wsplit,
+                                      void* y, long long M, int N, int K,
+                                      int L, void* stream) {
+  return tc::launch<tc::A_COLS>(
+      dftk::Identity{}, static_cast<const float*>(x),
+      static_cast<const float*>(wsplit), static_cast<float2*>(y), M, N, K, L,
+      static_cast<cudaStream_t>(stream));
+}
+
 // As dft_matmul_launch, with t: (T, N) complex64; row r of y is multiplied
 // by row (r mod T) of t.  Returns cudaGetLastError().
 extern "C" int dft_matmul_twiddle_launch(const void* x, const void* wsplit,

@@ -36,9 +36,10 @@
 //     consumers' gather still costs ~1.5x the TMA path on dense rows.
 //   * dft_pack: the slab's lines come by TMA, either as contiguous rows
 //     (A_ROWS; odd n takes A_GATHER) or where the plan's x stage left
-//     them, each y plane z-major (A_COLS, transposed in shared memory, so
-//     the 1 GB slab is not copied first; the rows then run in the slab's
-//     memory order and the policy maps each to its table line).
+//     them, each y plane or each row's whole slab z-major (A_COLS,
+//     transposed in shared memory, so the 1 GB slab is not copied first;
+//     the rows then run in the slab's memory order and the policy maps
+//     each to its table line).
 //     The epilogue stores each line's d outputs straight to its packed
 //     lanes b·npk + start − zlo + c for zlo <= c < zlo + cnt, so the
 //     truncated (B, ex, ey, d) slab is never written; a small second
@@ -76,7 +77,8 @@ struct Unpack : tc::Dense {
 
 // Rows run over the lines in the slab's memory order: row r is
 // (b, p, l), l < L fastest, and its table line is p·sp + l·sl
-// (contiguous lines: p = x, l = y; y planes: p = y, l = x)
+// (contiguous lines: p = x, l = y; y planes or a z-major slab: p = y,
+// l = x)
 struct Pack : tc::Dense {
   static constexpr bool dense_store = false;
   const int* start;
@@ -144,9 +146,10 @@ extern "C" int pack_zero_tail_launch(void* out, const int* nvalid, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
-// slab: (B, ex, ey, n) complex64, its lines contiguous (layout 0) or each
+// slab: (B, ex, ey, n) complex64, its lines contiguous (layout 0), each
 // y plane stored z-major, (B, ey, n, ex) in memory (layout 1, which needs
-// tc::cols_fit(ex)); start/zlo/cnt: (B, ex·ey) int32; nvalid: (B,) int32
+// tc::cols_fit(ex)), or each row's whole slab z-major, (B, n, ey, ex) in
+// memory (layout 2, which needs tc::cols_fit(ex·ey)); start/zlo/cnt: (B, ex·ey) int32; nvalid: (B,) int32
 // valid lanes per row; wsplit: the split embedding of the (d, n) DFT
 // matrix; out: (B, npk) complex64.  Returns cudaGetLastError().
 extern "C" int dft_pack_launch(const void* slab, const int* start,
@@ -162,16 +165,20 @@ extern "C" int dft_pack_launch(const void* slab, const int* start,
   op.cnt = cnt;
   op.npk = static_cast<int64_t>(npk);
   op.nlines = ex * ey;
-  op.L = layout == 1 ? ex : ey;
-  op.sp = layout == 1 ? 1 : ey;
-  op.sl = layout == 1 ? ey : 1;
+  // layouts 1 and 2 give the rows in the same (b, y, x) order; only the
+  // lines of a TMA plane differ (ex, or a row's ex·ey)
+  const bool planes = layout == 1 || layout == 2;
+  op.L = planes ? ex : ey;
+  op.sp = planes ? 1 : ey;
+  op.sl = planes ? ey : 1;
   const int64_t M = static_cast<int64_t>(B) * ex * ey;
   const float* x = static_cast<const float*>(slab);
   const float* w = static_cast<const float*>(wsplit);
   float2* y = static_cast<float2*>(out);
   int err;
-  if (layout == 1)
-    err = tc::launch<tc::A_COLS>(op, x, w, y, M, d, n, op.L, s);
+  if (planes)
+    err = tc::launch<tc::A_COLS>(op, x, w, y, M, d, n,
+                                 layout == 1 ? ex : ex * ey, s);
   else if (n % 2 == 0 && reinterpret_cast<uintptr_t>(slab) % 16 == 0)
     err = tc::launch<tc::A_ROWS>(op, x, w, y, M, d, n, 0, s);
   else

@@ -29,7 +29,10 @@ producer warp, ``wgmma`` from two consumer warpgroups, a persistent grid.
 
 ``dft_matmul`` / ``dft_matmul_twiddle`` launch their kernel for CUDA
 tensors and run the plain PyTorch version (:func:`dft_matmul_plain`,
-:func:`dft_matmul_twiddle_plain`) for CPU tensors.  There is no fallback:
+:func:`dft_matmul_twiddle_plain`) for CPU tensors.  ``dft_matmul_cols``
+is kernel #1's strided entry: the same product over lines strided in K
+(planes of lines stored K-major, as a line stage over another axis leaves
+them), read where they lie and transposed in shared memory.  There is no fallback:
 a CUDA tensor either launches the kernel or raises.
 """
 from __future__ import annotations
@@ -151,6 +154,53 @@ def dft_matmul(x, w, *, wsplit=None):
 
 
 dft_matmul.launches = 0
+
+
+def cols_fit(lines: int) -> bool:
+    """A plane of ``lines`` lines fits the strided read's tile
+    (``tc::cols_fit``): even, and a divisor or a multiple of 64."""
+    return lines >= 2 and lines % 2 == 0 and (lines % 64 == 0
+                                              or 64 % lines == 0)
+
+
+def dft_matmul_cols_plain(x, w):
+    """:func:`dft_matmul_cols` in plain PyTorch: the lines copied into rows,
+    then :func:`dft_matmul_plain`."""
+    P, K, L = x.shape
+    return dft_matmul_plain(x.transpose(1, 2).reshape(P * L, K), w)
+
+
+def dft_matmul_cols(x, w, *, wsplit=None):
+    """y = x · Wᵀ over lines strided in K: x (P, K, L), line l of plane p
+    running over ``x[p, :, l]``, and W (N, K); complex64 → (P·L, N)
+    complex64, row p·L + l being that line's transform.
+
+    CUDA tensors launch the kernel's strided entry, which reads the lines
+    where they lie (counted in ``dft_matmul.launches``, with ``wsplit`` as
+    in :func:`dft_matmul`); x must be contiguous and 16-byte aligned and L
+    must fit the tile (:func:`cols_fit`), else the launch fails and this
+    raises.  CPU tensors run :func:`dft_matmul_cols_plain`.
+    """
+    P, K, L = x.shape
+    N = w.shape[0]
+    if x.device.type != "cuda":
+        _check("w", w, torch.complex64, (N, K), x.device)
+        return dft_matmul_cols_plain(x.to(torch.complex64), w)
+    _check("x", x, torch.complex64, (P, K, L), x.device)
+    _check("w", w, torch.complex64, (N, K), x.device)
+    y = torch.empty((P * L, N), dtype=torch.complex64, device=x.device)
+    if P * L == 0 or N == 0:
+        return y
+    ws = _operand(w, wsplit, N, K, x.device)
+    lib = build.library("dft_matmul")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        status = lib.dft_matmul_cols_launch(x.data_ptr(), ws.data_ptr(),
+                                            y.data_ptr(), P * L, N, K, L,
+                                            stream)
+    build.check(status, "dft_matmul")
+    dft_matmul.launches += 1
+    return y
 
 
 def dft_matmul_twiddle_plain(x, w, t):

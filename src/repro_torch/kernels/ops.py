@@ -22,7 +22,8 @@ import torch
 
 from ..core.local_fft import dft_matrix_device
 from ..obs.trace import relayout
-from .dft_matmul import dft_matmul, dft_matmul_twiddle, embed_operand
+from .dft_matmul import (dft_matmul, dft_matmul_cols, dft_matmul_twiddle,
+                         embed_operand)
 from .ref import twiddle_matrix
 
 
@@ -46,10 +47,14 @@ def _matrix(n_out: int, n_in: int, inverse: bool, device):
 
 
 def dft_apply(x, n_out: int | None = None, *, inverse: bool = False):
-    """Batched line DFT via the kernel: (B, n_in) → (B, n_out) complex64."""
+    """Batched line DFT via the kernel: (B, n_in) rows → (B, n_out), or
+    (P, n_in, L) lines strided in n_in → (P·L, n_out) through the kernel's
+    strided entry (:func:`~.dft_matmul.dft_matmul_cols`); complex64."""
     n_in = x.shape[1]
     n_out = n_in if n_out is None else n_out
     w, ws = _matrix(n_out, n_in, inverse, x.device)
+    if x.ndim == 3:
+        return dft_matmul_cols(x.to(torch.complex64), w, wsplit=ws)
     return dft_matmul(relayout(x.to(torch.complex64)), w, wsplit=ws)
 
 

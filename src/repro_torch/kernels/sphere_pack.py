@@ -38,8 +38,8 @@ gathers its lines' lanes (each thread one complex of a line, a chunk
 ahead) and reads only the K chunks that each 128-line tile's active
 lines cover (:func:`chunk_ranges`);
 ``dft_pack`` reads the slab by TMA where it lies, contiguous or as the
-plan's x stage leaves it (each y plane z-major), and stores straight to
-the packed lanes.
+plan's x stage leaves it (z-major), and stores straight to the packed
+lanes.
 """
 from __future__ import annotations
 
@@ -51,7 +51,7 @@ import torch
 from ..obs.metrics import global_metrics
 from ..obs.trace import relayout
 from . import build
-from .dft_matmul import _check, _operand, dft_matmul_plain
+from .dft_matmul import _check, _operand, cols_fit, dft_matmul_plain
 
 #: process-wide counts of fused-kernel calls through the plane-wave
 #: wrappers' ``unpack_transform``/``transform_pack`` (the reference's
@@ -269,25 +269,22 @@ def unpack_dft(packed, start, zlo, cnt, flag, w, *, chunks=None,
     return y
 
 
-def _cols_fit(lines: int) -> bool:
-    """A plane of ``lines`` lines fits the strided read's tile
-    (``tc::cols_fit``): even, and a divisor or a multiple of 64."""
-    return lines >= 2 and lines % 2 == 0 and (lines % 64 == 0
-                                              or 64 % lines == 0)
-
-
 def slab_layout(slab) -> int | None:
     """How the kernel of :func:`dft_pack` reads a (B, ex, ey, n) slab where
     it lies: 0 when its lines are contiguous; 1 when each y plane is
-    stored z-major, x fastest ((B, ey, n, ex) in memory: what the stacked
-    SCF's forward plan leaves, its last stage before the fused one being
-    the x stage) and a plane's ex lines fit the kernel's tile; None
-    otherwise (the wrapper then copies the slab)."""
+    stored z-major, x fastest ((B, ey, n, ex) in memory) and a plane's ex
+    lines fit the kernel's tile; 2 when each row's slab is stored z-major,
+    then y, then x ((B, n, ey, ex) in memory: what a forward plan whose
+    last stage before the fused one is the x stage leaves, its line stages
+    keeping the other dims in memory order) and a row's ex·ey lines fit
+    the tile; None otherwise (the wrapper then copies the slab)."""
     B, ex, ey, n = slab.shape
     if slab.is_contiguous():
         return 0
-    if _cols_fit(ex) and slab.permute(0, 2, 3, 1).is_contiguous():
+    if cols_fit(ex) and slab.permute(0, 2, 3, 1).is_contiguous():
         return 1
+    if cols_fit(ex * ey) and slab.permute(0, 3, 2, 1).is_contiguous():
+        return 2
     return None
 
 
@@ -296,8 +293,8 @@ def dft_pack(slab, start, zlo, cnt, nvalid, w, npacked: int, *,
     """Fused final truncating line DFT + CSR pack.
 
     ``slab``: (B, ex, ey, n) complex64 last-stage slab, its lines
-    contiguous or each y plane z-major (:func:`slab_layout`; any other
-    layout is copied first); ``start``/``zlo``/``cnt``: (B, ex·ey) int32
+    contiguous, each y plane z-major or each row's slab z-major
+    (:func:`slab_layout`; any other layout is copied first); ``start``/``zlo``/``cnt``: (B, ex·ey) int32
     line tables; ``nvalid``: (B,) int32 valid lanes per row; ``w``: (d, n)
     complex64 truncating DFT factor.  Returns (B, npacked) complex64
     packed lanes, exact +0.0 past ``nvalid``.  CUDA tensors launch the

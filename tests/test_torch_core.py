@@ -212,6 +212,194 @@ def test_cube_fft_matches_numpy_on_cpu_grid():
     _close(plan.inverse()(plan(torch.as_tensor(x))).numpy(), x, rtol=1e-5)
 
 
+# ------------------------------------- how the "cuda" route reads lines
+def _held(shape, mem, offset=0):
+    """A zero complex64 block of logical ``shape`` whose dims lie in
+    memory in the order ``mem`` (outermost first), its base ``offset``
+    elements into its buffer."""
+    n = int(np.prod(shape))
+    buf = torch.zeros(n + offset, dtype=torch.complex64)[offset:]
+    buf = buf.view([shape[d] for d in mem])
+    return buf.permute(*[mem.index(d) for d in range(len(shape))])
+
+
+def _memory_order(t):
+    """The dims of ``t`` of size > 1, outermost in memory first."""
+    return [d for d in sorted(range(t.ndim), key=lambda d: -t.stride(d))
+            if t.shape[d] > 1]
+
+
+def _fits(L):
+    return L >= 2 and L % 2 == 0 and (L % 64 == 0 or 64 % L == 0)
+
+
+@pytest.mark.parametrize("mem", [(0, 1, 2, 3), (0, 2, 3, 1), (0, 3, 2, 1),
+                                 (3, 1, 0, 2)])
+def test_line_read_views_lines_in_memory_order(mem):
+    """For every axis of a dense 4D block: the other dims in memory order,
+    split at the axis into (planes, K, L); rows when the axis is
+    innermost, else strided where L fits the tile (on the card) and copied
+    where it does not, or off the card."""
+    from repro_torch.core.local_fft import line_read
+    shape = (3, 4, 8, 16)
+    x = _held(shape, list(mem))
+    for axis in range(4):
+        at = mem.index(axis)
+        outer, inner = list(mem[:at]), list(mem[at + 1:])
+        L = int(np.prod([shape[d] for d in inner]))
+        card = line_read(x, axis, strided=True)
+        host = line_read(x, axis, strided=False)
+        for rd in (card, host):
+            assert rd.order == tuple(outer + inner)
+            assert rd.outer == len(outer) and rd.K == shape[axis]
+            assert rd.planes == int(np.prod([shape[d] for d in outer]))
+            assert rd.L == L
+        want = "rows" if not inner else ("strided" if _fits(L)
+                                         else "copied")
+        assert card.route == want
+        assert host.route == ("rows" if not inner else "copied")
+        # the strided view is the block itself
+        if card.route == "strided":
+            v = x.permute(*outer, axis, *inner).view(card.planes, card.K,
+                                                      card.L)
+            assert v.data_ptr() == x.data_ptr()
+
+
+@pytest.mark.parametrize("case", ["non-dense", "odd-l", "l-not-fit",
+                                  "misaligned", "rows-non-dense"])
+def test_line_read_falls_back_to_a_copy(case):
+    """Lines the strided entry cannot take are copied into rows: a slice
+    that is not dense, an odd L, an L that is neither a divisor nor a
+    multiple of 64, a base off 16 bytes; the route still computes the
+    DFT."""
+    from repro_torch.core.local_fft import LINE_READS, line_read
+    axis = 1
+    if case == "non-dense":
+        x = _held((2, 8, 4, 16), [0, 1, 2, 3])[:, :, :, ::2]
+    elif case == "odd-l":
+        x = _held((2, 8, 5, 3), [0, 1, 2, 3])
+    elif case == "l-not-fit":
+        x = _held((2, 8, 6, 8), [0, 1, 2, 3])
+    elif case == "misaligned":
+        x = _held((2, 8, 4, 16), [0, 1, 2, 3], offset=1)
+        assert x.data_ptr() % 16
+        assert line_read(_held((2, 8, 4, 16), [0, 1, 2, 3], offset=2),
+                         axis, strided=True).route == "strided"
+    else:
+        x, axis = _held((2, 8, 4, 16), [0, 1, 2, 3])[:, ::2], 3
+    assert line_read(x, axis, strided=True).route == "copied"
+    x.copy_(torch.as_tensor(_cx(np.random.default_rng(3), tuple(x.shape))))
+    before = LINE_READS["copied"]
+    got = local_dft(x, axis, 2 * x.shape[axis], inverse=True,
+                    backend="cuda")
+    assert LINE_READS["copied"] == before + 1
+    _close(got.numpy(), local_dft(x, axis, 2 * x.shape[axis], inverse=True,
+                                  backend="fft").numpy())
+
+
+# the paper pair's line stages at n = 16, d = 8, b = 4 (the toy pair):
+# (input shape, its memory order as the executor leaves it, axis, n_out,
+# inverse, route on the card, output memory order), dims b=0, x=1, y=2,
+# z=3
+PAIR_STAGES = {
+    "idft[x]": ((4, 8, 8, 16), (0, 1, 2, 3), 1, 16, True, "strided",
+                [0, 2, 3, 1]),
+    "idft[y]": ((4, 16, 8, 16), (0, 2, 3, 1), 2, 16, True, "strided",
+                [0, 3, 1, 2]),
+    "dft[Y]": ((4, 16, 16, 16), (0, 3, 1, 2), 2, 8, False, "rows",
+               [0, 3, 1, 2]),
+    "dft[X]": ((4, 16, 8, 16), (0, 3, 1, 2), 1, 8, False, "strided",
+               [0, 3, 2, 1]),
+}
+
+
+@pytest.mark.parametrize("stage", list(PAIR_STAGES))
+def test_cuda_route_on_the_pair_stage_layouts(stage):
+    """Each stage of the pair, its input held as the previous stage leaves
+    it: the "cuda" route against the "fft" oracle, the route the card
+    would take, and the memory order it leaves (the other dims as they
+    lay, the new axis innermost)."""
+    from repro_torch.core.local_fft import line_read
+    shape, mem, axis, n_out, inverse, route, out_mem = PAIR_STAGES[stage]
+    x = _held(shape, list(mem))
+    x.copy_(torch.as_tensor(_cx(np.random.default_rng(len(stage)), shape)))
+    assert line_read(x, axis, strided=True).route == route
+    got = local_dft(x, axis, n_out, inverse=inverse, backend="cuda")
+    want = local_dft(x.contiguous(), axis, n_out, inverse=inverse,
+                     backend="fft")
+    _close(got.numpy(), want.numpy())
+    assert _memory_order(got) == out_mem
+
+
+def _stage_walk(monkeypatch):
+    """Every line stage's (input memory order, route on the card, output
+    memory order), recorded as the stages run."""
+    from repro_torch.core.local_fft import line_read
+    seen = []
+    real = FFTStage.apply
+
+    def apply(self, x):
+        y = real(self, x)
+        seen.append((f"{'idft' if self.inverse else 'dft'}[{self.dim}]",
+                     _memory_order(x),
+                     line_read(x, self.index, strided=True).route,
+                     _memory_order(y)))
+        return y
+    monkeypatch.setattr(FFTStage, "apply", apply)
+    return seen
+
+
+def test_toy_pair_layouts_step_by_step(monkeypatch):
+    """The toy pair (n = 16, d = 8) through ``unpack_transform`` and
+    ``transform_pack`` on the CPU: each line stage reads its input where
+    the previous one left it, the cube lies (b, z, X, Y), and the slab
+    the fused pack gets lies (b, z, y', x'), which the pack kernel reads
+    in place (layout 2)."""
+    from repro_torch.kernels import sphere_pack
+    seen = _stage_walk(monkeypatch)
+    slabs = []
+    real_pack = sphere_pack.dft_pack
+
+    def pack(slab, *args, **kwargs):
+        slabs.append(slab)
+        return real_pack(slab, *args, **kwargs)
+    monkeypatch.setattr(sphere_pack, "dft_pack", pack)
+    g = T.ProcGrid.create([1], device="cpu")
+    inv, fwd = T.make_planewave_pair(g, 16, T.kpoint_sphere(8), 4,
+                                     backend="cuda")
+    c = torch.as_tensor(_cx(np.random.default_rng(8),
+                            (4, inv.sphere.npacked)))
+    cube = inv.unpack_transform(c)
+    out = fwd.transform_pack(cube)
+    b, x, y, z = 0, 1, 2, 3
+    assert seen == [
+        ("idft[x]", [b, x, y, z], "strided", [b, y, z, x]),
+        ("idft[y]", [b, y, z, x], "strided", [b, z, x, y]),
+        ("dft[Y]", [b, z, x, y], "rows", [b, z, x, y]),
+        ("dft[X]", [b, z, x, y], "strided", [b, z, y, x])]
+    assert _memory_order(cube) == [b, z, x, y]
+    assert len(slabs) == 1 and sphere_pack.slab_layout(slabs[0]) == 2
+    _close(out.numpy(), c.numpy(), rtol=1e-5)
+
+
+def test_fftb_probe_counts_line_reads_by_route():
+    """On the CPU a call pair reads one stage as rows and copies the
+    other three (the plain version needs rows); no stage reads strided
+    lines off the card."""
+    from repro_torch.obs.metrics import global_metrics
+    g = T.ProcGrid.create([1], device="cpu")
+    inv, fwd = T.make_planewave_pair(g, 16, T.kpoint_sphere(8), 4,
+                                     backend="cuda")
+    c = torch.as_tensor(_cx(np.random.default_rng(9),
+                            (4, inv.sphere.npacked)))
+    keys = ("line_reads_rows", "line_reads_strided", "line_reads_copied")
+    before = global_metrics().snapshot()["fftb"]
+    for _ in range(2):
+        fwd.transform_pack(inv.unpack_transform(c))
+    after = global_metrics().snapshot()["fftb"]
+    assert [after[k] - before[k] for k in keys] == [2, 0, 6]
+
+
 # ---------------------------------------------------- plane-wave wrappers
 KPTS2 = ((0.0, 0.0, 0.0), (0.5, 0.5, 0.5))
 

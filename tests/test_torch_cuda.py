@@ -506,3 +506,130 @@ def test_cuda_moe_is_deterministic(cuda_device):
                                       p.w_down)])
     for other in runs[1:]:
         assert all(torch.equal(a, b) for a, b in zip(runs[0], other))
+
+
+# kernel #1's strided entry: (planes, K, L, N).  L below 64 (a box holds
+# 64 / L planes), L = 64·k, and the paper pair's own stage layouts at
+# reduced plane counts: idft[x] (L = 32,768), idft[y] (L = 65,536) and
+# dft[X] (L = 128)
+COLS_CASES = {
+    "l8-k128": (40, 128, 8, 256),
+    "l32-k256": (12, 256, 32, 128),
+    "l64-k128": (6, 128, 64, 256),
+    "l192-k256": (3, 256, 192, 128),
+    "l32768-k128-idft-x": (2, 128, 32768, 256),
+    "l65536-k128-idft-y": (1, 128, 65536, 256),
+    "l128-k256-dft-x": (64, 256, 128, 128),
+    "l64-odd-k9": (5, 9, 64, 18),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(COLS_CASES))
+def test_cuda_strided_entry_is_bitwise_the_rows_entry(case, cuda_device):
+    """``dft_matmul_cols`` on the (planes, K, L) view against
+    ``dft_matmul`` on the same lines copied into rows: the split operands
+    reach each wgmma in the same order, chunk by chunk, so the results are
+    equal bit for bit."""
+    from repro_torch.kernels.dft_matmul import dft_matmul_cols
+    P, K, L, N = COLS_CASES[case]
+    rng = np.random.default_rng(P * K + L)
+    x = _cx(rng, (P, K, L), cuda_device)
+    _, _, w = dft_matrix_device(N, K, N > K, cuda_device)
+    before = dft_matmul.launches
+    got = dft_matmul_cols(x, w)
+    assert dft_matmul.launches == before + 1
+    want = dft_matmul(x.transpose(1, 2).reshape(P * L, K).contiguous(), w)
+    torch.cuda.synchronize()
+    assert got.shape == (P * L, N)
+    assert torch.equal(torch.view_as_real(got), torch.view_as_real(want))
+    _close(got, dft_matmul_plain(x.transpose(1, 2).reshape(P * L, K), w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,n,kpts,nb", [(8, 16, KPTS2, 3),
+                                         (128, 256, KPTS2, 1)])
+def test_cuda_dft_pack_z_major_slab_is_bitwise_the_other_layouts(
+        d, n, kpts, nb, cuda_device):
+    """One slab's values stored three ways: lines contiguous (layout 0),
+    each y plane z-major (1) and each row's slab z-major (2, what the
+    forward's x stage leaves): the packed lanes are equal bit for bit."""
+    spheres = [kpoint_sphere(d, k) for k in kpts]
+    npm = max(s.npacked for s in spheres)
+    start, zlo, cnt, _ = (torch.as_tensor(t, device=cuda_device)
+                          for t in sp.line_tables(spheres, nb))
+    B = len(spheres) * nb
+    nvalid = torch.as_tensor(np.repeat(np.asarray(
+        [s.npacked for s in spheres], np.int32), nb), device=cuda_device)
+    _, _, w = dft_matrix_device(d, n, False, cuda_device)
+    slab = _cx(np.random.default_rng(d), (B, d, d, n), cuda_device)
+    outs = []
+    for layout, order in ((0, (0, 1, 2, 3)), (1, (0, 2, 3, 1)),
+                          (2, (0, 3, 2, 1))):
+        held = slab.permute(*order).contiguous().permute(
+            *np.argsort(order).tolist())
+        assert sp.slab_layout(held) == layout
+        before = sp.dft_pack.launches
+        outs.append(sp.dft_pack(held, start, zlo, cnt, nvalid, w, npm))
+        assert sp.dft_pack.launches == before + 1
+    torch.cuda.synchronize()
+    for other in outs[1:]:
+        assert torch.equal(torch.view_as_real(outs[0]),
+                           torch.view_as_real(other))
+    _close(outs[2], sp.dft_pack_plain(slab, start, zlo, cnt, nvalid, w, npm))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(16, 8), (32, 16)])
+def test_cuda_traced_pair_reads_every_line_in_place(n, d, cuda_device):
+    """A pair on the card: no ``relayout`` span, one line stage a call
+    pair reading rows and three reading strided lines, and the cube and
+    packed lanes bitwise those of the same stages run with their inputs
+    copied into rows first."""
+    from repro_torch.core import ProcGrid, make_planewave_pair
+    from repro_torch.core import local_fft
+    from repro_torch.obs.metrics import global_metrics
+    from repro_torch.obs.trace import get_tracer
+    inv, fwd = make_planewave_pair(ProcGrid.create([1], device=cuda_device),
+                                   n, kpoint_sphere(d), 4, backend="cuda")
+    c = _cx(np.random.default_rng(n), (4, inv.sphere.npacked), cuda_device)
+    tr = get_tracer()
+    before = dict(global_metrics().snapshot()["fftb"])
+    tr.enable(sync=True)
+    try:
+        cube = inv.unpack_transform(c)
+        out = fwd.transform_pack(cube)
+        names = {e["name"] for e in tr.events()}
+    finally:
+        tr.disable()
+        tr.clear()
+    after = global_metrics().snapshot()["fftb"]
+    assert "relayout" not in names and "fused:dft_pack" in names
+    assert {k: after[k] - before[k] for k in
+            ("line_reads_rows", "line_reads_strided",
+             "line_reads_copied")} == {"line_reads_rows": 1,
+                                       "line_reads_strided": 3,
+                                       "line_reads_copied": 0}
+    # the cube's memory order: (b, z, X, Y)
+    assert cube.permute(0, 3, 1, 2).is_contiguous()
+    _close(out, c)
+
+    # the same stages with every input copied into rows (the strided
+    # entry never taken): the same bits
+    def copied(x, axis, n_in, n_out, inverse):
+        rd = local_fft.line_read(x, axis, strided=False)
+        xf = x.permute(*rd.order, axis).reshape(-1, n_in)
+        yf = ops.dft_apply(xf, n_out=n_out, inverse=inverse)
+        perm = rd.order + (axis,)
+        y = yf.view(*(x.shape[k] for k in rd.order), n_out)
+        return y.permute(*(perm.index(k) for k in range(x.ndim)))
+    real = local_fft._cuda_backend
+    local_fft._cuda_backend = copied
+    try:
+        cube0 = inv.unpack_transform(c)
+        out0 = fwd.transform_pack(cube0)
+    finally:
+        local_fft._cuda_backend = real
+    torch.cuda.synchronize()
+    assert torch.equal(torch.view_as_real(cube), torch.view_as_real(cube0))
+    assert torch.equal(torch.view_as_real(out), torch.view_as_real(out0))

@@ -529,6 +529,47 @@ def test_slab_layout_names_what_the_kernel_reads_in_place():
         assert sp.slab_layout(t.permute(0, 3, 1, 2)[:, :, ::2]) is None
 
 
+@pytest.mark.parametrize("d,fits", [(8, True), (64, True), (128, True),
+                                    (6, False), (40, True), (10, False)])
+def test_slab_layout_reads_a_z_major_slab_as_layout_2(d, fits):
+    """(B, n, ey, ex) in memory, what the forward's x stage leaves: layout
+    2 when a row's ex·ey lines fit the strided tile; layouts 0 and 1 are
+    still named as before, 1 before 2 where both could read it."""
+    B, n = 2, 12
+    t = torch.zeros((B, n, d, d), dtype=torch.complex64)
+    z_major = t.permute(0, 3, 2, 1)
+    assert tuple(z_major.shape) == (B, d, d, n)
+    assert sp.slab_layout(z_major) == (2 if fits else None)
+    assert sp.slab_layout(z_major.contiguous()) == 0
+    assert sp.slab_layout(z_major[:, :, ::2]) is None
+    # one line a plane: z-major and y-planes are the same bytes
+    one = torch.zeros((B, n, 1, d), dtype=torch.complex64).permute(0, 3, 2, 1)
+    planes = d % 2 == 0 and (d % 64 == 0 or 64 % d == 0)
+    assert sp.slab_layout(one) == (1 if planes else None)
+
+
+@pytest.mark.parametrize("P,K,L,N", [(3, 8, 16, 12), (2, 5, 64, 9),
+                                     (1, 16, 128, 8)])
+def test_dft_matmul_cols_plain_is_the_rows_product(P, K, L, N):
+    """The strided entry's plain version: the lines of a (P, K, L) block
+    strided in K, row p·L + l being line (p, l), against the plain rows
+    product bit for bit; ``ops.dft_apply`` takes the same block."""
+    from repro_torch.kernels.dft_matmul import (dft_matmul_cols,
+                                                dft_matmul_cols_plain)
+    rng = np.random.default_rng(P + K + L)
+    x = torch.as_tensor(_cx(rng, (P, K, L)))
+    w = torch.as_tensor(_cx(rng, (N, K)))
+    rows = x.transpose(1, 2).reshape(P * L, K)
+    want = dft_matmul_plain(rows.contiguous(), w)
+    got = dft_matmul_cols(x, w)
+    assert got.shape == (P * L, N)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    np.testing.assert_array_equal(dft_matmul_cols_plain(x, w).numpy(),
+                                  want.numpy())
+    ap = ops.dft_apply(x, N, inverse=True)
+    _close(ap.numpy(), dft_apply_ref(rows, N, inverse=True).numpy())
+
+
 # -------------------------------------------------------------- dft_pack
 @pytest.mark.parametrize("d,n,nbands,kpts", [
     (8, 16, 3, ((0, 0, 0), (0.5, 0.5, 0.5))),
