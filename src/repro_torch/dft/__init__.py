@@ -8,6 +8,8 @@
   * ``hartree``     Poisson solve in G-space on the full-cube plan pair
   * ``potentials``  Gaussian-well external potential + LDA-style exchange
   * ``scf``         the mixing-driven SCF driver (linear + Anderson/Pulay)
+  * ``mtxel``       GW matrix elements: valence-conduction pair densities,
+                    inverse on one sphere, product, forward onto another
 
 Quickstart::
 
@@ -24,6 +26,8 @@ from .hamiltonian import (apply_hamiltonian, apply_hamiltonian_padded,
                           apply_hamiltonian_stacked, update_bands,
                           update_bands_all_k, update_bands_stacked)
 from .hartree import HartreeSolver, coulomb_kernel
+from .mtxel import (centring_phase, cutoff_sphere, mtxel_plans, pair_density,
+                    valence_conjugates)
 from .potentials import gaussian_wells, lda_exchange
 from .scf import (AndersonMixer, LinearMixer, SCFConfig, SCFResult,
                   coefficients_from_numpy, run_scf, total_energy,
@@ -36,6 +40,8 @@ __all__ = [
     "apply_hamiltonian_pipelined", "apply_hamiltonian_stacked",
     "update_bands", "update_bands_all_k", "update_bands_stacked",
     "HartreeSolver", "coulomb_kernel", "gaussian_wells", "lda_exchange",
+    "centring_phase", "cutoff_sphere", "mtxel_plans", "pair_density",
+    "valence_conjugates",
     "SCFConfig", "SCFResult", "run_scf", "total_energy",
     "total_energy_stacked", "coefficients_from_numpy", "LinearMixer", "AndersonMixer",
 ]
