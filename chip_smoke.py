@@ -673,6 +673,9 @@ TF32_FLOP_PER_S = 495e12
 # kernel vs plain version: both fp32, sums in another order; relative to
 # the largest output magnitude
 KERNEL_RTOL = 1e-5
+# kernel #1's factored mode vs its plain version: 3xTF32 against complex64
+# products, two stages and a twiddle each (3.3-4.2e-7 measured on the H100)
+FACTORED_RTOL = 2e-6
 # kernel route vs matmul route over the whole SCF: fp32 rounding of
 # 1.1M-lane Gram sums and 16.7M-point cube reductions, carried through
 # three mixed iterations (2e-6 relative measured at n = 16 on the CPU)
@@ -737,6 +740,11 @@ def ptxas_summary(log: str) -> list[tuple[str, str]]:
             if m:
                 name = (f"cgemm_tc_kernel<{A_PATHS[int(m[1])]}, "
                         f"{m[3][:int(m[2])]}>")
+            m = re.search(r"cgemm_tc_factored_kernelILi(\d)ELi(\d+)ELi(\d+)E",
+                          name)
+            if m:
+                name = (f"cgemm_tc_factored_kernel<{A_PATHS[int(m[1])]}, "
+                        f"{m[2]}, {m[3]}>")
             out[name] = []
         elif name and ("registers" in line or "spill" in line):
             out[name].append(line.split("info    :")[-1].strip())
@@ -1484,65 +1492,120 @@ class LineStages:
 
 def line_entry(torch, gen, dev, M, n_in, n_out, inverse, L):
     """Kernel #1 as a line stage launches it on ``M`` random lines:
-    ``(kernel, rows, plain, lines, w)``, ``kernel`` the entry the stage
-    takes (rows, or for ``L`` > 1 the strided entry on ``(M / L, n_in, L)``
-    planes), ``rows`` the rows entry on the same lines in rows (``kernel``
-    itself when L = 1), ``plain`` the plain version, ``lines`` the lines
-    as ``(M, n_in)`` rows (a view when L = 1, a copy otherwise), ``w`` the
-    DFT matrix."""
+    ``(kernel, rows, plain, lines, w, dense)``, ``kernel`` the entry the
+    stage takes (the factored mode where ``factored_split`` takes the
+    shape, else the dense product; rows, or for ``L`` > 1 the strided
+    entry on ``(M / L, n_in, L)`` planes), ``rows`` the same mode's rows
+    entry on the same lines in rows (``kernel`` itself when L = 1),
+    ``plain`` its plain version, ``lines`` the lines as ``(M, n_in)`` rows
+    (a view when L = 1, a copy otherwise), ``w`` the DFT matrix, ``dense``
+    the dense product through the same entry where the stage is factored
+    (else None)."""
     from repro_torch.core.local_fft import dft_matrix_device
-    from repro_torch.kernels.dft_matmul import (dft_matmul, dft_matmul_cols,
+    from repro_torch.kernels.dft_matmul import (dft_factored,
+                                                dft_factored_cols,
+                                                dft_factored_plain,
+                                                dft_matmul, dft_matmul_cols,
                                                 dft_matmul_cols_plain,
-                                                dft_matmul_plain)
-    from repro_torch.kernels.ops import dft_operand_device
+                                                dft_matmul_plain,
+                                                factored_split)
+    from repro_torch.kernels.ops import (dft_operand_device,
+                                         factored_operands_device)
     _, _, w = dft_matrix_device(n_out, n_in, inverse, dev)
     ws = dft_operand_device(n_out, n_in, inverse, w.device)
     if L == 1:
         x = crandn(torch, gen, (M, n_in), dev)
+        lines = x
+        on_dense = on_dense_rows = lambda: dft_matmul(x, w, wsplit=ws)
+        dense_plain = lambda: dft_matmul_plain(x, w)
+    else:
+        x = crandn(torch, gen, (M // L, n_in, L), dev)
+        lines = x.transpose(1, 2).contiguous().view(M, n_in)
+        on_dense = lambda: dft_matmul_cols(x, w, wsplit=ws)
+        on_dense_rows = lambda: dft_matmul(lines, w, wsplit=ws)
+        dense_plain = lambda: dft_matmul_cols_plain(x, w)
+    if factored_split(n_in, n_out) is None:
+        return on_dense, on_dense_rows, dense_plain, lines, w, None
+    fo = factored_operands_device(n_out, n_in, bool(inverse), w.device)
+    on_rows = lambda: dft_factored(lines, fo)
+    kernel = on_rows if L == 1 else lambda: dft_factored_cols(x, fo)
+    return (kernel, on_rows, lambda: dft_factored_plain(lines, fo), lines, w,
+            on_dense)
 
-        def kernel():
-            return dft_matmul(x, w, wsplit=ws)
-        return kernel, kernel, lambda: dft_matmul_plain(x, w), x, w
-    x = crandn(torch, gen, (M // L, n_in, L), dev)
-    lines = x.transpose(1, 2).contiguous().view(M, n_in)
-    return (lambda: dft_matmul_cols(x, w, wsplit=ws),
-            lambda: dft_matmul(lines, w, wsplit=ws),
-            lambda: dft_matmul_cols_plain(x, w), lines, w)
+
+#: kernel #1's stages in the benchmark's cells, one 128-band call each:
+#: the paper pair's idft[x], idft[y], dft[Y], dft[X] and gw-mtxel's
+#: dft[Y], dft[X] onto the 64-sphere, as (lines, n_in, n_out, inverse, L)
+BENCH_LINE_STAGES = ((4194304, 128, 256, True, 32768),
+                     (8388608, 128, 256, True, 65536),
+                     (8388608, 256, 128, False, 1),
+                     (4194304, 256, 128, False, 128),
+                     (8388608, 256, 64, False, 1),
+                     (2097152, 256, 64, False, 64))
+#: lines on which the plain version of a factored stage is timed (its
+#: complex64 intermediates at a whole stage would not fit beside it)
+PLAIN_LINES = 1 << 20
 
 
 def time_line_shapes(torch, dev, gen, stages: LineStages, gpu: str):
-    """Kernel #1 at every distinct line shape the paths launched, through
-    the entry each launch took: its time, both bounds, complex64
-    ``torch.matmul`` on the same lines; where that was the strided entry,
-    the rows entry beside it on the same lines in rows, and the two
-    checked bit for bit; where the stage copied its lines into rows (the
-    "copied" route), that copy's time."""
+    """Kernel #1 at every distinct line shape the paths launched and at
+    the benchmark's stages (``BENCH_LINE_STAGES``), through the entry each
+    launch took: its time, both bounds, complex64 ``torch.matmul`` on the
+    same lines; where that was the strided entry, the same mode's rows
+    entry beside it on the same lines in rows, and the two checked bit for
+    bit; where the stage is factored, the dense product through the same
+    entry, the plain version (on ``PLAIN_LINES`` lines) and the kernel
+    against it; where the stage copied its lines into rows (the "copied"
+    route), that copy's time."""
     from repro_torch.obs.trace import relayout
-    keys = sorted({k for c in stages.entries.values() for k in c},
+    keys = sorted({k for c in stages.entries.values() for k in c}
+                  | set(BENCH_LINE_STAGES),
                   key=lambda k: -k[0] * (k[1] + k[2]))
     print(f"kernel #1 by line shape and entry ({gpu}; CUDA events, mean of "
           "10):", flush=True)
     rows = []
     for key in keys:
         M, n_in, n_out, inverse, L = key
-        kernel, on_rows, _, lines, w = line_entry(torch, gen, dev, *key)
+        kernel, on_rows, _, lines, w, dense = line_entry(
+            torch, gen, dev, *key)
         ms = time_ms(torch, kernel)
         row = {"lines": M, "n_in": n_in, "n_out": n_out, "inverse": inverse,
                "entry": "strided" if L > 1 else "rows", "L": L,
+               "mode": "dense" if dense is None else "factored",
                "launches": {p: c[key] for p, c in stages.entries.items()
                             if c[key]},
                "routes": sorted(stages.routes.get(key, ())), "ms": ms,
-               "rows_ms": None, "bitwise": None}
+               "rows_ms": None, "bitwise": None, "dense_ms": None,
+               "plain_ms": None, "plain_lines": None, "rel_err": None}
         if L > 1:
             row["rows_ms"] = time_ms(torch, on_rows)
             row["bitwise"] = bitwise(torch, kernel(), on_rows())
             check(row["bitwise"], f"kernel #1 {M}x{n_in}->{n_out}: the "
                   f"strided entry (L = {L}) gives the rows entry's bits")
+        if dense is not None:
+            from repro_torch.kernels.dft_matmul import (dft_factored,
+                                                        dft_factored_plain)
+            from repro_torch.kernels.ops import factored_operands_device
+            row["dense_ms"] = time_ms(torch, dense)
+            part = lines[:PLAIN_LINES]
+            fo = factored_operands_device(n_out, n_in, bool(inverse),
+                                          lines.device)
+            row["plain_lines"] = part.shape[0]
+            row["plain_ms"] = time_ms(
+                torch, lambda: dft_factored_plain(part, fo), reps=3)
+            _, row["rel_err"] = rel_err(torch, dft_factored(part, fo),
+                                        dft_factored_plain(part, fo))
+            check(row["rel_err"] <= FACTORED_RTOL,
+                  f"kernel #1 {M}x{n_in}->{n_out} factored against its "
+                  f"plain version: {row['rel_err']:.2e} <= {FACTORED_RTOL}")
+            del part
         row["matmul_ms"] = time_ms(torch, lambda: torch.matmul(lines, w.T))
-        del kernel, on_rows, lines, w
+        del kernel, on_rows, lines, w, dense
         b = bound_ms(8.0 * (M * n_in + n_out * n_in + M * n_out),
                      8.0 * M * n_out * n_in)
         row.update(b)
+        row["bytes_ms"] = 8.0 * M * (n_in + n_out) / HBM_BYTES_PER_S * 1e3
+        row["bytes_share"] = row["bytes_ms"] / ms
         row["input"], row["copy_ms"] = None, None
         if key in stages.copies:
             shape, stride, perm = stages.copies[key]
@@ -1560,14 +1623,20 @@ def time_line_shapes(torch, dev, gen, stages: LineStages, gpu: str):
                      f"strided L={L} (rows {row['rows_ms']:.3f} ms, "
                      f"{ms / row['rows_ms']:.3f}x; bitwise "
                      f"{row['bitwise']})")
+        mode_txt = ("dense" if row["dense_ms"] is None else
+                    f"factored (dense {row['dense_ms']:.3f} ms, plain "
+                    f"{row['plain_ms']:.3f} ms on {row['plain_lines']} "
+                    f"lines, rel err {row['rel_err']:.2e})")
         was = ("" if row["call_c_ms"] is None else
                f" ({ms / row['call_c_ms']:.3f}x call C's "
                f"{row['call_c_ms']:.3f} ms)")
         print(f"  {M}x{n_in}->{n_out}{' inv' if inverse else ''} "
-              f"{entry_txt}: launches {row['launches']}, routes "
+              f"{entry_txt}, {mode_txt}: launches {row['launches']}, routes "
               f"{row['routes'] or 'not through local_dft'}, {ms:.3f} ms"
-              f"{was}, {bound_text(b)}, torch.matmul "
-              f"{row['matmul_ms']:.3f} ms{copy_txt}", flush=True)
+              f"{was}, bytes {row['bytes_ms']:.3f} ms "
+              f"({100 * row['bytes_share']:.1f}%), {bound_text(b)}, "
+              f"torch.matmul {row['matmul_ms']:.3f} ms{copy_txt}",
+              flush=True)
         torch.cuda.empty_cache()
     return rows
 
@@ -2453,8 +2522,8 @@ def line_kernel_checks(torch, dev, lines, rank, world):
         if turn != rank:
             continue
         for M, n_in, n_out, inverse, L in lines:
-            kernel, _, plain, _, _ = line_entry(torch, gen, dev, M, n_in,
-                                                n_out, inverse, L)
+            kernel, _, plain, _, _, _ = line_entry(torch, gen, dev, M,
+                                                   n_in, n_out, inverse, L)
             out.append(_kernel_entry(
                 torch, f"{M}x{n_in}->{n_out}{' inv' if inverse else ''}"
                 + (f" strided L={L}" if L > 1 else ""), kernel, plain,

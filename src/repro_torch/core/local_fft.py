@@ -154,6 +154,11 @@ def _matmul_backend(x, axis, n_in, n_out, inverse):
 #: lie by the kernel's strided entry, "copied" lines laid out in rows
 #: first by ``obs.trace.relayout``
 LINE_READS = {"rows": 0, "strided": 0, "copied": 0}
+#: line stages of the "cuda" backend by kernel #1's mode (the
+#: ``line_dfts_*`` counters of the ``fftb`` probe): "factored" two
+#: 16-point stages in one launch, "dense" one product with the DFT matrix
+#: (``kernels.dft_matmul.factored_split`` decides by shape)
+LINE_DFTS = {"factored": 0, "dense": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -215,8 +220,11 @@ def line_read(x, axis: int, *, strided: bool | None = None) -> LineRead:
 
 def _cuda_backend(x, axis, n_in, n_out, inverse):
     from ..kernels import ops as kops
+    from ..kernels.dft_matmul import factored_split
     rd = line_read(x, axis)
     LINE_READS[rd.route] += 1
+    LINE_DFTS["dense" if factored_split(n_in, n_out) is None
+              else "factored"] += 1
     if rd.route == "strided":
         outer, inner = rd.order[:rd.outer], rd.order[rd.outer:]
         xf = x.permute(*outer, axis, *inner).view(rd.planes, n_in, rd.L)

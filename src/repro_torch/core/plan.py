@@ -45,7 +45,7 @@ from ..obs.metrics import global_metrics
 from ..obs.trace import NOOP_SPAN, drain, get_tracer, relayout
 from .dtensor import DistTensor
 from .hostsync import host_sync
-from .local_fft import (LINE_READS, dft_flops, dft_matrix_planes,
+from .local_fft import (LINE_DFTS, LINE_READS, dft_flops, dft_matrix_planes,
                         full_fp32_matmul, local_dft, realized_backend)
 from .policy import TUNE_CANDIDATES, ExecPolicy
 
@@ -705,4 +705,6 @@ global_metrics().register_probe(
     "fftb", lambda: {"executions": FftPlan.executions,
                      "searches": FftPlan.searches,
                      **{f"line_reads_{k}": v
-                        for k, v in LINE_READS.items()}})
+                        for k, v in LINE_READS.items()},
+                     **{f"line_dfts_{k}": v
+                        for k, v in LINE_DFTS.items()}})

@@ -36,6 +36,8 @@ SIGNATURES = {
     "dft_matmul_launch": (_P, _P, _P, _L, _I, _I, _I, _P),
     "dft_matmul_cols_launch": (_P, _P, _P, _L, _I, _I, _I, _P),
     "dft_matmul_twiddle_launch": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _P),
+    "dft_factored_launch": (_P, _P, _P, _P, _L, _I, _I, _P),
+    "dft_factored_cols_launch": (_P, _P, _P, _P, _L, _I, _I, _I, _P),
     "unpack_dft_launch": (_P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _L, _I, _I, _I, _I, _P),
     "dft_pack_launch": (_P, _P, _P, _P, _P, _P, _P,

@@ -31,7 +31,19 @@
 // shared-memory stages that one producer warp keeps full while two
 // consumer warpgroups compute; a persistent grid lets the loads of the
 // next tile overlap the stores of the last.
+//
+// `dft_factored_launch` and `dft_factored_cols_launch` are kernel #1's
+// factored mode for lines whose longer length is 256 (n_in, n_out in
+// {64, 128, 256}): the same operator as the dense product, computed as
+// two 16-point tensor-core stages with a twiddle between them
+// (csrc/cgemm_tc_factored.cuh).  A 128→256 line takes 6,144 complex
+// products instead of 32,768, so the pair's stages are bound by their
+// bytes (idft[x] 128->256 on 4,194,304 lines: 12.9 GB, 3.84 ms at
+// 3.35 TB/s, against 1.25 ms of 3xTF32 operations).  kernels/ops.py::
+// dft_apply chooses it by shape.  It replaces no TPU kernel of its own:
+// the reference's `_kernel` computes the same operator as one product.
 #include "cgemm_tc.cuh"
+#include "cgemm_tc_factored.cuh"
 
 namespace dftk {
 
@@ -61,6 +73,27 @@ int launch(const Epi& epi, const void* x, const void* wsplit, void* y,
   if (tma_a)
     return tc::launch<tc::A_ROWS>(epi, xf, wf, yf, M, N, K, 0, s);
   return tc::launch<tc::A_GATHER>(epi, xf, wf, yf, M, N, K, 0, s);
+}
+
+// the factored kernel for (n_in, n_out) = (16·KC, 16·NC), if one is built
+template <int A>
+int factored(const void* x, const void* ops, const void* tw, void* y,
+             long long M, int n_in, int n_out, int L, void* stream) {
+  const float* xf = static_cast<const float*>(x);
+  const float* of = static_cast<const float*>(ops);
+  const float2* tf = static_cast<const float2*>(tw);
+  float2* yf = static_cast<float2*>(y);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define DFTK_FACTORED(KC, NC)                                              \
+  if (n_in == 16 * KC && n_out == 16 * NC)                                 \
+    return tc::launch_factored<A, KC, NC>(xf, of, tf, yf, M, L, s);
+  DFTK_FACTORED(16, 16)
+  DFTK_FACTORED(8, 16)
+  DFTK_FACTORED(4, 16)
+  DFTK_FACTORED(16, 8)
+  DFTK_FACTORED(16, 4)
+#undef DFTK_FACTORED
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace dftk
@@ -104,4 +137,26 @@ extern "C" int dft_matmul_twiddle_launch(const void* x, const void* wsplit,
   tw.T = T;
   tw.N = N;
   return dftk::launch(tw, x, wsplit, y, M, N, K, tma_a, stream);
+}
+
+// The factored line DFT on rows: x (M, n_in) complex64, 16-byte aligned;
+// ops: (4, 32, 32) fp32, the two stages' split embeddings; tw: (16, 16)
+// complex64 twiddles; y (M, n_out) complex64.  (n_in, n_out): 256 and one
+// of 64, 128, 256.  Returns cudaGetLastError().
+extern "C" int dft_factored_launch(const void* x, const void* ops,
+                                   const void* tw, void* y, long long M,
+                                   int n_in, int n_out, void* stream) {
+  return dftk::factored<tc::A_ROWS>(x, ops, tw, y, M, n_in, n_out, 0,
+                                    stream);
+}
+
+// As dft_factored_launch, for lines strided in K: x (M / L, n_in, L)
+// complex64, line l of plane p being row p·L + l of y.  Needs L even, a
+// multiple of 16 or a divisor of 16, and L | M.  Returns cudaGetLastError().
+extern "C" int dft_factored_cols_launch(const void* x, const void* ops,
+                                        const void* tw, void* y,
+                                        long long M, int n_in, int n_out,
+                                        int L, void* stream) {
+  return dftk::factored<tc::A_COLS>(x, ops, tw, y, M, n_in, n_out, L,
+                                    stream);
 }

@@ -34,9 +34,21 @@ is kernel #1's strided entry: the same product over lines strided in K
 (planes of lines stored K-major, as a line stage over another axis leaves
 them), read where they lie and transposed in shared memory.  There is no fallback:
 a CUDA tensor either launches the kernel or raises.
+
+``dft_factored`` / ``dft_factored_cols`` are kernel #1's factored mode
+(``csrc/cgemm_tc_factored.cuh``): the same rectangular operator for lines
+whose longer length n is 256 (:func:`factored_split`), as two 16-point
+tensor-core stages with a twiddle between them in one launch,
+``y[k2 + n2·k1] = Σ_j1 F_n1[k1, j1]·t[j1, k2]·Σ_j2 F_n2[k2, j2]·x[j1 +
+n1·j2]``: 6,144 complex products a 128→256 line instead of 32,768, so
+the line is bound by its bytes.  Their plain version,
+:func:`dft_factored_plain`, runs the same two stages and twiddle.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from . import build
@@ -257,3 +269,155 @@ def dft_matmul_twiddle(x, w, t, *, wsplit=None):
 
 
 dft_matmul_twiddle.launches = 0
+
+
+#: the factored mode's lines: the longer length n = n1·n2 (input
+#: j = j1 + n1·j2, output k = k2 + n2·k1), and the lengths it takes on
+#: either side (the kernel's stages take n_in / n1 and n_out / n2 in whole
+#: k8 steps of four complex columns, at most 16 each)
+FACTORED_N, FACTORED_SPLIT = 256, (16, 16)
+FACTORED_LENGTHS = (64, 128, 256)
+
+
+def factored_split(n_in: int, n_out: int) -> tuple[int, int] | None:
+    """``(n1, n2)`` when kernel #1 takes lines of ``n_in → n_out`` in its
+    factored mode, else None (the dense product)."""
+    if (max(n_in, n_out) != FACTORED_N or n_in not in FACTORED_LENGTHS
+            or n_out not in FACTORED_LENGTHS):
+        return None
+    return FACTORED_SPLIT
+
+
+class Factored(NamedTuple):
+    """The factored mode's operators for one ``(n_out, n_in, inverse)``:
+    ``f1`` (n2, n_in / n1) the stage-1 DFT over j2, ``f2`` (n_out / n2,
+    n1) the stage-2 DFT's kept rows k1, ``t`` (n1, n2) the twiddles
+    w_n^(j1·k2), times 1/n for the inverse (all complex64, computed in
+    float64 and rounded once), and ``ops`` the kernel's (4, 32, 32) fp32
+    split embeddings of f1 and f2 (None on the CPU)."""
+    f1: torch.Tensor
+    f2: torch.Tensor
+    t: torch.Tensor
+    ops: torch.Tensor | None
+
+
+def _dft(m: int, rows: int, cols: int, sign: int) -> np.ndarray:
+    return np.exp(sign * 2j * np.pi * np.outer(np.arange(rows),
+                                               np.arange(cols)) / m)
+
+
+def _embed_k8(w):
+    """The real (2N, 2K) embedding of complex (N, K) w (as
+    :func:`embed_operand`) with the factored kernel's column order:
+    complex column k, part e at ``8·(k // 4) + k % 4 + 4·e``."""
+    N, K = w.shape
+    k = torch.arange(K, device=w.device)
+    pos = 8 * (k // 4) + k % 4
+    e = torch.zeros((2 * N, 2 * K), dtype=torch.float32, device=w.device)
+    e[0::2, pos], e[0::2, pos + 4] = w.real, -w.imag
+    e[1::2, pos], e[1::2, pos + 4] = w.imag, w.real
+    return e
+
+
+def factored_operands(n_out: int, n_in: int, inverse: bool,
+                      device) -> Factored:
+    """:class:`Factored` for lines of ``n_in → n_out`` (a shape
+    :func:`factored_split` takes) on ``device``."""
+    n1, n2 = factored_split(n_in, n_out)
+    n = n1 * n2
+    sign = 1 if inverse else -1
+    t = _dft(n, n1, n2, sign) / (n if inverse else 1)
+    f1, f2, t = (torch.as_tensor(a.astype(np.complex64), device=device)
+                 for a in (_dft(n2, n2, n_in // n1, sign),
+                           _dft(n1, n_out // n2, n1, sign), t))
+    ops = None
+    if torch.device(device).type == "cuda":
+        ops = torch.zeros((4, 32, 32), dtype=torch.float32, device=device)
+        for i, w in enumerate((f1, f2)):
+            e = _embed_k8(w)
+            ops[2 * i, :e.shape[0], :e.shape[1]], \
+                ops[2 * i + 1, :e.shape[0], :e.shape[1]] = tf32_split(e)
+    return Factored(f1, f2, t, ops)
+
+
+def dft_factored_plain(x, fo: Factored):
+    """The factored mode in plain PyTorch: x (B, n_in) → (B, n_out), the
+    kernel's two stages and twiddle as complex64 products."""
+    B, n_in = x.shape
+    n1, n2 = fo.t.shape
+    z = x.reshape(B, n_in // n1, n1).transpose(1, 2) @ fo.f1.T   # (j1, k2)
+    y = (z * fo.t).transpose(1, 2) @ fo.f2.T                     # (k2, k1)
+    return y.transpose(1, 2).reshape(B, -1)
+
+
+def dft_factored_cols_plain(x, fo: Factored):
+    """:func:`dft_factored_cols` in plain PyTorch: the lines copied into
+    rows, then :func:`dft_factored_plain`."""
+    P, K, L = x.shape
+    return dft_factored_plain(x.transpose(1, 2).reshape(P * L, K), fo)
+
+
+def _factored_launch(x, fo: Factored, M: int, n_in: int, L: int):
+    n_out = fo.f2.shape[0] * fo.t.shape[1]
+    y = torch.empty((M, n_out), dtype=torch.complex64, device=x.device)
+    if M == 0:
+        return y
+    lib = build.library("dft_matmul")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        if L:
+            status = lib.dft_factored_cols_launch(
+                x.data_ptr(), fo.ops.data_ptr(), fo.t.data_ptr(),
+                y.data_ptr(), M, n_in, n_out, L, stream)
+        else:
+            status = lib.dft_factored_launch(
+                x.data_ptr(), fo.ops.data_ptr(), fo.t.data_ptr(),
+                y.data_ptr(), M, n_in, n_out, stream)
+    build.check(status, "dft_matmul (factored)")
+    dft_matmul.launches += 1
+    return y
+
+
+def _check_factored(fo: Factored, n_in: int, device) -> None:
+    n1 = fo.t.shape[0]
+    if (fo.ops is None or fo.ops.device != device
+            or fo.f1.shape[1] * n1 != n_in):
+        raise ValueError(f"operands for {fo.f1.shape[1] * n1}-long lines "
+                         f"on {fo.t.device}, not {n_in} on {device}")
+
+
+def dft_factored(x, fo: Factored):
+    """The factored line DFT on rows: x (B, n_in) → (B, n_out) complex64,
+    with the operands of :func:`factored_operands` for the shape.
+
+    CUDA tensors launch the factored kernel (counted in
+    ``dft_matmul.launches``; x must be contiguous, and rows that do not
+    start on 16 bytes are copied first, as TMA reads them); CPU tensors
+    run :func:`dft_factored_plain`.
+    """
+    B, n_in = x.shape
+    if x.device.type != "cuda":
+        return dft_factored_plain(x.to(torch.complex64), fo)
+    _check("x", x, torch.complex64, (B, n_in), x.device)
+    _check_factored(fo, n_in, x.device)
+    if x.data_ptr() % 16:
+        x = x.clone()                 # TMA needs a 16-byte aligned base
+    return _factored_launch(x, fo, B, n_in, 0)
+
+
+def dft_factored_cols(x, fo: Factored):
+    """The factored line DFT over lines strided in K: x (P, n_in, L) →
+    (P·L, n_out) complex64, row p·L + l the transform of ``x[p, :, l]``.
+
+    CUDA tensors launch the factored kernel's strided entry (counted in
+    ``dft_matmul.launches``): x must be contiguous and 16-byte aligned and
+    L even and a multiple or a divisor of 16 (every L that :func:`cols_fit`
+    takes), else the launch fails and this raises.  CPU tensors run
+    :func:`dft_factored_cols_plain`.
+    """
+    P, n_in, L = x.shape
+    if x.device.type != "cuda":
+        return dft_factored_cols_plain(x.to(torch.complex64), fo)
+    _check("x", x, torch.complex64, (P, n_in, L), x.device)
+    _check_factored(fo, n_in, x.device)
+    return _factored_launch(x, fo, P * L, n_in, L)

@@ -5,7 +5,10 @@ kernel with the cached rectangular DFT matrix and, on a CUDA device, its
 cached split-TF32 embedding (:func:`dft_operand_device`).  Rectangular
 n_in ≠ n_out fuses zero-padding (n_in < n_out) or spectrum truncation
 (n_in > n_out) into the GEMM shape.  Unlike the reference's wrapper it pads
-nothing to whole tiles: the kernel masks its ragged edges itself.
+nothing to whole tiles: the kernel masks its ragged edges itself.  Where
+the shape allows (:func:`~.dft_matmul.factored_split`: the longer length
+256), the launch is the kernel's factored mode instead, the same operator
+as two 16-point stages (:func:`factored_operands_device`).
 
 ``four_step_dft`` factors a long composite line n = n1·n2 into two short
 GEMM stages (Bailey's four-step): DFT_n2 with the W_N^{j1·k2} twiddle
@@ -22,8 +25,9 @@ import torch
 
 from ..core.local_fft import dft_matrix_device
 from ..obs.trace import relayout
-from .dft_matmul import (dft_matmul, dft_matmul_cols, dft_matmul_twiddle,
-                         embed_operand)
+from .dft_matmul import (Factored, dft_factored, dft_factored_cols,
+                         dft_matmul, dft_matmul_cols, dft_matmul_twiddle,
+                         embed_operand, factored_operands, factored_split)
 from .ref import twiddle_matrix
 
 
@@ -46,12 +50,27 @@ def _matrix(n_out: int, n_in: int, inverse: bool, device):
     return w, dft_operand_device(n_out, n_in, inverse, w.device)
 
 
+@functools.lru_cache(maxsize=64)
+def factored_operands_device(n_out: int, n_in: int, inverse: bool,
+                             device: torch.device) -> Factored:
+    """:func:`~.dft_matmul.factored_operands`, cached per ``(n_out, n_in,
+    inverse, device)``: built once per line shape on the main path."""
+    return factored_operands(n_out, n_in, inverse, device)
+
+
 def dft_apply(x, n_out: int | None = None, *, inverse: bool = False):
     """Batched line DFT via the kernel: (B, n_in) rows → (B, n_out), or
     (P, n_in, L) lines strided in n_in → (P·L, n_out) through the kernel's
-    strided entry (:func:`~.dft_matmul.dft_matmul_cols`); complex64."""
+    strided entry (:func:`~.dft_matmul.dft_matmul_cols`); complex64.  The
+    factored mode where :func:`~.dft_matmul.factored_split` takes the
+    shape, the dense product elsewhere: one launch either way."""
     n_in = x.shape[1]
     n_out = n_in if n_out is None else n_out
+    if factored_split(n_in, n_out) is not None:
+        fo = factored_operands_device(n_out, n_in, bool(inverse), x.device)
+        if x.ndim == 3:
+            return dft_factored_cols(x.to(torch.complex64), fo)
+        return dft_factored(relayout(x.to(torch.complex64)), fo)
     w, ws = _matrix(n_out, n_in, inverse, x.device)
     if x.ndim == 3:
         return dft_matmul_cols(x.to(torch.complex64), w, wsplit=ws)

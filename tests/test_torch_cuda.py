@@ -2,7 +2,8 @@
 PyTorch version (the sphere kernels also on one rank's block of a
 batch×fft grid), the four-step DFT against ``torch.fft``, the SCF slice
 on the kernel route, a small transform-service run, the lazy executor
-against the eager one, and the fused SCF step replayed as CUDA graphs.
+against the eager one, the fused SCF step replayed as CUDA graphs, and
+kernel #1's factored mode against its plain version.
 
 These tests need a CUDA device and skip without one (the kernels have no
 CPU mode).  They import neither JAX nor the reference package, so they run
@@ -633,3 +634,90 @@ def test_cuda_traced_pair_reads_every_line_in_place(n, d, cuda_device):
     torch.cuda.synchronize()
     assert torch.equal(torch.view_as_real(cube), torch.view_as_real(cube0))
     assert torch.equal(torch.view_as_real(out), torch.view_as_real(out0))
+
+
+# kernel #1's factored mode at the paper pair's four stage shapes and
+# gw-mtxel's two 256→64 shapes, on fewer lines: (planes, n_in, L, n_out,
+# inverse), L = 1 for rows (then "planes" is the rows, never whole tiles)
+FACTORED_CASES = {
+    "idft-x-128-to-256-l32768": (2, 128, 32768, 256, True),
+    "idft-y-128-to-256-l65536": (1, 128, 65536, 256, True),
+    "dft-y-256-to-128-rows": (40001, 256, 1, 128, False),
+    "dft-x-256-to-128-l128": (300, 256, 128, 128, False),
+    "mtxel-dft-y-256-to-64-rows": (40001, 256, 1, 64, False),
+    "mtxel-dft-x-256-to-64-l64": (500, 256, 64, 64, False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(FACTORED_CASES))
+def test_cuda_factored_kernel_matches_plain(case, cuda_device):
+    """``ops.dft_apply`` at a factored shape: one launch of the factored
+    kernel (counted in ``dft_matmul.launches``), within 2e-6 of its plain
+    version (3xTF32 against complex64 products in another order), the
+    strided entry bit for bit the rows entry on the same lines, and zero
+    lines +0.0."""
+    from repro_torch.kernels.dft_matmul import (dft_factored,
+                                                dft_factored_plain,
+                                                factored_split)
+    P, n_in, L, n_out, inverse = FACTORED_CASES[case]
+    assert factored_split(n_in, n_out) is not None
+    rng = np.random.default_rng(P + n_in + L + n_out)
+    x = _cx(rng, (P, n_in, L) if L > 1 else (P, n_in), cuda_device)
+    x[0] = 0
+    lines = (x.transpose(1, 2).reshape(-1, n_in).contiguous() if L > 1
+             else x)
+    fo = ops.factored_operands_device(n_out, n_in, inverse, cuda_device)
+    before = dft_matmul.launches
+    y = ops.dft_apply(x, n_out, inverse=inverse)
+    assert dft_matmul.launches == before + 1
+    torch.cuda.synchronize()
+    assert y.shape == (lines.shape[0], n_out)
+    assert bool(torch.isfinite(torch.view_as_real(y)).all())
+    assert torch.equal(torch.view_as_real(y),
+                       torch.view_as_real(dft_factored(lines, fo)))
+    assert _plus_zero(y[:L])
+    _close(y, dft_factored_plain(lines, fo), 2e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_factored_kernel_is_kernel1_to_the_benchmark(cuda_device):
+    """One factored line stage is one launch whose name the benchmark's
+    trace reader classes as kernel #1 (``portbench.roofline.kernel_of``),
+    so ``dft_matmul_roofline`` counts it."""
+    import sys
+    from pathlib import Path
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from portbench.roofline import kernel_of
+    x = _cx(np.random.default_rng(1), (4, 128, 64), cuda_device)
+    ops.dft_apply(x, 256, inverse=True)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        ops.dft_apply(x, 256, inverse=True)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and "cgemm_tc" in e.name]
+    assert len(names) == 1 and "factored" in names[0], names
+    assert kernel_of(names[0]) == "dft_matmul"
+
+
+@pytest.mark.cuda
+def test_cuda_factored_rows_off_16_bytes_are_copied_first(cuda_device):
+    """Rows that start 8 bytes off a 16-byte boundary (a view one complex
+    in), which TMA cannot address, give the same bits as the same rows on
+    an aligned base."""
+    from repro_torch.kernels.dft_matmul import dft_factored, factored_split
+    assert factored_split(256, 128) is not None
+    buf = _cx(np.random.default_rng(2), (1000 * 256 + 1,), cuda_device)
+    x = buf[1:].view(1000, 256)
+    assert x.data_ptr() % 16 == 8
+    fo = ops.factored_operands_device(128, 256, False, cuda_device)
+    y = dft_factored(x, fo)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.view_as_real(y),
+                       torch.view_as_real(dft_factored(x.clone(), fo)))
