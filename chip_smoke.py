@@ -1,106 +1,20 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --compare-kernel1 DIR
     python3 chip_smoke.py --production-grid
 
-Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``,
-holds each against its plain PyTorch version (kernel #1 also, through
-``kernels.ops.dft_apply``, against ``kernels.ref.dft_apply_ref``, an FFT of
-the padded or truncated line) at the shapes of the stacked
-plane-wave SCF at the paper's widths (grid n = 256, sphere diameter
-d = 128: ``repro/configs/fftb_paper.py``) and, for the sphere kernels, at
-small edge cases (ragged tiles, partial K chunks, odd n, every slab
-layout, NaN-poisoned padded lanes, ``flag = 0`` planes), then runs that
-SCF through the
-public entry point ``repro_torch.dft.run_scf`` on the kernel route
-(``backend="cuda"``) and on the plain ``torch.matmul`` route, and compares
-the two.  Every kernel of the path must have launched during the kernel
-route's run.
+Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
+and prints each kernel's ``-Xptxas -v`` summary, runs the LM stack's
+phases below, and last times the FFT kernels alone at the benchmark
+cells' shapes.  The FFT kernels and paths are checked on the card by the
+cases of ``tests/test_torch_cuda.py``:
 
-Three phases follow on the same SCF configuration:
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-* the executor modes at the SCF's stacked inverse plan (B = 32, d = 128
-  → n = 256): eager, lazy fp32 and lazy bf16, each timed with CUDA
-  events, its error against the eager result's largest value and its
-  peak memory; then ``tune()`` of a copy of that plan;
-* the SCF under ``ExecPolicy(mode="lazy")`` against the eager "cuda"
-  run (the sphere kernels launch, kernel #1 does not);
-* the fused step (``jit_step=True``), captured as CUDA graphs: once
-  with linear mixing against an eager run with linear mixing, once with
-  the Anderson mixer on the device; each prints its first and steady
-  seconds per iteration, graphs, replays, the host syncs of one steady
-  iteration (counted by the sync debug mode, and named), peak memory and
-  one traced steady iteration by graph.  The launches inside the capture
-  are counted once; the steady iterations must launch no wrapper and run
-  no plan call.
+and timed end to end by the benchmark (``portbench/``, ``BENCHMARK.json``).
 
-Then the multi-rank phase: four processes spawned on the one card
-(``repro_torch.sharding.procs.run_ranks``, gloo, a ``file://``
-rendezvous under ``build/multirank/``; gloo carries each collective
-through host memory, so the phase times what the ranks' local shapes
-cost under that transport and gives no scaling number) run the SCF's
-widths on the 2×2 batch×fft grid: one stacked H apply per rank against
-the single-rank one (within 1e-5 of the largest value, padded lanes
-exactly +0.0), one all-to-all timed, then the SCF for MR_ITERS
-iterations from the same start against a single-rank eager "cuda" run
-of as many (PERF.md §2's limits); kernels #1, #3 and #4 are counted
-per rank, with the counts set to 0 in each rank just before its run.
-In the same processes the fused step (``jit_step=True``, linear mixing)
-runs that SCF on that grid: its
-graphs and host syncs per iteration (by name), first and steady
-seconds per iteration and peak memory per rank, held against the 2×2
-eager run and against one rank's fused step.  Eight processes then run
-the SCF of the reference's pencil case (n = 16, the (2, 2, 2) grid from
-``choose_dft_grid``) to convergence, eager against one rank and fused
-against the eager run.  A rank that fails, or a run past its time
-limit, fails the script.
-
-Two more paths follow, each with the launch counts set to 0 just before
-it and read just after:
-
-* the four-step DFT (``repro_torch.kernels.ops.four_step_dft``) on 4096
-  lines of n = 4096, forward and inverse, against ``torch.fft``, after the
-  twiddle kernel is held against its plain version (ragged, odd-K and
-  NaN-poisoned cases and the four-step's stage-1 shape);
-* the multi-tenant ``TransformService`` at n = 256 (d = 128 and d = 64
-  spheres, four tenants, nine requests, one with an expired deadline),
-  started with ``start()`` and warming asynchronously, the trace sent
-  once cold, once to the warm service and once more with the tracer's
-  sync on (the by-piece breakdown of each dispatch, read from the
-  service's own spans); its dispatches run the fused sphere kernels;
-  every result is held against ``eager_apply``, against the same trace
-  through a ``backend="matmul"`` service, and the round trips against
-  their input; the padded lanes of every packed block must be +0.0.
-  Inside it the port's tracer records one ``eager_apply``: its per-stage
-  spans must match the plan's stages and cover each stage's CUDA-event
-  time.  Then the same trace through a service on the 2×2 grid of four
-  processes over gloo (front end rank 0, the other ranks following it),
-  every result held against the one-rank service's, padded lanes +0.0,
-  p50/p99 latency and requests/s on the front end, kernels #1, #3, #4
-  counted per rank.
-
-Two more phases run the paper's own workload and the spectral layers:
-
-* the paper phase: ``repro_torch.configs.fftb_paper.CONFIG`` (n = 256,
-  d = 128, 256 bands), its grid from ``choose_dft_grid``, audited by
-  ``preflight_basis(deep=True, backend="cuda")``, then the fused pair of
-  ``make_planewave_pair`` on "cuda" (``unpack_transform``: kernel #3,
-  then kernel #1 per stage; ``transform_pack``: kernel #1, then kernel
-  #4) over every band, in batches of the largest of ``PAPER_BATCHES``
-  bands whose peak memory, estimated from the plans' stage shapes before
-  any launch, fits (printed beside the measured peak); every band's cube
-  and forward are held to the "matmul" route and the round trip to its
-  input, the launches per call are counted, and each call is timed
-  beside its bound.  Then the full-cube baseline of the paper's Fig. 9:
-  an inverse ``FftPlan`` over the whole (nb, n³) cube (kernel #1 only);
-* the spectral phase: ``fourier_mixer`` on (8, 2048, 1024) and
-  ``fft_conv`` at Mamba-2 370M's conv width (8, 1024, 2304), K = 4, on
-  "cuda" (kernel #1 on lines of 1024 and 2048) against the "matmul" route
-  and torch.fft.
-
-Then the LM phase, the reference's LM serving path through the port's
+The LM phase, the reference's LM serving path through the port's
 ``repro_torch.models`` and ``repro_torch.serve.engine.ServeEngine``
 (no hand kernel: the reference's LM path reaches no Pallas kernel, so
 every kernel's launches on it must be 0):
@@ -246,42 +160,30 @@ each passing its own assertions, with every kernel wrapper's count set to
 0 just before and read just after (the examples run the "matmul" route:
 0 launches), within 120 s.
 
-Last, kernel #1 is timed at every distinct line shape that the SCF, the
-four-step, the service and the spectral paths launched (recorded while
-each path ran), beside its two bounds,
-complex64 ``torch.matmul`` on the same lines, its call-C time and the
-``movedim``/``reshape`` copy that the "cuda" backend makes of a stage's
-input whose axis is not the last.
+Last, the FFT kernels alone at the cells' shapes, one 128-band call each
+(``BENCH_LINE_STAGES``, ``time_sphere_calls``): kernel #1 at the six line
+stages of ``paper-pair`` and ``gw-mtxel``, through the entry each stage
+takes (rows, or the strided entry, then beside the rows entry on the same
+lines and checked bit for bit against it), in its factored mode beside the
+dense product through the same entry, complex64 ``torch.matmul`` (which it
+must beat) and the plain versions of both modes (which they must match);
+then kernel #3 at the cells' unpack of the 128-sphere and kernel #4 at each
+cell's pack, onto the 128-sphere and onto the 64-sphere, from the z-major
+slab the forward leaves, each on its first 8 bands against its plain
+version; then one call pair of each cell through the port's main path
+(``unpack_transform`` and ``transform_pack``; ``pair_density``), every
+kernel wrapper's count set to 0 just before: four launches of #1, one of
+#3, one of #4 and none of #2, and the paper pair's round trip within 1e-5;
+then kernel #2 at stage 1 of ``four_step_dft`` (4096 lines of 4096, which
+no cell runs) against its plain version and the einsum of the same
+function (which it must beat); each time against its roofline bound, the
+benchmark's (``portbench/roofline.py``).
 
 Exits non-zero, printing no result line, on any failed check or when no
 CUDA device is present.
 
-With ``--compare-kernel1 DIR`` it only times kernel #1 of this tree
-against kernel #1 built from the sources of the checkout at DIR (say, a
-``git archive`` of the parent commit unpacked under ``build/``), in
-alternating pairs at every line shape of PERF.md's call-C table.
-
 Printed, in order: the card's name and power limit, the kernel build time
-and each kernel's ``-Xptxas -v`` summary (registers, spills), per-kernel
-errors/exact-zero checks/times with two bounds each (fp32 FMA, and
-3xTF32 on the tensor cores; the sphere kernels also beside their SIMT
-times of PERF.md's call C, with the K chunks and tiles ``unpack_dft``
-skips and the time of ``dft_pack``'s zero-tail kernel), the SCF
-comparison and its breakdown, the layout of the slab the fused pack gets
-on the SCF path under each executor (read in place, or copied), the
-executor-mode, lazy-SCF and fused-step phases, the multi-rank phase
-(per rank: coordinate, H apply and all-to-all ms, first and steady
-s/iteration, peak memory and launches, each tagged "4 processes on one
-card, gloo"; the checks against one rank; the fused step's graphs,
-host syncs and times per rank and its checks; the pencil runs), the
-four-step phase (kernel #2's and the composition's times beside
-``torch.fft``'s), the service phase (each pass's metrics summary beside
-the card's name and power limit, its batches, the warm pass's dispatch
-spans and the synced pass's dispatches by piece; then the multi-rank
-service's passes, dispatches by piece and launches per rank), the paper
-phase (grid,
-preflight, memory estimate and measured peak, batch, agreement, launches
-per call, times and bounds, the full-cube baseline), the spectral phase,
+and each kernel's ``-Xptxas -v`` summary (registers, spills),
 the LM phase (per served model and pass: prefill and decode times,
 tokens/s, peak memory, the card's name and power limit; the decode
 step's launches and bound; the agreements), the train phase (step
@@ -292,10 +194,11 @@ beside the model; the agreements), the ep_train phase (the same for the
 MoE, without a checkpoint), the dryrun
 phase (the cells' records, the calibration beside the measured step),
 the examples phase (each example's numbers and wall time, the launches),
-the per-shape table of kernel #1, one JSON line ``{"kernels": [...]}``
-(each kernel's launches on the main path, the smoke SCF, by path and
-per rank on each multi-rank path),
-and last the device JSON line.
+the kernel-alone tables, the cells' call pairs (``cell_pairs:``), one
+``{"kernels": [...]}`` line (per kernel, mode and shape: the launches in
+each cell's call pair, the error against the plain version and its
+tolerance, ms, the roofline bound and share, the library's ms), and last
+the device JSON line.
 """
 from __future__ import annotations
 
@@ -307,53 +210,8 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-#: where the multi-rank phase keeps its inputs and rendezvous files
-#: (ignored by git)
-MR_DIR = os.path.join(HERE, "build", "multirank")
+SEED = 0
 
-# the slice's configuration: the paper's transform widths, cut in scale only
-N, DIAMETER = 256, 128
-KPTS = ((0.0, 0.0, 0.0), (0.5, 0.5, 0.5))
-NBANDS, MAX_ITER, SEED = 16, 3, 0
-REDUCED = {"nbands": "256 -> 16 per k-point", "scf_iterations": "~40 -> 3"}
-
-# the four-step phase: B lines of a composite n = n1·n2 (n1 = n2 = 64)
-FOUR_STEP_LINES, FOUR_STEP_N = 4096, 4096
-# the service phase: the paper's cube and cutoff plus a smaller cutoff
-# (another compatibility class); tenants, requests, bands, sphere, potential
-SERVICE_N, SERVICE_D, SERVICE_D_SMALL, SERVICE_MAX_ROWS = 256, 128, 64, 16
-SERVICE_TRACE = (
-    # tenant, requests, bands, k-point, diameter, potential, deadline
-    ("alpha", 2, 4, (0.0, 0.0, 0.0), "d", True, None),
-    ("beta", 2, 4, (0.5, 0.5, 0.5), "d", True, None),
-    ("gamma", 2, 2, (0.0, 0.0, 0.0), "d", False, None),
-    ("delta", 2, 4, (0.0, 0.0, 0.0), "d_small", True, None),
-    ("alpha", 1, 1, (0.0, 0.0, 0.0), "d", True, 0.0),
-)
-# the piece spans of every dispatch (TransformService._dispatch)
-SERVICE_PIECES = {"upload_coeffs_ms", "unpack_transform_ms",
-                  "transform_pack_ms", "download_ms"}
-# a traced stage's host-clock span against its CUDA-event time: the span
-# is synchronized at exit, so it covers the device work (and more)
-SPAN_COVERAGE = 0.9
-# the paper phase: the paper's own workload at full width
-# (repro_torch/configs/fftb_paper.py: n = 256, d = 128, 256 bands) in band
-# batches, the largest of PAPER_BATCHES whose memory estimate stays within
-# PAPER_MEM_SHARE of the free device memory (the rest is for the caching
-# allocator's split blocks and the libraries' workspaces); the "matmul"
-# route that the kernels' route is held to runs PAPER_CHECK_BANDS bands a
-# call; both routes fp32, sums in another order: PAIR_RTOL of the largest
-# value
-PAPER_BATCHES = (256, 128, 64)
-PAPER_MEM_SHARE = 0.9
-PAPER_CHECK_BANDS = 8
-PAIR_RTOL = 1e-5
-# the spectral phase: fourier_mixer on (B, S, D) float32 (kernel #1 on
-# lines of 1024 and 2048), fft_conv at Mamba-2 370M's conv width (d_inner
-# 2048 + 2 * ssm_state 128 channels, kernel 4: src/repro/configs/
-# mamba2_370m.py, src/repro/models/ssm.py:29), S = 1024 padded to L = 2048
-MIXER_SHAPE = (8, 2048, 1024)
-CONV_SHAPE, CONV_K = (8, 1024, 2304), 4
 # the LM phase: two models served at their published configs (bf16,
 # random weights from a seeded generator on the card) through ServeEngine;
 # prompts drawn in LM_PROMPT, LM_NEW tokens each; then the same weights
@@ -663,44 +521,14 @@ DRYRUN_CELLS = (("tinyllama-1.1b", "train_4k"),
 EXAMPLE_TRAIN_STEPS = 20
 EXAMPLES_MAX_S = 120.0
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM, fp32 without tensor
-# cores, dense TF32 on the tensor cores (every kernel: three TF32 products
-# per fp32-accurate product)
+# H100 SXM published peak (NVIDIA data sheet): HBM, the LM phases' bound
+# of reading every weight once (the FFT kernels' yardstick is
+# portbench/roofline.py's)
 HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
-TF32_FLOP_PER_S = 495e12
 
-# kernel vs plain version: both fp32, sums in another order; relative to
-# the largest output magnitude
-KERNEL_RTOL = 1e-5
 # kernel #1's factored mode vs its plain version: 3xTF32 against complex64
 # products, two stages and a twiddle each (3.3-4.2e-7 measured on the H100)
 FACTORED_RTOL = 2e-6
-# kernel route vs matmul route over the whole SCF: fp32 rounding of
-# 1.1M-lane Gram sums and 16.7M-point cube reductions, carried through
-# three mixed iterations (2e-6 relative measured at n = 16 on the CPU)
-ENERGY_RTOL = 1e-4
-EIG_ATOL = 1e-4
-RHO_RTOL = 1e-3
-
-
-# earlier times, for comparison within the printout only: the sphere
-# kernels on the SIMT GEMM before this design, and kernel #1 by line shape
-# (lines, n_in, n_out, inverse), from PERF.md's call C (NVIDIA H100 80GB
-# HBM3, 700.00 W)
-SIMT_MS = {"unpack_dft": 3.683, "dft_pack": 3.780}
-CALL_C_MS = {
-    (2097152, 128, 256, True): 5.690, (2097152, 256, 128, False): 5.342,
-    (1048576, 128, 256, True): 2.733, (1048576, 256, 128, False): 2.582,
-    (524288, 128, 256, True): 1.389, (524288, 256, 128, False): 1.314,
-    (524288, 256, 64, False): 0.689, (524288, 64, 256, True): 0.778,
-    (262144, 128, 256, True): 0.699, (262144, 256, 128, False): 0.666,
-    (131072, 256, 128, False): 0.358, (131072, 128, 256, True): 0.366,
-    (131072, 64, 256, True): 0.210, (131072, 256, 64, False): 0.192,
-    (65536, 256, 256, True): 0.355, (262144, 64, 64, True): 0.117,
-    (65536, 256, 256, False): 0.378, (262144, 64, 64, False): 0.116,
-    (65536, 128, 256, True): 0.194, (65536, 256, 128, False): 0.193,
-    (32768, 256, 64, False): 0.061, (32768, 64, 256, True): 0.064}
 
 
 class CheckFailed(Exception):
@@ -771,58 +599,29 @@ def sync(torch, dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def wall_ms(torch, fn, reps: int = 2) -> float:
-    """Host-clock ms of ``fn()`` between device synchronizations (none on
-    a machine without CUDA), mean of ``reps`` calls after one warm-up
-    call."""
-    def drain():
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-
-    fn()
-    drain()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    drain()
-    return (time.perf_counter() - t0) / reps * 1e3
+def roofline(ms: float, work: tuple[float, float]) -> dict:
+    """A kernel call's time against the benchmark's yardstick
+    (``portbench/roofline.py``: the problem's bytes, each read or written
+    once, and its FFT operations, not the algorithm's), ``work`` its
+    ``(bytes, operations)``: the bound in ms, what sets it, and the share
+    of it the call reached."""
+    from portbench.roofline import bound_s
+    nbytes, flops = work
+    bound = bound_s(nbytes, flops) * 1e3
+    by = ("bytes" if bound_s(nbytes, 0.0) >= bound_s(0.0, flops)
+          else "operations")
+    return {"bound_ms": bound, "bound_by": by, "roofline": bound / ms}
 
 
-def bound_ms(nbytes: float, flops: float) -> dict:
-    """The least time of work that moves ``nbytes`` and does ``flops``
-    fp32-accurate FLOP, two ways: on fp32 FMA (67 TFLOP/s) and on the
-    tensor cores as three TF32 products (3·FLOP at 495 TFLOP/s), each the
-    larger of its operations' and the bytes' time (3.35 TB/s).
-    ``bound_ms`` is the lesser of the two, the least the card could take."""
-    t_mem = nbytes / HBM_BYTES_PER_S
-    out = {}
-    for name, t_ops in (("fp32_fma", flops / FP32_FLOP_PER_S),
-                        ("tf32x3", 3.0 * flops / TF32_FLOP_PER_S)):
-        out[f"{name}_bound_ms"] = max(t_mem, t_ops) * 1e3
-        out[f"{name}_bound_by"] = "bytes" if t_mem >= t_ops else "operations"
-    least = min(("fp32_fma", "tf32x3"), key=lambda n: out[f"{n}_bound_ms"])
-    out["bound_ms"] = out[f"{least}_bound_ms"]
-    out["bound_by"] = out[f"{least}_bound_by"]
-    return out
+def roofline_text(r: dict) -> str:
+    return (f"roofline bound {r['bound_ms']:.3f} ms ({r['bound_by']}), "
+            f"{100 * r['roofline']:.1f}% of it")
 
 
-def bound_text(b: dict) -> str:
-    return (f"bound {b['tf32x3_bound_ms']:.3f} ms on 3xTF32 tensor cores "
-            f"({b['tf32x3_bound_by']}), {b['fp32_fma_bound_ms']:.3f} ms on "
-            f"fp32 FMA ({b['fp32_fma_bound_by']})")
-
-
-def rel_err(torch, got, want) -> tuple[float, float]:
-    """(max abs error, that over max |want|) for tensors or numpy arrays
-    (pass ``numpy`` as the first argument for the latter)."""
-    err = float(abs(got - want).max())
-    return err, err / max(float(abs(want).max()), 1e-30)
-
-
-def is_plus_zero(torch, t) -> bool:
-    """Every element exactly +0.0 (real and imaginary parts)."""
-    f = torch.view_as_real(t) if t.is_complex() else t
-    return bool(((f == 0) & ~torch.signbit(f)).all())
+def rel_err(got, want) -> float:
+    """The largest error over the largest |want|."""
+    return float((got - want).abs().max()) / max(
+        float(want.abs().max()), 1e-30)
 
 
 def crandn(torch, gen, shape, device):
@@ -831,2812 +630,368 @@ def crandn(torch, gen, shape, device):
     return torch.complex(re, im)
 
 
-# ------------------------------------------------------------------ kernels
-# kernel #1's edge cases beside the SCF's shapes: (M, K, N, rows past M
-# NaN-poisoned).  Odd K takes the gather path (a row pitch TMA cannot
-# address); no M is a whole number of 128-row tiles
-EDGE_CASES = ((1000, 24, 40, False), (300, 5, 5, False), (300, 9, 18, False),
-              (77, 1, 3, False), (77, 8, 1, False), (1, 8, 8, False),
-              (389, 128, 256, False), (1000, 24, 40, True),
-              (500, 9, 18, True))
+def _gib(x) -> str:
+    return "not measured" if x is None else f"{x:.2f} GiB"
 
 
-def edge_rows(torch, gen, M, K, dev, poisoned):
-    """(M, K) lines; poisoned: the first M rows of a larger buffer whose
-    later rows are NaN, which a read would spread to the outputs."""
-    if not poisoned:
-        return crandn(torch, gen, (M, K), dev)
-    buf = crandn(torch, gen, (M + 77, K), dev)
-    buf[M:] = float("nan")
-    return buf[:M]
-
-
-def scf_stage_reads():
-    """The SCF H apply's line stages that read strided planes, as
-    ``(name, planes, K, L, N, inverse)``: idft[x] on #3's (b, x, y, z),
-    idft[y] on (b, y, z, X), dft[X] on (b, z, X, y'); its dft[Y] reads
-    the cube's rows."""
-    B = len(KPTS) * NBANDS
-    return ((f"idft[x] {DIAMETER}->{N}", B, DIAMETER, DIAMETER * N, N, True),
-            (f"idft[y] {DIAMETER}->{N}", B, DIAMETER, N * N, N, True),
-            (f"dft[X] {N}->{DIAMETER}", B * N, N, DIAMETER, DIAMETER, False))
-
-
-def bitwise(torch, a, b) -> bool:
-    return bool(torch.equal(torch.view_as_real(a), torch.view_as_real(b)))
-
-
-def check_dft_matmul(torch, dev, gen):
-    from repro_torch.core.local_fft import dft_matrix_device
-    from repro_torch.kernels.dft_matmul import (dft_matmul, dft_matmul_cols,
-                                                dft_matmul_cols_plain,
-                                                dft_matmul_plain)
-    from repro_torch.kernels.ops import dft_operand_device
-    print("dft_matmul (kernel #1): complex line-DFT GEMM, split TF32 on the "
-          "tensor cores", flush=True)
-    worst = 0.0
-    for M, K, Nn, poisoned in EDGE_CASES:
-        x = edge_rows(torch, gen, M, K, dev, poisoned)
-        _, _, w = dft_matrix_device(Nn, K, True, dev)
-        y = dft_matmul(x, w)
-        finite = bool(torch.isfinite(torch.view_as_real(y)).all())
-        _, rel = rel_err(torch, y, dft_matmul_plain(x, w))
-        worst = max(worst, rel)
-        check(finite and rel <= KERNEL_RTOL,
-              f"{M}x{K}->{Nn}{' poisoned rows past M' if poisoned else ''}"
-              f": finite, rel err {rel:.3e} <= {KERNEL_RTOL:g}")
-    # forward truncating y-stage shape of the stacked H apply
-    B = len(KPTS) * NBANDS
-    x = crandn(torch, gen, (B * DIAMETER * N, N), dev)
-    _, _, w = dft_matrix_device(DIAMETER, N, False, dev)
-    _, rel = rel_err(torch, dft_matmul(x, w), dft_matmul_plain(x, w))
-    check(rel <= KERNEL_RTOL, f"forward {x.shape[0]}x{N}->{DIAMETER}: rel "
-          f"err {rel:.3e} <= {KERNEL_RTOL:g}")
-    del x
-    # the SCF's strided stages as the line stages launch them: the strided
-    # entry on the planes where they lie, against its plain version and bit
-    # for bit the rows entry on the same lines copied into rows; timed at
-    # the largest, idft[y] (the kernels line's time), with the rows entry
-    # beside it
-    for name, P, K, L, Nn, inverse in scf_stage_reads():
-        M = P * L
-        x = crandn(torch, gen, (P, K, L), dev)
-        _, _, w = dft_matrix_device(Nn, K, inverse, dev)
-        ws = dft_operand_device(Nn, K, inverse, w.device)
-        y = dft_matmul_cols(x, w, wsplit=ws)
-        rows = x.transpose(1, 2).contiguous().view(M, K)
-        same = bitwise(torch, y, dft_matmul(rows, w, wsplit=ws))
-        yp = dft_matmul_cols_plain(x, w)
-        err, rel = rel_err(torch, y, yp)
-        check(rel <= KERNEL_RTOL and same,
-              f"{name} strided ({P}, {K}, {L}) -> ({M}, {Nn}): max abs err "
-              f"{err:.3e}, rel {rel:.3e} <= {KERNEL_RTOL:g}; bitwise the "
-              "rows entry on the same lines")
-        del y, yp
-        if L != N * N:
-            del x, rows
-            continue
-        ms = time_ms(torch, lambda: dft_matmul_cols(x, w, wsplit=ws))
-        rows_ms = time_ms(torch, lambda: dft_matmul(rows, w, wsplit=ws))
-        plain = time_ms(torch, lambda: dft_matmul_cols_plain(x, w), reps=5)
-        lib = time_ms(torch, lambda: torch.matmul(rows, w.T))
-        b = bound_ms(8.0 * (M * K + Nn * K + M * Nn), 8.0 * M * Nn * K)
-        shape = f"({P},{K},{L}) strided->({M},{Nn})"
-        print(f"  {name}: time {ms:.3f} ms strided, {rows_ms:.3f} ms as "
-              f"rows, plain {plain:.3f} ms, complex64 torch.matmul "
-              f"{lib:.3f} ms, {bound_text(b)}", flush=True)
-        check(ms < lib, f"kernel {ms:.3f} ms faster than complex64 "
-              f"torch.matmul {lib:.3f} ms")
-        timed = {"max_abs_err": err, "rel_err": rel, "ms": ms,
-                 "rows_ms": rows_ms, "plain_ms": plain, **b,
-                 "library_ms": lib, "shape": shape}
-        del x, rows
-    oracle = check_dft_apply_oracle(torch, dev, gen)
-    return {"name": "dft_matmul", **timed, "fft_oracle_rel_err": oracle,
-            "edge_max_rel_err": worst, "tolerance": KERNEL_RTOL}
-
-
-def check_dft_apply_oracle(torch, dev, gen) -> float:
-    """Kernel #1 through ``kernels.ops.dft_apply`` on CUDA tensors (the
-    "cuda" route's line DFT) against ``kernels.ref.dft_apply_ref``
-    (``torch.fft`` of the padded or truncated line, no DFT matrix) at the
-    SCF's line shapes, d → n and n → n, both directions; returns the
-    largest error relative to the largest value."""
-    from repro_torch.kernels.dft_matmul import dft_matmul
-    from repro_torch.kernels.ops import dft_apply
-    from repro_torch.kernels.ref import dft_apply_ref
-    B = len(KPTS) * NBANDS
-    worst = 0.0
-    for M, n_in, n_out in ((B * DIAMETER * N, DIAMETER, N), (N * N, N, N)):
-        x = crandn(torch, gen, (M, n_in), dev)
-        for inverse in (True, False):
-            before = dft_matmul.launches
-            y = dft_apply(x, n_out, inverse=inverse)
-            launched = dft_matmul.launches - before
-            _, rel = rel_err(torch, y, dft_apply_ref(x, n_out,
-                                                     inverse=inverse))
-            del y
-            worst = max(worst, rel)
-            check(launched == 1 and rel <= KERNEL_RTOL,
-                  f"dft_apply {'inverse' if inverse else 'forward'} {M}x"
-                  f"{n_in}->{n_out} vs torch.fft oracle: 1 launch, rel err "
-                  f"{rel:.3e} <= {KERNEL_RTOL:g}")
-        del x
-    torch.cuda.empty_cache()
-    return worst
-
-
-# the sphere kernels' edge cases beside the SCF's shapes: (d, n, k-points,
-# bands[, slab layout]).  d = 6: rows never whole 128-line tiles, ey = 6
-# (tiles straddle planes), 2d = 12 < one 32-column K chunk; d = 8: ey = 8;
-# d = 40: K chunks skipped in the edge tiles, and an ey that the strided
-# read does not fit (a y-plane slab is copied; a z-major one's ex·ey = 1600
-# lines fit); odd n: dft_pack's gather path
-KPTS3 = ((0.25, 0.0, 0.5), (0.0, 0.0, 0.0), (0.5, 0.5, 0.0))
-UNPACK_EDGE_CASES = ((6, 12, KPTS, 3), (8, 16, KPTS, 3), (40, 80, KPTS3, 2))
-PACK_EDGE_CASES = ((6, 12, KPTS, 3, "rows"), (6, 9, KPTS3, 2, "rows"),
-                   (8, 16, KPTS, 3, "x-planes"), (8, 16, KPTS, 3, "y-planes"),
-                   (8, 15, KPTS3, 2, "y-planes"),
-                   (40, 80, KPTS3, 2, "y-planes"),
-                   (8, 16, KPTS, 3, "z-major"), (6, 12, KPTS, 3, "z-major"),
-                   (40, 80, KPTS3, 2, "z-major"))
-
-
-def slab_as(torch, gen, B, d, n, layout, dev):
-    """A (B, d, d, n) slab stored as ``layout`` says: "rows" contiguous
-    lines, "z-major" each row's slab z-major, then y, then x (as the x
-    stage of the stacked SCF's forward plan leaves it: slab layout 2),
-    "y-planes" each y plane z-major (layout 1), "x-planes" each x plane
-    z-major (which dft_pack copies first)."""
-    if layout == "rows":
-        return crandn(torch, gen, (B, d, d, n), dev)
-    if layout == "z-major":
-        return crandn(torch, gen, (B, n, d, d), dev).permute(0, 3, 2, 1)
-    s = crandn(torch, gen, (B, d, n, d), dev)
-    return s.transpose(2, 3) if layout == "x-planes" else s.permute(0, 3, 1,
-                                                                    2)
-
-
-def sphere_tables(torch, dev, spheres, nbands):
-    from repro_torch.kernels import sphere_pack as sp
-    return tuple(torch.as_tensor(t, device=dev)
-                 for t in sp.line_tables(spheres, nbands))
-
-
-def poisoned_lanes(torch, gen, spheres, nbands, dev):
-    """(B, npacked_max) lanes whose lanes past each row's sphere are NaN:
-    a read would poison the row's outputs."""
-    npk = max(s.npacked for s in spheres)
-    packed = crandn(torch, gen, (len(spheres) * nbands, npk), dev)
-    for k, s in enumerate(spheres):
-        packed[k * nbands:(k + 1) * nbands, s.npacked:] = float("nan")
-    return packed
-
-
-def check_unpack_case(torch, dev, gen, d, n, kpts, nbands) -> float:
-    """unpack_dft at a small sphere set: NaN lanes unread, cnt = 0 lines
-    and a flag = 0 plane with support bitwise +0.0; returns the rel err."""
-    from repro_torch.core import kpoint_sphere
-    from repro_torch.core.local_fft import dft_matrix_device
-    from repro_torch.kernels import sphere_pack as sp
-    spheres = [kpoint_sphere(d, k) for k in kpts]
-    start, zlo, cnt, flag = sphere_tables(torch, dev, spheres, nbands)
-    packed = poisoned_lanes(torch, gen, spheres, nbands, dev)
-    _, _, w = dft_matrix_device(n, d, True, dev)
-    flag0 = flag.clone()
-    flag0[d // 2] = 0
-    worst = 0.0
-    for fl in (flag, flag0):
-        y = sp.unpack_dft(packed, start, zlo, cnt, fl, w)
-        _, rel = rel_err(torch, y, sp.unpack_dft_plain(packed, start, zlo,
-                                                       cnt, fl, w))
-        worst = max(worst, rel)
-        empty = (cnt == 0).reshape(y.shape[:3])
-        check(bool(torch.isfinite(torch.view_as_real(y)).all())
-              and rel <= KERNEL_RTOL and is_plus_zero(torch, y[empty]),
-              f"d={d} n={n} {len(kpts)} k x {nbands} bands"
-              f"{' flag=0 plane' if fl is flag0 else ''}: no NaN lane read,"
-              f" rel err {rel:.3e}, {int(empty.sum())} cnt=0 lines +0.0")
-    check(int((cnt.reshape(y.shape[:3])[:, d // 2] > 0).sum()) > 0
-          and is_plus_zero(torch, y[:, d // 2]),
-          f"d={d}: the flag=0 plane {d // 2}, which has support, is +0.0")
-    return worst
-
-
-def gather_cost(torch, dev, gen, M, d, n) -> dict:
-    """Kernel #1 on M dense lines of d -> n, once with x 16-byte aligned
-    (TMA) and once 8 bytes off (the wrapper then takes the gather path
-    that unpack_dft uses): what the gather costs apart from the sphere."""
-    from repro_torch.core.local_fft import dft_matrix_device
-    from repro_torch.kernels.dft_matmul import dft_matmul
-    from repro_torch.kernels.ops import dft_operand_device
-    buf = crandn(torch, gen, (M * d + 2,), dev)
-    aligned = buf[:M * d].view(M, d)
-    shifted = buf[1:M * d + 1].view(M, d)
-    if aligned.data_ptr() % 16:
-        aligned, shifted = shifted, aligned
-    _, _, w = dft_matrix_device(n, d, True, dev)
-    ws = dft_operand_device(n, d, True, w.device)
-    out = {name: time_ms(torch, lambda x=x: dft_matmul(x, w, wsplit=ws))
-           for name, x in (("tma_ms", aligned), ("gather_ms", shifted))}
-    del buf
-    return out
-
-
-def check_unpack_dft(torch, dev, gen, spheres):
-    from repro_torch.core.local_fft import dft_matrix_device
-    from repro_torch.kernels import sphere_pack as sp
-    from repro_torch.kernels.ops import dft_operand_device
-    print("unpack_dft (kernel #3): CSR gather + d->n line DFT, split TF32 "
-          "on the tensor cores", flush=True)
-    edge = max(check_unpack_case(torch, dev, gen, *case)
-               for case in UNPACK_EDGE_CASES)
-    start, zlo, cnt, flag = sphere_tables(torch, dev, spheres, NBANDS)
-    B, nl = start.shape
-    npk = max(s.npacked for s in spheres)
-    packed = poisoned_lanes(torch, gen, spheres, NBANDS, dev)
-    _, _, w = dft_matrix_device(N, DIAMETER, True, dev)
-    # the SCF path's cached arguments
-    chunks = sp.chunk_ranges(zlo, cnt, flag)
-    ws = dft_operand_device(N, DIAMETER, True, w.device)
-
-    def kernel(table=chunks):
-        return sp.unpack_dft(packed, start, zlo, cnt, flag, w, chunks=table,
-                             wsplit=ws)
-    y = kernel()
-    yp = sp.unpack_dft_plain(packed, start, zlo, cnt, flag, w)
-    err, rel = rel_err(torch, y, yp)
-    check(bool(torch.isfinite(torch.view_as_real(y)).all()),
-          "no padded (NaN) lane was read")
-    check(rel <= KERNEL_RTOL, f"({B}, {npk}) -> {tuple(y.shape)}: max abs "
-          f"err {err:.3e}, rel {rel:.3e} <= {KERNEL_RTOL:g}")
-    empty = (cnt == 0).reshape(B, DIAMETER, DIAMETER)
-    check(is_plus_zero(torch, y[empty]),
-          f"{int(empty.sum())} lines with cnt=0 are bitwise +0.0")
-    flag0 = flag.clone()
-    planes = [0, 1, 3 * DIAMETER // 5]
-    flag0[planes] = 0
-    y0 = sp.unpack_dft(packed, start, zlo, cnt, flag0, w, wsplit=ws)
-    check(is_plus_zero(torch, y0[:, planes]),
-          f"flag=0 planes {planes} are bitwise +0.0")
-    check(bool(torch.equal(y0[:, 2], y[:, 2])),
-          "planes with flag=1 are unchanged by the zero-skip")
-    del y, yp, y0
-    # what the chunk table skips per launch: row tiles with no active
-    # line, and K chunks outside each tile's active lines
-    nk = -(-2 * DIAMETER // 32)
-    tiles_n = -(-2 * N // 128)
-    first, last = chunks[:, 0].long(), chunks[:, 1].long()
-    skip = {"row_tiles": int(chunks.shape[0]),
-            "row_tiles_skipped": int((last == first).sum()),
-            "chunk_loads": int(chunks.shape[0]) * nk * tiles_n,
-            "chunk_loads_skipped": int((nk - (last - first)).sum()) * tiles_n}
-    print(f"  per launch: {skip['row_tiles_skipped']} of {skip['row_tiles']}"
-          f" 128-line tiles skipped, {skip['chunk_loads_skipped']} of "
-          f"{skip['chunk_loads']} K-chunk loads skipped ({tiles_n} column "
-          f"tiles x {nk} chunks per row tile)", flush=True)
-    full = torch.stack((torch.zeros_like(first), torch.full_like(last, nk)),
-                       1).to(torch.int32).contiguous()
-    ms = time_ms(torch, kernel)
-    ms_full = time_ms(torch, lambda: kernel(full))
-    gather = gather_cost(torch, dev, gen, B * nl, DIAMETER, N)
-    plain = time_ms(torch, lambda: sp.unpack_dft_plain(
-        packed, start, zlo, cnt, flag, w), reps=5)
-    lanes = float(cnt.sum())                       # this run's packed lanes
-    nbytes = 8.0 * (lanes + N * DIAMETER + B * nl * N) + 4.0 * 3 * B * nl
-    b = bound_ms(nbytes, 8.0 * N * lanes)
-    print(f"  time {ms:.3f} ms ({ms_full:.3f} ms reading every K chunk; "
-          f"{SIMT_MS['unpack_dft']:.3f} ms on the SIMT GEMM, call C), plain "
-          f"{plain:.3f} ms, {bound_text(b)}; no single torch call computes "
-          "it", flush=True)
-    print(f"  the gather itself: kernel #1 on the same {B * nl} dense lines "
-          f"{gather['gather_ms']:.3f} ms through the gather path against "
-          f"{gather['tma_ms']:.3f} ms by TMA", flush=True)
-    return {"name": "unpack_dft", "max_abs_err": err, "rel_err": rel,
-            "edge_max_rel_err": edge, "tolerance": KERNEL_RTOL, "ms": ms,
-            "every_chunk_ms": ms_full, "simt_call_c_ms": SIMT_MS["unpack_dft"],
-            "dense_lines": gather,
-            "plain_ms": plain, **b, "library_ms": None, **skip,
-            "shape": f"({B},{npk})->({B},{DIAMETER},{DIAMETER},{N})"}
-
-
-def check_pack_case(torch, dev, gen, d, n, kpts, nbands, layout) -> float:
-    """dft_pack at a small sphere set: padded lanes bitwise +0.0; the
-    strided slab is read in place where its ey fits; returns the rel err."""
-    import numpy as np
-
-    from repro_torch.core import kpoint_sphere
-    from repro_torch.core.local_fft import dft_matrix_device
-    from repro_torch.kernels import sphere_pack as sp
-    spheres = [kpoint_sphere(d, k) for k in kpts]
-    start, zlo, cnt, _ = sphere_tables(torch, dev, spheres, nbands)
-    B, npk = start.shape[0], max(s.npacked for s in spheres)
-    slab = slab_as(torch, gen, B, d, n, layout, dev)
-    nvalid = torch.as_tensor(np.repeat(np.asarray(
-        [s.npacked for s in spheres], np.int32), nbands), device=dev)
-    _, _, w = dft_matrix_device(d, n, False, dev)
-    out = sp.dft_pack(slab, start, zlo, cnt, nvalid, w, npk)
-    _, rel = rel_err(torch, out, sp.dft_pack_plain(slab, start, zlo, cnt,
-                                                   nvalid, w, npk))
-    pad = torch.arange(npk, device=dev)[None, :] >= nvalid.long()[:, None]
-    how = "after a copy" if sp.slab_layout(slab) is None else "in place"
-    check(bool(torch.isfinite(torch.view_as_real(out)).all())
-          and rel <= KERNEL_RTOL and int(pad.sum()) > 0
-          and is_plus_zero(torch, out[pad]),
-          f"d={d} n={n} {len(kpts)} k x {nbands} bands, {layout} slab "
-          f"(read {how}): rel err {rel:.3e}, {int(pad.sum())} padded lanes "
-          "+0.0")
-    return rel
-
-
-def check_dft_pack(torch, dev, gen, spheres):
-    import numpy as np
-
-    from repro_torch.core.local_fft import dft_matrix_device
-    from repro_torch.kernels import build
-    from repro_torch.kernels import sphere_pack as sp
-    from repro_torch.kernels.ops import dft_operand_device
-    print("dft_pack (kernel #4): n->d line DFT + CSR pack, split TF32 on the "
-          "tensor cores", flush=True)
-    edge = max(check_pack_case(torch, dev, gen, *case)
-               for case in PACK_EDGE_CASES)
-    start, zlo, cnt, _ = sphere_tables(torch, dev, spheres, NBANDS)
-    B, nl = start.shape
-    npk = max(s.npacked for s in spheres)
-    nvalid = torch.as_tensor(np.repeat(np.asarray(
-        [s.npacked for s in spheres], np.int32), NBANDS), device=dev)
-    # the slab as the forward plan's x stage leaves it, each row's slab
-    # z-major (layout 2); the same values with each y plane z-major
-    # (layout 1) and with contiguous lines (layout 0)
-    strided = slab_as(torch, gen, B, DIAMETER, N, "z-major", dev)
-    rows = strided.contiguous()
-    planes = rows.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
-    check((sp.slab_layout(strided), sp.slab_layout(planes),
-           sp.slab_layout(rows)) == (2, 1, 0),
-          "the z-major and the y-plane slab are read in place, the "
-          "contiguous one by rows")
-    _, _, w = dft_matrix_device(DIAMETER, N, False, dev)
-    ws = dft_operand_device(DIAMETER, N, False, w.device)
-    outp = sp.dft_pack_plain(rows, start, zlo, cnt, nvalid, w, npk)
-    pad = (torch.arange(npk, device=dev)[None, :]
-           >= nvalid.long()[:, None])
-    errs, outs = {}, {}
-    for name, slab in (("strided", strided), ("y-planes", planes),
-                       ("rows", rows)):
-        out = sp.dft_pack(slab, start, zlo, cnt, nvalid, w, npk, wsplit=ws)
-        errs[name] = rel_err(torch, out, outp)
-        check(errs[name][1] <= KERNEL_RTOL, f"{name} {tuple(slab.shape)} ->"
-              f" ({B}, {npk}): max abs err {errs[name][0]:.3e}, rel "
-              f"{errs[name][1]:.3e} <= {KERNEL_RTOL:g}")
-        check(int(pad.sum()) > 0 and is_plus_zero(torch, out[pad]),
-              f"{name}: {int(pad.sum())} padded lanes are bitwise +0.0")
-        outs[name] = out
-    check(bitwise(torch, outs["strided"], outs["rows"])
-          and bitwise(torch, outs["y-planes"], outs["rows"]),
-          "slab layouts 2, 1 and 0 give the same bits")
-    del outp, outs, out
-    ms = time_ms(torch, lambda: sp.dft_pack(strided, start, zlo, cnt, nvalid,
-                                            w, npk, wsplit=ws))
-    ms_planes = time_ms(torch, lambda: sp.dft_pack(
-        planes, start, zlo, cnt, nvalid, w, npk, wsplit=ws))
-    ms_rows = time_ms(torch, lambda: sp.dft_pack(rows, start, zlo, cnt,
-                                                 nvalid, w, npk, wsplit=ws))
-    copy_ms = time_ms(torch, lambda: strided.contiguous(), reps=5)
-    out = torch.empty((B, npk), dtype=torch.complex64, device=dev)
-    lib = build.library("sphere_pack")
-
-    def tail():
-        build.check(lib.pack_zero_tail_launch(
-            out.data_ptr(), nvalid.data_ptr(), B, npk,
-            torch.cuda.current_stream(dev).cuda_stream), "zero tail")
-    tail_ms = time_ms(torch, tail)
-    plain = time_ms(torch, lambda: sp.dft_pack_plain(
-        strided, start, zlo, cnt, nvalid, w, npk), reps=5)
-    lanes = float(nvalid.sum())                    # this run's valid lanes
-    nbytes = (8.0 * (strided.numel() + DIAMETER * N + B * npk)
-              + 4.0 * (3 * B * nl + B))
-    b = bound_ms(nbytes, 8.0 * N * lanes)
-    print(f"  time {ms:.3f} ms reading the z-major slab in place, "
-          f"{ms_planes:.3f} ms the y-plane one, "
-          f"{ms_rows:.3f} ms from contiguous lines (the copy it saves: "
-          f"{copy_ms:.3f} ms; {SIMT_MS['dft_pack']:.3f} ms on the SIMT GEMM "
-          f"after that copy, call C); of which the +0.0 tail kernel "
-          f"{tail_ms:.3f} ms; plain {plain:.3f} ms, {bound_text(b)}; no "
-          "single torch call computes it", flush=True)
-    del out
-    return {"name": "dft_pack", "max_abs_err": errs["strided"][0],
-            "rel_err": errs["strided"][1], "rows_rel_err": errs["rows"][1],
-            "y_planes_rel_err": errs["y-planes"][1],
-            "edge_max_rel_err": edge, "tolerance": KERNEL_RTOL, "ms": ms,
-            "y_planes_ms": ms_planes, "rows_ms": ms_rows,
-            "slab_copy_ms": copy_ms,
-            "zero_tail_ms": tail_ms, "simt_call_c_ms": SIMT_MS["dft_pack"],
-            "plain_ms": plain, **b, "library_ms": None,
-            "shape": f"({B},{DIAMETER},{DIAMETER},{N}) z-major"
-                     f"->({B},{npk})"}
-
-
-def check_slab_layout(torch, dev, gen):
-    """Whether the slab that the fused pack gets on the SCF path (the
-    forward plan's lead stages' output, under the eager and the lazy
-    executor) is read in place: its layout, and the time of the
-    ``contiguous()`` copy the kernel does not need."""
-    from repro_torch.core.policy import ExecPolicy
-    from repro_torch.dft.basis import PlaneWaveBasis
-    from repro_torch.kernels import sphere_pack as sp
-    b = PlaneWaveBasis(N, diameter=DIAMETER, kpts=KPTS, nbands=NBANDS,
-                       backend="cuda", device=dev)
-    _, fwd = b.stacked_hamiltonian_plans()
-    parts = fwd._fused_out_parts()
-    cube = crandn(torch, gen, (b.nk * NBANDS, N, N, N), dev)
-    out = {}
-    for mode in ("eager", "lazy"):
-        pol = ExecPolicy(mode=mode)
-        slab = parts["lead"](cube, policy=pol)
-        layout = sp.slab_layout(slab)
-        copy_ms = time_ms(torch, lambda: slab.contiguous(), reps=5)
-        lead_ms = time_ms(torch, lambda pol=pol: parts["lead"](
-            cube, policy=pol), reps=3)
-        print(f"fused pack's slab on the SCF path, {mode} lead plan "
-              f"({lead_ms:.3f} ms): {tuple(slab.shape)}, strides "
-              f"{slab.stride()}, contiguous {slab.is_contiguous()}: "
-              + ({0: "contiguous lines, read in place, no copy",
-                  1: "y planes z-major, read in place, no copy",
-                  2: "each row's slab z-major, read in place, no copy"}.get(
-                      layout, "copied first"))
-              + f"; a contiguous() copy of it takes {copy_ms:.3f} ms",
-              flush=True)
-        check(layout is not None,
-              f"dft_pack reads the {mode} SCF path's slab in place")
-        out[mode] = {"shape": list(slab.shape),
-                     "strides": list(slab.stride()),
-                     "contiguous": slab.is_contiguous(), "layout": layout,
-                     "copy_ms": copy_ms, "lead_ms": lead_ms}
-        del slab
-    del cube
-    return out
-
-
-def check_four_step(torch, dev, gen, stages):
-    """Kernel #2 against its plain version, then the four-step path.
-
-    Returns the kernel's record and the path's own numbers; the launch
-    counts are those of the four-step path's run alone.
-    """
-    import numpy as np
-
-    from repro_torch.core.local_fft import dft_matrix_device
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.dft_matmul import (dft_matmul,
-                                                dft_matmul_twiddle,
-                                                dft_matmul_twiddle_plain)
-    from repro_torch.kernels.ref import twiddle_matrix
-    print("dft_matmul_twiddle (kernel #2): line-DFT GEMM + twiddle "
-          "epilogue", flush=True)
-    # (a) edge cases with a general (M, N) table (T = M), and the
-    # four-step table of n = 15 = 3·5 (K = 5: the gather path)
-    cases = [(M, K, Nn, p, None) for M, K, Nn, p in EDGE_CASES
-             if Nn > 1 and K > 1]
-    cases.append((50 * 3, 5, 5, False, (3, 5)))
-    for M, K, Nn, poisoned, table in cases:
-        x = edge_rows(torch, gen, M, K, dev, poisoned)
-        _, _, w = dft_matrix_device(Nn, K, False, dev)
-        t = (crandn(torch, gen, (M, Nn), dev) if table is None else
-             torch.as_tensor(np.ascontiguousarray(
-                 twiddle_matrix(*table, False).T), device=dev))
-        y = dft_matmul_twiddle(x, w, t)
-        finite = bool(torch.isfinite(torch.view_as_real(y)).all())
-        _, rel = rel_err(torch, y, dft_matmul_twiddle_plain(x, w, t))
-        check(finite and rel <= KERNEL_RTOL,
-              f"{M}x{K}->{Nn}, {tuple(t.shape)} table"
-              f"{' poisoned rows past M' if poisoned else ''}: finite, rel "
-              f"err {rel:.3e} <= {KERNEL_RTOL:g}")
-    # (b) stage 1 of four_step_dft: B·n1 lines of n2, the (n1, n2) table
-    n1, n2 = ops._factor(FOUR_STEP_N)
-    M, K, Nn = FOUR_STEP_LINES * n1, n2, n2
-    x = crandn(torch, gen, (M, K), dev)
-    _, _, w = dft_matrix_device(Nn, K, False, dev)
-    t = torch.as_tensor(np.ascontiguousarray(
-        twiddle_matrix(n1, n2, False).T), device=dev)
-    ws = ops.dft_operand_device(Nn, K, False, w.device)
-    y = dft_matmul_twiddle(x, w, t, wsplit=ws)
-    yp = dft_matmul_twiddle_plain(x, w, t)
-    err, rel = rel_err(torch, y, yp)
-    check(rel <= KERNEL_RTOL, f"stage 1 {M}x{K}->{Nn}, ({n1}, {n2}) "
-          f"table: max abs err {err:.3e}, rel {rel:.3e} <= "
-          f"{KERNEL_RTOL:g}")
-    # the library yardstick: one einsum computes (x·Wᵀ) ⊙ t[row mod n1]
-    xb = x.view(M // n1, n1, K)
-
-    def library():
-        return torch.einsum("btk,nk,tn->btn", xb, w, t).reshape(M, Nn)
-
-    _, lrel = rel_err(torch, library(), yp)
-    check(lrel <= KERNEL_RTOL, f"library einsum computes the same "
-          f"function: rel err {lrel:.3e} <= {KERNEL_RTOL:g}")
-    del y, yp
-    ms = time_ms(torch, lambda: dft_matmul_twiddle(x, w, t, wsplit=ws))
-    plain = time_ms(torch, lambda: dft_matmul_twiddle_plain(x, w, t),
-                    reps=5)
-    lib = time_ms(torch, library)
-    gemm = time_ms(torch, lambda: torch.matmul(x, w.T))
-    # each input read once (x, W, the table), y written once; the
-    # epilogue's complex product is 6 FLOP per output
-    b = bound_ms(8.0 * (M * K + Nn * K + n1 * Nn + M * Nn),
-                 8.0 * M * Nn * K + 6.0 * M * Nn)
-    print(f"  time {ms:.3f} ms, plain {plain:.3f} ms, library einsum "
-          f"{lib:.3f} ms, {bound_text(b)}; complex64 torch.matmul of the "
-          f"GEMM alone {gemm:.3f} ms", flush=True)
-    check(ms < lib, f"kernel {ms:.3f} ms faster than the library einsum "
-          f"{lib:.3f} ms")
-    del x, xb
-    record = {"name": "dft_matmul_twiddle", "max_abs_err": err,
-              "rel_err": rel, "tolerance": KERNEL_RTOL, "ms": ms,
-              "plain_ms": plain, **b,
-              "library_ms": lib, "gemm_alone_ms": gemm,
-              "shape": f"{M}x{K}->{Nn} t({n1},{n2})"}
-
-    # (c) the path: four_step_dft on B lines of n, both directions
-    print(f"four_step_dft: ({FOUR_STEP_LINES}, {FOUR_STEP_N}) complex64 "
-          f"lines, n1={n1} n2={n2}", flush=True)
-    lines = crandn(torch, gen, (FOUR_STEP_LINES, FOUR_STEP_N), dev)
-    wrappers = (dft_matmul_twiddle, dft_matmul)
-    for fn in wrappers:
-        fn.launches = 0
-    with stages.record("four_step") as shapes:
-        fwd = ops.four_step_dft(lines)
-        inv = ops.four_step_dft(lines, inverse=True)
-    sync(torch, dev)
-    launches = {fn.__name__: fn.launches for fn in wrappers}
-    check(sum(shapes.values()) == launches["dft_matmul"],
-          "the recorded line shapes cover every dft_matmul launch of the "
-          "four-step path")
-    out = {}
-    for name, got, want in (
-            ("forward", fwd, torch.fft.fft(lines, dim=-1)),
-            ("inverse", inv, torch.fft.ifft(lines, dim=-1))):
-        e, r = rel_err(torch, got, want)
-        check(r <= KERNEL_RTOL, f"{name} vs torch.fft: max abs err {e:.3e}"
-              f", rel {r:.3e} <= {KERNEL_RTOL:g}")
-        out[f"{name}_rel_err"] = r
-    del fwd, inv
-    # (d) the twiddle kernel carried stage 1 of both calls
-    print(f"  kernel launches on the four-step path: {launches}",
-          flush=True)
-    check(launches["dft_matmul_twiddle"] == 2,
-          "dft_matmul_twiddle launched once per four_step_dft call")
-    check(launches["dft_matmul"] == 2,
-          "dft_matmul launched once per four_step_dft call (stage 2)")
-    out["ms"] = time_ms(torch, lambda: ops.four_step_dft(lines))
-    out["torch_fft_ms"] = time_ms(torch, lambda: torch.fft.fft(lines,
-                                                               dim=-1))
-    print(f"  four_step_dft {out['ms']:.3f} ms, torch.fft.fft "
-          f"{out['torch_fft_ms']:.3f} ms (forward, mean of 10)",
-          flush=True)
-    out["launches"] = launches
-    return record, out
-
-
-# ----------------------------------------------------- line-DFT shapes
-class LineStages:
-    """Kernel #1's launches by line shape on each path.
-
-    While ``record(path)`` is active, every ``kernels.ops.dft_apply`` call
-    (each launches ``dft_matmul`` once on a CUDA tensor) is counted by
-    ``(lines, n_in, n_out, inverse)`` in ``counts[path]``, and by the entry
-    it took in ``entries[path]``: the same key and L, 1 for the rows entry,
-    the lines a plane for the strided one.  For calls that come through the
-    "cuda" backend of ``local_dft`` the route of the stage's
-    ``local_fft.LineRead`` is kept in ``routes``, and a stage that copies
-    its lines into rows keeps its input's shape, strides and the
-    permutation it is copied in (``copies``), so that copy is timed beside
-    the kernel.
-    """
-
-    def __init__(self):
-        from collections import Counter
-        self.counts: dict[str, Counter] = {}
-        self.entries: dict[str, Counter] = {}
-        self.routes: dict[tuple, set] = {}
-        self.copies: dict[tuple, tuple] = {}
-        self._new = Counter
-
-    def launched(self, path) -> list:
-        """The entries kernel #1 took on ``path``: sorted ``(lines, n_in,
-        n_out, inverse, L)``."""
-        return sorted(self.entries.get(path, ()))
-
-    def record(self, path):
-        import contextlib
-
-        from repro_torch.core import local_fft
-        from repro_torch.kernels import ops
-        counts = self.counts.setdefault(path, self._new())
-        entries = self.entries.setdefault(path, self._new())
-        apply, backend = ops.dft_apply, local_fft._cuda_backend
-        read, taken = local_fft.line_read, []
-
-        def dft_apply(x, n_out=None, *, inverse=False):
-            n_in = x.shape[1]
-            key = (x.numel() // n_in, n_in, n_out or n_in, bool(inverse))
-            counts[key] += 1
-            entries[(*key, x.shape[2] if x.ndim == 3 else 1)] += 1
-            return apply(x, n_out, inverse=inverse)
-
-        def line_read(x, axis, **kw):
-            taken.append(read(x, axis, **kw))
-            return taken[-1]
-
-        def cuda_backend(x, axis, n_in, n_out, inverse):
-            y = backend(x, axis, n_in, n_out, inverse)
-            rd = taken.pop()
-            key = (x.numel() // n_in, n_in, n_out, bool(inverse),
-                   rd.L if rd.route == "strided" else 1)
-            self.routes.setdefault(key, set()).add(rd.route)
-            if rd.route == "copied":
-                self.copies[key] = (tuple(x.shape), tuple(x.stride()),
-                                    (*rd.order, axis % x.ndim))
-            return y
-
-        @contextlib.contextmanager
-        def patched():
-            ops.dft_apply, local_fft._cuda_backend = dft_apply, cuda_backend
-            local_fft.line_read = line_read
-            try:
-                yield counts
-            finally:
-                ops.dft_apply, local_fft._cuda_backend = apply, backend
-                local_fft.line_read = read
-        return patched()
-
-
-def line_entry(torch, gen, dev, M, n_in, n_out, inverse, L):
-    """Kernel #1 as a line stage launches it on ``M`` random lines:
-    ``(kernel, rows, plain, lines, w, dense)``, ``kernel`` the entry the
-    stage takes (the factored mode where ``factored_split`` takes the
-    shape, else the dense product; rows, or for ``L`` > 1 the strided
-    entry on ``(M / L, n_in, L)`` planes), ``rows`` the same mode's rows
-    entry on the same lines in rows (``kernel`` itself when L = 1),
-    ``plain`` its plain version, ``lines`` the lines as ``(M, n_in)`` rows
-    (a view when L = 1, a copy otherwise), ``w`` the DFT matrix, ``dense``
-    the dense product through the same entry where the stage is factored
-    (else None)."""
-    from repro_torch.core.local_fft import dft_matrix_device
-    from repro_torch.kernels.dft_matmul import (dft_factored,
-                                                dft_factored_cols,
-                                                dft_factored_plain,
-                                                dft_matmul, dft_matmul_cols,
-                                                dft_matmul_cols_plain,
-                                                dft_matmul_plain,
-                                                factored_split)
-    from repro_torch.kernels.ops import (dft_operand_device,
-                                         factored_operands_device)
-    _, _, w = dft_matrix_device(n_out, n_in, inverse, dev)
-    ws = dft_operand_device(n_out, n_in, inverse, w.device)
-    if L == 1:
-        x = crandn(torch, gen, (M, n_in), dev)
-        lines = x
-        on_dense = on_dense_rows = lambda: dft_matmul(x, w, wsplit=ws)
-        dense_plain = lambda: dft_matmul_plain(x, w)
-    else:
-        x = crandn(torch, gen, (M // L, n_in, L), dev)
-        lines = x.transpose(1, 2).contiguous().view(M, n_in)
-        on_dense = lambda: dft_matmul_cols(x, w, wsplit=ws)
-        on_dense_rows = lambda: dft_matmul(lines, w, wsplit=ws)
-        dense_plain = lambda: dft_matmul_cols_plain(x, w)
-    if factored_split(n_in, n_out) is None:
-        return on_dense, on_dense_rows, dense_plain, lines, w, None
-    fo = factored_operands_device(n_out, n_in, bool(inverse), w.device)
-    on_rows = lambda: dft_factored(lines, fo)
-    kernel = on_rows if L == 1 else lambda: dft_factored_cols(x, fo)
-    return (kernel, on_rows, lambda: dft_factored_plain(lines, fo), lines, w,
-            on_dense)
-
-
+# ------------------------------------------------- the FFT kernels alone
 #: kernel #1's stages in the benchmark's cells, one 128-band call each:
 #: the paper pair's idft[x], idft[y], dft[Y], dft[X] and gw-mtxel's
-#: dft[Y], dft[X] onto the 64-sphere, as (lines, n_in, n_out, inverse, L)
+#: dft[Y], dft[X] onto the 64-sphere, as (lines, n_in, n_out, inverse, L),
+#: L the lines a plane of the strided entry (1: rows).  Every one is a
+#: factored stage (its longer length is 256)
 BENCH_LINE_STAGES = ((4194304, 128, 256, True, 32768),
                      (8388608, 128, 256, True, 65536),
                      (8388608, 256, 128, False, 1),
                      (4194304, 256, 128, False, 128),
                      (8388608, 256, 64, False, 1),
                      (2097152, 256, 64, False, 64))
-#: lines on which the plain version of a factored stage is timed (its
-#: complex64 intermediates at a whole stage would not fit beside it)
+#: lines on which the plain version of a stage is timed (its complex64
+#: intermediates at a whole stage would not fit beside it)
 PLAIN_LINES = 1 << 20
+#: the cells' grid, sphere and bands a plan call: n = 256, d = 128
+#: (gw-mtxel's forward onto d = 64), 128 bands
+BENCH_N, BENCH_D, BENCH_D_EPS, BENCH_BANDS = 256, 128, 64, 128
+#: the dense kernels (#1's dense mode, #2, #3, #4) against their plain
+#: versions: split-TF32 products against fp32 GEMMs summed in another order
+KERNEL_RTOL = 1e-5
+#: the first bands of a 128-band call on which #3 and #4 are held against
+#: their plain versions (the plain unpack's gathers at 128 bands would not
+#: fit beside the kernel's output)
+SPHERE_PLAIN_BANDS = 8
+#: the launches of one call pair of either cell: each direction's z stage
+#: fused into #3 or #4, its y and x stages on #1, no four-step stage
+#: (``portbench/roofline.py::pair_calls``)
+PAIR_LAUNCHES = {"dft_matmul": 4, "dft_matmul_twiddle": 0, "unpack_dft": 1,
+                 "dft_pack": 1}
+#: kernel #2 at stage 1 of ``four_step_dft`` on this many lines of this
+#: length (no cell runs it: ``four_step_dft`` is the reference's path for
+#: lines longer than a dense matrix allows)
+FOUR_STEP_LINES, FOUR_STEP_N = 4096, 4096
 
 
-def time_line_shapes(torch, dev, gen, stages: LineStages, gpu: str):
-    """Kernel #1 at every distinct line shape the paths launched and at
-    the benchmark's stages (``BENCH_LINE_STAGES``), through the entry each
-    launch took: its time, both bounds, complex64 ``torch.matmul`` on the
-    same lines; where that was the strided entry, the same mode's rows
-    entry beside it on the same lines in rows, and the two checked bit for
-    bit; where the stage is factored, the dense product through the same
-    entry, the plain version (on ``PLAIN_LINES`` lines) and the kernel
-    against it; where the stage copied its lines into rows (the "copied"
-    route), that copy's time."""
-    from repro_torch.obs.trace import relayout
-    keys = sorted({k for c in stages.entries.values() for k in c}
-                  | set(BENCH_LINE_STAGES),
-                  key=lambda k: -k[0] * (k[1] + k[2]))
-    print(f"kernel #1 by line shape and entry ({gpu}; CUDA events, mean of "
-          "10):", flush=True)
+def bitwise(torch, a, b) -> bool:
+    return bool(torch.equal(torch.view_as_real(a), torch.view_as_real(b)))
+
+
+def line_entry(torch, gen, dev, M, n_in, n_out, inverse, L):
+    """Kernel #1 as a factored line stage launches it on ``M`` random
+    lines: ``(kernel, rows, dense, lines, w, ws, fo)``, ``kernel`` the
+    entry the stage takes (rows, or for ``L`` > 1 the strided entry on
+    ``(M / L, n_in, L)`` planes), ``rows`` the rows entry on the same
+    lines in rows (``kernel`` itself when L = 1), ``dense`` the dense
+    product through the same entry as ``kernel``, ``lines`` the lines as
+    ``(M, n_in)`` rows (a view when L = 1, a copy otherwise), ``w`` the
+    DFT matrix, ``ws`` its split operand, ``fo`` the factored operands."""
+    from repro_torch.core.local_fft import dft_matrix_device
+    from repro_torch.kernels.dft_matmul import (dft_factored,
+                                                dft_factored_cols,
+                                                dft_matmul, dft_matmul_cols,
+                                                factored_split)
+    from repro_torch.kernels.ops import (dft_operand_device,
+                                         factored_operands_device)
+    check(factored_split(n_in, n_out) is not None,
+          f"{n_in}->{n_out} is a factored stage")
+    _, _, w = dft_matrix_device(n_out, n_in, inverse, dev)
+    ws = dft_operand_device(n_out, n_in, inverse, w.device)
+    fo = factored_operands_device(n_out, n_in, bool(inverse), w.device)
+    if L == 1:
+        x = lines = crandn(torch, gen, (M, n_in), dev)
+        dense = lambda: dft_matmul(x, w, wsplit=ws)
+    else:
+        x = crandn(torch, gen, (M // L, n_in, L), dev)
+        lines = x.transpose(1, 2).contiguous().view(M, n_in)
+        dense = lambda: dft_matmul_cols(x, w, wsplit=ws)
+    on_rows = lambda: dft_factored(lines, fo)
+    kernel = on_rows if L == 1 else lambda: dft_factored_cols(x, fo)
+    return kernel, on_rows, dense, lines, w, ws, fo
+
+
+def time_line_shapes(torch, dev, gen, gpu: str) -> list:
+    """Kernel #1 at the benchmark's stages (``BENCH_LINE_STAGES``),
+    through the entry each takes: its time against its roofline bound,
+    beside complex64 ``torch.matmul`` on the same lines (which it must
+    beat); for the strided entry, the rows entry on the same lines in
+    rows, the two checked bit for bit; the dense product through the same
+    entry, and the plain versions on ``PLAIN_LINES`` lines, the factored
+    mode checked against its own and the dense mode's rows entry against
+    ``dft_matmul_plain``."""
+    from portbench.roofline import line_call
+    from repro_torch.kernels.dft_matmul import (dft_factored,
+                                                dft_factored_plain,
+                                                dft_matmul, dft_matmul_plain)
+    print(f"kernel #1 at the cells' line stages ({gpu}; CUDA events, mean "
+          "of 10):", flush=True)
     rows = []
-    for key in keys:
+    for key in BENCH_LINE_STAGES:
         M, n_in, n_out, inverse, L = key
-        kernel, on_rows, _, lines, w, dense = line_entry(
+        kernel, on_rows, dense, lines, w, ws, fo = line_entry(
             torch, gen, dev, *key)
         ms = time_ms(torch, kernel)
         row = {"lines": M, "n_in": n_in, "n_out": n_out, "inverse": inverse,
-               "entry": "strided" if L > 1 else "rows", "L": L,
-               "mode": "dense" if dense is None else "factored",
-               "launches": {p: c[key] for p, c in stages.entries.items()
-                            if c[key]},
-               "routes": sorted(stages.routes.get(key, ())), "ms": ms,
-               "rows_ms": None, "bitwise": None, "dense_ms": None,
-               "plain_ms": None, "plain_lines": None, "rel_err": None}
+               "entry": "strided" if L > 1 else "rows", "L": L, "ms": ms,
+               "rows_ms": None, "bitwise": None}
         if L > 1:
             row["rows_ms"] = time_ms(torch, on_rows)
             row["bitwise"] = bitwise(torch, kernel(), on_rows())
             check(row["bitwise"], f"kernel #1 {M}x{n_in}->{n_out}: the "
                   f"strided entry (L = {L}) gives the rows entry's bits")
-        if dense is not None:
-            from repro_torch.kernels.dft_matmul import (dft_factored,
-                                                        dft_factored_plain)
-            from repro_torch.kernels.ops import factored_operands_device
-            row["dense_ms"] = time_ms(torch, dense)
-            part = lines[:PLAIN_LINES]
-            fo = factored_operands_device(n_out, n_in, bool(inverse),
-                                          lines.device)
-            row["plain_lines"] = part.shape[0]
-            row["plain_ms"] = time_ms(
-                torch, lambda: dft_factored_plain(part, fo), reps=3)
-            _, row["rel_err"] = rel_err(torch, dft_factored(part, fo),
-                                        dft_factored_plain(part, fo))
-            check(row["rel_err"] <= FACTORED_RTOL,
-                  f"kernel #1 {M}x{n_in}->{n_out} factored against its "
-                  f"plain version: {row['rel_err']:.2e} <= {FACTORED_RTOL}")
-            del part
+        row["dense_ms"] = time_ms(torch, dense)
+        part = lines[:PLAIN_LINES]
+        row["plain_lines"] = part.shape[0]
+        row["plain_ms"] = time_ms(
+            torch, lambda: dft_factored_plain(part, fo), reps=3)
+        row["rel_err"] = rel_err(dft_factored(part, fo),
+                                 dft_factored_plain(part, fo))
+        check(row["rel_err"] <= FACTORED_RTOL,
+              f"kernel #1 {M}x{n_in}->{n_out} factored against its "
+              f"plain version: {row['rel_err']:.2e} <= {FACTORED_RTOL}")
+        row["dense_rel_err"] = rel_err(dft_matmul(part, w, wsplit=ws),
+                                       dft_matmul_plain(part, w))
+        check(row["dense_rel_err"] <= KERNEL_RTOL,
+              f"kernel #1 {M}x{n_in}->{n_out} dense against its plain "
+              f"version: {row['dense_rel_err']:.2e} <= {KERNEL_RTOL}")
         row["matmul_ms"] = time_ms(torch, lambda: torch.matmul(lines, w.T))
-        del kernel, on_rows, lines, w, dense
-        b = bound_ms(8.0 * (M * n_in + n_out * n_in + M * n_out),
-                     8.0 * M * n_out * n_in)
-        row.update(b)
-        row["bytes_ms"] = 8.0 * M * (n_in + n_out) / HBM_BYTES_PER_S * 1e3
-        row["bytes_share"] = row["bytes_ms"] / ms
-        row["input"], row["copy_ms"] = None, None
-        if key in stages.copies:
-            shape, stride, perm = stages.copies[key]
-            held = 1 + sum((n - 1) * st for n, st in zip(shape, stride))
-            xs = crandn(torch, gen, (held,), dev).as_strided(shape, stride)
-            row["input"], row["copy_ms"] = list(shape), time_ms(
-                torch, lambda: relayout(xs.permute(*perm), n_in))
-            del xs
-        row["call_c_ms"] = CALL_C_MS.get(key[:4]) if L == 1 else None
+        check(ms < row["matmul_ms"], f"kernel #1 {M}x{n_in}->{n_out} "
+              f"{ms:.3f} ms faster than complex64 torch.matmul "
+              f"{row['matmul_ms']:.3f} ms")
+        del kernel, on_rows, dense, lines, w, ws, fo, part
+        row["work"] = line_call(M, n_in, n_out)
+        row.update(roofline(ms, row["work"]))
         rows.append(row)
-        copy_txt = ("" if row["copy_ms"] is None else
-                    f"; copy {row['copy_ms']:.3f} ms of "
-                    f"{tuple(row['input'])}")
         entry_txt = ("rows" if L == 1 else
                      f"strided L={L} (rows {row['rows_ms']:.3f} ms, "
                      f"{ms / row['rows_ms']:.3f}x; bitwise "
                      f"{row['bitwise']})")
-        mode_txt = ("dense" if row["dense_ms"] is None else
-                    f"factored (dense {row['dense_ms']:.3f} ms, plain "
-                    f"{row['plain_ms']:.3f} ms on {row['plain_lines']} "
-                    f"lines, rel err {row['rel_err']:.2e})")
-        was = ("" if row["call_c_ms"] is None else
-               f" ({ms / row['call_c_ms']:.3f}x call C's "
-               f"{row['call_c_ms']:.3f} ms)")
         print(f"  {M}x{n_in}->{n_out}{' inv' if inverse else ''} "
-              f"{entry_txt}, {mode_txt}: launches {row['launches']}, routes "
-              f"{row['routes'] or 'not through local_dft'}, {ms:.3f} ms"
-              f"{was}, bytes {row['bytes_ms']:.3f} ms "
-              f"({100 * row['bytes_share']:.1f}%), {bound_text(b)}, "
-              f"torch.matmul {row['matmul_ms']:.3f} ms{copy_txt}",
-              flush=True)
+              f"{entry_txt}: {ms:.3f} ms factored (dense "
+              f"{row['dense_ms']:.3f} ms, rel err "
+              f"{row['dense_rel_err']:.2e}; plain {row['plain_ms']:.3f} ms "
+              f"on {row['plain_lines']} lines, rel err "
+              f"{row['rel_err']:.2e}), {roofline_text(row)}, torch.matmul "
+              f"{row['matmul_ms']:.3f} ms", flush=True)
         torch.cuda.empty_cache()
     return rows
 
 
-# ------------------------------------------------------------------ service
-def service_requests(rng):
-    """The service phase's requests, from the numpy generator ``rng``."""
-    import numpy as np
-
-    from repro_torch.core import kpoint_sphere
-    diam = {"d": SERVICE_D, "d_small": SERVICE_D_SMALL}
-    potentials = {}
-    reqs = []
-    for tenant, count, nbands, kpt, dkey, pot, deadline in SERVICE_TRACE:
-        sphere = kpoint_sphere(diam[dkey], kpt)
-        if pot and tenant not in potentials:
-            potentials[tenant] = rng.standard_normal(
-                (SERVICE_N,) * 3).astype(np.float32)
-        for _ in range(count):
-            c = (rng.standard_normal((nbands, sphere.npacked))
-                 + 1j * rng.standard_normal((nbands, sphere.npacked))
-                 ).astype(np.complex64)
-            reqs.append({"tenant": tenant, "coeffs": c, "sphere": sphere,
-                         "v_eff": potentials.get(tenant) if pot else None,
-                         "deadline": deadline})
-    return reqs
+def cell_plans(torch, dev) -> dict:
+    """Each cell's plan pair for one 128-band call on one process, on the
+    "cuda" backend: ``paper-pair``'s ``make_planewave_pair`` and
+    ``gw-mtxel``'s ``mtxel_plans``, as the benchmark's drivers make
+    them."""
+    from repro_torch.core import ProcGrid, make_planewave_pair
+    from repro_torch.core.planewave import kpoint_sphere
+    from repro_torch.dft import cutoff_sphere, mtxel_plans
+    n, d, B = BENCH_N, BENCH_D, BENCH_BANDS
+    grid = ProcGrid.create([1], device=dev)
+    return {"paper-pair": make_planewave_pair(
+                grid, n, kpoint_sphere(d), B, backend="cuda"),
+            "gw-mtxel": mtxel_plans(grid, n, kpoint_sphere(d),
+                                    cutoff_sphere(BENCH_D_EPS), B,
+                                    backend="cuda")}
 
 
-def make_service(dev, backend, grid=None):
-    """The service phase's ``TransformService``: on one process, or on
-    ``grid`` with its first axis as the batch axis (and then
-    ``svc.pairs`` records the plan pairs it runs, :func:`watch_pairs`)."""
-    from repro_torch.core import ProcGrid
-    from repro_torch.serve import TransformService
-    if grid is None:
-        grid = ProcGrid.create([1], ["dft_f"], device=dev)
-    svc = TransformService(
-        grid, n=SERVICE_N, padding_budget=0.5, max_rows=SERVICE_MAX_ROWS,
-        backend=backend, batch_axes=(0,) if grid.multi_process else ())
-    if grid.multi_process:
-        svc.pairs = watch_pairs(svc)
-    return svc
-
-
-def watch_pairs(svc) -> dict:
-    """Record each plan pair ``svc`` builds or takes from its cache for a
-    dispatch or a warm-up, once per row composition, in the order it ran
-    them (on a grid, the same order on every rank):
-    ``{(composition, bucket): (sphere extents, inverse, forward)}``."""
-    from repro_torch.core.cache import domains_key
-    pairs = {}
-    pair_for = svc._pair_for
-
-    def recorded(spheres, bucket):
-        inv, fwd = pair_for(spheres, bucket)
-        pairs.setdefault((domains_key(spheres), bucket),
-                         (tuple(spheres[0].extents), inv, fwd))
-        return inv, fwd
-    svc._pair_for = recorded
-    return pairs
-
-
-def watch_padding(torch, svc) -> dict:
-    """Check the padded lanes of every packed block that ``svc`` makes on
-    this rank (every rank's rows, after the pack's all-reduce and the row
-    gather): each must be exactly +0.0.  Returns the running tally."""
-    tally = {"blocks": 0, "padded_lanes": 0, "plus_zero": True}
-    run = svc._run_pair
-
-    def watched(prepare):
-        box = {}
-
-        def prep():
-            out = prepare()
-            box["inv"] = out[0]
-            return out
-        packed = run(prep)
-        pad = ~torch.as_tensor(box["inv"].valid_lanes(),
-                               device=packed.device)
-        tally["blocks"] += 1
-        tally["padded_lanes"] += int(pad.sum())
-        tally["plus_zero"] &= is_plus_zero(torch, packed[pad])
-        return packed
-    svc._run_pair = watched
-    return tally
-
-
-def serve_trace(dev, backend, reqs, grid=None):
-    """Start a service, send the trace three times, stop it.
-
-    The first (cold) pass pays the asynchronous plan builds and warm-up;
-    the metrics window is then reset and the same trace sent again to the
-    warm service, with the tracer recording its ``serve.dispatch`` spans
-    (no extra synchronization: a dispatch ends in the result's host copy).
-    A third pass records with the tracer's sync on, so each piece span
-    inside a dispatch covers its own device work (the by-piece
-    breakdown).  Returns the service and, per pass, its handles, each
-    request's result (the output array, or the ``ServeError`` it failed
-    with), the metrics summary, the dispatch spans' ms and, for the
-    third pass, the pieces of each dispatch.  On a ``grid`` of several
-    processes this is the front end's part (the other ranks follow with
-    ``start``/``stop``).  ``svc.padding`` tallies the padded lanes of its
-    packed blocks (:func:`watch_padding`).
-    """
-    import torch
-
-    from repro_torch.obs import get_tracer
-    from repro_torch.serve import ServeError
-    svc = make_service(dev, backend, grid)
-    svc.padding = watch_padding(torch, svc)
-    tr = get_tracer()
-    passes = []
-    svc.start()
-    try:
-        for name in ("cold", "warm", "synced"):
-            if name != "cold":
-                svc.metrics.reset()
-                tr.enable(sync=name == "synced", per_stage=False)
-            handles = [svc.submit(r["tenant"], r["coeffs"], r["sphere"],
-                                  v_eff=r["v_eff"], deadline=r["deadline"])
-                       for r in reqs]
-            results = []
-            for h in handles:
-                try:
-                    results.append(h.result(timeout=300))
-                except ServeError as err:
-                    results.append(err)
-            tr.disable()
-            evs = tr.events()
-            passes.append({"name": name, "handles": handles,
-                           "results": results,
-                           "summary": svc.metrics.summary(),
-                           "dispatch_ms": [
-                               round((e["t1"] - e["t0"]) * 1e3, 3)
-                               for e in evs if e["name"] == "serve.dispatch"]
-                           if name != "cold" else None,
-                           "pieces": dispatch_pieces(evs)
-                           if name == "synced" else None,
-                           "batches": batch_compositions(handles, reqs)})
-            tr.clear()
-    finally:
-        tr.disable()
-        svc.stop(timeout=300)
-    return svc, passes
-
-
-def dispatch_pieces(events) -> list[dict]:
-    """Per ``serve.dispatch`` span: its rows, bucket and ms, and the ms of
-    each child span the service's ``_dispatch`` records (uploads, the
-    fused unpack and inverse plan, ×v, the forward plan and fused pack,
-    download; on several ranks also the sends and the row gather), in
-    dispatch order."""
+def time_sphere_calls(torch, dev, gen, gpu: str, pairs: dict) -> list:
+    """Kernels #3 and #4 at one 128-band call of each cell, on the line
+    tables, operators and chunk ranges of the cells' own plans
+    (``cell_plans``): #3 at the inverse's unpack of the 128-sphere (the
+    same in both cells), #4 at ``paper-pair``'s pack onto the 128-sphere
+    and at ``gw-mtxel``'s onto the 64-sphere about G = 0, each from the
+    z-major slab (layout 2) its forward's x stage leaves; each time
+    against its roofline bound, and the call's first
+    ``SPHERE_PLAIN_BANDS`` bands against the plain version within
+    ``KERNEL_RTOL``."""
+    from portbench.roofline import pack_call, unpack_call
+    from repro_torch.kernels import sphere_pack as sp
+    n, d, B, b = BENCH_N, BENCH_D, BENCH_BANDS, SPHERE_PLAIN_BANDS
+    print(f"kernels #3 and #4 at a 128-band call of each cell ({gpu}; CUDA "
+          "events, mean of 10):", flush=True)
     out = []
-    for d in sorted((e for e in events if e["name"] == "serve.dispatch"),
-                    key=lambda e: e["t0"]):
-        row = {"rows": d["attrs"]["rows"], "bucket": d["attrs"]["bucket"],
-               "dispatch_ms": (d["t1"] - d["t0"]) * 1e3}
-        pieces = {}
-        for e in events:
-            if (e["parent"] == "serve.dispatch" and e["tid"] == d["tid"]
-                    and d["t0"] <= e["t0"] and e["t1"] <= d["t1"]):
-                name = e["name"].removeprefix("serve.")
-                pieces[f"{name}_ms"] = (e["t1"] - e["t0"]) * 1e3
-        row.update(pieces)
-        row["pieces_sum_ms"] = sum(pieces.values())
-        out.append(row)
-    return out
 
-
-def print_pieces(what: str, rows) -> None:
-    print(f"  {what}, each dispatch by piece (the service's own spans, "
-          "ms, host clock, synchronized at each span's exit):", flush=True)
-    for row in rows:
-        print("    " + ", ".join(f"{k} {v:.1f}" if isinstance(v, float)
-                                 else f"{k} {v}" for k, v in row.items()),
+    def report(kernel, cells, shape, ms, work, got, want):
+        err = rel_err(got, want)
+        check(bool(torch.isfinite(torch.view_as_real(got)).all())
+              and err <= KERNEL_RTOL, f"{kernel} {shape}: the first {b} "
+              f"bands finite and within {err:.2e} <= {KERNEL_RTOL} of the "
+              "plain version")
+        out.append({"kernel": kernel, "cells": cells, "shape": shape,
+                    "ms": ms, "rel_err": err, "plain_bands": b,
+                    "work": work, **roofline(ms, work)})
+        print(f"  {kernel} {shape} ({', '.join(cells)}): {ms:.3f} ms, "
+              f"{roofline_text(out[-1])}; rel err {err:.2e} on {b} bands",
               flush=True)
 
-
-def batch_compositions(handles, reqs) -> list[str]:
-    """Each dispatched batch as ``tenant x bands + ...``, in dispatch
-    order (a batch is the requests that share a ``dispatched_at``)."""
-    batches: dict = {}
-    for h, r in zip(handles, reqs):
-        if h.dispatched_at is not None:
-            batches.setdefault(h.dispatched_at, []).append(
-                f"{r['tenant']}x{r['coeffs'].shape[0]}")
-    return [" + ".join(b) for _, b in sorted(batches.items())]
-
-
-def check_service(torch, dev, gpu, stages):
-    """The service phase (see the module docstring); returns its record
-    and the warm pass's results, which the multi-rank service is held
-    against."""
-    import numpy as np
-
-    from repro_torch.kernels.dft_matmul import dft_matmul
-    from repro_torch.kernels import sphere_pack
-    from repro_torch.serve import DeadlineExceeded
-    print(f"TransformService: n={SERVICE_N}, d={SERVICE_D} and "
-          f"{SERVICE_D_SMALL}, max_rows={SERVICE_MAX_ROWS}, "
-          "padding_budget=0.5, start() + async warming", flush=True)
-    reqs = service_requests(np.random.default_rng(SEED + 2))
-    print("  trace: " + ", ".join(
-        f"{t}: {c}x{nb} bands d={SERVICE_D if k == 'd' else SERVICE_D_SMALL}"
-        f" k={kp}{' +v_eff' if p else ''}"
-        f"{f' deadline={dl}' if dl is not None else ''}"
-        for t, c, nb, kp, k, p, dl in SERVICE_TRACE), flush=True)
-    wrappers = (dft_matmul, sphere_pack.unpack_dft, sphere_pack.dft_pack)
-    for fn in wrappers:
-        fn.launches = 0
-    t0 = time.perf_counter()
-    with stages.record("service") as shapes:
-        svc, passes = serve_trace(dev, "cuda", reqs)
-    wall = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in wrappers}
-    check(sum(shapes.values()) == launches["dft_matmul"],
-          "the recorded line shapes cover every dft_matmul launch of the "
-          "cuda service")
-    cold, warm, synced = passes
-    for p in passes:
-        print(f"  service metrics, {p['name']} pass ({gpu}): "
-              + json.dumps(p["summary"]), flush=True)
-    for p in passes:
-        print(f"  {p['name']} pass batches: {p['batches']}", flush=True)
-    print(f"  warm pass: serve.dispatch spans {warm['dispatch_ms']} ms",
-          flush=True)
-    print_pieces("synced pass", synced["pieces"])
-    print(f"  wall {wall:.3f} s for three passes of {len(reqs)} requests "
-          f"(plan builds and warming included); launches {launches}",
-          flush=True)
-    check(launches["dft_matmul"] > 0,
-          f"dft_matmul launched {launches['dft_matmul']} times in the "
-          "cuda service")
-    check(launches["unpack_dft"] > 0 and launches["dft_pack"] > 0,
-          "the service's dispatches ran the fused sphere kernels #3, #4")
-    check(svc.padding["plus_zero"] and svc.padding["padded_lanes"] > 0,
-          f"the {svc.padding['padded_lanes']} padded lanes of its "
-          f"{svc.padding['blocks']} packed blocks are exactly +0.0")
-
-    ok = [i for i, r in enumerate(reqs) if r["deadline"] is None]
-    late = [i for i, r in enumerate(reqs) if r["deadline"] is not None]
-    summary = cold["summary"]
-    check(summary["dispatches"] < len(reqs)
-          and summary["coalesced_dispatches"] >= 1,
-          f"requests coalesced: {summary['dispatches']} dispatches for "
-          f"{len(reqs)} requests")
-    pieces = synced["pieces"]
-    check(len(pieces) == synced["summary"]["dispatches"] and all(
-        SERVICE_PIECES <= row.keys()
-        and row["pieces_sum_ms"] <= row["dispatch_ms"] for row in pieces),
-          f"synced pass: {len(pieces)} dispatches, each with its piece "
-          "spans, nested inside it")
-    errs = {"eager": 0.0, "matmul": 0.0, "round_trip": 0.0}
-    for p in passes:
-        name, results = p["name"], p["results"]
-        check(all(isinstance(results[i], DeadlineExceeded) for i in late),
-              f"{name}: {len(late)} deadline=0.0 request(s) failed with "
-              "DeadlineExceeded")
-        check(all(isinstance(results[i], np.ndarray) for i in ok),
-              f"{name}: {len(ok)} requests resolved with results")
-        pad = p["summary"]["padding_fraction_max"]
-        check(pad <= 0.5, f"{name}: padding_fraction_max {pad} <= 0.5")
-        batches: dict = {}
-        for i in ok:
-            batches.setdefault(p["handles"][i].dispatched_at, set()).add(
-                reqs[i]["sphere"].extents)
-        check(all(len(ext) == 1 for ext in batches.values()),
-              f"{name}: {len(batches)} batches, none mixes d={SERVICE_D} "
-              f"and d={SERVICE_D_SMALL} rows")
-        for i in ok:
-            r = reqs[i]
-            _, rel = rel_err(np, results[i], svc.eager_apply(
-                r["coeffs"], r["sphere"], r["v_eff"]))
-            errs["eager"] = max(errs["eager"], rel)
-            if r["v_eff"] is None:
-                _, rel = rel_err(np, results[i], r["coeffs"])
-                errs["round_trip"] = max(errs["round_trip"], rel)
-    check(errs["eager"] <= KERNEL_RTOL, f"every result vs eager_apply: "
-          f"max rel err {errs['eager']:.3e} <= {KERNEL_RTOL:g}")
-    check(errs["round_trip"] <= KERNEL_RTOL, "gamma round trips return "
-          f"their input: max rel err {errs['round_trip']:.3e}")
-
-    tracer = trace_eager_apply(torch, dev, svc, reqs[ok[0]])
-
-    before = dft_matmul.launches
-    m_svc, m_passes = serve_trace(dev, "matmul", reqs)
-    check(dft_matmul.launches == before,
-          "dft_matmul never launched in the matmul service")
-    for p, mp in zip(passes, m_passes):
-        for i in ok:
-            _, rel = rel_err(np, p["results"][i], mp["results"][i])
-            errs["matmul"] = max(errs["matmul"], rel)
-    check(errs["matmul"] <= KERNEL_RTOL, f"every result vs the matmul "
-          f"service: max rel err {errs['matmul']:.3e} <= {KERNEL_RTOL:g}")
-    for mp in m_passes:
-        print(f"  matmul service metrics, {mp['name']} pass: "
-              + json.dumps(mp["summary"]), flush=True)
-    print(f"  matmul warm pass: serve.dispatch spans "
-          f"{m_passes[1]['dispatch_ms']} ms", flush=True)
-    print_pieces("matmul synced pass", m_passes[2]["pieces"])
-    return {"cold": summary, "warm": warm["summary"],
-            "warm_dispatch_ms": warm["dispatch_ms"],
-            "matmul_cold": m_passes[0]["summary"],
-            "matmul_warm": m_passes[1]["summary"],
-            "matmul_warm_dispatch_ms": m_passes[1]["dispatch_ms"],
-            "wall_s": wall, "launches": launches, "max_rel_err": errs,
-            "padding": svc.padding, "tracer": tracer,
-            "synced_dispatch_pieces": pieces,
-            "matmul_synced_dispatch_pieces": m_passes[2]["pieces"]}, \
-        warm["results"]
-
-
-def trace_eager_apply(torch, dev, svc, req):
-    """The port's tracer around one ``eager_apply``: its stage spans must
-    be the plans' stages, in order, each covering its stage's device time
-    (a span is synchronized with the card at exit)."""
-    import tempfile
-
-    from repro_torch.core import Domain, fftb
-    from repro_torch.core.plan import FFTStage
-    from repro_torch.obs import get_tracer
-    bdom = Domain((0,), (req["coeffs"].shape[0] - 1,))
-    inv = fftb.plan_for(svc._pw_spec, domains=(bdom, req["sphere"]),
-                        grid=svc.grid, sizes=(svc.n,) * 3, inverse=True,
-                        backend=svc.backend, cache=svc.cache)
-    fwd = inv.inverse()
-    stages = list(inv.stages) + list(fwd.stages)
-    want = [("idft" if st.inverse else "dft") + f"[{st.dim}] "
-            f"{st.n_in}->{st.n_out}" if isinstance(st, FFTStage)
-            else f"a2a[{st.axis_name}] {st.src}->{st.dst}" for st in stages]
-    tr = get_tracer().enable(sync=True, per_stage=True)
-    try:
-        svc.eager_apply(req["coeffs"], req["sphere"], req["v_eff"])
-    finally:
-        tr.disable()
-    evs = sorted((e for e in tr.events()
-                  if (e["parent"] or "").startswith("plan:")),
-                 key=lambda e: e["t0"])
-    names = [e["name"] for e in evs]
-    check(names == want, f"{len(names)} stage spans match the plans' "
-          f"stages: {names}")
-    # each stage again, alone, on the same inputs: its mean device time
-    # over back-to-back calls between CUDA events (one call alone also
-    # times the host's launch of the stage's first kernel, with the card
-    # idle meanwhile), the least of three such means: a host stall inside
-    # one window leaves the card idle there and counts as device time
-    c = torch.as_tensor(req["coeffs"], device=dev)
-    x = inv.unpack(c)
-    dev_ms = []
-    for i, st in enumerate(stages):
-        if i == len(inv.stages) and req["v_eff"] is not None:
-            x = x * torch.as_tensor(req["v_eff"], device=dev)
-        dev_ms.append(min(time_ms(torch, lambda st=st, x=x: st.apply(x),
-                                  reps=5) for _ in range(3)))
-        x = st.apply(x)
-    span_ms = [(e["t1"] - e["t0"]) * 1e3 for e in evs]
-    # line-DFT stages only: a move over a one-process axis does no work
-    cover = [s / d for s, d, st in zip(span_ms, dev_ms, stages)
-             if isinstance(st, FFTStage)]
-    print("  stage spans (ms, host clock) vs CUDA events (ms): " + ", ".join(
-        f"{n} {s:.3f}/{d:.3f}" for n, s, d in zip(names, span_ms, dev_ms)),
-        flush=True)
-    check(min(cover) >= SPAN_COVERAGE, f"every line-DFT stage span "
-          f"covers >= {SPAN_COVERAGE:g} of its stage's device time (min "
-          f"{min(cover):.3f}): span exit synchronized the card")
-    with tempfile.TemporaryDirectory() as tmp:
-        path = tr.export_chrome(os.path.join(tmp, "eager_apply.json"))
-        with open(path) as f:
-            nev = sum(1 for e in json.load(f)["traceEvents"]
-                      if e["ph"] == "X")
-    check(nev == len(tr.events()), f"Chrome trace exported: {nev} events")
-    tr.clear()
-    return {"stages": names, "span_ms": span_ms, "event_ms": dev_ms,
-            "min_coverage": min(cover)}
-
-
-# ---------------------------------------------------------------------- SCF
-def run_slice(torch, dev, stages):
-    import numpy as np
-
-    from repro_torch.dft import run_scf
-    from repro_torch.dft.basis import PlaneWaveBasis
-    from repro_torch.dft.hamiltonian import orthonormalize
-    from repro_torch.kernels import sphere_pack
-    from repro_torch.kernels.dft_matmul import dft_matmul
-
-    print(f"SCF: n={N} d={DIAMETER} nbands={NBANDS} kpts={KPTS} "
-          f"stack_k=True max_iter={MAX_ITER}", flush=True)
-    print("reduced: " + json.dumps(REDUCED), flush=True)
-    basis = PlaneWaveBasis(N, diameter=DIAMETER, kpts=KPTS, nbands=NBANDS,
-                           device=dev)
-    rng = np.random.default_rng(SEED)
-    coeffs = []
-    for ik in range(basis.nk):
-        npk = basis.npacked(ik)
-        c = (rng.standard_normal((NBANDS, npk))
-             + 1j * rng.standard_normal((NBANDS, npk))).astype(np.complex64)
-        coeffs.append(orthonormalize(torch.as_tensor(c, device=dev)))
-    print(f"  stacked batch B={basis.nk * NBANDS}, npacked_max="
-          f"{basis.npacked_max}", flush=True)
-
-    cfg = scf_config
-    wrappers = (dft_matmul, sphere_pack.unpack_dft, sphere_pack.dft_pack)
-    for fn in wrappers:
-        fn.launches = 0
-    torch.cuda.reset_peak_memory_stats(dev)
-    with stages.record("scf") as shapes:
-        res_k_stamps = Stamps()
-        res_k = run_scf(cfg("cuda"), device=dev, coeffs=coeffs,
-                        callback=res_k_stamps)
-    peak_k = torch.cuda.max_memory_allocated(dev)
-    res_k.stamps = res_k_stamps
-    launches = {fn.__name__: fn.launches for fn in wrappers}
-    check(sum(shapes.values()) == launches["dft_matmul"],
-          f"the {len(shapes)} recorded line shapes cover every dft_matmul "
-          "launch of the SCF")
-    res_m = run_scf(cfg("matmul"), device=dev, coeffs=coeffs)
-    after = {fn.__name__: fn.launches for fn in wrappers}
-    print(f"  kernel launches on the cuda route: {launches}", flush=True)
-    for name, k in launches.items():
-        check(k > 0, f"{name} launched {k} times on the cuda route")
-        check(after[name] == k, f"{name} never launched on the matmul "
-              "route")
-    check(res_k.stacked and res_k.backend == "cuda"
-          and res_m.backend == "matmul", "both runs rode the stacked route")
-    for res in (res_k, res_m):
-        per_it = [round(r["seconds"], 3) for r in res.iteration_records]
-        print(f"  {res.backend:6s}: energies {res.energies}, "
-              f"{res.seconds_per_iteration:.3f} s/iteration "
-              f"(per-iteration records {per_it}, which leave out the "
-              "host mixing)", flush=True)
-    steady_k = iteration_times(res_k)
-    print(f"  cuda route, wall time between iteration ends (mixing "
-          f"included): {[round(x, 4) for x in steady_k['steady_wall_s']]} "
-          f"s", flush=True)
-    ek, em = np.asarray(res_k.energies), np.asarray(res_m.energies)
-    de = float(np.abs(ek - em).max())
-    check(len(ek) == len(em) == MAX_ITER and np.isfinite(ek).all(),
-          f"{MAX_ITER} finite energies per route")
-    check(de <= ENERGY_RTOL * max(1.0, float(np.abs(em).max())),
-          f"energies agree: max |dE| {de:.3e} <= {ENERGY_RTOL:g}·max(1,|E|)")
-    deig = float(np.abs(res_k.eigenvalues - res_m.eigenvalues).max())
-    check(res_k.eigenvalues.shape == (len(KPTS), NBANDS)
-          and bool(np.all(np.diff(res_k.eigenvalues, axis=1) >= -1e-6)),
-          "eigenvalues (nk, nbands), ascending per k")
-    check(deig <= EIG_ATOL * max(1.0, float(np.abs(res_m.eigenvalues).max())),
-          f"eigenvalues agree: max diff {deig:.3e} <= {EIG_ATOL:g}")
-    drho = float((res_k.rho - res_m.rho).abs().max())
-    rmax = float(res_m.rho.abs().max())
-    check(tuple(res_k.rho.shape) == (N, N, N)
-          and bool(torch.isfinite(res_k.rho).all()),
-          f"rho is a finite ({N},{N},{N}) field")
-    check(drho <= RHO_RTOL * rmax,
-          f"rho agrees: max diff {drho:.3e} <= {RHO_RTOL:g}·{rmax:.3e}")
-    print(f"  cuda route: peak memory {peak_k / 2**30:.2f} GiB", flush=True)
-    return launches, {"cuda_s_per_iteration": res_k.seconds_per_iteration,
-                      "cuda_steady_wall_s": steady_k["steady_s"],
-                      "cuda_peak_gib": peak_k / 2**30,
-                      "matmul_s_per_iteration": res_m.seconds_per_iteration,
-                      "energy_cuda": res_k.energy,
-                      "energy_matmul": res_m.energy, "max_dE": de,
-                      "max_deig": deig, "max_drho": drho}, \
-        {"coeffs": coeffs, "cuda": res_k}
-
-
-def scf_config(backend, **kw):
-    """The smoke SCF's configuration; mix_warmup >= max_iter: a fixed
-    (linearly mixed) trajectory, no early stop."""
-    from repro_torch.dft import SCFConfig
-    return SCFConfig(**{"n": N, "diameter": DIAMETER, "nbands": NBANDS,
-                        "kpts": KPTS, "stack_k": True, "backend": backend,
-                        "max_iter": MAX_ITER, "mix_warmup": MAX_ITER, **kw})
-
-
-def agreement(torch, res, ref, what: str) -> dict:
-    """Hold an SCF run against a reference run of the same trajectory to
-    PERF.md's limits: energies rel. 1e-4, eigenvalues abs. 1e-4, ρ 1e-3 of
-    max ρ."""
-    import numpy as np
-    e, er = np.asarray(res.energies), np.asarray(ref.energies)
-    check(len(e) == len(er) and bool(np.isfinite(e).all()),
-          f"{what}: {len(e)} finite energies")
-    de = float(np.abs(e - er).max())
-    deig = float(np.abs(res.eigenvalues - ref.eigenvalues).max())
-    drho = float((res.rho - ref.rho).abs().max())
-    rmax = float(ref.rho.abs().max())
-    check(de <= ENERGY_RTOL * max(1.0, float(np.abs(er).max())),
-          f"{what}: energies agree, max |dE| {de:.3e}")
-    check(bool(np.all(np.diff(res.eigenvalues, axis=1) >= -1e-6))
-          and deig <= EIG_ATOL * max(1.0, float(
-              np.abs(ref.eigenvalues).max())),
-          f"{what}: eigenvalues ascending and agree, max diff {deig:.3e}")
-    check(tuple(res.rho.shape) == (N, N, N)
-          and bool(torch.isfinite(res.rho).all())
-          and drho <= RHO_RTOL * rmax,
-          f"{what}: rho finite and agrees, max diff {drho:.3e} <= "
-          f"{RHO_RTOL:g}·{rmax:.3e}")
-    return {"max_dE": de, "max_deig": deig, "max_drho": drho}
-
-
-class Stamps:
-    """An SCF callback keeping the host clock at the end of every
-    iteration (after its host read of energy and residual)."""
-
-    def __init__(self, then=None):
-        self.t: list[float] = []
-        self.then = then
-
-    def __call__(self, it, energy, resid):
-        self.t.append(time.perf_counter())
-        if self.then is not None:
-            self.then(it, energy, resid)
-
-
-def iteration_times(res) -> dict:
-    """Seconds per iteration, two ways.  ``first_s``/``record_s``: the
-    run's own per-iteration records, which time each iteration's body
-    only (the eager loop mixes after the record is taken).  ``steady_s``:
-    the wall time between the ends of consecutive iterations (the
-    callback's host clock), the mixing included: what a user waits per
-    iteration, the same for every route."""
-    secs = [r["seconds"] for r in res.iteration_records]
-    t = res.stamps.t
-    walls = [b - a for a, b in zip(t, t[1:])]
-    return {"first_s": secs[0], "steady_s": sum(walls) / len(walls),
-            "steady_wall_s": walls, "record_s": secs}
-
-
-# ------------------------------------------------- executor modes, lazy SCF
-def check_exec_modes(torch, dev, gen):
-    """The stacked SCF's inverse plan (B=32, d=128 → n=256) on the "cuda"
-    backend under the eager executor and the lazy one in fp32 and bf16:
-    CUDA-event times, error against the eager result's largest value, peak
-    memory; then ``tune()`` of a fresh copy of that plan."""
-    from repro_torch.core import fftb
-    from repro_torch.core.policy import ExecPolicy
-    from repro_torch.dft.basis import PlaneWaveBasis
-    b = PlaneWaveBasis(N, diameter=DIAMETER, kpts=KPTS, nbands=NBANDS,
-                       backend="cuda", device=dev)
-    plan = b.stacked_inverse_plan()
-    print(f"executor modes at the stacked SCF's inverse plan "
-          f"{plan.tin.shape} -> {plan.tout.shape} (backend cuda):",
-          flush=True)
-    x = crandn(torch, gen, plan.tin.shape, dev)
-    ref = plan(x)
-    scale = float(ref.abs().max())
-    out = {}
-    for name, tol in (("eager", 0.0), ("lazy", 1e-5), ("lazy_bf16", 3e-2)):
-        pol = ExecPolicy.from_mode(name)
-        y = plan(x, policy=pol)
-        torch.cuda.synchronize(dev)
-        base = torch.cuda.memory_allocated(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
-        del y
-        y = plan(x, policy=pol)
-        torch.cuda.synchronize(dev)
-        peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
-        rel = float((y - ref).abs().max()) / scale
-        del y
-        ms = time_ms(torch, lambda pol=pol: plan(x, policy=pol), reps=5)
-        out[name] = {"ms": ms, "rel_err": rel, "peak_gib": peak}
-        print(f"  {name:9s}: {ms:.3f} ms, rel err {rel:.3e} of the eager "
-              f"result's largest value, peak {peak:.2f} GiB above the "
-              "input, the eager result and the output", flush=True)
-        if tol:
-            check(rel <= tol, f"{name} agrees with eager within {tol:g}")
-    del ref
-    # a plan of its own: tune() pins its winner on the plan it tunes
-    fresh = fftb(b._pw_spec, domains=plan.tin.domains, grid=b.grid,
-                 sizes=(N,) * 3, inverse=True, backend="cuda")
-    best = fresh.tune(x)
-    out["tune"] = {"seconds": fresh.tune_seconds,
-                   "winner": best.legacy_mode}
-    print("  tune(): " + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in
-                                   fresh.tune_seconds.items())
-          + f" per call (host clock, synchronized); winner "
-          f"{best.legacy_mode}", flush=True)
-    check(fresh.policy == best and best.legacy_mode in fresh.tune_seconds,
-          "tune() pinned its winner on the plan")
-    del x
-    return out
-
-
-def run_lazy_scf(torch, dev, ctx):
-    """The smoke SCF under ``ExecPolicy(mode="lazy")`` on "cuda", against
-    the eager "cuda" run of the same trajectory.  The fused sphere
-    kernels still unpack and pack; every other stage is a lazy GEMM, so
-    kernel #1 does not launch."""
-    from repro_torch.core.policy import ExecPolicy
-    from repro_torch.dft import run_scf
-    from repro_torch.kernels import sphere_pack
-    from repro_torch.kernels.dft_matmul import dft_matmul
-    wrappers = (dft_matmul, sphere_pack.unpack_dft, sphere_pack.dft_pack)
-    for fn in wrappers:
-        fn.launches = 0
-    torch.cuda.reset_peak_memory_stats(dev)
-    stamps = Stamps()
-    res = run_scf(scf_config("cuda", policy=ExecPolicy(mode="lazy")),
-                  device=dev, coeffs=ctx["coeffs"], callback=stamps)
-    res.stamps = stamps
-    peak = torch.cuda.max_memory_allocated(dev) / 2**30
-    launches = {fn.__name__: fn.launches for fn in wrappers}
-    print(f"SCF, lazy fp32 executor (cuda backend): launches {launches}",
-          flush=True)
-    check(launches["unpack_dft"] > 0 and launches["dft_pack"] > 0
-          and launches["dft_matmul"] == 0,
-          "the lazy route ran the sphere kernels and no line-DFT kernel")
-    agree = agreement(torch, res, ctx["cuda"], "lazy vs eager cuda")
-    t = iteration_times(res)
-    print(f"  lazy: first iteration {t['first_s']:.3f} s, steady "
-          f"{t['steady_s']:.3f} s/iteration, wall between iteration ends "
-          f"(eager cuda: {iteration_times(ctx['cuda'])['steady_s']:.3f}), "
-          f"peak {peak:.2f} GiB", flush=True)
-    return {**t, **agree, "peak_gib": peak, "launches": launches,
-            "energies": res.energies}
-
-
-# ---------------------------------------------------------- fused SCF step
-def run_fused_step(torch, dev, ctx):
-    """The smoke SCF with ``jit_step=True`` on "cuda": the step captured as
-    CUDA graphs and replayed.
-
-    Once with linear mixing (``mix_history=1``) against an eager run with
-    the same settings; once with the default Anderson mixer (device DIIS),
-    whose mixing replaces the eager loop's host mixer.  Launch counts:
-    the wrappers count a launch when their Python runs, which the fused
-    step does twice (the warm-up and the capture) and the replays never;
-    each captured launch is counted once, as half the run's count, and
-    the counts must not grow with the iterations.  Host syncs per steady
-    iteration are counted by ``torch.cuda.set_sync_debug_mode("warn")``
-    over one replayed iteration, between two callbacks.
-    """
-    import warnings
-
-    import numpy as np
-
-    from repro_torch.core import FftPlan
-    from repro_torch.dft import run_scf
-    from repro_torch.dft.scf import jit_mix, jit_mixer_init
-    from repro_torch.kernels import sphere_pack
-    from repro_torch.kernels.dft_matmul import dft_matmul
-    from repro_torch.obs import get_tracer
-    wrappers = (dft_matmul, sphere_pack.unpack_dft, sphere_pack.dft_pack)
-    tr = get_tracer()
-
-    stamps = Stamps()
-    eager = run_scf(scf_config("cuda", mix_history=1), device=dev,
-                    coeffs=ctx["coeffs"], callback=stamps)
-    eager.stamps = stamps
-    out = {"eager_linear": iteration_times(eager)}
-    print(f"SCF, eager loop with linear mixing on the device: steady "
-          f"{out['eager_linear']['steady_s']:.3f} s/iteration (wall between "
-          "iteration ends)", flush=True)
-    graphs_mod = sys.modules["repro_torch.dft.graphs"]
-    capture = graphs_mod.StepGraphs.capture
-    torch.cuda.empty_cache()
-    for name, kw in (("linear", {"mix_history": 1}),
-                     ("anderson", {"mix_warmup": 2})):
-        for fn in wrappers:
-            fn.launches = 0
-        marks = []
-        syncs = {}
-        captured = {}
-
-        def counted_capture(self, fn, *args):
-            # the launches inside the capture, each counted once: the
-            # replays re-issue them without running the wrappers
-            before = {f.__name__: f.launches for f in wrappers}
-            res = capture(self, fn, *args)
-            captured.update({f.__name__: f.launches - before[f.__name__]
-                             for f in wrappers})
-            return res
-
-        def callback(it, energy, resid, marks=marks):
-            marks.append((FftPlan.executions,
-                          {f.__name__: f.launches for f in wrappers}))
-            # iteration 1: count its host syncs; iteration 2: trace it
-            # (the graph and host-sync spans of StepGraphs.replay)
-            if it == 0:
-                torch.cuda.set_sync_debug_mode("warn")
-                syncs["start"] = len(caught)
-            elif it == 1:
-                torch.cuda.set_sync_debug_mode(0)
-                syncs["end"] = len(caught)
-                tr.clear()
-                tr.enable(sync=True, per_stage=False)
-            elif it == 2:
-                tr.disable()
-        stamps = Stamps(callback)
-        torch.cuda.reset_peak_memory_stats(dev)
-        graphs_mod.StepGraphs.capture = counted_capture
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            try:
-                res = run_scf(scf_config("cuda", jit_step=True, **kw),
-                              device=dev, coeffs=ctx["coeffs"],
-                              callback=stamps)
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-                graphs_mod.StepGraphs.capture = capture
-        res.stamps = stamps
-        tr.disable()
-        pieces = [{"name": e["name"] if e["name"] != "step_graph" else
-                   f"graph[{e['attrs']['index']}]",
-                   "ms": (e["t1"] - e["t0"]) * 1e3} for e in tr.events()
-                  if e["name"] == "step_graph"
-                  or e["name"].startswith("host_sync:")]
-        tr.clear()
-        peak = torch.cuda.max_memory_allocated(dev) / 2**30
-        found = [str(w.message) for w in caught[syncs["start"]:syncs["end"]]
-                 if "synchroniz" in str(w.message)
-                 and "prototype" not in str(w.message)]
-        st = res.graphs
-        t = iteration_times(res)
-        steady_execs = marks[-1][0] - marks[0][0]
-        steady_launches = {k: marks[-1][1][k] - marks[0][1][k]
-                           for k in captured}
-        print(f"SCF, fused step ({name} mixing, cuda backend): jitted "
-              f"{res.jitted}, {st['graphs']} graphs per iteration, "
-              f"{st['replays']} replays of the step ({st['graphs']} graph "
-              f"launches and {len(st['host_syncs'])} host syncs each), "
-              f"capture {st['capture_seconds']:.3f} s", flush=True)
-        print(f"  first iteration (warm-up + capture) {t['first_s']:.3f} s, "
-              f"steady {t['steady_s']:.3f} s/iteration (wall between "
-              f"iteration ends {[round(x, 4) for x in t['steady_wall_s']]}),"
-              f" peak {peak:.2f} GiB", flush=True)
-        print("  one steady iteration by piece (traced, synchronized "
-              "spans, ms): " + ", ".join(f"{p['name']} {p['ms']:.1f}"
-                                         for p in pieces), flush=True)
-        print(f"  host syncs in one steady iteration: {len(found)} seen by "
-              f"the sync debug mode; named: {st['host_syncs']} between the "
-              "graphs, plus the energy/residual read", flush=True)
-        print(f"  kernel launches captured (each counted once; the replays "
-              f"re-issue them): {captured}; wrapper launches over the "
-              f"steady iterations: {steady_launches}; FftPlan.executions "
-              f"over the steady iterations: {steady_execs}", flush=True)
-        check(res.jitted and st["replays"] == MAX_ITER - 1,
-              f"{name}: {MAX_ITER - 1} steady iterations replayed the graphs")
-        check(steady_execs == 0,
-              f"{name}: the steady iterations ran no plan call")
-        check(all(v > 0 for v in captured.values())
-              and not any(steady_launches.values()),
-              f"{name}: every kernel of the path was captured, and the "
-              "replays ran no wrapper")
-        check(len(found) == len(st["host_syncs"]) + 1,
-              f"{name}: {len(found)} host syncs per steady iteration = the "
-              f"{len(st['host_syncs'])} named ones + the energy/residual "
-              "read")
-        rec = {**t, "peak_gib": peak, "graphs": st["graphs"],
-               "replays": st["replays"], "host_syncs": st["host_syncs"],
-               "syncs_seen": len(found), "pieces": pieces,
-               "capture_s": st["capture_seconds"],
-               "captured_launches": captured,
-               "steady_plan_executions": steady_execs,
-               "energies": res.energies}
-        if name == "linear":
-            rec.update(agreement(torch, res, eager,
-                                 "fused step vs eager, linear mixing"))
-            # the multi-rank fused step is held against this run
-            ctx["fused_linear"] = res
-        else:
-            check(bool(np.isfinite(res.energies).all())
-                  and bool(np.all(np.diff(res.eigenvalues, axis=1)
-                                  >= -1e-6)),
-                  "anderson: finite energies, ascending eigenvalues")
-        out[name] = rec
-        del res
-        torch.cuda.empty_cache()
-    # the device mixer alone at n=256, history 5, its DIIS solve active
-    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
-    rho = torch.rand((N, N, N), generator=gen, device=dev)
-    state = jit_mixer_init(N ** 3, 5, dev)
-    for _ in range(5):
-        jit_mix(state, rho, rho * 1.01 + 0.001, alpha=0.7, warmup=0)
-    out["mix_ms"] = time_ms(torch, lambda: jit_mix(
-        state, rho, rho * 1.01 + 0.001, alpha=0.7, warmup=0), reps=5)
-    print(f"  device Anderson mix alone (n={N}, history 5): "
-          f"{out['mix_ms']:.3f} ms (CUDA events)", flush=True)
-    del state, rho
-    return out
-
-
-# ------------------------------------------------------------- multi-rank
-#: the multi-rank phase.  One card takes the ranks as processes that share
-#: it over gloo (NCCL takes one card per rank): gloo copies CUDA tensors
-#: through host memory, so its times show what local shard shapes cost
-#: per rank, and no scaling.  First the smoke SCF's widths on the 2×2
-#: batch×fft grid, MR_ITERS iterations eager and fused, each against one
-#: rank's run of as many (MAX_ITER until Granite-MoE's (1, 16) run came:
-#: the third iteration of each took ~26 s of the script's time and ran
-#: no other code), then the chooser's (2, 2, 2) pencil grid at the
-#: reference's own n = 16 (tests/test_dft.py).
-MR_PROCS, MR_GRID, MR_AXES = 4, (2, 2), ("dft_b", "dft_f")
-MR_ITERS, MR_TIMEOUT, MR_THREADS = 2, 600.0, 2
-PENCIL_PROCS, PENCIL_N, PENCIL_NBANDS = 8, 16, 4
-MR_TAG = "4 processes on one card, gloo"
-
-
-def _gib(x) -> str:
-    return "not measured" if x is None else f"{x:.2f} GiB"
-
-
-def _kernel_entry(torch, shape, kernel, plain, got=None, timed=True):
-    """One kernel call against its plain version on the same inputs, with
-    both timed (CUDA events) when ``timed``."""
-    got = kernel() if got is None else got
-    err, rel = rel_err(torch, got, plain())
-    return {"shape": shape, "max_abs_err": err, "rel_err": rel,
-            "ms": time_ms(torch, kernel) if timed else None,
-            "plain_ms": time_ms(torch, plain, reps=3) if timed else None}
-
-
-def pair_kernel_checks(torch, dev, inv, fwd, rows, v, rank, world,
-                       timed=True):
-    """Kernels #3 and #4 of one plan pair against their plain versions on
-    a rank's own inputs: #3 on its ``rows`` with the fused route's sliced
-    line tables, flag and chunk ranges; #4 in its ``partial`` mode on the
-    slab that the forward lead plan leaves from those rows times ``v``
-    (its lanes outside the rank's lines must be +0.0).  Every rank runs
-    the plans' all-to-alls first; then ranks take turns (a barrier between
-    them), so each one's CUDA-event times are its own."""
-    import torch.distributed as dist
-
-    from repro_torch.kernels import sphere_pack as sp
-    timed = timed and dev.type == "cuda"
-    ip, fp = inv._fused_in_parts(), fwd._fused_out_parts()
-    ustart, uzlo, ucnt, flag, chunks = ip["private"]
+    ip = pairs["paper-pair"][0]._fused_in_parts()
+    start, zlo, cnt, flag, chunks = ip["private"]
+    rows = crandn(torch, gen, ip["in_shape"], dev)
+    npk = rows.shape[1]
 
     def unpack():
-        return sp.unpack_dft(rows, ustart, uzlo, ucnt, flag, ip["w"],
+        return sp.unpack_dft(rows, start, zlo, cnt, flag, ip["w"],
                              chunks=chunks, wsplit=ip["wsplit"])
-    mid = unpack()
-    # the plans' other stages hold the all-to-alls: every rank runs them
-    slab = fp["lead"](ip["rem"](mid) * v)
-    start, zlo, cnt, nvalid = fp["private"]
-    npk, w = fp["out_shape"][1], fp["w"]
+    ms = time_ms(torch, unpack)
+    got = unpack()[:b].clone()
+    want = sp.unpack_dft_plain(rows[:b], start[:b], zlo[:b], cnt[:b], flag,
+                               ip["w"])
+    report("unpack_dft", list(pairs), f"({B},{npk})->({B},{d},{d},{n})", ms,
+           unpack_call(B, npk, int((cnt[0] > 0).sum()), d, n), got, want)
+    del rows, got, want
+    torch.cuda.empty_cache()
+    for cell, (_, fwd) in pairs.items():
+        fp = fwd._fused_out_parts()
+        start, zlo, cnt, nvalid = fp["private"]
+        npk, w = fp["out_shape"][1], fp["w"]
+        ds = w.shape[0]
+        slab = crandn(torch, gen, (B, n, ds, ds), dev).permute(0, 3, 2, 1)
+        check(sp.slab_layout(slab) == 2, f"{cell}: the z-major slab is "
+              "read in place (layout 2)")
 
-    def pack():
-        return sp.dft_pack(slab, start, zlo, cnt, nvalid, w, npk,
-                           wsplit=fp["wsplit"], partial=fp["partial"])
-    out = {}
-    for turn in range(world):
-        dist.barrier()
-        if turn != rank:
-            continue
-        out["unpack_dft"] = _kernel_entry(
-            torch, f"{tuple(rows.shape)}->{tuple(mid.shape)}", unpack,
-            lambda: sp.unpack_dft_plain(rows, ustart, uzlo, ucnt, flag,
-                                        ip["w"]), mid, timed)
-        got = pack()
-        out["dft_pack"] = _kernel_entry(
-            torch, f"{tuple(slab.shape)}->{tuple(got.shape)}", pack,
-            lambda: sp.dft_pack_plain(slab, start, zlo, cnt, nvalid, w,
-                                      npk), got, timed)
-        # the lanes the rank's lines do not cover: other ranks' x planes
-        # and padding, each written +0.0 for the all-reduce
-        z = torch.arange(w.shape[0], device=dev)
-        lane = start.long()[..., None] + z
-        inside = z < cnt.long()[..., None]
-        rr = torch.arange(got.shape[0], device=dev)[:, None, None]
-        mine = torch.zeros(got.shape, dtype=torch.bool, device=dev)
-        mine[rr.expand_as(lane)[inside], lane[inside]] = True
-        out["dft_pack"].update(partial=fp["partial"],
-                               other_lanes=int((~mine).sum()),
-                               other_lanes_plus_zero=is_plus_zero(
-                                   torch, got[~mine]))
-        del got, mine
-    del mid, slab
-    dist.barrier()
-    return out
-
-
-def line_kernel_checks(torch, dev, lines, rank, world):
-    """Kernel #1 against its plain version at each line shape in
-    ``lines`` (the rank's launches by ``(lines, n_in, n_out, inverse, L)``,
-    :meth:`LineStages.launched`), through the entry each took (the strided
-    one where L > 1), ranks taking turns as in :func:`pair_kernel_checks`."""
-    import torch.distributed as dist
-    gen = torch.Generator(device=dev).manual_seed(SEED + rank)
-    out = []
-    for turn in range(world):
-        dist.barrier()
-        if turn != rank:
-            continue
-        for M, n_in, n_out, inverse, L in lines:
-            kernel, _, plain, _, _, _ = line_entry(torch, gen, dev, M,
-                                                   n_in, n_out, inverse, L)
-            out.append(_kernel_entry(
-                torch, f"{M}x{n_in}->{n_out}{' inv' if inverse else ''}"
-                + (f" strided L={L}" if L > 1 else ""), kernel, plain,
-                timed=dev.type == "cuda"))
-            del kernel, plain
-    dist.barrier()
-    return out
-
-
-def rank_kernel_checks(torch, dev, basis, c_pad, v, lines, rank, world):
-    """Each kernel of a rank's H apply and SCF against its plain version
-    on the rank's own inputs: #3 and #4 on the stacked Hamiltonian pair
-    (:func:`pair_kernel_checks`, its rows of ``c_pad``), #1 at each line
-    shape in ``lines`` (:func:`line_kernel_checks`)."""
-    inv, fwd = basis.stacked_hamiltonian_plans()
-    rows = inv.local_rows(c_pad.reshape(-1, c_pad.shape[-1])).contiguous()
-    out = pair_kernel_checks(torch, dev, inv, fwd, rows, v, rank, world)
-    out["dft_matmul"] = line_kernel_checks(torch, dev, lines, rank, world)
-    if dev.type == "cuda":
+        def pack():
+            return sp.dft_pack(slab, start, zlo, cnt, nvalid, w, npk,
+                               wsplit=fp["wsplit"])
+        ms = time_ms(torch, pack)
+        got = pack()[:b]
+        want = sp.dft_pack_plain(slab[:b], start[:b], zlo[:b], cnt[:b],
+                                 nvalid[:b], w, npk)
+        report("dft_pack", [cell], f"({B},{ds},{ds},{n}) z-major->"
+               f"({B},{npk})", ms,
+               pack_call(B, npk, int((cnt[0] > 0).sum()), n), got, want)
+        del slab, got, want
         torch.cuda.empty_cache()
     return out
 
 
-def check_pair_kernels(what, k) -> None:
-    """The parent's checks of one :func:`pair_kernel_checks` result."""
-    for name in ("unpack_dft", "dft_pack"):
-        check(k[name]["rel_err"] <= KERNEL_RTOL,
-              f"{what}: {name} at {k[name]['shape']} vs its plain "
-              f"version, rel err {k[name]['rel_err']:.2e} <= "
-              f"{KERNEL_RTOL:g}")
-    p = k["dft_pack"]
-    check(p["partial"] and p["other_lanes"] > 0
-          and p["other_lanes_plus_zero"],
-          f"{what}: dft_pack(partial=True) wrote its {p['other_lanes']} "
-          "lanes of other x planes and padding +0.0")
-
-
-def check_line_kernels(what, lines) -> None:
-    """The parent's checks of one :func:`line_kernel_checks` result."""
-    check(len(lines) > 0, f"{what}: kernel #1 launched")
-    for k in lines:
-        check(k["rel_err"] <= KERNEL_RTOL,
-              f"{what}: dft_matmul at {k['shape']} vs its plain "
-              f"version, rel err {k['rel_err']:.2e} <= {KERNEL_RTOL:g}")
-
-
-def check_rank_kernels(r, what, kc) -> None:
-    """The parent's checks of one rank's :func:`rank_kernel_checks`."""
-    check_pair_kernels(f"{what} rank {r}", kc)
-    check_line_kernels(f"{what} rank {r}", kc["dft_matmul"])
-
-
-def print_service_kernels(r, kc) -> None:
-    def worst(name):
-        return max(k[name]["rel_err"] for k in kc["pairs"])
-    timed = "; ".join(
-        f"{name} {k[name]['shape']} {k[name]['ms']:.3f} ms (plain "
-        f"{k[name]['plain_ms']:.3f} ms)" for k in kc["pairs"]
-        for name in ("unpack_dft", "dft_pack") if k[name]["ms"] is not None)
-    print(f"  rank {r} service kernels at its own shapes ({MR_TAG}, one "
-          f"rank at a time; CUDA events, mean of 10): {len(kc['pairs'])} "
-          f"pairs, unpack_dft max rel err {worst('unpack_dft'):.1e}, "
-          f"dft_pack {worst('dft_pack'):.1e}; {timed}; dft_matmul at "
-          f"{len(kc['dft_matmul'])} line shapes, max rel err "
-          f"{max(k['rel_err'] for k in kc['dft_matmul']):.1e}", flush=True)
-
-
-def print_rank_kernels(r, kc) -> None:
-    def t(k):
-        return ("" if k["ms"] is None else
-                f" {k['ms']:.3f} ms (plain {k['plain_ms']:.3f} ms)")
-    print(f"  rank {r} kernels at its own shapes ({MR_TAG}, one rank at a "
-          "time; CUDA events, mean of 10): " + "; ".join(
-              f"{name} {k['shape']}{t(k)}, rel err {k['rel_err']:.1e}"
-              for name, k in (("unpack_dft", kc["unpack_dft"]),
-                              ("dft_pack", kc["dft_pack"]),
-                              *(("dft_matmul", k)
-                                for k in kc["dft_matmul"]))), flush=True)
-
-
-def rho_agreement(torch, rho, ref) -> dict:
-    """ρ against a reference ρ: largest difference and largest value."""
-    return {"max_diff": float((rho - ref).abs().max()),
-            "max_rho": float(ref.abs().max()), "shape": list(rho.shape),
-            "finite": bool(torch.isfinite(rho).all())}
-
-
-def multirank_rank(rank, job):
-    """One rank of the multi-rank phase (a spawned process of
-    ``repro_torch.sharding.procs.run_ranks``).  Sizes come in ``job``;
-    the rank measures and compares, and returns what it found: the
-    parent makes every check."""
-    import numpy as np
-    import torch
-
-    from repro_torch.core import ProcGrid
-    from repro_torch.core.plan import MoveStage
-    from repro_torch.dft import PlaneWaveBasis, SCFConfig, run_scf
-    from repro_torch.dft.hamiltonian import apply_hamiltonian_padded
-    from repro_torch.kernels import sphere_pack
-    from repro_torch.kernels.dft_matmul import dft_matmul
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device(job["device"])
-    if dev.type == "cuda":
-        torch.cuda.set_device(dev)
-    wrappers = (dft_matmul, sphere_pack.unpack_dft, sphere_pack.dft_pack)
-
-    def zero():
-        for fn in wrappers:
-            fn.launches = 0
-
-    def counts():
-        return {fn.__name__: fn.launches for fn in wrappers}
-
-    kpts = tuple(tuple(k) for k in job["kpts"])
-    if job["kind"] == "pencil":
-        from repro_torch.sharding.grids import choose_dft_grid
-        grid = choose_dft_grid(nbands=job["nbands"], nk=len(kpts),
-                               diameter=job["n"] // 2, device=dev)
-        zero()
-        stages = LineStages()
-        with stages.record("pencil"):
-            res = run_scf(SCFConfig(n=job["n"], nbands=job["nbands"],
-                                    kpts=kpts, max_iter=50, backend="cuda"),
-                          grid=grid)
-        out = {"grid": grid.shape, "energy": res.energy,
-               "converged": res.converged, "iterations": res.iterations,
-               "stacked": res.stacked, "launches": counts()}
-        zero()
-        res = run_scf(SCFConfig(n=job["n"], nbands=job["nbands"], kpts=kpts,
-                                max_iter=50, backend="cuda", jit_step=True),
-                      grid=grid)
-        out["fused"] = {"energy": res.energy, "converged": res.converged,
-                        "iterations": res.iterations, "jitted": res.jitted,
-                        "graphs": res.graphs.get("graphs"),
-                        "host_syncs": res.graphs.get("host_syncs", []),
-                        "launches": counts()}
-        basis = PlaneWaveBasis(job["n"], kpts=kpts, nbands=job["nbands"],
-                               grid=grid, backend="cuda")
-        inv, _ = basis.stacked_hamiltonian_plans()
-        gen = torch.Generator(device=dev).manual_seed(SEED)
-        c_pad = crandn(torch, gen, (len(kpts), job["nbands"],
-                                    inv.npacked_max), dev)
-        v = torch.rand(basis.field.local_shape, generator=gen, device=dev)
-        out["kernels"] = rank_kernel_checks(
-            torch, dev, basis, c_pad, v, stages.launched("pencil"), rank,
-            grid.nprocs)
-        return out
-
-    data = np.load(job["inputs"])
-    n, nb, nk = job["n"], job["nbands"], len(kpts)
-    grid = ProcGrid.create(MR_GRID, MR_AXES, device=dev)
-    basis = PlaneWaveBasis(n, diameter=job["d"], kpts=kpts, nbands=nb,
-                           grid=grid, backend="cuda")
-    coeffs = [torch.as_tensor(data[f"c{ik}"], device=dev)
-              for ik in range(nk)]
-    v = basis.field.scatter(torch.as_tensor(data["v"], device=dev))
-    inv, _ = basis.stacked_hamiltonian_plans()
-    c_pad = inv.stack(coeffs).reshape(nk, nb, inv.npacked_max)
-
-    def happly():
-        return apply_hamiltonian_padded(basis, c_pad, v)
-
-    happly()                                 # plans, tables, first launch
-    sync(torch, dev)
-    zero()
-    d0 = dict(sphere_pack.DISPATCHES)
-    stages = LineStages()
-    with stages.record("multirank"):
-        hc = happly()
-    sync(torch, dev)
-    out = {"coordinate": grid.coordinate, "h_launches": counts(),
-           "h_dispatches": {k: sphere_pack.DISPATCHES[k] - d0[k]
-                            for k in d0},
-           "h_ms": wall_ms(torch, happly, 3)}
-    if rank == 0:
-        ref = torch.as_tensor(data["hc"], device=dev)
-        err = float((hc - ref).abs().max())
-        pad = ~torch.as_tensor(data["valid"], device=dev)
-        lanes = torch.view_as_real(hc[pad[:, None, :].expand_as(hc)])
-        out["h_vs_one_rank"] = {
-            "max_abs_err": err, "rel_err": err / float(ref.abs().max()),
-            "padded_plus_zero": bool(((lanes == 0)
-                                      & ~torch.signbit(lanes)).all()),
-            "padded_lanes": int(pad.sum()) * nb}
-        del ref, lanes
-    # one all-to-all of the inverse transform, at its local shape
-    rem = inv._fused_in_parts()["rem"]
-    move = next(st for st in rem.stages if isinstance(st, MoveStage))
-    x = torch.ones(rem.tin.local_shape, dtype=torch.complex64, device=dev)
-    out["a2a_ms"] = wall_ms(torch, lambda: move.apply(x), 3)
-    out["a2a_shape"] = list(x.shape)
-    del hc, x
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(dev)
-    zero()
-    stamps = []
-    with stages.record("multirank"):
-        res = run_scf(
-            SCFConfig(n=n, diameter=job["d"], nbands=nb, kpts=kpts,
-                      stack_k=True, backend="cuda", max_iter=job["iters"],
-                      mix_warmup=job["iters"]),
-            grid=grid, coeffs=coeffs,
-            callback=lambda *a: stamps.append(time.perf_counter()))
-    walls = [b - a for a, b in zip(stamps, stamps[1:])]
-    out.update({
-        "scf_launches": counts(), "energies": res.energies,
-        "eigenvalues": res.eigenvalues, "grid_shape": res.grid_shape,
-        "stacked": res.stacked,
-        "first_s": res.iteration_records[0]["seconds"],
-        "steady_s": sum(walls) / len(walls) if walls else None,
-        "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
-                     if dev.type == "cuda" else None)})
-    if rank == 0:
-        ref = torch.as_tensor(data["rho"], device=dev)
-        out["rho_vs_one_rank"] = rho_agreement(torch, res.rho, ref)
-        del ref
-    rho_eager = res.rho.cpu()
-    del res
-    # the fused step on the same grid, configuration and start, with
-    # linear mixing as the one-rank fused run it is held against
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(dev)
-    zero()
-    stamps = []
-    res = run_scf(
-        SCFConfig(n=n, diameter=job["d"], nbands=nb, kpts=kpts,
-                  stack_k=True, backend="cuda", max_iter=job["iters"],
-                  mix_warmup=job["iters"], mix_history=1, jit_step=True),
-        grid=grid, coeffs=coeffs,
-        callback=lambda *a: stamps.append(time.perf_counter()))
-    walls = [b - a for a, b in zip(stamps, stamps[1:])]
-    out["fused"] = {
-        "launches": counts(), "energies": res.energies,
-        "eigenvalues": res.eigenvalues, "jitted": res.jitted,
-        "graphs": res.graphs.get("graphs"),
-        "host_syncs": res.graphs.get("host_syncs", []),
-        "replays": res.graphs.get("replays"),
-        "capture_s": res.graphs.get("capture_seconds"),
-        "first_s": res.iteration_records[0]["seconds"],
-        "steady_s": sum(walls) / len(walls) if walls else None,
-        "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
-                     if dev.type == "cuda" else None)}
-    if rank == 0:
-        ref = torch.as_tensor(data["rho_fused"], device=dev)
-        out["fused"]["rho_vs_one_rank"] = rho_agreement(torch, res.rho, ref)
-        out["fused"]["rho_vs_eager"] = rho_agreement(
-            torch, res.rho, rho_eager.to(dev))
-        del ref
-    del res, rho_eager
-    # every kernel of the path against its plain version at the rank's
-    # shapes: kernel #1 at each line shape of its H apply and SCF
-    out["kernels"] = rank_kernel_checks(
-        torch, dev, basis, c_pad, v, stages.launched("multirank"), rank,
-        grid.nprocs)
-    return out
-
-
-def sync_counts(names) -> dict:
-    """The host syncs of one fused step by name, with their counts."""
-    from collections import Counter
-    return dict(Counter(names))
-
-
-def check_multirank_fused(ranks, eager, one):
-    """The parent's checks of the fused step on the 2×2 grid: against the
-    same grid's eager run (``ranks[r]``'s eager record) and against one
-    rank's fused run ``one``, to PERF.md §2's limits."""
-    import numpy as np
-    f0 = ranks[0]["fused"]
-    for r, out in enumerate(ranks):
-        f = out["fused"]
-        print(f"  rank {r} {out['coordinate']}, fused step: {f['graphs']} "
-              f"graphs and {len(f['host_syncs'])} host syncs per iteration,"
-              f" first iteration (warm-up + capture) {f['first_s']:.3f} s, "
-              f"steady {f['steady_s']:.3f} s/iteration, peak "
-              f"{_gib(f['peak_gib'])} ({MR_TAG}); launches (the warm-up's "
-              f"and the capture's; replays launch no wrapper) "
-              f"{f['launches']}", flush=True)
-        check(all(v > 0 for v in f["launches"].values()),
-              f"rank {r}: kernels #1, #3, #4 launched in its fused step")
-        check(f["energies"] == f0["energies"],
-              f"rank {r}: the fused step's energies equal rank 0's")
-        if f["graphs"] is not None:
-            check(f["jitted"] and f["replays"] == len(f["energies"]) - 1,
-                  f"rank {r}: the steady iterations replayed the graphs")
-    print(f"  fused step host syncs per iteration, by name: "
-          f"{sync_counts(f0['host_syncs'])}", flush=True)
-    e = np.asarray(f0["energies"])
-    out = {}
-    for what, ref_e, ref_eig, rho in (
-            ("2x2 eager run", ranks[0]["energies"], ranks[0]["eigenvalues"],
-             f0["rho_vs_eager"]),
-            ("one rank's fused step", one.energies, one.eigenvalues,
-             f0["rho_vs_one_rank"])):
-        er = np.asarray(ref_e)
-        de = float(np.abs(e - er).max()) if len(e) == len(er) else np.inf
-        deig = float(np.abs(f0["eigenvalues"] - ref_eig).max())
-        check(bool(np.isfinite(e).all()) and de <= ENERGY_RTOL * max(
-            1.0, float(np.abs(er).max())),
-              f"fused step on {MR_GRID} vs the {what}: energies agree, max "
-              f"|dE| {de:.3e}")
-        check(deig <= EIG_ATOL * max(1.0, float(np.abs(ref_eig).max())),
-              f"fused step on {MR_GRID} vs the {what}: eigenvalues agree, "
-              f"max diff {deig:.3e}")
-        check(rho["shape"] == [N, N, N] and rho["finite"]
-              and rho["max_diff"] <= RHO_RTOL * rho["max_rho"],
-              f"fused step on {MR_GRID} vs the {what}: rho agrees, max diff "
-              f"{rho['max_diff']:.3e} <= {RHO_RTOL:g}·{rho['max_rho']:.3e}")
-        out[what] = {"max_dE": de, "max_deig": deig,
-                     "max_drho": rho["max_diff"]}
-    steady = [o["fused"]["steady_s"] for o in ranks]
-    print(f"  fused step: steady {max(steady):.3f} s/iteration (slowest "
-          f"rank) against the eager run's "
-          f"{max(o['steady_s'] for o in ranks):.3f} ({MR_TAG})", flush=True)
-    return {"graphs": f0["graphs"], "host_syncs": sync_counts(
-                f0["host_syncs"]),
-            "steady_s_per_rank": steady,
-            "first_s_per_rank": [o["fused"]["first_s"] for o in ranks],
-            "capture_s_per_rank": [o["fused"]["capture_s"] for o in ranks],
-            "peak_gib_per_rank": [o["fused"]["peak_gib"] for o in ranks],
-            "launches_per_rank": [o["fused"]["launches"] for o in ranks],
-            "agreement": out}
-
-def run_multirank(torch, dev, ctx, gpu):
-    """The multi-rank phase: the smoke SCF's stacked H apply and SCF on
-    the 2×2 (batch × fft) grid over four processes, each held against the
-    single-rank "cuda" run; then the (2, 2, 2) pencil grid over eight
-    processes at n = 16.  Any rank's failure, or a run past
-    ``MR_TIMEOUT``, fails the phase."""
-    import numpy as np
-
-    from repro_torch.dft import PlaneWaveBasis, SCFConfig, run_scf
-    from repro_torch.dft.hamiltonian import apply_hamiltonian_padded
-    from repro_torch.dft.potentials import gaussian_wells
-    from repro_torch.sharding.procs import run_ranks
-    print(f"multi-rank phase ({MR_TAG}; gloo carries each collective "
-          "through host memory, so these times are per-rank costs of the "
-          "local shard shapes, not a scaling measurement): grid "
-          f"{MR_GRID} {MR_AXES}, n={N} d={DIAMETER} nbands={NBANDS} "
-          f"kpts={KPTS} (B={len(KPTS) * NBANDS}), {MR_ITERS} SCF "
-          f"iterations; card {gpu}", flush=True)
-    os.makedirs(MR_DIR, exist_ok=True)
-    path = os.path.join(MR_DIR, "inputs.npz")
-    basis = PlaneWaveBasis(N, diameter=DIAMETER, kpts=KPTS, nbands=NBANDS,
-                           device=dev, backend="cuda")
-    inv, _ = basis.stacked_hamiltonian_plans()
-    coeffs = ctx["coeffs"]
-    v = gaussian_wells(N)
-    c_pad = inv.stack(coeffs).reshape(len(KPTS), NBANDS, inv.npacked_max)
-    hc = apply_hamiltonian_padded(basis, c_pad,
-                                  torch.as_tensor(v, device=dev))
-    ref = ctx["cuda"]
-    if MR_ITERS != len(ref.energies):
-        ref = run_scf(scf_config("cuda", max_iter=MR_ITERS,
-                                 mix_warmup=MR_ITERS),
-                      device=dev, coeffs=coeffs)
-    fused = ctx["fused_linear"]
-    if MR_ITERS != len(fused.energies):
-        fused = run_scf(scf_config("cuda", max_iter=MR_ITERS,
-                                   mix_warmup=MR_ITERS, mix_history=1,
-                                   jit_step=True),
-                        device=dev, coeffs=coeffs)
-    np.savez(path, v=v, hc=hc.cpu().numpy(), rho=ref.rho.cpu().numpy(),
-             rho_fused=fused.rho.cpu().numpy(), valid=inv.valid_lanes(),
-             **{f"c{ik}": c.cpu().numpy() for ik, c in enumerate(coeffs)})
-    del hc, c_pad
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
-    job = {"kind": "full", "device": str(dev), "inputs": path, "n": N,
-           "d": DIAMETER, "nbands": NBANDS, "kpts": KPTS,
-           "iters": MR_ITERS}
-    t0 = time.perf_counter()
-    ranks = run_ranks(multirank_rank, MR_PROCS, args=(job,),
-                      rendezvous_dir=MR_DIR, timeout=MR_TIMEOUT,
-                      threads=MR_THREADS)
-    seconds = time.perf_counter() - t0
-    os.remove(path)
-    for r, out in enumerate(ranks):
-        hl, sl = out["h_launches"], out["scf_launches"]
-        print(f"  rank {r} {out['coordinate']}: H apply {out['h_ms']:.1f} "
-              f"ms, one all-to-all of {out['a2a_shape']} "
-              f"{out['a2a_ms']:.1f} ms, SCF first iteration "
-              f"{out['first_s']:.3f} s, steady {out['steady_s']:.3f} "
-              f"s/iteration, peak {_gib(out['peak_gib'])} ({MR_TAG}); "
-              f"launches: H apply {hl}, SCF {sl}", flush=True)
-        check(out["h_dispatches"] == {"unpack_dft": 1, "dft_pack": 1},
-              f"rank {r}: the H apply took the fused route, x sharded")
-        check(all(hl[k] > 0 for k in hl) and all(sl[k] > 0 for k in sl),
-              f"rank {r}: kernels #1, #3, #4 launched in its H apply and "
-              "its SCF")
-        check(out["grid_shape"] == MR_GRID and out["stacked"],
-              f"rank {r}: SCF on the {MR_GRID} grid, stacked route")
-        print_rank_kernels(r, out["kernels"])
-        check_rank_kernels(r, f"{MR_GRID}", out["kernels"])
-    h = ranks[0]["h_vs_one_rank"]
-    check(h["rel_err"] <= PAIR_RTOL,
-          f"H apply on {MR_GRID} vs one rank: {h['max_abs_err']:.3e} "
-          f"({h['rel_err']:.2e} of the largest value) <= {PAIR_RTOL:g}")
-    check(h["padded_plus_zero"],
-          f"H apply on {MR_GRID}: its {h['padded_lanes']} padded lanes are "
-          "exactly +0.0 after the all-reduce")
-    rho = ranks[0]["rho_vs_one_rank"]
-    e, er = np.asarray(ranks[0]["energies"]), np.asarray(ref.energies)
-    check(all(out["energies"] == ranks[0]["energies"] for out in ranks),
-          "every rank reports the same energies")
-    check(len(e) == len(er) == MR_ITERS and bool(np.isfinite(e).all()),
-          f"{MR_ITERS} finite energies")
-    de = float(np.abs(e - er).max())
-    deig = float(np.abs(ranks[0]["eigenvalues"] - ref.eigenvalues).max())
-    check(de <= ENERGY_RTOL * max(1.0, float(np.abs(er).max())),
-          f"SCF on {MR_GRID} vs one rank: energies agree, max |dE| "
-          f"{de:.3e}")
-    check(deig <= EIG_ATOL * max(1.0, float(np.abs(ref.eigenvalues).max())),
-          f"SCF on {MR_GRID} vs one rank: eigenvalues agree, max diff "
-          f"{deig:.3e}")
-    check(rho["shape"] == [N, N, N] and rho["finite"]
-          and rho["max_diff"] <= RHO_RTOL * rho["max_rho"],
-          f"SCF on {MR_GRID} vs one rank: rho agrees, max diff "
-          f"{rho['max_diff']:.3e} <= {RHO_RTOL:g}·{rho['max_rho']:.3e}")
-    steady = [out["steady_s"] for out in ranks]
-    print(f"  {MR_PROCS} ranks: steady {max(steady):.3f} s/iteration "
-          f"(slowest rank), {seconds:.1f} s for the whole run ({MR_TAG})",
+def run_cell_pairs(torch, dev, gen, gpu: str, pairs: dict,
+                   wrappers: dict) -> dict:
+    """One 128-band call pair of each cell through the port's main path,
+    as the benchmark's drivers call it (``paper-pair``: ``unpack_transform``
+    then ``transform_pack``; ``gw-mtxel``: ``pair_density`` against one
+    valence band), after a first pair that builds every shape, with every
+    kernel wrapper's count set to 0 just before and read just after: the
+    launches must be ``PAIR_LAUNCHES``, and ``paper-pair``'s pair must
+    give back its coefficients within ``KERNEL_RTOL``.  Returns each
+    cell's launches (the pairs' times are the benchmark's)."""
+    from repro_torch.dft import pair_density, valence_conjugates
+    print(f"one call pair of each cell through the main path ({gpu}):",
           flush=True)
-    mr_fused = check_multirank_fused(ranks, ref, fused)
-
-    # the pencil grid of the reference's case, against one rank
-    pcfg = SCFConfig(n=PENCIL_N, nbands=PENCIL_NBANDS, kpts=KPTS,
-                     max_iter=50, backend="cuda", stack_k=True)
-    one = run_scf(pcfg, device=dev)
-    job = {"kind": "pencil", "device": str(dev), "n": PENCIL_N,
-           "nbands": PENCIL_NBANDS, "kpts": KPTS}
-    t0 = time.perf_counter()
-    pencil = run_ranks(multirank_rank, PENCIL_PROCS, args=(job,),
-                       rendezvous_dir=MR_DIR, timeout=MR_TIMEOUT / 2,
-                       threads=1)
-    pseconds = time.perf_counter() - t0
-    for r, out in enumerate(pencil):
-        check(out["grid"] == (2, 2, 2) and out["converged"]
-              and out["stacked"]
-              and all(c > 0 for c in out["launches"].values()),
-              f"pencil rank {r}: grid {out['grid']} from choose_dft_grid, "
-              f"converged in {out['iterations']}, launches "
-              f"{out['launches']}")
-        print_rank_kernels(r, out["kernels"])
-        check_rank_kernels(r, "pencil", out["kernels"])
-    dp = abs(pencil[0]["energy"] - one.energy)
-    check(len({out["energy"] for out in pencil}) == 1
-          and dp <= ENERGY_RTOL * abs(one.energy),
-          f"pencil SCF (n={PENCIL_N}, 8 processes): E "
-          f"{pencil[0]['energy']:.6f} vs one rank {one.energy:.6f}, "
-          f"|dE| {dp:.2e}")
-    pf = pencil[0]["fused"]
-    dpf = abs(pf["energy"] - pencil[0]["energy"])
-    print(f"  pencil fused step: {pf['graphs']} graphs and "
-          f"{len(pf['host_syncs'])} host syncs per iteration "
-          f"({sync_counts(pf['host_syncs'])}), {pf['iterations']} "
-          f"iterations; launches per rank "
-          f"{[out['fused']['launches'] for out in pencil]}", flush=True)
-    check(all(out["fused"]["converged"] and out["fused"]["energy"]
-              == pf["energy"] for out in pencil)
-          and dpf <= ENERGY_RTOL * abs(pencil[0]["energy"]),
-          f"pencil fused step (jit_step=True, 8 processes): converged, E "
-          f"{pf['energy']:.6f} vs its eager run, |dE| {dpf:.2e}")
-    check(all(out["fused"]["jitted"] for out in pencil)
-          or dev.type != "cuda",
-          "pencil fused step replayed CUDA graphs on every rank")
-    print(f"  pencil run: {pseconds:.1f} s (8 processes on one card, "
-          "gloo)", flush=True)
-    return {"tag": MR_TAG, "grid": list(MR_GRID), "iterations": MR_ITERS,
-            "seconds": seconds, "steady_s_per_rank": steady,
-            "h_ms_per_rank": [out["h_ms"] for out in ranks],
-            "a2a_ms_per_rank": [out["a2a_ms"] for out in ranks],
-            "a2a_shape": ranks[0]["a2a_shape"],
-            "first_s_per_rank": [out["first_s"] for out in ranks],
-            "peak_gib_per_rank": [out["peak_gib"] for out in ranks],
-            "h_apply_vs_one_rank": h, "max_dE": de, "max_deig": deig,
-            "max_drho": rho["max_diff"],
-            "launches_per_rank": [out["scf_launches"] for out in ranks],
-            "h_launches_per_rank": [out["h_launches"] for out in ranks],
-            "kernels_per_rank": [out["kernels"] for out in ranks],
-            "fused": mr_fused,
-            "pencil": {"energy": pencil[0]["energy"],
-                       "one_rank_energy": one.energy, "dE": dp,
-                       "iterations": pencil[0]["iterations"],
-                       "seconds": pseconds,
-                       "launches_per_rank": [out["launches"]
-                                             for out in pencil],
-                       "fused": {"energy": pf["energy"], "dE": dpf,
-                                 "iterations": pf["iterations"],
-                                 "graphs": pf["graphs"],
-                                 "host_syncs": len(pf["host_syncs"]),
-                                 "launches_per_rank": [
-                                     out["fused"]["launches"]
-                                     for out in pencil]},
-                       "kernels_per_rank": [out["kernels"]
-                                            for out in pencil]}}
-
-
-
-def multirank_service_rank(rank, job):
-    """One rank of the multi-rank service phase (a spawned process of
-    ``run_ranks``): rank 0 is the service's front end and sends the trace
-    three times (:func:`serve_trace`), holding every result against the
-    one-rank service's; the other ranks follow it (``start``, then
-    ``stop``, which returns on the front end's stop).  Each rank counts
-    its kernel launches from 0 over the run."""
-    import numpy as np
-    import torch
-
-    from repro_torch.core import ProcGrid
-    from repro_torch.kernels import sphere_pack
-    from repro_torch.kernels.dft_matmul import dft_matmul
-    from repro_torch.serve import DeadlineExceeded
-    # the service's sizes as the parent has them (a spawned process
-    # imports this module afresh)
-    globals().update(job["sizes"])
-    stages = LineStages()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device(job["device"])
-    if dev.type == "cuda":
-        torch.cuda.set_device(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
-    grid = ProcGrid.create(MR_GRID, MR_AXES, device=dev)
-    wrappers = (dft_matmul, sphere_pack.unpack_dft, sphere_pack.dft_pack)
-    for fn in wrappers:
-        fn.launches = 0
-    out = {"coordinate": grid.coordinate}
-    t0 = time.perf_counter()
-    if rank == grid.ranks[0]:
-        reqs = service_requests(np.random.default_rng(SEED + 2))
-        with stages.record("service"):
-            svc, passes = serve_trace(dev, "cuda", reqs, grid=grid)
-        one = np.load(job["one_rank"])
-        ok = [i for i, r in enumerate(reqs) if r["deadline"] is None]
-        late = [i for i, r in enumerate(reqs) if r["deadline"] is not None]
-        rel, bitwise, resolved = 0.0, True, True
-        for p in passes:
-            for i in ok:
-                got, want = p["results"][i], one[f"r{i}"]
-                if not isinstance(got, np.ndarray):
-                    resolved = False
-                    continue
-                rel = max(rel, float(np.abs(got - want).max()
-                                     / np.abs(want).max()))
-                bitwise &= bool(np.array_equal(got, want))
-        out.update({
-            "passes": [{"name": p["name"], "summary": p["summary"],
-                        "batches": p["batches"],
-                        "dispatch_ms": p["dispatch_ms"],
-                        "pieces": p["pieces"]} for p in passes],
-            "resolved": resolved, "rel_err": rel, "bitwise": bitwise,
-            "late_failed": all(isinstance(p["results"][i],
-                                          DeadlineExceeded)
-                               for p in passes for i in late),
-            "padding": svc.padding})
-    else:
-        svc = make_service(dev, "cuda", grid)
-        with stages.record("service"):
-            svc.start()
-            svc.stop(timeout=job["timeout"])
-    out["seconds"] = time.perf_counter() - t0
-    out["launches"] = {fn.__name__: fn.launches for fn in wrappers}
-    out["peak_gib"] = (torch.cuda.max_memory_allocated(dev) / 2**30
-                       if dev.type == "cuda" else None)
-    # every kernel of the path against its plain version at the rank's
-    # shapes, after the count: #3 and #4 on every pair the rank ran, #1
-    # at each line shape of its dispatches and warm-ups
-    out["kernels"] = service_kernel_checks(
-        torch, dev, svc.pairs, stages.launched("service"), rank, grid.nprocs)
-    return out
-
-
-def service_kernel_checks(torch, dev, pairs, lines, rank, world):
-    """Kernels #3 and #4 of every plan pair a service rank ran
-    (:func:`watch_pairs`; the same pairs in the same order on every rank)
-    against their plain versions, on random rows and a random potential
-    of the rank's shapes, the first pair of each (sphere extents, bucket)
-    timed; kernel #1 at each line shape in ``lines``."""
-    gen = torch.Generator(device=dev).manual_seed(SEED + rank)
-    out = {"pairs": []}
-    timed = set()
-    for (_, bucket), (extents, inv, fwd) in pairs.items():
-        rows = inv.local_rows(crandn(torch, gen, (bucket, inv.npacked_max),
-                                     dev)).contiguous()
-        v = torch.rand(inv.tout.local_shape[1:], generator=gen, device=dev)
-        k = pair_kernel_checks(torch, dev, inv, fwd, rows, v, rank, world,
-                               timed=(extents, bucket) not in timed)
-        timed.add((extents, bucket))
-        out["pairs"].append({"extents": list(extents), "bucket": bucket,
-                             **k})
-        del rows, v
-    out["dft_matmul"] = line_kernel_checks(torch, dev, lines, rank, world)
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
-    return out
-
-
-def run_multirank_service(torch, dev, gpu, served):
-    """The service phase's trace on the 2×2 (batch × fft) grid of four
-    processes over gloo, front end rank 0: every result held against the
-    one-rank service's (``served``, its warm pass), padded lanes +0.0,
-    the deadline=0.0 request failed, kernels #1, #3, #4 launched on every
-    rank.  Any rank's failure, or a run past ``MR_TIMEOUT``, fails it."""
-    import numpy as np
-
-    from repro_torch.sharding.procs import run_ranks
-    print(f"multi-rank service ({MR_TAG}): grid {MR_GRID} {MR_AXES} "
-          f"(batch x fft), n={SERVICE_N}, max_rows={SERVICE_MAX_ROWS}, "
-          f"backend cuda, front end rank 0, start() + async warming; card "
-          f"{gpu}", flush=True)
-    os.makedirs(MR_DIR, exist_ok=True)
-    path = os.path.join(MR_DIR, "service.npz")
-    np.savez(path, **{f"r{i}": r for i, r in enumerate(served)
-                      if isinstance(r, np.ndarray)})
-    job = {"device": str(dev), "one_rank": path, "timeout": MR_TIMEOUT,
-           "sizes": {k: globals()[k] for k in (
-               "SERVICE_N", "SERVICE_D", "SERVICE_D_SMALL",
-               "SERVICE_MAX_ROWS")}}
-    t0 = time.perf_counter()
-    ranks = run_ranks(multirank_service_rank, MR_PROCS, args=(job,),
-                      rendezvous_dir=MR_DIR, timeout=MR_TIMEOUT,
-                      threads=MR_THREADS)
-    seconds = time.perf_counter() - t0
-    os.remove(path)
-    front = ranks[0]
-    for p in front["passes"]:
-        s = p["summary"]
-        print(f"  {p['name']} pass ({MR_TAG}, {gpu}): latency p50 "
-              f"{s['latency_p50_ms']} ms, p99 {s['latency_p99_ms']} ms, "
-              f"{s['requests_per_s']} requests/s, {s['dispatches']} "
-              f"dispatches ({s['coalesced_dispatches']} coalesced); "
-              f"batches {p['batches']}", flush=True)
-    warm = front["passes"][1]
-    print(f"  warm pass: serve.dispatch spans {warm['dispatch_ms']} ms",
-          flush=True)
-    print_pieces(f"synced pass ({MR_TAG})", front["passes"][2]["pieces"])
-    for r, out in enumerate(ranks):
-        print(f"  rank {r} {out['coordinate']}: launches {out['launches']},"
-              f" {out['seconds']:.1f} s, peak {_gib(out['peak_gib'])} "
-              f"({MR_TAG})", flush=True)
-        check(all(v > 0 for v in out["launches"].values()),
-              f"rank {r}: kernels #1, #3, #4 launched in its dispatches")
-        kc = out["kernels"]
-        check(len(kc["pairs"]) > 0, f"service rank {r}: pairs recorded")
-        for i, k in enumerate(kc["pairs"]):
-            check_pair_kernels(f"service rank {r} pair {i} (sphere extents "
-                               f"{tuple(k['extents'])}, bucket "
-                               f"{k['bucket']})", k)
-        check_line_kernels(f"service rank {r}", kc["dft_matmul"])
-        print_service_kernels(r, kc)
-    check(front["resolved"] and front["late_failed"],
-          "every request resolved on the front end, the deadline=0.0 one "
-          "with DeadlineExceeded")
-    check(front["passes"][0]["summary"]["coalesced_dispatches"] >= 1,
-          "requests coalesced on the grid")
-    check(front["rel_err"] <= KERNEL_RTOL,
-          f"every result vs the one-rank service: max rel err "
-          f"{front['rel_err']:.3e} <= {KERNEL_RTOL:g}; bitwise "
-          f"{front['bitwise']}")
-    pad = front["padding"]
-    check(pad["plus_zero"] and pad["padded_lanes"] > 0,
-          f"the {pad['padded_lanes']} padded lanes of {pad['blocks']} "
-          "packed blocks are exactly +0.0")
-    print(f"  {MR_PROCS} ranks: {seconds:.1f} s for the whole run "
-          f"({MR_TAG})", flush=True)
-    return {"tag": MR_TAG, "grid": list(MR_GRID), "seconds": seconds,
-            "passes": [{k: p[k] for k in ("name", "summary",
-                                           "dispatch_ms", "pieces")}
-                       for p in front["passes"]],
-            "rel_err": front["rel_err"], "bitwise": front["bitwise"],
-            "padding": pad,
-            "launches_per_rank": [out["launches"] for out in ranks],
-            "kernels_per_rank": [out["kernels"] for out in ranks],
-            "seconds_per_rank": [out["seconds"] for out in ranks],
-            "peak_gib_per_rank": [out["peak_gib"] for out in ranks]}
-
-def breakdown(torch, dev):
-    """Host-clock time of each piece of one SCF iteration, per route.
-
-    One iteration is 2 Hartree solves (v_eff and the energy), 2·inner_steps
-    stacked H applies, inner_steps band-update linalg steps (descent
-    direction + Rayleigh-Ritz), one density build and one mixing step;
-    the model sums those against the measured iteration.
-    """
-    import numpy as np
-
-    from repro_torch.dft import (HartreeSolver, PlaneWaveBasis,
-                                 apply_hamiltonian_padded,
-                                 density_from_orbitals)
-    from repro_torch.dft.hamiltonian import (_descent_direction_stacked,
-                                             _rayleigh_ritz_stacked)
-    from repro_torch.dft.scf import AndersonMixer, SCFConfig
-
-    steps = SCFConfig().inner_steps
-
-    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    v = torch.randn((N, N, N), generator=gen, device=dev)
-    rho = torch.rand((N, N, N), generator=gen, device=dev)
     out = {}
-    for backend in ("cuda", "matmul"):
-        b = PlaneWaveBasis(N, diameter=DIAMETER, kpts=KPTS, nbands=NBANDS,
-                           backend=backend, device=dev)
-        inv, _ = b.stacked_hamiltonian_plans()
-        c = crandn(torch, gen, (b.nk, NBANDS, b.npacked_max), dev)
-        tab = b.stacked_band_tables()
-        blocks = inv.split(c.reshape(-1, b.npacked_max))
-        hart = HartreeSolver(b)
-        occ = np.ones((b.nk, NBANDS))
-        mixer = AndersonMixer(history=5, warmup=MAX_ITER)
-        t = {"hartree_ms": wall_ms(torch, lambda: hart(rho)),
-             "h_apply_ms": wall_ms(
-                 torch,
-                 lambda: apply_hamiltonian_padded(b, c, v, tab.kinetic)),
-             "linalg_step_ms": wall_ms(
-                 torch, lambda: _rayleigh_ritz_stacked(
-                     c, _descent_direction_stacked(c, c, tab.precond), c,
-                     c)),
-             "density_ms": wall_ms(
-                 torch,
-                 lambda: density_from_orbitals(b, blocks, occ)),
-             "mix_ms": wall_ms(torch, lambda: mixer.mix(rho, rho))}
-        t["model_iteration_ms"] = (2 * t["hartree_ms"]
-                                   + 2 * steps * t["h_apply_ms"]
-                                   + steps * t["linalg_step_ms"]
-                                   + t["density_ms"] + t["mix_ms"])
-        out[backend] = t
-        print(f"  {backend:6s}: " + ", ".join(
-            f"{k} {val:.1f}" for k, val in t.items()), flush=True)
-        del c, blocks
-    return out
-
-
-def compare_kernel1(torch, dev, other: str, pairs: int = 10) -> list:
-    """Kernel #1 of this tree against kernel #1 built from the sources of
-    another checkout ``other`` (a ``git archive`` of an earlier commit),
-    in ``pairs`` pairs per line shape of ``CALL_C_MS``, alternating which
-    side runs first; each side's time is the mean of launches enough for
-    ~5 ms.  Prints and returns each shape's medians and their ratio."""
-    import ctypes
-    import statistics
-
-    from repro_torch.core.local_fft import dft_matrix_device
-    from repro_torch.kernels import build
-    from repro_torch.kernels.ops import dft_operand_device
-    src = os.path.join(other, "src/repro_torch/kernels/csrc/dft_matmul.cu")
-    so = os.path.join(HERE, "build", "compare", "dft_matmul_other.so")
-    os.makedirs(os.path.dirname(so), exist_ok=True)
-    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", so, src],
-                   check=True, capture_output=True, timeout=600)
-    libs = {"other": ctypes.CDLL(so), "this": build.library("dft_matmul")}
-    p, i = ctypes.c_void_p, ctypes.c_int
-    libs["other"].dft_matmul_launch.argtypes = [p, p, p, ctypes.c_longlong,
-                                                i, i, i, p]
-    libs["other"].dft_matmul_launch.restype = i
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    print(f"kernel #1, this tree against {other} ({gpu_line()}; {pairs} "
-          "alternating pairs per shape, medians):", flush=True)
-    rows = []
-    for (M, K, Nn, inverse) in CALL_C_MS:
-        x = crandn(torch, torch.Generator(device=dev).manual_seed(SEED),
-                   (M, K), dev)
-        _, _, w = dft_matrix_device(Nn, K, inverse, dev)
-        ws = dft_operand_device(Nn, K, inverse, w.device)
-        y = torch.empty((M, Nn), dtype=torch.complex64, device=dev)
-
-        def launch(lib):
-            build.check(lib.dft_matmul_launch(
-                x.data_ptr(), ws.data_ptr(), y.data_ptr(), M, Nn, K, 1,
-                stream), "dft_matmul")
-        reps = max(5, int(5.0 / time_ms(torch, lambda: launch(libs["this"]),
-                                        reps=3)))
-        times = {"this": [], "other": []}
-        for k in range(pairs):
-            for side in (("other", "this") if k % 2 == 0 else
-                         ("this", "other")):
-                times[side].append(time_ms(
-                    torch, lambda side=side: launch(libs[side]), reps=reps,
-                    warmup=1))
-        med = {k: statistics.median(v) for k, v in times.items()}
-        wins = sum(a < b for a, b in zip(times["this"], times["other"]))
-        rows.append({"lines": M, "n_in": K, "n_out": Nn, "inverse": inverse,
-                     "this_ms": med["this"], "other_ms": med["other"],
-                     "ratio": med["this"] / med["other"], "wins": wins})
-        print(f"  {M}x{K}->{Nn}{' inv' if inverse else ''}: this "
-              f"{med['this']:.3f} ms, other {med['other']:.3f} ms, ratio "
-              f"{med['this'] / med['other']:.3f}, this faster in {wins} of "
-              f"{pairs} pairs", flush=True)
-        del x, y
-    return rows
-
-
-# ------------------------------------------------------- the paper workload
-def stage_walk(stages, shape, last, held, *, model="cuda"):
-    """Peak live bytes of the eager executor over ``stages`` (complex64).
-
-    ``shape`` is the input's logical shape, ``last`` the logical axis that
-    is innermost in memory, ``held`` the bytes that stay allocated
-    throughout (the caller's tensors, this input among them).  A stage on
-    axis a writes its output with a innermost; on the "cuda" backend its
-    input is first copied into lines (``movedim`` + ``reshape``) unless a
-    is already innermost.  On the "matmul" backend a stage may hold up to
-    its input again (the real and imaginary operands) and three times
-    its output (the f32 products and planes, then the complex result).
-    Returns ``(peak, output shape, output's innermost axis)``; a
-    distributed move on one process is the identity and costs nothing.
-    """
-    from repro_torch.core.plan import FFTStage
-    peak, prev = held, 0
-    shape = list(shape)
-    for st in stages:
-        if not isinstance(st, FFTStage):
-            continue
-        in_b = 8 * math.prod(shape)
-        shape[st.index] = st.n_out
-        out_b = 8 * math.prod(shape)
-        if model == "cuda":
-            extra = (in_b if st.index != last else 0) + out_b
+    for cell, (inv, fwd) in pairs.items():
+        shape = inv._fused_in_parts()["in_shape"]
+        c = crandn(torch, gen, shape, dev)
+        if cell == "gw-mtxel":
+            vconj = valence_conjugates(inv, fwd, crandn(
+                torch, gen, (1, shape[1]), dev))[0]
+            pair = lambda: pair_density(inv, fwd, c, vconj)
         else:
-            extra = in_b + 3 * out_b
-        peak = max(peak, held + prev + extra)
-        prev, last = out_b, st.index
-    return peak, tuple(shape), last
-
-
-def pair_peak_bytes(inv, fwd, chk_inv, chk_fwd, nb, bands, npk, n,
-                    d) -> int:
-    """The paper phase's peak device bytes at a band batch of ``nb``, from
-    the plans' stage shapes: the packed coefficients of all ``bands``
-    bands stay on the card; the fused inverse (kernel #3 writes the (nb, d, d, n) slab,
-    which the caller holds while the other stages run), the fused forward
-    from the cube it made (the cube held; kernel #4 writes the packed
-    result), and the "matmul" route's check ``chk_*`` (PAPER_CHECK_BANDS
-    bands a call) while the cube and the round trip are held."""
-    coeffs = 8 * bands * npk
-    slab = 8 * nb * d * d * n
-    inv_peak, cube_shape, last = stage_walk(
-        inv.plan.stages[1:], (nb, d, d, n), 3, coeffs + slab)
-    cube = 8 * math.prod(cube_shape)
-    fwd_peak, slab_shape, _ = stage_walk(
-        fwd.plan.stages[:-1], cube_shape, last, coeffs + cube)
-    fwd_peak = max(fwd_peak, coeffs + cube + 8 * math.prod(slab_shape)
-                   + 8 * nb * npk)
-    held = coeffs + cube + 8 * nb * npk
-    c = PAPER_CHECK_BANDS
-    unpacked = 8 * c * d ** 3
-    chk_inv_peak, _, _ = stage_walk(chk_inv.plan.stages, (c, d, d, d), 3,
-                                    held + unpacked, model="matmul")
-    chk_fwd_peak, _, _ = stage_walk(chk_fwd.plan.stages, (c, n, n, n), last,
-                                    held, model="matmul")
-    return max(inv_peak, fwd_peak, chk_inv_peak, chk_fwd_peak + 8 * c * npk)
-
-
-def pair_bound(nb, lanes, n, d) -> dict:
-    """The least time of one inverse (or forward) of the pair for ``nb``
-    bands: the fused z stage's MACs over this run's ``lanes`` packed lanes
-    (each feeds n outputs), then the two dense stages over d→n lines
-    (B·d·n and B·n² lines); 8 FLOP per complex MAC.  Bytes: the packed
-    coefficients read once, the n³ cube written once."""
-    macs = n * lanes + nb * d * n * d * n + nb * n * n * d * n
-    return bound_ms(8.0 * (lanes + nb * n ** 3), 8.0 * macs)
-
-
-def run_paper(torch, dev, gen, gpu):
-    """The paper's own workload at full width: the configuration of
-    ``repro_torch.configs.fftb_paper`` (n = 256, d = 128, 256 bands), its
-    grid from ``choose_dft_grid``, audited by ``preflight_basis``, then the
-    fused plane-wave pair of ``make_planewave_pair`` on "cuda" over every
-    band, in batches of the largest of ``PAPER_BATCHES`` that the memory
-    estimate fits; then the full-cube baseline of the paper's Fig. 9."""
-    from repro_torch.check import preflight_basis
-    from repro_torch.check.preflight import _basis_plan_bytes
-    from repro_torch.configs.fftb_paper import CONFIG as cfg
-    from repro_torch.core import SphereDomain, make_planewave_pair
-    from repro_torch.core.planewave import kpoint_sphere
-    from repro_torch.kernels import sphere_pack
-    from repro_torch.kernels.dft_matmul import dft_matmul
-    from repro_torch.sharding import DFT_AXES_1D, choose_dft_grid
-    n, d = cfg.n, cfg.diameter
-    print(f"paper workload ({cfg.name}): n={n} d={d} nb={cfg.nb} "
-          f"({gpu})", flush=True)
-    grid = choose_dft_grid(nbands=cfg.nb, diameter=d, device=dev)
-    check(grid.shape == (1,) and grid.axes == DFT_AXES_1D
-          and grid.device == dev,
-          f"choose_dft_grid: {grid.shape} {grid.axes} on {grid.device}")
-    diags = preflight_basis(n, diameter=d, nbands=cfg.nb, grid=grid,
-                            backend="cuda", deep=True)
-    check(diags == [], f"preflight_basis(deep, backend='cuda') is clean "
-          f"({[dg.code for dg in diags]})")
-    plan_bytes = _basis_plan_bytes([kpoint_sphere(d)], ((0,),), cfg.nb, n,
-                                   d)
-    print(f"  preflight: plan-cache working set {plan_bytes} bytes "
-          "(_basis_plan_bytes)", flush=True)
-    sph = SphereDomain.from_diameter(d)
-    npk = sph.npacked
-    chk_inv, chk_fwd = make_planewave_pair(grid, n, sph, PAPER_CHECK_BANDS,
-                                           backend="matmul")
-    torch.cuda.empty_cache()
-    free, total = torch.cuda.mem_get_info(dev)
-    base = torch.cuda.memory_allocated(dev)
-    limit = PAPER_MEM_SHARE * free
-    est = {}
-    nb = pair = None
-    for cand in PAPER_BATCHES:
-        p = make_planewave_pair(grid, n, sph, cand, backend="cuda")
-        est[cand] = pair_peak_bytes(*p, chk_inv, chk_fwd, cand, cfg.nb,
-                                    npk, n, d)
-        if nb is None and est[cand] <= limit:
-            nb, pair = cand, p
-    print("  memory estimate before any launch: " + ", ".join(
-        f"nb={k} {v / 2**30:.2f} GiB" for k, v in est.items())
-        + f"; free {free / 2**30:.2f} of {total / 2**30:.2f} GiB, limit "
-        f"{PAPER_MEM_SHARE:g} x free = {limit / 2**30:.2f} GiB", flush=True)
-    check(nb is not None, f"a band batch of {PAPER_BATCHES} fits")
-    inv, fwd = pair
-    batches = cfg.nb // nb
-    reduced = ({} if nb == cfg.nb else
-               {"band_batch": f"{cfg.nb} -> {nb} bands per call "
-                f"({batches} calls each way; the estimate at {cfg.nb} is "
-                f"{est[cfg.nb] / 2**30:.2f} GiB)"})
-    print(f"  band batch nb={nb}, {batches} batch(es); reduced: "
-          + json.dumps(reduced), flush=True)
-
-    coeffs = crandn(torch, gen, (cfg.nb, npk), dev)
-    torch.cuda.reset_peak_memory_stats(dev)
-    wrappers = (dft_matmul, sphere_pack.unpack_dft, sphere_pack.dft_pack)
-    counts = {}
-    errs = {"cube": [0.0, 0.0], "forward": [0.0, 0.0], "round_trip": 0.0}
-    cmax = float(coeffs.abs().max())
-    for b in range(batches):
-        packed = coeffs[b * nb:(b + 1) * nb]
-        for fn in wrappers:
+            pair = lambda: fwd.transform_pack(inv.unpack_transform(c))
+        pair()
+        sync(torch, dev)
+        for fn in wrappers.values():
             fn.launches = 0
-        cube = inv.unpack_transform(packed)
+        got = pair()
         sync(torch, dev)
-        if b == 0:
-            counts["inverse"] = {fn.__name__: fn.launches for fn in wrappers}
-            for fn in wrappers:
-                fn.launches = 0
-        back = fwd.transform_pack(cube)
-        sync(torch, dev)
-        if b == 0:
-            counts["forward"] = {fn.__name__: fn.launches for fn in wrappers}
-        check(tuple(cube.shape) == (nb, n, n, n) and bool(
-            torch.isfinite(torch.view_as_real(back)).all()),
-            f"batch {b}: cube {tuple(cube.shape)}, finite round trip")
-        errs["round_trip"] = max(errs["round_trip"],
-                                 float((back - packed).abs().max()))
-        for j in range(0, nb, PAPER_CHECK_BANDS):
-            sl = slice(j, j + PAPER_CHECK_BANDS)
-            ref = chk_inv.unpack_transform(packed[sl])
-            e = errs["cube"]
-            e[0] = max(e[0], float((cube[sl] - ref).abs().max()))
-            e[1] = max(e[1], float(ref.abs().max()))
-            del ref
-            ref = chk_fwd.transform_pack(cube[sl])
-            e = errs["forward"]
-            e[0] = max(e[0], float((back[sl] - ref).abs().max()))
-            e[1] = max(e[1], float(ref.abs().max()))
-            del ref
-        del cube, back
-    rel = {"cube": errs["cube"][0] / errs["cube"][1],
-           "forward": errs["forward"][0] / errs["forward"][1],
-           "round_trip": errs["round_trip"] / cmax}
-    print(f"  launches per call: inverse {counts['inverse']}, forward "
-          f"{counts['forward']}", flush=True)
-    check(counts["inverse"] == {"dft_matmul": 2, "unpack_dft": 1,
-                                "dft_pack": 0},
-          "inverse: unpack_dft once, then dft_matmul per remaining stage")
-    check(counts["forward"] == {"dft_matmul": 2, "unpack_dft": 0,
-                                "dft_pack": 1},
-          "forward: dft_matmul per stage, then dft_pack once")
-    for name, r in rel.items():
-        check(r <= PAIR_RTOL, f"{name}: "
-              + ("cuda vs matmul route" if name != "round_trip" else
-                 "fwd(inv(c)) vs c")
-              + f", rel err {r:.3e} of the largest value <= {PAIR_RTOL:g}")
-
-    # times: the last batch's coefficients, CUDA events
-    packed = coeffs[(batches - 1) * nb:]
-    cube = inv.unpack_transform(packed)
-    fwd_ms = time_ms(torch, lambda: fwd.transform_pack(cube), reps=5)
-
-    def all_forward():             # each batch's forward, from one cube
-        for _ in range(batches):
-            fwd.transform_pack(cube)
-    all_fwd_ms = time_ms(torch, all_forward, reps=1, warmup=0)
-    del cube
-    inv_ms = time_ms(torch, lambda: inv.unpack_transform(packed), reps=5)
-
-    def all_inverse():
-        for b in range(batches):
-            inv.unpack_transform(coeffs[b * nb:(b + 1) * nb])
-    all_inv_ms = time_ms(torch, all_inverse, reps=1, warmup=0)
-    peak = torch.cuda.max_memory_allocated(dev)
-    lanes = nb * npk
-    bnd = pair_bound(nb, lanes, n, d)
-    bnd_all = pair_bound(cfg.nb, cfg.nb * npk, n, d)
-    print(f"  inverse {inv_ms:.3f} ms, forward {fwd_ms:.3f} ms per call of "
-          f"{nb} bands (mean of 5); all {cfg.nb} bands: inverse "
-          f"{all_inv_ms:.3f} ms, forward {all_fwd_ms:.3f} ms; per call "
-          f"{bound_text(bnd)}; all bands bound {bnd_all['bound_ms']:.3f} ms"
-          f" ({gpu})", flush=True)
-    print(f"  peak memory: estimated {(base + est[nb]) / 2**30:.2f} GiB "
-          f"({est[nb] / 2**30:.2f} above the {base / 2**30:.2f} GiB "
-          f"allocated before), measured {peak / 2**30:.2f} GiB "
-          "(max_memory_allocated)", flush=True)
-    del coeffs, packed
-    torch.cuda.empty_cache()
-    out = {"grid": list(grid.shape), "plan_cache_bytes": plan_bytes,
-           "band_batch": nb, "batches": batches, "reduced": reduced,
-           "estimate_gib": {k: v / 2**30 for k, v in est.items()},
-           "free_gib": free / 2**30, "limit_gib": limit / 2**30,
-           "peak_gib": peak / 2**30, "allocated_before_gib": base / 2**30,
-           "launches_per_call": counts, "rel_err": rel,
-           "inverse_ms": inv_ms, "forward_ms": fwd_ms,
-           "all_bands_inverse_ms": all_inv_ms,
-           "all_bands_forward_ms": all_fwd_ms, "bound": bnd,
-           "all_bands_bound_ms": bnd_all["bound_ms"]}
-    out["full_cube"] = full_cube_baseline(torch, dev, gen, grid, n, cfg.nb)
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+        check(launches == PAIR_LAUNCHES, f"{cell}: one call pair launched "
+              f"{launches}")
+        err = None
+        if cell == "paper-pair":
+            err = rel_err(got, c)
+            check(err <= KERNEL_RTOL, f"{cell}: the pair gives back its "
+                  f"coefficients within {err:.2e} <= {KERNEL_RTOL}")
+        out[cell] = {"launches": launches, "round_trip_rel_err": err}
+        del c, got, pair
+        vconj = None
+        torch.cuda.empty_cache()
     return out
 
 
-def full_cube_baseline(torch, dev, gen, grid, n, bands):
-    """The paper's Fig. 9 baseline: an inverse FftPlan over the whole
-    (nb, n³) cube (no sphere: each stage a dense n→n line DFT, kernel #1
-    only), built as the reference's dry run builds it, at the largest of
-    ``PAPER_BATCHES`` whose estimate fits; held to ``torch.fft.ifftn`` on
-    two bands."""
-    from repro_torch.core import DistTensor, Domain, FftPlan
-    from repro_torch.kernels.dft_matmul import dft_matmul
-    free, _ = torch.cuda.mem_get_info(dev)
-    limit = PAPER_MEM_SHARE * free
-    cube = Domain((0, 0, 0), (n - 1,) * 3)
-    est, nb, plan = {}, None, None
-    for cand in PAPER_BATCHES:
-        bdom = Domain((0,), (cand - 1,))
-        p = FftPlan(DistTensor.create((bdom, cube), "b x{0} y z", grid),
-                    DistTensor.create((bdom, cube), "B X Y Z{0}", grid),
-                    [("x", "X"), ("y", "Y"), ("z", "Z")], inverse=True,
-                    backend="cuda")
-        in_b = 8 * cand * n ** 3
-        est[cand] = stage_walk(p.stages, (cand, n, n, n), 3, in_b)[0]
-        if nb is None and est[cand] <= limit:
-            nb, plan = cand, p
-    print("  full-cube baseline: estimate " + ", ".join(
-        f"nb={k} {v / 2**30:.2f} GiB" for k, v in est.items())
-        + f"; limit {limit / 2**30:.2f} GiB", flush=True)
-    check(nb is not None, "a full-cube batch fits")
-    x = crandn(torch, gen, (nb, n, n, n), dev)
-    dft_matmul.launches = 0
-    y = plan(x)
-    sync(torch, dev)
-    launches = dft_matmul.launches
-    e, r = rel_err(torch, y[:2], torch.fft.ifftn(x[:2], dim=(1, 2, 3)))
-    del y
-    check(launches == 3 and r <= PAIR_RTOL,
-          f"full cube ({nb}, {n}^3): dft_matmul x{launches}, vs "
-          f"torch.fft.ifftn rel err {r:.3e} <= {PAIR_RTOL:g}")
-    ms = time_ms(torch, lambda: plan(x), reps=3, warmup=1)
-    b = bound_ms(8.0 * 2 * nb * n ** 3, 8.0 * 3 * nb * n ** 4)
-    scale = bands / nb
-    print(f"  full-cube baseline: {ms:.3f} ms per call of {nb} bands "
-          f"(mean of 3), {ms * scale:.3f} ms for {bands} bands at "
-          f"that rate; {bound_text(b)} per call", flush=True)
-    del x
-    torch.cuda.empty_cache()
-    return {"band_batch": nb, "estimate_gib": {
-        k: v / 2**30 for k, v in est.items()}, "ms": ms,
-        "all_bands_ms_at_rate": ms * scale, "launches_per_call": launches,
-        "rel_err": r, "bound": b}
+def time_twiddle(torch, dev, gen, gpu: str) -> dict:
+    """Kernel #2 at stage 1 of ``four_step_dft`` on FOUR_STEP_LINES lines
+    of FOUR_STEP_N (the (n1, n2) table): against its plain version within
+    ``KERNEL_RTOL``, and timed beside the library einsum that computes the
+    same function, which it must beat, against its roofline bound (the
+    line stage's, plus the table read once and a complex product an
+    output)."""
+    import numpy as np
+
+    from portbench.roofline import line_call
+    from repro_torch.core.local_fft import dft_matrix_device
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.dft_matmul import (dft_matmul_twiddle,
+                                                dft_matmul_twiddle_plain)
+    from repro_torch.kernels.ref import twiddle_matrix
+    n1, n2 = ops._factor(FOUR_STEP_N)
+    M, K, Nn = FOUR_STEP_LINES * n1, n2, n2
+    x = crandn(torch, gen, (M, K), dev)
+    _, _, w = dft_matrix_device(Nn, K, False, dev)
+    ws = ops.dft_operand_device(Nn, K, False, w.device)
+    t = torch.as_tensor(np.ascontiguousarray(
+        twiddle_matrix(n1, n2, False).T), device=dev)
+    xb = x.view(M // n1, n1, K)
+
+    def library():
+        return torch.einsum("btk,nk,tn->btn", xb, w, t).reshape(M, Nn)
+
+    def kernel():
+        return dft_matmul_twiddle(x, w, t, wsplit=ws)
+    want = dft_matmul_twiddle_plain(x, w, t)
+    err = rel_err(kernel(), want)
+    shape = f"{M}x{K}->{Nn} t({n1},{n2})"
+    check(err <= KERNEL_RTOL, f"kernel #2 {shape} against its plain "
+          f"version: {err:.2e} <= {KERNEL_RTOL}")
+    del want
+    ms = time_ms(torch, kernel)
+    lib = time_ms(torch, library)
+    check(ms < lib, f"kernel #2 {shape} {ms:.3f} ms faster than the library "
+          f"einsum {lib:.3f} ms")
+    nbytes, flops = line_call(M, K, Nn)
+    work = (nbytes + 8.0 * n1 * Nn, flops + 6.0 * M * Nn)
+    out = {"shape": shape, "ms": ms, "rel_err": err, "library_ms": lib,
+           "work": work, **roofline(ms, work)}
+    print(f"kernel #2 at stage 1 of four_step_dft, {shape} ({gpu}): "
+          f"{ms:.3f} ms, {roofline_text(out)}, library einsum {lib:.3f} ms; "
+          f"rel err {err:.2e}", flush=True)
+    return out
 
 
-# ------------------------------------------------------ the spectral layers
-def check_spectral(torch, dev, gen, stages):
-    """``fourier_mixer`` and ``fft_conv`` on the "cuda" backend (every
-    line DFT one launch of kernel #1), held to the "matmul" route and to
-    torch.fft (the "fft" backend) on the same inputs."""
-    from repro_torch.core import fft_conv, fourier_mixer
-    from repro_torch.kernels.dft_matmul import dft_matmul
-    x = torch.randn(MIXER_SHAPE, generator=gen, device=dev)
-    xc = torch.randn(CONV_SHAPE, generator=gen, device=dev)
-    k = torch.randn((CONV_K, CONV_SHAPE[-1]), generator=gen, device=dev)
-    out = {}
-    for name, fn, want_launches in (
-            ("fourier_mixer", lambda be: fourier_mixer(x, backend=be), 2),
-            ("fft_conv", lambda be: fft_conv(xc, k, backend=be), 3)):
-        dft_matmul.launches = 0
-        with stages.record(f"spectral:{name}") as shapes:
-            y = fn("cuda")
-        sync(torch, dev)
-        launches = dft_matmul.launches
-        lines = sorted(f"{m}x{a}->{b}{' inv' if i else ''}"
-                       for m, a, b, i in shapes)
-        check(launches == want_launches == sum(shapes.values()),
-              f"{name}: dft_matmul launched {launches} times, line shapes "
-              f"{lines}")
-        rec = {"launches": launches, "line_shapes": lines}
-        for be in ("matmul", "fft"):
-            e, r = rel_err(torch, y, fn(be))
-            check(r <= KERNEL_RTOL, f"{name}: cuda vs {be} route rel err "
-                  f"{r:.3e} <= {KERNEL_RTOL:g}")
-            rec[f"{be}_rel_err"] = r
-        del y
-        for be in ("cuda", "matmul", "fft"):
-            rec[f"{be}_ms"] = time_ms(torch, lambda be=be: fn(be), reps=5)
-        print(f"  {name}: " + ", ".join(
-            f"{be} {rec[f'{be}_ms']:.3f} ms" for be in
-            ("cuda", "matmul", "fft")) + " per call (mean of 5)",
-            flush=True)
-        out[name] = rec
+def kernel_table(lines: list, sphere: list, twiddle: dict,
+                 cells: dict) -> list:
+    """The ``kernels`` line: one entry a kernel, mode and shape, each
+    with the kernel's launches in each cell's call pair (``cells``, from
+    ``run_cell_pairs``), its error against its plain version and the
+    tolerance, its time, its roofline bound and the library's time where
+    one torch call computes the same function (``torch.matmul`` for #1,
+    einsum for #2; none for #3 and #4)."""
+    def launches(name):
+        return {cell: r["launches"][name] for cell, r in cells.items()}
+    out = []
+    for r in lines:
+        shape = (f"{r['lines']}x{r['n_in']}->{r['n_out']}"
+                 f"{' inv' if r['inverse'] else ''} {r['entry']}")
+        base = {"name": "dft_matmul", "shape": shape,
+                "launches": launches("dft_matmul"),
+                "library_ms": r["matmul_ms"]}
+        out.append({**base, "mode": "factored", "rel_err": r["rel_err"],
+                    "tolerance": FACTORED_RTOL, "ms": r["ms"],
+                    **{k: r[k] for k in ("bound_ms", "bound_by",
+                                         "roofline")}})
+        out.append({**base, "mode": "dense", "rel_err": r["dense_rel_err"],
+                    "tolerance": KERNEL_RTOL, "ms": r["dense_ms"],
+                    **roofline(r["dense_ms"], r["work"])})
+    out.append({"name": "dft_matmul_twiddle", "mode": "dense",
+                "shape": twiddle["shape"],
+                "launches": launches("dft_matmul_twiddle"),
+                "library_ms": twiddle["library_ms"],
+                "tolerance": KERNEL_RTOL,
+                **{k: twiddle[k] for k in ("rel_err", "ms", "bound_ms",
+                                           "bound_by", "roofline")}})
+    for r in sphere:
+        out.append({"name": r["kernel"], "mode": "dense",
+                    "shape": r["shape"], "cells": r["cells"],
+                    "launches": launches(r["kernel"]), "library_ms": None,
+                    "tolerance": KERNEL_RTOL,
+                    **{k: r[k] for k in ("rel_err", "ms", "bound_ms",
+                                         "bound_by", "roofline")}})
     return out
 
 
@@ -6108,12 +3463,14 @@ def run_examples(torch, gpu, wrappers) -> dict:
 
 def main() -> int:
     import torch
+    if sys.argv[1:] not in ([], ["--production-grid"]):
+        print(f"usage: {sys.argv[0]} [--production-grid]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(HERE, "src"))
     try:
-        from repro_torch.dft.basis import PlaneWaveBasis
         from repro_torch.kernels import build
         from repro_torch.kernels.dft_matmul import (dft_matmul,
                                                     dft_matmul_twiddle)
@@ -6126,10 +3483,6 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", torch.cuda.current_device())
-    if sys.argv[1:2] == ["--compare-kernel1"]:
-        print(json.dumps({"compare_kernel1": compare_kernel1(
-            torch, dev, sys.argv[2])}), flush=True)
-        return 0
     gpu = gpu_line()
     print(f"gpu: {gpu}", flush=True)
     wrappers = {"dft_matmul": dft_matmul,
@@ -6145,84 +3498,6 @@ def main() -> int:
     for stem, log in build.build_logs().items():
         for name, text in ptxas_summary(log):
             print(f"  ptxas {stem} {name}: {text}", flush=True)
-
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    spheres = PlaneWaveBasis(N, diameter=DIAMETER, kpts=KPTS,
-                             nbands=NBANDS, device=dev).spheres
-    results = [check_dft_matmul(torch, dev, gen),
-               check_unpack_dft(torch, dev, gen, spheres),
-               check_dft_pack(torch, dev, gen, spheres)]
-    for r in results[1:]:
-        print(f"{r['name']}: " + json.dumps(r), flush=True)
-    torch.cuda.empty_cache()
-    stages = LineStages()
-    t0 = time.perf_counter()
-    launches, scf, ctx = run_slice(torch, dev, stages)
-    print("scf: " + json.dumps(scf), flush=True)
-    print(f"SCF phase: {time.perf_counter() - t0:.1f} s", flush=True)
-    print("iteration breakdown (host clock, synchronized):", flush=True)
-    scf["breakdown"] = breakdown(torch, dev)
-    torch.cuda.empty_cache()
-    scf["pack_slab"] = check_slab_layout(torch, dev, gen)
-    print("pack_slab: " + json.dumps(scf["pack_slab"]), flush=True)
-    torch.cuda.empty_cache()
-
-    t0 = time.perf_counter()
-    modes = check_exec_modes(torch, dev, gen)
-    print("exec_modes: " + json.dumps(modes), flush=True)
-    print(f"executor-mode phase: {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    lazy = run_lazy_scf(torch, dev, ctx)
-    print("scf_lazy: " + json.dumps(lazy), flush=True)
-    print(f"lazy SCF phase: {time.perf_counter() - t0:.1f} s", flush=True)
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    fused = run_fused_step(torch, dev, ctx)
-    print("scf_fused: " + json.dumps(fused), flush=True)
-    print(f"fused-step phase: {time.perf_counter() - t0:.1f} s", flush=True)
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    multirank = run_multirank(torch, dev, ctx, gpu)
-    print("multirank: " + json.dumps(multirank), flush=True)
-    print(f"multi-rank phase: {time.perf_counter() - t0:.1f} s", flush=True)
-    del ctx
-    torch.cuda.empty_cache()
-
-    t0 = time.perf_counter()
-    twiddle, four_step = check_four_step(torch, dev, gen, stages)
-    results.append(twiddle)
-    launches["dft_matmul_twiddle"] = four_step["launches"][
-        "dft_matmul_twiddle"]
-    print("four_step: " + json.dumps(four_step), flush=True)
-    print(f"four-step phase: {time.perf_counter() - t0:.1f} s", flush=True)
-    torch.cuda.empty_cache()
-
-    t0 = time.perf_counter()
-    service, served = check_service(torch, dev, gpu, stages)
-    print("service: " + json.dumps(service), flush=True)
-    print(f"service phase: {time.perf_counter() - t0:.1f} s", flush=True)
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    mr_service = run_multirank_service(torch, dev, gpu, served)
-    del served
-    print("multirank_service: " + json.dumps(mr_service), flush=True)
-    print(f"multi-rank service phase: {time.perf_counter() - t0:.1f} s",
-          flush=True)
-
-    t0 = time.perf_counter()
-    paper = run_paper(torch, dev, gen, gpu)
-    print("paper: " + json.dumps(paper), flush=True)
-    print(f"paper phase: {time.perf_counter() - t0:.1f} s", flush=True)
-    torch.cuda.empty_cache()
-
-    t0 = time.perf_counter()
-    print("spectral layers:", flush=True)
-    spectral = check_spectral(torch, dev, gen, stages)
-    print("spectral: " + json.dumps(spectral), flush=True)
-    print(f"spectral phase: {time.perf_counter() - t0:.1f} s", flush=True)
-    torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     print(f"LM serving path ({gpu}):", flush=True)
@@ -6263,65 +3538,19 @@ def main() -> int:
     print("examples: " + json.dumps(examples), flush=True)
 
     t0 = time.perf_counter()
-    shapes = time_line_shapes(torch, dev, gen, stages, gpu)
-    print("line_shapes: " + json.dumps(shapes), flush=True)
-    print(f"line-shape phase: {time.perf_counter() - t0:.1f} s", flush=True)
-
-    sources = {"dft_matmul": ("src/repro_torch/kernels/csrc/dft_matmul.cu",
-                              "src/repro/kernels/dft_matmul.py:32"),
-               "dft_matmul_twiddle": (
-                   "src/repro_torch/kernels/csrc/dft_matmul.cu",
-                   "src/repro/kernels/dft_matmul.py:51"),
-               "unpack_dft": ("src/repro_torch/kernels/csrc/sphere_pack.cu",
-                              "src/repro/kernels/sphere_pack.py:134"),
-               "dft_pack": ("src/repro_torch/kernels/csrc/sphere_pack.cu",
-                            "src/repro/kernels/sphere_pack.py:175")}
-    per_call = paper["launches_per_call"]
-    by_path = {"scf": {k: v for k, v in launches.items()
-                       if k != "dft_matmul_twiddle"},
-               "four_step": four_step["launches"],
-               "service": service["launches"],
-               "paper_inverse_and_forward": {
-                   k: per_call["inverse"][k] + per_call["forward"][k]
-                   for k in per_call["inverse"]},
-               "spectral": {"dft_matmul": sum(
-                   r["launches"] for r in spectral.values())},
-               "lm": lm["launches"], "train": train["launches"],
-               "sharded_train": sharded["launches"],
-               "ep_train": ep["launches"],
-               "tp_train": tp_run["launches"],
-               "tp_uneven": uneven["launches"],
-               "examples": examples["launches"]}
-    # the multi-rank paths' launches, per rank (each a list over the
-    # ranks): the fused steps count the warm-up's and the capture's
-    per_rank = {"multirank_scf_per_rank": multirank["launches_per_rank"],
-                "multirank_fused_scf_per_rank": multirank["fused"][
-                    "launches_per_rank"],
-                "multirank_service_per_rank": mr_service[
-                    "launches_per_rank"],
-                "pencil_scf_per_rank": multirank["pencil"][
-                    "launches_per_rank"],
-                "pencil_fused_scf_per_rank": multirank["pencil"]["fused"][
-                    "launches_per_rank"]}
-    kernels = []
-    for r in results:
-        src, rep = sources[r["name"]]
-        kernels.append({"name": r["name"], "route": "cuda", "source": src,
-                        "replaces": rep, "launches": launches[r["name"]],
-                        "launches_by_path": {
-                            **{p: c.get(r["name"], 0)
-                               for p, c in by_path.items()},
-                            **{p: [c.get(r["name"], 0) for c in runs]
-                               for p, runs in per_rank.items()}},
-                        "passed": True, **{k: r[k] for k in (
-                            "max_abs_err", "rel_err", "tolerance", "ms",
-                            "plain_ms", "bound_ms", "bound_by",
-                            "tf32x3_bound_ms", "tf32x3_bound_by",
-                            "fp32_fma_bound_ms", "fp32_fma_bound_by",
-                            "library_ms", "shape")},
-                        **({"fft_oracle_rel_err": r["fft_oracle_rel_err"]}
-                           if "fft_oracle_rel_err" in r else {})})
-    print(json.dumps({"kernels": kernels}), flush=True)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    lines = time_line_shapes(torch, dev, gen, gpu)
+    pairs = cell_plans(torch, dev)
+    sphere = time_sphere_calls(torch, dev, gen, gpu, pairs)
+    cells = run_cell_pairs(torch, dev, gen, gpu, pairs, wrappers)
+    del pairs
+    torch.cuda.empty_cache()
+    twiddle = time_twiddle(torch, dev, gen, gpu)
+    print("cell_pairs: " + json.dumps(cells), flush=True)
+    print(json.dumps({"kernels": kernel_table(lines, sphere, twiddle,
+                                              cells)}), flush=True)
+    print(f"kernel-alone phase: {time.perf_counter() - t0:.1f} s",
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,9 +1,14 @@
 """repro_torch on the card: each hand-written CUDA kernel against its plain
 PyTorch version (the sphere kernels also on one rank's block of a
-batch×fft grid), the four-step DFT against ``torch.fft``, the SCF slice
-on the kernel route, a small transform-service run, the lazy executor
-against the eager one, the fused SCF step replayed as CUDA graphs, and
-kernel #1's factored mode against its plain version.
+batch×fft grid), the four-step DFT against ``torch.fft``, the SCF on the
+kernel route (also at the paper's widths, n = 256 and d = 128, against the
+"matmul" route), the transform service against ``eager_apply`` and a
+"matmul" service, the lazy executor against the eager one, the fused SCF
+step replayed as CUDA graphs, the spectral layers, kernel #1's factored
+mode against its plain version, and four processes sharing the card on
+the 2×2 batch×fft grid over gloo.  Where a case is "at the paper's
+widths" it runs the stacked SCF's shapes: 2 k-points of 16 bands (B =
+32), n = 256, d = 128.
 
 These tests need a CUDA device and skip without one (the kernels have no
 CPU mode).  They import neither JAX nor the reference package, so they run
@@ -16,6 +21,9 @@ products on the tensor cores, the plain versions fp32 GEMMs; they sum in
 different orders and agree to 1e-5 relative to the largest magnitude.  Exact
 zeros (padded lanes) are compared bitwise.
 """
+import dataclasses
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -32,6 +40,10 @@ from repro_torch.kernels.ref import dft_apply_ref, twiddle_matrix
 
 KPTS2 = ((0.0, 0.0, 0.0), (0.5, 0.5, 0.5))
 RTOL = 1e-5
+# an SCF run against another route's run of the same trajectory: fp32
+# rounding of 1.1M-lane Gram sums and 16.7M-point cube reductions at the
+# paper's widths, carried through three linearly mixed iterations
+ENERGY_RTOL, EIG_ATOL, RHO_RTOL = 1e-4, 1e-4, 1e-3
 
 
 @pytest.fixture
@@ -69,6 +81,8 @@ GEMM_CASES = {
     "dft_matmul-ragged-m-128-to-256": (389, 128, 256, False),
     "dft_matmul-poisoned": (1000, 24, 40, True),
     "dft_matmul-poisoned-odd-k": (500, 9, 18, True),
+    # the paper-width SCF's forward y stage, 32·128·256 lines 256 -> 128
+    "dft_matmul-scf-dft-y-256-to-128": (1048576, 256, 128, False),
 }
 
 
@@ -93,13 +107,16 @@ KPTS3 = ((0.25, 0.0, 0.5), (0.0, 0.0, 0.0), (0.5, 0.5, 0.0))
 # gives dft_pack a row pitch TMA cannot address (the gather path).  Slab
 # layouts: "rows" contiguous lines; "y-planes" each y plane z-major, as
 # an x stage leaves it (the stacked SCF's forward plan), read in place;
-# "x-planes" each x plane z-major, which the wrapper copies first
+# "x-planes" each x plane z-major, which the wrapper copies first;
+# "z-major" each row's slab z-major, as the forward's x stage leaves it,
+# read in place where a row's ey·ex lines fit the tile (not at d = 6)
 SPHERE_CASES = {
     "unpack_dft": ("unpack", 8, 16, KPTS2, 3, None),
     "dft_pack": ("pack", 8, 16, KPTS2, 3, "rows"),
     "unpack_dft-ragged-m-d6": ("unpack", 6, 12, KPTS2, 3, None),
     "unpack_dft-d40-chunk-skip": ("unpack", 40, 80, KPTS3, 2, None),
     "unpack_dft-d128-plane-tiles": ("unpack", 128, 256, KPTS2, 1, None),
+    "unpack_dft-scf-d128": ("unpack", 128, 256, KPTS2, 16, None),
     "dft_pack-ragged-m-d6": ("pack", 6, 12, KPTS2, 3, "rows"),
     "dft_pack-odd-n": ("pack", 6, 9, KPTS3, 2, "rows"),
     "dft_pack-x-planes-copied": ("pack", 8, 16, KPTS2, 3, "x-planes"),
@@ -109,6 +126,8 @@ SPHERE_CASES = {
     "dft_pack-x-planes-d128-copied": ("pack", 128, 256, KPTS2, 1,
                                       "x-planes"),
     "dft_pack-y-planes-d40-copied": ("pack", 40, 80, KPTS3, 2, "y-planes"),
+    "dft_pack-z-major-d6-copied": ("pack", 6, 12, KPTS2, 3, "z-major"),
+    "dft_pack-z-major-d40": ("pack", 40, 80, KPTS3, 2, "z-major"),
 }
 
 
@@ -118,6 +137,8 @@ def _slab(rng, B, d, n, layout, dev):
         return _cx(rng, (B, d, d, n), dev)
     if layout == "x-planes":
         return _cx(rng, (B, d, n, d), dev).transpose(2, 3)
+    if layout == "z-major":
+        return _cx(rng, (B, n, d, d), dev).permute(0, 3, 2, 1)
     return _cx(rng, (B, d, n, d), dev).permute(0, 3, 1, 2)
 
 
@@ -138,14 +159,20 @@ def _check_unpack(rng, dev, d, n, kpts, nb):
     # a plane with support switched off, beside the table's own flags
     flag0 = flag.clone()
     flag0[d // 2] = 0
+    outs = []
     for fl in (flag, flag0):
         got = sp.unpack_dft(packed, start, zlo, cnt, fl, w)
         assert bool(torch.isfinite(torch.view_as_real(got)).all())
         _close(got, sp.unpack_dft_plain(packed, start, zlo, cnt, fl, w))
         empty = (cnt == 0).reshape(got.shape[:3])
         assert _plus_zero(got[empty])
+        outs.append(got)
     assert int(cnt.reshape(got.shape[:3])[:, d // 2].sum()) > 0
     assert _plus_zero(got[:, d // 2])
+    # the planes with flag = 1 keep their bits when another is skipped
+    others = [x for x in range(d) if x != d // 2]
+    assert torch.equal(torch.view_as_real(outs[0][:, others]),
+                       torch.view_as_real(outs[1][:, others]))
     return 2
 
 
@@ -156,9 +183,10 @@ def _check_pack(rng, dev, d, n, kpts, nb, layout):
                           for t in sp.line_tables(spheres, nb))
     B = len(spheres) * nb
     slab = _slab(rng, B, d, n, layout, dev)
-    fits = d % 2 == 0 and (d % 64 == 0 or 64 % d == 0)
-    assert sp.slab_layout(slab) == {"rows": 0, "x-planes": None,
-                                    "y-planes": 1 if fits else None}[layout]
+    fits = sp.cols_fit(d)
+    assert sp.slab_layout(slab) == {
+        "rows": 0, "x-planes": None, "y-planes": 1 if fits else None,
+        "z-major": 2 if sp.cols_fit(d * d) else None}[layout]
     nvalid = torch.as_tensor(np.repeat(np.asarray(
         [s.npacked for s in spheres], np.int32), nb), device=dev)
     _, _, w = dft_matrix_device(d, n, False, dev)
@@ -197,13 +225,16 @@ def test_cuda_kernel_matches_plain(kernel, cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,n_in,n_out,inverse", [
     (4096, 128, 256, True), (4096, 256, 128, False), (2048, 256, 256, True),
-    (2048, 256, 256, False), (1000, 24, 40, True), (300, 9, 18, False)])
+    (2048, 256, 256, False), (1000, 24, 40, True), (300, 9, 18, False),
+    (1048576, 128, 256, True), (1048576, 128, 256, False),
+    (65536, 256, 256, True), (65536, 256, 256, False)])
 def test_cuda_dft_apply_matches_fft_oracle(B, n_in, n_out, inverse,
                                            cuda_device):
     """Kernel #1 through ``ops.dft_apply`` against ``dft_apply_ref``
     (``torch.fft`` of the padded or truncated line, no DFT matrix): the
     SCF's line shapes (d = 128 → n = 256 and n = 256 → n = 256, both
-    directions) and two ragged ones."""
+    directions; the last four on the paper-width SCF's lines, 32·128·256
+    and 256²) and two ragged ones."""
     rng = np.random.default_rng(B + n_in + n_out)
     x = _cx(rng, (B, n_in), cuda_device)
     before = dft_matmul.launches
@@ -305,18 +336,77 @@ def test_cuda_sphere_kernels_on_a_rank_block(case, cuda_device):
     assert fn.launches == before + 1
 
 
+#: the stacked SCF's sizes: the README's, and the paper's widths with 16
+#: bands a k-point
+SCF_SIZES = {"n16": {"n": 16, "nbands": 4},
+             "n256-d128": {"n": 256, "diameter": 128, "nbands": 16}}
+WRAPPERS = (dft_matmul, sp.unpack_dft, sp.dft_pack)
+
+
+def _scf_cfg(size, **kw):
+    """The stacked SCF of 2 k-points on the kernel route at ``size``; by
+    default mix_warmup >= max_iter: a fixed, linearly mixed trajectory of
+    3 iterations."""
+    return SCFConfig(**{"kpts": KPTS2, "max_iter": 3, "mix_warmup": 3,
+                        "stack_k": True, "backend": "cuda",
+                        **SCF_SIZES[size], **kw})
+
+
+def _launches():
+    return [f.launches for f in WRAPPERS]
+
+
+def _launched(before):
+    """Kernels #1, #3 and #4 launched since ``before`` (``_launches()``)."""
+    return [f.launches - b for f, b in zip(WRAPPERS, before)]
+
+
+def _trajectory(res):
+    """(energies, eigenvalues, rho) of an SCF run, on the host."""
+    return (np.asarray(res.energies), np.asarray(res.eigenvalues),
+            res.rho.cpu().numpy())
+
+
+def _agree(got, want):
+    """An SCF trajectory (``_trajectory``) against another of the same
+    run: as many finite energies within ENERGY_RTOL·max(1, |E|),
+    eigenvalues ascending and within EIG_ATOL·max(1, |ε|), ρ finite and
+    within RHO_RTOL of max ρ."""
+    (e, eig, rho), (er, eigr, rhor) = got, want
+    assert len(e) == len(er) and np.isfinite(e).all()
+    assert np.abs(e - er).max() <= ENERGY_RTOL * max(1.0, np.abs(er).max())
+    assert eig.shape == eigr.shape and np.all(np.diff(eig, axis=1) >= -1e-6)
+    assert np.abs(eig - eigr).max() <= EIG_ATOL * max(1.0,
+                                                      np.abs(eigr).max())
+    assert rho.shape == rhor.shape and np.isfinite(rho).all()
+    assert np.abs(rho - rhor).max() <= RHO_RTOL * np.abs(rhor).max()
+
+
 @pytest.mark.cuda
-def test_scf_on_cuda_launches_every_kernel_and_matches_cpu(cuda_device):
-    wrappers = (dft_matmul, sp.unpack_dft, sp.dft_pack)
-    before = [f.launches for f in wrappers]
-    cfg = SCFConfig(n=16, nbands=4, kpts=KPTS2, max_iter=3, stack_k=True,
-                    backend="cuda")
+@pytest.mark.parametrize("size", list(SCF_SIZES))
+def test_scf_on_cuda_launches_every_kernel_and_matches_cpu(size,
+                                                           cuda_device):
+    """The stacked SCF on the kernel route launches kernels #1, #3 and
+    #4.  At n = 16 it matches the same run on the CPU (the kernels' plain
+    versions); at the paper's widths it matches the "matmul" route on the
+    card, which launches none of them."""
+    cfg = _scf_cfg(size)
+    before = _launches()
     gpu = run_scf(cfg)                       # the default device is CUDA
-    assert gpu.device.startswith("cuda")
-    assert all(f.launches > n for f, n in zip(wrappers, before))
-    cpu = run_scf(cfg, device="cpu")
-    np.testing.assert_allclose(gpu.energies, cpu.energies, rtol=0,
-                               atol=3e-5)
+    assert gpu.device.startswith("cuda") and gpu.stacked
+    launched = _launched(before)
+    assert all(k > 0 for k in launched)
+    if size == "n16":
+        cpu = run_scf(cfg, device="cpu")
+        np.testing.assert_allclose(gpu.energies, cpu.energies, rtol=0,
+                                   atol=3e-5)
+        return
+    assert gpu.iterations == 3 and gpu.eigenvalues.shape == (2, 16)
+    ref = run_scf(dataclasses.replace(cfg, backend="matmul"))
+    assert _launched(before) == launched
+    assert (gpu.backend, ref.backend, ref.stacked) == ("cuda", "matmul",
+                                                       True)
+    _agree(_trajectory(gpu), _trajectory(ref))
 
 
 # general twiddle cases: (M, K, N, rows past M NaN-poisoned), T = M
@@ -326,12 +416,19 @@ TWIDDLE_CASES = {
     "general-odd-k9-to-18": (300, 9, 18, False),
     "general-m1": (1, 8, 8, False),
     "general-poisoned": (1000, 24, 40, True),
+    "general-ragged-m-128-to-256": (389, 128, 256, False),
+    "general-poisoned-odd-k": (500, 9, 18, True),
+}
+# four-step stage-1 cases: (n, lines of n), M = lines·n1 rows of n2
+FOUR_STEP_CASES = {
+    "four_step": (2048, 50),
+    "four_step-n15": (15, 50),
+    "four_step-n4096-4096-lines": (4096, 4096),
 }
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", [*TWIDDLE_CASES, "four_step",
-                                  "four_step-n15"])
+@pytest.mark.parametrize("case", [*TWIDDLE_CASES, *FOUR_STEP_CASES])
 def test_cuda_twiddle_kernel_matches_plain(case, cuda_device):
     dev = cuda_device
     rng = np.random.default_rng(12)
@@ -340,9 +437,10 @@ def test_cuda_twiddle_kernel_matches_plain(case, cuda_device):
         x = _rows(rng, M, K, dev, poisoned)
         _, _, w = dft_matrix_device(N, K, False, dev)
         t = _cx(rng, (M, N), dev)
-    else:                   # stage 1 of n = 64·32, or of n = 3·5 (K = 5)
-        n1, n2 = ops._factor(2048 if case == "four_step" else 15)
-        x = _cx(rng, (50 * n1, n2), dev)
+    else:            # stage 1 of n = 64·32, 3·5 (K = 5) or 64·64
+        n, lines = FOUR_STEP_CASES[case]
+        n1, n2 = ops._factor(n)
+        x = _cx(rng, (lines * n1, n2), dev)
         _, _, w = dft_matrix_device(n2, n2, True, dev)
         t = torch.as_tensor(np.ascontiguousarray(
             twiddle_matrix(n1, n2, True).T), device=dev)
@@ -355,10 +453,11 @@ def test_cuda_twiddle_kernel_matches_plain(case, cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("inverse", [False, True])
-@pytest.mark.parametrize("n", [64, 360, 4096])
-def test_cuda_four_step_matches_torch_fft(n, inverse, cuda_device):
+@pytest.mark.parametrize("n,lines", [(64, 33), (360, 33), (4096, 33),
+                                     (4096, 4096)])
+def test_cuda_four_step_matches_torch_fft(n, lines, inverse, cuda_device):
     rng = np.random.default_rng(n)
-    x = _cx(rng, (33, n), cuda_device)
+    x = _cx(rng, (lines, n), cuda_device)
     before = (dft_matmul_twiddle.launches, dft_matmul.launches)
     y = ops.four_step_dft(x, inverse=inverse)
     fn = torch.fft.ifft if inverse else torch.fft.fft
@@ -367,13 +466,38 @@ def test_cuda_four_step_matches_torch_fft(n, inverse, cuda_device):
         (before[0] + 1, before[1] + 1)
 
 
+def _padded_lanes(svc):
+    """The padded lanes of every packed block ``svc`` makes, as its pair
+    runs return them (on the device)."""
+    seen = []
+    run = svc._run_pair
+
+    def watched(prepare):
+        box = {}
+
+        def prep():
+            out = prepare()
+            box["inv"] = out[0]
+            return out
+        packed = run(prep)
+        pad = torch.as_tensor(~box["inv"].valid_lanes(),
+                              device=packed.device)
+        seen.append(packed[pad])
+        return packed
+    svc._run_pair = watched
+    return seen
+
+
 @pytest.mark.cuda
 def test_cuda_transform_service_coalesces_and_matches_eager(cuda_device):
+    """A started service on each route: requests coalesce, the late one
+    fails, every result matches ``eager_apply`` and a round trip without
+    a potential its input, and the padded lanes of every packed block are
+    +0.0.  The "cuda" service's dispatches launch kernels #1, #3 and #4
+    and match the "matmul" service's, which launch none."""
     from repro_torch.core import PlanCache, ProcGrid
     from repro_torch.serve import DeadlineExceeded, TransformService
     g = ProcGrid.create([1], device=cuda_device)
-    svc = TransformService(g, 16, max_rows=8, backend="cuda",
-                           cache=PlanCache())
     rng = np.random.default_rng(13)
     veff = rng.standard_normal((16,) * 3).astype(np.float32)
     spheres = [kpoint_sphere(8, k) for k in KPTS2] + [kpoint_sphere(4)]
@@ -381,67 +505,143 @@ def test_cuda_transform_service_coalesces_and_matches_eager(cuda_device):
                        + 1j * rng.standard_normal((2, s.npacked))
                        ).astype(np.complex64), s, veff if i % 2 else None)
             for i, s in enumerate(spheres + spheres)]
-    before = dft_matmul.launches
-    svc.start()
-    try:
-        hs = [svc.submit(t, c, s, v_eff=v) for t, c, s, v in work]
-        late = svc.submit("late", work[0][1], spheres[0], deadline=0.0)
-        outs = [h.result(120) for h in hs]
-        with pytest.raises(DeadlineExceeded):
-            late.result(120)
-    finally:
-        svc.stop(timeout=120)
-    assert dft_matmul.launches > before
-    m = svc.metrics.summary()
-    assert m["dispatches"] < len(work) and m["coalesced_dispatches"] >= 1
-    for out, (_, c, s, v) in zip(outs, work):
-        want = svc.eager_apply(c, s, v)
-        err = float(np.abs(out - want).max())
-        assert err <= RTOL * float(np.abs(want).max()), err
-        if v is None:
-            assert float(np.abs(out - c).max()) <= RTOL * float(
-                np.abs(c).max())
+    served = {}
+    for backend in ("cuda", "matmul"):
+        svc = TransformService(g, 16, max_rows=8, backend=backend,
+                               cache=PlanCache())
+        padded = _padded_lanes(svc)
+        before = _launches()
+        svc.start()
+        try:
+            hs = [svc.submit(t, c, s, v_eff=v) for t, c, s, v in work]
+            late = svc.submit("late", work[0][1], spheres[0], deadline=0.0)
+            outs = [h.result(120) for h in hs]
+            with pytest.raises(DeadlineExceeded):
+                late.result(120)
+        finally:
+            svc.stop(timeout=120)
+        served[backend] = (outs, _launched(before))
+        m = svc.metrics.summary()
+        assert m["dispatches"] < len(work) and m["coalesced_dispatches"] >= 1
+        assert sum(p.numel() for p in padded) > 0
+        assert all(_plus_zero(p) for p in padded)
+        for out, (_, c, s, v) in zip(outs, work):
+            want = svc.eager_apply(c, s, v)
+            err = float(np.abs(out - want).max())
+            assert err <= RTOL * float(np.abs(want).max()), err
+            if v is None:
+                assert float(np.abs(out - c).max()) <= RTOL * float(
+                    np.abs(c).max())
+    assert all(k > 0 for k in served["cuda"][1])
+    assert served["matmul"][1] == [0, 0, 0]
+    for out, want in zip(served["cuda"][0], served["matmul"][0]):
+        assert float(np.abs(out - want).max()) <= RTOL * float(
+            np.abs(want).max())
+
+
+#: the lazy executor's cases, (mode, tolerance against eager, plan):
+#: "cube-16" and "cube-256", a forward 3D FFT of 2 bands (at n = 256 the
+#: whole-cube plan of the paper's Fig. 9 baseline), the eager result also
+#: held to torch.fft; "scf-inverse-b32", the paper-width SCF's stacked
+#: inverse plan (32 bands, d = 128 -> n = 256); "scf", that SCF under the
+#: lazy fp32 policy against the eager run: the sphere kernels still unpack
+#: and pack, every other stage is a lazy GEMM, so kernel #1 never launches
+LAZY_CASES = [(mode, tol, plan)
+              for plan in ("cube-16", "cube-256", "scf-inverse-b32")
+              for mode, tol in (("lazy", RTOL), ("lazy_bf16", 3e-2))]
+LAZY_CASES.append(("lazy", None, "scf"))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode,tol", [("lazy", RTOL), ("lazy_bf16", 3e-2)])
-def test_cuda_lazy_executor_matches_eager(mode, tol, cuda_device):
+@pytest.mark.parametrize("mode,tol,case", LAZY_CASES)
+def test_cuda_lazy_executor_matches_eager(mode, tol, case, cuda_device):
     from repro_torch.core import Domain, ProcGrid, fftb
     from repro_torch.core.policy import ExecPolicy
+    from repro_torch.dft.basis import PlaneWaveBasis
+    policy = ExecPolicy.from_mode(mode)
+    if case == "scf":
+        eager = run_scf(_scf_cfg("n256-d128"), device=cuda_device)
+        before = _launches()
+        lazy = run_scf(_scf_cfg("n256-d128", policy=policy),
+                       device=cuda_device)
+        n1, n3, n4 = _launched(before)
+        assert n1 == 0 and n3 > 0 and n4 > 0
+        _agree(_trajectory(lazy), _trajectory(eager))
+        return
     g = ProcGrid.create([1], device=cuda_device)
-    plan = fftb("b x{0} y z -> b X Y Z{0}",
-                domains=(Domain((0,), (1,)), Domain((0, 0, 0), (15,) * 3)),
-                grid=g, backend="cuda")
-    x = _cx(np.random.default_rng(3), (2, 16, 16, 16), cuda_device)
+    if case.startswith("cube"):
+        n = int(case.split("-")[1])
+        plan = fftb("b x{0} y z -> b X Y Z{0}",
+                    domains=(Domain((0,), (1,)),
+                             Domain((0, 0, 0), (n - 1,) * 3)),
+                    grid=g, backend="cuda")
+    else:
+        plan = PlaneWaveBasis(256, diameter=128, kpts=KPTS2, nbands=16,
+                              backend="cuda", device=cuda_device
+                              ).stacked_inverse_plan()
+    x = _cx(np.random.default_rng(3), tuple(plan.tin.shape), cuda_device)
+    before = dft_matmul.launches
     eager = plan(x)
-    got = plan(x, policy=ExecPolicy.from_mode(mode))
+    if case.startswith("cube"):        # a launch of kernel #1 a stage
+        assert dft_matmul.launches == before + 3
+        _close(eager, torch.fft.fftn(x, dim=(1, 2, 3)))
+    got = plan(x, policy=policy)
     assert got.device == x.device and got.is_contiguous()
     _close(got, eager, rtol=tol)
 
 
-def _jit_cfg(**kw):
-    return SCFConfig(n=16, nbands=3, kpts=KPTS2, stack_k=True,
-                     backend="cuda", mix_warmup=99, mix_history=1, **kw)
+def _jit_cfg(size="n16", **kw):
+    """The fused step's SCF at ``size``: linear mixing throughout."""
+    return _scf_cfg(size, mix_warmup=99, mix_history=1, **kw)
 
 
 @pytest.mark.cuda
-def test_cuda_jit_step_replays_graphs_and_matches_eager(cuda_device):
+@pytest.mark.parametrize("size", list(SCF_SIZES))
+def test_cuda_jit_step_replays_graphs_and_matches_eager(size, cuda_device):
+    """The fused step replays its graphs: plan calls and kernel launches
+    happen in the warm-up and the capture only, and one steady iteration
+    syncs the host at its named host syncs and the energy/residual read
+    and nowhere else (the sync debug mode's warnings)."""
     from repro_torch.core import FftPlan
-    eager = run_scf(_jit_cfg(max_iter=6), device=cuda_device)
-    ex0 = FftPlan.executions
-    jit6 = run_scf(_jit_cfg(max_iter=6, jit_step=True), device=cuda_device)
-    d6 = FftPlan.executions - ex0
-    ex0 = FftPlan.executions
-    jit3 = run_scf(_jit_cfg(max_iter=3, jit_step=True), device=cuda_device)
-    # plan calls happen in the warm-up and the capture only: the same
-    # count for 3 and 6 iterations
-    assert FftPlan.executions - ex0 == d6 > 0
+
+    def counts():
+        return [FftPlan.executions, *_launches()]
+    eager = run_scf(_jit_cfg(size, max_iter=6), device=cuda_device)
+    marks = []
+
+    def second_iteration(it, energy, resid):
+        if it in (0, 1):
+            torch.cuda.set_sync_debug_mode("warn" if it == 0 else 0)
+            marks.append(len(caught))
+    c0 = counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        try:
+            jit6 = run_scf(_jit_cfg(size, max_iter=6, jit_step=True),
+                           device=cuda_device, callback=second_iteration)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    d6 = [a - b for a, b in zip(counts(), c0)]
+    c0 = counts()
+    jit3 = run_scf(_jit_cfg(size, max_iter=3, jit_step=True),
+                   device=cuda_device)
+    # the same count for 3 and 6 iterations: the replays launch the
+    # captured kernels again without a plan call or a wrapper
+    assert [a - b for a, b in zip(counts(), c0)] == d6
+    assert all(k > 0 for k in d6)
     assert jit6.jitted and jit3.jitted and jit6.iterations == 6
     st = jit6.graphs
     steps = SCFConfig().inner_steps
     assert st["host_syncs"] == ["linalg.eigh"] * steps
     assert st["graphs"] == steps + 1 and st["replays"] == 5
+    syncs = [str(w.message) for w in caught[marks[0]:marks[1]]
+             if "synchroniz" in str(w.message)
+             and "prototype" not in str(w.message)]
+    assert len(syncs) == steps + 1, syncs
     assert jit6.transforms == eager.transforms
+    if size != "n16":
+        _agree(_trajectory(jit6), _trajectory(eager))
+        return
     assert abs(jit6.energy - eager.energy) < 1e-4
     assert np.abs(jit6.eigenvalues - eager.eigenvalues).max() < 1e-4
     assert float((jit6.rho - eager.rho).abs().max()) \
@@ -511,8 +711,8 @@ def test_cuda_moe_is_deterministic(cuda_device):
 
 # kernel #1's strided entry: (planes, K, L, N).  L below 64 (a box holds
 # 64 / L planes), L = 64·k, and the paper pair's own stage layouts at
-# reduced plane counts: idft[x] (L = 32,768), idft[y] (L = 65,536) and
-# dft[X] (L = 128)
+# reduced plane counts and at the paper-width SCF's: idft[x] (L =
+# 32,768), idft[y] (L = 65,536) and dft[X] (L = 128)
 COLS_CASES = {
     "l8-k128": (40, 128, 8, 256),
     "l32-k256": (12, 256, 32, 128),
@@ -522,6 +722,10 @@ COLS_CASES = {
     "l65536-k128-idft-y": (1, 128, 65536, 256),
     "l128-k256-dft-x": (64, 256, 128, 128),
     "l64-odd-k9": (5, 9, 64, 18),
+    # the paper-width SCF's strided stages on all of their planes
+    "scf-idft-x-32-planes": (32, 128, 32768, 256),
+    "scf-idft-y-32-planes": (32, 128, 65536, 256),
+    "scf-dft-x-8192-planes": (8192, 256, 128, 128),
 }
 
 
@@ -549,12 +753,14 @@ def test_cuda_strided_entry_is_bitwise_the_rows_entry(case, cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,n,kpts,nb", [(8, 16, KPTS2, 3),
-                                         (128, 256, KPTS2, 1)])
+                                         (128, 256, KPTS2, 1),
+                                         (128, 256, KPTS2, 16)])
 def test_cuda_dft_pack_z_major_slab_is_bitwise_the_other_layouts(
         d, n, kpts, nb, cuda_device):
     """One slab's values stored three ways: lines contiguous (layout 0),
     each y plane z-major (1) and each row's slab z-major (2, what the
-    forward's x stage leaves): the packed lanes are equal bit for bit."""
+    forward's x stage leaves): the packed lanes are equal bit for bit,
+    and the padded ones +0.0."""
     spheres = [kpoint_sphere(d, k) for k in kpts]
     npm = max(s.npacked for s in spheres)
     start, zlo, cnt, _ = (torch.as_tensor(t, device=cuda_device)
@@ -578,15 +784,25 @@ def test_cuda_dft_pack_z_major_slab_is_bitwise_the_other_layouts(
         assert torch.equal(torch.view_as_real(outs[0]),
                            torch.view_as_real(other))
     _close(outs[2], sp.dft_pack_plain(slab, start, zlo, cnt, nvalid, w, npm))
+    pad = torch.arange(npm, device=cuda_device)[None] >= nvalid[:, None]
+    assert pad.any() and _plus_zero(outs[0][pad])
+
+
+#: a line stage's span against the device time between its own CUDA
+#: events: the span's exit synchronizes the card
+SPAN_COVERAGE = 0.9
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,d", [(16, 8), (32, 16)])
+@pytest.mark.parametrize("n,d", [(16, 8), (32, 16), (256, 128)])
 def test_cuda_traced_pair_reads_every_line_in_place(n, d, cuda_device):
     """A pair on the card: no ``relayout`` span, one line stage a call
-    pair reading rows and three reading strided lines, and the cube and
-    packed lanes bitwise those of the same stages run with their inputs
-    copied into rows first."""
+    pair reading rows and three reading strided lines, one launch of
+    kernel #1 a line stage, of #3 for the unpack and of #4 for the pack,
+    each line stage's span at least SPAN_COVERAGE of its device time (at
+    the paper's widths a stage takes far longer on the card than its
+    launch on the host), and the cube and packed lanes bitwise those of
+    the same stages run with their inputs copied into rows first."""
     from repro_torch.core import ProcGrid, make_planewave_pair
     from repro_torch.core import local_fft
     from repro_torch.obs.metrics import global_metrics
@@ -596,14 +812,26 @@ def test_cuda_traced_pair_reads_every_line_in_place(n, d, cuda_device):
     c = _cx(np.random.default_rng(n), (4, inv.sphere.npacked), cuda_device)
     tr = get_tracer()
     before = dict(global_metrics().snapshot()["fftb"])
+    launches = _launches()
     tr.enable(sync=True)
     try:
         cube = inv.unpack_transform(c)
         out = fwd.transform_pack(cube)
-        names = {e["name"] for e in tr.events()}
+        torch.cuda.synchronize()
+        events = tr.events()
+        device = tr.device_summary()
     finally:
         tr.disable()
         tr.clear()
+    names = {e["name"] for e in events}
+    assert _launched(launches) == [4, 1, 1]
+    stages = [e for e in events if e["name"].startswith(("idft[", "dft["))]
+    assert len(stages) == 4
+    for e in stages:
+        assert device[e["name"]]["count"] == 1
+        span_ms = (e["t1"] - e["t0"]) * 1e3
+        assert span_ms >= SPAN_COVERAGE * device[e["name"]]["device_ms"], (
+            e["name"], span_ms, device[e["name"]])
     after = global_metrics().snapshot()["fftb"]
     assert "relayout" not in names and "fused:dft_pack" in names
     assert {k: after[k] - before[k] for k in
@@ -721,3 +949,173 @@ def test_cuda_factored_rows_off_16_bytes_are_copied_first(cuda_device):
     torch.cuda.synchronize()
     assert torch.equal(torch.view_as_real(y),
                        torch.view_as_real(dft_factored(x.clone(), fo)))
+
+
+#: the spectral layers at their callers' widths: fourier_mixer on (B, S, D)
+#: float32 (kernel #1 on lines of 1024 and 2048), fft_conv at Mamba-2
+#: 370M's conv width (d_inner 2048 + 2 * ssm_state 128 channels, kernel
+#: width 4: src/repro/configs/mamba2_370m.py), S = 1024 padded to L = 2048:
+#: (shape, kernel width, launches of kernel #1)
+SPECTRAL_CASES = {"fourier_mixer": ((8, 2048, 1024), None, 2),
+                  "fft_conv": ((8, 1024, 2304), 4, 3)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layer", list(SPECTRAL_CASES))
+def test_cuda_spectral_layers_match_the_other_routes(layer, cuda_device):
+    """A spectral layer on the "cuda" route: one launch of kernel #1 a
+    line DFT, within 1e-5 of the largest value of the "matmul" route's
+    output and of torch.fft's (the "fft" route)."""
+    from repro_torch.core import fft_conv, fourier_mixer
+    shape, width, launches = SPECTRAL_CASES[layer]
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn(shape, generator=gen, device=cuda_device)
+    k = (None if width is None else
+         torch.randn((width, shape[-1]), generator=gen, device=cuda_device))
+
+    def layer_on(backend):
+        return (fourier_mixer(x, backend=backend) if k is None else
+                fft_conv(x, k, backend=backend))
+    before = dft_matmul.launches
+    y = layer_on("cuda")
+    assert dft_matmul.launches == before + launches
+    for backend in ("matmul", "fft"):
+        _close(y, layer_on(backend))
+
+
+# ------------------------------------------- four processes on the card
+#: four processes sharing the card on the 2×2 (batch × fft) grid over gloo
+#: (which carries each collective through host memory), at the
+#: reference's SCF size: n = 16, d = 8, 2 k-points of 4 bands, where every
+#: rank launches kernels #1, #3 and #4 in each path; the SCF a fixed
+#: linearly mixed trajectory of MR_ITERS iterations
+MR_ITERS, MR_TIMEOUT = 3, 600.0
+
+
+def _mr_cfg(**kw):
+    return _scf_cfg("n16", max_iter=MR_ITERS, mix_warmup=MR_ITERS,
+                    mix_history=1, **kw)
+
+
+def _mr_work(data):
+    """The service's requests: (tenant, coefficients, sphere, potential)."""
+    spheres = [kpoint_sphere(8, k) for k in KPTS2]
+    return [("t0", data["c0"], spheres[0], data["v"]),
+            ("t1", data["c1"], spheres[1], None),
+            ("t2", data["c0"][:2], spheres[0], None)]
+
+
+def _cuda_2x2_rank(rank, path):
+    """One rank of the 2×2 grid on the card: the stacked H apply, the SCF
+    eager and as the fused step (its CUDA graphs captured around the
+    gloo collectives' host syncs), then the service (front end rank 0,
+    the others following), each with the rank's launches of kernels #1,
+    #3 and #4."""
+    from repro_torch.core import ProcGrid
+    from repro_torch.dft import PlaneWaveBasis
+    from repro_torch.dft.hamiltonian import apply_hamiltonian_padded
+    from repro_torch.serve import TransformService
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    data = np.load(path)
+    grid = ProcGrid.create([2, 2], ["dft_b", "dft_f"], device=dev)
+    basis = PlaneWaveBasis(16, kpts=KPTS2, nbands=4, grid=grid,
+                           backend="cuda")
+    inv, _ = basis.stacked_hamiltonian_plans()
+    coeffs = [torch.as_tensor(data[f"c{ik}"], device=dev)
+              for ik in range(2)]
+    c_pad = inv.stack(coeffs).reshape(2, 4, inv.npacked_max)
+    v = basis.field.scatter(torch.as_tensor(data["v"], device=dev))
+    d0, before = dict(sp.DISPATCHES), _launches()
+    hc = apply_hamiltonian_padded(basis, c_pad, v)
+    out = {"h": hc.cpu().numpy(), "h_launches": _launched(before),
+           "h_dispatches": {k: sp.DISPATCHES[k] - d0[k] for k in d0}}
+    for name, kw in (("eager", {}), ("fused", {"jit_step": True})):
+        before = _launches()
+        res = run_scf(_mr_cfg(**kw), grid=grid, coeffs=coeffs)
+        out[name] = {"launches": _launched(before),
+                     "trajectory": _trajectory(res),
+                     "grid_shape": res.grid_shape, "stacked": res.stacked,
+                     "jitted": res.jitted, "graphs": res.graphs}
+    svc = TransformService(grid, 16, warm_async=False, backend="cuda",
+                           batch_axes=(0,))
+    work = _mr_work(data)
+    before = _launches()
+    handles = ([svc.submit(t, c, s, v_eff=ve) for t, c, s, ve in work]
+               if svc.is_front else [])
+    svc.run_until_idle()
+    out["service"] = {"launches": _launched(before),
+                      "results": [h.result(60) for h in handles],
+                      "eager": [svc.eager_apply(c, s, ve)
+                                for _, c, s, ve in work]}
+    svc.stop()
+    return out
+
+
+@pytest.mark.cuda
+def test_cuda_2x2_ranks_launch_every_kernel_and_replay_graphs(cuda_device,
+                                                              tmp_path):
+    """Four processes on the card, the 2×2 grid over gloo.  Every rank
+    launches kernels #1, #3 and #4 in its H apply, its eager SCF, its
+    fused step and its service dispatches.  The H apply takes the fused
+    route and matches one rank's within 1e-5 of its largest value, padded
+    lanes +0.0; the eager SCF and the fused step (graphs replayed on every
+    rank) give every rank the same energies and match one rank's runs and
+    each other; the front end's results match ``eager_apply``."""
+    from repro_torch.dft import PlaneWaveBasis
+    from repro_torch.dft.hamiltonian import apply_hamiltonian_padded
+    from repro_torch.sharding.procs import run_ranks
+    rng = np.random.default_rng(7)
+    data = {}
+    for ik, kpt in enumerate(KPTS2):
+        npk = kpoint_sphere(8, kpt).npacked
+        c = (rng.standard_normal((npk, 4))
+             + 1j * rng.standard_normal((npk, 4)))
+        data[f"c{ik}"] = np.linalg.qr(c)[0].T.astype(np.complex64)
+    data["v"] = rng.standard_normal((16,) * 3).astype(np.float32)
+    path = str(tmp_path / "inputs.npz")
+    np.savez(path, **data)
+    ranks = run_ranks(_cuda_2x2_rank, 4, args=(path,),
+                      rendezvous_dir=str(tmp_path), timeout=MR_TIMEOUT,
+                      threads=2)
+    # one rank's runs from the same inputs
+    basis = PlaneWaveBasis(16, kpts=KPTS2, nbands=4, device=cuda_device,
+                           backend="cuda")
+    inv, _ = basis.stacked_hamiltonian_plans()
+    coeffs = [torch.as_tensor(data[f"c{ik}"], device=cuda_device)
+              for ik in range(2)]
+    c_pad = inv.stack(coeffs).reshape(2, 4, inv.npacked_max)
+    hc = apply_hamiltonian_padded(basis, c_pad, torch.as_tensor(
+        data["v"], device=cuda_device)).cpu().numpy()
+    one = {name: _trajectory(run_scf(_mr_cfg(**kw), device=cuda_device,
+                                     coeffs=coeffs))
+           for name, kw in (("eager", {}), ("fused", {"jit_step": True}))}
+    pad = np.broadcast_to(~inv.valid_lanes()[:, None, :], hc.shape)
+    e0 = {name: ranks[0][name]["trajectory"][0]
+          for name in ("eager", "fused")}
+    for out in ranks:
+        for launched in (out["h_launches"], out["eager"]["launches"],
+                         out["fused"]["launches"],
+                         out["service"]["launches"]):
+            assert all(k > 0 for k in launched), launched
+        assert out["h_dispatches"] == {"unpack_dft": 1, "dft_pack": 1}
+        assert np.abs(out["h"] - hc).max() <= RTOL * np.abs(hc).max()
+        assert pad.any() and _plus_zero(torch.as_tensor(out["h"][pad]))
+        for name in ("eager", "fused"):
+            run = out[name]
+            assert tuple(run["grid_shape"]) == (2, 2) and run["stacked"]
+            assert np.array_equal(run["trajectory"][0], e0[name])
+        graphs = out["fused"]["graphs"]
+        assert out["fused"]["jitted"]
+        assert graphs["replays"] == MR_ITERS - 1
+    eager, fused = ranks[0]["eager"]["trajectory"], ranks[0]["fused"][
+        "trajectory"]
+    _agree(eager, one["eager"])
+    _agree(fused, one["fused"])
+    _agree(fused, eager)
+    front = ranks[0]["service"]
+    assert len(front["results"]) == len(_mr_work(data))
+    for got, want in zip(front["results"], front["eager"]):
+        assert float(np.abs(got - want).max()) <= RTOL * float(
+            np.abs(want).max())

@@ -94,8 +94,8 @@ def test_paper_config_has_the_reference_fields():
 
 @pytest.mark.parametrize("backend", ["cuda", "matmul"])
 def test_paper_path_at_reduced_width_matches_reference(backend):
-    """The paper phase of the card's smoke run at n=32, d=16, 8 bands:
-    chooser → basis preflight → fused pair, against the reference's
+    """The paper's path at n=32, d=16, 8 bands: chooser → basis
+    preflight → fused pair, against the reference's
     "matmul" pair on the same coefficients."""
     cfg = dataclasses.replace(CONFIG, n=32, diameter=16, nb=8)
     grid = choose_dft_grid(nbands=cfg.nb, diameter=cfg.diameter,

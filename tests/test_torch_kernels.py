@@ -4,8 +4,7 @@ On the CPU every wrapper runs its plain PyTorch version (a CPU tensor is
 the only thing that selects it); the reference Pallas kernels run in
 interpret mode, as ``tests/test_kernels.py`` runs them.  The hand-written
 CUDA kernels themselves are held against the plain versions by
-``tests/test_torch_cuda.py`` (skipped without a card) and by
-``chip_smoke.py``.
+``tests/test_torch_cuda.py`` (skipped without a card).
 
 Tolerances: the port and the reference sum the same fp32 products in
 another order (torch's CPU GEMM vs XLA's dot), so values agree to ~1e-6

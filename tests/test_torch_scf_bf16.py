@@ -26,8 +26,10 @@ through the probe's 6 iterations to first order:
 
 ``TRANSFORM_ERR`` is the larger of the measured per-transform errors of
 a lazy-bf16 plan against the eager one, relative to the largest output:
-6.7e-3 on an NVIDIA H100 80GB HBM3 at 700 W (``chip_smoke.py``'s
-executor-mode phase) and 6.2e-3 on the CPU (the 16³ plan of
+6.7e-3 on an NVIDIA H100 80GB HBM3 at 700 W (the stacked SCF's inverse
+plan at n = 256, d = 128, 32 bands: the plan of the card case
+``test_torch_cuda.py::test_cuda_lazy_executor_matches_eager[lazy_bf16-0.03-scf-inverse-b32]``)
+and 6.2e-3 on the CPU (the 16³ plan of
 ``test_torch_exec_modes.py::test_lazy_bf16_executor_precision_bounded``).  On this probe (CPU) the lazy-bf16 density holds 4.00376
 electrons of 4 (δ = 9.4e-4); the density terms' bound is 3.97e-3 and
 they move by 2.85e-3 together (external −3.09e-3, Hartree +8.7e-4,
