@@ -169,11 +169,13 @@ dense product through the same entry, complex64 ``torch.matmul`` (which it
 must beat) and the plain versions of both modes (which they must match);
 then kernel #3 at the cells' unpack of the 128-sphere and kernel #4 at each
 cell's pack, onto the 128-sphere and onto the 64-sphere, from the z-major
-slab the forward leaves, each on its first 8 bands against its plain
-version; then one call pair of each cell through the port's main path
+slab the forward leaves, in the factored mode the cells take beside the
+dense one, each on its first 8 bands against the plain version of its
+mode; then one call pair of each cell through the port's main path
 (``unpack_transform`` and ``transform_pack``; ``pair_density``), every
 kernel wrapper's count set to 0 just before: four launches of #1, one of
-#3, one of #4 and none of #2, and the paper pair's round trip within 1e-5;
+#3, one of #4 and none of #2, #3 and #4 each once in the factored mode and
+never in the dense one, and the paper pair's round trip within 1e-5;
 then kernel #2 at stage 1 of ``four_step_dft`` (4096 lines of 4096, which
 no cell runs) against its plain version and the einsum of the same
 function (which it must beat); each time against its roofline bound, the
@@ -568,11 +570,12 @@ def ptxas_summary(log: str) -> list[tuple[str, str]]:
             if m:
                 name = (f"cgemm_tc_kernel<{A_PATHS[int(m[1])]}, "
                         f"{m[3][:int(m[2])]}>")
-            m = re.search(r"cgemm_tc_factored_kernelILi(\d)ELi(\d+)ELi(\d+)E",
-                          name)
+            m = re.search(r"cgemm_tc_factored_(sphere_)?kernelILi(\d)ELi"
+                          r"(\d+)ELi(\d+)E(?:N4dftk(\d+)(\w+))?", name)
             if m:
-                name = (f"cgemm_tc_factored_kernel<{A_PATHS[int(m[1])]}, "
-                        f"{m[2]}, {m[3]}>")
+                policy = f", {m[6][:int(m[5])]}" if m[5] else ""
+                name = (f"cgemm_tc_factored_{m[1] or ''}kernel<"
+                        f"{A_PATHS[int(m[2])]}, {m[3]}, {m[4]}{policy}>")
             out[name] = []
         elif name and ("registers" in line or "spill" in line):
             out[name].append(line.split("info    :")[-1].strip())
@@ -659,6 +662,10 @@ KERNEL_RTOL = 1e-5
 #: their plain versions (the plain unpack's gathers at 128 bands would not
 #: fit beside the kernel's output)
 SPHERE_PLAIN_BANDS = 8
+#: the sphere kernels' calls by mode in one call pair of either cell: both
+#: take the factored mode (``kernels/sphere_pack.py::MODES``)
+PAIR_MODES = {"unpack_factored": 1, "unpack_dense": 0, "pack_factored": 1,
+              "pack_dense": 0}
 #: the launches of one call pair of either cell: each direction's z stage
 #: fused into #3 or #4, its y and x stages on #1, no four-step stage
 #: (``portbench/roofline.py::pair_calls``)
@@ -793,70 +800,83 @@ def cell_plans(torch, dev) -> dict:
 
 def time_sphere_calls(torch, dev, gen, gpu: str, pairs: dict) -> list:
     """Kernels #3 and #4 at one 128-band call of each cell, on the line
-    tables, operators and chunk ranges of the cells' own plans
-    (``cell_plans``): #3 at the inverse's unpack of the 128-sphere (the
-    same in both cells), #4 at ``paper-pair``'s pack onto the 128-sphere
-    and at ``gw-mtxel``'s onto the 64-sphere about G = 0, each from the
-    z-major slab (layout 2) its forward's x stage leaves; each time
-    against its roofline bound, and the call's first
-    ``SPHERE_PLAIN_BANDS`` bands against the plain version within
-    ``KERNEL_RTOL``."""
+    tables and operators of the cells' own plans (``cell_plans``): #3 at
+    the inverse's unpack of the 128-sphere (the same in both cells), #4 at
+    ``paper-pair``'s pack onto the 128-sphere and at ``gw-mtxel``'s onto
+    the 64-sphere about G = 0, each from the z-major slab (layout 2) its
+    forward's x stage leaves; each in the factored mode the plans take and
+    in the dense mode, its time against its roofline bound, and the call's
+    first ``SPHERE_PLAIN_BANDS`` bands against the plain version of the
+    mode, within ``FACTORED_RTOL`` or ``KERNEL_RTOL``."""
     from portbench.roofline import pack_call, unpack_call
     from repro_torch.kernels import sphere_pack as sp
+    from repro_torch.kernels.ops import dft_operand_device
     n, d, B, b = BENCH_N, BENCH_D, BENCH_BANDS, SPHERE_PLAIN_BANDS
     print(f"kernels #3 and #4 at a 128-band call of each cell ({gpu}; CUDA "
           "events, mean of 10):", flush=True)
     out = []
 
-    def report(kernel, cells, shape, ms, work, got, want):
+    def report(kernel, mode, cells, shape, ms, work, got, want):
         err = rel_err(got, want)
+        tol = FACTORED_RTOL if mode == "factored" else KERNEL_RTOL
         check(bool(torch.isfinite(torch.view_as_real(got)).all())
-              and err <= KERNEL_RTOL, f"{kernel} {shape}: the first {b} "
-              f"bands finite and within {err:.2e} <= {KERNEL_RTOL} of the "
-              "plain version")
-        out.append({"kernel": kernel, "cells": cells, "shape": shape,
-                    "ms": ms, "rel_err": err, "plain_bands": b,
-                    "work": work, **roofline(ms, work)})
-        print(f"  {kernel} {shape} ({', '.join(cells)}): {ms:.3f} ms, "
-              f"{roofline_text(out[-1])}; rel err {err:.2e} on {b} bands",
-              flush=True)
+              and err <= tol, f"{kernel} {mode} {shape}: the first {b} "
+              f"bands finite and within {err:.2e} <= {tol} of the plain "
+              "version")
+        out.append({"kernel": kernel, "mode": mode, "cells": cells,
+                    "shape": shape, "ms": ms, "rel_err": err,
+                    "tolerance": tol, "plain_bands": b, "work": work,
+                    **roofline(ms, work)})
+        print(f"  {kernel} {mode} {shape} ({', '.join(cells)}): {ms:.3f} "
+              f"ms, {roofline_text(out[-1])}; rel err {err:.2e} on {b} "
+              "bands", flush=True)
 
     ip = pairs["paper-pair"][0]._fused_in_parts()
-    start, zlo, cnt, flag, chunks = ip["private"]
+    start, zlo, cnt, flag = ip["private"][:4]
+    fo, w = ip["factored"], ip["w"]
+    check(fo is not None, "the cells' unpack takes the factored mode")
+    modes = {"factored": {"factored": fo},
+             "dense": {"chunks": sp.chunk_ranges(zlo, cnt, flag),
+                       "wsplit": dft_operand_device(n, d, True, dev)}}
     rows = crandn(torch, gen, ip["in_shape"], dev)
     npk = rows.shape[1]
-
-    def unpack():
-        return sp.unpack_dft(rows, start, zlo, cnt, flag, ip["w"],
-                             chunks=chunks, wsplit=ip["wsplit"])
-    ms = time_ms(torch, unpack)
-    got = unpack()[:b].clone()
-    want = sp.unpack_dft_plain(rows[:b], start[:b], zlo[:b], cnt[:b], flag,
-                               ip["w"])
-    report("unpack_dft", list(pairs), f"({B},{npk})->({B},{d},{d},{n})", ms,
-           unpack_call(B, npk, int((cnt[0] > 0).sum()), d, n), got, want)
-    del rows, got, want
-    torch.cuda.empty_cache()
+    work = unpack_call(B, npk, int((cnt[0] > 0).sum()), d, n)
+    for mode, kw in modes.items():
+        def unpack():
+            return sp.unpack_dft(rows, start, zlo, cnt, flag, w, **kw)
+        ms = time_ms(torch, unpack)
+        got = unpack()[:b].clone()
+        want = sp.unpack_dft_plain(rows[:b], start[:b], zlo[:b], cnt[:b],
+                                   flag, w, kw.get("factored"))
+        report("unpack_dft", mode, list(pairs),
+               f"({B},{npk})->({B},{d},{d},{n})", ms, work, got, want)
+        del got, want
+        torch.cuda.empty_cache()
+    del rows
     for cell, (_, fwd) in pairs.items():
         fp = fwd._fused_out_parts()
         start, zlo, cnt, nvalid = fp["private"]
-        npk, w = fp["out_shape"][1], fp["w"]
+        npk, w, fo = fp["out_shape"][1], fp["w"], fp["factored"]
         ds = w.shape[0]
+        check(fo is not None, f"{cell}: the pack takes the factored mode")
         slab = crandn(torch, gen, (B, n, ds, ds), dev).permute(0, 3, 2, 1)
         check(sp.slab_layout(slab) == 2, f"{cell}: the z-major slab is "
               "read in place (layout 2)")
-
-        def pack():
-            return sp.dft_pack(slab, start, zlo, cnt, nvalid, w, npk,
-                               wsplit=fp["wsplit"])
-        ms = time_ms(torch, pack)
-        got = pack()[:b]
-        want = sp.dft_pack_plain(slab[:b], start[:b], zlo[:b], cnt[:b],
-                                 nvalid[:b], w, npk)
-        report("dft_pack", [cell], f"({B},{ds},{ds},{n}) z-major->"
-               f"({B},{npk})", ms,
-               pack_call(B, npk, int((cnt[0] > 0).sum()), n), got, want)
-        del slab, got, want
+        work = pack_call(B, npk, int((cnt[0] > 0).sum()), n)
+        modes = {"factored": {"factored": fo},
+                 "dense": {"wsplit": dft_operand_device(ds, n, False, dev)}}
+        for mode, kw in modes.items():
+            def pack():
+                return sp.dft_pack(slab, start, zlo, cnt, nvalid, w, npk,
+                                   **kw)
+            ms = time_ms(torch, pack)
+            got = pack()[:b]
+            want = sp.dft_pack_plain(slab[:b], start[:b], zlo[:b], cnt[:b],
+                                     nvalid[:b], w, npk, kw.get("factored"))
+            report("dft_pack", mode, [cell], f"({B},{ds},{ds},{n}) z-major->"
+                   f"({B},{npk})", ms, work, got, want)
+            del got, want
+        del slab
         torch.cuda.empty_cache()
     return out
 
@@ -868,10 +888,12 @@ def run_cell_pairs(torch, dev, gen, gpu: str, pairs: dict,
     then ``transform_pack``; ``gw-mtxel``: ``pair_density`` against one
     valence band), after a first pair that builds every shape, with every
     kernel wrapper's count set to 0 just before and read just after: the
-    launches must be ``PAIR_LAUNCHES``, and ``paper-pair``'s pair must
-    give back its coefficients within ``KERNEL_RTOL``.  Returns each
-    cell's launches (the pairs' times are the benchmark's)."""
+    launches must be ``PAIR_LAUNCHES`` and the sphere kernels' modes
+    ``PAIR_MODES``, and ``paper-pair``'s pair must give back its
+    coefficients within ``KERNEL_RTOL``.  Returns each cell's launches and
+    modes (the pairs' times are the benchmark's)."""
     from repro_torch.dft import pair_density, valence_conjugates
+    from repro_torch.kernels.sphere_pack import MODES
     print(f"one call pair of each cell through the main path ({gpu}):",
           flush=True)
     out = {}
@@ -888,17 +910,22 @@ def run_cell_pairs(torch, dev, gen, gpu: str, pairs: dict,
         sync(torch, dev)
         for fn in wrappers.values():
             fn.launches = 0
+        modes0 = dict(MODES)
         got = pair()
         sync(torch, dev)
         launches = {k: fn.launches for k, fn in wrappers.items()}
+        modes = {k: MODES[k] - modes0[k] for k in MODES}
         check(launches == PAIR_LAUNCHES, f"{cell}: one call pair launched "
               f"{launches}")
+        check(modes == PAIR_MODES, f"{cell}: one call pair's sphere "
+              f"kernels by mode {modes}")
         err = None
         if cell == "paper-pair":
             err = rel_err(got, c)
             check(err <= KERNEL_RTOL, f"{cell}: the pair gives back its "
                   f"coefficients within {err:.2e} <= {KERNEL_RTOL}")
-        out[cell] = {"launches": launches, "round_trip_rel_err": err}
+        out[cell] = {"launches": launches, "modes": modes,
+                     "round_trip_rel_err": err}
         del c, got, pair
         vconj = None
         torch.cuda.empty_cache()
@@ -986,12 +1013,17 @@ def kernel_table(lines: list, sphere: list, twiddle: dict,
                 **{k: twiddle[k] for k in ("rel_err", "ms", "bound_ms",
                                            "bound_by", "roofline")}})
     for r in sphere:
-        out.append({"name": r["kernel"], "mode": "dense",
+        side = "unpack" if r["kernel"] == "unpack_dft" else "pack"
+        out.append({"name": r["kernel"], "mode": r["mode"],
                     "shape": r["shape"], "cells": r["cells"],
-                    "launches": launches(r["kernel"]), "library_ms": None,
-                    "tolerance": KERNEL_RTOL,
-                    **{k: r[k] for k in ("rel_err", "ms", "bound_ms",
-                                         "bound_by", "roofline")}})
+                    "launches": launches(r["kernel"]),
+                    "mode_launches": {
+                        cell: c["modes"][f"{side}_{r['mode']}"]
+                        for cell, c in cells.items()},
+                    "library_ms": None,
+                    **{k: r[k] for k in ("rel_err", "tolerance", "ms",
+                                         "bound_ms", "bound_by",
+                                         "roofline")}})
     return out
 
 

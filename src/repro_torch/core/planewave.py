@@ -122,9 +122,15 @@ def _fused_unpack_parts(wrapper, spheres, nbands: int, npacked: int):
     start, zlo, cnt, flag = (torch.as_tensor(np.ascontiguousarray(t),
                                              device=dev)
                              for t in (start, zlo, cnt, flag[xs]))
-    chunks = sphere_pack.chunk_ranges(zlo, cnt, flag)
     _, _, w = dft_matrix_device(st.n_out, st.n_in, st.inverse, dev)
-    ws = _split_operand(st, dev)
+    # the factored mode where the shape takes it, else the dense one with
+    # its chunk ranges and split operand
+    fo = sphere_pack.factored_for(st.n_in, st.n_out, st.inverse,
+                                  start.shape[1], dev)
+    chunks = ws = None
+    if fo is None:
+        chunks = sphere_pack.chunk_ranges(zlo, cnt, flag)
+        ws = _split_operand(st, dev)
     mid = DistTensor(tin.domains[:-1]
                      + (Domain((0, 0, 0), (ex - 1, ey - 1, st.n_out - 1)),),
                      tin.dims, tin.layout, grid)
@@ -137,11 +143,11 @@ def _fused_unpack_parts(wrapper, spheres, nbands: int, npacked: int):
     def fn(packed):
         return sphere_pack.unpack_dft(
             packed.to(torch.complex64).contiguous(), start, zlo, cnt, flag,
-            w, chunks=chunks, wsplit=ws)
+            w, chunks=chunks, wsplit=ws, factored=fo)
 
+    private = (start, zlo, cnt, flag) + (() if chunks is None else (chunks,))
     return {"fn": fn, "rem": rem, "in_shape": (tin.local_shape[0], npacked),
-            "private": (start, zlo, cnt, flag, chunks), "w": w,
-            "wsplit": ws}
+            "private": private, "w": w, "wsplit": ws, "factored": fo}
 
 
 def _fused_pack_parts(wrapper, spheres, nbands: int, npacked: int):
@@ -189,7 +195,9 @@ def _fused_pack_parts(wrapper, spheres, nbands: int, npacked: int):
                                                device=dev)
                                for t in (start, zlo, cnt, nvalid[rows]))
     _, _, w = dft_matrix_device(st.n_out, st.n_in, st.inverse, dev)
-    ws = _split_operand(st, dev)
+    fo = sphere_pack.factored_for(st.n_in, st.n_out, st.inverse,
+                                  start.shape[1], dev)
+    ws = _split_operand(st, dev) if fo is None else None
     mid = DistTensor(tout.domains[:-1]
                      + (Domain((0, 0, 0), (ex - 1, ey - 1, st.n_in - 1)),),
                      tout.dims, tout.layout, grid)
@@ -203,13 +211,13 @@ def _fused_pack_parts(wrapper, spheres, nbands: int, npacked: int):
         # the kernel reads the slab where the lead plan's x stage left it
         out = sphere_pack.dft_pack(slab.to(torch.complex64), start, zlo,
                                    cnt, nvalid, w, npacked, wsplit=ws,
-                                   partial=partial)
+                                   partial=partial, factored=fo)
         return _merge_x_blocks(wrapper, out)
 
     return {"fn": fn, "lead": lead,
             "out_shape": (tout.local_shape[0], npacked),
             "private": (start, zlo, cnt, nvalid), "w": w, "wsplit": ws,
-            "partial": partial}
+            "factored": fo, "partial": partial}
 
 
 def _merge_x_blocks(wrapper, packed):

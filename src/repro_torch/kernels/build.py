@@ -43,6 +43,10 @@ SIGNATURES = {
     "dft_pack_launch": (_P, _P, _P, _P, _P, _P, _P,
                         _I, _L, _I, _I, _I, _I, _I, _P),
     "pack_zero_tail_launch": (_P, _P, _I, _L, _P),
+    "unpack_factored_launch": (_P, _P, _P, _P, _P, _P, _P, _P,
+                               _I, _L, _I, _I, _I, _I, _P),
+    "pack_factored_launch": (_P, _P, _P, _P, _P, _P, _P, _P,
+                             _I, _L, _I, _I, _I, _I, _I, _P),
 }
 
 _LOCK = threading.Lock()

@@ -55,7 +55,33 @@
 // q + 4e of step kk is complex index 4·kk + q, part e (re, im), so one
 // float2 load fills a thread's two registers of a row.  The host builds
 // the embeddings in that order (kernels/dft_matmul.py::factored_operands).
+//
+// Sphere lines.  The same body serves the sphere kernels #3 and #4
+// (csrc/sphere_pack.cu) through a policy (template Sph; fct::Rows is
+// #1's, rows in and rows out).  Either way the producer warp reads the
+// tile's 32 lines of the line tables, one a lane, before it waits for the
+// stage, and writes each line's run to a per-stage table in shared memory
+// that the consumers read with the stage (off the chain of loads that
+// feeds the tensor cores: #4 read its tables in the consumer warps first,
+// 2.73 ms a 128-band call on the H100, against 2.30 ms so):
+//   gather   the lines come from packed CSR lanes (A_GATHER; src(r):
+//            element j at x[off + j − lo] for lo <= j < hi, hi = lo for a
+//            line that loads nothing).  One bulk copy (cp.async.bulk)
+//            brings the span from the tile's first active lane to its
+//            last, its ends rounded to 16 bytes (the array is 16-byte
+//            aligned and holds whole 16 bytes, so they stay inside it).
+//            The lanes of a row's consecutive lines are consecutive (CSR
+//            order), so a tile of one row spans at most 32 · n_in lanes; a
+//            wider span is a fault and traps.  Each thread takes element j
+//            of its line from the span, or +0.0 outside the line's run, so
+//            no lane outside it is used.  Lines that load nothing store
+//            +0.0.
+//   scatter  the lines come by TMA as for #1; each line's outputs
+//            lo <= k < hi go to y[off + k − lo] (dst(r)), the others are
+//            not stored.
 #pragma once
+
+#include <type_traits>
 
 #include "cgemm_tc.cuh"
 
@@ -74,18 +100,64 @@ constexpr int OP_BYTES = 32 * 128;       // one operand plane: 32 rows, 128 B
 constexpr int OPS = 4;                   // B1 big, B1 small, B2 big, B2 small
 constexpr int SMEM_MAX = 232448;
 
-template <int KC>
+// The shared memory of a block: [operands | stages | Z rows | line tables
+// | barriers]; a stage holds TL lines of n_in (+ PAD bytes), a line table
+// META bytes a stage
+template <int KC, int PAD = 0, int META = 0>
 struct Tile {
-  static constexpr int STAGE = TL * N2 * KC * 8;       // TL lines of n_in
+  static constexpr int STAGE = TL * N2 * KC * 8 + PAD;
   static constexpr int FIXED =
-      OPS * OP_BYTES + CWARPS * Z_BYTES + 2 * 4 * 8 + 1024;
+      OPS * OP_BYTES + CWARPS * Z_BYTES + 4 * (2 * 8 + META) + 1024;
   static constexpr int FIT = (SMEM_MAX - FIXED) / STAGE;
   static constexpr int STAGES = FIT < 4 ? FIT : 4;
   static constexpr int Z_OFFSET = OPS * OP_BYTES + STAGES * STAGE;
-  static constexpr int BAR_OFFSET = Z_OFFSET + CWARPS * Z_BYTES;
+  static constexpr int META_OFFSET = Z_OFFSET + CWARPS * Z_BYTES;
+  static constexpr int BAR_OFFSET = META_OFFSET + STAGES * META;
   static constexpr int SMEM = BAR_OFFSET + 2 * STAGES * 8 + 1024;
   static_assert(STAGES >= 2, "a tile of lines must fit twice");
+  static_assert(STAGE % 16 == 0 && META % 16 == 0, "");
 };
+
+// #1's policy: lines by TMA, outputs in rows at y + line·n_out
+struct Rows {
+  static constexpr bool gather = false;
+  static constexpr bool scatter = false;
+  static constexpr int PAD = 0, META = 0;
+};
+
+// a gathered tile's span, rounded to 16 bytes, may be one pair wider
+constexpr int GATHER_PAD = 16;
+// a stage's table of line runs (gather, scatter): an int4 a line
+constexpr int RUNS_META = TL * 16;
+
+__device__ __forceinline__ int64_t warp_min(int64_t v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const int64_t u = __shfl_xor_sync(0xffffffffu, v, o);
+    v = u < v ? u : v;
+  }
+  return v;
+}
+
+__device__ __forceinline__ int64_t warp_max(int64_t v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const int64_t u = __shfl_xor_sync(0xffffffffu, v, o);
+    v = u > v ? u : v;
+  }
+  return v;
+}
+
+// bytes (a multiple of 16) from global src to shared dst, both 16-byte
+// aligned, completing on bar
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)),
+         "r"(bytes), "r"(smem_u32(bar)) : "memory");
+}
 
 // d (+)= a·b over one k8 step, a from registers (TF32 bits), b by
 // descriptor; scale_d = 0 ignores d's old value
@@ -176,70 +248,121 @@ __device__ __forceinline__ void stage_mma(float (&d)[R],
 
 }  // namespace fct
 
-// x's lines: A_ROWS (M, n_in) rows; A_COLS (M / L, n_in, L) planes.
-// ops: (4, 32, 32) fp32, the split embeddings of stage 1 and stage 2 in
-// the k8 order above (rows past 2·16 or 2·NC and columns past 2·KC or 32
-// zero); tw: (16, 16) complex64, row j1 column k2 (times 1/256 for the
-// inverse); y: (M, 16·NC) complex64.
-template <int A, int KC, int NC>
-__global__ void __launch_bounds__(fct::THREADS, 1)
-cgemm_tc_factored_kernel(const __grid_constant__ CUtensorMap tm_x,
-                         const float4* __restrict__ ops,
-                         const float2* __restrict__ tw,
-                         float2* __restrict__ y, int64_t M, int L,
-                         int64_t tiles) {
-  using T = fct::Tile<KC>;
-  constexpr int NIN = fct::N2 * KC;
-  constexpr int NOUT = fct::N2 * NC;
+namespace fct {
+
+// The kernel's body for x's lines as the policy says (see the header): TMA
+// of rows (A_ROWS, (M, n_in)) or of planes strided in K (A_COLS, (M / L,
+// n_in, L)), or the CSR gather (A_GATHER, Sph::gather).  ops: (4, 32, 32)
+// fp32, the split embeddings of stage 1 and stage 2 in the k8 order above
+// (rows past 2·16 or 2·NC and columns past 2·KC or 32 zero); tw: (16, 16)
+// complex64, row j1 column k2 (times 1/256 for the inverse); y: (M, 16·NC)
+// complex64, or the scattered lanes (Sph::scatter).
+template <int A, int KC, int NC, class Sph>
+__device__ __forceinline__ void body(unsigned char* smem_raw,
+                                     const CUtensorMap* tm_x,
+                                     const float4* __restrict__ ops,
+                                     const float2* __restrict__ tw,
+                                     float2* __restrict__ y, const Sph sph,
+                                     int64_t M, int L, int64_t tiles) {
+  using T = Tile<KC, Sph::PAD, Sph::META>;
+  constexpr int NIN = N2 * KC;
+  constexpr int NOUT = N2 * NC;
   constexpr int K1 = KC / 4;                   // stage-1 k8 steps
-  constexpr int K2 = fct::N1 / 4;              // stage-2 k8 steps
+  constexpr int K2 = N1 / 4;                   // stage-2 k8 steps
   static_assert(KC % 4 == 0 && KC <= 16 && NC % 4 == 0 && NC <= 16, "");
-  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  static_assert(Sph::gather == (A == A_GATHER), "");
+  static_assert(Sph::META == (Sph::gather || Sph::scatter ? RUNS_META : 0),
+                "a policy with line runs keeps a table of them a stage");
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   unsigned char* opsm = smem;
-  unsigned char* stages = smem + fct::OPS * fct::OP_BYTES;
+  unsigned char* stages = smem + OPS * OP_BYTES;
+  int4* runs = reinterpret_cast<int4*>(smem + T::META_OFFSET);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::BAR_OFFSET);
   uint64_t* empty = full + T::STAGES;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
 
   // the operands, once, into the 128-byte swizzle wgmma reads
-  for (int i = threadIdx.x; i < fct::OPS * 32 * 8; i += blockDim.x) {
+  for (int i = threadIdx.x; i < OPS * 32 * 8; i += blockDim.x) {
     const int n = (i / 8) % 32, c = i % 8;
-    *reinterpret_cast<float4*>(opsm + (i / 256) * fct::OP_BYTES + n * 128 +
+    *reinterpret_cast<float4*>(opsm + (i / 256) * OP_BYTES + n * 128 +
                                ((c ^ (n & 7)) << 4)) = ops[i];
   }
   if (threadIdx.x == 0) {
     for (int s = 0; s < T::STAGES; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], fct::CWARPS);
+      // with line runs every producer lane arrives after writing its own
+      mbar_init(&full[s], Sph::gather || Sph::scatter ? 32 : 1);
+      mbar_init(&empty[s], CWARPS);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
 
-  if (warp == fct::CWARPS) {
+  if (warp == CWARPS) {
     // ---------------------------------------------------------- producer
+    // a tile of rows or strided lines by TMA: one box of 32 rows, or two
+    // boxes of 16 lines
+    auto load_tile = [&](unsigned char* st, uint64_t* bar, int64_t m0) {
+      if constexpr (A == A_ROWS) {
+        tma_load_3d(st, tm_x, 0, 0, static_cast<int>(m0), bar);
+      } else if constexpr (A == A_COLS) {
+        for (int b = 0; b < 2; ++b) {
+          const int64_t l0 = m0 + 16 * b;
+          tma_load_3d(st + b * (T::STAGE / 2), tm_x,
+                      L >= 16 ? 2 * static_cast<int>(l0 % L) : 0, 0,
+                      static_cast<int>(l0 / L), bar);
+        }
+      }
+    };
     int64_t it = 0;
     for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++it) {
       const int s = static_cast<int>(it % T::STAGES);
       const uint32_t ph = static_cast<uint32_t>(it / T::STAGES) & 1u;
-      mbar_wait(&empty[s], ph ^ 1u);
-      if (lane == 0) {
-        unsigned char* st = stages + s * T::STAGE;
-        const int64_t m0 = tile * fct::TL;
-        mbar_arrive_tx(&full[s], T::STAGE);
-        if constexpr (A == A_ROWS) {
-          tma_load_3d(st, &tm_x, 0, 0, static_cast<int>(m0), &full[s]);
-        } else {
-          for (int b = 0; b < 2; ++b) {
-            const int64_t l0 = m0 + 16 * b;
-            tma_load_3d(st + b * (T::STAGE / 2), &tm_x,
-                        L >= 16 ? 2 * static_cast<int>(l0 % L) : 0, 0,
-                        static_cast<int>(l0 / L), &full[s]);
+      unsigned char* st = stages + s * T::STAGE;
+      const int64_t m0 = tile * TL;
+      if constexpr (Sph::gather || Sph::scatter) {
+        // this lane's line, read before the wait it overlaps
+        const int64_t r = m0 + lane;
+        Line ln{0, 0, 0, 0};
+        if constexpr (Sph::gather) ln = sph.src(r, 0);
+        else if (r < M) ln = sph.dst(r, 0);
+        mbar_wait(&empty[s], ph ^ 1u);
+        uint32_t bytes = T::STAGE;
+        int64_t lo = 0, n = 0;
+        if constexpr (Sph::gather) {
+          // the span [lo, lo + n) of the tile's lanes, in whole 16 bytes
+          const bool on = ln.hi > ln.lo;
+          const int64_t first = warp_min(on ? ln.off : INT64_MAX);
+          const int64_t end = warp_max(on ? ln.off + (ln.hi - ln.lo) : 0);
+          if (end > 0) {
+            lo = first & ~int64_t(1);
+            n = ((end + 1) & ~int64_t(1)) - lo;
+            if (n > TL * NIN + 2) __trap();      // lanes not in CSR order
           }
+          // element j of this line at span index off + j
+          ln.off = on ? ln.off - ln.lo - lo : 0;
+          bytes = static_cast<uint32_t>(8 * n);
+        }
+        // each lane's run, then its arrival (which releases the run)
+        runs[s * TL + lane] = make_int4(
+            static_cast<int>(ln.off & 0xffffffff),
+            static_cast<int>(ln.off >> 32), ln.lo, ln.hi);
+        if (lane == 0 && bytes) {
+          mbar_arrive_tx(&full[s], bytes);
+          if constexpr (Sph::gather)
+            bulk_load(st, sph.x + lo, bytes, &full[s]);
+          else
+            load_tile(st, &full[s], m0);
+        } else {
+          mbar_arrive(&full[s]);
+        }
+      } else {
+        mbar_wait(&empty[s], ph ^ 1u);
+        if (lane == 0) {
+          mbar_arrive_tx(&full[s], T::STAGE);
+          load_tile(st, &full[s], m0);
         }
       }
       __syncwarp();
@@ -253,16 +376,16 @@ cgemm_tc_factored_kernel(const __grid_constant__ CUtensorMap tm_x,
   const int g = lane / 4;
   const int q = lane % 4;
   const unsigned char* b1 = opsm;
-  const unsigned char* b2 = opsm + 2 * fct::OP_BYTES;
+  const unsigned char* b2 = opsm + 2 * OP_BYTES;
   float2* zw = reinterpret_cast<float2*>(smem + T::Z_OFFSET +
-                                         warp * fct::Z_BYTES);
+                                         warp * Z_BYTES);
   // this thread's twiddles: rows j1 = g + 8h, columns k2 = 4j + q
   float2 twr[2][4];
 #pragma unroll
   for (int h = 0; h < 2; ++h)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      twr[h][j] = tw[(g + 8 * h) * fct::N2 + 4 * j + q];
+      twr[h][j] = tw[(g + 8 * h) * N2 + 4 * j + q];
   // complex element j of the tile's line t, in the stage's layout
   const bool small_l = A == A_COLS && L < 16;
   auto at = [&](int t, int j) -> int {
@@ -279,25 +402,47 @@ cgemm_tc_factored_kernel(const __grid_constant__ CUtensorMap tm_x,
     const uint32_t ph = static_cast<uint32_t>(it / T::STAGES) & 1u;
     mbar_wait(&full[s], ph);
     const float2* xs = reinterpret_cast<const float2*>(stages + s * T::STAGE);
-    const int64_t m0 = tile * fct::TL;
+    const int64_t m0 = tile * TL;
 #pragma unroll 1
-    for (int blk = 0; blk < fct::TL / (4 * fct::CONS); ++blk) {
-      const int t = wg * (fct::TL / fct::CONS) + 4 * blk + w;
+    for (int blk = 0; blk < TL / (4 * CONS); ++blk) {
+      const int t = wg * (TL / CONS) + 4 * blk + w;
+      const int64_t line = m0 + t;
+      // the line's run: a gathered line's elements lo <= j < hi at span
+      // index off + j, a scattered line's outputs lo <= k < hi at y[off +
+      // k − lo]
+      Line run{0, 0, 0, 0};
+      if constexpr (Sph::gather || Sph::scatter) {
+        const int4 r4 = runs[s * TL + t];
+        run = {static_cast<int64_t>(
+                   (static_cast<uint64_t>(static_cast<uint32_t>(r4.y)) << 32) |
+                   static_cast<uint32_t>(r4.x)),
+               r4.z, r4.w, 1};
+      }
+      const int off = static_cast<int>(run.off);   // a gathered span index
+      auto elem = [&](int j) -> float2 {
+        if constexpr (Sph::gather) {
+          float2 v = make_float2(0.0f, 0.0f);
+          if (j >= run.lo && j < run.hi) v = xs[off + j];
+          return v;
+        } else {
+          return xs[at(t, j)];
+        }
+      };
       // stage 1: rows j1 = g + 8h, K = j2
       uint32_t a1b[K1][4], a1s[K1][4];
 #pragma unroll
       for (int kk = 0; kk < K1; ++kk) {
         const int j2 = 4 * kk + q;
-        fct::split_pair(xs[at(t, g + fct::N1 * j2)],
-                   xs[at(t, g + 8 + fct::N1 * j2)], a1b[kk], a1s[kk]);
+        split_pair(elem(g + N1 * j2), elem(g + 8 + N1 * j2), a1b[kk],
+                   a1s[kk]);
       }
-      if (blk == fct::TL / (4 * fct::CONS) - 1) {
+      if (blk == TL / (4 * CONS) - 1) {
         // the tile's last reads are in registers: release its stage
         __syncwarp();
         if (lane == 0) mbar_arrive(&empty[s]);
       }
       float d1[16];
-      fct::stage_mma<K1>(d1, a1b, a1s, b1, b1 + fct::OP_BYTES);
+      stage_mma<K1>(d1, a1b, a1s, b1, b1 + OP_BYTES);
       // twiddle, then this warp's rows j1, columns k2
 #pragma unroll
       for (int h = 0; h < 2; ++h)
@@ -305,7 +450,7 @@ cgemm_tc_factored_kernel(const __grid_constant__ CUtensorMap tm_x,
         for (int j = 0; j < 4; ++j) {
           const float zr = d1[4 * j + 2 * h], zi = d1[4 * j + 2 * h + 1];
           const float2 wv = twr[h][j];
-          zw[(g + 8 * h) * fct::ZP + 4 * j + q] = make_float2(
+          zw[(g + 8 * h) * ZP + 4 * j + q] = make_float2(
               __fsub_rn(__fmul_rn(zr, wv.x), __fmul_rn(zi, wv.y)),
               __fadd_rn(__fmul_rn(zr, wv.y), __fmul_rn(zi, wv.x)));
         }
@@ -315,35 +460,81 @@ cgemm_tc_factored_kernel(const __grid_constant__ CUtensorMap tm_x,
 #pragma unroll
       for (int kk = 0; kk < K2; ++kk) {
         const int j1 = 4 * kk + q;
-        fct::split_pair(zw[j1 * fct::ZP + g], zw[j1 * fct::ZP + g + 8], a2b[kk],
-                   a2s[kk]);
+        split_pair(zw[j1 * ZP + g], zw[j1 * ZP + g + 8], a2b[kk], a2s[kk]);
       }
       __syncwarp();
       float d2[NC];
-      fct::stage_mma<K2>(d2, a2b, a2s, b2, b2 + fct::OP_BYTES);
+      stage_mma<K2>(d2, a2b, a2s, b2, b2 + OP_BYTES);
       // store: output k2 + 16·k1, k1 = 4j + q
-      const int64_t line = m0 + t;
       if (line < M) {
-        float2* yl = y + line * NOUT;
+        if constexpr (Sph::scatter) {
+          const unsigned span = static_cast<unsigned>(run.hi - run.lo);
+          float2* yl = y + run.off;            // output k at yl[k - lo]
 #pragma unroll
-        for (int j = 0; j < NC / 4; ++j)
+          for (int j = 0; j < NC / 4; ++j)
 #pragma unroll
-          for (int h = 0; h < 2; ++h)
-            yl[g + 8 * h + fct::N2 * (4 * j + q)] =
-                make_float2(__fadd_rn(d2[4 * j + 2 * h], 0.0f),
-                            __fadd_rn(d2[4 * j + 2 * h + 1], 0.0f));
+            for (int h = 0; h < 2; ++h) {
+              const int k = g + 8 * h + N2 * (4 * j + q) - run.lo;
+              if (static_cast<unsigned>(k) < span)
+                yl[k] = make_float2(__fadd_rn(d2[4 * j + 2 * h], 0.0f),
+                                    __fadd_rn(d2[4 * j + 2 * h + 1], 0.0f));
+            }
+        } else {
+          // a gathered line that loaded nothing stores +0.0
+          const bool on = !Sph::gather || run.hi > run.lo;
+          float2* yl = y + line * NOUT;
+#pragma unroll
+          for (int j = 0; j < NC / 4; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              yl[g + 8 * h + N2 * (4 * j + q)] =
+                  on ? make_float2(__fadd_rn(d2[4 * j + 2 * h], 0.0f),
+                                   __fadd_rn(d2[4 * j + 2 * h + 1], 0.0f))
+                     : make_float2(0.0f, 0.0f);
+        }
       }
     }
   }
 }
 
-// Launch the factored line DFT: x (see the kernel) 16-byte aligned; for
-// A_COLS, L even with L % 16 == 0 or L < 16 dividing 16, and L | M.
-// Returns the launch status (cudaGetLastError) as an int.
+}  // namespace fct
+
+// #1's factored line DFT (see fct::body): x's lines in rows or planes, y
+// (M, 16·NC) rows
 template <int A, int KC, int NC>
+__global__ void __launch_bounds__(fct::THREADS, 1)
+cgemm_tc_factored_kernel(const __grid_constant__ CUtensorMap tm_x,
+                         const float4* __restrict__ ops,
+                         const float2* __restrict__ tw,
+                         float2* __restrict__ y, int64_t M, int L,
+                         int64_t tiles) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  fct::body<A, KC, NC>(smem_raw, &tm_x, ops, tw, y, fct::Rows{}, M, L,
+                       tiles);
+}
+
+// The same for the sphere kernels, the policy's name in the kernel's
+// (csrc/sphere_pack.cu: dftk::FactoredUnpack, dftk::FactoredPack)
+template <int A, int KC, int NC, class Sph>
+__global__ void __launch_bounds__(fct::THREADS, 1)
+cgemm_tc_factored_sphere_kernel(const __grid_constant__ CUtensorMap tm_x,
+                                const float4* __restrict__ ops,
+                                const float2* __restrict__ tw,
+                                float2* __restrict__ y, const Sph sph,
+                                int64_t M, int L, int64_t tiles) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  fct::body<A, KC, NC>(smem_raw, &tm_x, ops, tw, y, sph, M, L, tiles);
+}
+
+// Launch the factored line DFT: x (see fct::body) 16-byte aligned; for
+// A_COLS, L even with L % 16 == 0 or L < 16 dividing 16, and L | M; for
+// A_GATHER (x the packed lanes), TL | M and every tile's lines in one
+// row.  Returns the launch status (cudaGetLastError) as an int.
+template <int A, int KC, int NC, class Sph = fct::Rows>
 int launch_factored(const float* x, const float* ops, const float2* tw,
-                    float2* y, int64_t M, int L, cudaStream_t stream) {
-  using T = fct::Tile<KC>;
+                    float2* y, int64_t M, int L, cudaStream_t stream,
+                    const Sph& sph = Sph{}) {
+  using T = fct::Tile<KC, Sph::PAD, Sph::META>;
   constexpr int NIN = fct::N2 * KC;
   if (M <= 0) return static_cast<int>(cudaSuccess);
   if (M > 0x7fffffffLL - fct::TL ||
@@ -359,7 +550,7 @@ int launch_factored(const float* x, const float* ops, const float2* tw,
     const cuuint32_t box[3] = {2 * CW, NIN / CW, fct::TL};
     if (!encode(&tm, 3, x, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE))
       return static_cast<int>(cudaErrorInvalidValue);
-  } else {
+  } else if constexpr (A == A_COLS) {
     const bool wide = L >= 16 && L % 16 == 0;
     if (L < 2 || M % L || !(wide || 16 % L == 0))
       return static_cast<int>(cudaErrorInvalidValue);
@@ -374,19 +565,50 @@ int launch_factored(const float* x, const float* ops, const float2* tw,
                 wide ? CU_TENSOR_MAP_SWIZZLE_128B
                      : CU_TENSOR_MAP_SWIZZLE_NONE))
       return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if (M % fct::TL) return static_cast<int>(cudaErrorInvalidValue);
   }
   const int64_t tiles = (M + fct::TL - 1) / fct::TL;
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const int grid = static_cast<int>(tiles < sms ? tiles : sms);
-  auto kernel = cgemm_tc_factored_kernel<A, KC, NC>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, fct::THREADS, T::SMEM, stream>>>(
-      tm, reinterpret_cast<const float4*>(ops), tw, y, M, L, tiles);
+  if constexpr (std::is_same<Sph, fct::Rows>::value) {
+    auto kernel = cgemm_tc_factored_kernel<A, KC, NC>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, fct::THREADS, T::SMEM, stream>>>(
+        tm, reinterpret_cast<const float4*>(ops), tw, y, M, L, tiles);
+  } else {
+    auto kernel = cgemm_tc_factored_sphere_kernel<A, KC, NC, Sph>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, fct::THREADS, T::SMEM, stream>>>(
+        tm, reinterpret_cast<const float4*>(ops), tw, y, sph, M, L, tiles);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The factored kernel for lines of (n_in, n_out) = (16·KC, 16·NC): 256 and
+// one of 64, 128, 256 (kernels/dft_matmul.py::factored_split); any other
+// shape is refused.  Returns the launch status as an int.
+template <int A, class Sph = fct::Rows>
+int launch_factored_shape(const float* x, const float* ops,
+                          const float2* tw, float2* y, int64_t M, int n_in,
+                          int n_out, int L, cudaStream_t stream,
+                          const Sph& sph = Sph{}) {
+#define TC_FACTORED(KC, NC)                                                \
+  if (n_in == 16 * KC && n_out == 16 * NC)                                 \
+    return launch_factored<A, KC, NC, Sph>(x, ops, tw, y, M, L, stream, sph);
+  TC_FACTORED(16, 16)
+  TC_FACTORED(8, 16)
+  TC_FACTORED(4, 16)
+  TC_FACTORED(16, 8)
+  TC_FACTORED(16, 4)
+#undef TC_FACTORED
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace tc

@@ -75,27 +75,6 @@ int launch(const Epi& epi, const void* x, const void* wsplit, void* y,
   return tc::launch<tc::A_GATHER>(epi, xf, wf, yf, M, N, K, 0, s);
 }
 
-// the factored kernel for (n_in, n_out) = (16·KC, 16·NC), if one is built
-template <int A>
-int factored(const void* x, const void* ops, const void* tw, void* y,
-             long long M, int n_in, int n_out, int L, void* stream) {
-  const float* xf = static_cast<const float*>(x);
-  const float* of = static_cast<const float*>(ops);
-  const float2* tf = static_cast<const float2*>(tw);
-  float2* yf = static_cast<float2*>(y);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DFTK_FACTORED(KC, NC)                                              \
-  if (n_in == 16 * KC && n_out == 16 * NC)                                 \
-    return tc::launch_factored<A, KC, NC>(xf, of, tf, yf, M, L, s);
-  DFTK_FACTORED(16, 16)
-  DFTK_FACTORED(8, 16)
-  DFTK_FACTORED(4, 16)
-  DFTK_FACTORED(16, 8)
-  DFTK_FACTORED(16, 4)
-#undef DFTK_FACTORED
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
 }  // namespace dftk
 
 // x: (M, K) complex64, wsplit: the split embedding of the (N, K) DFT
@@ -146,8 +125,10 @@ extern "C" int dft_matmul_twiddle_launch(const void* x, const void* wsplit,
 extern "C" int dft_factored_launch(const void* x, const void* ops,
                                    const void* tw, void* y, long long M,
                                    int n_in, int n_out, void* stream) {
-  return dftk::factored<tc::A_ROWS>(x, ops, tw, y, M, n_in, n_out, 0,
-                                    stream);
+  return tc::launch_factored_shape<tc::A_ROWS>(
+      static_cast<const float*>(x), static_cast<const float*>(ops),
+      static_cast<const float2*>(tw), static_cast<float2*>(y), M, n_in,
+      n_out, 0, static_cast<cudaStream_t>(stream));
 }
 
 // As dft_factored_launch, for lines strided in K: x (M / L, n_in, L)
@@ -157,6 +138,8 @@ extern "C" int dft_factored_cols_launch(const void* x, const void* ops,
                                         const void* tw, void* y,
                                         long long M, int n_in, int n_out,
                                         int L, void* stream) {
-  return dftk::factored<tc::A_COLS>(x, ops, tw, y, M, n_in, n_out, L,
-                                    stream);
+  return tc::launch_factored_shape<tc::A_COLS>(
+      static_cast<const float*>(x), static_cast<const float*>(ops),
+      static_cast<const float2*>(tw), static_cast<float2*>(y), M, n_in,
+      n_out, L, static_cast<cudaStream_t>(stream));
 }

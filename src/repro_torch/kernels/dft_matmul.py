@@ -42,7 +42,9 @@ tensor-core stages with a twiddle between them in one launch,
 ``y[k2 + n2·k1] = Σ_j1 F_n1[k1, j1]·t[j1, k2]·Σ_j2 F_n2[k2, j2]·x[j1 +
 n1·j2]``: 6,144 complex products a 128→256 line instead of 32,768, so
 the line is bound by its bytes.  Their plain version,
-:func:`dft_factored_plain`, runs the same two stages and twiddle.
+:func:`dft_factored_plain`, runs the same two stages and twiddle.  The
+sphere kernels #3 and #4 (``sphere_pack.py``) run the same body and
+operands behind their CSR gather and before their scattering store.
 """
 from __future__ import annotations
 

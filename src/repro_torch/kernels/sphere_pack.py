@@ -31,15 +31,28 @@ Index tables are static numpy built at plan time (`line_tables` /
 lanes of one (x, y) line are contiguous with z ascending, so a line is
 ``(start, z_lo, cnt)`` and its lanes are ``start + (z − z_lo)``.
 
-Both kernels run on the tensor-core GEMM of ``csrc/cgemm_tc.cuh`` in
-split TF32 (fp32 accuracy), with the DFT matrix's split operand
-(``kernels.ops.dft_operand_device``, cached per matrix).  ``unpack_dft``
-gathers its lines' lanes (each thread one complex of a line, a chunk
-ahead) and reads only the K chunks that each 128-line tile's active
-lines cover (:func:`chunk_ranges`);
-``dft_pack`` reads the slab by TMA where it lies, contiguous or as the
-plan's x stage leaves it (z-major), and stores straight to the packed
-lanes.
+What bounds them on an H100 is bytes.  At the shapes of the paper's grid
+(z-lines of 128 ↔ 256, or 256 → 64: the longer length 256,
+:func:`~.dft_matmul.factored_split`) each runs the factored line DFT of
+kernel #1 (``csrc/cgemm_tc_factored.cuh``), two 16-point tensor-core
+stages and a twiddle in one launch, 6,144 complex products a 128↔256 line
+where the dense product takes 32,768: a 128-band ``unpack_dft`` moves
+5.4 GB, 1.62 ms at 3.35 TB/s, against 0.62 ms of split-TF32 products.
+The caller passes the factored operands (:func:`factored_for` chooses by
+shape; ``factored=``), and the sphere stays in the kernel's policy: the
+unpack brings each 32-line tile's lanes, one span in CSR order, by one
+bulk copy and zeroes each line's elements outside its run; the pack reads
+the slab by TMA where it lies, contiguous or as the plan's x stage leaves
+it (z-major), and stores each line's outputs straight to its packed lanes.
+
+Every other shape runs the dense tensor-core GEMM of ``csrc/cgemm_tc.cuh``
+in split TF32 with the DFT matrix's split operand
+(``kernels.ops.dft_operand_device``): ``unpack_dft`` gathers its lines'
+lanes (each thread one complex of a line, a chunk ahead) and reads only
+the K chunks that each 128-line tile's active lines cover
+(:func:`chunk_ranges`); ``dft_pack`` reads the slab as the factored mode
+does and stores in its epilogue.  The launches of each mode are counted
+in :data:`MODES` (the ``sphere_pack`` probe).
 """
 from __future__ import annotations
 
@@ -51,15 +64,23 @@ import torch
 from ..obs.metrics import global_metrics
 from ..obs.trace import relayout
 from . import build
-from .dft_matmul import _check, _operand, cols_fit, dft_matmul_plain
+from .dft_matmul import (Factored, _check, _check_factored, _operand,
+                         cols_fit, dft_factored_plain, dft_matmul_plain,
+                         factored_split)
 
 #: process-wide counts of fused-kernel calls through the plane-wave
 #: wrappers' ``unpack_transform``/``transform_pack`` (the reference's
 #: ``DISPATCHES``); a CUDA launch is also counted on the wrapper itself
 #: (``unpack_dft.launches``, ``dft_pack.launches``)
 DISPATCHES = {"unpack_dft": 0, "dft_pack": 0}
+#: the wrappers' calls by mode (the ``sphere_pack`` probe's counters of
+#: the same names): "factored" the two 16-point stages, "dense" the
+#: product with the DFT matrix; only the "cuda" backend calls the wrappers
+MODES = {"unpack_factored": 0, "unpack_dense": 0, "pack_factored": 0,
+         "pack_dense": 0}
 
-global_metrics().register_probe("sphere_pack", lambda: dict(DISPATCHES))
+global_metrics().register_probe("sphere_pack",
+                                lambda: {**DISPATCHES, **MODES})
 
 
 # --------------------------------------------------------------- tables
@@ -169,6 +190,25 @@ def chunk_ranges(zlo, cnt, flag):
     return torch.stack((first, last), 1).to(torch.int32).contiguous()
 
 
+#: the factored kernel's tile of lines (``tc::fct::TL``): #3's gather
+#: brings one tile's lanes at once, so a row's lines fill whole tiles
+FACTORED_TILE = 32
+
+
+def factored_for(n_in: int, n_out: int, inverse: bool, lines: int,
+                 device) -> Factored | None:
+    """The operands with which #3 or #4 takes z-lines of ``n_in → n_out``
+    in the factored mode, on rows of ``lines`` lines, or None for the
+    dense mode: factored where :func:`~.dft_matmul.factored_split` takes
+    the shape (as ``ops.dft_apply`` chooses for #1) and a row's lines fill
+    whole tiles.  Cached per shape (``ops.factored_operands_device``)."""
+    if factored_split(n_in, n_out) is None or lines % FACTORED_TILE:
+        return None
+    from .ops import factored_operands_device
+    return factored_operands_device(n_out, n_in, bool(inverse),
+                                    torch.device(device))
+
+
 # ------------------------------------------------------ plain versions
 def _line_masks(start, zlo, cnt, d):
     """(lane of each (row, line, z), z inside the line's packed run)."""
@@ -178,8 +218,17 @@ def _line_masks(start, zlo, cnt, d):
     return start.long()[..., None] + z - zl, inside
 
 
-def unpack_dft_plain(packed, start, zlo, cnt, flag, w):
-    """Plain PyTorch version of :func:`unpack_dft` (same inputs/output)."""
+def _lines_plain(x, w, factored):
+    """x's lines through the dense product with w or, given its
+    operands, the factored mode's two stages."""
+    if factored is None:
+        return dft_matmul_plain(x, w)
+    return dft_factored_plain(x, factored)
+
+
+def unpack_dft_plain(packed, start, zlo, cnt, flag, w, factored=None):
+    """Plain PyTorch version of :func:`unpack_dft` (same inputs/output),
+    in the factored mode given its operands."""
     B, npk = packed.shape
     n, d = w.shape
     ex = flag.numel()
@@ -193,17 +242,19 @@ def unpack_dft_plain(packed, start, zlo, cnt, flag, w):
     zero = torch.zeros((), dtype=torch.complex64, device=packed.device)
     lines = torch.where(sel, torch.gather(packed, 1, lane).reshape(B, nl, d),
                         zero)
-    y = dft_matmul_plain(lines.reshape(B * nl, d), w).reshape(B, nl, n)
+    y = _lines_plain(lines.reshape(B * nl, d), w, factored).reshape(B, nl, n)
     y = torch.where(active[..., None], y, zero)     # literal +0.0 lines
     return y.reshape(B, ex, ey, n)
 
 
-def dft_pack_plain(slab, start, zlo, cnt, nvalid, w, npacked: int):
-    """Plain PyTorch version of :func:`dft_pack` (same inputs/output)."""
+def dft_pack_plain(slab, start, zlo, cnt, nvalid, w, npacked: int,
+                   factored=None):
+    """Plain PyTorch version of :func:`dft_pack` (same inputs/output), in
+    the factored mode given its operands."""
     B, ex, ey, n = slab.shape
     d = w.shape[0]
     nl = ex * ey
-    y = dft_matmul_plain(slab.reshape(B * nl, n), w).reshape(B, nl, d)
+    y = _lines_plain(slab.reshape(B * nl, n), w, factored).reshape(B, nl, d)
     lane, inside = _line_masks(start, zlo, cnt, d)
     rows = torch.arange(B, device=slab.device)[:, None, None].expand(
         B, nl, d)
@@ -227,18 +278,35 @@ def _launch(fn, dev, *args):
         return fn(*args, stream)
 
 
+def _check_lines(factored: Factored, n_in: int, n_out: int, lines: int):
+    """Raise unless ``factored`` holds the operands of n_in → n_out lines
+    and a row's ``lines`` fill whole tiles of the factored kernel."""
+    n1, n2 = factored.t.shape
+    if (factored.f1.shape[1] * n1, factored.f2.shape[0] * n2) != (n_in,
+                                                                  n_out):
+        raise ValueError(f"factored operands for {factored.f1.shape[1] * n1}"
+                         f" -> {factored.f2.shape[0] * n2} lines, not "
+                         f"{n_in} -> {n_out}")
+    if lines % FACTORED_TILE:
+        raise ValueError(f"{lines} lines a row do not fill whole tiles of "
+                         f"{FACTORED_TILE}")
+
+
 def unpack_dft(packed, start, zlo, cnt, flag, w, *, chunks=None,
-               wsplit=None):
+               wsplit=None, factored: Factored | None = None):
     """Fused CSR-unpack + first-stage line DFT.
 
     ``packed``: (B, npacked) complex64 lanes (lanes past a row's sphere are
     never read); ``start``/``zlo``/``cnt``: (B, ex·ey) int32 line tables;
     ``flag``: (ex, 1) int32 plane-support column; ``w``: (n, d) complex64
     rectangular DFT factor.  Returns the first-stage slab (B, ex, ey, n)
-    complex64.  CUDA tensors launch the kernel (counted in
-    ``unpack_dft.launches``) with ``chunks = chunk_ranges(zlo, cnt, flag)``
-    and ``wsplit = embed_operand(w)``, each built per call unless the
-    caller passes a cached one; CPU tensors run :func:`unpack_dft_plain`.
+    complex64.  Given ``factored``, the operands of the same operator
+    (:func:`factored_for`), the call takes the factored mode; else the
+    dense one, with ``chunks = chunk_ranges(zlo, cnt, flag)`` and
+    ``wsplit = embed_operand(w)``, each built per call unless the caller
+    passes a cached one.  CUDA tensors launch the kernel (counted in
+    ``unpack_dft.launches``); CPU tensors run :func:`unpack_dft_plain`.
+    The call is counted in :data:`MODES` either way.
     """
     B, npk = packed.shape
     n, d = w.shape
@@ -253,17 +321,37 @@ def unpack_dft(packed, start, zlo, cnt, flag, w, *, chunks=None,
     _check_tables(dev, B, nl, start=start, zlo=zlo, cnt=cnt)
     flag = flag.reshape(ex)
     _check("flag", flag, torch.int32, (ex,), dev)
+    if factored is not None:
+        _check_lines(factored, d, n, nl)
+    MODES["unpack_dense" if factored is None else "unpack_factored"] += 1
     if dev.type != "cuda":
-        return unpack_dft_plain(packed, start, zlo, cnt, flag, w)
-    if chunks is None:
-        chunks = chunk_ranges(zlo, cnt, flag)
-    _check("chunks", chunks, torch.int32, (-(-B * nl // TILE_ROWS), 2), dev)
-    ws = _operand(w, wsplit, n, d, dev)
+        return unpack_dft_plain(packed, start, zlo, cnt, flag, w, factored)
     y = torch.empty((B, ex, ey, n), dtype=torch.complex64, device=dev)
-    status = _launch(build.library("sphere_pack").unpack_dft_launch, dev,
-                     packed.data_ptr(), start.data_ptr(), zlo.data_ptr(),
-                     cnt.data_ptr(), flag.data_ptr(), chunks.data_ptr(),
-                     ws.data_ptr(), y.data_ptr(), B, npk, ex, ey, n, d)
+    lib = build.library("sphere_pack")
+    if factored is not None:
+        _check_factored(factored, d, dev)
+        if packed.data_ptr() % 16 or packed.numel() % 2:
+            # the kernel's bulk copy reads whole 16 bytes from a 16-byte
+            # aligned base
+            buf = torch.empty(packed.numel() + 1, dtype=packed.dtype,
+                              device=dev)
+            buf[:-1] = packed.reshape(-1)
+            packed = buf[:-1].view(B, npk)
+        status = _launch(lib.unpack_factored_launch, dev, packed.data_ptr(),
+                         start.data_ptr(), zlo.data_ptr(), cnt.data_ptr(),
+                         flag.data_ptr(), factored.ops.data_ptr(),
+                         factored.t.data_ptr(), y.data_ptr(), B, npk, ex, ey,
+                         n, d)
+    else:
+        if chunks is None:
+            chunks = chunk_ranges(zlo, cnt, flag)
+        _check("chunks", chunks, torch.int32, (-(-B * nl // TILE_ROWS), 2),
+               dev)
+        ws = _operand(w, wsplit, n, d, dev)
+        status = _launch(lib.unpack_dft_launch, dev, packed.data_ptr(),
+                         start.data_ptr(), zlo.data_ptr(), cnt.data_ptr(),
+                         flag.data_ptr(), chunks.data_ptr(), ws.data_ptr(),
+                         y.data_ptr(), B, npk, ex, ey, n, d)
     build.check(status, "unpack_dft")
     unpack_dft.launches += 1
     return y
@@ -289,17 +377,19 @@ def slab_layout(slab) -> int | None:
 
 
 def dft_pack(slab, start, zlo, cnt, nvalid, w, npacked: int, *,
-             wsplit=None, partial: bool = False):
+             wsplit=None, partial: bool = False,
+             factored: Factored | None = None):
     """Fused final truncating line DFT + CSR pack.
 
     ``slab``: (B, ex, ey, n) complex64 last-stage slab, its lines
     contiguous, each y plane z-major or each row's slab z-major
-    (:func:`slab_layout`; any other layout is copied first); ``start``/``zlo``/``cnt``: (B, ex·ey) int32
-    line tables; ``nvalid``: (B,) int32 valid lanes per row; ``w``: (d, n)
-    complex64 truncating DFT factor.  Returns (B, npacked) complex64
-    packed lanes, exact +0.0 past ``nvalid``.  CUDA tensors launch the
-    kernel (counted in ``dft_pack.launches``), with ``wsplit`` as in
-    :func:`unpack_dft`; CPU tensors run :func:`dft_pack_plain`.
+    (:func:`slab_layout`; any other layout is copied first);
+    ``start``/``zlo``/``cnt``: (B, ex·ey) int32 line tables; ``nvalid``:
+    (B,) int32 valid lanes per row; ``w``: (d, n) complex64 truncating DFT
+    factor.  Returns (B, npacked) complex64 packed lanes, exact +0.0 past
+    ``nvalid``.  ``factored`` and ``wsplit`` choose the mode as in
+    :func:`unpack_dft`.  CUDA tensors launch the kernel (counted in
+    ``dft_pack.launches``); CPU tensors run :func:`dft_pack_plain`.
 
     ``partial=True`` says the slab holds only some of each row's lines (a
     rank's x planes, the tables cut to them): the lanes of the other lines
@@ -318,18 +408,34 @@ def dft_pack(slab, start, zlo, cnt, nvalid, w, npacked: int, *,
     _check("w", w, torch.complex64, (d, n), dev)
     _check_tables(dev, B, nl, start=start, zlo=zlo, cnt=cnt)
     _check("nvalid", nvalid, torch.int32, (B,), dev)
+    if factored is not None:
+        _check_lines(factored, n, d, nl)
+    MODES["pack_dense" if factored is None else "pack_factored"] += 1
     if dev.type != "cuda":
-        return dft_pack_plain(slab, start, zlo, cnt, nvalid, w, npacked)
+        return dft_pack_plain(slab, start, zlo, cnt, nvalid, w, npacked,
+                              factored)
     layout = slab_layout(slab)
     if layout is None:
         slab, layout = relayout(slab), 0
-    ws = _operand(w, wsplit, d, n, dev)
     out = (torch.zeros if partial else torch.empty)(
         (B, npacked), dtype=torch.complex64, device=dev)
-    status = _launch(build.library("sphere_pack").dft_pack_launch, dev,
-                     slab.data_ptr(), start.data_ptr(), zlo.data_ptr(),
-                     cnt.data_ptr(), nvalid.data_ptr(), ws.data_ptr(),
-                     out.data_ptr(), B, npacked, ex, ey, n, d, layout)
+    lib = build.library("sphere_pack")
+    if factored is not None:
+        _check_factored(factored, n, dev)
+        if slab.data_ptr() % 16:         # TMA reads 16-byte aligned lines
+            slab, layout = slab.clone(
+                memory_format=torch.contiguous_format), 0
+        status = _launch(lib.pack_factored_launch, dev, slab.data_ptr(),
+                         start.data_ptr(), zlo.data_ptr(), cnt.data_ptr(),
+                         nvalid.data_ptr(), factored.ops.data_ptr(),
+                         factored.t.data_ptr(), out.data_ptr(), B, npacked,
+                         ex, ey, n, d, layout)
+    else:
+        ws = _operand(w, wsplit, d, n, dev)
+        status = _launch(lib.dft_pack_launch, dev, slab.data_ptr(),
+                         start.data_ptr(), zlo.data_ptr(), cnt.data_ptr(),
+                         nvalid.data_ptr(), ws.data_ptr(), out.data_ptr(), B,
+                         npacked, ex, ey, n, d, layout)
     build.check(status, "dft_pack")
     dft_pack.launches += 1
     return out

@@ -5,7 +5,8 @@ kernel route (also at the paper's widths, n = 256 and d = 128, against the
 "matmul" route), the transform service against ``eager_apply`` and a
 "matmul" service, the lazy executor against the eager one, the fused SCF
 step replayed as CUDA graphs, the spectral layers, kernel #1's factored
-mode against its plain version, and four processes sharing the card on
+mode against its plain version (and #3's and #4's, among the sphere
+kernels' cases, within 2e-6), and four processes sharing the card on
 the 2×2 batch×fft grid over gloo.  Where a case is "at the paper's
 widths" it runs the stacked SCF's shapes: 2 k-points of 16 bands (B =
 32), n = 256, d = 128.
@@ -98,37 +99,87 @@ def _rows(rng, M, K, dev, poisoned):
 
 KPTS3 = ((0.25, 0.0, 0.5), (0.0, 0.0, 0.0), (0.5, 0.5, 0.0))
 
-# sphere-kernel cases: (kernel, d, n, k-points, bands, slab layout).  d = 8
-# has ey = 8 lines a plane, so a 128-row tile straddles 16 planes; d = 6
-# has M = B·36 rows, never whole tiles, ey = 6, and 2d = 12 columns, less
-# than one K chunk of 32; d = 40 has 2.5 K chunks, edge tiles that skip
-# chunks, and ey = 40, which the strided read does not fit (the slab is
-# copied); d = 128 has ey = 128, one plane a tile, as in the SCF.  Odd n
-# gives dft_pack a row pitch TMA cannot address (the gather path).  Slab
-# layouts: "rows" contiguous lines; "y-planes" each y plane z-major, as
-# an x stage leaves it (the stacked SCF's forward plan), read in place;
+# sphere-kernel cases: (kernel, d, n, k-points, bands, slab layout, mode).
+# d = 8 has ey = 8 lines a plane, so a 128-row tile straddles 16 planes;
+# d = 6 has M = B·36 rows, never whole tiles, ey = 6, and 2d = 12 columns,
+# less than one K chunk of 32; d = 40 has 2.5 K chunks, edge tiles that
+# skip chunks, and ey = 40, which the strided read does not fit (the slab
+# is copied); d = 128 has ey = 128, one plane a tile, as in the SCF.  Odd
+# n gives dft_pack a row pitch TMA cannot address (the gather path).  Slab
+# layouts: "rows" contiguous lines; "y-planes" each y plane z-major, as an
+# x stage leaves it (the stacked SCF's forward plan), read in place;
 # "x-planes" each x plane z-major, which the wrapper copies first;
 # "z-major" each row's slab z-major, as the forward's x stage leaves it,
-# read in place where a row's ey·ex lines fit the tile (not at d = 6)
+# read in place where a row's ey·ex lines fit the tile (not at d = 6).
+# Mode: "dense" the product with the DFT matrix, at shapes the factored
+# mode does not take and, called so, at d = 128; "factored" the two
+# 16-point stages the cells' calls take (n = 256, d = 128 or 64), on 8
+# bands of a ragged batch of two spheres
 SPHERE_CASES = {
-    "unpack_dft": ("unpack", 8, 16, KPTS2, 3, None),
-    "dft_pack": ("pack", 8, 16, KPTS2, 3, "rows"),
-    "unpack_dft-ragged-m-d6": ("unpack", 6, 12, KPTS2, 3, None),
-    "unpack_dft-d40-chunk-skip": ("unpack", 40, 80, KPTS3, 2, None),
-    "unpack_dft-d128-plane-tiles": ("unpack", 128, 256, KPTS2, 1, None),
-    "unpack_dft-scf-d128": ("unpack", 128, 256, KPTS2, 16, None),
-    "dft_pack-ragged-m-d6": ("pack", 6, 12, KPTS2, 3, "rows"),
-    "dft_pack-odd-n": ("pack", 6, 9, KPTS3, 2, "rows"),
-    "dft_pack-x-planes-copied": ("pack", 8, 16, KPTS2, 3, "x-planes"),
-    "dft_pack-y-planes": ("pack", 8, 16, KPTS2, 3, "y-planes"),
-    "dft_pack-y-planes-odd-n": ("pack", 8, 15, KPTS3, 2, "y-planes"),
-    "dft_pack-y-planes-d128": ("pack", 128, 256, KPTS2, 1, "y-planes"),
+    "unpack_dft": ("unpack", 8, 16, KPTS2, 3, None, "dense"),
+    "dft_pack": ("pack", 8, 16, KPTS2, 3, "rows", "dense"),
+    "unpack_dft-ragged-m-d6": ("unpack", 6, 12, KPTS2, 3, None, "dense"),
+    "unpack_dft-d40-chunk-skip": ("unpack", 40, 80, KPTS3, 2, None, "dense"),
+    "unpack_dft-d128-plane-tiles": ("unpack", 128, 256, KPTS2, 1, None,
+                                    "dense"),
+    "unpack_dft-scf-d128": ("unpack", 128, 256, KPTS2, 16, None, "dense"),
+    "dft_pack-ragged-m-d6": ("pack", 6, 12, KPTS2, 3, "rows", "dense"),
+    "dft_pack-odd-n": ("pack", 6, 9, KPTS3, 2, "rows", "dense"),
+    "dft_pack-x-planes-copied": ("pack", 8, 16, KPTS2, 3, "x-planes",
+                                 "dense"),
+    "dft_pack-y-planes": ("pack", 8, 16, KPTS2, 3, "y-planes", "dense"),
+    "dft_pack-y-planes-odd-n": ("pack", 8, 15, KPTS3, 2, "y-planes",
+                                "dense"),
+    "dft_pack-y-planes-d128": ("pack", 128, 256, KPTS2, 1, "y-planes",
+                               "dense"),
     "dft_pack-x-planes-d128-copied": ("pack", 128, 256, KPTS2, 1,
-                                      "x-planes"),
-    "dft_pack-y-planes-d40-copied": ("pack", 40, 80, KPTS3, 2, "y-planes"),
-    "dft_pack-z-major-d6-copied": ("pack", 6, 12, KPTS2, 3, "z-major"),
-    "dft_pack-z-major-d40": ("pack", 40, 80, KPTS3, 2, "z-major"),
+                                      "x-planes", "dense"),
+    "dft_pack-y-planes-d40-copied": ("pack", 40, 80, KPTS3, 2, "y-planes",
+                                     "dense"),
+    "dft_pack-z-major-d6-copied": ("pack", 6, 12, KPTS2, 3, "z-major",
+                                   "dense"),
+    "dft_pack-z-major-d40": ("pack", 40, 80, KPTS3, 2, "z-major", "dense"),
+    "unpack_dft-factored-d128": ("unpack", 128, 256, KPTS2, 4, None,
+                                 "factored"),
+    "unpack_dft-factored-d64": ("unpack", 64, 256, KPTS2, 4, None,
+                                "factored"),
+    "dft_pack-factored-d128-rows": ("pack", 128, 256, KPTS2, 4, "rows",
+                                    "factored"),
+    "dft_pack-factored-d128-y-planes": ("pack", 128, 256, KPTS2, 4,
+                                        "y-planes", "factored"),
+    "dft_pack-factored-d128-z-major": ("pack", 128, 256, KPTS2, 4,
+                                       "z-major", "factored"),
+    "dft_pack-factored-d64-rows": ("pack", 64, 256, KPTS2, 4, "rows",
+                                   "factored"),
+    "dft_pack-factored-d64-y-planes": ("pack", 64, 256, KPTS2, 4,
+                                       "y-planes", "factored"),
+    "dft_pack-factored-d64-z-major": ("pack", 64, 256, KPTS2, 4, "z-major",
+                                      "factored"),
 }
+#: the factored mode against its plain version: 3xTF32 against complex64
+#: products, two stages and a twiddle each
+FACTORED_RTOL = 2e-6
+
+
+def _mode_args(mode, n_in, n_out, inverse, lines, dev):
+    """(wrapper keywords, tolerance) for a case's mode; the factored
+    operands are those the plans choose by shape."""
+    if mode == "dense":
+        return {}, RTOL
+    fo = sp.factored_for(n_in, n_out, inverse, lines, dev)
+    assert fo is not None
+    return {"factored": fo}, FACTORED_RTOL
+
+
+def _modes():
+    return dict(sp.MODES)
+
+
+def _moved(before, side):
+    """The calls of ``side`` ("unpack" or "pack") since ``before``, by
+    mode."""
+    return {m: sp.MODES[f"{side}_{m}"] - before[f"{side}_{m}"]
+            for m in ("factored", "dense")}
 
 
 def _slab(rng, B, d, n, layout, dev):
@@ -147,7 +198,7 @@ def _plus_zero(t):
     return bool(((f == 0) & ~torch.signbit(f)).all())
 
 
-def _check_unpack(rng, dev, d, n, kpts, nb):
+def _check_unpack(rng, dev, d, n, kpts, nb, mode="dense"):
     spheres = [kpoint_sphere(d, k) for k in kpts]
     npm = max(s.npacked for s in spheres)
     start, zlo, cnt, flag = (torch.as_tensor(t, device=dev)
@@ -156,14 +207,16 @@ def _check_unpack(rng, dev, d, n, kpts, nb):
     for k, s in enumerate(spheres):              # never read
         packed[k * nb:(k + 1) * nb, s.npacked:] = float("nan")
     _, _, w = dft_matrix_device(n, d, True, dev)
+    kw, rtol = _mode_args(mode, d, n, True, start.shape[1], dev)
     # a plane with support switched off, beside the table's own flags
     flag0 = flag.clone()
     flag0[d // 2] = 0
     outs = []
     for fl in (flag, flag0):
-        got = sp.unpack_dft(packed, start, zlo, cnt, fl, w)
+        got = sp.unpack_dft(packed, start, zlo, cnt, fl, w, **kw)
         assert bool(torch.isfinite(torch.view_as_real(got)).all())
-        _close(got, sp.unpack_dft_plain(packed, start, zlo, cnt, fl, w))
+        _close(got, sp.unpack_dft_plain(packed, start, zlo, cnt, fl, w,
+                                        kw.get("factored")), rtol)
         empty = (cnt == 0).reshape(got.shape[:3])
         assert _plus_zero(got[empty])
         outs.append(got)
@@ -176,7 +229,7 @@ def _check_unpack(rng, dev, d, n, kpts, nb):
     return 2
 
 
-def _check_pack(rng, dev, d, n, kpts, nb, layout):
+def _check_pack(rng, dev, d, n, kpts, nb, layout, mode="dense"):
     spheres = [kpoint_sphere(d, k) for k in kpts]
     npm = max(s.npacked for s in spheres)
     start, zlo, cnt, _ = (torch.as_tensor(t, device=dev)
@@ -190,9 +243,17 @@ def _check_pack(rng, dev, d, n, kpts, nb, layout):
     nvalid = torch.as_tensor(np.repeat(np.asarray(
         [s.npacked for s in spheres], np.int32), nb), device=dev)
     _, _, w = dft_matrix_device(d, n, False, dev)
-    got = sp.dft_pack(slab, start, zlo, cnt, nvalid, w, npm)
+    kw, rtol = _mode_args(mode, n, d, False, start.shape[1], dev)
+    # poison the memory the output will take (the caching allocator hands
+    # a freed block of the same size to the next allocation): every lane
+    # must be written
+    poison = torch.full((B, npm), float("nan"), dtype=torch.complex64,
+                        device=dev)
+    del poison
+    got = sp.dft_pack(slab, start, zlo, cnt, nvalid, w, npm, **kw)
     assert bool(torch.isfinite(torch.view_as_real(got)).all())
-    _close(got, sp.dft_pack_plain(slab, start, zlo, cnt, nvalid, w, npm))
+    _close(got, sp.dft_pack_plain(slab, start, zlo, cnt, nvalid, w, npm,
+                                  kw.get("factored")), rtol)
     pad = torch.arange(npm, device=dev)[None] >= nvalid[:, None]
     assert pad.any() and _plus_zero(got[pad])
     return 1
@@ -213,13 +274,15 @@ def test_cuda_kernel_matches_plain(kernel, cuda_device):
         _close(y, dft_matmul_plain(x, w))
         assert dft_matmul.launches == before + 1
         return
-    which, d, n, kpts, nb, layout = SPHERE_CASES[kernel]
+    which, d, n, kpts, nb, layout, mode = SPHERE_CASES[kernel]
     fn = sp.unpack_dft if which == "unpack" else sp.dft_pack
-    before = fn.launches
-    calls = (_check_unpack(rng, dev, d, n, kpts, nb) if which == "unpack"
-             else _check_pack(rng, dev, d, n, kpts, nb, layout))
-    # one launch per wrapper call on a CUDA tensor
+    before, modes = fn.launches, _modes()
+    calls = (_check_unpack(rng, dev, d, n, kpts, nb, mode)
+             if which == "unpack"
+             else _check_pack(rng, dev, d, n, kpts, nb, layout, mode))
+    # one launch per wrapper call on a CUDA tensor, each in the case's mode
     assert fn.launches == before + calls
+    assert _moved(modes, which) == {"factored": 0, "dense": 0, mode: calls}
 
 
 @pytest.mark.cuda
@@ -246,16 +309,27 @@ def test_cuda_dft_apply_matches_fft_oracle(B, n_in, n_out, inverse,
 # one rank's blocks on a batch×fft grid, as the multi-rank fused route
 # hands them to the kernels: its rows [r0, r1) of the stacked batch and
 # its x planes [x0, x1), the line tables cut to both (kernel, d, n,
-# k-points, bands, rows, x planes, slab layout)
+# k-points, bands, rows, x planes, slab layout, mode); the factored cases
+# are a rank's block of the 2×2 grid at the paper's widths (ex = d / 2)
 RANK_CASES = {
     "unpack_dft-rank-block-d8": ("unpack", 8, 16, KPTS2, 4, (4, 8), (4, 8),
-                                 None),
+                                 None, "dense"),
     "unpack_dft-rank-block-d128": ("unpack", 128, 256, KPTS2, 2, (0, 2),
-                                   (64, 128), None),
+                                   (64, 128), None, "dense"),
     "dft_pack-rank-block-d8": ("pack", 8, 16, KPTS2, 4, (4, 8), (0, 4),
-                               "rows"),
+                               "rows", "dense"),
     "dft_pack-rank-block-y-planes-d128": ("pack", 128, 256, KPTS2, 2,
-                                          (2, 4), (64, 128), "y-planes"),
+                                          (2, 4), (64, 128), "y-planes",
+                                          "dense"),
+    "unpack_dft-rank-block-d128-factored": ("unpack", 128, 256, KPTS2, 2,
+                                            (0, 2), (64, 128), None,
+                                            "factored"),
+    "dft_pack-rank-block-rows-d128-factored": ("pack", 128, 256, KPTS2, 2,
+                                               (2, 4), (0, 64), "rows",
+                                               "factored"),
+    "dft_pack-rank-block-y-planes-d128-factored": ("pack", 128, 256, KPTS2,
+                                                   2, (2, 4), (64, 128),
+                                                   "y-planes", "factored"),
 }
 
 
@@ -270,15 +344,17 @@ def _rank_tables(spheres, nb, rows, xs, dev):
         [torch.as_tensor(np.ascontiguousarray(flag[slice(*xs)]), device=dev)]
 
 
-def _check_rank_unpack(rng, dev, d, n, kpts, nb, rows, xs):
+def _check_rank_unpack(rng, dev, d, n, kpts, nb, rows, xs, mode):
     spheres = [kpoint_sphere(d, k) for k in kpts]
     npm = max(s.npacked for s in spheres)
     start, zlo, cnt, flag = _rank_tables(spheres, nb, rows, xs, dev)
     packed = _cx(rng, (rows[1] - rows[0], npm), dev)
     _, _, w = dft_matrix_device(n, d, True, dev)
-    got = sp.unpack_dft(packed, start, zlo, cnt, flag, w)
+    kw, rtol = _mode_args(mode, d, n, True, start.shape[1], dev)
+    got = sp.unpack_dft(packed, start, zlo, cnt, flag, w, **kw)
     assert tuple(got.shape) == (rows[1] - rows[0], xs[1] - xs[0], d, n)
-    _close(got, sp.unpack_dft_plain(packed, start, zlo, cnt, flag, w))
+    _close(got, sp.unpack_dft_plain(packed, start, zlo, cnt, flag, w,
+                                    kw.get("factored")), rtol)
     # the rank's block of the unpack over every row and plane
     full = [torch.as_tensor(t, device=dev)
             for t in sp.line_tables(spheres, nb)]
@@ -289,7 +365,7 @@ def _check_rank_unpack(rng, dev, d, n, kpts, nb, rows, xs):
                                                      slice(*xs)])
 
 
-def _check_rank_pack(rng, dev, d, n, kpts, nb, rows, xs, layout):
+def _check_rank_pack(rng, dev, d, n, kpts, nb, rows, xs, layout, mode):
     spheres = [kpoint_sphere(d, k) for k in kpts]
     npm = max(s.npacked for s in spheres)
     start, zlo, cnt, _ = _rank_tables(spheres, nb, rows, xs, dev)
@@ -305,13 +381,16 @@ def _check_rank_pack(rng, dev, d, n, kpts, nb, rows, xs, layout):
         [s.npacked for s in spheres], np.int32), nb)[slice(*rows)],
         device=dev)
     _, _, w = dft_matrix_device(d, n, False, dev)
+    kw, rtol = _mode_args(mode, n, d, False, start.shape[1], dev)
     # poison the memory the output will take: the caching allocator hands
     # a freed block of the same size to the next allocation
     poison = torch.full((B, npm), float("nan"), dtype=torch.complex64,
                         device=dev)
     del poison
-    got = sp.dft_pack(slab, start, zlo, cnt, nvalid, w, npm, partial=True)
-    _close(got, sp.dft_pack_plain(slab, start, zlo, cnt, nvalid, w, npm))
+    got = sp.dft_pack(slab, start, zlo, cnt, nvalid, w, npm, partial=True,
+                      **kw)
+    _close(got, sp.dft_pack_plain(slab, start, zlo, cnt, nvalid, w, npm,
+                                  kw.get("factored")), rtol)
     # every lane outside the rank's lines (other planes, padding) is +0.0
     mine = torch.zeros((B, npm), dtype=torch.bool, device=dev)
     z = torch.arange(d, device=dev)
@@ -325,15 +404,17 @@ def _check_rank_pack(rng, dev, d, n, kpts, nb, rows, xs, layout):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(RANK_CASES))
 def test_cuda_sphere_kernels_on_a_rank_block(case, cuda_device):
-    which, d, n, kpts, nb, rows, xs, layout = RANK_CASES[case]
+    which, d, n, kpts, nb, rows, xs, layout, mode = RANK_CASES[case]
     rng = np.random.default_rng(13)
     fn = sp.unpack_dft if which == "unpack" else sp.dft_pack
-    before = fn.launches
+    before, modes = fn.launches, _modes()
     if which == "unpack":
-        _check_rank_unpack(rng, cuda_device, d, n, kpts, nb, rows, xs)
+        _check_rank_unpack(rng, cuda_device, d, n, kpts, nb, rows, xs, mode)
     else:
-        _check_rank_pack(rng, cuda_device, d, n, kpts, nb, rows, xs, layout)
+        _check_rank_pack(rng, cuda_device, d, n, kpts, nb, rows, xs, layout,
+                         mode)
     assert fn.launches == before + 1
+    assert _moved(modes, which) == {"factored": 0, "dense": 0, mode: 1}
 
 
 #: the stacked SCF's sizes: the README's, and the paper's widths with 16
@@ -932,6 +1013,103 @@ def test_cuda_factored_kernel_is_kernel1_to_the_benchmark(cuda_device):
              and "cgemm_tc" in e.name]
     assert len(names) == 1 and "factored" in names[0], names
     assert kernel_of(names[0]) == "dft_matmul"
+
+
+@pytest.mark.cuda
+def test_cuda_factored_sphere_kernels_are_sphere_pack_to_the_benchmark(
+        cuda_device):
+    """A call pair of the paper's shapes (n = 256, d = 128) launches #3
+    and #4 once each in the factored mode, under names the benchmark's
+    trace reader classes as the sphere kernels
+    (``portbench.roofline.kernel_of``), so ``sphere_pack_roofline`` counts
+    them and ``dft_matmul_roofline`` does not."""
+    import sys
+    from pathlib import Path
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from portbench.roofline import kernel_of
+    from repro_torch.core import ProcGrid, make_planewave_pair
+    inv, fwd = make_planewave_pair(ProcGrid.create([1], device=cuda_device),
+                                   256, kpoint_sphere(128), 1,
+                                   backend="cuda")
+    assert inv._fused_in_parts()["factored"] is not None
+    assert fwd._fused_out_parts()["factored"] is not None
+    c = _cx(np.random.default_rng(5), (1, inv.sphere.npacked), cuda_device)
+    fwd.transform_pack(inv.unpack_transform(c))
+    torch.cuda.synchronize()
+    modes = _modes()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        out = fwd.transform_pack(inv.unpack_transform(c))
+        torch.cuda.synchronize()
+    assert _moved(modes, "unpack") == {"factored": 1, "dense": 0}
+    assert _moved(modes, "pack") == {"factored": 1, "dense": 0}
+    kinds = [kernel_of(e.name) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and kernel_of(e.name) is not None]
+    assert sorted(kinds) == ["dft_matmul"] * 4 + ["sphere_pack"] * 2 + [
+        "sphere_pack_tail"], kinds
+    _close(out, c)
+
+
+#: launches of each factored sphere kernel held bit for bit against the
+#: first: the producer's table of line runs shares shared memory with the
+#: stage ring and the barriers, so a run written astray shows as a fault or
+#: a changed bit within a few hundred launches
+REPEATS = 300
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which,d", [("unpack", 128), ("pack", 128),
+                                     ("pack", 64)])
+def test_cuda_factored_sphere_kernels_repeat_bitwise(which, d, cuda_device):
+    """#3 and #4 in the factored mode at the cells' widths on 8 bands of a
+    ragged batch, launched REPEATS times: every output bit for bit the
+    first."""
+    dev, n, nb = cuda_device, 256, 4
+    spheres = [kpoint_sphere(d, k) for k in KPTS2]
+    npm = max(s.npacked for s in spheres)
+    start, zlo, cnt, flag = (torch.as_tensor(t, device=dev)
+                             for t in sp.line_tables(spheres, nb))
+    rng = np.random.default_rng(d)
+    if which == "unpack":
+        x = _cx(rng, (len(spheres) * nb, npm), dev)
+        _, _, w = dft_matrix_device(n, d, True, dev)
+        fo = sp.factored_for(d, n, True, start.shape[1], dev)
+        fn = lambda: sp.unpack_dft(x, start, zlo, cnt, flag, w, factored=fo)
+    else:
+        x = _slab(rng, len(spheres) * nb, d, n, "z-major", dev)
+        nvalid = torch.as_tensor(np.repeat(np.asarray(
+            [s.npacked for s in spheres], np.int32), nb), device=dev)
+        _, _, w = dft_matrix_device(d, n, False, dev)
+        fo = sp.factored_for(n, d, False, start.shape[1], dev)
+        fn = lambda: sp.dft_pack(x, start, zlo, cnt, nvalid, w, npm,
+                                 factored=fo)
+    first = torch.view_as_real(fn()).clone()
+    for _ in range(REPEATS):
+        assert torch.equal(torch.view_as_real(fn()), first)
+
+
+@pytest.mark.cuda
+def test_cuda_factored_unpack_takes_lanes_off_16_bytes(cuda_device):
+    """Packed lanes the kernel's bulk copy cannot read in place (a base 8
+    bytes off a 16-byte boundary and an odd count of lanes: 3 rows of
+    npacked + 1) are copied first and give the plain version's result."""
+    d, n, nb, dev = 64, 256, 3, cuda_device
+    sphere = kpoint_sphere(d)
+    npk = sphere.npacked + 1
+    start, zlo, cnt, flag = (torch.as_tensor(t, device=dev)
+                             for t in sp.line_tables([sphere], nb))
+    buf = _cx(np.random.default_rng(6), (nb * npk + 1,), dev)
+    x = buf[1:].view(nb, npk)
+    assert x.data_ptr() % 16 == 8 and x.numel() % 2 == 1
+    _, _, w = dft_matrix_device(n, d, True, dev)
+    fo = sp.factored_for(d, n, True, start.shape[1], dev)
+    y = sp.unpack_dft(x, start, zlo, cnt, flag, w, factored=fo)
+    _close(y, sp.unpack_dft_plain(x, start, zlo, cnt, flag, w, fo),
+           FACTORED_RTOL)
 
 
 @pytest.mark.cuda

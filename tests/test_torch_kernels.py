@@ -614,3 +614,127 @@ def test_wrappers_validate_inputs_and_build_nothing_on_cpu():
     ops.four_step_dft(torch.zeros((2, 64), dtype=torch.complex64))
     # CPU tensors take the plain versions: no library is built or loaded
     assert build.build_logs() == {} and build._LIBS == {}
+
+
+# ------------------------------------------------------ the factored mode
+# a ragged stacked batch of two spheres (two npacked), one band each: the
+# cells' z-lines, 128 <-> 256 and 256 -> 64, by the factored mode's plain
+# version against the dense one and against the reference's kernels
+FACTORED_KPTS = ((0, 0, 0), (0.5, 0.5, 0.5))
+
+
+def _factored_batch(d, nbands=1):
+    spheres = [kpoint_sphere(d, k) for k in FACTORED_KPTS]
+    ref = [ref_kpoint_sphere(d, k) for k in FACTORED_KPTS]
+    npm = max(s.npacked for s in spheres)
+    assert len({s.npacked for s in spheres}) == 2
+    return spheres, ref, npm, sp.line_tables(spheres, nbands)
+
+
+@pytest.mark.parametrize("d,n", [(128, 256), (64, 256)])
+def test_unpack_dft_factored_matches_dense_and_reference(d, n):
+    spheres, ref, npm, (start, zlo, cnt, flag) = _factored_batch(d)
+    B = len(spheres)
+    rng = np.random.default_rng(d + n)
+    packed = _cx(rng, (B, npm))
+    for k, s in enumerate(spheres):          # padded lanes: never used
+        packed[k, s.npacked:] = np.nan
+    flag[d // 2] = 0                         # a plane with support, off
+    assert int(cnt[:, d // 2 * d:(d // 2 + 1) * d].sum()) > 0
+    fo = sp.factored_for(d, n, True, start.shape[1], "cpu")
+    assert fo is not None
+    _, _, w = dft_matrix_device(n, d, True, "cpu")
+    tabs = [torch.as_tensor(t) for t in (start, zlo, cnt, flag)]
+    got = sp.unpack_dft(torch.as_tensor(packed), *tabs, w, factored=fo)
+    assert bool(torch.isfinite(torch.view_as_real(got)).all())
+    dense = sp.unpack_dft(torch.as_tensor(packed), *tabs, w)
+    _close(got.numpy(), dense.numpy())
+    wr, wi, _ = ref_dft_matrix_device(n, d, True)
+    rr, ri = ref_sp.unpack_dft(
+        jnp.asarray(packed.real), jnp.asarray(packed.imag),
+        jnp.asarray(start), jnp.asarray(zlo), jnp.asarray(cnt),
+        jnp.asarray(flag), wr, wi, interpret=True)
+    _close(got.numpy(), np.asarray(rr) + 1j * np.asarray(ri))
+    # lines with no lanes and the plane switched off: exact +0.0
+    y = got.numpy()
+    assert _plus_zero(y[(cnt == 0).reshape(B, d, d)])
+    assert _plus_zero(y[:, d // 2])
+
+
+@pytest.mark.parametrize("d,n", [(128, 256), (64, 256)])
+def test_dft_pack_factored_matches_dense_and_reference(d, n):
+    spheres, ref, npm, (start, zlo, cnt, _) = _factored_batch(d)
+    B = len(spheres)
+    rng = np.random.default_rng(d * 3 + n)
+    slab = _cx(rng, (B, d, d, n))
+    line, zz, valid = sp.pack_gather_tables(spheres, 1, npm)
+    nvalid = torch.as_tensor(valid.sum(1).astype(np.int32))
+    fo = sp.factored_for(n, d, False, start.shape[1], "cpu")
+    assert fo is not None
+    _, _, w = dft_matrix_device(d, n, False, "cpu")
+    tabs = [torch.as_tensor(t) for t in (start, zlo, cnt)]
+    got = sp.dft_pack(torch.as_tensor(slab), *tabs, nvalid, w, npm,
+                      factored=fo)
+    dense = sp.dft_pack(torch.as_tensor(slab), *tabs, nvalid, w, npm)
+    _close(got.numpy(), dense.numpy())
+    wr, wi, _ = ref_dft_matrix_device(d, n, False)
+    pr, pi = ref_sp.dft_pack(
+        jnp.asarray(slab.real), jnp.asarray(slab.imag),
+        jnp.asarray(line * d + zz), jnp.asarray(valid), wr, wi,
+        interpret=True)
+    _close(got.numpy(), np.asarray(pr) + 1j * np.asarray(pi))
+    # the padding of the ragged batch: exact +0.0
+    assert (valid == 0).any() and _plus_zero(got.numpy()[valid == 0])
+
+
+@pytest.mark.parametrize("n_in,n_out,lines,factored", [
+    (128, 256, 16384, True), (256, 128, 16384, True),
+    (256, 64, 4096, True), (64, 256, 4096, True),
+    (256, 128, 8192, True), (128, 256, 48, False), (6, 12, 36, False),
+    (40, 80, 1600, False), (256, 9, 16384, False), (128, 128, 16384, False)])
+def test_factored_for_chooses_by_shape(n_in, n_out, lines, factored):
+    """The sphere kernels take the factored mode where kernel #1 does
+    (``factored_split``) and a row's lines fill whole 32-line tiles."""
+    fo = sp.factored_for(n_in, n_out, n_out < n_in, lines, "cpu")
+    assert (fo is not None) == factored
+    if factored:
+        assert fo.t.shape == (16, 16)
+        assert (fo.f1.shape[1] * 16, fo.f2.shape[0] * 16) == (n_in, n_out)
+
+
+@pytest.mark.parametrize("n,d,mode", [(256, 64, "factored"),
+                                      (12, 6, "dense")])
+def test_sphere_probe_counts_calls_by_mode(n, d, mode):
+    """One call pair on the "cuda" backend (the plain versions on the
+    CPU) counts one unpack and one pack in ``mode`` on the
+    ``sphere_pack`` probe, the plans choosing the mode by shape, and gives
+    back its coefficients."""
+    from repro_torch.core import ProcGrid, make_planewave_pair
+    from repro_torch.obs.metrics import global_metrics
+    inv, fwd = make_planewave_pair(ProcGrid.create([1], device="cpu"), n,
+                                   kpoint_sphere(d), 1, backend="cuda")
+    assert (inv._fused_in_parts()["factored"] is not None) == (
+        mode == "factored")
+    assert (fwd._fused_out_parts()["factored"] is not None) == (
+        mode == "factored")
+    c = torch.as_tensor(_cx(np.random.default_rng(n + d),
+                            (1, inv.sphere.npacked)))
+    before = dict(global_metrics().snapshot()["sphere_pack"])
+    out = fwd.transform_pack(inv.unpack_transform(c))
+    after = global_metrics().snapshot()["sphere_pack"]
+    delta = {k: after[k] - before[k] for k in after}
+    other = "dense" if mode == "factored" else "factored"
+    assert delta == {"unpack_dft": 1, "dft_pack": 1, f"unpack_{mode}": 1,
+                     f"pack_{mode}": 1, f"unpack_{other}": 0,
+                     f"pack_{other}": 0}
+    _close(out.numpy(), c.numpy(), rtol=1e-5)
+
+
+def test_factored_wrappers_refuse_operands_of_another_shape():
+    spheres = [kpoint_sphere(8, (0, 0, 0))]
+    start, zlo, cnt, flag = _tables(spheres, 1)
+    _, _, w = dft_matrix_device(16, 8, True, "cpu")
+    packed = torch.zeros((1, spheres[0].npacked), dtype=torch.complex64)
+    fo = ops.factored_operands_device(256, 128, True, torch.device("cpu"))
+    with pytest.raises(ValueError, match="factored operands"):
+        sp.unpack_dft(packed, start, zlo, cnt, flag, w, factored=fo)

@@ -324,7 +324,9 @@ def test_global_registry_carries_the_ports_probes():
     assert {"hits", "misses", "builds", "build_seconds"} <= \
         set(snap["plan_cache"])
     assert "per_k_linalg_calls" in snap["dft"]
-    assert set(snap["sphere_pack"]) == {"unpack_dft", "dft_pack"}
+    assert set(snap["sphere_pack"]) == {
+        "unpack_dft", "dft_pack", "unpack_factored", "unpack_dense",
+        "pack_factored", "pack_dense"}
 
 
 def test_plan_cache_instrumentation():
@@ -363,7 +365,8 @@ def test_fused_calls_counted_in_sphere_pack_probe():
     assert tuple(out.shape) == (2, inv.sphere.npacked)
     assert sphere_pack.DISPATCHES["unpack_dft"] == before["unpack_dft"] + 1
     assert sphere_pack.DISPATCHES["dft_pack"] == before["dft_pack"] + 1
-    assert global_metrics().snapshot()["sphere_pack"] == sphere_pack.DISPATCHES
+    assert global_metrics().snapshot()["sphere_pack"] == {
+        **sphere_pack.DISPATCHES, **sphere_pack.MODES}
 
 
 # ------------------------------------------------------- traced == untraced
