@@ -171,11 +171,15 @@ then kernel #3 at the cells' unpack of the 128-sphere and kernel #4 at each
 cell's pack, onto the 128-sphere and onto the 64-sphere, from the z-major
 slab the forward leaves, in the factored mode the cells take beside the
 dense one, each on its first 8 bands against the plain version of its
-mode; then one call pair of each cell through the port's main path
-(``unpack_transform`` and ``transform_pack``; ``pair_density``), every
-kernel wrapper's count set to 0 just before: four launches of #1, one of
-#3, one of #4 and none of #2, #3 and #4 each once in the factored mode and
-never in the dense one, and the paper pair's round trip within 1e-5;
+mode; then the Γ fold and unfold at ``gamma-pair``'s call (256 real bands
+on the half sphere, 128 complex rows) against their plain versions on the
+same inputs, bit for bit; then one call pair of each cell through the
+port's main path (``unpack_transform`` and ``transform_pack``;
+``pair_density``), every kernel wrapper's count set to 0 just before: four
+launches of #1, one of #3, one of #4 and none of #2 (``gamma-pair`` also
+one fold and one unfold, the others none), #3 and #4 each once in the
+factored mode and never in the dense one, and the paper and Γ pairs'
+round trips within 1e-5;
 then kernel #2 at stage 1 of ``four_step_dft`` (4096 lines of 4096, which
 no cell runs) against its plain version and the einsum of the same
 function (which it must beat); each time against its roofline bound, the
@@ -653,7 +657,8 @@ BENCH_LINE_STAGES = ((4194304, 128, 256, True, 32768),
 #: intermediates at a whole stage would not fit beside it)
 PLAIN_LINES = 1 << 20
 #: the cells' grid, sphere and bands a plan call: n = 256, d = 128
-#: (gw-mtxel's forward onto d = 64), 128 bands
+#: (gw-mtxel's forward onto d = 64), 128 bands (gamma-pair: 256 real
+#: bands, two a complex row, on the Γ sphere of d = 128)
 BENCH_N, BENCH_D, BENCH_D_EPS, BENCH_BANDS = 256, 128, 64, 128
 #: the dense kernels (#1's dense mode, #2, #3, #4) against their plain
 #: versions: split-TF32 products against fp32 GEMMs summed in another order
@@ -666,11 +671,18 @@ SPHERE_PLAIN_BANDS = 8
 #: take the factored mode (``kernels/sphere_pack.py::MODES``)
 PAIR_MODES = {"unpack_factored": 1, "unpack_dense": 0, "pack_factored": 1,
               "pack_dense": 0}
-#: the launches of one call pair of either cell: each direction's z stage
-#: fused into #3 or #4, its y and x stages on #1, no four-step stage
-#: (``portbench/roofline.py::pair_calls``)
+#: the launches of one call pair of paper-pair or gw-mtxel: each
+#: direction's z stage fused into #3 or #4, its y and x stages on #1, no
+#: four-step stage (``portbench/roofline.py::pair_calls``), no Γ pass
 PAIR_LAUNCHES = {"dft_matmul": 4, "dft_matmul_twiddle": 0, "unpack_dft": 1,
-                 "dft_pack": 1}
+                 "dft_pack": 1, "gamma_fold": 0, "gamma_unfold": 0}
+#: gamma-pair's: the same transforms on the Γ sphere, the fold before the
+#: inverse and the unfold after the forward
+GAMMA_LAUNCHES = {**PAIR_LAUNCHES, "gamma_fold": 1, "gamma_unfold": 1}
+#: the fold and the unfold against their plain versions: gathers with one
+#: add and one product by 0.5 an output, so the two agree bit for bit;
+#: this is the bound a difference must stay under
+GAMMA_RTOL = 1e-6
 #: kernel #2 at stage 1 of ``four_step_dft`` on this many lines of this
 #: length (no cell runs it: ``four_step_dft`` is the reference's path for
 #: lines longer than a dense matrix allows)
@@ -782,11 +794,12 @@ def time_line_shapes(torch, dev, gen, gpu: str) -> list:
 
 
 def cell_plans(torch, dev) -> dict:
-    """Each cell's plan pair for one 128-band call on one process, on the
-    "cuda" backend: ``paper-pair``'s ``make_planewave_pair`` and
-    ``gw-mtxel``'s ``mtxel_plans``, as the benchmark's drivers make
+    """Each cell's plan pair for one call on one process, on the "cuda"
+    backend: ``paper-pair``'s ``make_planewave_pair`` and ``gw-mtxel``'s
+    ``mtxel_plans`` of 128 bands, ``gamma-pair``'s ``gamma_plans`` of 256
+    real bands (128 complex rows), as the benchmark's drivers make
     them."""
-    from repro_torch.core import ProcGrid, make_planewave_pair
+    from repro_torch.core import ProcGrid, gamma_plans, make_planewave_pair
     from repro_torch.core.planewave import kpoint_sphere
     from repro_torch.dft import cutoff_sphere, mtxel_plans
     n, d, B = BENCH_N, BENCH_D, BENCH_BANDS
@@ -795,7 +808,8 @@ def cell_plans(torch, dev) -> dict:
                 grid, n, kpoint_sphere(d), B, backend="cuda"),
             "gw-mtxel": mtxel_plans(grid, n, kpoint_sphere(d),
                                     cutoff_sphere(BENCH_D_EPS), B,
-                                    backend="cuda")}
+                                    backend="cuda"),
+            "gamma-pair": gamma_plans(grid, n, d, 2 * B, backend="cuda")}
 
 
 def time_sphere_calls(torch, dev, gen, gpu: str, pairs: dict) -> list:
@@ -848,12 +862,14 @@ def time_sphere_calls(torch, dev, gen, gpu: str, pairs: dict) -> list:
         got = unpack()[:b].clone()
         want = sp.unpack_dft_plain(rows[:b], start[:b], zlo[:b], cnt[:b],
                                    flag, w, kw.get("factored"))
-        report("unpack_dft", mode, list(pairs),
+        report("unpack_dft", mode, [c for c in pairs if c != "gamma-pair"],
                f"({B},{npk})->({B},{d},{d},{n})", ms, work, got, want)
         del got, want
         torch.cuda.empty_cache()
     del rows
     for cell, (_, fwd) in pairs.items():
+        if cell == "gamma-pair":        # the Γ sphere's #4: in the pair
+            continue
         fp = fwd._fused_out_parts()
         start, zlo, cnt, nvalid = fp["private"]
         npk, w, fo = fp["out_shape"][1], fp["w"], fp["factored"]
@@ -881,25 +897,83 @@ def time_sphere_calls(torch, dev, gen, gpu: str, pairs: dict) -> list:
     return out
 
 
+def gamma_bands(torch, gen, inv, dev):
+    """Seeded real-band coefficients on the Γ plan's half sphere, its
+    G = 0 lane (the half's first) real."""
+    c = crandn(torch, gen, (inv.local_nbands, inv.nhalf), dev)
+    c[:, 0] = c[:, 0].real.to(c.dtype)
+    return c
+
+
+def time_gamma_passes(torch, dev, gen, gpu: str, pairs: dict) -> list:
+    """The fold and the unfold at ``gamma-pair``'s call (256 real bands on
+    the half sphere, 128 complex rows of the full one), on its plan's
+    lane tables: each against its plain version on the same card inputs
+    (bit for bit, and within ``GAMMA_RTOL``), timed against its roofline
+    bound (the call's half-sphere rows and full-sphere rows, each read or
+    written once: ``drivers/gamma.py::fold_work``, half of it a pass)."""
+    from portbench.drivers.gamma import fold_work
+    from repro_torch.kernels import gamma as gk
+    from repro_torch.kernels.ref import gamma_fold_plain, gamma_unfold_plain
+    inv, _ = pairs["gamma-pair"]
+    lane, mirror = inv._lane, inv._mirror
+    nb, nh, npk = inv.local_nbands, inv.nhalf, inv.sphere.npacked
+    rows = -(-nb // 2)
+    work = (fold_work(nh, npk, nb) / 2, 0.0)
+    half = gamma_bands(torch, gen, inv, dev)
+    full = crandn(torch, gen, (rows, npk), dev)
+    passes = {
+        "gamma_fold": (lambda: gk.fold(half, lane, mirror, npk),
+                       lambda: gamma_fold_plain(half, lane, mirror, npk),
+                       f"({nb},{nh})->({rows},{npk})"),
+        "gamma_unfold": (lambda: gk.unfold(full, lane, mirror, nb),
+                         lambda: gamma_unfold_plain(full, lane, mirror, nb),
+                         f"({rows},{npk})->({nb},{nh})")}
+    print(f"the Γ fold and unfold at gamma-pair's call ({gpu}; CUDA events, "
+          "mean of 10):", flush=True)
+    out = []
+    for name, (kernel, plain, shape) in passes.items():
+        got, want = kernel(), plain()
+        same = bitwise(torch, got, want)
+        err = rel_err(got, want)
+        check(same or err <= GAMMA_RTOL, f"{name} {shape}: bit for bit, "
+              f"or within {err:.2e} <= {GAMMA_RTOL} of the plain version")
+        del got, want
+        ms = time_ms(torch, kernel)
+        out.append({"kernel": name, "shape": shape, "ms": ms,
+                    "rel_err": err, "bitwise": same, "work": work,
+                    **roofline(ms, work)})
+        print(f"  {name} {shape}: {ms:.3f} ms, {roofline_text(out[-1])}; "
+              f"{'bit for bit' if same else f'rel err {err:.2e}'}",
+              flush=True)
+    del half, full
+    torch.cuda.empty_cache()
+    return out
+
+
 def run_cell_pairs(torch, dev, gen, gpu: str, pairs: dict,
                    wrappers: dict) -> dict:
-    """One 128-band call pair of each cell through the port's main path,
-    as the benchmark's drivers call it (``paper-pair``: ``unpack_transform``
-    then ``transform_pack``; ``gw-mtxel``: ``pair_density`` against one
-    valence band), after a first pair that builds every shape, with every
-    kernel wrapper's count set to 0 just before and read just after: the
-    launches must be ``PAIR_LAUNCHES`` and the sphere kernels' modes
-    ``PAIR_MODES``, and ``paper-pair``'s pair must give back its
-    coefficients within ``KERNEL_RTOL``.  Returns each cell's launches and
-    modes (the pairs' times are the benchmark's)."""
+    """One call pair of each cell through the port's main path, as the
+    benchmark's drivers call it (``paper-pair`` and ``gamma-pair``:
+    ``unpack_transform`` then ``transform_pack``; ``gw-mtxel``:
+    ``pair_density`` against one valence band), after a first pair that
+    builds every shape, with every kernel wrapper's count set to 0 just
+    before and read just after: the launches must be ``PAIR_LAUNCHES``
+    (``GAMMA_LAUNCHES`` for ``gamma-pair``) and the sphere kernels' modes
+    ``PAIR_MODES``, and ``paper-pair``'s and ``gamma-pair``'s pairs must
+    give back their coefficients within ``KERNEL_RTOL``.  Returns each
+    cell's launches and modes (the pairs' times are the benchmark's)."""
     from repro_torch.dft import pair_density, valence_conjugates
     from repro_torch.kernels.sphere_pack import MODES
     print(f"one call pair of each cell through the main path ({gpu}):",
           flush=True)
     out = {}
     for cell, (inv, fwd) in pairs.items():
-        shape = inv._fused_in_parts()["in_shape"]
-        c = crandn(torch, gen, shape, dev)
+        if cell == "gamma-pair":
+            c = gamma_bands(torch, gen, inv, dev)
+        else:
+            shape = inv._fused_in_parts()["in_shape"]
+            c = crandn(torch, gen, shape, dev)
         if cell == "gw-mtxel":
             vconj = valence_conjugates(inv, fwd, crandn(
                 torch, gen, (1, shape[1]), dev))[0]
@@ -915,12 +989,13 @@ def run_cell_pairs(torch, dev, gen, gpu: str, pairs: dict,
         sync(torch, dev)
         launches = {k: fn.launches for k, fn in wrappers.items()}
         modes = {k: MODES[k] - modes0[k] for k in MODES}
-        check(launches == PAIR_LAUNCHES, f"{cell}: one call pair launched "
+        want = GAMMA_LAUNCHES if cell == "gamma-pair" else PAIR_LAUNCHES
+        check(launches == want, f"{cell}: one call pair launched "
               f"{launches}")
         check(modes == PAIR_MODES, f"{cell}: one call pair's sphere "
               f"kernels by mode {modes}")
         err = None
-        if cell == "paper-pair":
+        if cell != "gw-mtxel":
             err = rel_err(got, c)
             check(err <= KERNEL_RTOL, f"{cell}: the pair gives back its "
                   f"coefficients within {err:.2e} <= {KERNEL_RTOL}")
@@ -981,14 +1056,14 @@ def time_twiddle(torch, dev, gen, gpu: str) -> dict:
     return out
 
 
-def kernel_table(lines: list, sphere: list, twiddle: dict,
+def kernel_table(lines: list, sphere: list, gamma: list, twiddle: dict,
                  cells: dict) -> list:
     """The ``kernels`` line: one entry a kernel, mode and shape, each
     with the kernel's launches in each cell's call pair (``cells``, from
     ``run_cell_pairs``), its error against its plain version and the
     tolerance, its time, its roofline bound and the library's time where
     one torch call computes the same function (``torch.matmul`` for #1,
-    einsum for #2; none for #3 and #4)."""
+    einsum for #2; none for #3, #4, the fold and the unfold)."""
     def launches(name):
         return {cell: r["launches"][name] for cell, r in cells.items()}
     out = []
@@ -1022,6 +1097,14 @@ def kernel_table(lines: list, sphere: list, twiddle: dict,
                         for cell, c in cells.items()},
                     "library_ms": None,
                     **{k: r[k] for k in ("rel_err", "tolerance", "ms",
+                                         "bound_ms", "bound_by",
+                                         "roofline")}})
+    for r in gamma:
+        out.append({"name": r["kernel"], "mode": "gather",
+                    "shape": r["shape"], "cells": ["gamma-pair"],
+                    "launches": launches(r["kernel"]), "library_ms": None,
+                    "tolerance": GAMMA_RTOL,
+                    **{k: r[k] for k in ("rel_err", "bitwise", "ms",
                                          "bound_ms", "bound_by",
                                          "roofline")}})
     return out
@@ -3493,6 +3576,29 @@ def run_examples(torch, gpu, wrappers) -> dict:
     return {"runs": out, "launches": launches, "seconds": wall}
 
 
+def run_fft_kernels(torch, dev, gpu: str, wrappers: dict) -> None:
+    """The FFT kernels alone at the cells' shapes, then one call pair of
+    each cell through the main path; prints the ``cell_pairs:`` and
+    ``kernels`` lines."""
+    from repro_torch.kernels.gamma import fold, unfold
+    wrappers = {**wrappers, "gamma_fold": fold, "gamma_unfold": unfold}
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    lines = time_line_shapes(torch, dev, gen, gpu)
+    pairs = cell_plans(torch, dev)
+    sphere = time_sphere_calls(torch, dev, gen, gpu, pairs)
+    gamma = time_gamma_passes(torch, dev, gen, gpu, pairs)
+    cells = run_cell_pairs(torch, dev, gen, gpu, pairs, wrappers)
+    del pairs
+    torch.cuda.empty_cache()
+    twiddle = time_twiddle(torch, dev, gen, gpu)
+    print("cell_pairs: " + json.dumps(cells), flush=True)
+    print(json.dumps({"kernels": kernel_table(lines, sphere, gamma, twiddle,
+                                              cells)}), flush=True)
+    print(f"kernel-alone phase: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
 def main() -> int:
     import torch
     if sys.argv[1:] not in ([], ["--production-grid"]):
@@ -3569,20 +3675,7 @@ def main() -> int:
     examples = run_examples(torch, gpu, wrappers)
     print("examples: " + json.dumps(examples), flush=True)
 
-    t0 = time.perf_counter()
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    lines = time_line_shapes(torch, dev, gen, gpu)
-    pairs = cell_plans(torch, dev)
-    sphere = time_sphere_calls(torch, dev, gen, gpu, pairs)
-    cells = run_cell_pairs(torch, dev, gen, gpu, pairs, wrappers)
-    del pairs
-    torch.cuda.empty_cache()
-    twiddle = time_twiddle(torch, dev, gen, gpu)
-    print("cell_pairs: " + json.dumps(cells), flush=True)
-    print(json.dumps({"kernels": kernel_table(lines, sphere, twiddle,
-                                              cells)}), flush=True)
-    print(f"kernel-alone phase: {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    run_fft_kernels(torch, dev, gpu, wrappers)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -6,6 +6,7 @@ from .domain import Domain, SphereDomain, sphere_for_cutoff
 from .dtensor import (DistTensor, dims_string, parse_dims,
                       parse_transform_spec)
 from .fft import Transform, fftb
+from .gamma import GammaPlaneWave, gamma_plans, gamma_sphere, half_lanes
 from .grid import ProcGrid, resolve_device
 from .local_fft import dft_matrix, local_dft
 from .plan import FftPlan, Plan
@@ -29,5 +30,6 @@ __all__ = [
     "segment_padding_fraction", "segment_spheres",
     "sphere_gvectors", "sphere_kinetic_row",
     "ExecPolicy", "PlanCache", "global_plan_cache", "fft_conv",
-    "fourier_mixer",
+    "fourier_mixer", "GammaPlaneWave", "gamma_plans", "gamma_sphere",
+    "half_lanes",
 ]

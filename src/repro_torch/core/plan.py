@@ -284,11 +284,23 @@ class Plan:
         raise NotImplementedError
 
     # ---------------------------------------------------------- accounting
+    def private_tables(self, name: str, build) -> dict:
+        """Device tables a wrapper keeps on this plan: ``build()``'s dict
+        of tensors, built once under ``name`` and counted in
+        :meth:`private_bytes`."""
+        memo = self.__dict__.setdefault("_private_tables", {})
+        if name not in memo:
+            memo[name] = build()
+        return memo[name]
+
     def private_bytes(self) -> int:
-        """Bytes owned by this plan alone — descriptors and (in
-        subclasses) the sphere pack/mask or ragged-batch tables.  Never
-        shared with other plans, so the cache bills them per entry."""
-        return 4096
+        """Bytes owned by this plan alone — descriptors, the tables of
+        :meth:`private_tables` and (in subclasses) the sphere pack/mask
+        or ragged-batch tables.  Never shared with other plans, so the
+        cache bills them per entry."""
+        extra = self.__dict__.get("_private_tables", {})
+        return 4096 + sum(int(t.nbytes) for tables in extra.values()
+                          for t in tables.values())
 
     def shared_table_bytes(self) -> dict[tuple, int]:
         """Device bytes of the ``dft_matrix_device`` operand tables the

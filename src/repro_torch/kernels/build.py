@@ -25,7 +25,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("dft_matmul", "sphere_pack")
+SOURCES = ("dft_matmul", "sphere_pack", "gamma")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -47,6 +47,8 @@ SIGNATURES = {
                                _I, _L, _I, _I, _I, _I, _P),
     "pack_factored_launch": (_P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _L, _I, _I, _I, _I, _I, _P),
+    "gamma_fold_launch": (_P, _P, _P, _P, _I, _I, _L, _L, _P),
+    "gamma_unfold_launch": (_P, _P, _P, _P, _I, _I, _L, _L, _P),
 }
 
 _LOCK = threading.Lock()

@@ -1,6 +1,8 @@
 """Oracles for the kernels: numpy and ``torch.fft``, independent of the
 DFT-matrix construction the kernels use.  ``twiddle_matrix`` is the one
-table both the four-step composition and its tests read."""
+table both the four-step composition and its tests read.  The Γ-point
+fold and unfold (``kernels/gamma.py``) have their plain versions here:
+they are gathers, with no DFT matrix to be independent of."""
 from __future__ import annotations
 
 import numpy as np
@@ -48,3 +50,31 @@ def twiddle_matrix(n1: int, n2: int, inverse: bool) -> np.ndarray:
     sign = 2j if inverse else -2j
     w = np.exp(sign * np.pi * np.outer(k2, j1) / n)
     return w.astype(np.complex64)
+
+
+def gamma_fold_plain(half, lane, mirror, npacked: int):
+    """Plain version of ``kernels.gamma.fold``: real-band half-sphere rows
+    ``half`` (nb, nhalf) to (⌈nb/2⌉, npacked) complex full-sphere rows,
+    bands 2k and 2k + 1 as a + i·b at each G (``lane``) and conj(a) +
+    i·conj(b) at −G (``mirror``); an odd last band pairs with zeros."""
+    nb, nhalf = half.shape
+    rows = -(-nb // 2)
+    pairs = torch.zeros((2 * rows, nhalf), dtype=half.dtype,
+                        device=half.device)
+    pairs[:nb] = half
+    a, b = pairs[0::2], pairs[1::2]
+    lane, mirror = lane.long(), mirror.long()
+    out = torch.zeros((rows, npacked), dtype=half.dtype, device=half.device)
+    out[:, mirror] = a.conj() + 1j * b.conj()
+    out[:, lane] = a + 1j * b        # after the mirror: G = 0 is a + i·b
+    return out
+
+
+def gamma_unfold_plain(full, lane, mirror, nb: int):
+    """Plain version of ``kernels.gamma.unfold``: complex full-sphere rows
+    ``full`` (rows, npacked) to the nb real bands on the half sphere,
+    (F(G) + conj F(−G)) / 2 and (F(G) − conj F(−G)) / (2i)."""
+    f = full[:, lane.long()]
+    g = full[:, mirror.long()].conj()
+    a, b = (f + g) * 0.5, (f - g) * -0.5j
+    return torch.stack((a, b), 1).reshape(-1, f.shape[1])[:nb]

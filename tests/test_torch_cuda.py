@@ -2,7 +2,8 @@
 PyTorch version (the sphere kernels also on one rank's block of a
 batch×fft grid), the four-step DFT against ``torch.fft``, the SCF on the
 kernel route (also at the paper's widths, n = 256 and d = 128, against the
-"matmul" route), the transform service against ``eager_apply`` and a
+"matmul" route), the Γ-point fold and unfold against their plain versions
+and the Γ pair at n = 256, d = 128 against ``portbench/reference_gamma.py``, the transform service against ``eager_apply`` and a
 "matmul" service, the lazy executor against the eager one, the fused SCF
 step replayed as CUDA graphs, the spectral layers, kernel #1's factored
 mode against its plain version (and #3's and #4's, among the sphere
@@ -1297,3 +1298,90 @@ def test_cuda_2x2_ranks_launch_every_kernel_and_replay_graphs(cuda_device,
     for got, want in zip(front["results"], front["eager"]):
         assert float(np.abs(got - want).max()) <= RTOL * float(
             np.abs(want).max())
+
+
+# the Γ-point fold and unfold (kernels/gamma.py) against their plain
+# versions: (n, d, real bands); d = 128 is the gamma-pair cell's sphere
+GAMMA_CASES = {"d8-3-bands": (16, 8, 3), "d9-4-bands": (18, 9, 4),
+               "d128-6-bands": (256, 128, 6), "d128-9-bands": (256, 128, 9)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(GAMMA_CASES))
+def test_cuda_gamma_fold_and_unfold_match_plain(case, cuda_device):
+    """Both kernels bit for bit their plain versions (adds, negations and
+    halvings only), on spheres of even and odd diameter and odd band
+    counts (the last band paired with zeros); one launch each."""
+    from repro_torch.core import gamma_sphere, half_lanes
+    from repro_torch.kernels import gamma as gk
+    from repro_torch.kernels.ref import gamma_fold_plain, gamma_unfold_plain
+    _, d, nb = GAMMA_CASES[case]
+    sphere = gamma_sphere(d)
+    lane, mirror = (torch.as_tensor(t, device=cuda_device)
+                    for t in half_lanes(sphere))
+    rng = np.random.default_rng(d + nb)
+    half = _cx(rng, (nb, lane.numel()), cuda_device)
+    full = _cx(rng, (-(-nb // 2), sphere.npacked), cuda_device)
+    launched = gk.fold.launches, gk.unfold.launches
+    got_full = gk.fold(half, lane, mirror, sphere.npacked)
+    got_half = gk.unfold(full, lane, mirror, nb)
+    torch.cuda.synchronize()
+    assert (gk.fold.launches - launched[0],
+            gk.unfold.launches - launched[1]) == (1, 1)
+    assert torch.equal(got_full, gamma_fold_plain(half, lane, mirror,
+                                                  sphere.npacked))
+    assert torch.equal(got_half, gamma_unfold_plain(full, lane, mirror, nb))
+
+
+@pytest.mark.cuda
+def test_cuda_gamma_pair_at_full_size_matches_the_reference(cuda_device):
+    """The Γ-point pair at the paper's grid (n = 256, d = 128), 64 real
+    bands in one call of 32 complex rows: the fused #3 and #4 and four
+    launches of #1 on the Γ sphere, one fold and one unfold, no
+    ``relayout`` copy; the cube times (−i)^{x+y+z} against real ψ from the
+    plain float64 reference (``portbench/reference_gamma.py``) in blocks,
+    and the round trip against the coefficients, both within RTOL."""
+    import sys
+    from pathlib import Path
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from portbench.reference import GapMeter
+    from portbench.reference_gamma import GammaTransforms, unphase
+    from repro_torch.core import ProcGrid, gamma_plans
+    from repro_torch.kernels import gamma as gk
+    from repro_torch.obs.trace import get_tracer
+    n, d, nb = 256, 128, 64
+    inv, fwd = gamma_plans(ProcGrid.create([1], device=cuda_device), n, d,
+                           nb, backend="cuda")
+    c = _cx(np.random.default_rng(38), (nb, inv.nhalf), cuda_device)
+    c[:, 0] = c[:, 0].real.to(c.dtype)             # G = 0 is the first lane
+    launches = _launches()
+    folds = gk.fold.launches, gk.unfold.launches
+    tr = get_tracer()
+    tr.enable(sync=True)
+    try:
+        cube = inv.unpack_transform(c)
+        out = fwd.transform_pack(cube)
+        torch.cuda.synchronize()
+        names = [e["name"] for e in tr.events()]
+        device = tr.device_summary()
+    finally:
+        tr.disable()
+        tr.clear()
+    assert _launched(launches) == [4, 1, 1]
+    assert (gk.fold.launches - folds[0],
+            gk.unfold.launches - folds[1]) == (1, 1)
+    assert "relayout" not in names and names.count("gamma") == 2
+    for name in ("gamma:fold", "gamma:unfold"):
+        assert device[name]["count"] == 1 and device[name]["device_ms"] > 0
+    ref = GammaTransforms(n, d, cuda_device, "float64")
+    meter = GapMeter()
+    for r0 in range(0, nb // 2, 4):
+        psi = ref.inverse(c[2 * r0:2 * r0 + 8])
+        got = unphase(cube[r0:r0 + 4], ref.sphere.s)
+        meter.add(got.real, psi[0::2])
+        meter.add(got.imag, psi[1::2])
+        del psi, got
+    assert meter.value <= RTOL, meter.value
+    _close(out, c)
